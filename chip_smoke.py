@@ -16,8 +16,13 @@ greptimedb_tpu_torch/_build/. Phases:
    the plain version run on float64 copies of the same inputs. Each
    kernel is timed with CUDA events (median of 7 after a warm-up) beside
    its plain version, one library call where PyTorch has one, and the
-   least time the card could take. Each wrapper must refuse an int64
-   input.
+   least time the card could take (and its share of that time). K1 also
+   runs cases that reach each branch of its windowed design (host-major
+   ids, frequent window re-bases, column groups, tiny and ragged n, all
+   rows dead, G = 2), logs the plan it launched and its device counters,
+   and must show on the headline that its window is sized from the
+   card's opt-in shared memory and that its adds stay in that window.
+   Each wrapper must refuse an int64 input.
 3. The main path at TSBS scale: the `cpu` table bench.py builds (4,000
    hosts x 12 h at 10 s = 17,280,000 rows, 10 DOUBLE fields, one
    `hostname` tag, append mode), written through RegionEngine.put and
@@ -133,6 +138,21 @@ def host_hour_ids(n, hosts, points_per_hour, hours, dead_frac, gen, device):
     return torch.where(dead, torch.full_like(ids, g - 1), ids), g
 
 
+def host_major_ids(n, hosts, hours, dead_frac, gen, device):
+    """Ids as a host-major scan produces them: the hour varies fastest, so
+    neighbouring rows lie a bucket's width (hosts + 1) apart and a chunk's
+    ids span every hour, wider than the kernel's window. Returns (ids,
+    G)."""
+    import torch
+
+    g = hours * (hosts + 1) + 1
+    r = torch.arange(n, device=device)
+    ids = ((r % hours) * (hosts + 1) + (r // hours) % hosts + 1).to(
+        torch.int32)
+    dead = torch.rand(n, generator=gen, device=device) < dead_frac
+    return torch.where(dead, torch.full_like(ids, g - 1), ids), g
+
+
 def values(n, w, dtype, gen, device, nan_frac=0.0, ties=False):
     import torch
 
@@ -161,34 +181,148 @@ def sum_ok(got, want64, absx, dtype) -> tuple[bool, float]:
     return bool((err <= rel * absx).all()), float(err.max().item())
 
 
-def kernel_phase(sk, torch) -> dict:
+K1_PLAN_KEYS = ("optin_bytes", "window_ids", "columns_a_group",
+                "column_groups", "rows_a_chunk", "staged", "blocks_x",
+                "blocks_an_sm", "smem_bytes")
+K1_STAT_KEYS = ("rebases", "window_flush_atomics", "direct_global_adds",
+                "live_chunks", "sorted_chunks")
+
+
+def bind_k1_probes(lib):
+    """ctypes signatures of segment_sum.cu's two inspection entries, which
+    the port itself never calls."""
+    import ctypes
+
+    lib.gtpu_segment_sum_plan.argtypes = [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.gtpu_segment_sum_plan.restype = ctypes.c_int
+    lib.gtpu_segment_sum_stats.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.gtpu_segment_sum_stats.restype = ctypes.c_int
+
+
+def k1_plan(lib, n, w, g, dtype, plane, ids) -> dict:
+    """The window, column groups and grid K1 launches for this call."""
+    import ctypes
+
+    import torch
+
+    out = (ctypes.c_longlong * len(K1_PLAN_KEYS))()
+    aligned = (plane.data_ptr() | ids.data_ptr()) % 16 == 0
+    rc = lib.gtpu_segment_sum_plan(n, w, g, int(dtype == torch.float64),
+                                   int(aligned), out)
+    check(rc == 0, f"gtpu_segment_sum_plan: CUDA error {rc}")
+    return dict(zip(K1_PLAN_KEYS, list(out)))
+
+
+def k1_stats(lib, reset: bool) -> dict:
+    """K1's device counters summed over launches since the last reset."""
+    import ctypes
+
+    out = (ctypes.c_ulonglong * len(K1_STAT_KEYS))()
+    rc = lib.gtpu_segment_sum_stats(out, int(reset))
+    check(rc == 0, f"gtpu_segment_sum_stats: CUDA error {rc}")
+    return dict(zip(K1_STAT_KEYS, list(out)))
+
+
+def check_k1_window(case, torch) -> None:
+    """The headline runs the windowed branch: its window is sized from the
+    card's opt-in shared memory (not the 48 KB a block gets without it),
+    most of its chunks add without atomics, and its global atomics are
+    window flushes, far fewer than one per live row and column."""
+    plan, stats = case["plan"], case["stats"]
+    optin = getattr(torch.cuda.get_device_properties(0),
+                    "shared_memory_per_block_optin", plan["optin_bytes"])
+    es = 8 if "float64" in case["dtype"] else 4
+    window = plan["window_ids"] * plan["columns_a_group"] * es
+    n, w = case["shape"]
+    cells = n * w
+    log("K1 headline window: " + json.dumps({
+        "optin_bytes": plan["optin_bytes"], "device_optin_bytes": optin,
+        "window_bytes": window, "smem_bytes": plan["smem_bytes"],
+        "global_atomics": stats["window_flush_atomics"]
+        + stats["direct_global_adds"], "row_cells": cells,
+        "sorted_chunk_share": stats["sorted_chunks"]
+        / max(stats["live_chunks"], 1)}))
+    check(plan["optin_bytes"] == optin and optin > 48 * 1024,
+          f"K1 plan reads opt-in {plan['optin_bytes']}, device {optin}")
+    check(window > 48 * 1024 and plan["smem_bytes"] <= optin,
+          f"K1 window {window} B is not sized past 48 KB")
+    check(stats["sorted_chunks"] * 2 > stats["live_chunks"],
+          "K1 headline chunks mostly took the atomic path")
+    check(stats["direct_global_adds"] * 100 < cells
+          and stats["window_flush_atomics"] * 4 < cells,
+          f"K1 headline global atomics {stats}: not the windowed branch")
+
+
+def kernel_phase(sk, lib, torch) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
 
-    # K1: segment_sum over prepared planes
+    # K1: segment_sum over prepared planes. The five main-path shapes first
+    # (k1[0] is the headline), then cases that reach each branch of the
+    # windowed kernel.
     k1 = []
-    for w, dtype, kind in ((11, torch.float32, "hosthour"),
-                           (21, torch.float32, "hosthour"),
-                           (11, torch.float32, "minute"),
-                           (21, torch.float32, "minute"),
-                           (11, torch.float64, "hosthour")):
-        n = 8_388_608
+    n = 8_388_608
+    cases = [(n, 11, torch.float32, "hosthour"),
+             (n, 21, torch.float32, "hosthour"),
+             (n, 11, torch.float32, "minute"),
+             (n, 21, torch.float32, "minute"),
+             (n, 11, torch.float64, "hosthour"),
+             # the window never holds a chunk's ids: adds go to global memory
+             (2_097_152, 11, torch.float32, "hostmajor"),
+             # host x hour at two points an hour: the window re-bases often
+             (2_097_152, 11, torch.float32, "fewpoints"),
+             # W = 33 f32: the columns split into groups
+             (2_097_152, 33, torch.float32, "hosthour"),
+             # tiny and ragged n (a chunk is 256 rows at W = 11)
+             (1, 11, torch.float32, "hosthour"),
+             (31, 11, torch.float32, "hosthour"),
+             (1000, 11, torch.float32, "hosthour"),
+             (257, 11, torch.float32, "hosthour"),
+             (100_000, 11, torch.float32, "alldead"),
+             (100_000, 11, torch.float32, "g2"),
+             # not 16-byte aligned, and rows too wide for the ring: the
+             # kernel reads rows and ids from global memory
+             (1_000_001, 11, torch.float32, "unaligned"),
+             (262_144, 300, torch.float32, "hosthour")]
+    for n, w, dtype, kind in cases:
         if kind == "hosthour":
             ids, g = host_hour_ids(n, HOSTS, 3600 // STEP_S, HOURS, 0.1, gen,
                                    dev)
-        else:
+        elif kind == "minute":
             g = 61
             ids = time_major_ids(n, 60, 6 * HOSTS, 0.1, gen, dev)
-        plane = values(n, w, dtype, gen, dev)
+        elif kind == "hostmajor":
+            ids, g = host_major_ids(n, HOSTS, HOURS, 0.1, gen, dev)
+        elif kind == "fewpoints":
+            ids, g = host_hour_ids(n, HOSTS, 2, n // (2 * HOSTS) + 1, 0.1,
+                                   gen, dev)
+        elif kind == "alldead":
+            g = HOURS * (HOSTS + 1) + 1
+            ids = torch.full((n,), g - 1, dtype=torch.int32, device=dev)
+        elif kind == "g2":  # one live group and the dead segment
+            g = 2
+            ids = time_major_ids(n, 1, 7, 0.3, gen, dev)
+        if kind == "unaligned":  # views one row into their buffers
+            ids, g = host_hour_ids(n + 1, HOSTS, 3600 // STEP_S, HOURS, 0.1,
+                                   gen, dev)
+            ids = ids[1:]
+            plane = values(n + 1, w, dtype, gen, dev).reshape(-1)[w:].view(
+                n, w)
+        else:
+            plane = values(n, w, dtype, gen, dev)
+        k1_stats(lib, reset=True)
         got = sk.segment_sum(plane, ids, g)
         torch.cuda.synchronize()
+        stats = k1_stats(lib, reset=True)
         want = sk.segment_sum_plain(plane.double(), ids, g)
         absx = sk.segment_sum_plain(plane.double().abs(), ids, g)
         ok, err = sum_ok(got, want, absx, dtype)
         f32_plain_err = float((sk.segment_sum_plain(plane, ids, g).double()
                                - want).abs().max().item())
-        check(ok, f"segment_sum {n}x{w} G={g} {dtype}: max err {err}")
+        check(ok, f"segment_sum {n}x{w} G={g} {dtype} {kind}: max err {err}")
         live = int(((ids >= 0) & (ids < g - 1)).sum().item())
         es = plane.element_size()
         nbytes = 4 * n + live * w * es + g * w * es
@@ -199,14 +333,19 @@ def kernel_phase(sk, torch) -> dict:
         l_ms = cuda_ms(lambda: lib_out.index_add_(0, ids, plane), runs=5)
         case = {"shape": [n, w], "G": g, "dtype": str(dtype), "ids": kind,
                 "max_abs_err": err, "f32_plain_max_abs_err": f32_plain_err,
-                "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                "bound_ms": b_ms, "bound_by": b_by}
+                "ms": k_ms, "bound_share": b_ms / k_ms, "plain_ms": p_ms,
+                "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "plan": k1_plan(lib, n, w, g, dtype, plane, ids),
+                "stats": stats}
         log("K1 segment_sum " + json.dumps(case))
+        check(case["plan"]["staged"] == int(kind != "unaligned" and w < 300),
+              f"K1 {kind} W={w}: staged {case['plan']['staged']}")
         k1.append(case)
         del plane, ids, got, want, absx, lib_out
         torch.cuda.empty_cache()
     results["segment_sum"] = {"cases": k1, "headline": k1[0]}
     check(k1[0]["G"] == 48013, "K1 headline shape")
+    check_k1_window(k1[0], torch)
 
     # K2: fused_segment_agg over raw values. Main-path shapes: the padded
     # blocks of single_groupby_1_1_1 (1,024 rows, F=1, G+1=61),
@@ -432,13 +571,15 @@ def device_breakdown(fn, torch) -> dict:
             "top": [[k[:60], v] for k, v in top]}
 
 
-def main_path_phase(sk, torch) -> dict:
+def main_path_phase(sk, torch, lib=None) -> dict:
     qe, rows, ingest_s, grid, host_names = build_and_ingest(torch)
     check(rows == HOSTS * HOURS * 3600 // STEP_S, "ingested rows")
     log(f"ingest: {rows} rows in {ingest_s:.3f} s "
         "(cpu table, 10 DOUBLE fields, one hostname tag of TSBS's ten)")
     queries = tsbs_queries()
     # the main path's launch counts: zeroed just before, read just after
+    if lib is not None:
+        k1_stats(lib, reset=True)
     sk.segment_sum.launches = 0
     sk.fused_segment_agg.launches = 0
     timings = {}
@@ -467,6 +608,9 @@ def main_path_phase(sk, torch) -> dict:
     launches = {"segment_sum": sk.segment_sum.launches,
                 "fused_segment_agg": sk.fused_segment_agg.launches}
     log("main path launches: " + json.dumps(launches))
+    if lib is not None:
+        log("K1 counters over the main path: " + json.dumps(
+            k1_stats(lib, reset=True)))
     for k, v in launches.items():
         check(v > 0, f"{k} was not launched on the main path")
     cache = qe.executor.cache
@@ -552,12 +696,13 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
-    _build.library()
+    lib = _build.library()
+    bind_k1_probes(lib)
     log(f"kernels built in {_build.build_seconds:.2f} s "
         f"(load {time.perf_counter() - t:.2f} s): {_build.LIB_PATH}")
     try:
-        kres = kernel_phase(sk, torch)
-        main = main_path_phase(sk, torch)
+        kres = kernel_phase(sk, lib, torch)
+        main = main_path_phase(sk, torch, lib)
         dedup_phase(torch)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

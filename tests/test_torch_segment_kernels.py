@@ -36,14 +36,49 @@ def _inputs(n, w, gsz, seed, nan_frac=0.0, dead_frac=0.2, empty=()):
     return vals, ids
 
 
-@pytest.mark.parametrize("n,w,gsz", [
-    (1000, 21, 61),   # single-groupby plane: 2F+1 lanes, 60 buckets + dead
-    (777, 11, 9),     # no-NaN plane width, ragged rows
-    (300, 1, 400),    # more groups than rows: empty groups
-    (5, 3, 8),        # tiny
+def _layout_ids(layout, n, gsz, rng, dead_frac=0.1):
+    """Group ids in the orders the CUDA kernel branches on (its window,
+    sorted-chunk and run paths): a time-major host x hour scan (ids rise
+    row by row within a timestamp), run-major buckets (long runs of one
+    id), host-major rows (ids jump by a bucket's width every row), and ids
+    below 0 or at and past G, which every side skips."""
+    r = np.arange(n)
+    if layout == "time_major":  # 30 hosts, id = hour * 31 + host + 1
+        ids = (r // 30 // 4) * 31 + r % 30 + 1
+    elif layout == "run_major":  # runs of 50 rows, buckets cycling
+        ids = r // 50 % (gsz - 1)
+    elif layout == "host_major":  # 3 hours a host, hour varies fastest
+        ids = (r % 3) * 31 + (r // 3) % 30 + 1
+    else:  # out_of_range: random ids, a share below 0 or >= G
+        ids = rng.integers(0, gsz - 1, n)
+        bad = rng.uniform(0, 1, n)
+        ids[bad < 0.1] = -rng.integers(1, 5, n)[bad < 0.1]
+        ids[bad > 0.9] = gsz + rng.integers(0, 20, n)[bad > 0.9]
+    ids = ids.astype(np.int32)
+    ids[rng.uniform(0, 1, n) < dead_frac] = gsz - 1
+    return ids
+
+
+@pytest.mark.parametrize("n,w,gsz,layout", [
+    # single-groupby plane: 2F+1 lanes, 60 buckets + dead
+    pytest.param(1000, 21, 61, "random", id="1000-21-61"),
+    # no-NaN plane width, ragged rows
+    pytest.param(777, 11, 9, "random", id="777-11-9"),
+    # more groups than rows: empty groups
+    pytest.param(300, 1, 400, "random", id="300-1-400"),
+    pytest.param(5, 3, 8, "random", id="5-3-8"),  # tiny
+    pytest.param(360, 11, 94, "time_major", id="time_major-360-11-94"),
+    pytest.param(600, 21, 7, "run_major", id="run_major-600-21-7"),
+    pytest.param(360, 11, 94, "host_major", id="host_major-360-11-94"),
+    pytest.param(500, 11, 40, "out_of_range", id="out_of_range-500-11-40"),
 ])
-def test_segment_sum_plain_matches_pallas(n, w, gsz):
-    plane, ids = _inputs(n, w, gsz, seed=n + w + gsz)
+def test_segment_sum_plain_matches_pallas(n, w, gsz, layout):
+    if layout == "random":
+        plane, ids = _inputs(n, w, gsz, seed=n + w + gsz)
+    else:
+        rng = np.random.default_rng(n + w + gsz)
+        plane = np.round(rng.uniform(-50, 50, (n, w)), 1)
+        ids = _layout_ids(layout, n, gsz, rng)
     plane[ids == gsz - 1] = 0.0  # the Pallas caller's dead-row contract
     want = np.asarray(pallas_dense_segment_sum(
         jnp.asarray(plane), jnp.asarray(ids), gsz, interpret=True))
