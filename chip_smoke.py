@@ -173,12 +173,19 @@ def sum_ok(got, want64, absx, dtype) -> tuple[bool, float]:
     plain version on float64 copies (atomics reorder the additions from
     run to run; an f32 index_add_ reference carries its own sequential
     error, larger than the tolerance at 140 k rows a cell). f64:
-    |got - want| <= 1e-12 * sum|x|."""
+    |got - want| <= 1e-12 * sum|x|.
+    A cell whose reference is +-inf or NaN (values with infinities) must
+    match it exactly."""
     import torch
 
-    err = (got.to(torch.float64) - want64).abs()
+    got = got.to(torch.float64)
+    finite = torch.isfinite(want64)
+    same = (got == want64) | (torch.isnan(got) & torch.isnan(want64))
+    err = torch.where(finite, (got - want64).abs(), torch.zeros_like(got))
     rel = 1e-5 if dtype == torch.float32 else 1e-12
-    return bool((err <= rel * absx).all()), float(err.max().item())
+    ok = bool(((err <= rel * absx) | ~finite).all()
+              and (same | finite).all())
+    return ok, float(err.max().item()) if err.numel() else 0.0
 
 
 K1_PLAN_KEYS = ("optin_bytes", "window_ids", "columns_a_group",
@@ -199,6 +206,150 @@ def bind_k1_probes(lib):
     lib.gtpu_segment_sum_plan.restype = ctypes.c_int
     lib.gtpu_segment_sum_stats.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.gtpu_segment_sum_stats.restype = ctypes.c_int
+
+
+K2_PLAN_KEYS = ("blocks", "rows_per_warp", "smem_bytes", "privatized",
+                "blocks_an_sm")
+
+
+def bind_k2_probes(lib):
+    """ctypes signature of fused_segment_agg.cu's inspection entry, which
+    the port itself never calls."""
+    import ctypes
+
+    lib.gtpu_fused_segment_agg_plan.argtypes = [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.gtpu_fused_segment_agg_plan.restype = ctypes.c_int
+
+
+def k2_plan(lib, n, f, g, dtype, flags) -> dict:
+    """The grid and accumulators K2 launches for this call."""
+    import ctypes
+
+    import torch
+
+    out = (ctypes.c_longlong * len(K2_PLAN_KEYS))()
+    rc = lib.gtpu_fused_segment_agg_plan(n, f, g, int(dtype == torch.float64),
+                                         flags, out)
+    check(rc == 0, f"gtpu_fused_segment_agg_plan: CUDA error {rc}")
+    return dict(zip(K2_PLAN_KEYS, list(out)))
+
+
+def k2_global_g(f, dtype, flags) -> int:
+    """The least G whose privatized accumulators pass the 48 KB a block
+    takes without the opt-in (fused_segment_agg.cu::plan_fused)."""
+    import torch
+
+    es = 8 if dtype == torch.float64 else 4
+    planes = 1 + bin(flags).count("1")
+    return 48 * 1024 // (f * (planes * es + 4) + 4) + 1
+
+
+def k2_values(n, f, dtype, kind, ids, gen, device):
+    """K2's values: ties and 5 % NaN; for `specials`, +inf in group 1,
+    -inf in group 2, both in group 3, zeros of both signs in group 4 and
+    only -0.0 in group 5."""
+    import torch
+
+    vals = values(n, f, dtype, gen, device, nan_frac=0.05, ties=True)
+    if kind == "specials":
+        coin = torch.rand((n, f), generator=gen, device=device)
+        g = ids[:, None].expand(-1, f)
+        inf = float("inf")
+        vals[(g == 1) & (coin < 0.01)] = inf
+        vals[(g == 2) & (coin < 0.01)] = -inf
+        vals[(g == 3) & (coin < 0.01)] = inf
+        vals[(g == 3) & (coin > 0.99)] = -inf
+        vals[(g == 4) & (coin < 0.5)] = -0.0
+        vals[(g == 4) & (coin >= 0.5)] = 0.0
+        vals[g == 5] = -0.0
+    return vals
+
+
+def check_zero_signs(got, want64, what) -> None:
+    """The sign of every zero cell of sum, min and max matches the plain
+    version, but for min and max of group 4: which of -0.0 and +0.0 an
+    extreme over both keeps depends on the order of the compares, in the
+    plain version as in the kernel. Group 5 (only -0.0) keeps -0.0 for
+    min and max; every sum starts from the +0.0 identity, so stays +0.0."""
+    import torch
+
+    for k in ("sum", "min", "max"):
+        if k not in got:
+            continue
+        w = want64[k]
+        zero = w == 0
+        if k != "sum":
+            zero[4] = False
+        check(bool(zero.any()), f"fused {k} {what}: no zero cells")
+        check(torch.equal(torch.signbit(got[k].double()[zero]),
+                          torch.signbit(w[zero])),
+              f"fused {k} {what}: sign of zero")
+    if "min" in got:
+        check(bool(torch.signbit(want64["min"][5]).all()),
+              f"fused min {what}: group 5 is not -0.0")
+
+
+def device_ms_a_call(fn, torch, calls: int = 10) -> float:
+    """CUPTI device time of `fn`'s launches, averaged over `calls` calls."""
+    return device_breakdown(lambda: [fn() for _ in range(calls)],
+                            torch)["device_ms"] / calls
+
+
+def check_k2_call(sk, vals, ids, g, want, torch) -> dict:
+    """After a warm-up, one K2 call on the card makes exactly one
+    allocation and launches exactly two kernels, both K2's own: no fill
+    kernel from Python remains."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sk.fused_segment_agg(vals, ids, g, *want)
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    sk.fused_segment_agg(vals, ids, g, *want)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - a0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sk.fused_segment_agg(vals, ids, g, *want)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    res = {"allocations": allocs, "device_launches": len(names),
+           "kernels": [k[:48] for k in names]}
+    log("K2 one call: " + json.dumps(res))
+    check(allocs == 1, f"K2 call made {allocs} allocations, expected 1")
+    check(len(names) == 2 and "fused_init_kernel" in names[0]
+          and "fused_agg_kernel" in names[1],
+          f"K2 call launched {names}, expected its two kernels")
+    return res
+
+
+def k2_host_cost(sk, lib, vals, ids, g, want, torch,
+                 calls: int = 1000) -> dict:
+    """Host microseconds a call (perf_counter over `calls` calls, no
+    synchronise) of the whole wrapper, of the C side's launch plan through
+    ctypes, and of the port's output views (`_fused_outputs`)."""
+    import ctypes
+
+    flags = sk._flags(*want)
+    n, f = vals.shape
+    plan_out = (ctypes.c_longlong * len(K2_PLAN_KEYS))()
+    is_double = int(vals.dtype == torch.float64)
+    ways = {"wrapper": lambda: sk.fused_segment_agg(vals, ids, g, *want),
+            "plan_entry": lambda: lib.gtpu_fused_segment_agg_plan(
+                n, f, g, is_double, flags, plan_out),
+            "views_as_strided": lambda: sk._fused_outputs(vals, g, flags)}
+    res = {}
+    for name, fn in ways.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        res[name] = (time.perf_counter() - t) / calls * 1e6
+        torch.cuda.synchronize()
+    log("K2 host us a call: " + json.dumps(res))
+    return res
 
 
 def k1_plan(lib, n, w, g, dtype, plane, ids) -> dict:
@@ -253,6 +404,117 @@ def check_k1_window(case, torch) -> None:
     check(stats["direct_global_adds"] * 100 < cells
           and stats["window_flush_atomics"] * 4 < cells,
           f"K1 headline global atomics {stats}: not the windowed branch")
+
+
+def k2_phase(sk, lib, torch, gen, dev) -> dict:
+    """K2 against its float64 plain version, case by case."""
+    # K2: fused_segment_agg over raw values. Main-path shapes: the padded
+    # blocks of single_groupby_1_1_1 (1,024 rows, F=1, G+1=61),
+    # cpu_max_all_8 (32,768 rows, F=10, G+1=9) and groupby_orderby_limit
+    # (131,072 rows, F=1, G+1=6); then the contention case (k2[3] is the
+    # headline). Then cases that reach each branch: accumulators past
+    # 48 KB (global atomics), random ids (peer groups in every warp), tiny
+    # and ragged n, every row dead, and infinities and signed zeros.
+    bind_k2_probes(lib)
+    f32, f64 = torch.float32, torch.float64
+    mm, mmq, none = (True, True, False), (True, True, True), \
+        (False, False, False)
+    gf32, gf64 = (k2_global_g(10, dt, sk._flags(*mmq)) for dt in (f32, f64))
+    k2 = []
+    cases = [
+        # (n, F, G+1, buckets, run, dead share, dtype, (min, max, sumsq),
+        #  ids: time-major runs or random; values: plain or specials)
+        (1024, 1, 61, 60, 6, 0.65, f32, mm, "runs"),
+        (32768, 10, 9, 8, 360 * 8, 0.3, f32, mmq, "runs"),
+        (32768, 10, 9, 8, 360 * 8, 0.3, f32, none, "runs"),
+        (131072, 1, 6, 5, 6 * HOSTS, 0.08, f32, mm, "runs"),
+        (8_388_608, 1, 721, 720, 6 * HOSTS, 0.1, f32, mm, "runs"),
+        (32768, 10, 9, 8, 360 * 8, 0.3, f64, mmq, "runs"),
+        (8_388_608, 1, 721, 720, 6 * HOSTS, 0.1, f64, mmq, "runs"),
+        (262_144, 10, gf32, gf32 - 1, 64, 0.2, f32, mmq, "runs"),
+        (262_144, 10, gf64, gf64 - 1, 64, 0.2, f64, mmq, "runs"),
+        (131072, 1, 61, 60, 1, 0.1, f32, mm, "random"),
+        (1, 1, 6, 5, 6, 0.0, f32, mm, "runs"),
+        (31, 1, 6, 5, 6, 0.3, f32, mm, "runs"),
+        (1_000_001, 3, 9, 8, 360 * 8, 0.3, f32, mmq, "runs"),
+        (100_000, 10, 9, 8, 360 * 8, 1.0, f32, mmq, "runs"),
+        (65536, 4, 9, 8, 360 * 8, 0.1, f32, mmq, "specials"),
+        # F = 40 (the JAX kernel's cap with sumsq): two 32-field rounds
+        (65536, 40, 9, 8, 360 * 8, 0.3, f32, mmq, "runs"),
+        # peer groups with every plane, in f64
+        (131072, 10, 61, 60, 1, 0.1, f64, mmq, "random"),
+        # F = 1 past 48 KB: the global branch's one-lane instance
+        (1_000_000, 1, 4097, 4096, 64, 0.2, f32, mmq, "runs"),
+        (1_000_000, 1, 4097, 4096, 1, 0.2, f64, mm, "random"),
+    ]
+    branches = set()  # (dtype, F > 1, privatized) of the cases run
+    for idx, (n, f, g, nb, run, dead, dtype, want, kind) in enumerate(cases):
+        mn, mx, sq = want
+        if kind == "random":
+            ids = torch.randint(0, nb, (n,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            ids[torch.rand(n, generator=gen, device=dev) < dead] = nb
+        else:
+            ids = time_major_ids(n, nb, run, dead, gen, dev)
+        vals = k2_values(n, f, dtype, kind, ids, gen, dev)
+        got = sk.fused_segment_agg(vals, ids, g, mn, mx, sq)
+        torch.cuda.synchronize()
+        want64 = sk.fused_segment_agg_plain(vals.double(), ids, g, mn, mx,
+                                            sq)
+        absx = sk.fused_segment_agg_plain(vals.double().abs(), ids, g,
+                                          False, False, sq)
+        what = f"{n}x{f} G={g} {dtype} {kind}"
+        for k in ("count", "rows"):
+            check(torch.equal(got[k], want64[k]), f"fused {k} {what}")
+        for k in ("min", "max"):
+            if k in got:
+                check(torch.equal(got[k].double(), want64[k]),
+                      f"fused {k} {what}")
+        if kind == "specials":
+            check_zero_signs(got, want64, what)
+        ok, err = sum_ok(got["sum"], want64["sum"], absx["sum"], dtype)
+        check(ok, f"fused sum {what}: max err {err}")
+        if sq:
+            ok_q, err_q = sum_ok(got["sumsq"], want64["sumsq"],
+                                 absx["sumsq"], dtype)
+            check(ok_q, f"fused sumsq {what}: err {err_q}")
+        live_mask = (ids >= 0) & (ids < g - 1)
+        live = int(live_mask.sum().item())
+        es = vals.element_size()
+        outs = g * f * (es + 4) + g * 4 + g * f * es * (mn + mx + sq)
+        nbytes = 4 * n + live * f * es + outs
+        b_ms, b_by = bound(nbytes, live * f * (2 + mn + mx + 2 * sq), dtype)
+        def call():
+            return sk.fused_segment_agg(vals, ids, g, mn, mx, sq)
+
+        k_ms = cuda_ms(call)
+        d_ms = device_ms_a_call(call, torch)
+        p_ms = cuda_ms(lambda: sk.fused_segment_agg_plain(vals, ids, g, mn,
+                                                          mx, sq), runs=5)
+        plan = k2_plan(lib, n, f, g, dtype, sk._flags(*want))
+        smem = g * f * ((1 + mn + mx + sq) * es + 4) + g * 4
+        check(plan["smem_bytes"] == smem
+              and plan["privatized"] == int(smem <= 48 * 1024),
+              f"K2 {what}: plan {plan}")
+        branches.add((dtype, f > 1, plan["privatized"]))
+        case = {"shape": [n, f], "G": g, "dtype": str(dtype),
+                "want": {"min": mn, "max": mx, "sumsq": sq}, "ids": kind,
+                "live_rows": live, "run": run, "max_abs_err": err,
+                "ms": k_ms, "device_ms": d_ms, "bound_share": b_ms / k_ms,
+                "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms,
+                "bound_by": b_by, "plan": plan}
+        log("K2 fused_segment_agg " + json.dumps(case))
+        k2.append(case)
+        if idx == 3:
+            case["one_call"] = check_k2_call(sk, vals, ids, g, want, torch)
+            case["host_us"] = k2_host_cost(sk, lib, vals, ids, g, want,
+                                           torch)
+        del vals, ids, got, want64, absx
+        torch.cuda.empty_cache()
+    # every instance of the kernel ran: f32 and f64, F = 1 and F > 1,
+    # privatized and global
+    check(len(branches) == 8, f"K2 branches run: {sorted(map(str, branches))}")
+    return {"cases": k2, "headline": k2[3]}
 
 
 def kernel_phase(sk, lib, torch) -> dict:
@@ -347,62 +609,7 @@ def kernel_phase(sk, lib, torch) -> dict:
     check(k1[0]["G"] == 48013, "K1 headline shape")
     check_k1_window(k1[0], torch)
 
-    # K2: fused_segment_agg over raw values. Main-path shapes: the padded
-    # blocks of single_groupby_1_1_1 (1,024 rows, F=1, G+1=61),
-    # cpu_max_all_8 (32,768 rows, F=10, G+1=9) and groupby_orderby_limit
-    # (131,072 rows, F=1, G+1=6); then the contention case.
-    k2 = []
-    cases = [
-        (1024, 1, 61, 60, 6, 0.65, torch.float32, (True, True, False)),
-        (32768, 10, 9, 8, 360 * 8, 0.3, torch.float32, (True, True, True)),
-        (32768, 10, 9, 8, 360 * 8, 0.3, torch.float32, (False, False, False)),
-        (131072, 1, 6, 5, 6 * HOSTS, 0.08, torch.float32, (True, True, False)),
-        (8_388_608, 1, 721, 720, 6 * HOSTS, 0.1, torch.float32,
-         (True, True, False)),
-        (32768, 10, 9, 8, 360 * 8, 0.3, torch.float64, (True, True, True)),
-        (8_388_608, 1, 721, 720, 6 * HOSTS, 0.1, torch.float64,
-         (True, True, True)),
-    ]
-    for n, f, g, nb, run, dead, dtype, (mn, mx, sq) in cases:
-        ids = time_major_ids(n, nb, run, dead, gen, dev)
-        vals = values(n, f, dtype, gen, dev, nan_frac=0.05, ties=True)
-        got = sk.fused_segment_agg(vals, ids, g, mn, mx, sq)
-        torch.cuda.synchronize()
-        want = sk.fused_segment_agg_plain(vals.double(), ids, g, mn, mx, sq)
-        absx = sk.fused_segment_agg_plain(vals.double().abs(), ids, g,
-                                          False, False, sq)
-        for k in ("count", "rows"):
-            check(torch.equal(got[k], want[k]),
-                  f"fused {k} {n}x{f} G={g} {dtype}")
-        for k in ("min", "max"):
-            if k in got:
-                check(torch.equal(got[k].double(), want[k]),
-                      f"fused {k} {n}x{f} G={g} {dtype}")
-        ok, err = sum_ok(got["sum"], want["sum"], absx["sum"], dtype)
-        check(ok, f"fused sum {n}x{f} G={g} {dtype}: max err {err}")
-        if sq:
-            ok_q, err_q = sum_ok(got["sumsq"], want["sumsq"],
-                                 absx["sumsq"], dtype)
-            check(ok_q, f"fused sumsq {n}x{f} G={g} {dtype}: err {err_q}")
-        live_mask = (ids >= 0) & (ids < g - 1)
-        live = int(live_mask.sum().item())
-        es = vals.element_size()
-        outs = g * f * (es + 4) + g * 4 + g * f * es * (mn + mx + sq)
-        nbytes = 4 * n + live * f * es + outs
-        b_ms, b_by = bound(nbytes, live * f * (2 + mn + mx + 2 * sq), dtype)
-        k_ms = cuda_ms(lambda: sk.fused_segment_agg(vals, ids, g, mn, mx, sq))
-        p_ms = cuda_ms(lambda: sk.fused_segment_agg_plain(vals, ids, g, mn,
-                                                          mx, sq), runs=5)
-        case = {"shape": [n, f], "G": g, "dtype": str(dtype),
-                "want": {"min": mn, "max": mx, "sumsq": sq},
-                "live_rows": live, "run": run, "max_abs_err": err,
-                "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-                "bound_ms": b_ms, "bound_by": b_by}
-        log("K2 fused_segment_agg " + json.dumps(case))
-        k2.append(case)
-        del vals, ids, got, want, absx
-        torch.cuda.empty_cache()
-    results["fused_segment_agg"] = {"cases": k2, "headline": k2[3]}
+    results["fused_segment_agg"] = k2_phase(sk, lib, torch, gen, dev)
 
     # refusals: an int64 plane / value matrix is not a kernel input
     bad = torch.ones((64, 3), dtype=torch.int64, device=dev)

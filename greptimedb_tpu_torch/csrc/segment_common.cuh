@@ -14,15 +14,17 @@ constexpr unsigned kFull = 0xffffffffu;
 // the dynamic-shared-memory opt-in, so several blocks still share an SM.
 constexpr size_t kSmemBytes = 48 * 1024;
 
-// Each warp owns one contiguous tile of rows. Contiguous tiles keep warps
-// that run at the same moment on different parts of a time-major scan, so
-// they rarely hit the same group's accumulator at once.
+// Each warp owns one contiguous tile of rows, at least `min_rows` of them
+// (rounded up to 32), and as few as spread the call over every SM's
+// `blocks_per_sm` blocks. Contiguous tiles keep warps that run at the same
+// moment on different parts of a time-major scan, so they rarely hit the
+// same group's accumulator at once.
 struct Geometry {
   int blocks;
   long long rows_per_warp;
 };
 
-inline Geometry geometry(long long n, int blocks_per_sm) {
+inline Geometry geometry(long long n, int blocks_per_sm, long long min_rows) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -32,7 +34,7 @@ inline Geometry geometry(long long n, int blocks_per_sm) {
   }
   long long max_warps = (long long)sms * blocks_per_sm * kWarps;
   long long per = (n + max_warps - 1) / max_warps;
-  if (per < 256) per = 256;                // amortize a block's set-up
+  if (per < min_rows) per = min_rows;
   per = (per + 31) / 32 * 32;
   long long warps = (n + per - 1) / per;
   Geometry g;

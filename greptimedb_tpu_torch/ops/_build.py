@@ -38,10 +38,10 @@ _SIGNATURES = {
     # plane, ids, out, n, w, g, is_double, stream
     "gtpu_segment_sum": [_C, _C, _C, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, _C],
-    # vals, ids, n, f, g, is_double, sum, cnt, rows, mn, mx, sq, stream
+    # vals, ids, n, f, g, is_double, flags, out, stream
     "gtpu_fused_segment_agg": [_C, _C, ctypes.c_longlong, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, _C, _C, _C, _C,
-                               _C, _C, _C],
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int, _C,
+                               _C],
 }
 
 

@@ -28,6 +28,8 @@ wrapper counts kernel launches and nothing else.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _FLOATS = (torch.float32, torch.float64)
@@ -118,32 +120,77 @@ segment_sum.launches = 0
 
 # ---- K2: fused masked segment aggregation ----------------------------------
 
+# K2's outputs live in one buffer a call, carved into planes (the same rule
+# as csrc/fused_segment_agg.cu::carve): first the value-typed planes, in the
+# order sum | sumsq? | min? | max?, G*F each; then the int32 planes, count
+# (G*F) and rows (G). Every plane starts 16-byte aligned. The kernel's C
+# entry writes the identities (0, +inf, -inf) itself, so the buffer is
+# allocated with torch.empty and never filled from Python.
+_FLAG_MIN, _FLAG_MAX, _FLAG_SUMSQ = 1, 2, 4
+_KEY_ORDER = ("sum", "count", "rows", "min", "max", "sumsq")  # dict order
 
-def _fused_outputs(vals, num_segments, want_min, want_max, want_sumsq):
-    g, f = num_segments, vals.shape[1]
-    kw = {"dtype": vals.dtype, "device": vals.device}
-    out = {
-        "sum": torch.zeros((g, f), **kw),
-        "count": torch.zeros((g, f), dtype=torch.int32, device=vals.device),
-        "rows": torch.zeros(g, dtype=torch.int32, device=vals.device),
-    }
-    if want_min:
-        out["min"] = torch.full((g, f), float("inf"), **kw)
-    if want_max:
-        out["max"] = torch.full((g, f), float("-inf"), **kw)
-    if want_sumsq:
-        out["sumsq"] = torch.zeros((g, f), **kw)
-    return out
+
+def _align16(nbytes: int) -> int:
+    return (nbytes + 15) & ~15
+
+
+@functools.lru_cache(maxsize=256)
+def _layout(g: int, f: int, es: int, flags: int):
+    """(buffer length in value elements, [(name, is_int, offset in its
+    dtype's elements, shape, stride)]) for one call's output buffer."""
+    cells = g * f
+    vplane = _align16(cells * es)
+    names = ["sum"] + [k for k, bit in (("sumsq", _FLAG_SUMSQ),
+                                        ("min", _FLAG_MIN),
+                                        ("max", _FLAG_MAX)) if flags & bit]
+    views = [(k, False, i * vplane // es, (g, f), (f, 1))
+             for i, k in enumerate(names)]
+    ints = len(names) * vplane
+    views.append(("count", True, ints // 4, (g, f), (f, 1)))
+    rows = ints + _align16(cells * 4)
+    views.append(("rows", True, rows // 4, (g,), (1,)))
+    views.sort(key=lambda v: _KEY_ORDER.index(v[0]))
+    return _align16(rows + g * 4) // es, tuple(views)
+
+
+def _fused_buffer(vals, num_segments, flags):
+    """One uninitialized buffer in the layout above, and its views' spec."""
+    n_elems, views = _layout(num_segments, vals.shape[1],
+                             vals.element_size(), flags)
+    return torch.empty(n_elems, dtype=vals.dtype, device=vals.device), views
+
+
+def _fused_views(buf, views) -> dict:
+    """The output dict: views of `buf`. Of the ways measured on the card
+    (PERF.md, K2 host cost), as_strided is the cheapest."""
+    ibuf = buf.view(torch.int32)
+    return {k: (ibuf if is_int else buf).as_strided(shape, stride, off)
+            for k, is_int, off, shape, stride in views}
+
+
+def _fused_outputs(vals, num_segments, flags):
+    """One uninitialized buffer and its views."""
+    buf, views = _fused_buffer(vals, num_segments, flags)
+    return buf, _fused_views(buf, views)
+
+
+def _flags(want_min: bool, want_max: bool, want_sumsq: bool) -> int:
+    return (_FLAG_MIN * bool(want_min) | _FLAG_MAX * bool(want_max)
+            | _FLAG_SUMSQ * bool(want_sumsq))
 
 
 def fused_segment_agg_plain(vals: torch.Tensor, ids: torch.Tensor,
                             num_segments: int, want_min: bool = False,
                             want_max: bool = False,
                             want_sumsq: bool = False) -> dict:
-    """Plain version of `fused_segment_agg`: `index_add_` for sum, count,
-    rows and sumsq, `scatter_reduce_` amin/amax into +-inf-filled planes.
-    Neither call skips NaN, so NaN is masked first."""
-    out = _fused_outputs(vals, num_segments, want_min, want_max, want_sumsq)
+    """Plain version of `fused_segment_agg`: identities written with torch
+    fills into the kernel's buffer layout, `index_add_` for sum, count,
+    rows and sumsq, `scatter_reduce_` amin/amax. Neither call skips NaN,
+    so NaN is masked first."""
+    _, out = _fused_outputs(vals, num_segments,
+                            _flags(want_min, want_max, want_sumsq))
+    for k, x in out.items():
+        x.fill_({"min": float("inf"), "max": float("-inf")}.get(k, 0))
     live = _live(ids, num_segments)
     v, i = vals[live], ids[live].long()
     valid = ~torch.isnan(v)
@@ -165,34 +212,37 @@ def fused_segment_agg_plain(vals: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+_fused_entry = None  # the bound C entry, after the first call on the card
+
+
 def fused_segment_agg(vals: torch.Tensor, ids: torch.Tensor,
                       num_segments: int, want_min: bool = False,
                       want_max: bool = False,
                       want_sumsq: bool = False) -> dict:
     """{"sum" [G, F], "count" [G, F] int32, "rows" [G] int32, and on
     request "min"/"max" [G, F] (NaN skipped, +-inf for an empty group)
-    and "sumsq" [G, F]} over the live rows (ids in [0, G-1))."""
+    and "sumsq" [G, F]} over the live rows (ids in [0, G-1)).
+
+    On the card one call makes one allocation and one ctypes call, which
+    launches two kernels: the identities, then the aggregation."""
+    global _fused_entry
     _check(vals, ids, num_segments, "fused_segment_agg")
     if vals.device.type == "cpu":
         return fused_segment_agg_plain(vals, ids, num_segments, want_min,
                                        want_max, want_sumsq)
-    from greptimedb_tpu_torch.ops import _build
+    if _fused_entry is None:
+        from greptimedb_tpu_torch.ops import _build
 
-    lib = _build.library()
-    out = _fused_outputs(vals, num_segments, want_min, want_max, want_sumsq)
-    n = vals.shape[0]
-    if n:
-        def ptr(k):
-            return out[k].data_ptr() if k in out else None
-
-        rc = lib.gtpu_fused_segment_agg(
-            vals.data_ptr(), ids.data_ptr(), n, vals.shape[1], num_segments,
-            int(vals.dtype == torch.float64), ptr("sum"), ptr("count"),
-            ptr("rows"), ptr("min"), ptr("max"), ptr("sumsq"),
-            _stream(vals.device))
-        _raise_on(rc, "fused_segment_agg")
-        fused_segment_agg.launches += 1
-    return out
+        _fused_entry = _build.library().gtpu_fused_segment_agg
+    flags = _flags(want_min, want_max, want_sumsq)
+    buf, views = _fused_buffer(vals, num_segments, flags)
+    rc = _fused_entry(vals.data_ptr(), ids.data_ptr(), vals.shape[0],
+                      vals.shape[1], num_segments,
+                      int(vals.dtype == torch.float64), flags,
+                      buf.data_ptr(), _stream(vals.device))
+    _raise_on(rc, "fused_segment_agg")
+    fused_segment_agg.launches += 1
+    return _fused_views(buf, views)  # after the launch: host work only
 
 
 fused_segment_agg.launches = 0

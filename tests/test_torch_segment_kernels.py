@@ -102,15 +102,30 @@ def test_segment_sum_skips_dead_and_out_of_range_rows():
     (True, True, True),
     (False, False, False),
 ])
-@pytest.mark.parametrize("n,f,gsz", [
-    (600, 3, 61),
-    (257, 1, 9),
-    (90, 4, 50),
+@pytest.mark.parametrize("n,f,gsz,layout", [
+    pytest.param(600, 3, 61, "random", id="600-3-61"),
+    pytest.param(257, 1, 9, "random", id="257-1-9"),
+    pytest.param(90, 4, 50, "random", id="90-4-50"),
+    pytest.param(360, 3, 94, "time_major", id="time_major-360-3-94"),
+    pytest.param(600, 2, 7, "run_major", id="run_major-600-2-7"),
+    pytest.param(360, 3, 94, "host_major", id="host_major-360-3-94"),
+    pytest.param(500, 3, 40, "out_of_range", id="out_of_range-500-3-40"),
+    # runs of one id with 30 % of rows masked at random: the kernel's
+    # warps mix live and dead lanes
+    pytest.param(700, 2, 9, "masked_runs", id="masked_runs-700-2-9"),
 ])
-def test_fused_plain_matches_pallas(n, f, gsz, want_min, want_max,
+def test_fused_plain_matches_pallas(n, f, gsz, layout, want_min, want_max,
                                     want_sumsq):
-    vals, ids = _inputs(n, f, gsz, seed=3 * n + f, nan_frac=0.15,
-                        empty=(2,))
+    if layout == "random":
+        vals, ids = _inputs(n, f, gsz, seed=3 * n + f, nan_frac=0.15,
+                            empty=(2,))
+    else:
+        rng = np.random.default_rng(3 * n + f)
+        vals = np.round(rng.uniform(-50, 50, (n, f)), 1)
+        vals[rng.uniform(0, 1, (n, f)) < 0.15] = np.nan
+        masked = layout == "masked_runs"
+        ids = _layout_ids("run_major" if masked else layout, n, gsz, rng,
+                          dead_frac=0.3 if masked else 0.1)
     want = pallas_fused_segment_agg(
         jnp.asarray(vals), jnp.asarray(ids), gsz, want_min=want_min,
         want_max=want_max, want_sumsq=want_sumsq, interpret=True)
@@ -135,10 +150,46 @@ def test_fused_plain_matches_pallas(n, f, gsz, want_min, want_max,
                                    np.asarray(want["sumsq"])[live],
                                    rtol=1e-10, atol=1e-9)
     # empty and dead groups: 0 counts and +-inf extremes
-    assert got["count"][2].sum() == 0 and got["rows"][2] == 0
-    assert got["rows"][gsz - 1] == 0
-    if want_min:
-        assert torch.isinf(got["min"][2]).all()
+    if layout == "random":
+        assert got["count"][2].sum() == 0 and got["rows"][2] == 0
+        if want_min:
+            assert torch.isinf(got["min"][2]).all()
+    assert got["rows"][gsz - 1] == 0 and got["count"][gsz - 1].sum() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("g,f", [(7, 3), (61, 1)])
+@pytest.mark.parametrize("flags", range(8))
+def test_fused_outputs_share_one_aligned_buffer(flags, g, f, dtype):
+    """K2's one output buffer: a contiguous, 16-byte-aligned view of the
+    right shape and dtype for each output, in the dict order callers have
+    always seen, no two views overlapping."""
+    want = ["sum", "count", "rows"] + [k for k, bit in (
+        ("min", 1), ("max", 2), ("sumsq", 4)) if flags & bit]
+    buf, out = sk._fused_outputs(torch.zeros((5, f), dtype=dtype), g, flags)
+    assert list(out) == want
+    end = buf.data_ptr() + buf.numel() * buf.element_size()
+    for k, x in out.items():
+        assert x.is_contiguous()
+        assert x.data_ptr() % 16 == 0
+        assert buf.data_ptr() <= x.data_ptr()
+        assert x.data_ptr() + x.numel() * x.element_size() <= end
+        assert x.shape == ((g,) if k == "rows" else (g, f))
+        assert x.dtype == (torch.int32 if k in ("count", "rows") else dtype)
+    for i, x in enumerate(out.values()):
+        x.fill_(i + 1)
+    for i, x in enumerate(out.values()):
+        assert (x == i + 1).all(), list(out)[i]
+
+
+def test_fused_empty_input_keeps_identities():
+    vals = torch.zeros((0, 2), dtype=torch.float32)
+    out = sk.fused_segment_agg(vals, torch.zeros(0, dtype=torch.int32), 3,
+                               want_min=True, want_max=True, want_sumsq=True)
+    assert out["sum"].eq(0).all() and out["sumsq"].eq(0).all()
+    assert out["count"].eq(0).all() and out["rows"].eq(0).all()
+    assert out["min"].eq(float("inf")).all()
+    assert out["max"].eq(float("-inf")).all()
 
 
 def test_fused_all_null_group_keeps_rows():
