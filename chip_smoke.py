@@ -23,15 +23,25 @@ greptimedb_tpu_torch/_build/. Phases:
    and must show on the headline that its window is sized from the
    card's opt-in shared memory and that its adds stay in that window.
    Each wrapper must refuse an int64 input.
-3. The main path at TSBS scale: the `cpu` table bench.py builds (4,000
-   hosts x 12 h at 10 s = 17,280,000 rows, 10 DOUBLE fields, one
-   `hostname` tag, append mode), written through RegionEngine.put and
-   queried with bench.py's four dashboard SQL strings through
-   QueryEngine.execute_one on cuda. Every value is held against a float64
-   numpy oracle over the same arrays; `last_path` and the kernels' launch
-   counts show the route. Then a small non-append table with duplicate
-   keys and tombstones goes through last-write-wins dedup and is held
-   against a Python oracle.
+3. The main path at TSBS scale, on disk: the `cpu` table bench.py builds
+   (4,000 hosts x 12 h at 10 s = 17,280,000 rows, 10 DOUBLE fields, one
+   `hostname` tag, append mode) written through RegionEngine.put into a
+   disk-backed engine under a temporary directory, the WAL fsynced at
+   every put and the 256 MB auto-flush writing SSTs. Then, through
+   QueryEngine.execute_one on cuda, bench.py's six `cpu` queries in three
+   storage states — after the ingest (timed: cold, warm p50, a profile),
+   after ADMIN flush_table and a restart of the engine in this process,
+   and after ADMIN compact_table (a full merge, sort-dedup on the card).
+   Every value is held against a float64 numpy oracle over the same
+   arrays; `last_path` and each state's kernel launch counts show the
+   route. Between the first two states a small write (one more 10 s step
+   for every host) and a re-query of double_groupby_all must upload only
+   the memtable tail's blocks: the SST parts' blocks are keyed by file
+   and hit. The compaction must drop exactly the old files' device
+   blocks. Then a small non-append table with duplicate keys and
+   tombstones, flushed between its write batches and then compacted,
+   goes through last-write-wins dedup and is held against a Python
+   oracle. The data directories are removed at the end.
 4. A `kernels` JSON line, the card line, and the result line.
 
 Exits non-zero, and prints no result line, when CUDA is unavailable, the
@@ -626,17 +636,56 @@ def kernel_phase(sk, lib, torch) -> dict:
     return results
 
 
-# ---- phase 3: the main path at TSBS scale -----------------------------------
+# ---- phase 3: the main path at TSBS scale, on disk ---------------------------
+
+#: the device the engines run on: the card (None). A rehearsal on the CPU
+#: at a small HOSTS and HOURS sets "cpu".
+DEVICE = None
+#: decoded SST parts a region keeps on the host: the whole table's parts
+#: under every projection the six queries use stay decoded
+PART_CACHE_BYTES = 16 << 30
+#: rows a put (about 2M, as bench.py batches) and the auto-flush
+#: threshold (EngineConfig's default, 256 MB of memtable)
+BATCH_ROWS = 1 << 21
+FLUSH_THRESHOLD_BYTES = 256 << 20
 
 
-def build_and_ingest(torch):
-    from greptimedb_tpu_torch.catalog import Catalog, MemoryKv
-    from greptimedb_tpu_torch.datatypes import DictVector, RecordBatch
+def open_engine(root):
+    """A disk-backed engine (WAL fsynced at every put) and a query engine
+    over a catalog persisted beside it, both on DEVICE."""
+    from greptimedb_tpu_torch.catalog import Catalog, FileKv
     from greptimedb_tpu_torch.query import QueryEngine
-    from greptimedb_tpu_torch.storage import RegionEngine
+    from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
 
-    engine = RegionEngine()
-    qe = QueryEngine(Catalog(MemoryKv()), engine)  # device: the CUDA card
+    engine = RegionEngine(EngineConfig(
+        data_dir=os.path.join(root, "data"), wal_sync=True,
+        flush_threshold_bytes=FLUSH_THRESHOLD_BYTES,
+        scan_part_cache_bytes=PART_CACHE_BYTES), device=DEVICE)
+    qe = QueryEngine(Catalog(FileKv(os.path.join(root, "catalog.json"))),
+                     engine, device=DEVICE)
+    return engine, qe
+
+
+def put_points(engine, info, rng, p0, p1, host_names, fields) -> int:
+    """One put of points [p0, p1) for every host; appends the field values
+    to `fields` for the oracle."""
+    from greptimedb_tpu_torch.datatypes import DictVector, RecordBatch
+
+    n = (p1 - p0) * HOSTS
+    cols = {
+        "hostname": DictVector(np.tile(np.arange(HOSTS, dtype=np.int32),
+                                       p1 - p0), host_names),
+        "ts": np.repeat(T0_MS + np.arange(p0, p1, dtype=np.int64)
+                        * STEP_S * 1000, HOSTS),
+    }
+    for f in FIELDS:
+        cols[f] = rng.uniform(0.0, 100.0, n)
+        fields[f].append(cols[f])
+    return engine.put(info.region_ids[0], RecordBatch(info.schema, cols))
+
+
+def build_and_ingest(root, rng):
+    engine, qe = open_engine(root)
     field_defs = ",\n  ".join(f"{f} DOUBLE" for f in FIELDS)
     qe.execute_one(f"""
         CREATE TABLE cpu (
@@ -648,39 +697,38 @@ def build_and_ingest(torch):
         ) WITH (append_mode = 'true')
     """)
     info = qe.catalog.table("public", "cpu")
-    rid = info.region_ids[0]
-    rng = np.random.default_rng(SEED)
     points = HOURS * 3600 // STEP_S
     host_names = np.asarray([f"host_{i}" for i in range(HOSTS)], dtype=object)
-    slice_points = max(1, (1 << 21) // HOSTS)  # ~2M rows a batch
+    slice_points = max(1, BATCH_ROWS // HOSTS)
     fields = {f: [] for f in FIELDS}
     t0 = time.perf_counter()
     rows = 0
     for p0 in range(0, points, slice_points):
-        p1 = min(p0 + slice_points, points)
-        n = (p1 - p0) * HOSTS
-        cols = {
-            "hostname": DictVector(np.tile(np.arange(HOSTS, dtype=np.int32),
-                                           p1 - p0), host_names),
-            "ts": np.repeat(T0_MS + np.arange(p0, p1, dtype=np.int64)
-                            * STEP_S * 1000, HOSTS),
-        }
-        for f in FIELDS:
-            cols[f] = rng.uniform(0.0, 100.0, n)
-            fields[f].append(cols[f])
-        rows += engine.put(rid, RecordBatch(info.schema, cols))
+        rows += put_points(engine, info, rng, p0,
+                           min(p0 + slice_points, points), host_names, fields)
     ingest_s = time.perf_counter() - t0
     # [points, hosts] views of the same values, for the oracle
     grid = {f: np.concatenate(fields[f]).reshape(points, HOSTS)
             for f in FIELDS}
-    return qe, rows, ingest_s, grid, host_names
+    region = engine.region(info.region_ids[0])
+    log("ingest: " + json.dumps({
+        "rows": rows, "seconds": ingest_s, "rows_per_s": rows / ingest_s,
+        "puts": -(-points // slice_points), "wal_fsyncs": engine.wal.sync_count,
+        "sst_files": len(region.files), "sst_bytes": region.sst_bytes,
+        "wal_bytes_written": engine.wal.bytes_written,
+        "wal_bytes_on_disk": engine.wal.region_bytes(region.region_id),
+        "memtable_rows": region.memtable.num_rows}))
+    return engine, qe, rows, grid, host_names
 
 
 def tsbs_queries():
+    """bench.py's six `cpu` queries (bench.py:233-372): name -> (SQL,
+    last_path on the card, rows or None when the oracle counts them)."""
     t_end = T0_MS + HOURS * 3600 * 1000
     cutoff = T0_MS + (HOURS * 3600 * 1000) * 3 // 4
     avg_list = ", ".join(f"avg({f})" for f in FIELDS)
     max_list = ", ".join(f"max({f})" for f in FIELDS)
+    lv_list = ", ".join(f"last_value({f} ORDER BY ts)" for f in FIELDS)
     hosts8 = ", ".join(f"'host_{i}'" for i in range(8))
     return {
         "single_groupby_1_1_1": (
@@ -704,6 +752,15 @@ def tsbs_queries():
             f"{avg_list} FROM cpu WHERE ts >= {T0_MS} AND ts < {t_end} "
             f"GROUP BY hour, hostname ORDER BY hour, hostname",
             "dense_prepared", HOSTS * HOURS),
+        # the port has no lastpoint pruning yet: G+1 = 4,001 segments of
+        # last values through K2's route (ROADMAP.md C)
+        "lastpoint": (
+            f"SELECT hostname, {lv_list} FROM cpu GROUP BY hostname",
+            "dense_fused", HOSTS),
+        # a raw scan: no aggregate, so no last_path
+        "high_cpu_all": (
+            f"SELECT * FROM cpu WHERE usage_user > 90.0 "
+            f"AND ts >= {T0_MS} AND ts < {t_end}", None, None),
     }
 
 
@@ -713,8 +770,18 @@ def f32_exact(x: np.ndarray) -> np.ndarray:
     return x.astype(np.float32).astype(np.float64)
 
 
-def check_result(name, res, grid, host_names):
+def host_index(names: np.ndarray) -> np.ndarray:
+    """'host_<i>' strings -> i."""
+    uniq, inv = np.unique(names.astype(str), return_inverse=True)
+    return np.asarray([int(u[5:]) for u in uniq], dtype=np.int64)[inv]
+
+
+def check_result(name, res, grid):
+    """Every value of `res` against the float64 oracle over `grid`
+    ([points, hosts] per field; the first HOURS of points are the
+    dashboard window, a later point may follow it)."""
     per_hour = 3600 // STEP_S
+    window = HOURS * per_hour
     cols = {n: np.asarray(c) for n, c in zip(res.names, res.columns)}
     if name == "single_groupby_1_1_1":
         want = grid["usage_user"][:per_hour, 0].reshape(60, 6).max(axis=1)
@@ -730,7 +797,7 @@ def check_result(name, res, grid, host_names):
             check(np.array_equal(cols[f"max({f})"].astype(np.float64),
                                  f32_exact(want)), f"{name} max({f})")
     elif name == "groupby_orderby_limit":
-        cut_pt = HOURS * per_hour * 3 // 4
+        cut_pt = window * 3 // 4
         minutes = np.arange(cut_pt // 6 - 1, cut_pt // 6 - 6, -1)
         want = np.asarray([grid["usage_user"][m * 6:(m + 1) * 6].max()
                            for m in minutes])
@@ -738,21 +805,41 @@ def check_result(name, res, grid, host_names):
               name + " keys")
         check(np.array_equal(cols["max(usage_user)"].astype(np.float64),
                              f32_exact(want)), name + " max")
-    else:
-        order = np.argsort(host_names.astype(str), kind="stable")
+    elif name == "double_groupby_all":
+        order = np.argsort(np.asarray([f"host_{i}" for i in range(HOSTS)]),
+                           kind="stable")
         hours = np.repeat(np.arange(HOURS), HOSTS)
         check(np.array_equal(cols["hour"], T0_MS + hours * 3_600_000),
               name + " hour keys")
-        check(np.array_equal(cols["hostname"].astype(str),
-                             np.tile(host_names[order].astype(str), HOURS)),
-              name + " hostname keys")
+        check(np.array_equal(host_index(cols["hostname"]),
+                             np.tile(order, HOURS)), name + " hostname keys")
         for f in FIELDS:
-            want = grid[f].reshape(HOURS, per_hour, HOSTS).mean(axis=1)
-            want = want[:, order].reshape(-1)
+            want = grid[f][:window].reshape(HOURS, per_hour, HOSTS).mean(
+                axis=1)[:, order].reshape(-1)
             got = cols[f"avg({f})"].astype(np.float64)
             check(np.allclose(got, want, rtol=1e-5, atol=0),
                   f"{name} avg({f}): max rel err "
                   f"{np.max(np.abs(got - want) / np.abs(want))}")
+    elif name == "lastpoint":
+        hosts = host_index(cols["hostname"])
+        check(np.array_equal(np.sort(hosts), np.arange(HOSTS)),
+              name + " hostname keys")
+        for f, col in zip(FIELDS, res.names[1:]):
+            check(np.array_equal(cols[col].astype(np.float64),
+                                 f32_exact(grid[f][-1, hosts])),
+                  f"{name} {col}")
+    else:  # high_cpu_all: raw rows, any order, values exact
+        hit = grid["usage_user"][:window] > 90.0
+        want = np.flatnonzero(hit.reshape(-1))  # point * HOSTS + host
+        pts = (cols["ts"].astype(np.int64) - T0_MS) // (STEP_S * 1000)
+        got = pts * HOSTS + host_index(cols["hostname"])
+        order = np.argsort(got, kind="stable")
+        check(np.array_equal(got[order], want),
+              f"{name}: {len(got)} rows, {len(want)} expected")
+        p, h = np.divmod(want, HOSTS)
+        for f in FIELDS:
+            check(np.array_equal(cols[f].astype(np.float64)[order],
+                                 grid[f][p, h]), f"{name} {f}")
 
 
 def device_breakdown(fn, torch) -> dict:
@@ -778,102 +865,227 @@ def device_breakdown(fn, torch) -> dict:
             "top": [[k[:60], v] for k, v in top]}
 
 
-def main_path_phase(sk, torch, lib=None) -> dict:
-    qe, rows, ingest_s, grid, host_names = build_and_ingest(torch)
-    check(rows == HOSTS * HOURS * 3600 // STEP_S, "ingested rows")
-    log(f"ingest: {rows} rows in {ingest_s:.3f} s "
-        "(cpu table, 10 DOUBLE fields, one hostname tag of TSBS's ten)")
-    queries = tsbs_queries()
-    # the main path's launch counts: zeroed just before, read just after
+def sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def run_queries(qe, sk, torch, grid, state, timed, lib=None) -> dict:
+    """The six queries in one storage state, each checked against the
+    oracle and its last_path. The kernels' counts are zeroed just before
+    and read just after; each state must launch both kernels. `timed`
+    adds five warm runs and a profiled one a query."""
     if lib is not None:
         k1_stats(lib, reset=True)
     sk.segment_sum.launches = 0
     sk.fused_segment_agg.launches = 0
-    timings = {}
-    for name, (sql, want_path, want_rows) in queries.items():
-        torch.cuda.synchronize()
+    out = {}
+    for name, (sql, want_path, want_rows) in tsbs_queries().items():
+        k1, k2 = sk.segment_sum.launches, sk.fused_segment_agg.launches
+        sync(torch)
         t = time.perf_counter()
         res = qe.execute_one(sql)
+        sync(torch)
         cold_ms = (time.perf_counter() - t) * 1e3
         path = qe.executor.last_path
-        check(res.num_rows == want_rows,
-              f"{name}: {res.num_rows} rows, expected {want_rows}")
-        check(path == want_path, f"{name}: last_path {path}, "
+        check(want_rows is None or res.num_rows == want_rows,
+              f"{state} {name}: {res.num_rows} rows, expected {want_rows}")
+        check(path == want_path, f"{state} {name}: last_path {path}, "
               f"expected {want_path}")
-        check_result(name, res, grid, host_names)
-        warm = []
-        for _ in range(5):
-            t = time.perf_counter()
-            qe.execute_one(sql)
-            warm.append((time.perf_counter() - t) * 1e3)
-        timings[name] = {"cold_ms": cold_ms, "warm_p50_ms":
-                         float(np.median(warm)), "rows": res.num_rows,
-                         "last_path": path}
-        log(f"query {name}: " + json.dumps(timings[name]))
-        log(f"profile {name} (one warm run, profiler on): " + json.dumps(
-            device_breakdown(lambda: qe.execute_one(sql), torch)))
+        check_result(name, res, grid)
+        out[name] = {"cold_ms": cold_ms, "rows": res.num_rows,
+                     "last_path": path,
+                     "k1_launches": sk.segment_sum.launches - k1,
+                     "k2_launches": sk.fused_segment_agg.launches - k2}
+        if timed:
+            warm = []
+            for _ in range(5):
+                t = time.perf_counter()
+                qe.execute_one(sql)
+                warm.append((time.perf_counter() - t) * 1e3)
+            out[name]["warm_p50_ms"] = float(np.median(warm))
+        log(f"{state} query {name}: " + json.dumps(out[name]))
+        if timed and torch.cuda.is_available():
+            log(f"{state} profile {name} (one warm run, profiler on): "
+                + json.dumps(device_breakdown(lambda: qe.execute_one(sql),
+                                              torch)))
     launches = {"segment_sum": sk.segment_sum.launches,
                 "fused_segment_agg": sk.fused_segment_agg.launches}
-    log("main path launches: " + json.dumps(launches))
+    log(f"{state} launches: " + json.dumps(launches))
     if lib is not None:
-        log("K1 counters over the main path: " + json.dumps(
-            k1_stats(lib, reset=True)))
+        log(f"{state} K1 counters: " + json.dumps(k1_stats(lib, reset=True)))
     for k, v in launches.items():
-        check(v > 0, f"{k} was not launched on the main path")
+        check(v > 0, f"{k} was not launched in the {state} state")
+    return {"launches": launches, "queries": out}
+
+
+def hot_set_line(qe, torch) -> str:
     cache = qe.executor.cache
-    log("hot set: " + json.dumps({
+    return json.dumps({
         "resident_bytes": cache.resident_bytes, "h2d_bytes": cache.h2d_bytes,
-        "hits": cache.hits, "misses": cache.misses,
-        "max_memory_allocated": torch.cuda.max_memory_allocated()}))
-    return {"launches": launches, "queries": timings}
+        "h2d_by_anchor": cache.h2d_by_anchor, "hits": cache.hits,
+        "misses": cache.misses,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()
+        if torch.cuda.is_available() else None})
+
+
+def main_path_phase(sk, torch, lib=None) -> dict:
+    """Ingest through the WAL and auto-flushes, the six queries, a small
+    write and its re-query, flush + restart, full compaction: every state
+    held against the oracle. The data dir is removed at the end."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch import config
+    from greptimedb_tpu_torch.ops.blocks import block_size_for
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        du = shutil.disk_usage(root)
+        log(f"disk at {root}: total {du.total}, free {du.free} bytes")
+        rng = np.random.default_rng(SEED)
+        # 1. ingest
+        engine, qe, rows, grid, host_names = build_and_ingest(root, rng)
+        check(rows == HOSTS * HOURS * 3600 // STEP_S, "ingested rows")
+        info = qe.catalog.table("public", "cpu")
+        rid = info.region_ids[0]
+        check(len(engine.region(rid).files) >= 2,
+              "ingest: the auto-flush left fewer than two SSTs")
+        # 2. the six queries: the main path's launch counts come from here
+        main = run_queries(qe, sk, torch, grid, "ingest", True, lib)
+        log("hot set after the queries: " + hot_set_line(qe, torch))
+
+        # 3. one more 10 s step for every host, then the re-query: the SST
+        # parts' file-anchored blocks hit, only the memtable tail uploads
+        fields = {f: [] for f in FIELDS}
+        points = HOURS * 3600 // STEP_S
+        put_points(engine, info, rng, points, points + 1, host_names, fields)
+        grid = {f: np.concatenate([grid[f], fields[f][0][None, :]])
+                for f in FIELDS}
+        cache = qe.executor.cache
+        before = dict(cache.h2d_by_anchor)
+        h2d0, hits0 = cache.h2d_bytes, cache.hits
+        sql = tsbs_queries()["double_groupby_all"][0]
+        res = qe.execute_one(sql)
+        check_result("double_groupby_all", res, grid)
+        tail_rows = engine.region(rid).memtable.num_rows
+        elem = torch.finfo(config.compute_dtype(qe.device)).bits // 8
+        # hostname int32 + ts int64 + the [values | ones] plane (no NULLs)
+        want = block_size_for(tail_rows) * (4 + 8 + (len(FIELDS) + 1) * elem)
+        step3 = {"h2d_bytes": cache.h2d_bytes - h2d0,
+                 "h2d_file": cache.h2d_by_anchor["file"] - before["file"],
+                 "h2d_snap": cache.h2d_by_anchor["snap"] - before["snap"],
+                 "tail_rows": tail_rows, "tail_bytes_expected": want,
+                 "hits": cache.hits - hits0,
+                 "resident_bytes": cache.resident_bytes}
+        log("post-flush write, re-query double_groupby_all: "
+            + json.dumps(step3))
+        check(step3["h2d_file"] == 0 and step3["h2d_snap"] == want
+              and step3["h2d_bytes"] == want,
+              "the re-query after a small write uploaded more than the "
+              "memtable tail's blocks")
+
+        # 4. flush, close, reopen on the same data dir in this process
+        t = time.perf_counter()
+        qe.execute_one("ADMIN flush_table('cpu')")
+        flush_s = time.perf_counter() - t
+        engine.close()
+        t = time.perf_counter()
+        engine, qe = open_engine(root)
+        region = engine.open_region(rid)
+        reopen_s = time.perf_counter() - t
+        log("flush + reopen: " + json.dumps({
+            "flush_s": flush_s, "reopen_s": reopen_s,
+            "wal_entries_replayed": region.replayed_entries,
+            "sst_files": len(region.files), "sst_bytes": region.sst_bytes,
+            "memtable_rows": region.memtable.num_rows}))
+        reopened = run_queries(qe, sk, torch, grid, "reopened", False, lib)
+
+        # 5. full compaction: sort_dedup on the engine's device
+        cache = qe.executor.cache
+        old = set(region.files)
+        check({k[2] for k in cache.file_keys(rid)} == old,
+              "reopened: the SST blocks are not all resident")
+        t = time.perf_counter()
+        qe.execute_one("ADMIN compact_table('cpu')")
+        compact_s = time.perf_counter() - t
+        left = {k[2] for k in cache.file_keys(rid)}
+        log("compaction: " + json.dumps({
+            "seconds": compact_s, "files_before": len(old),
+            "files_after": len(region.files), "sst_bytes": region.sst_bytes,
+            "stale_blocks_left": len(left & old)}))
+        check(len(region.files) == 1 and not left & old,
+              "compaction: the old files' device blocks outlived them")
+        compacted = run_queries(qe, sk, torch, grid, "compacted", False, lib)
+        check({k[2] for k in cache.file_keys(rid)} == set(region.files),
+              "compacted: the merged file's blocks were not rebuilt")
+        engine.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": main["launches"], "queries": main["queries"],
+            "reopened": reopened, "compacted": compacted}
 
 
 def dedup_phase(torch) -> None:
-    """A non-append table with duplicate keys and tombstones, held against
-    a Python last-write-wins oracle."""
-    from greptimedb_tpu_torch.catalog import Catalog, MemoryKv
-    from greptimedb_tpu_torch.datatypes import DictVector, RecordBatch
-    from greptimedb_tpu_torch.query import QueryEngine
-    from greptimedb_tpu_torch.storage import RegionEngine
+    """A non-append table with duplicate keys and tombstones, flushed
+    between write batches so tombstones span files, then compacted; held
+    against a Python last-write-wins oracle before and after."""
+    import shutil
+    import tempfile
 
-    engine = RegionEngine()
-    qe = QueryEngine(Catalog(MemoryKv()), engine)
-    qe.execute_one("CREATE TABLE t (host STRING, ts TIMESTAMP(3) NOT NULL, "
-                   "v DOUBLE, TIME INDEX (ts), PRIMARY KEY (host))")
-    info = qe.catalog.table("public", "t")
-    rng = np.random.default_rng(SEED)
-    live: dict = {}
-    for _ in range(40):
-        n = 64
-        hosts = rng.integers(0, 12, n)
-        ts = rng.integers(0, 30, n) * 1000
-        v = np.round(rng.uniform(0, 100, n), 1)
-        cols = {"host": DictVector.encode([f"h{h}" for h in hosts]),
-                "ts": ts.astype(np.int64), "v": v}
-        if rng.random() < 0.3:
-            engine.delete(info.region_ids[0], RecordBatch(info.schema, cols))
-            for h, t in zip(hosts, ts):
-                live.pop((f"h{h}", int(t)), None)
-        else:
-            engine.put(info.region_ids[0], RecordBatch(info.schema, cols))
-            for h, t, x in zip(hosts, ts, v):
-                live[(f"h{h}", int(t))] = float(x)
-    res = qe.execute_one("SELECT host, ts, v FROM t ORDER BY host, ts")
-    want = sorted((h, t, x) for (h, t), x in live.items())
-    got = [(str(h), int(t), float(x)) for h, t, x in res.rows()]
-    check(got == want, f"dedup raw scan: {len(got)} rows, {len(want)} "
-          "expected")
-    res = qe.execute_one("SELECT host, count(v), max(v) FROM t "
-                         "GROUP BY host ORDER BY host")
-    per: dict = {}
-    for (h, _), x in live.items():
-        c, m = per.get(h, (0, -np.inf))
-        per[h] = (c + 1, max(m, x))
-    want = sorted((h, c, float(np.float32(m))) for h, (c, m) in per.items())
-    got = [(str(h), int(c), float(m)) for h, c, m in res.rows()]
-    check(got == want, "dedup aggregate")
-    log(f"dedup: {len(live)} live keys after tombstones, last_path "
-        f"{qe.executor.last_path}")
+    from greptimedb_tpu_torch.datatypes import DictVector, RecordBatch
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dedup_")
+    try:
+        engine, qe = open_engine(root)
+        qe.execute_one("CREATE TABLE t (host STRING, ts TIMESTAMP(3) NOT "
+                       "NULL, v DOUBLE, TIME INDEX (ts), PRIMARY KEY (host))")
+        info = qe.catalog.table("public", "t")
+        rid = info.region_ids[0]
+        rng = np.random.default_rng(SEED)
+        live: dict = {}
+        for i in range(40):
+            n = 64
+            hosts = rng.integers(0, 12, n)
+            ts = rng.integers(0, 30, n) * 1000
+            v = np.round(rng.uniform(0, 100, n), 1)
+            cols = {"host": DictVector.encode([f"h{h}" for h in hosts]),
+                    "ts": ts.astype(np.int64), "v": v}
+            if rng.random() < 0.3:
+                engine.delete(rid, RecordBatch(info.schema, cols))
+                for h, t in zip(hosts, ts):
+                    live.pop((f"h{h}", int(t)), None)
+            else:
+                engine.put(rid, RecordBatch(info.schema, cols))
+                for h, t, x in zip(hosts, ts, v):
+                    live[(f"h{h}", int(t))] = float(x)
+            if i % 10 == 9:
+                engine.flush(rid)
+        per: dict = {}
+        for (h, _), x in live.items():
+            c, m = per.get(h, (0, -np.inf))
+            per[h] = (c + 1, max(m, x))
+        want_raw = sorted((h, t, x) for (h, t), x in live.items())
+        want_agg = sorted((h, c, float(np.float32(m)))
+                          for h, (c, m) in per.items())
+        files = len(engine.region(rid).files)
+        for state in ("flushed", "compacted"):
+            if state == "compacted":
+                qe.execute_one("ADMIN compact_table('t')")
+            res = qe.execute_one("SELECT host, ts, v FROM t ORDER BY host, ts")
+            got = [(str(h), int(t), float(x)) for h, t, x in res.rows()]
+            check(got == want_raw, f"dedup {state} raw scan: {len(got)} "
+                  f"rows, {len(want_raw)} expected")
+            res = qe.execute_one("SELECT host, count(v), max(v) FROM t "
+                                 "GROUP BY host ORDER BY host")
+            got = [(str(h), int(c), float(m)) for h, c, m in res.rows()]
+            check(got == want_agg, f"dedup {state} aggregate")
+        log(f"dedup: {len(live)} live keys after tombstones over {files} "
+            f"SSTs and a memtable, then one compacted file; last_path "
+            f"{qe.executor.last_path}")
+        engine.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---- entry point -------------------------------------------------------------

@@ -12,7 +12,8 @@ Layer map (the JAX package's module paths):
   query/      SQL logical plan -> torch device stages (QueryEngine)
   sql/        SQL parser (copy)
   catalog/    table catalog over a KvBackend (copy)
-  storage/    in-memory regions: memtable + scans (durable storage later)
+  storage/    durable regions: WAL, SSTs, manifest, flush, compaction
+              (numpy encodings; objectstore.py holds the local stores)
   ops/        segment reductions, dedup, the CUDA kernels and their
               plain versions
   datatypes/  numpy-backed type system (copy, without Arrow)

@@ -133,6 +133,9 @@ class Catalog:
             raise CatalogError(f"table {db}.{name} not found")
         return TableInfo.from_json(self.kv.get(f"__table_info/{tid}"))
 
+    def update_table(self, info: TableInfo) -> None:
+        self.kv.put(f"__table_info/{info.table_id}", info.to_json())
+
     def table_exists(self, db: str, name: str) -> bool:
         return self.kv.get(f"__table_name/{db}/{name}") is not None
 

@@ -1,10 +1,15 @@
 """Carry table state into the port.
 
-For a database the state is the table's rows. `load_table` creates a
-table in a port QueryEngine and fills its region from plain numpy
-arrays — for example the `ScanData.columns` / `tag_dicts` / `seq` /
-`op_type` a JAX-side `RegionEngine.scan` returns — so both engines answer
-over the same rows. It takes numpy arrays and plain dicts only.
+For a database the state is the table's rows. Two ways in, numpy arrays
+and plain dicts only:
+- `load_table` creates a table in a port QueryEngine and bulk-loads its
+  region from the `ScanData.columns` / `tag_dicts` / `seq` / `op_type`
+  a JAX-side `RegionEngine.scan` returns (flushed at once to an SST);
+- `replay_writes` sends a sequence of puts and deletes through the
+  port's normal write path (WAL, memtable, auto-flush), so the same
+  sequence fed to the JAX engine leaves both engines in the same state
+  — flushes happen at the same points — without either reading the
+  other's files.
 """
 
 from __future__ import annotations
@@ -14,8 +19,10 @@ from typing import Optional
 import numpy as np
 
 from greptimedb_tpu_torch.catalog.catalog import TableInfo
+from greptimedb_tpu_torch.datatypes.recordbatch import RecordBatch
 from greptimedb_tpu_torch.datatypes.schema import ColumnSchema, Schema
 from greptimedb_tpu_torch.datatypes.types import DataType, SemanticType
+from greptimedb_tpu_torch.datatypes.vector import DictVector
 
 
 def schema_from_spec(spec) -> Schema:
@@ -72,3 +79,34 @@ def load_table(qe, table: str, schema_spec, columns: dict[str, np.ndarray],
              for c in schema.tag_columns}
     qe.region_engine.region(rid).load(cols, dicts, seq, op_type)
     return info
+
+
+def replay_writes(qe, table: str, writes, db: str = "public") -> int:
+    """Apply `writes` to `table` of the port engine `qe`, in order.
+
+    Each write is (op, columns, dicts): op "put" or "delete"; `columns`
+    holds every schema column as a numpy array, tag and string columns
+    as int32 codes into `dicts[name]` (code -1 = NULL). Returns the rows
+    written."""
+    info = qe.catalog.table(db, table)
+    engine = qe.region_engine
+    rid = info.region_ids[0]
+    if rid not in engine.regions:
+        engine.open_region(rid)
+    n = 0
+    for op, columns, dicts in writes:
+        cols = {}
+        for c in info.schema.columns:
+            arr = columns[c.name]
+            if c.name in dicts:
+                arr = DictVector(np.asarray(arr, dtype=np.int32),
+                                 np.asarray(dicts[c.name], dtype=object))
+            cols[c.name] = arr
+        batch = RecordBatch(info.schema, cols)
+        if op == "put":
+            n += engine.put(rid, batch)
+        elif op == "delete":
+            n += engine.delete(rid, batch)
+        else:
+            raise ValueError(f"replay_writes: unknown op {op!r}")
+    return n

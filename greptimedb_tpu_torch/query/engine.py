@@ -1,10 +1,14 @@
 """QueryEngine of the port (lean counterpart of
 greptimedb_tpu/query/engine.py).
 
-SQL text -> statements -> CREATE TABLE / INSERT ... VALUES / SELECT /
-DROP TABLE over the in-memory region engine, with SELECT planned by the
-copied planner and executed by the torch physical layer on the engine's
-device. Every other statement raises UnsupportedStatement naming the
+SQL text -> statements over the durable region engine: CREATE TABLE,
+INSERT ... VALUES, SELECT, DELETE, DROP and TRUNCATE TABLE, ALTER TABLE
+ADD/DROP COLUMN, and ADMIN flush_table / compact_table (synchronous: the
+maintenance plane is a later slice). SELECT is planned by the copied
+planner and executed by the torch physical layer on the engine's
+device. Regions open lazily from the catalog on first use, so a
+persisted catalog and a reopened storage engine serve the tables they
+held. Every other statement raises UnsupportedStatement naming the
 slice of the port that brings it.
 """
 
@@ -34,12 +38,9 @@ from greptimedb_tpu_torch.utils.time import coerce_ts_literal
 # of the port that brings them (ROADMAP.md, queue A)
 _LATER = {
     "Tql": "PromQL",
-    "AlterTable": "durable storage",
-    "TruncateTable": "durable storage",
-    "AdminFunc": "durable storage",
-    "CopyTable": "durable storage",
-    "CopyDatabase": "durable storage",
-    "Delete": "durable storage",
+    # COPY reads and writes Parquet/CSV files
+    "CopyTable": "COPY import and export",
+    "CopyDatabase": "COPY import and export",
     "CreateFlow": "servers and CLI",
     "DropFlow": "servers and CLI",
     "ShowFlows": "servers and CLI",
@@ -81,6 +82,14 @@ class QueryEngine:
             return self._insert(stmt, db)
         if isinstance(stmt, ast.DropTable):
             return self._drop_table(stmt, db)
+        if isinstance(stmt, ast.Delete):
+            return self._delete(stmt, db)
+        if isinstance(stmt, ast.TruncateTable):
+            return self._truncate(stmt, db)
+        if isinstance(stmt, ast.AlterTable):
+            return self._alter(stmt, db)
+        if isinstance(stmt, ast.AdminFunc):
+            return self._admin(stmt, db)
         name = type(stmt).__name__
         slice_name = _LATER.get(name, "servers and CLI")
         raise UnsupportedStatement(
@@ -94,7 +103,16 @@ class QueryEngine:
             prefix, rest = name.rsplit(".", 1)
             if self.catalog.database_exists(prefix):
                 db, name = prefix, rest
-        return self.catalog.table(db, name)
+        info = self.catalog.table(db, name)
+        self._ensure_open(info)
+        return info
+
+    def _ensure_open(self, info: TableInfo) -> None:
+        """Open the table's regions from disk on first use (a catalog
+        that outlived the storage engine's process)."""
+        for rid in info.region_ids:
+            if rid not in self.region_engine.regions:
+                self.region_engine.open_region(rid)
 
     def _select(self, sel: ast.Select, db: str) -> QueryResult:
         if sel.ctes or sel.joins or sel.from_subquery is not None \
@@ -163,13 +181,102 @@ class QueryEngine:
         name = stmt.name
         if "." in name:
             db, name = name.rsplit(".", 1)
+        if self.catalog.table_exists(db, name):
+            # open first: the drop deletes the region's files on disk
+            self._ensure_open(self.catalog.table(db, name))
         info = self.catalog.drop_table(db, name, stmt.if_exists)
         if info is None:
             return QueryResult.of_affected(0)
         for rid in info.region_ids:
             self.region_engine.drop_region(rid)
-            self.executor.cache.invalidate_region(rid)
         return QueryResult.of_affected(0)
+
+    def _truncate(self, stmt: ast.TruncateTable, db: str) -> QueryResult:
+        """Drop the regions' data and recreate them empty."""
+        info = self._table(stmt.name, db)
+        for rid in info.region_ids:
+            self.region_engine.drop_region(rid)
+            self.region_engine.create_region(rid, info.schema)
+        return QueryResult.of_affected(0)
+
+    def _alter(self, stmt: ast.AlterTable, db: str) -> QueryResult:
+        info = self._table(stmt.name, db)
+        if stmt.action == "add_column":
+            col = stmt.column
+            if col.is_time_index or col.is_primary_key:
+                raise PlanError("can only ADD nullable field columns")
+            default = col.default.value \
+                if isinstance(col.default, ast.Literal) else None
+            new_schema = Schema(list(info.schema.columns) + [ColumnSchema(
+                col.name, parse_sql_type(col.type_name), SemanticType.FIELD,
+                True, default)])
+            if info.column_order:
+                info.column_order = list(info.column_order) + [col.name]
+        elif stmt.action == "drop_column":
+            dropped = info.schema.column(stmt.column_name)
+            if dropped.semantic is not SemanticType.FIELD:
+                raise PlanError("can only DROP field columns")
+            new_schema = Schema([c for c in info.schema.columns
+                                 if c.name != stmt.column_name])
+            if info.column_order:
+                info.column_order = [n for n in info.column_order
+                                     if n != stmt.column_name]
+        else:
+            raise PlanError(f"unsupported ALTER action {stmt.action}")
+        for rid in info.region_ids:
+            self.region_engine.alter_region_schema(rid, new_schema)
+        info.schema = new_schema
+        self.catalog.update_table(info)
+        return QueryResult.of_affected(0)
+
+    def _admin(self, stmt: ast.AdminFunc, db: str) -> QueryResult:
+        """ADMIN flush_table / compact_table, run synchronously; the
+        manual compaction is a full merge."""
+        fn = stmt.func
+        if fn.name not in ("flush_table", "compact_table"):
+            raise UnsupportedStatement(
+                f"ADMIN {fn.name} is not in this slice of "
+                "greptimedb_tpu_torch; the maintenance plane brings it")
+        if not fn.args or not isinstance(fn.args[0], ast.Literal):
+            raise PlanError(f"ADMIN {fn.name} takes a table name")
+        info = self._table(str(fn.args[0].value), db)
+        for rid in info.region_ids:
+            if fn.name == "flush_table":
+                self.region_engine.flush(rid)
+            else:
+                self.region_engine.compact(rid)
+        return QueryResult.of_affected(0)
+
+    # ---- DELETE ------------------------------------------------------------
+
+    def _delete(self, stmt: ast.Delete, db: str) -> QueryResult:
+        """Tombstones for the (tags, ts) keys of the rows WHERE selects."""
+        info = self._table(stmt.table, db)
+        schema = info.schema
+        key_cols = [c.name for c in schema.tag_columns] \
+            + [schema.time_index.name]
+        sel = ast.Select(items=[ast.SelectItem(ast.Column(n))
+                                for n in key_cols],
+                         table=stmt.table, where=stmt.where)
+        rows = self._select(sel, db)
+        n = rows.num_rows
+        if n == 0:
+            return QueryResult.of_affected(0)
+        got = dict(zip(rows.names, rows.columns))
+        cols: dict = {}
+        for c in schema.columns:
+            if c.name in got:
+                cols[c.name] = DictVector.encode(list(got[c.name])) \
+                    if c.semantic is SemanticType.TAG \
+                    else np.asarray(got[c.name], dtype=np.int64)
+            elif c.dtype.is_float:
+                cols[c.name] = np.full(n, np.nan, dtype=c.dtype.to_numpy())
+            elif c.dtype.is_string:
+                cols[c.name] = DictVector.encode([None] * n)
+            else:
+                cols[c.name] = np.zeros(n, dtype=c.dtype.to_numpy())
+        return QueryResult.of_affected(self.region_engine.delete(
+            info.region_ids[0], RecordBatch(schema, cols)))
 
     # ---- INSERT ------------------------------------------------------------
 

@@ -132,19 +132,56 @@ class DeviceKey:
 
 
 class _BlockEntry(NamedTuple):
-    """One device block of the scan: rows [start, end) padded to `block`."""
+    """One device block of the scan: rows [start, end) padded to `block`.
+    `pkey` is the immutable SST part the rows belong to ((file_id,
+    ts_range, pred_key) from ScanData.part_keys), or None for memtable
+    rows; `part_start` anchors the block's offset inside its part, so its
+    hot-set key stays stable across data versions."""
 
+    pkey: Optional[tuple]
+    part_start: int
     start: int
     end: int
     block: int
 
 
+#: ceiling on the part-aligned plan's blocks: a region with many small
+#: unmerged flush files would otherwise launch the kernels once per tiny
+#: part; past it the scan takes the uniform, version-keyed layout until
+#: compaction catches up
+_MAX_PLAN_BLOCKS = 64
+
+
 def _block_plan(scan) -> list[_BlockEntry]:
-    """Uniform block layout over the scan (memtable rows have no per-part
-    identity, so the JAX package's part-aligned plan reduces to this)."""
+    """Part-aligned block plan: blocks never straddle SST part seams, so
+    each block is a pure function of its immutable file (and the
+    window/predicate key) and its upload survives data-version bumps —
+    a write uploads only the memtable tail, a flush only its new file.
+    Scans without part identity get the uniform layout."""
     n = scan.num_rows
-    pb = min(block_size_for(n), DEFAULT_BLOCK_ROWS)
-    return [_BlockEntry(st, min(st + pb, n), pb) for st in range(0, n, pb)]
+    offs = scan.sorted_part_offsets
+    pkeys = scan.part_keys
+    segs: list[tuple] = []
+    if pkeys and len(offs) == len(pkeys) + 1 and offs[-1] <= n:
+        segs = [(pkeys[i], offs[i], offs[i + 1]) for i in range(len(pkeys))]
+        if offs[-1] < n:  # memtable tail: version-keyed, no part identity
+            segs.append((None, offs[-1], n))
+        est = sum(
+            -(-max(s1 - s0, 1) // min(block_size_for(s1 - s0),
+                                      DEFAULT_BLOCK_ROWS))
+            for _, s0, s1 in segs if s1 > s0)
+        if est > _MAX_PLAN_BLOCKS:
+            segs = []
+    if not segs:
+        segs = [(None, 0, n)]
+    plan: list[_BlockEntry] = []
+    for pk, s0, s1 in segs:
+        if s1 <= s0:
+            continue
+        pb = min(block_size_for(s1 - s0), DEFAULT_BLOCK_ROWS)
+        for st in range(s0, s1, pb):
+            plan.append(_BlockEntry(pk, s0, st, min(st + pb, s1), pb))
+    return plan
 
 
 def _device_of(cols: dict) -> torch.device:
@@ -501,6 +538,8 @@ class PhysicalExecutor:
         self.engine = engine
         self.device = device
         self.cache = DeviceCache(config.device_cache_bytes(device))
+        # the storage engine drops dead files' and regions' blocks
+        engine.caches.add(self.cache)
         # last_path (which aggregate path served this thread's last query)
         self._tls = threading.local()
 
@@ -965,8 +1004,14 @@ class PhysicalExecutor:
                                             str(cast_dtype)), build)
 
     def _hot_key(self, scan, entry: _BlockEntry, name, extra) -> tuple:
-        """Hot-set key of one block: snapshot-anchored, so it retires with
-        its region's data version."""
+        """Hot-set key of one block. A block of an SST part carries the
+        part identity and its offset inside the part, so it dies with
+        its file, not with the next write; memtable blocks are
+        snapshot-anchored and retire with their data version."""
+        if entry.pkey is not None:
+            fid, ts_r, pred_key = entry.pkey
+            return ("file", scan.region_id, fid, ts_r, pred_key, name,
+                    entry.start - entry.part_start, entry.block, extra)
         return ("snap", scan.region_id,
                 (scan.incarnation, scan.data_version),
                 scan.scan_fingerprint, name, entry.start, entry.block, extra)

@@ -1,8 +1,8 @@
-"""Storage engine of the port: in-memory regions over the append-log
-memtable (counterpart of greptimedb_tpu/storage, whose WAL, Parquet SSTs
-and manifest wait for a later slice)."""
+"""Storage engine of the port: durable regions (WAL, SSTs, manifest,
+flush and compaction) in numpy-only encodings (counterpart of
+greptimedb_tpu/storage, which writes Arrow IPC and Parquet)."""
 
-from greptimedb_tpu_torch.storage.engine import RegionEngine
+from greptimedb_tpu_torch.storage.engine import EngineConfig, RegionEngine
 from greptimedb_tpu_torch.storage.region import Region, ScanData
 
-__all__ = ["RegionEngine", "Region", "ScanData"]
+__all__ = ["EngineConfig", "RegionEngine", "Region", "ScanData"]

@@ -1,0 +1,72 @@
+"""Time-window compaction strategy (TWCS); a copy of
+greptimedb_tpu/storage/compaction.py.
+
+Mirrors reference src/mito2/src/compaction/twcs.rs:33 + window.rs/buckets.rs:
+SSTs are bucketed into time windows; only files within one window merge
+together (time-series data arrives roughly in time order, so cross-window
+merges are wasted work and churn write amplification). The active (latest)
+window tolerates `max_active_files` L0 files before compacting; inactive
+windows compact as soon as they hold more than one file.
+
+The merge itself is the torch sort-dedup on the engine's device
+(Region._merge_files): compaction is the same computation as query-time
+dedup, run once and persisted.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+# candidate windows, seconds (reference buckets.rs TIME_BUCKETS)
+TIME_BUCKETS_S = (3600, 2 * 3600, 12 * 3600, 24 * 3600, 7 * 24 * 3600,
+                  365 * 24 * 3600)
+
+
+def infer_time_window_ms(files: Sequence) -> int:
+    """Pick the smallest bucket covering the typical file span
+    (window.rs infer_time_bucket analog)."""
+    if not files:
+        return TIME_BUCKETS_S[0] * 1000
+    spans = sorted(max(f.ts_max - f.ts_min, 0) for f in files)
+    typical = spans[len(spans) // 2]
+    for b in TIME_BUCKETS_S:
+        if typical <= b * 1000:
+            return b * 1000
+    return TIME_BUCKETS_S[-1] * 1000
+
+
+@dataclass
+class TwcsOptions:
+    max_active_window_files: int = 4
+    max_inactive_window_files: int = 1
+    time_window_ms: Optional[int] = None  # None: infer from data
+
+
+class TwcsPicker:
+    """Pick groups of L0/L1 files to merge, one group per time window."""
+
+    def __init__(self, opts: Optional[TwcsOptions] = None):
+        self.opts = opts or TwcsOptions()
+
+    def pick(self, files: Sequence) -> list[list]:
+        if len(files) < 2:
+            return []
+        window = self.opts.time_window_ms or infer_time_window_ms(files)
+        by_window: dict[int, list] = {}
+        for f in files:
+            # a file belongs to the window of its max timestamp
+            by_window.setdefault(f.ts_max // window, []).append(f)
+        if not by_window:
+            return []
+        active = max(by_window)
+        groups = []
+        for w, group in sorted(by_window.items()):
+            limit = (
+                self.opts.max_active_window_files
+                if w == active
+                else self.opts.max_inactive_window_files
+            )
+            if len(group) > limit:
+                groups.append(sorted(group, key=lambda f: f.max_seq))
+        return groups

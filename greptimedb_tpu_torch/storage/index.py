@@ -5,7 +5,7 @@ greptimedb_tpu/storage/index.py).
 WHERE clause; the region turns the equality/IN ones into an exact row
 filter (storage/region.py::_tag_inset_mask) and keys its scan cache with
 `predicates_cache_key`. The inverted index itself (puffin blobs over SST
-row segments) waits for durable storage in a later slice.
+row segments) is a later slice (ROADMAP.md A11).
 """
 
 from __future__ import annotations

@@ -63,6 +63,17 @@ class TagRegistry:
             codes[present] = mapping[inv]
         return codes
 
+    def extend(self, name: str, values) -> None:
+        """Seed codes in the given order (a registry snapshot or a loaded
+        dictionary): value i gets code i on an empty registry."""
+        with self._lock:
+            table = self.tables[name]
+            vals = self.values[name]
+            for v in values:
+                if v is not None and v not in table:
+                    table[v] = len(vals)
+                    vals.append(v)
+
     def remap_dict(self, name: str, file_values: np.ndarray) -> np.ndarray:
         """Mapping array old_code->region_code for a file-local dictionary."""
         return self.encode(name, file_values)

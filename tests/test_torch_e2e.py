@@ -1,14 +1,25 @@
-"""End to end: the same SQL over the same rows through the JAX package's
-QueryEngine and the port's, on the CPU.
+"""End to end: the same SQL over the same writes through the JAX
+package's QueryEngine and the port's, on the CPU, in four storage states.
 
-The JAX engine ingests a small TSBS-shaped `cpu` table (bench.py's
-schema, 6 hosts, 4 fields with NULLs) and a non-append table with
-duplicate keys and tombstones; the port's engine is filled from the JAX
-engine's scans through interop.load_table. Every query must return equal
-row lists (floats within rtol=1e-9: the port reduces in another order)
-and report the same `last_path`. GREPTIMEDB_TPU_PALLAS=on is read when
-the JAX package traces its kernels, so the fused-route comparison runs
-in a subprocess started with it set.
+Both engines take the same sequence of puts and deletes (the JAX one as
+RecordBatches, the port through interop.replay_writes): a small
+TSBS-shaped `cpu` table (bench.py's schema, 6 hosts, 4 fields with
+NULLs, append mode) and a non-append `lww` table with duplicate keys and
+tombstones. The states:
+
+- memtable: every row in the memtable (WAL-backed);
+- flushed: ADMIN flush_table, then more writes: SSTs plus a memtable tail;
+- reopened: both engines closed and reopened on their data dirs, with
+  catalogs persisted in FileKv: manifest + WAL replay;
+- compacted: ADMIN flush_table, then ADMIN compact_table (a full merge).
+
+Every query must return equal row lists (floats within rtol=1e-9: the
+port reduces in another order) and report the same `last_path`, but for
+the one known difference below. Across states the port must also agree
+with itself where no write came between (reopened = flushed, compacted
+= reopened). GREPTIMEDB_TPU_PALLAS=on is read when the JAX package
+traces its kernels, so the fused-route comparison runs in a subprocess
+started with it set.
 """
 
 import json
@@ -24,8 +35,14 @@ HOSTS = 6
 T0 = 1456790400000
 STEP_MS = 60_000
 POINTS = 150  # 2.5 hours at 60 s
+EXTRA_POINTS = 20  # written after the first flush
 FIELDS = ["usage_user", "usage_system", "usage_idle", "usage_nice"]
 CUTOFF = T0 + 2 * 3600_000
+STATES = ("memtable", "flushed", "reopened", "compacted")
+
+LASTPOINT = ("SELECT hostname, " + ", ".join(
+    f"last_value({f} ORDER BY ts)" for f in FIELDS)
+    + " FROM cpu GROUP BY hostname")
 
 QUERIES = [
     # single_groupby_1_1_1
@@ -82,72 +99,193 @@ QUERIES = [
     "SELECT host, ts, v FROM lww ORDER BY host, ts",
     "SELECT date_bin(INTERVAL '1 hour', ts) AS h, count(v), min(v) FROM lww "
     "GROUP BY h ORDER BY h",
+    # TSBS lastpoint and high-cpu-all (bench.py:343-372)
+    LASTPOINT,
+    f"SELECT * FROM cpu WHERE usage_user > 90.0 AND ts >= {T0} "
+    f"AND ts < {T0 + (POINTS + EXTRA_POINTS) * STEP_MS}",
 ]
 
+#: last_path differences by design, per query: the JAX engine prunes
+#: lastpoint scans newest-first (`lastscan+`), a path the port has not
+#: ported yet (ROADMAP.md A, "lastpoint pruning"; C lists the difference)
+#: (with SSTs it adds `boundary+`, the sorted-part first/last gather,
+#: also not ported)
+KNOWN_PATHS = {LASTPOINT: {"lastscan+dense": "dense",
+                           "lastscan+dense_fused": "dense_fused",
+                           "lastscan+boundary+dense": "dense",
+                           "lastscan+boundary+dense_fused": "dense_fused"}}
 
-def _jax_engines(data_dir):
-    from greptimedb_tpu.catalog import Catalog, MemoryKv
-    from greptimedb_tpu.datatypes import DictVector, RecordBatch
-    from greptimedb_tpu.query import QueryEngine
-    from greptimedb_tpu.storage import RegionEngine
-    from greptimedb_tpu.storage.engine import EngineConfig
 
-    engine = RegionEngine(EngineConfig(data_dir=data_dir))
-    qe = QueryEngine(Catalog(MemoryKv()), engine)
-    field_defs = ", ".join(f"{f} DOUBLE" for f in FIELDS)
-    qe.execute_one(f"CREATE TABLE cpu (hostname STRING, ts TIMESTAMP(3) NOT "
-                   f"NULL, {field_defs}, TIME INDEX (ts), PRIMARY KEY "
-                   "(hostname)) WITH (append_mode = 'true')")
-    info = qe.catalog.table("public", "cpu")
-    rng = np.random.default_rng(7)
-    n = POINTS * HOSTS
-    # a batch dictionary in another order than the region registry's
+# ---- the same writes for both engines ----------------------------------------
+
+
+def _cpu_writes(rng, p0, p1, batch_points):
+    """Puts of points [p0, p1) for every host, `batch_points` a batch, in
+    a batch dictionary order other than the region registry's."""
     names = np.asarray([f"host_{i}" for i in (3, 0, 5, 1, 4, 2)],
                        dtype=object)
     order = np.asarray([1, 3, 5, 0, 4, 2])  # host_i -> its code
-    cols = {"hostname": DictVector(np.tile(order, POINTS).astype(np.int32),
-                                   names),
-            "ts": np.repeat(T0 + np.arange(POINTS, dtype=np.int64)
-                            * STEP_MS, HOSTS)}
-    for f in FIELDS:
-        v = np.round(rng.uniform(0, 100, n), 2)
-        v[rng.uniform(0, 1, n) < 0.1] = np.nan
-        cols[f] = v
-    engine.put(info.region_ids[0], RecordBatch(info.schema, cols))
+    out = []
+    for a in range(p0, p1, batch_points):
+        b = min(a + batch_points, p1)
+        n = (b - a) * HOSTS
+        cols = {"hostname": np.tile(order, b - a).astype(np.int32),
+                "ts": np.repeat(T0 + np.arange(a, b, dtype=np.int64)
+                                * STEP_MS, HOSTS)}
+        for f in FIELDS:
+            v = np.round(rng.uniform(0, 100, n), 2)
+            v[rng.uniform(0, 1, n) < 0.1] = np.nan
+            cols[f] = v
+        out.append(("put", cols, {"hostname": names}))
+    return out
 
-    qe.execute_one("CREATE TABLE lww (host STRING, ts TIMESTAMP(3) NOT NULL, "
-                   "v DOUBLE, TIME INDEX (ts), PRIMARY KEY (host))")
-    linfo = qe.catalog.table("public", "lww")
-    for i in range(12):
+
+def _lww_writes(rng, batches, first):
+    out = []
+    for i in range(first, first + batches):
         m = 40
-        batch = RecordBatch(linfo.schema, {
-            "host": DictVector.encode(
-                [f"h{x}" for x in rng.integers(0, 5, m)]),
-            "ts": (T0 + rng.integers(0, 8, m) * 900_000).astype(np.int64),
-            "v": np.round(rng.uniform(-20, 20, m), 1)})
-        if i % 4 == 3:
-            engine.delete(linfo.region_ids[0], batch)
+        hosts = [f"h{x}" for x in rng.integers(0, 5, m)]
+        names = np.asarray(sorted(set(hosts)), dtype=object)
+        codes = np.searchsorted(names.astype(str), hosts).astype(np.int32)
+        cols = {"host": codes,
+                "ts": (T0 + rng.integers(0, 8, m) * 900_000).astype(np.int64),
+                "v": np.round(rng.uniform(-20, 20, m), 1)}
+        out.append(("delete" if i % 4 == 3 else "put", cols,
+                    {"host": names}))
+    return out
+
+
+def _jax_apply(qe, table, writes):
+    from greptimedb_tpu.datatypes import DictVector, RecordBatch
+
+    info = qe.catalog.table("public", table)
+    rid = info.region_ids[0]
+    for op, columns, dicts in writes:
+        cols = {c.name: (DictVector(columns[c.name], dicts[c.name])
+                         if c.name in dicts else columns[c.name])
+                for c in info.schema.columns}
+        batch = RecordBatch(info.schema, cols)
+        if op == "put":
+            qe.region_engine.put(rid, batch)
         else:
-            engine.put(linfo.region_ids[0], batch)
-    return engine, qe
+            qe.region_engine.delete(rid, batch)
 
 
-def _port_engine(jengine, jqe):
-    from greptimedb_tpu_torch import interop
-    from greptimedb_tpu_torch.catalog import Catalog, MemoryKv
-    from greptimedb_tpu_torch.query import QueryEngine
-    from greptimedb_tpu_torch.storage import RegionEngine
+CREATE = [
+    "CREATE TABLE cpu (hostname STRING, ts TIMESTAMP(3) NOT NULL, "
+    + ", ".join(f"{f} DOUBLE" for f in FIELDS)
+    + ", TIME INDEX (ts), PRIMARY KEY (hostname)) "
+    "WITH (append_mode = 'true')",
+    "CREATE TABLE lww (host STRING, ts TIMESTAMP(3) NOT NULL, v DOUBLE, "
+    "TIME INDEX (ts), PRIMARY KEY (host))",
+]
 
-    qe = QueryEngine(Catalog(MemoryKv()), RegionEngine(), device="cpu")
-    for name in ("cpu", "lww"):
-        info = jqe.catalog.table("public", name)
-        scan = jengine.scan(info.region_ids[0])
-        spec = [(c.name, c.dtype.value, c.semantic.value, c.nullable)
-                for c in info.schema.columns]
-        interop.load_table(qe, name, spec, dict(scan.columns),
-                           dict(scan.tag_dicts), seq=scan.seq,
-                           op_type=scan.op_type, options=dict(info.options))
-    return qe
+
+class Pair:
+    """A JAX engine and a port engine over their own data dirs, driven
+    in lockstep."""
+
+    def __init__(self, root):
+        self.root = root
+        self.open()
+        for sql in CREATE:
+            self.both(sql)
+
+    def open(self):
+        from greptimedb_tpu.catalog import Catalog as JCatalog
+        from greptimedb_tpu.catalog import FileKv as JFileKv
+        from greptimedb_tpu.query import QueryEngine as JQueryEngine
+        from greptimedb_tpu.storage import RegionEngine as JRegionEngine
+        from greptimedb_tpu.storage.engine import EngineConfig as JConfig
+        from greptimedb_tpu_torch.catalog import Catalog, FileKv
+        from greptimedb_tpu_torch.query import QueryEngine
+        from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
+
+        r = self.root
+        # no maintenance plane: ADMIN flush/compact run synchronously
+        self.jengine = JRegionEngine(JConfig(data_dir=f"{r}/jax",
+                                             maintenance_workers=0))
+        self.jqe = JQueryEngine(JCatalog(JFileKv(f"{r}/jax_catalog.json")),
+                                self.jengine)
+        self.tengine = RegionEngine(EngineConfig(data_dir=f"{r}/port"),
+                                    device="cpu")
+        self.tqe = QueryEngine(Catalog(FileKv(f"{r}/port_catalog.json")),
+                               self.tengine, device="cpu")
+
+    def close(self):
+        self.jengine.close()
+        self.tengine.close()
+
+    def reopen(self):
+        self.close()
+        self.open()
+
+    def both(self, sql):
+        self.jqe.execute_one(sql)
+        self.tqe.execute_one(sql)
+
+    def write(self, table, writes):
+        from greptimedb_tpu_torch import interop
+
+        _jax_apply(self.jqe, table, writes)
+        interop.replay_writes(self.tqe, table, writes)
+
+    def run(self, queries):
+        out = []
+        for sql in queries:
+            jr = self.jqe.execute_one(sql)
+            jpath = self.jqe.executor.last_path
+            tr = self.tqe.execute_one(sql)
+            out.append((_plain(jr.rows()), _plain(tr.rows()), jpath,
+                        self.tqe.executor.last_path))
+        return out
+
+
+def run_states(queries):
+    """{state: [(jax rows, port rows, jax last_path, port last_path)]}."""
+    # the JAX engine's incremental partial-aggregate cache serves SST
+    # scans from per-file partials; the port has not ported it yet
+    # (ROADMAP.md A3), so both answer through their classic dense paths
+    saved = os.environ.get("GREPTIMEDB_TPU_PARTIAL_CACHE")
+    os.environ["GREPTIMEDB_TPU_PARTIAL_CACHE"] = "0"
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            pair = Pair(d)
+            try:
+                return _drive(pair, queries)
+            finally:
+                pair.close()
+    finally:
+        if saved is None:
+            os.environ.pop("GREPTIMEDB_TPU_PARTIAL_CACHE")
+        else:
+            os.environ["GREPTIMEDB_TPU_PARTIAL_CACHE"] = saved
+
+
+def _drive(pair, queries):
+    rng = np.random.default_rng(7)
+    out = {}
+    pair.write("cpu", _cpu_writes(rng, 0, POINTS, 50))
+    pair.write("lww", _lww_writes(rng, 12, 0))
+    out["memtable"] = pair.run(queries)
+    pair.both("ADMIN flush_table('cpu')")
+    pair.both("ADMIN flush_table('lww')")
+    pair.write("cpu", _cpu_writes(rng, POINTS, POINTS + EXTRA_POINTS, 10))
+    pair.write("lww", _lww_writes(rng, 4, 12))
+    out["flushed"] = pair.run(queries)
+    pair.reopen()
+    out["reopened"] = pair.run(queries)
+    for table in ("cpu", "lww"):
+        pair.both(f"ADMIN flush_table('{table}')")
+        pair.both(f"ADMIN compact_table('{table}')")
+    out["compacted"] = pair.run(queries)
+    return out
+
+
+def run_both(queries):
+    """[(jax rows, port rows, jax last_path, port last_path)] per query,
+    states in order."""
+    return [r for s in STATES for r in run_states(queries)[s]]
 
 
 def _plain(rows):
@@ -158,22 +296,6 @@ def _plain(rows):
                      else (str(v) if isinstance(v, (str, np.str_))
                            else int(v))) for v in r])
     return out
-
-
-def run_both(queries):
-    """[(jax rows, port rows, jax last_path, port last_path)] per query."""
-    with tempfile.TemporaryDirectory() as d:
-        jengine, jqe = _jax_engines(d)
-        tqe = _port_engine(jengine, jqe)
-        out = []
-        for sql in queries:
-            jr = jqe.execute_one(sql)
-            jpath = jqe.executor.last_path
-            tr = tqe.execute_one(sql)
-            out.append((_plain(jr.rows()), _plain(tr.rows()), jpath,
-                        tqe.executor.last_path))
-        jengine.close()
-        return out
 
 
 def _assert_same(jrows, trows):
@@ -187,22 +309,46 @@ def _assert_same(jrows, trows):
                 assert a == b, (jr, tr)
 
 
+def _assert_path(sql, jpath, tpath):
+    assert tpath == KNOWN_PATHS.get(sql, {}).get(jpath, jpath), \
+        (sql, jpath, tpath)
+
+
 @pytest.fixture(scope="module")
 def results():
-    return run_both(QUERIES)
+    return run_states(QUERIES)
 
 
-@pytest.mark.parametrize("i", range(len(QUERIES)))
-def test_same_rows_and_path(results, i):
-    jrows, trows, jpath, tpath = results[i]
+# the memtable state keeps the ids the single-state version of this test had
+_CASES = [pytest.param(s, i, id=str(i) if s == "memtable" else f"{s}-{i}")
+          for s in STATES for i in range(len(QUERIES))]
+
+
+@pytest.mark.parametrize("state,i", _CASES)
+def test_same_rows_and_path(results, state, i):
+    jrows, trows, jpath, tpath = results[state][i]
     assert jrows, "the query must return rows"
     _assert_same(jrows, trows)
-    assert tpath == jpath
+    _assert_path(QUERIES[i], jpath, tpath)
+
+
+@pytest.mark.parametrize("state,before", [("reopened", "flushed"),
+                                          ("compacted", "reopened")])
+def test_port_rows_survive_restart_and_compaction(results, state, before):
+    """No write between the states: the port answers as before (rows of
+    a query without ORDER BY in any order: compaction reorders a scan)."""
+    for sql, (_, a, _, _), (_, b, _, _) in zip(QUERIES, results[before],
+                                               results[state]):
+        if " ORDER BY " not in sql.rsplit(" FROM ", 1)[-1]:
+            a, b = (sorted(r, key=lambda row: [str(v) for v in row[:2]])
+                    for r in (a, b))
+        _assert_same(a, b)
 
 
 def test_fused_route_matches_with_pallas_on():
     """GREPTIMEDB_TPU_PALLAS=on: both packages take dense_fused (the JAX
-    kernel in interpret mode, the port's kernel as its plain version)."""
+    kernel in interpret mode, the port's kernel as its plain version), in
+    every state."""
     env = dict(os.environ, GREPTIMEDB_TPU_PALLAS="on", JAX_PLATFORMS="cpu")
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
@@ -214,9 +360,86 @@ def test_fused_route_matches_with_pallas_on():
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(out) == 10 * len(STATES)
     fused = 0
-    for jrows, trows, jpath, tpath in out:
+    for k, (jrows, trows, jpath, tpath) in enumerate(out):
         _assert_same(jrows, trows)
-        assert tpath == jpath
+        _assert_path(QUERIES[k % 10], jpath, tpath)
         fused += "dense_fused" in (tpath or "")
-    assert fused >= 5
+    assert fused >= 5 * len(STATES)
+
+
+def test_load_table_serves_a_jax_scan(tmp_path):
+    """interop.load_table: the port bulk-loads a JAX scan's arrays (with
+    their sequences and tombstones) and answers as the JAX engine."""
+    from greptimedb_tpu_torch import interop
+    from greptimedb_tpu_torch.catalog import Catalog, MemoryKv
+    from greptimedb_tpu_torch.query import QueryEngine
+    from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
+
+    rng = np.random.default_rng(3)
+    pair = Pair(str(tmp_path))
+    try:
+        pair.write("cpu", _cpu_writes(rng, 0, 40, 40))
+        pair.write("lww", _lww_writes(rng, 8, 0))
+        qe = QueryEngine(Catalog(MemoryKv()), RegionEngine(
+            EngineConfig(data_dir=str(tmp_path / "loaded")), device="cpu"),
+            device="cpu")
+        for name in ("cpu", "lww"):
+            info = pair.jqe.catalog.table("public", name)
+            scan = pair.jengine.scan(info.region_ids[0])
+            spec = [(c.name, c.dtype.value, c.semantic.value, c.nullable)
+                    for c in info.schema.columns]
+            interop.load_table(qe, name, spec, dict(scan.columns),
+                               dict(scan.tag_dicts), seq=scan.seq,
+                               op_type=scan.op_type,
+                               options=dict(info.options))
+        for sql in (QUERIES[3], QUERIES[4], QUERIES[17], QUERIES[19]):
+            _assert_same(_plain(pair.jqe.execute_one(sql).rows()),
+                         _plain(qe.execute_one(sql).rows()))
+        qe.region_engine.close()
+    finally:
+        pair.close()
+
+
+def test_post_flush_write_uploads_only_the_tail(tmp_path):
+    """After a flush, a small write and a re-query: every block of the SST
+    parts hits the device hot set (file-anchored keys outlive the data
+    version) and only the memtable tail's blocks upload."""
+    from greptimedb_tpu_torch import interop
+    from greptimedb_tpu_torch.catalog import Catalog, MemoryKv
+    from greptimedb_tpu_torch.query import QueryEngine
+    from greptimedb_tpu_torch.query.physical import _block_plan
+    from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
+
+    engine = RegionEngine(EngineConfig(data_dir=str(tmp_path)), device="cpu")
+    qe = QueryEngine(Catalog(MemoryKv()), engine, device="cpu")
+    qe.execute_one(CREATE[0])
+    rng = np.random.default_rng(5)
+    interop.replay_writes(qe, "cpu", _cpu_writes(rng, 0, 100, 50))
+    qe.execute_one("ADMIN flush_table('cpu')")
+    interop.replay_writes(qe, "cpu", _cpu_writes(rng, 100, 130, 30))
+    qe.execute_one("ADMIN flush_table('cpu')")
+    interop.replay_writes(qe, "cpu", _cpu_writes(rng, 130, 140, 10))
+    sql = QUERIES[3]
+    want = qe.execute_one(sql).rows()
+    cache = qe.executor.cache
+    h2d, hits, misses = cache.h2d_bytes, cache.hits, cache.misses
+    # one more point for every host, past the query's window
+    interop.replay_writes(qe, "cpu", _cpu_writes(rng, POINTS, POINTS + 1, 1))
+    assert qe.execute_one(sql).rows() == want
+    rid = qe.catalog.table("public", "cpu").region_ids[0]
+    scan = engine.scan(rid)
+    plan = _block_plan(scan)
+    sst_blocks = [e for e in plan if e.pkey is not None]
+    tail = [e for e in plan if e.pkey is None]
+    assert len(sst_blocks) == 2 and len(tail) == 1
+    planes = (cache.misses - misses) // len(tail)
+    assert planes >= 2  # key columns and the prepared plane
+    assert cache.misses - misses == planes * len(tail)
+    assert cache.hits - hits == planes * len(sst_blocks)
+    # the first run uploaded every block (the cache started empty); the
+    # re-query uploads the tail's share of it
+    assert (cache.h2d_bytes - h2d) * sum(e.block for e in plan) \
+        == h2d * tail[0].block
+    engine.close()

@@ -1,5 +1,5 @@
 """The port's boundaries: greptimedb_tpu_torch and chip_smoke.py import
-nothing of JAX or of the JAX package (and no top-level pyarrow); engines
+nothing of JAX, of the JAX package or of pyarrow, at any level; engines
 run on CUDA unless asked for the CPU and raise when CUDA is absent; the
 hot set makes a warm repeat upload nothing; statements outside this
 slice raise a typed error."""
@@ -17,7 +17,7 @@ from greptimedb_tpu_torch import config
 from greptimedb_tpu_torch.catalog import Catalog, MemoryKv
 from greptimedb_tpu_torch.query import QueryEngine, UnsupportedStatement
 from greptimedb_tpu_torch.query.expr import PlanError
-from greptimedb_tpu_torch.storage import RegionEngine
+from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "greptimedb_tpu_torch")
@@ -51,8 +51,10 @@ def test_port_imports_no_jax_and_no_jax_package(path):
         tree = ast.parse(f.read())
     for mod, top_level in _imports(tree):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "greptimedb_tpu"), (path, mod)
-        assert not (root == "pyarrow" and top_level), (path, mod)
+        # pyarrow is absent on the card's machine: a lazy import would
+        # fail there only
+        assert root not in ("jax", "jaxlib", "greptimedb_tpu", "pyarrow"), \
+            (path, mod, top_level)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -66,17 +68,24 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def _engine(device="cpu"):
-    return QueryEngine(Catalog(MemoryKv()), RegionEngine(), device=device)
+def _engine(data_dir, device="cpu"):
+    engine = RegionEngine(EngineConfig(data_dir=str(data_dir)), device=device)
+    return QueryEngine(Catalog(MemoryKv()), engine, device=device)
 
 
-def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
+def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch,
+                                                           tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        QueryEngine(Catalog(MemoryKv()), RegionEngine())
+        RegionEngine(EngineConfig(data_dir=str(tmp_path / "a")))
+    cpu_engine = RegionEngine(EngineConfig(data_dir=str(tmp_path / "b")),
+                              device="cpu")
+    assert cpu_engine.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QueryEngine(Catalog(MemoryKv()), cpu_engine)
     with pytest.raises(RuntimeError):
         config.device("cuda:0")
-    assert _engine().device == torch.device("cpu")
+    assert _engine(tmp_path / "c").device == torch.device("cpu")
 
 
 def test_compute_dtype_follows_device_and_env(monkeypatch):
@@ -103,8 +112,8 @@ def _cpu_table(qe, n_hosts=4, points=50):
     qe.execute_one("INSERT INTO cpu VALUES " + ", ".join(rows))
 
 
-def test_warm_repeat_uploads_nothing():
-    qe = _engine()
+def test_warm_repeat_uploads_nothing(tmp_path):
+    qe = _engine(tmp_path)
     _cpu_table(qe)
     sql = ("SELECT date_bin(INTERVAL '1 minute', ts) AS m, host, avg(u), "
            "max(s) FROM cpu GROUP BY m, host ORDER BY m, host")
@@ -122,8 +131,8 @@ def test_warm_repeat_uploads_nothing():
     assert cache.resident_bytes <= 2 * uploaded
 
 
-def test_drop_table_frees_region_and_blocks():
-    qe = _engine()
+def test_drop_table_frees_region_and_blocks(tmp_path):
+    qe = _engine(tmp_path)
     _cpu_table(qe)
     qe.execute_one("SELECT host, sum(u) FROM cpu GROUP BY host")
     assert qe.executor.cache.resident_bytes > 0
@@ -135,21 +144,21 @@ def test_drop_table_frees_region_and_blocks():
 
 
 @pytest.mark.parametrize("sql", [
-    "ALTER TABLE cpu ADD COLUMN x DOUBLE",
+    "COPY cpu TO 'cpu.parquet'",
     "SHOW TABLES",
-    "DELETE FROM cpu WHERE host = 'h0'",
+    "ADMIN rollup_table('cpu', '1m')",
     "TQL EVAL (0, 10, '5s') up",
     "SELECT a.u FROM cpu a JOIN cpu b ON a.ts = b.ts",
 ])
-def test_statements_outside_the_slice_raise_typed_errors(sql):
-    qe = _engine()
+def test_statements_outside_the_slice_raise_typed_errors(sql, tmp_path):
+    qe = _engine(tmp_path)
     _cpu_table(qe, points=2)
     with pytest.raises(UnsupportedStatement, match="slice"):
         qe.execute_one(sql)
 
 
-def test_group_space_past_the_dense_budget_raises(monkeypatch):
-    qe = _engine()
+def test_group_space_past_the_dense_budget_raises(monkeypatch, tmp_path):
+    qe = _engine(tmp_path)
     _cpu_table(qe)
     monkeypatch.setenv("GREPTIMEDB_TPU_DENSE_GROUPS_MAX", "10")
     with pytest.raises(PlanError, match="sparse"):
@@ -157,15 +166,15 @@ def test_group_space_past_the_dense_budget_raises(monkeypatch):
                        "host, max(u) FROM cpu GROUP BY b, host")
 
 
-def test_host_aggregates_raise_until_ported():
-    qe = _engine()
+def test_host_aggregates_raise_until_ported(tmp_path):
+    qe = _engine(tmp_path)
     _cpu_table(qe, points=2)
     with pytest.raises(PlanError, match="not in this slice"):
         qe.execute_one("SELECT host, median(u) FROM cpu GROUP BY host")
 
 
-def test_select_without_table_and_empty_scan():
-    qe = _engine()
+def test_select_without_table_and_empty_scan(tmp_path):
+    qe = _engine(tmp_path)
     assert qe.execute_one("SELECT 1 + 2").rows() == [[3]]
     qe.execute_one("CREATE TABLE e (h STRING, ts TIMESTAMP(3) NOT NULL, "
                    "v DOUBLE, TIME INDEX (ts), PRIMARY KEY (h))")
