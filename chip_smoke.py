@@ -16,7 +16,8 @@ greptimedb_tpu_torch/_build/. Phases:
    the plain version run on float64 copies of the same inputs. Each
    kernel is timed with CUDA events (median of 7 after a warm-up) beside
    its plain version, one library call where PyTorch has one, and the
-   least time the card could take (and its share of that time). K1 also
+   least time the card could take (and its share of that time). K2 is
+   also timed at the sparse route's shape. K1 also
    runs cases that reach each branch of its windowed design (host-major
    ids, frequent window re-bases, column groups, tiny and ragged n, all
    rows dead, G = 2), logs the plan it launched and its device counters,
@@ -38,11 +39,32 @@ greptimedb_tpu_torch/_build/. Phases:
    for every host) and a re-query of double_groupby_all must upload only
    the memtable tail's blocks: the SST parts' blocks are keyed by file
    and hit. The compaction must drop exactly the old files' device
-   blocks. Then a small non-append table with duplicate keys and
+   blocks. These checks run with the partial-aggregate cache off
+   (GREPTIMEDB_TPU_PARTIAL_CACHE=0, set in this process around them).
+   Then, each with its kernels' counts zeroed just before and read just
+   after, on the same table:
+   - the sparse route: hostname x minute (2,880,000 groups past the
+     dense budget) takes `sparse_fused`, one K2 call and no K1, cache
+     off; with the cache on it folds per-part sparse partials
+     (`incremental_sparse`): every part misses cold, hits warm, and the
+     warm repeat launches K2 only for the memtable tail;
+   - the six queries with the cache on in each storage state (a cold
+     fill, the warm repeat folding only the tail, still all hits after
+     the small write, misses again after the restart, the classic route
+     for scans of the compacted file past one device block), warm p50
+     beside the cache-off p50;
+   - host order statistics: median and percentile beside an avg on K2,
+     and a sparse query with a median, exact under host_agg.py's rule.
+   Then bench.py's high-cardinality table (config #5: 1,000,000 tags x
+   10 points through RegionEngine.put, flushed), `SELECT tag, sum(v)`
+   through K1 at G = 1,000,002 with the cache off and K2 a part with it
+   on. Then a small non-append table with duplicate keys and
    tombstones, flushed between its write batches and then compacted,
    goes through last-write-wins dedup and is held against a Python
    oracle. The data directories are removed at the end.
-4. A `kernels` JSON line, the card line, and the result line.
+4. A `kernels` JSON line (with each kernel's launches on every path and
+   K2's time at the sparse route's shape), the card line, and the
+   result line.
 
 Exits non-zero, and prints no result line, when CUDA is unavailable, the
 port is not beside this script, or any check fails.
@@ -69,6 +91,11 @@ F64_OPS_PER_S = 34e12
 HOSTS = 4000
 HOURS = 12
 STEP_S = 10
+# the sparse query's shape on that table: hostname x minute groups, and
+# the whole scan padded as ops/blocks.py::block_size_for pads it (the
+# ingest's rows, 1M-row buckets past 1M)
+SPARSE_U = HOSTS * HOURS * 60
+SPARSE_PAD_ROWS = -(-HOSTS * HOURS * 3600 // STEP_S // (1 << 20)) * (1 << 20)
 T0_MS = 1456790400000  # 2016-03-01T00:00:00Z
 FIELDS = [f"usage_{n}" for n in (
     "user", "system", "idle", "nice", "iowait", "irq", "softirq",
@@ -456,6 +483,12 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
         # F = 1 past 48 KB: the global branch's one-lane instance
         (1_000_000, 1, 4097, 4096, 64, 0.2, f32, mmq, "runs"),
         (1_000_000, 1, 4097, 4096, 1, 0.2, f64, mm, "random"),
+        # the sparse route's one call (check 1 of the main path): the
+        # padded whole scan of the `cpu` table sorted by hostname x minute,
+        # compact ids rising by one every 6 rows, U = 2,880,000 groups +
+        # the dead slot, F = 2 (avg(usage_user), max(usage_system))
+        (SPARSE_PAD_ROWS, 2, SPARSE_U + 1, SPARSE_U, 6, 0.0, f32,
+         (False, True, False), "compact"),
     ]
     branches = set()  # (dtype, F > 1, privatized) of the cases run
     for idx, (n, f, g, nb, run, dead, dtype, want, kind) in enumerate(cases):
@@ -464,6 +497,9 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
             ids = torch.randint(0, nb, (n,), generator=gen, device=dev,
                                 dtype=torch.int32)
             ids[torch.rand(n, generator=gen, device=dev) < dead] = nb
+        elif kind == "compact":  # sorted; the padding rows dead at the end
+            ids = torch.clamp(torch.arange(n, device=dev) // run,
+                              max=nb).to(torch.int32)
         else:
             ids = time_major_ids(n, nb, run, dead, gen, dev)
         vals = k2_values(n, f, dtype, kind, ids, gen, dev)
@@ -524,7 +560,7 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
     # every instance of the kernel ran: f32 and f64, F = 1 and F > 1,
     # privatized and global
     check(len(branches) == 8, f"K2 branches run: {sorted(map(str, branches))}")
-    return {"cases": k2, "headline": k2[3]}
+    return {"cases": k2, "headline": k2[3], "sparse": k2[-1]}
 
 
 def kernel_phase(sk, lib, torch) -> dict:
@@ -644,6 +680,8 @@ DEVICE = None
 #: decoded SST parts a region keeps on the host: the whole table's parts
 #: under every projection the six queries use stay decoded
 PART_CACHE_BYTES = 16 << 30
+#: the partial-aggregate cache's byte budget in this run
+PARTIAL_CACHE_BYTES = 2 << 30
 #: rows a put (about 2M, as bench.py batches) and the auto-flush
 #: threshold (EngineConfig's default, 256 MB of memtable)
 BATCH_ROWS = 1 << 21
@@ -865,6 +903,25 @@ def device_breakdown(fn, torch) -> dict:
             "top": [[k[:60], v] for k, v in top]}
 
 
+def host_breakdown(fn, top: int = 8) -> dict:
+    """One run of `fn` under cProfile: host wall ms and the `top`
+    functions by own time (ms), to say where a host-bound query's time
+    goes. The profiler slows Python calls, so the shares matter, not the
+    sum."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t = time.perf_counter()
+    prof.runcall(fn)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((v[2], f"{os.path.basename(k[0])}:{k[1]}:{k[2]}")
+                   for k, v in stats.items()), reverse=True)[:top]
+    return {"wall_ms": wall_ms,
+            "top_own_ms": [[name, own * 1e3] for own, name in rows]}
+
+
 def sync(torch):
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -909,6 +966,9 @@ def run_queries(qe, sk, torch, grid, state, timed, lib=None) -> dict:
             log(f"{state} profile {name} (one warm run, profiler on): "
                 + json.dumps(device_breakdown(lambda: qe.execute_one(sql),
                                               torch)))
+        if timed and name == "double_groupby_all":
+            log(f"{state} host breakdown of a warm {name}: "
+                + json.dumps(host_breakdown(lambda: qe.execute_one(sql))))
     launches = {"segment_sum": sk.segment_sum.launches,
                 "fused_segment_agg": sk.fused_segment_agg.launches}
     log(f"{state} launches: " + json.dumps(launches))
@@ -937,8 +997,15 @@ def main_path_phase(sk, torch, lib=None) -> dict:
     import tempfile
 
     from greptimedb_tpu_torch import config
-    from greptimedb_tpu_torch.ops.blocks import block_size_for
+    from greptimedb_tpu_torch.ops.blocks import (
+        DEFAULT_BLOCK_ROWS,
+        block_size_for,
+    )
 
+    # whether the compacted file of the whole table spans several device
+    # blocks (the fold's one-block-per-part gate)
+    full_multi = block_size_for(HOSTS * (HOURS * 3600 // STEP_S + 1)) \
+        > DEFAULT_BLOCK_ROWS
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         du = shutil.disk_usage(root)
@@ -951,9 +1018,19 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         rid = info.region_ids[0]
         check(len(engine.region(rid).files) >= 2,
               "ingest: the auto-flush left fewer than two SSTs")
-        # 2. the six queries: the main path's launch counts come from here
-        main = run_queries(qe, sk, torch, grid, "ingest", True, lib)
+        # 2. the six queries on the classic routes (the partial cache
+        # off): the main path's launch counts come from here
+        with partial_cache(False):
+            main = run_queries(qe, sk, torch, grid, "ingest", True, lib)
         log("hot set after the queries: " + hot_set_line(qe, torch))
+        # the sparse route, cache off then on; the six queries and the
+        # host aggregates with the cache on
+        sparse = sparse_phase(qe, sk, torch, grid, engine.region(rid))
+        cached = {"ingest": run_cached_queries(
+            qe, sk, torch, grid, "ingest", main["queries"],
+            engine.region(rid), full_multi)}
+        with partial_cache(True):
+            host_aggs = host_agg_phase(qe, sk, torch, grid)
 
         # 3. one more 10 s step for every host, then the re-query: the SST
         # parts' file-anchored blocks hit, only the memtable tail uploads
@@ -966,7 +1043,8 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         before = dict(cache.h2d_by_anchor)
         h2d0, hits0 = cache.h2d_bytes, cache.hits
         sql = tsbs_queries()["double_groupby_all"][0]
-        res = qe.execute_one(sql)
+        with partial_cache(False):
+            res = qe.execute_one(sql)
         check_result("double_groupby_all", res, grid)
         tail_rows = engine.region(rid).memtable.num_rows
         elem = torch.finfo(config.compute_dtype(qe.device)).bits // 8
@@ -984,6 +1062,8 @@ def main_path_phase(sk, torch, lib=None) -> dict:
               and step3["h2d_bytes"] == want,
               "the re-query after a small write uploaded more than the "
               "memtable tail's blocks")
+        cached["write"] = run_cached_queries(
+            qe, sk, torch, grid, "write", {}, engine.region(rid), full_multi)
 
         # 4. flush, close, reopen on the same data dir in this process
         t = time.perf_counter()
@@ -999,7 +1079,11 @@ def main_path_phase(sk, torch, lib=None) -> dict:
             "wal_entries_replayed": region.replayed_entries,
             "sst_files": len(region.files), "sst_bytes": region.sst_bytes,
             "memtable_rows": region.memtable.num_rows}))
-        reopened = run_queries(qe, sk, torch, grid, "reopened", False, lib)
+        with partial_cache(False):
+            reopened = run_queries(qe, sk, torch, grid, "reopened", False,
+                                   lib)
+        cached["reopened"] = run_cached_queries(
+            qe, sk, torch, grid, "reopened", {}, region, full_multi)
 
         # 5. full compaction: sort_dedup on the engine's device
         cache = qe.executor.cache
@@ -1007,7 +1091,8 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         check({k[2] for k in cache.file_keys(rid)} == old,
               "reopened: the SST blocks are not all resident")
         t = time.perf_counter()
-        qe.execute_one("ADMIN compact_table('cpu')")
+        with partial_cache(False):
+            qe.execute_one("ADMIN compact_table('cpu')")
         compact_s = time.perf_counter() - t
         left = {k[2] for k in cache.file_keys(rid)}
         log("compaction: " + json.dumps({
@@ -1016,14 +1101,492 @@ def main_path_phase(sk, torch, lib=None) -> dict:
             "stale_blocks_left": len(left & old)}))
         check(len(region.files) == 1 and not left & old,
               "compaction: the old files' device blocks outlived them")
-        compacted = run_queries(qe, sk, torch, grid, "compacted", False, lib)
+        with partial_cache(False):
+            compacted = run_queries(qe, sk, torch, grid, "compacted", False,
+                                    lib)
         check({k[2] for k in cache.file_keys(rid)} == set(region.files),
               "compacted: the merged file's blocks were not rebuilt")
+        cached["compacted"] = run_cached_queries(
+            qe, sk, torch, grid, "compacted", {}, region, full_multi)
         engine.close()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": main["launches"], "queries": main["queries"],
-            "reopened": reopened, "compacted": compacted}
+            "reopened": reopened, "compacted": compacted, "sparse": sparse,
+            "cached": cached, "host_aggs": host_aggs}
+
+
+# ---- the slice-3 routes: sparse, incremental, host aggregates --------------
+
+
+class partial_cache:
+    """GREPTIMEDB_TPU_PARTIAL_CACHE set in this process for a block: the
+    JAX package's own switch of the incremental fold (default on)."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        self.saved = os.environ.get("GREPTIMEDB_TPU_PARTIAL_CACHE")
+        os.environ["GREPTIMEDB_TPU_PARTIAL_CACHE"] = "1" if self.on else "0"
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("GREPTIMEDB_TPU_PARTIAL_CACHE", None)
+        else:
+            os.environ["GREPTIMEDB_TPU_PARTIAL_CACHE"] = self.saved
+        return False
+
+
+def sparse_sql() -> str:
+    return ("SELECT hostname, date_bin(INTERVAL '1 minute', ts) AS minute, "
+            "avg(usage_user), max(usage_system), count(*) FROM cpu "
+            "GROUP BY hostname, minute ORDER BY hostname, minute")
+
+
+def host_order() -> np.ndarray:
+    """Host indices in the order ORDER BY hostname gives them."""
+    return np.argsort(np.asarray([f"host_{i}" for i in range(HOSTS)]),
+                      kind="stable")
+
+
+def check_host_blocks(col, per: int, what: str) -> np.ndarray:
+    """`col` holds HOSTS runs of `per` equal hostnames in ORDER BY order:
+    returns the run heads' host indices after checking every row."""
+    names = np.asarray(col, dtype=object).reshape(HOSTS, per)
+    check(bool((names == names[:, :1]).all()), f"{what}: hostname runs")
+    heads = host_index(names[:, 0])
+    check(np.array_equal(heads, host_order()), f"{what}: hostname order")
+    return heads
+
+
+def check_sparse_result(res, grid, what) -> None:
+    """The sparse query against the float64 oracle over every point in
+    `grid`, on arrays: keys, avg (f32 compute, rtol 1e-5), max (the f32
+    cast of the f64 max, exact) and count (exact)."""
+    pts = next(iter(grid.values())).shape[0]
+    minutes = -(-pts // 6)
+    cols = {n: np.asarray(c) for n, c in zip(res.names, res.columns)}
+    check(res.num_rows == HOSTS * minutes,
+          f"{what}: {res.num_rows} rows, expected {HOSTS * minutes}")
+    order = check_host_blocks(cols["hostname"], minutes, what)
+    check(np.array_equal(cols["minute"].astype(np.int64),
+                         np.tile(T0_MS + np.arange(minutes) * 60_000,
+                                 HOSTS)), f"{what}: minute keys")
+
+    def per_minute(f, how):
+        x = grid[f]
+        pad = minutes * 6 - pts
+        if pad:  # the last minute holds fewer points
+            x = np.concatenate([x, np.full((pad, HOSTS), np.nan)])
+        return how(x.reshape(minutes, 6, HOSTS), axis=1)[:, order].T \
+            .reshape(-1)
+
+    want_avg = per_minute("usage_user", np.nanmean)
+    got = cols["avg(usage_user)"].astype(np.float64)
+    check(np.allclose(got, want_avg, rtol=1e-5, atol=0),
+          f"{what}: avg max rel err "
+          f"{np.max(np.abs(got - want_avg) / np.abs(want_avg))}")
+    check(np.array_equal(cols["max(usage_system)"].astype(np.float64),
+                         f32_exact(per_minute("usage_system", np.nanmax))),
+          f"{what}: max")
+    want_n = per_minute("usage_user", lambda a, axis: (~np.isnan(a)).sum(
+        axis=axis))
+    check(np.array_equal(cols["count(*)"].astype(np.int64), want_n),
+          f"{what}: count")
+
+
+def launches(sk) -> tuple:
+    return sk.segment_sum.launches, sk.fused_segment_agg.launches
+
+
+def zero_launches(sk) -> None:
+    sk.segment_sum.launches = 0
+    sk.fused_segment_agg.launches = 0
+
+
+def timed_query(qe, sql, torch):
+    sync(torch)
+    t = time.perf_counter()
+    res = qe.execute_one(sql)
+    sync(torch)
+    return res, (time.perf_counter() - t) * 1e3
+
+
+def sparse_phase(qe, sk, torch, grid, region) -> dict:
+    """Check 1 (cache off): the hostname x minute query over the whole
+    scan takes `sparse_fused`, one K2 call over U + 1 segments, no K1.
+    Check 2 (cache on): the same query folds per-part sparse partials
+    (`incremental_sparse`): every part misses cold and hits warm, and the
+    warm repeat launches K2 only for the memtable tail."""
+    from greptimedb_tpu_torch.ops.blocks import DEFAULT_BLOCK_ROWS
+
+    sql = sparse_sql()
+    out = {}
+    with partial_cache(False):
+        zero_launches(sk)
+        res, cold = timed_query(qe, sql, torch)
+        k1, k2 = launches(sk)
+        path = qe.executor.last_path
+        st = qe.executor.last_sparse_stats
+        check(path == "sparse_fused", f"sparse: last_path {path}")
+        check(k2 == 1 and k1 == 0, f"sparse: K1 {k1}, K2 {k2} launches, "
+              "expected K2 once and no K1")
+        check_sparse_result(res, grid, "sparse")
+        check(st["groups"] == res.num_rows, f"sparse: observed {st}")
+        warm = [timed_query(qe, sql, torch)[1] for _ in range(3)]
+        prof = device_breakdown(lambda: qe.execute_one(sql), torch) \
+            if torch.cuda.is_available() else None
+        out["sparse"] = {"last_path": path, "k1_launches": k1,
+                         "k2_launches": k2, "cold_ms": cold,
+                         "warm_p50_ms": float(np.median(warm)), **st,
+                         "profile": prof,
+                         "host": host_breakdown(lambda: qe.execute_one(sql))}
+        log("sparse query: " + json.dumps(out["sparse"]))
+        want = res
+    with partial_cache(True):
+        runs = []
+        for label in ("cold", "warm"):
+            zero_launches(sk)
+            res, ms = timed_query(qe, sql, torch)
+            k1, k2 = launches(sk)
+            st = dict(qe.executor.last_partial_stats or {})
+            runs.append({"run": label, "last_path": qe.executor.last_path,
+                         "ms": ms, "k1_launches": k1, "k2_launches": k2,
+                         **st})
+            check(runs[-1]["last_path"] == "incremental_sparse",
+                  f"incremental sparse {label}: {runs[-1]['last_path']}")
+            check_sparse_result(res, grid, f"incremental sparse {label}")
+            if label == "cold":
+                cold_res = res
+        cold, warm = runs
+        mem_rows = region.memtable.num_rows
+        mem_blocks = -(-mem_rows // DEFAULT_BLOCK_ROWS)
+        check(cold["parts"] == len(region.files) and cold["part_hits"] == 0
+              and cold["part_misses"] == cold["parts"],
+              f"incremental sparse cold: {cold}")
+        check(warm["part_hits"] == warm["parts"] and warm["part_misses"] == 0
+              and warm["delta_rows"] == warm["memtable_rows"] == mem_rows,
+              f"incremental sparse warm: {warm}")
+        check(warm["k2_launches"] == mem_blocks and warm["k1_launches"] == 0
+              and cold["k2_launches"] == cold["parts"] + mem_blocks,
+              f"incremental sparse launches: cold {cold}, warm {warm}")
+        # the warm serve reuses the cached partials: equal to the cold one
+        for a, b in zip(cold_res.columns, res.columns):
+            check(np.array_equal(np.asarray(a), np.asarray(b)),
+                  "incremental sparse: warm differs from cold")
+        # the fold and the whole-scan route give the same groups
+        for name in ("hostname", "minute", "count(*)", "max(usage_system)"):
+            i = res.names.index(name)
+            check(np.array_equal(np.asarray(res.columns[i]),
+                                 np.asarray(want.columns[i])),
+                  f"incremental sparse {name} differs from sparse_fused")
+        warm_ms = [timed_query(qe, sql, torch)[1] for _ in range(2)]
+        warm["warm_p50_ms"] = float(np.median([warm["ms"]] + warm_ms))
+        warm["host"] = host_breakdown(lambda: qe.execute_one(sql))
+        out["incremental_sparse"] = runs
+        log("incremental sparse: " + json.dumps(runs))
+    return out
+
+
+def cached_expectations(state, full_multi_block) -> dict:
+    """Route of each of the six queries with the partial cache on.
+    Compacted: one file; a query whose scan keeps the whole file spans
+    several device blocks past 8M rows, and the fold takes the classic
+    route ("multi-block part"), as in the JAX package."""
+    want = {name: ("bucket_topk+incremental" if name ==
+                   "groupby_orderby_limit" else
+                   None if name == "high_cpu_all" else "incremental")
+            for name in tsbs_queries()}
+    if state == "compacted" and full_multi_block:
+        for name in ("double_groupby_all", "lastpoint"):
+            want[name] = tsbs_queries()[name][1]
+    return want
+
+
+def run_cached_queries(qe, sk, torch, grid, state, off, region,
+                       full_multi_block) -> dict:
+    """The six queries with the partial cache on: a cold run and three
+    warm repeats each, rows against the oracle, route and part stats
+    checked. `state`: "ingest" (a cold fill; warm folds only the tail),
+    "write" (after a small write: still all hits), "reopened" (the
+    region's entries died with its close: misses again), "compacted".
+    `off` has the same state's cache-off results (their warm p50 sits
+    beside this one's)."""
+    from greptimedb_tpu_torch.ops.blocks import DEFAULT_BLOCK_ROWS
+    from greptimedb_tpu_torch.query import partial_cache as pc
+
+    want = cached_expectations(state, full_multi_block)
+    cache = pc.global_cache()
+    out = {}
+    with partial_cache(True):
+        zero_launches(sk)
+        for name, (sql, _, want_rows) in tsbs_queries().items():
+            k0 = launches(sk)
+            fb0 = cache.events["fallback"]
+            res, cold = timed_query(qe, sql, torch)
+            k1 = launches(sk)
+            path = qe.executor.last_path
+            st = qe.executor.last_partial_stats
+            check(path == want[name], f"cache on, {state} {name}: last_path "
+                  f"{path}, expected {want[name]}")
+            check(want_rows is None or res.num_rows == want_rows,
+                  f"cache on, {state} {name}: {res.num_rows} rows")
+            check_result(name, res, grid)
+            warm, wst = [], None
+            for _ in range(3):
+                w0 = launches(sk)
+                wres, ms = timed_query(qe, sql, torch)
+                warm.append(ms)
+                w1 = launches(sk)
+                wst = qe.executor.last_partial_stats
+            check_result(name, wres, grid)
+            if state == "ingest" and name == "double_groupby_all":
+                log("cache on, host breakdown of a warm double_groupby_all: "
+                    + json.dumps(host_breakdown(lambda: qe.execute_one(sql))))
+            rec = {"last_path": path, "cold_ms": cold,
+                   "warm_p50_ms": float(np.median(warm)),
+                   "cache_off_warm_p50_ms": off.get(name, {}).get(
+                       "warm_p50_ms"),
+                   "cold_launches": [k1[0] - k0[0], k1[1] - k0[1]],
+                   "warm_launches": [w1[0] - w0[0], w1[1] - w0[1]],
+                   "cold_stats": st, "warm_stats": wst}
+            out[name] = rec
+            log(f"cache on, {state} query {name}: " + json.dumps(rec))
+            if path is None:
+                continue
+            if "incremental" not in path:
+                check(st is None and cache.events["fallback"] > fb0,
+                      f"cache on, {state} {name}: no typed fallback")
+                continue
+            mem_blocks = -(-wst["memtable_rows"] // DEFAULT_BLOCK_ROWS)
+            check(wst["part_misses"] == 0
+                  and wst["delta_rows"] == wst["memtable_rows"]
+                  and sum(rec["warm_launches"]) == mem_blocks,
+                  f"cache on, {state} {name}: the warm repeat folded more "
+                  f"than the memtable tail: {rec}")
+            if state == "write":
+                check(st["part_misses"] == 0,
+                      f"cache on, write {name}: a write missed parts: {st}")
+            elif name != "groupby_orderby_limit":
+                # bucket top-k's narrowed first scan is new to every state
+                check(st["part_hits"] == 0 and st["part_misses"] > 0,
+                      f"cache on, {state} {name}: cold run hit: {st}")
+    total = launches(sk)
+    log(f"cache on, {state} launches: " + json.dumps(
+        {"segment_sum": total[0], "fused_segment_agg": total[1]}))
+    if state in ("ingest", "reopened"):
+        check(total[0] > 0 and total[1] > 0,
+              f"cache on, {state}: a kernel was not launched: {total}")
+    return {"launches": {"segment_sum": total[0],
+                         "fused_segment_agg": total[1]}, "queries": out}
+
+
+def host_agg_oracle(x: np.ndarray, q: float, first: np.ndarray) -> np.ndarray:
+    """host_agg.py's percentile rule over the k groups of x [n, k]: linear
+    interpolation of the sorted values at pos = first + q/100 * (n - 1),
+    as lo * (1 - frac) + hi * frac. `first` is each group's offset in the
+    module's sorted array (groups in global-id order, n rows each): the
+    rounding of pos, and so frac, depends on it."""
+    s = np.sort(x, axis=0)
+    pos = first + (q / 100.0) * (s.shape[0] - 1)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.ceil(pos).astype(np.int64)
+    frac = pos - lo
+    k = np.arange(s.shape[1])
+    return s[lo - first, k] * (1 - frac) + s[hi - first, k] * frac
+
+
+def host_agg_phase(qe, sk, torch, grid) -> dict:
+    """Check 5: median and percentile on the host beside an avg on K2,
+    over the last hour by hostname; then a sparse query that carries a
+    median (the host pass maps its rows onto the compact slots). Order
+    statistics exact under host_agg.py's rule; avg rtol 1e-5."""
+    from greptimedb_tpu_torch.query import partial_cache as pc
+
+    per_hour = 3600 // STEP_S
+    pts = HOURS * per_hour
+    out = {}
+    # host index -> the rank of its tag code in the region's dictionary
+    rid = qe.catalog.table("public", "cpu").region_ids[0]
+    codes = host_index(np.asarray(
+        qe.region_engine.region(rid).registry.dict_array("hostname")))
+    code_rank = np.empty(HOSTS, dtype=np.int64)
+    code_rank[codes] = np.arange(HOSTS)
+    lo = T0_MS + (HOURS - 1) * 3600 * 1000
+    sql = ("SELECT hostname, avg(usage_user), median(usage_user), "
+           f"percentile(usage_system, 95) FROM cpu WHERE ts >= {lo} "
+           f"AND ts < {T0_MS + pts * STEP_S * 1000} "
+           "GROUP BY hostname ORDER BY hostname")
+    fb0 = pc.global_cache().events["fallback"]
+    zero_launches(sk)
+    res, ms = timed_query(qe, sql, torch)
+    k1, k2 = launches(sk)
+    path = qe.executor.last_path
+    check(path == "dense_fused" and k2 >= 1 and k1 == 0,
+          f"host aggs: {path}, K1 {k1}, K2 {k2}")
+    check(pc.global_cache().events["fallback"] == fb0 + 1,
+          "host aggs: the fold did not fall back (a typed decision)")
+    host, avg, med, p95 = (np.asarray(c) for c in res.columns)
+    order = host_order()
+    check(np.array_equal(host_index(host), order),
+          "host aggs: hostname keys")
+    win = {f: grid[f][pts - per_hour:pts][:, order]
+           for f in ("usage_user", "usage_system")}
+    # the groups sort by tag code: host_<i>'s run starts at its code's
+    # rank (every code is present), per_hour rows a run
+    first = code_rank[order] * per_hour
+    check(np.array_equal(med.astype(np.float64),
+                         host_agg_oracle(win["usage_user"], 50.0, first)),
+          "host aggs: median")
+    check(np.array_equal(p95.astype(np.float64),
+                         host_agg_oracle(win["usage_system"], 95.0, first)),
+          "host aggs: p95")
+    check(np.allclose(avg.astype(np.float64),
+                      win["usage_user"].mean(axis=0), rtol=1e-5, atol=0),
+          "host aggs: avg")
+    out["by_host"] = {"last_path": path, "ms": ms, "k1_launches": k1,
+                      "k2_launches": k2, "rows": res.num_rows}
+    # a sparse key space (270 minutes x 4,001 > the 1M dense budget)
+    minutes = 270
+    lo = T0_MS + (pts * STEP_S * 1000) - minutes * 60_000
+    sql = ("SELECT hostname, date_bin(INTERVAL '1 minute', ts) AS minute, "
+           "median(usage_user), avg(usage_user) FROM cpu "
+           f"WHERE ts >= {lo} AND ts < {T0_MS + pts * STEP_S * 1000} "
+           "GROUP BY hostname, minute ORDER BY hostname, minute")
+    zero_launches(sk)
+    res, ms = timed_query(qe, sql, torch)
+    k1, k2 = launches(sk)
+    path = qe.executor.last_path
+    check(path == "sparse_fused" and k2 == 1 and k1 == 0,
+          f"sparse host aggs: {path}, K1 {k1}, K2 {k2}")
+    host, _, med, avg = (np.asarray(c) for c in res.columns)
+    check(res.num_rows == HOSTS * minutes, "sparse host aggs: rows")
+    order = check_host_blocks(host, minutes, "sparse host aggs")
+    x = grid["usage_user"][pts - minutes * 6:pts].reshape(minutes, 6, HOSTS)
+    x = x[:, :, order].transpose(1, 2, 0).reshape(6, -1)  # [6, host*min]
+    first = (np.repeat(code_rank[order], minutes) * minutes
+             + np.tile(np.arange(minutes), HOSTS)) * 6
+    check(np.array_equal(med.astype(np.float64),
+                         host_agg_oracle(x, 50.0, first)),
+          "sparse host aggs: median")
+    check(np.allclose(avg.astype(np.float64), x.mean(axis=0), rtol=1e-5,
+                      atol=0), "sparse host aggs: avg")
+    out["sparse"] = {"last_path": path, "ms": ms, "k1_launches": k1,
+                     "k2_launches": k2, "rows": res.num_rows,
+                     **qe.executor.last_sparse_stats}
+    log("host aggregates: " + json.dumps(out))
+    return out
+
+
+# ---- high cardinality: BASELINE config #5 ----------------------------------
+
+#: bench.py's config #5 (bench.py:562-620): 1,000,000 tags x 10 points
+HC_COMBOS = 1_000_000
+HC_POINTS = 10
+#: explicit flushes every this many rows (bench.py flushes every 30M rows
+#: and at the end): each SST part stays inside one 8M-row device block,
+#: the incremental fold's one-block-per-part gate
+HC_FLUSH_ROWS = 4_000_000
+
+
+def hc_phase(sk, torch) -> dict:
+    """Check 4: the `hc` table (tag STRING, v DOUBLE, ts; append mode)
+    built through RegionEngine.put with the WAL fsynced, in slices of up
+    to 1 << 21 rows, flushed; then `SELECT tag, sum(v) FROM hc GROUP BY
+    tag` with the cache off (dense_prepared: K1 at G = 1,000,002) and on
+    (incremental_sparse: K2 a part), both held against numpy."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.datatypes import DictVector, RecordBatch
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_hc_")
+    out = {}
+    try:
+        engine, qe = open_engine(root)
+        qe.execute_one("CREATE TABLE hc (tag STRING, v DOUBLE, "
+                       "ts TIMESTAMP(3) NOT NULL, TIME INDEX (ts), "
+                       "PRIMARY KEY (tag)) WITH (append_mode = 'true')")
+        info = qe.catalog.table("public", "hc")
+        rid = info.region_ids[0]
+        rng = np.random.default_rng(13)
+        names = np.asarray([f"t{i:07d}" for i in range(HC_COMBOS)],
+                           dtype=object)
+        per_slice = max(1, (1 << 21) // HC_POINTS)
+        vs = []
+        rows = flushed = 0
+        t = time.perf_counter()
+        for c0 in range(0, HC_COMBOS, per_slice):
+            c1 = min(c0 + per_slice, HC_COMBOS)
+            n = (c1 - c0) * HC_POINTS
+            v = rng.uniform(0, 1, n)
+            vs.append(v)
+            engine.put(rid, RecordBatch(info.schema, {
+                "tag": DictVector(np.repeat(np.arange(c1 - c0,
+                                                      dtype=np.int32),
+                                            HC_POINTS), names[c0:c1]),
+                "ts": np.tile(T0_MS + np.arange(HC_POINTS, dtype=np.int64)
+                              * 1000, c1 - c0),
+                "v": v}))
+            rows += n
+            if rows - flushed >= HC_FLUSH_ROWS:
+                engine.flush(rid)
+                flushed = rows
+        engine.flush(rid)
+        ingest_s = time.perf_counter() - t
+        region = engine.region(rid)
+        out["ingest"] = {"rows": rows, "seconds": ingest_s,
+                         "rows_per_s": rows / ingest_s,
+                         "sst_files": len(region.files),
+                         "wal_fsyncs": engine.wal.sync_count}
+        log("hc ingest: " + json.dumps(out["ingest"]))
+        want = np.concatenate(vs).reshape(HC_COMBOS, HC_POINTS).sum(axis=1)
+        del vs
+        sql = "SELECT tag, sum(v) FROM hc GROUP BY tag"
+        for on, want_path in ((False, "dense_prepared"),
+                              (True, "incremental_sparse")):
+            with partial_cache(on):
+                runs = []
+                for _ in range(3):
+                    zero_launches(sk)
+                    res, ms = timed_query(qe, sql, torch)
+                    runs.append({"ms": ms, "launches": list(launches(sk)),
+                                 "stats": qe.executor.last_partial_stats})
+                path = qe.executor.last_path
+                check(path == want_path, f"hc cache {on}: {path}")
+                check(res.num_rows == HC_COMBOS, f"hc: {res.num_rows} rows")
+                cols = dict(zip(res.names, res.columns))
+                tags = np.asarray(cols["tag"]).astype(str)
+                idx = np.char.lstrip(tags, "t").astype(np.int64)
+                check(np.array_equal(np.sort(idx), np.arange(HC_COMBOS)),
+                      "hc: tag keys")
+                got = np.asarray(cols["sum(v)"], dtype=np.float64)
+                check(np.allclose(got, want[idx], rtol=1e-5, atol=0),
+                      f"hc cache {on}: sum max rel err "
+                      f"{np.max(np.abs(got - want[idx]) / want[idx])}")
+                cold, warm = runs[0], runs[1:]
+                k1, k2 = cold["launches"]
+                if on:
+                    check(k1 == 0 and k2 == len(region.files),
+                          f"hc cache on: cold launches {cold}")
+                    check(all(w["launches"] == [0, 0]
+                              and w["stats"]["part_hits"] == len(region.files)
+                              for w in warm), f"hc cache on: warm {warm}")
+                else:
+                    check(k1 >= 1 and k2 == 0, f"hc cache off: {cold}")
+                out["cache_on" if on else "cache_off"] = {
+                    "last_path": path, "cold_ms": cold["ms"],
+                    "warm_p50_ms": float(np.median([w["ms"] for w in warm])),
+                    "cold_launches": cold["launches"],
+                    "warm_launches": warm[-1]["launches"],
+                    "groups": res.num_rows, "cold_stats": cold["stats"]}
+                log(f"hc query, cache {'on' if on else 'off'}: "
+                    + json.dumps(out["cache_on" if on else "cache_off"]))
+        engine.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def dedup_phase(torch) -> None:
@@ -1119,13 +1682,32 @@ def main() -> int:
     bind_k1_probes(lib)
     log(f"kernels built in {_build.build_seconds:.2f} s "
         f"(load {time.perf_counter() - t:.2f} s): {_build.LIB_PATH}")
+    # the sparse query's per-part partials (about 0.3 GB of keys and
+    # planes for 2.9M groups) pass the partial cache's 256 MB default
+    os.environ.setdefault("GREPTIMEDB_TPU_PARTIAL_CACHE_BYTES",
+                          str(PARTIAL_CACHE_BYTES))
     try:
         kres = kernel_phase(sk, lib, torch)
         main = main_path_phase(sk, torch, lib)
-        dedup_phase(torch)
+        hc = hc_phase(sk, torch)
+        with partial_cache(False):
+            dedup_phase(torch)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    by_path = {"main (cache off, after ingest)": main["launches"],
+               "sparse_fused": {
+                   "segment_sum": main["sparse"]["sparse"]["k1_launches"],
+                   "fused_segment_agg":
+                   main["sparse"]["sparse"]["k2_launches"]},
+               "incremental (cache on, after ingest)":
+               main["cached"]["ingest"]["launches"],
+               "hc dense_prepared": dict(zip(
+                   ("segment_sum", "fused_segment_agg"),
+                   hc["cache_off"]["cold_launches"])),
+               "hc incremental_sparse": dict(zip(
+                   ("segment_sum", "fused_segment_agg"),
+                   hc["cache_on"]["cold_launches"]))}
     sources = {"segment_sum": ("greptimedb_tpu_torch/csrc/segment_sum.cu",
                                "greptimedb_tpu/ops/pallas_segment.py:119"),
                "fused_segment_agg": (
@@ -1140,7 +1722,13 @@ def main() -> int:
             "max_abs_err": h["max_abs_err"], "ms": h["ms"],
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": h["library_ms"],
-            "shape": h["shape"], "G": h["G"]})
+            "shape": h["shape"], "G": h["G"],
+            "launches_by_path": {k: v[name] for k, v in by_path.items()}})
+        if name == "fused_segment_agg":
+            sp = kres[name]["sparse"]
+            kernels[-1]["sparse_shape"] = {
+                k: sp[k] for k in ("shape", "G", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Runtime configuration of the port (counterpart of
 greptimedb_tpu/config.py): the device every tensor lives on, the compute
-dtype of field values inside kernels, and the dense group budget.
+dtype of field values inside kernels, and the group budgets of the dense
+and sparse aggregation routes.
 
 The device is explicit: entry points take `device=` and carry it down to
 every tensor they make. `None` means the CUDA card; a missing card raises
@@ -45,9 +46,22 @@ def compute_dtype(dev: torch.device) -> torch.dtype:
 
 def dense_groups_max() -> int:
     """Largest dense group-id product the aggregate materializes as
-    [G, F] planes. Beyond it the JAX package runs its sparse
-    sort-compact path, which the port does not have yet."""
+    [G, F] planes (1M groups x 10 fields). Beyond it the sparse
+    sort-compact route runs (ops/sparse_segment.py)."""
     return int(os.environ.get("GREPTIMEDB_TPU_DENSE_GROUPS_MAX", str(1 << 20)))
+
+
+def sparse_groups_max() -> int:
+    """Cap on *observed* distinct groups in the sparse aggregate route
+    (output planes are [U, F]); a query observing more raises."""
+    return int(os.environ.get("GREPTIMEDB_TPU_SPARSE_GROUPS_MAX", str(1 << 22)))
+
+
+def sparse_groups_min() -> int:
+    """Key products at or above this ALSO take the sparse route even when
+    they fit the dense budget (0 = off, the default: dense wins while its
+    planes fit)."""
+    return int(os.environ.get("GREPTIMEDB_TPU_SPARSE_GROUPS_MIN", "0"))
 
 
 def device_cache_bytes(dev: torch.device) -> int:

@@ -64,6 +64,8 @@ class QueryEngine:
 
     def execute_sql(self, sql: str, db: str = "public") -> list[QueryResult]:
         self.executor.last_path = None
+        self.executor.last_partial_stats = None
+        self.executor.last_sparse_stats = None
         return [self.execute_statement(s, db) for s in parse_sql(sql)]
 
     def execute_one(self, sql: str, db: str = "public") -> QueryResult:

@@ -1,28 +1,38 @@
 """Physical execution: logical plan -> device kernels over padded column
-blocks (the dense subset of greptimedb_tpu/query/physical.py).
+blocks (counterpart of greptimedb_tpu/query/physical.py).
 
   host scan (columnar)  ->  fixed-shape padded blocks on the device  ->
   per block: WHERE mask + group ids + segment reduction  ->  partial
   combine across blocks  ->  host tail (decode group keys, HAVING / ORDER
   / LIMIT over G rows)
 
-Three aggregation routes, chosen by the JAX package's rules so a query
-takes the same route and `last_path` reads the same on both:
+Aggregation routes, chosen by the JAX package's rules so a query takes
+the same route and `last_path` reads the same on both:
 - `dense_fused`: the fused CUDA kernel over raw value columns
-  (ops/segment_kernels.py::fused_segment_agg);
+  (ops/segment_kernels.py::fused_segment_agg, K2);
 - `dense_prepared`: the CUDA segment-sum kernel over a query-invariant
   [values | validity | ones] plane held in the hot set
-  (ops/segment_kernels.py::segment_sum);
+  (ops/segment_kernels.py::segment_sum, K1);
 - `dense`: plain PyTorch segment reductions for everything else
-  (first/last over expressions, non-field arguments).
-Tensors stay on the executor's device; only the G-row result comes back.
+  (first/last over expressions, non-field arguments);
+- `sparse_fused` / `sparse`: past config.dense_groups_max() the observed
+  group ids are sort-compacted over the whole scan
+  (ops/sparse_segment.py) and reduced by one K2 call, or by plain
+  segment reductions where K2 does not apply;
+- `incremental` / `incremental_sparse`: an aggregate over immutable SST
+  parts folds per-part partials from the partial-aggregate cache
+  (query/partial_cache.py) and computes only uncached parts and the
+  memtable tail, each through the kernel route above;
+- order statistics (median, percentile, argmax, argmin, polyval,
+  count_distinct, string first/last/min/max) run on the host
+  (query/host_agg.py) beside any of the dense or sparse routes.
+Tensors stay on the executor's device; only the result planes come back.
+A kernel that fails raises: no route catches it and serves another.
 
-Left out of this slice (the JAX package's paths, each listed in
-ROADMAP.md): mesh and cluster fan-out, the sparse sort-compact path,
-incremental partial-aggregate caching, streaming beyond device memory,
-lastpoint and boundary first/last pruning, fragment pushdown, tier
-routing, hedged warm-up and vmapped serving. A group key space past
-config.dense_groups_max() raises PlanError instead of going sparse.
+Left out (the JAX package's paths, each listed in ROADMAP.md): mesh and
+cluster fan-out, streaming beyond device memory, lastpoint and boundary
+first/last pruning, fragment pushdown, tier routing and its first-touch
+compile hedges, and vmapped serving.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 from greptimedb_tpu_torch import config
 from greptimedb_tpu_torch.datatypes.types import DataType, SemanticType
 from greptimedb_tpu_torch.ops import segment_kernels
+from greptimedb_tpu_torch.ops import sparse_segment as sparse_ops
 from greptimedb_tpu_torch.ops.blocks import (
     DEFAULT_BLOCK_ROWS,
     block_size_for,
@@ -51,7 +62,9 @@ from greptimedb_tpu_torch.ops.segment import (
     segment_agg,
 )
 from greptimedb_tpu_torch.query import logical as lp
+from greptimedb_tpu_torch.query import partial_cache as pc
 from greptimedb_tpu_torch.query.device_cache import DeviceCache
+from greptimedb_tpu_torch.query.dist_agg import combine_partials
 from greptimedb_tpu_torch.query.expr import (
     BindContext,
     PlanError,
@@ -60,9 +73,10 @@ from greptimedb_tpu_torch.query.expr import (
     eval_device,
     eval_host,
 )
+from greptimedb_tpu_torch.query.host_agg import HOST_AGGS
 from greptimedb_tpu_torch.query.result import QueryResult
 from greptimedb_tpu_torch.sql import ast
-from greptimedb_tpu_torch.storage.region import ScanData
+from greptimedb_tpu_torch.storage.region import OP_PUT, ScanData
 
 _NUMPY_OF = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -79,10 +93,6 @@ _PRIMITIVES = {
     "stddev": ("sum", "sumsq", "count"),
     "variance": ("sum", "sumsq", "count"),
 }
-
-#: order-statistic aggregates the JAX package computes on the host
-#: (query/host_agg.py); not in this slice of the port
-HOST_AGGS = frozenset({"argmax", "argmin", "median", "percentile", "polyval"})
 
 # Route envelope of the fused path, the TPU kernel's shape limits
 # (greptimedb_tpu/ops/pallas_segment.py:52-63). The CUDA kernel has no
@@ -143,6 +153,41 @@ class _BlockEntry(NamedTuple):
     start: int
     end: int
     block: int
+
+
+@dataclass
+class _AggQuery:
+    """One aggregate's device-side shape, shared by every route that can
+    run it (whole-scan dense or sparse, and per part in the incremental
+    fold): the scan, the bound WHERE, the keys and value expressions, the
+    primitive ops, and the packed output layout."""
+
+    scan: ScanData
+    schema: object
+    where: Optional[ast.Expr]
+    keys: tuple
+    arg_exprs: tuple
+    ops: tuple  # sorted primitive ops
+    num_groups: int  # dense key product
+    ts_name: str
+    tag_names: frozenset
+    extra_cols: dict
+    acc_dtype: torch.dtype
+    float_fields: frozenset
+    dedup_mask: Optional[torch.Tensor]
+    float_ops: tuple
+    int_ops: tuple
+    widths: dict
+    pack_dtype: torch.dtype
+
+    @property
+    def arg_names(self) -> tuple:
+        return tuple(getattr(a, "name", None) for a in self.arg_exprs)
+
+    def want(self) -> dict:
+        """The fused kernel's optional planes for these ops."""
+        return {"want_min": "min" in self.ops, "want_max": "max" in self.ops,
+                "want_sumsq": "sumsq" in self.ops}
 
 
 #: ceiling on the part-aligned plan's blocks: a region with many small
@@ -271,16 +316,96 @@ def _agg_scan(blocks, n_valids, dedup_masks, *, where, keys, agg_args, ops,
             num_segments=num_segments, ts_name=ts_name, tag_names=tag_names,
             schema=schema, need_ts=need_ts, acc_dtype=acc_dtype)
         acc = _combine_partials(acc, partial)
+    return _pack_part(acc, float_ops, int_ops, pack_dtype)
+
+
+def _pack_part(part: dict, float_ops, int_ops, pack_dtype):
+    """Pack a segment_agg plane dict into one float and one int matrix
+    (the layout _unpack_acc splits)."""
     parts = []
     for k in float_ops:
-        v = acc[k]
+        v = part[k]
         if v.dim() == 1:
             v = v[:, None]
         parts.append(v.to(pack_dtype))
     packed_f = torch.cat(parts, dim=1)
-    packed_i = torch.stack([acc[k] for k in int_ops], dim=1) if int_ops \
+    packed_i = torch.stack([part[k] for k in int_ops], dim=1) if int_ops \
         else None
     return packed_f, packed_i
+
+
+def _sparse_gid(cols: dict, keys) -> torch.Tensor:
+    """Combined int64 group id per row. Tag codes and bucket bases do not
+    depend on which rows a block holds, so ids computed per part merge
+    globally (the mixed radix of _strides over the keys' sizes; tag codes
+    shift by one so NULL is 0)."""
+    key_arrays = []
+    for k in keys:
+        c = cols[k.column]
+        if k.kind == "tag":
+            arr = c.to(torch.int64) + 1
+        elif k.kind == "bucket":
+            arr = torch.div(c, k.step, rounding_mode="floor") - k.base
+        else:
+            arr = c.to(torch.int64)
+        key_arrays.append(arr.clamp(0, k.size - 1))
+    return combine_group_ids(key_arrays, tuple(k.size for k in keys),
+                             dtype=torch.int64)
+
+
+def _agg_scan_sparse(cols, base_mask, q: _AggQuery, cap: int,
+                     scope: str = "query"):
+    """Sparse (high-cardinality) aggregation over padded columns: sort the
+    observed int64 group ids, compact them to ranks [0, U) and reduce
+    with plain segment reductions over U segments (every op, first/last
+    included). Returns (packed_f, packed_i, uniq [U] int64, U)."""
+    mask = _where_mask(base_mask, q.where, cols, q.tag_names, q.schema)
+    gid = _sparse_gid(cols, q.keys)
+    if q.arg_exprs:
+        values = _value_planes(q.arg_exprs, cols, q.tag_names, q.schema,
+                               mask.shape, q.acc_dtype)
+    else:
+        values = torch.zeros((mask.shape[0], 1), dtype=q.acc_dtype,
+                             device=mask.device)
+    ts = cols[q.ts_name] if {"first", "last"} & set(q.ops) else None
+    part, uniq, u = sparse_ops.sparse_segment_agg(
+        values, gid, mask, cap, ops=q.ops, ts=ts, scope=scope)
+    packed_f, packed_i = _pack_part(part, q.float_ops, q.int_ops,
+                                    q.pack_dtype)
+    return packed_f, packed_i, uniq, u
+
+
+def _agg_scan_sparse_fused(cols, base_mask, q: _AggQuery, cap: int,
+                           scope: str = "query"):
+    """Sparse aggregation with the reductions on K2: sort-compact once,
+    gather the raw field values in sorted order and make ONE
+    fused_segment_agg call over U + 1 segments (the JAX package tiles its
+    Pallas kernel in 4,088-segment windows; K2 has no segment cap).
+    Eligibility (plain finite field columns, the op subset) is the
+    caller's: PhysicalExecutor._sparse_fused_ok."""
+    mask = _where_mask(base_mask, q.where, cols, q.tag_names, q.schema)
+    gid = _sparse_gid(cols, q.keys)
+    order, ids, _, uniq, u = sparse_ops.sort_compact(gid, mask, cap, scope)
+    vals = torch.stack([cols[a].to(q.acc_dtype) for a in q.arg_names],
+                       dim=1)[order]
+    out = sparse_ops.fused_sparse_segment_agg(vals, ids, u, **q.want())
+    packed_f = _pack_float_ops(out["sum"], out["count"],
+                               out["rows"][:, None], out.get("min"),
+                               out.get("max"), out.get("sumsq"),
+                               q.float_ops, q.pack_dtype)
+    return packed_f, None, uniq, u
+
+
+def _agg_block_sparse(cols, n_valid, dedup_mask, q: _AggQuery, cap: int,
+                      fused: bool):
+    """Sparse twin of the per-block kernels for the incremental per-part
+    fold: sort-compact one part's observed group ids and reduce them
+    (through K2 when `fused`). The partial carries [U, F] planes and the
+    rank -> global-id table."""
+    some = next(iter(cols.values()))
+    mask = _base_mask(some.shape[0], n_valid, dedup_mask, some.device)
+    run = _agg_scan_sparse_fused if fused else _agg_scan_sparse
+    return run(cols, mask, q, cap, scope="part")
 
 
 def _agg_scan_prepared(blocks, n_valids, dedup_masks, *, where, keys, nf,
@@ -538,9 +663,12 @@ class PhysicalExecutor:
         self.engine = engine
         self.device = device
         self.cache = DeviceCache(config.device_cache_bytes(device))
-        # the storage engine drops dead files' and regions' blocks
+        # the storage engine drops dead files' and regions' blocks, and
+        # their entries in the process-wide partial-aggregate cache
         engine.caches.add(self.cache)
-        # last_path (which aggregate path served this thread's last query)
+        engine.caches.add(pc.global_cache())
+        # this thread's last query: which aggregate route served it, the
+        # incremental fold's part stats, the sparse route's group count
         self._tls = threading.local()
 
     @property
@@ -550,6 +678,22 @@ class PhysicalExecutor:
     @last_path.setter
     def last_path(self, v):
         self._tls.last_path = v
+
+    @property
+    def last_partial_stats(self) -> Optional[dict]:
+        return getattr(self._tls, "last_partial_stats", None)
+
+    @last_partial_stats.setter
+    def last_partial_stats(self, v):
+        self._tls.last_partial_stats = v
+
+    @property
+    def last_sparse_stats(self) -> Optional[dict]:
+        return getattr(self._tls, "last_sparse_stats", None)
+
+    @last_sparse_stats.setter
+    def last_sparse_stats(self, v):
+        self._tls.last_sparse_stats = v
 
     def execute(self, plan: lp.LogicalPlan) -> QueryResult:
         # unwrap the linear chain
@@ -683,12 +827,8 @@ class PhysicalExecutor:
     def _execute_agg(self, scan, table, where, agg, having, project, sort,
                      limit, offset, scan_node) -> QueryResult:
         schema = table.schema
-        ts_name = schema.time_index.name
-        host_specs = [s.func for s in agg.aggs if _needs_host_agg(s, schema)]
-        if host_specs:
-            raise PlanError(
-                f"aggregates {sorted(set(host_specs))} run on the host in the "
-                "JAX package; they are not in this slice of the port")
+        self.last_partial_stats = None
+        self.last_sparse_stats = None
         if scan is None:
             return self._empty_agg_result(table, agg, having, project, sort,
                                           limit, offset)
@@ -707,16 +847,23 @@ class PhysicalExecutor:
         num_groups = 1
         for k in keys:
             num_groups *= k.size
-        if keys and num_groups > config.dense_groups_max():
+        if num_groups >= sparse_ops.GID_SENTINEL:
             raise PlanError(
-                f"group key space {num_groups} exceeds the dense budget "
-                f"({config.dense_groups_max()}); the sparse sort-compact "
-                "path is not ported yet")
+                f"group key space {num_groups} overflows the int64 id "
+                "domain; add predicates or reduce keys")
+        # dense [G, F] planes up to the budget; past it the sparse
+        # sort-compact route. sparse_groups_min (off by default) pulls
+        # smaller key products onto the sparse route too
+        sparse = bool(keys) and (
+            num_groups > config.dense_groups_max()
+            or (config.sparse_groups_min() > 0
+                and num_groups >= config.sparse_groups_min()))
 
+        # host-computed aggregates consume no device value plane
         arg_exprs: list[ast.Expr] = []
         spec_slot: list[Optional[int]] = []
         for spec in agg.aggs:
-            if spec.arg is None:
+            if spec.arg is None or _needs_host_agg(spec, schema):
                 spec_slot.append(None)
                 continue
             b = bind_expr(spec.arg, ctx)
@@ -725,30 +872,359 @@ class PhysicalExecutor:
             spec_slot.append(arg_exprs.index(b))
         ops: set = {"rows"}
         for spec in agg.aggs:
-            ops.update(_PRIMITIVES[spec.func])
+            if not _needs_host_agg(spec, schema):
+                ops.update(_PRIMITIVES[spec.func])
 
-        acc = self._stream_agg_inner(scan, table, bound_where, tuple(keys),
-                                     tuple(arg_exprs), tuple(sorted(ops)),
-                                     num_groups, ts_name, ctx, extra_cols)
-        return self._agg_tail(acc, agg, keys, decoders, spec_slot, having,
-                              project, sort, limit, offset, table)
+        q = self._agg_query(scan, table, bound_where, tuple(keys),
+                            tuple(arg_exprs), tuple(sorted(ops)), num_groups,
+                            ctx, extra_cols)
+        # immutable parts' partials come from the partial-aggregate cache
+        # and only uncached parts and the memtable tail run kernels; a
+        # plan the per-part decomposition cannot serve returns None
+        res = self._try_incremental_agg(q, agg, decoders, spec_slot, sparse,
+                                        table, having, project, sort, limit,
+                                        offset)
+        if res is not None:
+            return res
+        acc, sparse_gids = self._stream_agg_inner(q, sparse)
+        host_info = (scan, extra_cols, bound_where, ctx, num_groups)
+        return self._agg_tail(acc, sparse_gids, agg, keys, decoders,
+                              spec_slot, host_info, having, project, sort,
+                              limit, offset, table)
 
-    def _agg_tail(self, acc, agg, keys, decoders, spec_slot, having, project,
-                  sort, limit, offset, table) -> QueryResult:
-        """Host tail: decode present groups' keys, finalize aggregates,
-        run HAVING/ORDER/LIMIT over the G-row result."""
+    def _agg_query(self, scan, table, bound_where, keys, arg_exprs, ops,
+                   num_groups, ctx, extra_cols) -> _AggQuery:
+        schema = table.schema
+        ts_name = schema.time_index.name
+        acc_dtype = config.compute_dtype(self.device)
+        # raises on a column the scan lacks
+        self._device_columns(scan, bound_where, keys, arg_exprs, ts_name,
+                             extra_cols)
+        # output layout: which float/int planes the kernels pack
+        nf = max(len(arg_exprs), 1)
+        produced_f, produced_i = [], []
+        widths = {}
+        for op in ops:
+            produced_f.append(op)
+            widths[op] = 1 if op == "rows" else nf
+            if op in ("first", "last"):
+                produced_i.append(op + "_ts")
+        float_ops = tuple(sorted(produced_f))
+        pack_dtype = torch.float64 if num_groups <= 4096 else acc_dtype
+        if "sumsq" in float_ops:
+            # f32 packing would undo the f64 moment accumulation
+            pack_dtype = torch.float64
+        return _AggQuery(
+            scan=scan, schema=schema, where=bound_where, keys=keys,
+            arg_exprs=arg_exprs, ops=ops, num_groups=num_groups,
+            ts_name=ts_name, tag_names=frozenset(ctx.tag_names),
+            extra_cols=extra_cols, acc_dtype=acc_dtype,
+            float_fields=frozenset(c.name for c in schema.field_columns
+                                   if c.dtype.is_float),
+            dedup_mask=self._maybe_dedup(scan, table), float_ops=float_ops,
+            int_ops=tuple(sorted(produced_i)), widths=widths,
+            pack_dtype=pack_dtype)
+
+    def _finalize_combined_agg(self, combined, table, agg, having, project,
+                               sort, limit, offset,
+                               spec_slot) -> QueryResult:
+        """Final step over combined value-keyed partial planes
+        (dist_agg.combine_partials): the incremental fold's tail."""
+        if combined is None:
+            return self._empty_agg_result(table, agg, having, project,
+                                          sort, limit, offset)
+        planes = combined["planes"]
+        g = len(combined["keys"][0]) if agg.keys else 1
+        present = np.arange(g)
+        env: dict = {}
+        for i, (name, kexpr) in enumerate(agg.keys):
+            env[kexpr] = combined["keys"][i]
+        for spec, slot in zip(agg.aggs, spec_slot):
+            env[spec.call] = _finalize_agg(spec.func, planes, slot,
+                                           present)
+        return self._post_process(env, agg, having, project, sort,
+                                  limit, offset, table, g)
+
+    # ---- incremental aggregation (partial-aggregate cache) -----------------
+
+    def _try_incremental_agg(self, q: _AggQuery, agg, decoders, spec_slot,
+                             sparse, table, having, project, sort, limit,
+                             offset) -> Optional[QueryResult]:
+        """Serve this aggregate from per-part cached partials and a
+        delta-only fold (query/partial_cache.py), or return None for the
+        classic whole-scan routes. Only PartialCacheIneligible, a typed
+        decision about the plan, turns the query back; any other failure
+        raises."""
+        if not pc.enabled():
+            return None
+        try:
+            partials, stats = self._incremental_partials(q, agg, decoders,
+                                                         sparse, table)
+        except pc.PartialCacheIneligible:
+            pc.global_cache().count_event("fallback")
+            return None
+        combined = combine_partials(partials, len(agg.keys), q.ops)
+        self.last_path = "incremental_sparse" if stats["sparse"] \
+            else "incremental"
+        self.last_partial_stats = stats
+        return self._finalize_combined_agg(combined, table, agg, having,
+                                           project, sort, limit, offset,
+                                           spec_slot)
+
+    def _incremental_partials(self, q: _AggQuery, agg, decoders, sparse,
+                              table):
+        """Gather cached part partials, compute the uncached parts and the
+        memtable tail, and return (the part-ordered partial list, stats).
+        Raises PartialCacheIneligible when the per-part decomposition is
+        not provably exact.
+
+        Each partial is computed by the route the classic path takes for
+        that block, decided once on the whole scan (its gates, the finite
+        proof included, read the whole scan): on the card K2
+        (_agg_scan_fused), K1 (_agg_scan_prepared), or plain segment_agg
+        where the classic route also takes it. The JAX package computes
+        these partials with XLA's scatter (`_agg_block_jit`); the port
+        keeps the card's kernels on this path instead, and the planes
+        come out the same. Past the dense cache cap (or when the query is
+        already sparse) the per-part fold sort-compacts: partials carry
+        only the OBSERVED groups' planes ([U, F], U <= part rows), through
+        K2 where _sparse_fused_ok, and the value-keyed combine
+        (query/dist_agg.py) is cardinality-oblivious either way."""
+        scan = q.scan
+        if scan.region_id < 0:
+            raise pc.PartialCacheIneligible("synthetic scan")
+        if any(_needs_host_agg(spec, q.schema) for spec in agg.aggs):
+            raise pc.PartialCacheIneligible("host-side aggregate")
+        use_sparse = sparse or q.num_groups > pc.groups_max()
+        # DELETE voids the decomposition: a tombstone may mask rows in a
+        # different part (memoized on the snapshot)
+        has_delete = scan.__dict__.get("_has_delete")
+        if has_delete is None:
+            has_delete = bool((scan.op_type != OP_PUT).any())
+            scan._has_delete = has_delete
+        if has_delete:
+            raise pc.PartialCacheIneligible("tombstones reachable")
+
+        plan = _block_plan(scan)
+        parts: dict = {}
+        mem_entries: list[_BlockEntry] = []
+        for e in plan:
+            if e.pkey is not None:
+                parts.setdefault(e.pkey, []).append(e)
+            else:
+                mem_entries.append(e)
+        if not parts:
+            raise pc.PartialCacheIneligible("no immutable parts")
+        for es in parts.values():
+            if len(es) != 1:
+                # the cached partial must BE the part's one-block
+                # contribution for the combine to reproduce the classic
+                # block-sequential fold
+                raise pc.PartialCacheIneligible("multi-block part")
+        # LWW dedup is whole-scan: a newer duplicate in part Q can kill a
+        # row in part P. Duplicates share an exact (series, ts) instant,
+        # so pairwise-disjoint part/memtable ts extents prove the dedup
+        # part-local: the sliced global mask is then the part's own
+        dedup_mask = None
+        if q.dedup_mask is not None:
+            if not self._parts_ts_disjoint(scan, q.ts_name):
+                raise pc.PartialCacheIneligible("cross-part dedup")
+            dedup_mask = q.dedup_mask
+
+        fp = pc.shape_fingerprint(q.where, q.keys,
+                                  [kexpr for _, kexpr in agg.keys],
+                                  q.arg_exprs, q.ops, q.acc_dtype)
+        if use_sparse:
+            # sparse partials fold in sorted order (another float
+            # association than the dense routes): never mix the two
+            fp = fp + ("sparse",)
+        cache = pc.global_cache()
+        probed = []
+        for pk, (entry,) in parts.items():
+            key = ("part", scan.region_id, pk[0], pk[1], pk[2], fp)
+            probed.append((key, entry, cache.get(key)))
+
+        strides = _strides([k.size for k in q.keys])
+
+        def decode_keys(gids):
+            out = []
+            for i, decode in enumerate(decoders):
+                col, _ = decode((gids // strides[i]) % q.keys[i].size)
+                out.append(np.asarray(col))
+            return out
+
+        if use_sparse:
+            fused = self._sparse_fused_ok(q)
+            col_names = self._device_columns(
+                scan, q.where, q.keys, q.arg_exprs, q.ts_name, q.extra_cols)
+
+            def compute_partial(entry):
+                # a part observes at most its own rows: the cap is one
+                # device block, clamped by the configured ceiling
+                cap = min(entry.block, config.sparse_groups_max())
+                cols = {name: self._device_block(
+                    scan, name, entry, q.extra_cols,
+                    q.acc_dtype if name in q.float_fields else None)
+                    for name in col_names}
+                dmask = None if dedup_mask is None else _pad_device_mask(
+                    dedup_mask, entry.start, entry.end, entry.block)
+                packed_f, packed_i, uniq, u = _agg_block_sparse(
+                    cols, entry.end - entry.start, dmask, q, cap, fused)
+                return {"keys": decode_keys(uniq.cpu().numpy()),
+                        "planes": _unpack_acc(packed_f, packed_i,
+                                              q.float_ops, q.int_ops,
+                                              q.widths)}
+        else:
+            route = self._dense_route(q)
+
+            def compute_partial(entry):
+                planes = self._run_dense(q, route, [entry])
+                rows = planes["rows"]
+                rows1 = rows[:, 0] if rows.ndim == 2 else rows
+                # keyed aggregates keep only observed groups; a global
+                # aggregate keeps its one group even when empty
+                present = np.flatnonzero(rows1 > 0) if agg.keys \
+                    else np.arange(1)
+                return {"keys": decode_keys(present),
+                        "planes": {op: pl[present]
+                                   for op, pl in planes.items()}}
+
+        partials: list[dict] = []
+        hits = misses = 0
+        delta_rows = cached_rows = 0
+        for key, entry, p in probed:
+            if p is None:
+                epoch = cache.epoch(scan.region_id)
+                p = compute_partial(entry)
+                cache.put(key, p, epoch=epoch)
+                misses += 1
+                delta_rows += entry.end - entry.start
+            else:
+                hits += 1
+                cached_rows += entry.end - entry.start
+            partials.append(p)
+        mem_rows = 0
+        for entry in mem_entries:
+            partials.append(compute_partial(entry))
+            mem_rows += entry.end - entry.start
+        delta_rows += mem_rows
+        stats = {"parts": len(parts), "part_hits": hits,
+                 "part_misses": misses, "delta_rows": delta_rows,
+                 "cached_rows": cached_rows, "memtable_rows": mem_rows,
+                 "total_rows": scan.num_rows, "sparse": use_sparse}
+        return partials, stats
+
+    def _parts_ts_disjoint(self, scan, ts_name: str) -> bool:
+        """Whether every SST part's ts extent (and the memtable tail's) is
+        pairwise disjoint: the proof that LWW dedup cannot cross a part
+        seam. One O(N) min/max pass, memoized on the snapshot."""
+        cached = scan.__dict__.get("_parts_ts_disjoint_cache")
+        if cached is not None:
+            return cached
+        offs = list(scan.sorted_part_offsets) or [0]
+        if offs[-1] < scan.num_rows:
+            offs.append(scan.num_rows)  # memtable tail interval
+        ts = scan.columns[ts_name]
+        spans = []
+        for i in range(len(offs) - 1):
+            s0, s1 = offs[i], offs[i + 1]
+            if s1 > s0:
+                seg = ts[s0:s1]
+                spans.append((int(seg.min()), int(seg.max())))
+        spans.sort()
+        ok = all(spans[i][1] < spans[i + 1][0]
+                 for i in range(len(spans) - 1))
+        scan._parts_ts_disjoint_cache = ok
+        return ok
+
+    def _agg_tail(self, acc, sparse_gids, agg, keys, decoders, spec_slot,
+                  host_info, having, project, sort, limit, offset,
+                  table) -> QueryResult:
+        """Host tail: decode present groups' keys, finalize aggregates
+        (the host-computed ones beside the device planes), run
+        HAVING/ORDER/LIMIT over the result."""
         rows = acc["rows"][:, 0] if acc["rows"].ndim == 2 else acc["rows"]
-        present = np.flatnonzero(rows > 0) if agg.keys else np.arange(1)
+        if sparse_gids is not None:
+            # sparse: acc rows [0, U) are the observed groups, in
+            # ascending global-id order
+            present = np.arange(len(sparse_gids))
+            present_gids = sparse_gids
+        elif agg.keys:
+            present = np.flatnonzero(rows > 0)
+            present_gids = present
+        else:
+            present = np.arange(1)
+            present_gids = present
         env: dict = {}
         strides = _strides([k.size for k in keys])
         for i, ((name, kexpr), decode) in enumerate(zip(agg.keys, decoders)):
-            idx = (present // strides[i]) % keys[i].size
+            idx = (present_gids // strides[i]) % keys[i].size
             col, _ = decode(idx)
             env[kexpr] = col
+        host_specs = [s for s in agg.aggs
+                      if _needs_host_agg(s, table.schema)]
         for spec, slot in zip(agg.aggs, spec_slot):
+            if _needs_host_agg(spec, table.schema):
+                continue
             env[spec.call] = _finalize_agg(spec.func, acc, slot, present)
+        if host_specs:
+            scan, extra_cols, bound_where, ctx, num_groups = host_info
+            self._host_aggs(host_specs, keys, scan, extra_cols, bound_where,
+                            table, ctx, num_groups, present, env,
+                            sparse_gids)
         return self._post_process(env, agg, having, project, sort, limit,
                                   offset, table, len(present))
+
+    def _host_aggs(self, host_specs, keys, scan, extra_cols, bound_where,
+                   table, ctx, num_groups, present, env, sparse_gids=None):
+        """Order-statistic aggregates (argmax/percentile/...) over the
+        scan's host columns: host_agg.py's sort-based group pass. Uses
+        the BOUND where and arg expressions (tag literals -> codes, ts
+        literals coerced), so the host evaluation over the raw scan
+        columns matches the device's exactly."""
+        from greptimedb_tpu_torch.datatypes.vector import DictVector
+        from greptimedb_tpu_torch.query import host_agg as ha
+
+        strides = _strides([k.size for k in keys])
+        gid = ha.row_group_ids(keys, strides, scan, extra_cols)
+        if sparse_gids is not None:
+            # map global ids onto the compact [0, U) slots the device
+            # assigned (ascending global-id order); rows whose group was
+            # not observed are masked out below
+            num_groups = len(sparse_gids)
+            gid = np.clip(np.searchsorted(sparse_gids, gid), 0,
+                          max(num_groups - 1, 0))
+        n = scan.num_rows
+        dmask = self._maybe_dedup(scan, table)
+        mask = ha.host_row_mask(
+            scan, bound_where, table.schema, n,
+            dmask.cpu().numpy()[:n] if dmask is not None else None)
+        ts_name = table.schema.time_index.name
+        for spec in host_specs:
+            if spec.func not in ha.HOST_AGGS:
+                # string-typed first/last/min/max/count: decode the
+                # argument to values and pick per group on the host
+                if isinstance(spec.arg, ast.Column) and \
+                        spec.arg.name in scan.tag_dicts:
+                    vals = DictVector(
+                        scan.columns[spec.arg.name],
+                        scan.tag_dicts[spec.arg.name]).decode()
+                else:
+                    vals = np.asarray(eval_host(
+                        spec.arg, scan.columns, table.schema, None, n),
+                        dtype=object)
+                vals = np.broadcast_to(vals, (n,))
+                per_group = ha.compute_host_agg_str(
+                    spec.func, gid, vals, scan.columns[ts_name], mask,
+                    num_groups)
+                env[spec.call] = per_group[present]
+                continue
+            bound_arg = bind_expr(spec.arg, ctx)
+            vals = eval_host(bound_arg, scan.columns, table.schema, None, n)
+            vals = np.broadcast_to(np.asarray(vals, dtype=np.float64), (n,))
+            per_group = ha.compute_host_agg(
+                spec.func, gid, vals, mask, num_groups, spec.extra_args)
+            env[spec.call] = per_group[present]
 
     def _plan_key(self, i, kexpr, ctx, scan: ScanData, scan_node, extra_cols):
         schema = ctx.schema
@@ -818,108 +1294,184 @@ class PhysicalExecutor:
             hi = int(ts_arr.max())
         return lo, hi
 
-    def _stream_agg_inner(self, scan, table, bound_where, keys, arg_exprs,
-                          ops, num_groups, ts_name, ctx, extra_cols) -> dict:
-        """Run the dense device aggregation; returns host planes indexed
-        by global group id."""
-        schema = table.schema
-        acc_dtype = config.compute_dtype(self.device)
-        device_col_names = self._device_columns(
-            scan, bound_where, keys, arg_exprs, ts_name, extra_cols)
-        dedup_mask = self._maybe_dedup(scan, table)
-        tag_names = frozenset(ctx.tag_names)
-        float_fields = {c.name for c in schema.field_columns
-                        if c.dtype.is_float}
+    def _stream_agg_inner(self, q: _AggQuery, sparse: bool):
+        """Run the device aggregation; returns (host planes, observed
+        global ids or None). Dense: planes indexed by global group id.
+        Sparse: planes indexed by compact slot, plus the observed ids."""
+        if sparse:
+            return self._sparse_scan(q)
+        route = self._dense_route(q)
+        self.last_path = route
+        return self._run_dense(q, route, _block_plan(q.scan)), None
 
-        # output layout: which float/int planes the kernels pack
-        nf = max(len(arg_exprs), 1)
-        produced_f, produced_i = [], []
-        widths = {}
-        for op in ops:
-            produced_f.append(op)
-            widths[op] = 1 if op == "rows" else nf
-            if op in ("first", "last"):
-                produced_i.append(op + "_ts")
-        float_ops = tuple(sorted(produced_f))
-        int_ops = tuple(sorted(produced_i))
-        pack_dtype = torch.float64 if num_groups <= 4096 else acc_dtype
-        if "sumsq" in float_ops:
-            # f32 packing would undo the f64 moment accumulation
-            pack_dtype = torch.float64
-
-        prepared = self._prepared_ok(arg_exprs, ops, int_ops, schema,
-                                     extra_cols)
+    def _dense_route(self, q: _AggQuery) -> str:
+        """The dense route of this query, by the JAX package's gates:
+        `dense_fused` (K2) when the fused kernel applies, else
+        `dense_prepared` (K1) for plain field columns, else `dense`."""
+        prepared = self._prepared_ok(q.arg_exprs, q.ops, q.int_ops, q.schema,
+                                     q.extra_cols)
         # first/last can't ride the PREPARED planes (no ts pairing) but
         # CAN ride the fused kernel, with a per-block segment_agg beside it
-        fused_extra = (not prepared and bool(int_ops)
-                       and all(k.endswith("_ts") for k in int_ops)
+        fused_extra = (not prepared and bool(q.int_ops)
+                       and all(k.endswith("_ts") for k in q.int_ops)
                        and self._prepared_ok(
-                           arg_exprs, set(ops) - {"first", "last"}, (),
-                           schema, extra_cols))
-        if prepared or fused_extra:
-            arg_names = tuple(a.name for a in arg_exprs)
-            aux_names = self._device_columns(
-                scan, bound_where, keys, (), ts_name, extra_cols)
-            plan = _block_plan(scan)
-            if self._fused_ok(ops, arg_names, num_groups, scan):
-                packed_f, packed_i = self._dense_fused_scan(
-                    scan, plan, aux_names, arg_names, extra_cols,
-                    float_fields, acc_dtype, dedup_mask, bound_where, keys,
-                    ops, num_groups, ts_name, tag_names, schema, float_ops,
-                    int_ops, pack_dtype)
-                self.last_path = "dense_fused"
-                return _unpack_acc(packed_f, packed_i, float_ops, int_ops,
-                                   widths)
-        if prepared:
-            self.last_path = "dense_prepared"
-            has_nan = self._scan_has_nan(scan, arg_names)
-            # variance/stddev difference two moments: both carry f64
-            prep_dtype = torch.float64 if "sumsq" in ops else acc_dtype
+                           q.arg_exprs, set(q.ops) - {"first", "last"}, (),
+                           q.schema, q.extra_cols))
+        if (prepared or fused_extra) and self._fused_ok(
+                q.ops, q.arg_names, q.num_groups, q.scan):
+            return "dense_fused"
+        return "dense_prepared" if prepared else "dense"
 
-            def fetch_block(entry):
-                cols = {name: self._device_block(
-                    scan, name, entry, extra_cols,
-                    acc_dtype if name in float_fields else None)
-                    for name in aux_names}
-                cols["__prep__"] = self._prep_plane(
-                    scan, arg_names, entry, prep_dtype, has_nan, None)
-                if "min" in ops:
-                    cols["__prep_min__"] = self._prep_plane(
-                        scan, arg_names, entry, acc_dtype, False, "min")
-                if "max" in ops:
-                    cols["__prep_max__"] = self._prep_plane(
-                        scan, arg_names, entry, acc_dtype, False, "max")
-                if "sumsq" in ops:
-                    cols["__prep_sq__"] = self._prep_plane(
-                        scan, arg_names, entry, prep_dtype, False, "sq")
-                return cols
+    def _run_dense(self, q: _AggQuery, route: str, plan) -> dict:
+        """Run a dense route over the entries of `plan` (the whole scan's
+        block plan, or one part's entry in the incremental fold); returns
+        host planes indexed by global group id."""
+        scan, extra_cols, acc_dtype = q.scan, q.extra_cols, q.acc_dtype
+        ops = q.ops
 
-            blocks, n_valids, dmasks = self._gather_blocks(
-                scan, plan, fetch_block, dedup_mask)
-            packed_f, packed_i = _agg_scan_prepared(
-                blocks, n_valids, dmasks, where=bound_where, keys=keys,
-                nf=nf, has_nan=has_nan, num_segments=num_groups,
-                tag_names=tag_names, schema=schema, float_ops=float_ops,
-                pack_dtype=pack_dtype)
-            return _unpack_acc(packed_f, packed_i, float_ops, int_ops, widths)
-        self.last_path = "dense"
-        plan = _block_plan(scan)
-
-        def fetch_block(entry):
+        def block(entry, names):
             return {name: self._device_block(
                 scan, name, entry, extra_cols,
-                acc_dtype if name in float_fields else None)
-                for name in device_col_names}
+                acc_dtype if name in q.float_fields else None)
+                for name in names}
+
+        if route == "dense":
+            names = self._device_columns(scan, q.where, q.keys, q.arg_exprs,
+                                         q.ts_name, extra_cols)
+            blocks, n_valids, dmasks = self._gather_blocks(
+                scan, plan, lambda e: block(e, names), q.dedup_mask)
+            packed_f, packed_i = _agg_scan(
+                blocks, n_valids, dmasks, where=q.where, keys=q.keys,
+                agg_args=q.arg_exprs, ops=ops, num_segments=q.num_groups,
+                ts_name=q.ts_name, tag_names=q.tag_names, schema=q.schema,
+                need_ts=bool({"first", "last"} & set(ops)),
+                acc_dtype=acc_dtype, float_ops=q.float_ops,
+                int_ops=q.int_ops, pack_dtype=q.pack_dtype)
+            return _unpack_acc(packed_f, packed_i, q.float_ops, q.int_ops,
+                               q.widths)
+        arg_names = q.arg_names
+        aux_names = self._device_columns(scan, q.where, q.keys, (),
+                                         q.ts_name, extra_cols)
+        if route == "dense_fused":
+            # A kernel that fails raises: there is no fallback route
+            need = sorted(set(aux_names) | set(arg_names)
+                          | ({q.ts_name} if q.int_ops else set()))
+            blocks, n_valids, dmasks = self._gather_blocks(
+                scan, plan, lambda e: block(e, need), q.dedup_mask)
+            packed_f, packed_i = _agg_scan_fused(
+                blocks, n_valids, dmasks, where=q.where, keys=q.keys,
+                arg_names=arg_names, num_segments=q.num_groups,
+                ts_name=q.ts_name, tag_names=q.tag_names, schema=q.schema,
+                float_ops=q.float_ops, int_ops=q.int_ops,
+                pack_dtype=q.pack_dtype, acc_dtype=acc_dtype, **q.want())
+            return _unpack_acc(packed_f, packed_i, q.float_ops, q.int_ops,
+                               q.widths)
+        has_nan = self._scan_has_nan(scan, arg_names)
+        # variance/stddev difference two moments: both carry f64
+        prep_dtype = torch.float64 if "sumsq" in ops else acc_dtype
+
+        def fetch_block(entry):
+            cols = block(entry, aux_names)
+            cols["__prep__"] = self._prep_plane(
+                scan, arg_names, entry, prep_dtype, has_nan, None)
+            if "min" in ops:
+                cols["__prep_min__"] = self._prep_plane(
+                    scan, arg_names, entry, acc_dtype, False, "min")
+            if "max" in ops:
+                cols["__prep_max__"] = self._prep_plane(
+                    scan, arg_names, entry, acc_dtype, False, "max")
+            if "sumsq" in ops:
+                cols["__prep_sq__"] = self._prep_plane(
+                    scan, arg_names, entry, prep_dtype, False, "sq")
+            return cols
 
         blocks, n_valids, dmasks = self._gather_blocks(
-            scan, plan, fetch_block, dedup_mask)
-        packed_f, packed_i = _agg_scan(
-            blocks, n_valids, dmasks, where=bound_where, keys=keys,
-            agg_args=arg_exprs, ops=ops, num_segments=num_groups,
-            ts_name=ts_name, tag_names=tag_names, schema=schema,
-            need_ts=bool({"first", "last"} & set(ops)), acc_dtype=acc_dtype,
-            float_ops=float_ops, int_ops=int_ops, pack_dtype=pack_dtype)
-        return _unpack_acc(packed_f, packed_i, float_ops, int_ops, widths)
+            scan, plan, fetch_block, q.dedup_mask)
+        packed_f, packed_i = _agg_scan_prepared(
+            blocks, n_valids, dmasks, where=q.where, keys=q.keys,
+            nf=max(len(q.arg_exprs), 1), has_nan=has_nan,
+            num_segments=q.num_groups, tag_names=q.tag_names,
+            schema=q.schema, float_ops=q.float_ops, pack_dtype=q.pack_dtype)
+        return _unpack_acc(packed_f, packed_i, q.float_ops, q.int_ops,
+                           q.widths)
+
+    def _sparse_scan(self, q: _AggQuery):
+        """High-cardinality aggregation over the whole scan as padded
+        columns: sort-compact, then one K2 call when _sparse_fused_ok, or
+        plain segment reductions. Returns (host planes [U, ...], observed
+        global ids [U] ascending)."""
+        scan = q.scan
+        n = scan.num_rows
+        n_pad = block_size_for(n)
+        cap = min(n_pad, config.sparse_groups_max())
+        names = self._device_columns(scan, q.where, q.keys, q.arg_exprs,
+                                     q.ts_name, q.extra_cols)
+        cols = {name: self._whole_column(
+            scan, name, n_pad, q.extra_cols,
+            q.acc_dtype if name in q.float_fields else None)
+            for name in names}
+        base = torch.arange(n_pad, device=self.device) < n
+        if q.dedup_mask is not None:
+            base[:n] &= q.dedup_mask[:n]
+        if self._sparse_fused_ok(q):
+            packed_f, packed_i, uniq, u = _agg_scan_sparse_fused(
+                cols, base, q, cap)
+            self.last_path = "sparse_fused"
+        else:
+            packed_f, packed_i, uniq, u = _agg_scan_sparse(cols, base, q,
+                                                           cap)
+            self.last_path = "sparse"
+        self.last_sparse_stats = {
+            "groups": u, "rows": n,
+            "compaction_ratio": sparse_ops.compaction_ratio(u, n)}
+        acc = _unpack_acc(packed_f, packed_i, q.float_ops, q.int_ops,
+                          q.widths)
+        return acc, uniq.cpu().numpy()
+
+    def _whole_column(self, scan, name, n_pad, extra_cols, cast_dtype):
+        """One whole-scan column padded to n_pad rows, on the device. It
+        cannot be file-anchored: its hot-set key is the snapshot's, so a
+        write retires it (DeviceCache's generation rule)."""
+
+        def build():
+            src = extra_cols[name] if name in extra_cols \
+                else scan.columns[name]
+            arr = pad_rows(src, n_pad)
+            if cast_dtype is not None:
+                arr = arr.astype(_NUMPY_OF[cast_dtype], copy=False)
+            return self._upload(arr)
+
+        if scan.region_id < 0 or name in extra_cols:
+            out = build()  # uncacheable rows: upload, counted
+            self.cache.count_upload(out)
+            return out
+        return self.cache.get(
+            ("snap", scan.region_id, (scan.incarnation, scan.data_version),
+             scan.scan_fingerprint, name, "whole", n_pad, str(cast_dtype)),
+            build)
+
+    def _sparse_fused_ok(self, q: _AggQuery) -> bool:
+        """Route the sparse reduction through K2? _fused_ok's gates with
+        the sparse twists: no group envelope (K2 has no segment cap and
+        the JAX package's tile makes the count moot), sumsq only when the
+        accumulator already carries f64, and first/last stay on plain
+        segment_agg (the kernel has no ts pairing). The mode is the
+        port's: `auto` takes the kernel on CUDA, GREPTIMEDB_TPU_PALLAS=on
+        also on the CPU, through its plain version."""
+        if not set(q.ops) <= {"sum", "count", "mean", "rows", "min", "max",
+                              "sumsq"}:
+            return False
+        if "sumsq" in q.ops and q.acc_dtype != torch.float64:
+            return False
+        if not self._prepared_ok(q.arg_exprs, q.ops, (), q.schema,
+                                 q.extra_cols):
+            return False  # plain field columns only (as dense fused)
+        if not fused_eligible(len(q.arg_exprs), MAX_SEGMENTS,
+                              want_sumsq="sumsq" in q.ops):
+            return False
+        if self._scan_has_inf(q.scan, q.arg_names, dtype=q.acc_dtype):
+            return False
+        return pallas_mode() == "on" or self.device.type == "cuda"
 
     def _gather_blocks(self, scan, plan, fetch, dedup_mask):
         """Walk the block plan through `fetch`. Returns (blocks, n_valids,
@@ -954,31 +1506,6 @@ class PhysicalExecutor:
         if self._scan_has_inf(scan, arg_names, dtype=acc_dtype):
             return False
         return pallas_mode() == "on" or self.device.type == "cuda"
-
-    def _dense_fused_scan(self, scan, plan, aux_names, arg_names, extra_cols,
-                          float_fields, acc_dtype, dedup_mask, bound_where,
-                          keys, ops, num_groups, ts_name, tag_names, schema,
-                          float_ops, int_ops, pack_dtype):
-        """Run the fused-kernel aggregation; returns (packed_f, packed_i).
-        A kernel that fails raises: there is no fallback route."""
-        need_cols = sorted(set(aux_names) | set(arg_names)
-                           | ({ts_name} if int_ops else set()))
-
-        def fetch_block(entry):
-            return {name: self._device_block(
-                scan, name, entry, extra_cols,
-                acc_dtype if name in float_fields else None)
-                for name in need_cols}
-
-        blocks, n_valids, dmasks = self._gather_blocks(
-            scan, plan, fetch_block, dedup_mask)
-        return _agg_scan_fused(
-            blocks, n_valids, dmasks, where=bound_where, keys=keys,
-            arg_names=arg_names, num_segments=num_groups, ts_name=ts_name,
-            tag_names=tag_names, schema=schema, float_ops=float_ops,
-            int_ops=int_ops, pack_dtype=pack_dtype, acc_dtype=acc_dtype,
-            want_min="min" in ops, want_max="max" in ops,
-            want_sumsq="sumsq" in ops)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

@@ -59,8 +59,9 @@ class RegionEngine:
                        sync=config.wal_sync,
                        segment_bytes=config.wal_segment_bytes)
         self.regions: dict[int, Region] = {}
-        # device hot sets of the query engines over this engine: regions
-        # tell them when files (compaction) or a region (DROP) die
+        # caches of the query engines over this engine (device hot sets,
+        # the partial-aggregate cache): regions tell them when files
+        # (compaction) or a region (DROP, TRUNCATE, close) die
         self.caches: "weakref.WeakSet" = weakref.WeakSet()
         self._lock = threading.RLock()
 

@@ -131,7 +131,8 @@ class Region:
         self.schema = schema
         self.wal = wal
         self.device = device
-        # device hot sets to tell when files or the region die
+        # query-layer caches (device hot sets, the partial-aggregate
+        # cache) to tell when files or the region die
         self.caches = caches
         self.manifest = manifest if manifest is not None else \
             ManifestManager(os.path.join(region_dir, "manifest"), store)
@@ -216,9 +217,11 @@ class Region:
             self.memtable = Memtable(self.schema, self.registry)
 
     def close(self) -> None:
-        """Release deferred resources (compacted-away SSTs)."""
+        """Release deferred resources (compacted-away SSTs) and the
+        caches' entries of the region: a reopen starts cold."""
         with self._lock:
             self._drain_purge(force=True)
+            self._notify("invalidate_region")
         self.wal.close_region(self.region_id)
 
     def _drain_purge(self, force: bool = False) -> None:
@@ -247,7 +250,10 @@ class Region:
                 self._drain_purge()
 
     def _notify(self, fn_name: str, *args) -> None:
-        for cache in self.caches:
+        """Invalidation fan-out to the query layer's caches keyed by file
+        or region identity (the device hot sets and the partial-aggregate
+        cache). A failure raises: no seam is skipped silently."""
+        for cache in list(self.caches):
             getattr(cache, fn_name)(self.region_id, *args)
 
     # ---- write -------------------------------------------------------------

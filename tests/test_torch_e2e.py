@@ -13,9 +13,14 @@ tombstones. The states:
   catalogs persisted in FileKv: manifest + WAL replay;
 - compacted: ADMIN flush_table, then ADMIN compact_table (a full merge).
 
+Each state runs twice: with the partial-aggregate cache off in both
+engines, and on in both (the JAX package's default: aggregates over SSTs
+fold cached per-part partials). A dense budget both engines read sends
+one hostname x minute query down the sparse route.
+
 Every query must return equal row lists (floats within rtol=1e-9: the
 port reduces in another order) and report the same `last_path`, but for
-the one known difference below. Across states the port must also agree
+the known differences below. Across states the port must also agree
 with itself where no write came between (reopened = flushed, compacted
 = reopened). GREPTIMEDB_TPU_PALLAS=on is read when the JAX package
 traces its kernels, so the fused-route comparison runs in a subprocess
@@ -43,6 +48,13 @@ STATES = ("memtable", "flushed", "reopened", "compacted")
 LASTPOINT = ("SELECT hostname, " + ", ".join(
     f"last_value({f} ORDER BY ts)" for f in FIELDS)
     + " FROM cpu GROUP BY hostname")
+
+#: a dense budget both engines read, below SPARSE's key space and above
+#: every other query's
+DENSE_GROUPS_MAX = "1000"
+SPARSE = ("SELECT hostname, date_bin(INTERVAL '1 minute', ts) AS minute, "
+          "avg(usage_user), max(usage_system), count(*) FROM cpu "
+          "GROUP BY hostname, minute ORDER BY hostname, minute")
 
 QUERIES = [
     # single_groupby_1_1_1
@@ -103,6 +115,15 @@ QUERIES = [
     LASTPOINT,
     f"SELECT * FROM cpu WHERE usage_user > 90.0 AND ts >= {T0} "
     f"AND ts < {T0 + (POINTS + EXTRA_POINTS) * STEP_MS}",
+    # the sparse route: hostname x minute (7 x 150..170 keys) is past
+    # DENSE_GROUPS_MAX below
+    SPARSE,
+    # order statistics on the host, beside device aggregates
+    "SELECT hostname, median(usage_user), avg(usage_system) FROM cpu "
+    "GROUP BY hostname ORDER BY hostname",
+    "SELECT date_bin(INTERVAL '30 minutes', ts) AS b, "
+    "percentile(usage_idle, 90), count(*) FROM cpu "
+    "WHERE hostname != 'host_4' GROUP BY b ORDER BY b",
 ]
 
 #: last_path differences by design, per query: the JAX engine prunes
@@ -114,6 +135,14 @@ KNOWN_PATHS = {LASTPOINT: {"lastscan+dense": "dense",
                            "lastscan+dense_fused": "dense_fused",
                            "lastscan+boundary+dense": "dense",
                            "lastscan+boundary+dense_fused": "dense_fused"}}
+#: with the partial-aggregate cache on: the JAX engine's boundary gather
+#: reduces the lastpoint scan before its incremental fold is tried, so it
+#: never folds that query; the port, without the gather, folds it
+#: (ROADMAP.md C)
+KNOWN_PATHS_CACHED = {LASTPOINT: dict(
+    KNOWN_PATHS[LASTPOINT], **{"lastscan+boundary+dense": "incremental",
+                               "lastscan+boundary+dense_fused":
+                               "incremental"})}
 
 
 # ---- the same writes for both engines ----------------------------------------
@@ -241,13 +270,20 @@ class Pair:
         return out
 
 
-def run_states(queries):
-    """{state: [(jax rows, port rows, jax last_path, port last_path)]}."""
-    # the JAX engine's incremental partial-aggregate cache serves SST
-    # scans from per-file partials; the port has not ported it yet
-    # (ROADMAP.md A3), so both answer through their classic dense paths
-    saved = os.environ.get("GREPTIMEDB_TPU_PARTIAL_CACHE")
-    os.environ["GREPTIMEDB_TPU_PARTIAL_CACHE"] = "0"
+def run_states(queries, cache=False):
+    """{state: [(jax rows, port rows, jax last_path, port last_path)]}.
+    `cache` turns the partial-aggregate cache on in both engines (the
+    JAX package's default), else off in both."""
+    from greptimedb_tpu.query import physical as jph
+
+    # the JAX package's failure latches are process-wide: a test that
+    # ran earlier in this process must not leave its routes switched off
+    jph._PARTIAL_DISABLED["flag"] = False
+    jph._FUSED_DISABLED["flag"] = False
+    env = {"GREPTIMEDB_TPU_PARTIAL_CACHE": "1" if cache else "0",
+           "GREPTIMEDB_TPU_DENSE_GROUPS_MAX": DENSE_GROUPS_MAX}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         with tempfile.TemporaryDirectory() as d:
             pair = Pair(d)
@@ -256,10 +292,11 @@ def run_states(queries):
             finally:
                 pair.close()
     finally:
-        if saved is None:
-            os.environ.pop("GREPTIMEDB_TPU_PARTIAL_CACHE")
-        else:
-            os.environ["GREPTIMEDB_TPU_PARTIAL_CACHE"] = saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
 
 
 def _drive(pair, queries):
@@ -309,14 +346,19 @@ def _assert_same(jrows, trows):
                 assert a == b, (jr, tr)
 
 
-def _assert_path(sql, jpath, tpath):
-    assert tpath == KNOWN_PATHS.get(sql, {}).get(jpath, jpath), \
+def _assert_path(sql, jpath, tpath, known=KNOWN_PATHS):
+    assert tpath == known.get(sql, {}).get(jpath, jpath), \
         (sql, jpath, tpath)
 
 
 @pytest.fixture(scope="module")
 def results():
     return run_states(QUERIES)
+
+
+@pytest.fixture(scope="module")
+def results_cached():
+    return run_states(QUERIES, cache=True)
 
 
 # the memtable state keeps the ids the single-state version of this test had
@@ -330,6 +372,26 @@ def test_same_rows_and_path(results, state, i):
     assert jrows, "the query must return rows"
     _assert_same(jrows, trows)
     _assert_path(QUERIES[i], jpath, tpath)
+
+
+@pytest.mark.parametrize("state,i", _CASES)
+def test_same_rows_and_path_with_partial_cache(results_cached, state, i):
+    """The partial-aggregate cache on in both engines: aggregates over
+    SSTs fold per-part partials (`incremental`, `incremental_sparse`)
+    on both sides, with the same rows."""
+    jrows, trows, jpath, tpath = results_cached[state][i]
+    assert jrows, "the query must return rows"
+    _assert_same(jrows, trows)
+    _assert_path(QUERIES[i], jpath, tpath, KNOWN_PATHS_CACHED)
+
+
+def test_every_route_is_taken(results, results_cached):
+    """The states and cache settings together reach the sparse route and
+    both incremental folds, and the cache-off runs never fold."""
+    off = {r[3] for rows in results.values() for r in rows}
+    on = {r[3] for rows in results_cached.values() for r in rows}
+    assert "sparse" in off and not {"incremental", "incremental_sparse"} & off
+    assert {"sparse", "incremental", "incremental_sparse"} <= on
 
 
 @pytest.mark.parametrize("state,before", [("reopened", "flushed"),
@@ -402,10 +464,13 @@ def test_load_table_serves_a_jax_scan(tmp_path):
         pair.close()
 
 
-def test_post_flush_write_uploads_only_the_tail(tmp_path):
+def test_post_flush_write_uploads_only_the_tail(tmp_path, monkeypatch):
     """After a flush, a small write and a re-query: every block of the SST
     parts hits the device hot set (file-anchored keys outlive the data
-    version) and only the memtable tail's blocks upload."""
+    version) and only the memtable tail's blocks upload. The classic
+    route's hot set: the partial-aggregate cache is off (with it on, the
+    SST parts' partials hit and their blocks are not read at all)."""
+    monkeypatch.setenv("GREPTIMEDB_TPU_PARTIAL_CACHE", "0")
     from greptimedb_tpu_torch import interop
     from greptimedb_tpu_torch.catalog import Catalog, MemoryKv
     from greptimedb_tpu_torch.query import QueryEngine

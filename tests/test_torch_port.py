@@ -158,19 +158,38 @@ def test_statements_outside_the_slice_raise_typed_errors(sql, tmp_path):
 
 
 def test_group_space_past_the_dense_budget_raises(monkeypatch, tmp_path):
+    """Past the dense budget the key space goes sparse; more observed
+    groups than the sparse cap raise, with the JAX package's message."""
     qe = _engine(tmp_path)
     _cpu_table(qe)
+    sql = ("SELECT date_bin(INTERVAL '10 seconds', ts) AS b, host, max(u) "
+           "FROM cpu GROUP BY b, host")
+    want = qe.execute_one(sql + " ORDER BY b, host").rows()
     monkeypatch.setenv("GREPTIMEDB_TPU_DENSE_GROUPS_MAX", "10")
-    with pytest.raises(PlanError, match="sparse"):
-        qe.execute_one("SELECT date_bin(INTERVAL '10 seconds', ts) AS b, "
-                       "host, max(u) FROM cpu GROUP BY b, host")
+    assert qe.execute_one(sql + " ORDER BY b, host").rows() == want
+    assert qe.executor.last_path == "sparse"
+    assert qe.executor.last_sparse_stats["groups"] == 200
+    monkeypatch.setenv("GREPTIMEDB_TPU_SPARSE_GROUPS_MAX", "100")
+    with pytest.raises(PlanError, match="observed 200 distinct groups, "
+                       "exceeding the sparse cap 100"):
+        qe.execute_one(sql)
 
 
 def test_host_aggregates_raise_until_ported(tmp_path):
+    """Order statistics are served on the host (query/host_agg.py); an
+    invalid percentile still raises."""
     qe = _engine(tmp_path)
-    _cpu_table(qe, points=2)
-    with pytest.raises(PlanError, match="not in this slice"):
-        qe.execute_one("SELECT host, median(u) FROM cpu GROUP BY host")
+    _cpu_table(qe, points=3)
+    rows = qe.execute_one("SELECT host, median(u), percentile(s, 50), "
+                          "count(DISTINCT u) FROM cpu GROUP BY host "
+                          "ORDER BY host").rows()
+    raw = qe.execute_one("SELECT host, u, s FROM cpu").rows()
+    for host, med, p50, nd in rows:
+        u = [r[1] for r in raw if r[0] == host]
+        s = [r[2] for r in raw if r[0] == host]
+        assert med == np.median(u) and p50 == np.median(s) and nd == 3
+    with pytest.raises(PlanError, match="out of"):
+        qe.execute_one("SELECT percentile(u, 150) FROM cpu")
 
 
 def test_select_without_table_and_empty_scan(tmp_path):
