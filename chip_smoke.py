@@ -17,7 +17,9 @@ greptimedb_tpu_torch/_build/. Phases:
    kernel is timed with CUDA events (median of 7 after a warm-up) beside
    its plain version, one library call where PyTorch has one, and the
    least time the card could take (and its share of that time). K2 is
-   also timed at the sparse route's shape. K1 also
+   also timed at the sparse route's shape and at PromQL's two float64
+   shapes (the label aggregation, [10,000 x 241] into G+1 = 2, and the
+   window buckets, [17,280,000 x 1] into 4,000 x 157 + 1 with max). K1 also
    runs cases that reach each branch of its windowed design (host-major
    ids, frequent window re-bases, column groups, tiny and ragged n, all
    rows dead, G = 2), logs the plan it launched and its device counters,
@@ -55,16 +57,33 @@ greptimedb_tpu_torch/_build/. Phases:
      beside the cache-off p50;
    - host order statistics: median and percentile beside an avg on K2,
      and a sparse query with a median, exact under host_agg.py's rule.
+   - PromQL through PromqlEngine.eval_matrix on the card, float64, at a
+     5 min step with 1 h windows: max_over_time(cpu{__field__=
+     "usage_user"}[1h]) buckets the 17.28 M rows into 4,000 x 157 + 1
+     segments through one K2 call (window_stats' scatter flavour),
+     stddev(avg_over_time(...)) takes the sums grid path and one K2 call
+     with sumsq over the hosts, topk(5, max_over_time(...)) keeps the
+     five largest; each against numpy, with its K2 launches, window path,
+     a CUPTI profile and a cProfile breakdown.
    Then bench.py's high-cardinality table (config #5: 1,000,000 tags x
    10 points through RegionEngine.put, flushed), `SELECT tag, sum(v)`
    through K1 at G = 1,000,002 with the cache off and K2 a part with it
    on. Then a small non-append table with duplicate keys and
    tombstones, flushed between its write batches and then compacted,
    goes through last-write-wins dedup and is held against a Python
-   oracle. The data directories are removed at the end.
-4. A `kernels` JSON line (with each kernel's launches on every path and
-   K2's time at the sparse route's shape), the card line, and the
-   result line.
+   oracle. Then bench.py's PromQL table (config #3, bench.py:375-475):
+   prom_cpu, 10,000 counter series x 24 h at 15 s = 57,600,000 rows in
+   28 puts, a flush every 3 and one at the end, and its three TQL EVAL
+   queries through execute_one: sum(rate(prom_cpu[360s])) over the day
+   at a 360 s step (241 steps, the edges grid path), the trailing 10 min
+   sum(rate(prom_cpu[2m])), and avg(avg_over_time(prom_cpu[360s])) (the
+   sums grid path), each one K2 call for its label aggregation, held
+   against numpy on the generated matrix at rtol 1e-9 (bench.py's
+   promql_anchor.eval_rate with the counter zero-crossing limit, and a
+   window mean). The data directories are removed at the end.
+4. A `kernels` JSON line (with each kernel's launches on every path, the
+   PromQL queries' included, and K2's time at the sparse route's and
+   PromQL's shapes), the card line, and the result line.
 
 Exits non-zero, and prints no result line, when CUDA is unavailable, the
 port is not beside this script, or any check fails.
@@ -97,6 +116,23 @@ STEP_S = 10
 SPARSE_U = HOSTS * HOURS * 60
 SPARSE_PAD_ROWS = -(-HOSTS * HOURS * 3600 // STEP_S // (1 << 20)) * (1 << 20)
 T0_MS = 1456790400000  # 2016-03-01T00:00:00Z
+POINTS = HOURS * 3600 // STEP_S
+# bench.py's config #3 (bench.py:375-475; BASELINE.json configs[2]):
+# prom_cpu, 10,000 counter series x 24 h at 15 s, values 50 * point +
+# U(0, 50) from seed 11; `sum(rate(prom_cpu[360s]))` at a 360 s step
+# over the whole day is 241 eval steps
+PROM_SERIES = 10_000
+PROM_HOURS = 24
+PROM_STEP_S = 15
+PROM_SEED = 11
+PROM_EVAL_STEP_S = max(60, PROM_HOURS * 3600 // 240)
+PROM_STEPS = PROM_HOURS * 3600 // PROM_EVAL_STEP_S + 1
+# the `cpu` table's PromQL queries: 1 h windows at a 5 min step over the
+# 12 h, so window_stats buckets each series into 145 + 12 buckets
+CPU_EVAL_STEP_S = 300
+CPU_RANGE_S = 3600
+CPU_STEPS = HOURS * 3600 // CPU_EVAL_STEP_S + 1
+CPU_BUCKETS = CPU_STEPS + CPU_RANGE_S // CPU_EVAL_STEP_S
 FIELDS = [f"usage_{n}" for n in (
     "user", "system", "idle", "nice", "iowait", "irq", "softirq",
     "steal", "guest", "guest_nice")]
@@ -188,6 +224,19 @@ def host_major_ids(n, hosts, hours, dead_frac, gen, device):
         torch.int32)
     dead = torch.rand(n, generator=gen, device=device) < dead_frac
     return torch.where(dead, torch.full_like(ids, g - 1), ids), g
+
+
+def cpu_bucket_ids(device):
+    """The bucket ids window_stats gives K2 for a 1 h window at a 5 min
+    step over the `cpu` table: rows sorted by (host, ts), id = host * B +
+    ceil(offset / step) + w - 1 (ops/window.py), every row live."""
+    import torch
+
+    r = torch.arange(HOSTS * POINTS, device=device)
+    host, point = r // POINTS, r % POINTS
+    w = CPU_RANGE_S // CPU_EVAL_STEP_S
+    b = -(-(point * STEP_S) // CPU_EVAL_STEP_S) + w - 1
+    return (host * CPU_BUCKETS + b).to(torch.int32)
 
 
 def values(n, w, dtype, gen, device, nan_frac=0.0, ties=False):
@@ -483,6 +532,15 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
         # F = 1 past 48 KB: the global branch's one-lane instance
         (1_000_000, 1, 4097, 4096, 64, 0.2, f32, mmq, "runs"),
         (1_000_000, 1, 4097, 4096, 1, 0.2, f64, mm, "random"),
+        # PromQL's two shapes, f64: the label aggregation of bench.py's
+        # sum(rate(prom_cpu[360s])) (10,000 series x 241 steps, every row
+        # in segment 0, G+1 = 2), and the window buckets of
+        # max_over_time(cpu{__field__="usage_user"}[1h]) at step 5 m on
+        # the `cpu` table (series-major rows, S x B + 1 segments, max)
+        (PROM_SERIES, PROM_STEPS, 2, 1, PROM_SERIES, 0.0, f64, none,
+         "runs"),
+        (HOSTS * POINTS, 1, HOSTS * CPU_BUCKETS + 1, HOSTS * CPU_BUCKETS,
+         0, 0.0, f64, (False, True, False), "prom_buckets"),
         # the sparse route's one call (check 1 of the main path): the
         # padded whole scan of the `cpu` table sorted by hostname x minute,
         # compact ids rising by one every 6 rows, U = 2,880,000 groups +
@@ -500,6 +558,8 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
         elif kind == "compact":  # sorted; the padding rows dead at the end
             ids = torch.clamp(torch.arange(n, device=dev) // run,
                               max=nb).to(torch.int32)
+        elif kind == "prom_buckets":
+            ids = cpu_bucket_ids(dev)
         else:
             ids = time_major_ids(n, nb, run, dead, gen, dev)
         vals = k2_values(n, f, dtype, kind, ids, gen, dev)
@@ -560,7 +620,8 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
     # every instance of the kernel ran: f32 and f64, F = 1 and F > 1,
     # privatized and global
     check(len(branches) == 8, f"K2 branches run: {sorted(map(str, branches))}")
-    return {"cases": k2, "headline": k2[3], "sparse": k2[-1]}
+    return {"cases": k2, "headline": k2[3], "sparse": k2[-1],
+            "promql_label": k2[-3], "promql_buckets": k2[-2]}
 
 
 def kernel_phase(sk, lib, torch) -> dict:
@@ -1031,6 +1092,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
             engine.region(rid), full_multi)}
         with partial_cache(True):
             host_aggs = host_agg_phase(qe, sk, torch, grid)
+        promql_cpu = promql_cpu_phase(qe, sk, torch, grid)
 
         # 3. one more 10 s step for every host, then the re-query: the SST
         # parts' file-anchored blocks hit, only the memtable tail uploads
@@ -1113,7 +1175,8 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": main["launches"], "queries": main["queries"],
             "reopened": reopened, "compacted": compacted, "sparse": sparse,
-            "cached": cached, "host_aggs": host_aggs}
+            "cached": cached, "host_aggs": host_aggs,
+            "promql_cpu": promql_cpu}
 
 
 # ---- the slice-3 routes: sparse, incremental, host aggregates --------------
@@ -1651,6 +1714,282 @@ def dedup_phase(torch) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---- PromQL: bench.py's prom_cpu and the `cpu` table ---------------------------
+
+
+def window_index(grid_s, times, range_s):
+    """Per eval time t, (i0, i1): the window (t - range_s, t] is
+    grid_s[i0:i1] of the sorted sample times."""
+    i0 = np.searchsorted(grid_s, times - range_s, side="right")
+    i1 = np.searchsorted(grid_s, times, side="right")
+    return i0, i1
+
+
+def rate_oracle(mat, grid_s, times, range_s) -> np.ndarray:
+    """sum(rate(m[range])) per eval time over `mat` [S, P] (every series
+    on the grid `grid_s`): bench.py's promql_anchor.eval_rate
+    (bench.py:518-541), with the counter zero-crossing limit on the start
+    extrapolation that Prometheus applies (extrapolate_rate.rs) and the
+    anchor leaves out. NaN where a window holds fewer than 2 samples."""
+    out = np.full(len(times), np.nan)
+    i0s, i1s = window_index(grid_s, times, range_s)
+    for k, (t, i0, i1) in enumerate(zip(times, i0s, i1s - 1)):
+        if i1 <= i0:
+            continue
+        first, last = mat[:, i0], mat[:, i1]
+        tf, tl = grid_s[i0], grid_s[i1]
+        sampled = tl - tf
+        slope = (last - first) / sampled
+        avg_gap = sampled / (i1 - i0)
+        zero = np.where(slope > 0, first / np.where(slope > 0, slope, 1.0),
+                        np.inf)
+        head = np.minimum(tf - (t - range_s), zero)
+        tail = t - tl
+        duration = sampled \
+            + np.where(head < 1.1 * avg_gap, head, avg_gap / 2) \
+            + (tail if tail < 1.1 * avg_gap else avg_gap / 2)
+        out[k] = float(np.sum(slope * duration)) / range_s
+    return out
+
+
+def window_means(mat, grid_s, times, range_s) -> np.ndarray:
+    """[S, T] per-series window means (NaN where a window is empty)."""
+    out = np.full((mat.shape[0], len(times)), np.nan)
+    for k, (i0, i1) in enumerate(zip(*window_index(grid_s, times,
+                                                   range_s))):
+        if i1 > i0:
+            out[:, k] = mat[:, i0:i1].sum(axis=1) / (i1 - i0)
+    return out
+
+
+def window_maxes(mat, grid_s, times, range_s) -> np.ndarray:
+    out = np.full((mat.shape[0], len(times)), np.nan)
+    for k, (i0, i1) in enumerate(zip(*window_index(grid_s, times,
+                                                   range_s))):
+        if i1 > i0:
+            out[:, k] = mat[:, i0:i1].max(axis=1)
+    return out
+
+
+def check_close(got, want, rtol, what) -> float:
+    """Equal NaN positions and values within rtol; the max relative
+    error."""
+    got = np.asarray(got, dtype=np.float64)
+    check(got.shape == want.shape, f"{what}: shape {got.shape}, expected "
+          f"{want.shape}")
+    nan = np.isnan(want)
+    check(np.array_equal(np.isnan(got), nan), f"{what}: NaN positions")
+    err = np.abs(got[~nan] - want[~nan]) / np.maximum(np.abs(want[~nan]),
+                                                      1e-300)
+    worst = float(err.max()) if err.size else 0.0
+    check(worst <= rtol, f"{what}: max rel err {worst} > {rtol}")
+    return worst
+
+
+def run_promql(name, fn, sk, torch, want_paths, paths_of) -> tuple:
+    """One PromQL query: cold, then 5 warm runs, K2's launches in each
+    (zeroed just before, read just after), the window path taken, a
+    CUPTI profile and a cProfile breakdown of one more warm run.
+    Returns the record and the cold result."""
+    sk.fused_segment_agg.launches = 0
+    sync(torch)
+    t = time.perf_counter()
+    res = fn()
+    sync(torch)
+    cold_ms = (time.perf_counter() - t) * 1e3
+    k2_cold = sk.fused_segment_agg.launches
+    paths = paths_of()
+    warm, k2_warm = [], []
+    for _ in range(5):
+        sk.fused_segment_agg.launches = 0
+        sync(torch)
+        t = time.perf_counter()
+        fn()
+        sync(torch)
+        warm.append((time.perf_counter() - t) * 1e3)
+        k2_warm.append(sk.fused_segment_agg.launches)
+    rec = {"cold_ms": cold_ms, "warm_p50_ms": float(np.median(warm)),
+           "window_paths": paths, "k2_launches_cold": k2_cold,
+           "k2_launches_warm": k2_warm}
+    check(paths == want_paths, f"promql {name}: window paths {paths}, "
+          f"expected {want_paths}")
+    check(k2_cold == 1 and k2_warm == [1] * 5,
+          f"promql {name}: K2 launches cold {k2_cold}, warm {k2_warm}; "
+          "expected one a run")
+    if torch.cuda.is_available():
+        rec["profile"] = device_breakdown(fn, torch)
+    rec["host"] = host_breakdown(fn)
+    log(f"promql {name}: " + json.dumps(rec))
+    return rec, res
+
+
+def promql_cpu_phase(qe, sk, torch, grid) -> dict:
+    """PromQL over the `cpu` table as ingested (4,000 hosts x 12 h at
+    10 s, SSTs and a memtable), through PromqlEngine.eval_matrix at a
+    5 min step with 1 h windows: max_over_time buckets 17.28 M rows into
+    4,000 x 157 + 1 segments through K2 (the scatter flavour of
+    window_stats); stddev(avg_over_time) takes the sums grid path and one
+    K2 call with sumsq over the hosts; topk(5, max_over_time) keeps the
+    five largest window maxes. Each held against numpy over `grid`."""
+    from greptimedb_tpu_torch.promql.engine import PromqlEngine
+
+    prom = PromqlEngine(qe)
+    t0 = T0_MS // 1000
+    t_end = t0 + HOURS * 3600
+    times = t0 + np.arange(CPU_STEPS) * float(CPU_EVAL_STEP_S)
+    user = grid["usage_user"][:POINTS].T  # [hosts, points]
+    grid_s = t0 + np.arange(POINTS) * float(STEP_S)
+    maxes = window_maxes(user, grid_s, times, CPU_RANGE_S)
+    means = window_means(user, grid_s, times, CPU_RANGE_S)
+    sel = f'cpu{{__field__="usage_user"}}[{CPU_RANGE_S // 3600}h]'
+    queries = {
+        "max_over_time": (f"max_over_time({sel})", ["window_stats"]),
+        "stddev_avg_over_time": (f"stddev(avg_over_time({sel}))",
+                                 ["sums"]),
+        "topk_max_over_time": (f"topk(5, max_over_time({sel}))",
+                               ["window_stats"]),
+    }
+    out = {}
+    for name, (q, want_paths) in queries.items():
+        rec, (got_times, m) = run_promql(
+            name, lambda q=q: prom.eval_matrix(q, t0, t_end,
+                                               float(CPU_EVAL_STEP_S)),
+            sk, torch, want_paths, lambda: qe.executor.last_promql_paths)
+        check(np.array_equal(got_times, times), f"promql {name}: times")
+        vals = m.values.cpu().numpy()
+        if name == "stddev_avg_over_time":
+            check(m.labels == [{}], f"promql {name}: labels {m.labels[:3]}")
+            rec["max_rel_err"] = check_close(
+                vals[0], means.std(axis=0), 1e-9, f"promql {name}")
+        else:
+            hosts = host_index(np.asarray([lab["hostname"]
+                                           for lab in m.labels]))
+            check(np.array_equal(np.sort(hosts), np.arange(HOSTS)),
+                  f"promql {name}: hostname labels")
+            want = maxes[hosts]
+            if name == "topk_max_over_time":
+                thresh = -np.sort(-want, axis=0)[4]
+                want = np.where(want >= thresh[None, :], want, np.nan)
+                check(int((~np.isnan(vals)).sum()) >= 5 * CPU_STEPS,
+                      f"promql {name}: fewer than 5 series a step")
+            check(np.array_equal(np.isnan(vals), np.isnan(want))
+                  and np.array_equal(vals[~np.isnan(vals)],
+                                     want[~np.isnan(want)]),
+                  f"promql {name}: window maxes differ from numpy")
+        out[name] = rec
+    return out
+
+
+def prom_ingest(root):
+    """bench.py's bench_promql ingest (bench.py:393-426) through
+    RegionEngine.put with the WAL fsynced: puts of 209 points x 10,000
+    series, a flush every 3 puts and one at the end. Returns the engines
+    and the values as [series, points]."""
+    from greptimedb_tpu_torch.datatypes import DictVector, RecordBatch
+
+    engine, qe = open_engine(root)
+    qe.execute_one(
+        "CREATE TABLE prom_cpu (host STRING, val DOUBLE, "
+        "ts TIMESTAMP(3) NOT NULL, TIME INDEX (ts), PRIMARY KEY (host)) "
+        "WITH (append_mode = 'true')")
+    info = qe.catalog.table("public", "prom_cpu")
+    rid = info.region_ids[0]
+    rng = np.random.default_rng(PROM_SEED)
+    points = PROM_HOURS * 3600 // PROM_STEP_S
+    names = np.asarray([f"s{i}" for i in range(PROM_SERIES)], dtype=object)
+    slice_points = max(1, (1 << 21) // PROM_SERIES)
+    flush_every = max(1, points // (slice_points * 8))
+    mat = np.empty((points, PROM_SERIES))
+    rows = puts = 0
+    t = time.perf_counter()
+    for i, p0 in enumerate(range(0, points, slice_points)):
+        p1 = min(p0 + slice_points, points)
+        npts = p1 - p0
+        n = npts * PROM_SERIES
+        codes = np.tile(np.arange(PROM_SERIES, dtype=np.int32), npts)
+        ts = np.repeat(T0_MS + np.arange(p0, p1, dtype=np.int64)
+                       * PROM_STEP_S * 1000, PROM_SERIES)
+        base = np.repeat(np.arange(p0, p1, dtype=np.float64) * 50.0,
+                         PROM_SERIES)
+        vals = base + rng.uniform(0, 50.0, n)
+        mat[p0:p1] = vals.reshape(npts, PROM_SERIES)
+        engine.put(rid, RecordBatch(info.schema, {
+            "host": DictVector(codes, names), "ts": ts, "val": vals}))
+        rows += n
+        puts += 1
+        if (i + 1) % flush_every == 0:
+            engine.flush(rid)
+    engine.flush(rid)
+    ingest_s = time.perf_counter() - t
+    region = engine.region(rid)
+    log("prom_cpu ingest: " + json.dumps({
+        "rows": rows, "seconds": ingest_s, "rows_per_s": rows / ingest_s,
+        "puts": puts, "wal_fsyncs": engine.wal.sync_count,
+        "sst_files": len(region.files), "sst_bytes": region.sst_bytes}))
+    check(rows == PROM_SERIES * points, "prom_cpu ingested rows")
+    return engine, qe, mat.T
+
+
+def promql_phase(sk, torch) -> dict:
+    """bench.py's config #3 at its full size: prom_cpu ingested to disk,
+    then its three TQL EVAL queries through QueryEngine.execute_one on the
+    card, each held against numpy on the generated matrix at rtol 1e-9:
+    sum(rate(prom_cpu[360s])) over the day at a 360 s step (the edges
+    path), the trailing 10 min sum(rate(prom_cpu[2m])) at 60 s, and
+    avg(avg_over_time(prom_cpu[360s])) over the day (the sums path). Each
+    query's label aggregation is one K2 call."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_prom_")
+    out = {}
+    try:
+        engine, qe, mat = prom_ingest(root)
+        t0 = T0_MS // 1000
+        t_end = t0 + PROM_HOURS * 3600
+        step = PROM_EVAL_STEP_S
+        rng_s = -(-max(120, step) // step) * step  # bench.py's window
+        grid_s = t0 + np.arange(mat.shape[1]) * float(PROM_STEP_S)
+        queries = {
+            "rate_day": (t0, t_end, step,
+                         f"sum(rate(prom_cpu[{rng_s}s]))", ["edges"]),
+            "rate_tail": (t_end - 600, t_end, 60, "sum(rate(prom_cpu[2m]))",
+                          ["edges"]),
+            "avg_day": (t0, t_end, step,
+                        f"avg(avg_over_time(prom_cpu[{rng_s}s]))",
+                        ["sums"]),
+        }
+        for name, (a, b, st, q, want_paths) in queries.items():
+            tql = f"TQL EVAL ({a}, {b}, '{st}s') {q}"
+            rec, res = run_promql(
+                name, lambda tql=tql: qe.execute_one(tql), sk, torch,
+                want_paths, lambda: qe.executor.last_promql_paths)
+            times = a + np.arange((b - a) // st + 1) * float(st)
+            if name == "avg_day":
+                want = window_means(mat, grid_s, times, rng_s).mean(axis=0)
+            else:
+                win = rng_s if name == "rate_day" else 120
+                want = rate_oracle(mat, grid_s, times, win)
+            cols = dict(zip(res.names, res.columns))
+            keep = ~np.isnan(want)
+            check(np.array_equal(np.asarray(cols["ts"], dtype=np.int64),
+                                 (times[keep] * 1000).astype(np.int64)),
+                  f"promql {name}: eval steps")
+            rec["steps"] = int(keep.sum())
+            rec["max_rel_err"] = check_close(cols["value"], want[keep],
+                                             1e-9, f"promql {name}")
+            log(f"promql {name} check: {rec['steps']} steps, max rel err "
+                f"{rec['max_rel_err']}")
+            out[name] = rec
+        if torch.cuda.is_available():
+            log("promql max_memory_allocated: "
+                f"{torch.cuda.max_memory_allocated()}")
+        engine.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 # ---- entry point -------------------------------------------------------------
 
 
@@ -1692,6 +2031,7 @@ def main() -> int:
         hc = hc_phase(sk, torch)
         with partial_cache(False):
             dedup_phase(torch)
+        prom = promql_phase(sk, torch)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1707,7 +2047,15 @@ def main() -> int:
                    hc["cache_off"]["cold_launches"])),
                "hc incremental_sparse": dict(zip(
                    ("segment_sum", "fused_segment_agg"),
-                   hc["cache_on"]["cold_launches"]))}
+                   hc["cache_on"]["cold_launches"])),
+               "promql prom_cpu (cold runs)": {
+                   "segment_sum": 0, "fused_segment_agg": sum(
+                       r["k2_launches_cold"] for r in prom.values())},
+               "promql cpu (cold runs)": {
+                   "segment_sum": 0, "fused_segment_agg": sum(
+                       r["k2_launches_cold"]
+                       for r in main["promql_cpu"].values())}}
+    promql_paths = ("promql prom_cpu (cold runs)", "promql cpu (cold runs)")
     sources = {"segment_sum": ("greptimedb_tpu_torch/csrc/segment_sum.cu",
                                "greptimedb_tpu/ops/pallas_segment.py:119"),
                "fused_segment_agg": (
@@ -1718,17 +2066,22 @@ def main() -> int:
         h = kres[name]["headline"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": main["launches"][name],
+            "replaces": replaces, "launches": main["launches"][name]
+            + sum(by_path[k][name] for k in promql_paths),
             "max_abs_err": h["max_abs_err"], "ms": h["ms"],
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": h["library_ms"],
             "shape": h["shape"], "G": h["G"],
             "launches_by_path": {k: v[name] for k, v in by_path.items()}})
         if name == "fused_segment_agg":
-            sp = kres[name]["sparse"]
-            kernels[-1]["sparse_shape"] = {
-                k: sp[k] for k in ("shape", "G", "max_abs_err", "ms",
-                                   "plain_ms", "bound_ms", "bound_by")}
+            for key, case in (("sparse_shape", "sparse"),
+                              ("promql_label_shape", "promql_label"),
+                              ("promql_buckets_shape", "promql_buckets")):
+                sp = kres[name][case]
+                kernels[-1][key] = {
+                    k: sp[k] for k in ("shape", "G", "dtype", "max_abs_err",
+                                       "ms", "plain_ms", "bound_ms",
+                                       "bound_by")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

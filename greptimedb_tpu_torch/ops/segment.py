@@ -205,3 +205,62 @@ def segment_agg(
             v = v[:, 0]
         trimmed[k] = v
     return trimmed
+
+
+#: segment_agg ops that K2 computes; first/last stay on the torch code
+_FUSED_OPS = frozenset({"sum", "count", "min", "max", "sumsq", "mean"})
+
+
+def segment_agg_fused(
+    values: torch.Tensor,  # [N] or [N, F] float field values
+    seg_ids: torch.Tensor,  # [N] int32 dense group ids
+    mask: torch.Tensor,  # [N] bool validity
+    num_segments: int,
+    ops: tuple = ("sum", "count"),
+    ts: Optional[torch.Tensor] = None,  # [N] int64, required for first/last
+) -> dict:
+    """`segment_agg`'s contract through one K2 call
+    (segment_kernels.fused_segment_agg) over num_segments + 1 segments,
+    the dead segment last: masked rows go there. sum, count, min, max,
+    sumsq and mean come from K2; first and last from segment_agg's torch
+    code. K2's +inf min and -inf max of an empty group become NaN, as
+    segment_agg's `mins == big` does (so a group whose values are all
+    +inf has a NaN min there too). The PromQL window and label
+    reductions call it; the SQL routes call the kernels themselves."""
+    if not values.dtype.is_floating_point:
+        raise TypeError(f"segment_agg_fused: float values only, got "
+                        f"{values.dtype}")
+    squeeze = values.dim() == 1
+    vals = values[:, None] if squeeze else values
+    if "sumsq" in ops and vals.dtype != torch.float64:
+        # the moments accumulate in f64 whatever the compute dtype
+        vals = vals.to(torch.float64)
+    out: dict = {}
+    if _FUSED_OPS.intersection(ops):
+        dead = torch.full_like(seg_ids, num_segments, dtype=torch.int32)
+        ids = torch.where(mask, seg_ids.to(torch.int32), dead)
+        k2 = segment_kernels.fused_segment_agg(
+            vals.contiguous(), ids.contiguous(), num_segments + 1,
+            want_min="min" in ops, want_max="max" in ops,
+            want_sumsq="sumsq" in ops)
+        counts = k2["count"][:num_segments]
+        for op in ("sum", "count", "sumsq"):
+            if op in ops:
+                out[op] = k2[op][:num_segments]
+        if "mean" in ops:
+            denom = torch.clamp(counts, min=1).to(vals.dtype)
+            mean = k2["sum"][:num_segments] / denom
+            out["mean"] = torch.where(counts > 0, mean,
+                                      torch.full_like(mean, float("nan")))
+        for op, empty in (("min", float("inf")), ("max", float("-inf"))):
+            if op in ops:
+                x = k2[op][:num_segments]
+                out[op] = torch.where(x == empty,
+                                      torch.full_like(x, float("nan")), x)
+        if squeeze:
+            out = {k: v[:, 0] for k, v in out.items()}
+    rest = tuple(o for o in ops if o in ("first", "last"))
+    if rest:
+        out.update(segment_agg(values, seg_ids, mask, num_segments,
+                               ops=rest, ts=ts))
+    return out

@@ -3,13 +3,13 @@ greptimedb_tpu/query/engine.py).
 
 SQL text -> statements over the durable region engine: CREATE TABLE,
 INSERT ... VALUES, SELECT, DELETE, DROP and TRUNCATE TABLE, ALTER TABLE
-ADD/DROP COLUMN, and ADMIN flush_table / compact_table (synchronous: the
-maintenance plane is a later slice). SELECT is planned by the copied
-planner and executed by the torch physical layer on the engine's
-device. Regions open lazily from the catalog on first use, so a
-persisted catalog and a reopened storage engine serve the tables they
-held. Every other statement raises UnsupportedStatement naming the
-slice of the port that brings it.
+ADD/DROP COLUMN, ADMIN flush_table / compact_table (synchronous: the
+maintenance plane is a later slice), and TQL EVAL / TQL EXPLAIN (PromQL,
+promql/engine.py). SELECT is planned by the copied planner and executed
+by the torch physical layer on the engine's device. Regions open lazily
+from the catalog on first use, so a persisted catalog and a reopened
+storage engine serve the tables they held. Every other statement raises
+UnsupportedStatement naming the slice of the port that brings it.
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ from greptimedb_tpu_torch.utils.time import coerce_ts_literal
 # statements of the JAX engine this slice leaves out, by the later slice
 # of the port that brings them (ROADMAP.md, queue A)
 _LATER = {
-    "Tql": "PromQL",
     # COPY reads and writes Parquet/CSV files
     "CopyTable": "COPY import and export",
     "CopyDatabase": "COPY import and export",
@@ -92,6 +91,8 @@ class QueryEngine:
             return self._alter(stmt, db)
         if isinstance(stmt, ast.AdminFunc):
             return self._admin(stmt, db)
+        if isinstance(stmt, ast.Tql):
+            return self._tql(stmt, db)
         name = type(stmt).__name__
         slice_name = _LATER.get(name, "servers and CLI")
         raise UnsupportedStatement(
@@ -132,6 +133,26 @@ class QueryEngine:
             return QueryResult(names, [None] * len(names), cols)
         info = self._table(sel.table, db)
         return self.executor.execute(plan_select(sel, info))
+
+    # ---- TQL ---------------------------------------------------------------
+
+    def _tql(self, stmt: ast.Tql, db: str) -> QueryResult:
+        """TQL EVAL: the PromQL range query on this engine's device, in
+        the long table format; TQL EXPLAIN: the parsed PromQL tree."""
+        from greptimedb_tpu_torch.promql.engine import PromqlEngine
+        from greptimedb_tpu_torch.promql.parser import parse_promql
+
+        if stmt.analyze:
+            raise UnsupportedStatement(
+                "TQL ANALYZE is not in this slice of greptimedb_tpu_torch; "
+                "the servers and CLI slice brings EXPLAIN ANALYZE")
+        if stmt.explain:
+            lines = [f"PromQL: {stmt.query}",
+                     _explain_promql(parse_promql(stmt.query))]
+            return QueryResult(["plan"], [DataType.STRING],
+                               [np.asarray(lines, dtype=object)])
+        return PromqlEngine(self).eval_range(stmt.query, stmt.start,
+                                             stmt.end, stmt.step, db)
 
     # ---- DDL ---------------------------------------------------------------
 
@@ -314,6 +335,56 @@ class QueryEngine:
         batch = values_batch(schema, by_col, nrows)
         return QueryResult.of_affected(
             self.region_engine.put(info.region_ids[0], batch))
+
+
+def _explain_promql(node, indent: int = 0) -> str:
+    """The PromQL AST as an operator tree (the evaluation tree is the
+    plan)."""
+    from greptimedb_tpu_torch.promql import parser as pp
+
+    pad = "  " * indent
+    if isinstance(node, pp.VectorSelector):
+        parts = [node.metric or ""]
+        if node.matchers:
+            parts.append("{" + ",".join(
+                f"{m.label}{m.op}{m.value!r}" for m in node.matchers) + "}")
+        if node.range_s:
+            parts.append(f"[{node.range_s:g}s]")
+        if node.offset_s:
+            parts.append(f" offset {node.offset_s:g}s")
+        if node.at_s is not None:
+            parts.append(f" @ {node.at_s}")
+        return f"{pad}Selector: {''.join(parts)}"
+    if isinstance(node, pp.NumberLiteral):
+        return f"{pad}Number: {node.value:g}"
+    if isinstance(node, pp.StringLiteral):
+        return f"{pad}String: {node.value!r}"
+    if isinstance(node, pp.Call):
+        inner = "\n".join(_explain_promql(a, indent + 1)
+                          for a in node.args)
+        return f"{pad}Call: {node.func}" + ("\n" + inner if inner else "")
+    if isinstance(node, pp.Aggregate):
+        mods = ""
+        if node.by:
+            mods = f" by ({', '.join(node.by)})"
+        elif node.without:
+            mods = f" without ({', '.join(node.without)})"
+        head = f"{pad}Aggregate: {node.op}{mods}"
+        if node.param is not None:
+            head += "\n" + _explain_promql(node.param, indent + 1)
+        return head + "\n" + _explain_promql(node.expr, indent + 1)
+    if isinstance(node, pp.Binary):
+        return (f"{pad}Binary: {node.op}\n"
+                + _explain_promql(node.lhs, indent + 1) + "\n"
+                + _explain_promql(node.rhs, indent + 1))
+    if isinstance(node, pp.Subquery):
+        return (f"{pad}Subquery: [{node.range_s:g}s:"
+                f"{node.step_s or ''}]"
+                + "\n" + _explain_promql(node.expr, indent + 1))
+    if isinstance(node, pp.Unary):
+        return f"{pad}Unary: {node.op}\n" + _explain_promql(node.expr,
+                                                            indent + 1)
+    return f"{pad}{type(node).__name__}"
 
 
 def values_batch(schema: Schema, by_col: dict, nrows: int) -> RecordBatch:

@@ -38,6 +38,7 @@ compile hedges, and vmapped serving.
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -670,6 +671,12 @@ class PhysicalExecutor:
         # this thread's last query: which aggregate route served it, the
         # incremental fold's part stats, the sparse route's group count
         self._tls = threading.local()
+        # PromQL's loaded series (keyed on the scan snapshot and the
+        # selector), grid pivots and their prefix sums (keyed on the
+        # loaded tensors' identity): promql/engine.py
+        self.promql_load_cache: OrderedDict = OrderedDict()
+        self.promql_pivot_cache: list = []
+        self.promql_cumsum_cache: list = []
 
     @property
     def last_path(self):
@@ -686,6 +693,17 @@ class PhysicalExecutor:
     @last_partial_stats.setter
     def last_partial_stats(self, v):
         self._tls.last_partial_stats = v
+
+    @property
+    def last_promql_paths(self) -> Optional[list]:
+        """The window path of each range or instant selector of this
+        thread's last PromQL evaluation: "edges", "sums" (the grid fast
+        paths) or "window_stats"."""
+        return getattr(self._tls, "last_promql_paths", None)
+
+    @last_promql_paths.setter
+    def last_promql_paths(self, v):
+        self._tls.last_promql_paths = v
 
     @property
     def last_sparse_stats(self) -> Optional[dict]:

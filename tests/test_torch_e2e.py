@@ -36,6 +36,19 @@ import tempfile
 import numpy as np
 import pytest
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _inline_jax_decode():
+    """The JAX engines here decode SST parts inline: the JAX package's
+    process-wide decode pool would leave idle worker threads in this test
+    process, and tests/test_profile_plane.py's sampler counts them when
+    xdist runs that file later on the same worker."""
+    env = pytest.MonkeyPatch()
+    env.setenv("GREPTIMEDB_TPU_SCAN_DECODE_THREADS", "1")
+    yield
+    env.undo()
+
+
 HOSTS = 6
 T0 = 1456790400000
 STEP_MS = 60_000

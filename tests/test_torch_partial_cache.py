@@ -23,6 +23,18 @@ from greptimedb_tpu.query import partial_cache as jpc
 from greptimedb_tpu_torch.query import partial_cache as pc
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _inline_jax_decode():
+    """The JAX engines here decode SST parts inline: the JAX package's
+    process-wide decode pool would leave idle worker threads in this test
+    process, and tests/test_profile_plane.py's sampler counts them when
+    xdist runs that file later on the same worker."""
+    env = pytest.MonkeyPatch()
+    env.setenv("GREPTIMEDB_TPU_SCAN_DECODE_THREADS", "1")
+    yield
+    env.undo()
+
+
 @pytest.fixture(autouse=True)
 def _fresh_caches():
     from greptimedb_tpu.query import physical as jph

@@ -48,6 +48,19 @@ from greptimedb_tpu_torch.storage.region import OP_DELETE
 from greptimedb_tpu_torch.storage.sst import FileMeta, SstReader, SstWriter
 from greptimedb_tpu_torch.storage.wal import Wal, decode_batch, encode_batch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _inline_jax_decode():
+    """The JAX engines here decode SST parts inline: the JAX package's
+    process-wide decode pool would leave idle worker threads in this test
+    process, and tests/test_profile_plane.py's sampler counts them when
+    xdist runs that file later on the same worker."""
+    env = pytest.MonkeyPatch()
+    env.setenv("GREPTIMEDB_TPU_SCAN_DECODE_THREADS", "1")
+    yield
+    env.undo()
+
+
 HOUR_MS = 3_600_000
 
 
