@@ -81,9 +81,30 @@ greptimedb_tpu_torch/_build/. Phases:
    against numpy on the generated matrix at rtol 1e-9 (bench.py's
    promql_anchor.eval_rate with the counter zero-crossing limit, and a
    window mean). The data directories are removed at the end.
-4. A `kernels` JSON line (with each kernel's launches on every path, the
-   PromQL queries' included, and K2's time at the sparse route's and
-   PromQL's shapes), the card line, and the result line.
+4. Streaming beyond device memory, last: BASELINE.json configs[1]
+   (bench.py's bench_double_groupby_100m, bench.py:750-845), cpu_big,
+   4,000 hosts x 25,000 points at 10 s = 100,000,000 rows (seed 23),
+   puts of 524 points through RegionEngine.put with the WAL fsynced, a
+   flush every 4 puts and one at the end. Its double-groupby-all (hour x
+   hostname, avg of the 10 fields, 280,000 groups) runs through
+   execute_one cold and three times warm, partial cache at its default:
+   each run must take `stream_prepared` (lazy SST chunks, blocks of 2 Mi
+   rows built on a producer thread, one K1 call a block into an
+   accumulator on the card), launch K1 once a block and K2 never, never
+   call Region.scan, leave the hot set as it was, keep its host bytes in
+   flight within one decoded chunk and depth + 2 blocks, and match a
+   float64 numpy oracle (per-put np.bincount sums) at rtol 1e-5. Then one
+   profiled and one cProfiled run, and the materialized route on the same
+   table (cache off: dense_prepared, K1 over the hot set) cold and warm,
+   held to the same oracle, unless MemAvailable is under 3x the scan's
+   host bytes. The row count is cut, and the cut printed, only when the
+   disk or the run's time limit forces it. The kernel phase times K1 at
+   this query's block shape too ([2 Mi x 21] f32, host-major ids over
+   G + 1 = 280,071).
+5. A `kernels` JSON line (with each kernel's launches on every path, the
+   PromQL queries' and the streamed query's included, K1's time at the
+   stream's shape and K2's at the sparse route's and PromQL's shapes),
+   the card line, and the result line.
 
 Exits non-zero, and prints no result line, when CUDA is unavailable, the
 port is not beside this script, or any check fails.
@@ -133,6 +154,23 @@ CPU_EVAL_STEP_S = 300
 CPU_RANGE_S = 3600
 CPU_STEPS = HOURS * 3600 // CPU_EVAL_STEP_S + 1
 CPU_BUCKETS = CPU_STEPS + CPU_RANGE_S // CPU_EVAL_STEP_S
+# BASELINE.json configs[1], bench.py's bench_double_groupby_100m
+# (bench.py:750-845): cpu_big, 4,000 hosts x 25,000 points at 10 s =
+# 100,000,000 rows from seed 23, puts of 524 points (1 << 21 rows over
+# 4,000 hosts), a flush every 4 puts and one at the end
+STREAM_HOSTS = 4000
+STREAM_ROWS = 100_000_000
+STREAM_SEED = 23
+STREAM_FLUSH_EVERY = 4
+STREAM_PUT_POINTS = (1 << 21) // STREAM_HOSTS
+STREAM_HOURS = -(-(STREAM_ROWS // STREAM_HOSTS) * STEP_S // 3600)
+# host bytes of a scanned row: hostname code, ts, 10 DOUBLE fields, the
+# write sequence and the op type (an SST holds the same)
+STREAM_ROW_BYTES = 4 + 8 + 8 * 10 + 8 + 1
+# the ingest stops at a put boundary once the run is this old, so the
+# whole script stays inside its time limit; a cut is printed
+STREAM_INGEST_DEADLINE_S = 650.0
+T_START = time.perf_counter()
 FIELDS = [f"usage_{n}" for n in (
     "user", "system", "idle", "nice", "iowait", "irq", "softirq",
     "steal", "guest", "guest_nice")]
@@ -224,6 +262,20 @@ def host_major_ids(n, hosts, hours, dead_frac, gen, device):
         torch.int32)
     dead = torch.rand(n, generator=gen, device=device) < dead_frac
     return torch.where(dead, torch.full_like(ids, g - 1), ids), g
+
+
+def stream_block_ids(n, device):
+    """The ids of the streamed cpu_big query's first block: a file's rows
+    sorted by (host, ts), STREAM_FLUSH_EVERY puts of points a host, id =
+    hour * (hosts + 1) + host + 1, every row live, so the id jumps by
+    hosts + 1 at each hour. Returns (ids, G + 1)."""
+    import torch
+
+    per_host = STREAM_FLUSH_EVERY * STREAM_PUT_POINTS
+    r = torch.arange(n, device=device)
+    hour = (r % per_host) * STEP_S // 3600
+    ids = (hour * (STREAM_HOSTS + 1) + r // per_host + 1).to(torch.int32)
+    return ids, STREAM_HOURS * (STREAM_HOSTS + 1) + 1
 
 
 def cpu_bucket_ids(device):
@@ -655,7 +707,10 @@ def kernel_phase(sk, lib, torch) -> dict:
              # not 16-byte aligned, and rows too wide for the ring: the
              # kernel reads rows and ids from global memory
              (1_000_001, 11, torch.float32, "unaligned"),
-             (262_144, 300, torch.float32, "hosthour")]
+             (262_144, 300, torch.float32, "hosthour"),
+             # the streamed cpu_big query's block: [2 Mi x 21] host-major
+             # rows over G + 1 = 280,071 segments
+             (2_097_152, 21, torch.float32, "stream")]
     for n, w, dtype, kind in cases:
         if kind == "hosthour":
             ids, g = host_hour_ids(n, HOSTS, 3600 // STEP_S, HOURS, 0.1, gen,
@@ -674,6 +729,8 @@ def kernel_phase(sk, lib, torch) -> dict:
         elif kind == "g2":  # one live group and the dead segment
             g = 2
             ids = time_major_ids(n, 1, 7, 0.3, gen, dev)
+        elif kind == "stream":
+            ids, g = stream_block_ids(n, dev)
         if kind == "unaligned":  # views one row into their buffers
             ids, g = host_hour_ids(n + 1, HOSTS, 3600 // STEP_S, HOURS, 0.1,
                                    gen, dev)
@@ -712,8 +769,10 @@ def kernel_phase(sk, lib, torch) -> dict:
         k1.append(case)
         del plane, ids, got, want, absx, lib_out
         torch.cuda.empty_cache()
-    results["segment_sum"] = {"cases": k1, "headline": k1[0]}
+    results["segment_sum"] = {"cases": k1, "headline": k1[0],
+                              "stream": k1[-1]}
     check(k1[0]["G"] == 48013, "K1 headline shape")
+    check(k1[-1]["G"] == 280_071, "K1 stream shape")
     check_k1_window(k1[0], torch)
 
     results["fused_segment_agg"] = k2_phase(sk, lib, torch, gen, dev)
@@ -1182,23 +1241,31 @@ def main_path_phase(sk, torch, lib=None) -> dict:
 # ---- the slice-3 routes: sparse, incremental, host aggregates --------------
 
 
-class partial_cache:
+class env_value:
+    """An environment variable set in this process for a block, restored
+    after it."""
+
+    def __init__(self, name: str, value: str):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.saved = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.saved
+        return False
+
+
+class partial_cache(env_value):
     """GREPTIMEDB_TPU_PARTIAL_CACHE set in this process for a block: the
     JAX package's own switch of the incremental fold (default on)."""
 
     def __init__(self, on: bool):
-        self.on = on
-
-    def __enter__(self):
-        self.saved = os.environ.get("GREPTIMEDB_TPU_PARTIAL_CACHE")
-        os.environ["GREPTIMEDB_TPU_PARTIAL_CACHE"] = "1" if self.on else "0"
-
-    def __exit__(self, *exc):
-        if self.saved is None:
-            os.environ.pop("GREPTIMEDB_TPU_PARTIAL_CACHE", None)
-        else:
-            os.environ["GREPTIMEDB_TPU_PARTIAL_CACHE"] = self.saved
-        return False
+        super().__init__("GREPTIMEDB_TPU_PARTIAL_CACHE", "1" if on else "0")
 
 
 def sparse_sql() -> str:
@@ -1990,6 +2057,333 @@ def promql_phase(sk, torch) -> dict:
     return out
 
 
+# ---- phase 4: streaming beyond device memory -----------------------------------
+
+
+def stream_sql() -> str:
+    avg_list = ", ".join(f"avg({f})" for f in FIELDS)
+    return ("SELECT date_bin(INTERVAL '1 hour', ts) AS hour, hostname, "
+            f"{avg_list} FROM cpu_big GROUP BY hour, hostname")
+
+
+def stream_rows_for(root) -> tuple:
+    """The row count the disk at `root` holds: STREAM_ROWS, or fewer
+    (whole puts) when its SSTs, a WAL of STREAM_FLUSH_EVERY puts and 2 GB
+    of margin do not fit. Returns (rows, the cut or None)."""
+    import shutil
+
+    free = shutil.disk_usage(root).free
+    put_rows = STREAM_PUT_POINTS * STREAM_HOSTS
+    wal = 2 * STREAM_FLUSH_EVERY * put_rows * STREAM_ROW_BYTES
+    fit = (free - wal - (2 << 30)) // STREAM_ROW_BYTES
+    if fit >= STREAM_ROWS:
+        return STREAM_ROWS, None
+    rows = max(fit // put_rows, 1) * put_rows
+    return rows, (f"disk: {free} bytes free at {root} hold {rows} of "
+                  f"{STREAM_ROWS} rows")
+
+
+def stream_ingest(root, rows_target):
+    """bench.py's cpu_big ingest through RegionEngine.put on a disk-backed
+    engine, the WAL fsynced, a flush every STREAM_FLUSH_EVERY puts and one
+    at the end (the memtable never reaches the auto-flush). The oracle
+    accumulates float64 sums and counts per (hour, host) with np.bincount
+    over each put, so it never holds the rows. Returns (engine, qe, rows,
+    sums [hours * hosts, F], counts, the cut or None)."""
+    from greptimedb_tpu_torch.catalog import Catalog, FileKv
+    from greptimedb_tpu_torch.datatypes import DictVector, RecordBatch
+    from greptimedb_tpu_torch.query import QueryEngine
+    from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
+
+    engine = RegionEngine(EngineConfig(
+        data_dir=os.path.join(root, "data"), wal_sync=True,
+        flush_threshold_bytes=1 << 40), device=DEVICE)
+    qe = QueryEngine(Catalog(FileKv(os.path.join(root, "catalog.json"))),
+                     engine, device=DEVICE)
+    field_defs = ", ".join(f"{f} DOUBLE" for f in FIELDS)
+    qe.execute_one(
+        f"CREATE TABLE cpu_big (hostname STRING, ts TIMESTAMP(3) NOT NULL, "
+        f"{field_defs}, TIME INDEX (ts), PRIMARY KEY (hostname)) "
+        "WITH (append_mode = 'true')")
+    info = qe.catalog.table("public", "cpu_big")
+    rid = info.region_ids[0]
+    rng = np.random.default_rng(STREAM_SEED)
+    names = np.asarray([f"host_{i}" for i in range(STREAM_HOSTS)],
+                       dtype=object)
+    points = rows_target // STREAM_HOSTS
+    g = -(-points * STEP_S // 3600) * STREAM_HOSTS
+    sums = np.zeros((g, len(FIELDS)))
+    counts = np.zeros(g, dtype=np.int64)
+    rows = puts = 0
+    cut = None
+    engine_s = 0.0
+    t_wall = time.perf_counter()
+    for i, p0 in enumerate(range(0, points, STREAM_PUT_POINTS)):
+        if time.perf_counter() - T_START > STREAM_INGEST_DEADLINE_S:
+            cut = (f"time: the ingest stopped at {rows} rows, "
+                   f"{STREAM_INGEST_DEADLINE_S} s into the run")
+            break
+        p1 = min(p0 + STREAM_PUT_POINTS, points)
+        n = (p1 - p0) * STREAM_HOSTS
+        codes = np.tile(np.arange(STREAM_HOSTS, dtype=np.int32), p1 - p0)
+        ts = np.repeat(T0_MS + np.arange(p0, p1, dtype=np.int64)
+                       * STEP_S * 1000, STREAM_HOSTS)
+        cols = {"hostname": DictVector(codes, names), "ts": ts}
+        gid = (ts - T0_MS) // 3_600_000 * STREAM_HOSTS + codes
+        counts += np.bincount(gid, minlength=g)
+        for j, f in enumerate(FIELDS):
+            cols[f] = rng.uniform(0.0, 100.0, n)
+            sums[:, j] += np.bincount(gid, weights=cols[f], minlength=g)
+        t = time.perf_counter()
+        engine.put(rid, RecordBatch(info.schema, cols))
+        rows += n
+        puts += 1
+        if (i + 1) % STREAM_FLUSH_EVERY == 0:
+            engine.flush(rid)
+        engine_s += time.perf_counter() - t
+    t = time.perf_counter()
+    engine.flush(rid)
+    engine_s += time.perf_counter() - t
+    region = engine.region(rid)
+    log("stream ingest (cpu_big): " + json.dumps({
+        "rows": rows, "target_rows": STREAM_ROWS, "puts": puts,
+        "engine_seconds": engine_s, "rows_per_s": rows / engine_s,
+        "wall_seconds_with_oracle": time.perf_counter() - t_wall,
+        "wal_fsyncs": engine.wal.sync_count,
+        "sst_files": len(region.files), "sst_bytes": region.sst_bytes,
+        "memtable_rows": region.memtable.num_rows, "cut": cut}))
+    return engine, qe, rows, sums, counts, cut
+
+
+def stream_blocks(region, block: int) -> int:
+    """The blocks a stream of the whole region folds: each file's chunks
+    of 8 row groups (Region.scan_stream's groups_per_chunk) in blocks of
+    `block` rows, then the memtable's rows."""
+    n = 0
+    for meta in region.files.values():
+        rgs = region.sst_reader.footer(meta.file_id)["row_groups"]
+        for i in range(0, len(rgs), 8):
+            n += -(-sum(rg["rows"] for rg in rgs[i:i + 8]) // block)
+    return n + -(-region.memtable.num_rows // block)
+
+
+def check_stream_result(res, sums, counts, hours, what) -> float:
+    """280,000 (hour, host) rows, each avg within rtol 1e-5 of the float64
+    oracle; returns the largest relative error."""
+    check(res.num_rows == STREAM_HOSTS * hours,
+          f"{what}: {res.num_rows} rows, expected {STREAM_HOSTS * hours}")
+    cols = dict(zip(res.names, res.columns))
+    hour = (np.asarray(cols["hour"], dtype=np.int64) - T0_MS) // 3_600_000
+    gid = hour * STREAM_HOSTS + host_index(np.asarray(cols["hostname"]))
+    check(np.array_equal(np.sort(gid), np.arange(STREAM_HOSTS * hours)),
+          f"{what}: (hour, hostname) keys")
+    worst = 0.0
+    for j, f in enumerate(FIELDS):
+        want = sums[gid, j] / counts[gid]
+        got = np.asarray(cols[f"avg({f})"], dtype=np.float64)
+        err = float(np.max(np.abs(got - want) / np.abs(want)))
+        check(np.allclose(got, want, rtol=1e-5, atol=0),
+              f"{what} avg({f}): max rel err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def proc_status_bytes(key: str) -> int:
+    """A size line of /proc/self/status (VmRSS: resident now)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise CheckFailed(f"/proc/self/status has no {key}")
+
+
+class rss_peak:
+    """This process's resident set before a block and its peak during it,
+    sampled every 10 ms on a thread joined when the block ends."""
+
+    def __enter__(self):
+        import threading
+
+        self.before = self.peak = proc_status_bytes("VmRSS")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, proc_status_bytes("VmRSS"))
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, proc_status_bytes("VmRSS"))
+        return False
+
+
+def mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def stream_phase(sk, torch, lib=None) -> dict:
+    """BASELINE.json configs[1] at its full size: cpu_big ingested to disk,
+    then its double-groupby-all through QueryEngine.execute_one on the
+    card with the partial cache at its default. Each run (cold, then warm
+    p50 of 3) must stream (`stream_prepared`), launch K1 once a block and
+    K2 never, call Region.scan never, leave the hot set as it was, keep
+    its host bytes in flight within one chunk and depth + 2 blocks, and
+    hold every avg to the oracle at rtol 1e-5. Then one torch.profiler
+    run and one cProfile run, and the materialized route (cold and warm,
+    cache off: dense_prepared over the hot set) on the same table, held
+    to the same oracle, unless the host lacks the memory for it."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch import config
+
+    base = max((tempfile.gettempdir(), HERE),
+               key=lambda d: shutil.disk_usage(d).free)
+    root = tempfile.mkdtemp(prefix="chip_smoke_stream_", dir=base)
+    out: dict = {}
+    try:
+        rows_target, disk_cut = stream_rows_for(root)
+        engine, qe, rows, sums, counts, time_cut = stream_ingest(
+            root, rows_target)
+        out["cut"] = disk_cut or time_cut
+        hours = -(-(rows // STREAM_HOSTS) * STEP_S // 3600)
+        region = engine.region(qe.catalog.table(
+            "public", "cpu_big").region_ids[0])
+        check(region.memtable.num_rows == 0 and len(region.files) >= 2,
+              "cpu_big: the ingest left no flushed files")
+        threshold = config.stream_threshold_rows()
+        if rows < threshold:  # only after a cut: stream what landed
+            threshold = rows
+            log(f"stream threshold lowered to {rows} rows for the cut")
+        scans = []
+        real_scan = region.scan
+
+        def counting_scan(*a, **kw):
+            scans.append(1)
+            return real_scan(*a, **kw)
+
+        region.scan = counting_scan
+        sql = stream_sql()
+        want_blocks = stream_blocks(region, config.stream_block_rows())
+        cache = qe.executor.cache
+        cuda = torch.cuda.is_available()
+        runs = []
+        with env_value("GREPTIMEDB_TPU_STREAM_THRESHOLD_ROWS",
+                       str(threshold)):
+            for i in range(4):
+                zero_launches(sk)
+                if lib is not None:
+                    k1_stats(lib, reset=True)
+                resident = cache.resident_bytes
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                with rss_peak() as rss:
+                    res, ms = timed_query(qe, sql, torch)
+                st = qe.executor.last_stream_stats
+                run = {"ms": ms, "rows_per_s": rows / ms * 1e3,
+                       "host_rss_before": rss.before,
+                       "host_rss_peak": rss.peak,
+                       "last_path": qe.executor.last_path,
+                       "k1_launches": sk.segment_sum.launches,
+                       "k2_launches": sk.fused_segment_agg.launches,
+                       "max_memory_allocated":
+                       torch.cuda.max_memory_allocated() if cuda else None,
+                       "resident_bytes_delta": cache.resident_bytes
+                       - resident, "region_scans": len(scans),
+                       "stream": st}
+                if lib is not None and i == 0:
+                    run["k1_counters"] = k1_stats(lib, reset=True)
+                what = "stream cold" if i == 0 else f"stream warm {i}"
+                check(run["last_path"] == "stream_prepared",
+                      f"{what}: last_path {run['last_path']}")
+                check(run["k1_launches"] == want_blocks == st["blocks"],
+                      f"{what}: K1 {run['k1_launches']} launches, "
+                      f"{st['blocks']} blocks, {want_blocks} expected")
+                check(run["k2_launches"] == 0, f"{what}: K2 launched")
+                check(not scans, f"{what}: Region.scan was called")
+                check(run["resident_bytes_delta"] == 0,
+                      f"{what}: the hot set changed")
+                check(st["peak_host_bytes"] <= st["chunk_bytes_max"]
+                      + (st["depth"] + 2) * st["block_bytes_max"],
+                      f"{what}: {st['peak_host_bytes']} host bytes in flight")
+                run["max_rel_err"] = check_stream_result(
+                    res, sums, counts, hours, what)
+                log(f"{what}: " + json.dumps(run))
+                runs.append(run)
+            if cuda:
+                log("stream profile (one warm run, profiler on): "
+                    + json.dumps(device_breakdown(
+                        lambda: qe.execute_one(sql), torch)))
+            log("stream host breakdown (one warm run, every thread): "
+                + json.dumps(host_breakdown(
+                    lambda: qe.execute_one(sql))))
+            check(qe.executor.last_path == "stream_prepared" and not scans,
+                  "stream: the profiled runs left the streaming route")
+        out["rows"] = rows
+        out["cold"] = runs[0]
+        out["warm_p50_ms"] = float(np.median([r["ms"] for r in runs[1:]]))
+        log("stream summary: " + json.dumps({
+            "rows": rows, "blocks": want_blocks, "cold_ms": runs[0]["ms"],
+            "warm_p50_ms": out["warm_p50_ms"],
+            "warm_rows_per_s": rows / out["warm_p50_ms"] * 1e3,
+            "h2d_bytes": runs[0]["stream"]["h2d_bytes"],
+            "max_memory_allocated": runs[0]["max_memory_allocated"],
+            "peak_host_bytes": runs[0]["stream"]["peak_host_bytes"],
+            "host_rss_before": runs[0]["host_rss_before"],
+            "host_rss_peak": runs[0]["host_rss_peak"],
+            "cut": out["cut"]}))
+
+        # the materialized route on the same table, for comparison
+        avail, need = mem_available(), 3 * rows * STREAM_ROW_BYTES
+        if avail < need:
+            out["materialized"] = {"skipped": f"MemAvailable {avail} < "
+                                   f"3 x the scan's {need // 3} bytes"}
+            log("stream materialized comparison skipped: "
+                + out["materialized"]["skipped"])
+        else:
+            mat = {}
+            with partial_cache(False), env_value(
+                    "GREPTIMEDB_TPU_STREAM_THRESHOLD_ROWS", str(1 << 62)):
+                for tag in ("cold", "warm"):
+                    zero_launches(sk)
+                    if cuda:
+                        torch.cuda.reset_peak_memory_stats()
+                    with rss_peak() as rss:
+                        res, ms = timed_query(qe, sql, torch)
+                    rec = {"ms": ms, "last_path": qe.executor.last_path,
+                           "host_rss_before": rss.before,
+                           "host_rss_peak": rss.peak,
+                           "k1_launches": sk.segment_sum.launches,
+                           "k2_launches": sk.fused_segment_agg.launches,
+                           "max_memory_allocated":
+                           torch.cuda.max_memory_allocated() if cuda
+                           else None,
+                           "resident_bytes": cache.resident_bytes}
+                    check(rec["last_path"] == "dense_prepared",
+                          f"materialized {tag}: {rec['last_path']}")
+                    rec["max_rel_err"] = check_stream_result(
+                        res, sums, counts, hours, f"materialized {tag}")
+                    log(f"stream materialized {tag} (cache off): "
+                        + json.dumps(rec))
+                    mat[tag] = rec
+            out["materialized"] = mat
+        del res
+        engine.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---- entry point -------------------------------------------------------------
 
 
@@ -2032,6 +2426,7 @@ def main() -> int:
         with partial_cache(False):
             dedup_phase(torch)
         prom = promql_phase(sk, torch)
+        stream = stream_phase(sk, torch, lib)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2054,8 +2449,12 @@ def main() -> int:
                "promql cpu (cold runs)": {
                    "segment_sum": 0, "fused_segment_agg": sum(
                        r["k2_launches_cold"]
-                       for r in main["promql_cpu"].values())}}
-    promql_paths = ("promql prom_cpu (cold runs)", "promql cpu (cold runs)")
+                       for r in main["promql_cpu"].values())},
+               "stream_prepared (cpu_big)": {
+                   "segment_sum": stream["cold"]["k1_launches"],
+                   "fused_segment_agg": stream["cold"]["k2_launches"]}}
+    later_paths = ("promql prom_cpu (cold runs)", "promql cpu (cold runs)",
+                   "stream_prepared (cpu_big)")
     sources = {"segment_sum": ("greptimedb_tpu_torch/csrc/segment_sum.cu",
                                "greptimedb_tpu/ops/pallas_segment.py:119"),
                "fused_segment_agg": (
@@ -2067,12 +2466,17 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": main["launches"][name]
-            + sum(by_path[k][name] for k in promql_paths),
+            + sum(by_path[k][name] for k in later_paths),
             "max_abs_err": h["max_abs_err"], "ms": h["ms"],
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": h["library_ms"],
             "shape": h["shape"], "G": h["G"],
             "launches_by_path": {k: v[name] for k, v in by_path.items()}})
+        if name == "segment_sum":
+            kernels[-1]["stream_shape"] = {
+                k: kres[name]["stream"][k] for k in (
+                    "shape", "G", "dtype", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "stats")}
         if name == "fused_segment_agg":
             for key, case in (("sparse_shape", "sparse"),
                               ("promql_label_shape", "promql_label"),

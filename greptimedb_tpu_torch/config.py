@@ -1,7 +1,8 @@
 """Runtime configuration of the port (counterpart of
 greptimedb_tpu/config.py): the device every tensor lives on, the compute
-dtype of field values inside kernels, and the group budgets of the dense
-and sparse aggregation routes.
+dtype of field values inside kernels, the group budgets of the dense
+and sparse aggregation routes, and the streaming route's threshold and
+block shape.
 
 The device is explicit: entry points take `device=` and carry it down to
 every tensor they make. `None` means the CUDA card; a missing card raises
@@ -73,3 +74,20 @@ def device_cache_bytes(dev: torch.device) -> int:
         # half the card: the rest holds kernel temporaries and outputs
         return torch.cuda.get_device_properties(dev).total_memory // 2
     return 4 << 30
+
+
+def stream_threshold_rows() -> int:
+    """Aggregate scans of append-mode tables at or above this row
+    estimate take the streaming route: lazy SST chunks become fixed-shape
+    device blocks folded into an accumulator on the device, so the scan
+    is never materialized on the host (query/physical.py,
+    `_execute_agg_stream`). Below it the materialized route keeps
+    file-anchored blocks in the hot set across repeated queries."""
+    return int(os.environ.get("GREPTIMEDB_TPU_STREAM_THRESHOLD_ROWS",
+                              str(32 << 20)))
+
+
+def stream_block_rows() -> int:
+    """Rows of one streamed device block (the padded block shape)."""
+    return int(os.environ.get("GREPTIMEDB_TPU_STREAM_BLOCK_ROWS",
+                              str(2 << 20)))

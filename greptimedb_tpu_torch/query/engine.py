@@ -14,6 +14,8 @@ UnsupportedStatement naming the slice of the port that brings it.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from greptimedb_tpu_torch import config
@@ -34,6 +36,11 @@ from greptimedb_tpu_torch.sql import ast, parse_sql
 from greptimedb_tpu_torch.storage.engine import RegionEngine
 from greptimedb_tpu_torch.utils.time import coerce_ts_literal
 
+# the later slice of the port that brings the host-side SQL the JAX
+# engine answers: subqueries, window functions, UNION, views, SHOW,
+# DESCRIBE, EXPLAIN, information_schema (ROADMAP.md, A13)
+_HOST_SQL = "host SQL surface (ROADMAP A13)"
+
 # statements of the JAX engine this slice leaves out, by the later slice
 # of the port that brings them (ROADMAP.md, queue A)
 _LATER = {
@@ -43,7 +50,24 @@ _LATER = {
     "CreateFlow": "servers and CLI",
     "DropFlow": "servers and CLI",
     "ShowFlows": "servers and CLI",
+    **{name: _HOST_SQL for name in (
+        "Union", "ShowTables", "ShowDatabases", "ShowCreateTable",
+        "DescribeTable", "CreateDatabase", "Use", "SetVar", "CreateView",
+        "DropView", "ShowViews")},
 }
+
+
+def _ast_nodes(obj):
+    """Every AST node reachable from `obj` (expressions, window specs,
+    select items), not descending into a subquery's statement."""
+    if isinstance(obj, (list, tuple)):
+        for x in obj:
+            yield from _ast_nodes(x)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        yield obj
+        if not isinstance(obj, ast.Subquery):
+            for f in dataclasses.fields(obj):
+                yield from _ast_nodes(getattr(obj, f.name))
 
 
 class UnsupportedStatement(PlanError):
@@ -65,6 +89,7 @@ class QueryEngine:
         self.executor.last_path = None
         self.executor.last_partial_stats = None
         self.executor.last_sparse_stats = None
+        self.executor.last_stream_stats = None
         return [self.execute_statement(s, db) for s in parse_sql(sql)]
 
     def execute_one(self, sql: str, db: str = "public") -> QueryResult:
@@ -95,6 +120,9 @@ class QueryEngine:
             return self._tql(stmt, db)
         name = type(stmt).__name__
         slice_name = _LATER.get(name, "servers and CLI")
+        if isinstance(stmt, ast.Explain) and not stmt.analyze:
+            # EXPLAIN ANALYZE needs the tracing spans (servers and CLI)
+            slice_name = _HOST_SQL
         raise UnsupportedStatement(
             f"{name} is not in this slice of greptimedb_tpu_torch; the "
             f"{slice_name} slice brings it")
@@ -123,6 +151,18 @@ class QueryEngine:
             raise UnsupportedStatement(
                 "CTEs, joins, derived tables and RANGE ... ALIGN are not in "
                 "this slice of greptimedb_tpu_torch")
+        nodes = list(_ast_nodes(sel))
+        for what, hit in (
+                ("window functions (OVER)", any(
+                    isinstance(n, ast.WindowSpec) for n in nodes)),
+                ("subqueries", any(isinstance(n, ast.Subquery)
+                                   for n in nodes)),
+                ("information_schema tables", sel.table is not None and
+                 "information_schema" in sel.table.lower().split(".")[:-1])):
+            if hit:
+                raise UnsupportedStatement(
+                    f"{what} are not in this slice of greptimedb_tpu_torch; "
+                    f"the {_HOST_SQL} slice brings them")
         if sel.table is None:
             names, cols = [], []
             for i, it in enumerate(sel.items):

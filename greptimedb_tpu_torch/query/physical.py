@@ -25,21 +25,30 @@ the same route and `last_path` reads the same on both:
   memtable tail, each through the kernel route above;
 - order statistics (median, percentile, argmax, argmin, polyval,
   count_distinct, string first/last/min/max) run on the host
-  (query/host_agg.py) beside any of the dense or sparse routes.
+  (query/host_agg.py) beside any of the dense or sparse routes;
+- `stream_prepared` / `stream`: an aggregate over an append-mode table
+  whose row estimate reaches config.stream_threshold_rows() never
+  materializes its scan. Lazy SST chunks (Region.scan_stream) become
+  fixed-shape blocks on a producer thread (`_prefetch`) and fold into an
+  accumulator on the device: one K1 call a block over prepared planes,
+  or plain segment reductions and `_combine_partials` for the rest.
 Tensors stay on the executor's device; only the result planes come back.
 A kernel that fails raises: no route catches it and serves another.
 
 Left out (the JAX package's paths, each listed in ROADMAP.md): mesh and
-cluster fan-out, streaming beyond device memory, lastpoint and boundary
-first/last pruning, fragment pushdown, tier routing and its first-touch
-compile hedges, and vmapped serving.
+cluster fan-out, lastpoint and boundary first/last pruning, fragment
+pushdown, tier routing and its first-touch compile hedges, and vmapped
+serving.
 """
 
 from __future__ import annotations
 
+import queue
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -656,6 +665,157 @@ def _unpack_acc(packed_f, packed_i, float_ops, int_ops, widths):
     return acc
 
 
+# ---- streaming beyond device memory -------------------------------------------
+
+
+class _NotStreamable(Exception):
+    """A plan the streaming route cannot serve (generic group keys, host
+    order statistics, sparse cardinality): a typed decision about the
+    plan, after which the query takes the materialized route."""
+
+
+class _StreamStats:
+    """Counters of one streamed aggregate, updated by the producer and the
+    consumer thread: chunks, blocks, rows, bytes uploaded, and the host
+    bytes in flight (decoded chunks and built blocks not yet uploaded)
+    with their peak, which stays within one chunk and depth + 2 blocks,
+    and where the time went (`_prefetch`)."""
+
+    def __init__(self, depth: int):
+        self._lock = threading.Lock()
+        self.depth = depth
+        self.chunks = self.blocks = self.rows = self.h2d_bytes = 0
+        self.host_bytes = self.peak_host_bytes = 0
+        self.chunk_bytes_max = self.block_bytes_max = 0
+        # the producer's busy time and the consumer's wait for blocks
+        self.produce_s = self.wait_s = 0.0
+
+    def hold(self, nbytes: int, chunk: bool) -> None:
+        with self._lock:
+            self.host_bytes += nbytes
+            self.peak_host_bytes = max(self.peak_host_bytes, self.host_bytes)
+            if chunk:
+                self.chunks += 1
+                self.chunk_bytes_max = max(self.chunk_bytes_max, nbytes)
+            else:
+                self.blocks += 1
+                self.block_bytes_max = max(self.block_bytes_max, nbytes)
+
+    def release(self, nbytes: int, uploaded: bool = False) -> None:
+        with self._lock:
+            self.host_bytes -= nbytes
+            if uploaded:
+                self.h2d_bytes += nbytes
+
+    def as_dict(self) -> dict:
+        return {k: v for k, v in self.__dict__.items() if k != "_lock"}
+
+
+def _prefetch(items, depth: int = 2, stats: Optional[_StreamStats] = None):
+    """Run `items` (the host work of a stream: SST reads, decode, padding
+    and plane builds) on a producer thread, up to `depth` items ahead of
+    the consumer, through a bounded queue: at most depth + 2 items exist
+    at once (queued, one blocked in the producer's put, one with the
+    consumer). A producer error re-raises on the consumer after the items
+    before it. Closing the generator stops the producer at its next put;
+    on every exit the producer thread is joined before the generator
+    returns, so no thread outlives its query and no read outlives the
+    stream's file pins. `stats` gets the producer's busy seconds and the
+    consumer's seconds waiting for an item."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+    err: list = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            it = iter(items)
+            while True:
+                t = time.perf_counter()
+                item = next(it, done)
+                if stats is not None:
+                    stats.produce_s += time.perf_counter() - t
+                if item is done or not put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 - re-raised on the consumer
+            err.append(e)
+        finally:
+            close = getattr(items, "close", None)
+            if close is not None:
+                close()  # on this thread: runs the stream's finally
+            put(done)
+
+    t = threading.Thread(target=producer, name="gtpu-stream-prefetch",
+                         daemon=True)
+    t.start()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            item = q.get()
+            if stats is not None:
+                stats.wait_s += time.perf_counter() - t0
+            if item is done:
+                break
+            yield item
+            item = None
+        if err:
+            raise err[0]
+    finally:
+        stop.set()
+        while True:  # free the queued items and a producer blocked in put
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        t.join()
+
+
+def _stream_blocks(stream, stats: _StreamStats, block: int, names,
+                   casts: dict, planes=None):
+    """The stream's chunks cut into zero-padded blocks of `block` rows:
+    the columns `names` (cast where `casts` names a numpy dtype) plus the
+    arrays `planes(chunk, start, end)` builds. A chunk counts in flight
+    until the next one is asked for, a block until it is uploaded."""
+    for cols, nrows in stream.chunks():
+        nbytes = sum(int(a.nbytes) for a in cols.values())
+        stats.hold(nbytes, chunk=True)
+        stats.rows += nrows
+        chunk = SimpleNamespace(columns=cols)
+        try:
+            for start in range(0, nrows, block):
+                end = min(start + block, nrows)
+                blk = {name: _block_column(cols[name], start, end, block,
+                                           casts.get(name))
+                       for name in names}
+                if planes is not None:
+                    blk.update(planes(chunk, start, end))
+                stats.hold(sum(a.nbytes for a in blk.values()), chunk=False)
+                yield blk, end - start
+                blk = None
+        finally:
+            stats.release(nbytes)
+        del cols, chunk
+
+
+def _block_column(arr: np.ndarray, start: int, end: int, block: int,
+                  np_dtype=None) -> np.ndarray:
+    """Rows [start, end) of a chunk column as a new zero-padded block,
+    cast to `np_dtype`: a copy, so a queued block never keeps its chunk
+    alive."""
+    out = np.zeros(block, dtype=np_dtype or arr.dtype)
+    out[:end - start] = arr[start:end]
+    return out
+
+
 # ---- executor ----------------------------------------------------------------
 
 
@@ -713,6 +873,16 @@ class PhysicalExecutor:
     def last_sparse_stats(self, v):
         self._tls.last_sparse_stats = v
 
+    @property
+    def last_stream_stats(self) -> Optional[dict]:
+        """The streaming route's counters of this thread's last query
+        (_StreamStats), or None when it did not stream."""
+        return getattr(self._tls, "last_stream_stats", None)
+
+    @last_stream_stats.setter
+    def last_stream_stats(self, v):
+        self._tls.last_stream_stats = v
+
     def execute(self, plan: lp.LogicalPlan) -> QueryResult:
         # unwrap the linear chain
         limit = offset = None
@@ -756,6 +926,12 @@ class PhysicalExecutor:
         tag_preds = extract_tag_predicates(where, table.schema) or None
 
         def run(ts_range):
+            if agg is not None and table.append_mode:
+                res = self._try_stream_agg(table, ts_range, where, agg,
+                                           having, project, sort, limit,
+                                           offset, scan_node)
+                if res is not None:
+                    return res
             scan = self.engine.scan(table.region_ids[0], ts_range,
                                     scan_node.columns, tag_preds)
             if agg is not None:
@@ -778,6 +954,263 @@ class PhysicalExecutor:
                     return res
             return run(candidates[-1])
         return run(ts_range)
+
+    # ---- streaming aggregation ------------------------------------------------
+
+    def _try_stream_agg(self, table, ts_range, where, agg, having, project,
+                        sort, limit, offset,
+                        scan_node) -> Optional[QueryResult]:
+        """Beyond-RAM aggregate scans stream (the JAX executor's dispatch,
+        physical.py:1590-1615): before the materialized scan and the
+        incremental fold. None when the row estimate is under
+        config.stream_threshold_rows() or the plan is _NotStreamable; the
+        caller then takes the materialized route."""
+        stream = self.engine.scan_stream(table.region_ids[0], ts_range,
+                                         scan_node.columns)
+        if stream is None:
+            return None
+        try:
+            if stream.est_rows < config.stream_threshold_rows():
+                return None
+            return self._execute_agg_stream(stream, table, where, agg,
+                                            having, project, sort, limit,
+                                            offset, scan_node)
+        except _NotStreamable:
+            return None
+        finally:
+            # idempotent: releases the pins of a stream that was never
+            # iterated or was abandoned
+            stream.close()
+
+    def _execute_agg_stream(self, stream, table, where, agg, having,
+                            project, sort, limit, offset,
+                            scan_node) -> QueryResult:
+        """Bounded-memory aggregation: lazy scan chunks fold into an
+        accumulator on the device. Raises _NotStreamable for plans that
+        need the whole scan on the host (generic keys, order statistics)
+        or sparse cardinality."""
+        schema = table.schema
+        ctx = BindContext(schema, stream.tag_dicts)
+        bound_where = bind_expr(where, ctx) if where is not None else None
+        keys: list[DeviceKey] = []
+        decoders = []
+        for kexpr in (k for _, k in agg.keys):
+            dk, decode = self._plan_key_stream(kexpr, ctx, stream, scan_node)
+            keys.append(dk)
+            decoders.append(decode)
+        num_groups = 1
+        for k in keys:
+            num_groups *= k.size
+        if num_groups > config.dense_groups_max():
+            raise _NotStreamable("sparse cardinality")
+        arg_exprs: list[ast.Expr] = []
+        spec_slot: list[Optional[int]] = []
+        for spec in agg.aggs:
+            if _needs_host_agg(spec, schema):
+                raise _NotStreamable(f"host aggregate {spec.func}")
+            if spec.arg is None:
+                spec_slot.append(None)
+                continue
+            b = bind_expr(spec.arg, ctx)
+            if b not in arg_exprs:
+                arg_exprs.append(b)
+            spec_slot.append(arg_exprs.index(b))
+        ops: set = {"rows"}
+        for spec in agg.aggs:
+            ops.update(_PRIMITIVES[spec.func])
+        self.last_partial_stats = None
+        self.last_sparse_stats = None
+        stats = _StreamStats(depth=2)
+        acc = self._fold_stream(stream, schema, bound_where, tuple(keys),
+                                tuple(arg_exprs), tuple(sorted(ops)),
+                                num_groups, ctx, stats)
+        self.last_stream_stats = stats.as_dict()
+        return self._agg_tail(acc, None, agg, keys, decoders, spec_slot,
+                              None, having, project, sort, limit, offset,
+                              table)
+
+    def _fold_stream(self, stream, schema, bound_where, keys, arg_exprs, ops,
+                     num_groups, ctx, stats) -> dict:
+        """The general streaming fold: per block, plain segment reductions
+        (`_agg_block`) combined across blocks (`_combine_partials`).
+        Returns host planes indexed by global group id."""
+        ts_name = schema.time_index.name
+        acc_dtype = config.compute_dtype(self.device)
+        tag_names = frozenset(ctx.tag_names)
+        float_fields = {c.name for c in schema.field_columns
+                        if c.dtype.is_float}
+        nf = max(len(arg_exprs), 1)
+        need_ts = bool({"first", "last"} & set(ops))
+        block = config.stream_block_rows()
+        if not need_ts and self._prepared_ok(arg_exprs, ops, (), schema, {}):
+            self.last_path = "stream_prepared"
+            return self._fold_stream_prepared(
+                stream, bound_where, keys, arg_exprs, ops, num_groups,
+                tag_names, float_fields, schema, block, acc_dtype, stats)
+        self.last_path = "stream"
+        needed: set[str] = {ts_name}
+        collect_columns(bound_where, needed)
+        for a in arg_exprs:
+            collect_columns(a, needed)
+        needed.update(k.column for k in keys)
+        names = sorted(needed)
+        casts = dict.fromkeys(float_fields, _NUMPY_OF[acc_dtype])
+        acc = None
+        gen = _prefetch(_stream_blocks(stream, stats, block, names, casts),
+                        stats.depth, stats)
+        try:
+            for blk, n_valid in gen:
+                dev = self._upload_block(blk, stats)
+                blk = None
+                part = _agg_block(
+                    dev, n_valid, None, where=bound_where, keys=keys,
+                    agg_args=arg_exprs, ops=ops, num_segments=num_groups,
+                    ts_name=ts_name, tag_names=tag_names, schema=schema,
+                    need_ts=need_ts, acc_dtype=acc_dtype)
+                acc = _combine_partials(acc, part)
+        finally:
+            # the producer stops before the caller's stream.close()
+            # drops the file pins
+            gen.close()
+        G = num_groups
+        if acc is None:  # pruning left nothing: identity planes
+            out: dict = {}
+            for op in ops:
+                if op == "rows":
+                    out[op] = np.zeros((G, 1), dtype=np.int64)
+                elif op == "count":
+                    out[op] = np.zeros((G, nf), dtype=np.int64)
+                elif op in ("sum", "sumsq"):
+                    out[op] = np.zeros((G, nf))
+                else:  # min, max, first, last
+                    out[op] = np.full((G, nf), np.nan)
+                    if op in ("first", "last"):
+                        out[op + "_ts"] = np.zeros(G, dtype=np.int64)
+            return out
+        out = {k: v.cpu().numpy() for k, v in acc.items()}
+        for k in ("count", "rows"):
+            if k in out:
+                out[k] = out[k].astype(np.int64)
+        return out
+
+    def _fold_stream_prepared(self, stream, bound_where, keys, arg_exprs,
+                              ops, num_groups, tag_names, float_fields,
+                              schema, block, acc_dtype, stats) -> dict:
+        """The streaming twin of `dense_prepared`: each block's
+        [values | validity | ones] plane is built on the producer thread
+        (conservatively with the validity columns, W = 2F + 1: a stream
+        cannot pre-scan its chunks for NULLs), uploaded, and folded by
+        ONE K1 call over G + 1 segments, masked rows in the dead segment
+        G. The accumulators are allocated once on the device and updated
+        in place (add_, minimum/maximum with out=): the answer to the JAX
+        package's donated buffers. Streamed blocks never enter the hot
+        set."""
+        G = num_groups
+        nf = len(arg_exprs)
+        arg_names = tuple(a.name for a in arg_exprs)
+        aux: set[str] = set()
+        collect_columns(bound_where, aux)
+        aux.update(k.column for k in keys)
+        aux_names = sorted(aux)
+        np_acc = _NUMPY_OF[acc_dtype]
+        # variance/stddev difference two moments: both carry f64
+        prep_dtype = torch.float64 if "sumsq" in ops else acc_dtype
+        np_prep = _NUMPY_OF[prep_dtype]
+
+        def planes(chunk, start, end):
+            out = {"__prep__": _build_prep(chunk, arg_names, start, end,
+                                           block, np_prep, True, None)}
+            for kind in ("min", "max"):
+                if kind in ops:
+                    out[f"__prep_{kind}__"] = _build_prep(
+                        chunk, arg_names, start, end, block, np_acc, False,
+                        kind)
+            if "sumsq" in ops:
+                out["__prep_sq__"] = _build_prep(
+                    chunk, arg_names, start, end, block, np.float64, False,
+                    "sq")
+            return out
+
+        dev = self.device
+        total = torch.zeros((G, 2 * nf + 1), dtype=prep_dtype, device=dev)
+        tmin = torch.full((G, nf), float("inf"), dtype=acc_dtype,
+                          device=dev) if "min" in ops else None
+        tmax = torch.full((G, nf), float("-inf"), dtype=acc_dtype,
+                          device=dev) if "max" in ops else None
+        tsq = torch.zeros((G, nf), dtype=torch.float64, device=dev) \
+            if "sumsq" in ops else None
+        gen = _prefetch(_stream_blocks(
+            stream, stats, block, aux_names,
+            dict.fromkeys(float_fields, np_acc), planes), stats.depth, stats)
+        try:
+            for blk, n_valid in gen:
+                cols = self._upload_block(blk, stats)
+                blk = None
+                plane = cols["__prep__"]
+                mask = _base_mask(plane.shape[0], n_valid, None, dev)
+                mask = _where_mask(mask, bound_where, cols, tag_names,
+                                   schema)
+                gid = _group_ids(cols, keys, plane.shape[0])
+                ids = torch.where(mask, gid, torch.full_like(gid, G))
+                total.add_(dense_segment_sum(plane, ids, G + 1)[:G])
+                if tmin is not None:
+                    torch.minimum(tmin, _seg_reduce(
+                        cols["__prep_min__"], ids, G + 1, "amin",
+                        float("inf"))[:G], out=tmin)
+                if tmax is not None:
+                    torch.maximum(tmax, _seg_reduce(
+                        cols["__prep_max__"], ids, G + 1, "amax",
+                        float("-inf"))[:G], out=tmax)
+                if tsq is not None:
+                    tsq.add_(dense_segment_sum(cols["__prep_sq__"], ids,
+                                               G + 1)[:G])
+                del cols, plane, mask, gid, ids
+        finally:
+            gen.close()
+        host = total.cpu().numpy()
+        out: dict = {}
+        for op in ops:
+            if op == "sum":
+                out[op] = host[:, :nf]
+            elif op == "count":
+                # f32 counts are exact below 2**24 rows a group
+                out[op] = host[:, nf:2 * nf].astype(np.int64)
+            elif op == "rows":
+                out[op] = host[:, 2 * nf:].astype(np.int64)
+            elif op == "sumsq":
+                out[op] = tsq.cpu().numpy()
+            elif op == "min":  # an empty or all-NULL group reads as NULL
+                ext = tmin.cpu().numpy()
+                out[op] = np.where(np.isposinf(ext), np.nan, ext)
+            else:
+                ext = tmax.cpu().numpy()
+                out[op] = np.where(np.isneginf(ext), np.nan, ext)
+        return out
+
+    def _upload_block(self, blk: dict, stats: _StreamStats) -> dict:
+        """One streamed block to the device: a synchronous copy from
+        pageable host memory, so the host arrays are free when it
+        returns."""
+        cols = {k: self._upload(a) for k, a in blk.items()}
+        stats.release(sum(int(a.nbytes) for a in blk.values()),
+                      uploaded=True)
+        return cols
+
+    def _plan_key_stream(self, kexpr, ctx, stream, scan_node):
+        """Key planning from the stream's metadata only (no data columns):
+        tag keys decode from the registry dictionaries, time buckets take
+        their extent from the pruned files' stats and the memtable.
+        Anything that needs the rows raises _NotStreamable."""
+        ts_col = ctx.schema.time_index
+        if isinstance(kexpr, ast.Column) and kexpr.name in ctx.tag_names:
+            return _tag_key(kexpr.name, stream.tag_dicts[kexpr.name])
+        step = _bucket_step(kexpr, ts_col)
+        if step is not None:
+            lo, hi = self._ts_bounds(scan_node, None,
+                                     fallback=(stream.ts_min, stream.ts_max))
+            return _bucket_key(ts_col, step, lo, hi)
+        raise _NotStreamable(f"group key {kexpr!r} needs the materialized "
+                             "scan")
 
     def _bucket_topk_ranges(self, table, agg, sort, limit, offset, having,
                             ts_range) -> Optional[list]:
@@ -1248,36 +1681,11 @@ class PhysicalExecutor:
         schema = ctx.schema
         ts_col = schema.time_index
         if isinstance(kexpr, ast.Column) and kexpr.name in ctx.tag_names:
-            name = kexpr.name
-            card = len(scan.tag_dicts[name])
-            values = scan.tag_dicts[name]
-
-            def decode_tag(idx, values=values):
-                out = np.empty(len(idx), dtype=object)
-                codes = idx - 1
-                valid = codes >= 0
-                out[valid] = values[codes[valid]]
-                out[~valid] = None
-                return out, DataType.STRING
-
-            return DeviceKey("tag", name, card + 1), decode_tag
-        if (isinstance(kexpr, ast.FuncCall)
-                and kexpr.name in ("date_bin", "time_bucket")
-                and isinstance(kexpr.args[0], ast.Interval)
-                and isinstance(kexpr.args[1], ast.Column)
-                and kexpr.args[1].name == ts_col.name):
-            unit = ts_col.dtype.time_unit.nanos_per_unit
-            step = max(kexpr.args[0].nanos // unit, 1)
-            ts_arr = scan.columns[ts_col.name]
-            lo, hi = self._ts_bounds(scan_node, ts_arr)
-            base = int(np.floor_divide(lo, step))
-            size = int(np.floor_divide(hi, step)) - base + 1
-
-            def decode_bucket(idx, step=step, base=base, dtype=ts_col.dtype):
-                return (idx.astype(np.int64) + base) * step, dtype
-
-            return (DeviceKey("bucket", ts_col.name, size, step=step,
-                              base=base), decode_bucket)
+            return _tag_key(kexpr.name, scan.tag_dicts[kexpr.name])
+        step = _bucket_step(kexpr, ts_col)
+        if step is not None:
+            lo, hi = self._ts_bounds(scan_node, scan.columns[ts_col.name])
+            return _bucket_key(ts_col, step, lo, hi)
         # generic expression: factorize on host
         from greptimedb_tpu_torch.datatypes.vector import DictVector
 
@@ -1301,15 +1709,17 @@ class PhysicalExecutor:
 
         return DeviceKey("pre", colname, max(len(uniq), 1)), decode_pre
 
-    def _ts_bounds(self, scan_node, ts_arr) -> tuple[int, int]:
+    def _ts_bounds(self, scan_node, ts_arr, fallback=None) -> tuple[int, int]:
+        """The bucket extent: the query's ts range where it has one, else
+        the rows' (or, for a stream, `fallback`: the files' stats)."""
         lo = hi = None
         if scan_node.ts_range is not None:
             lo, hi0 = scan_node.ts_range
             hi = None if hi0 is None else hi0 - 1
         if lo is None:
-            lo = int(ts_arr.min())
+            lo = int(ts_arr.min()) if ts_arr is not None else fallback[0]
         if hi is None:
-            hi = int(ts_arr.max())
+            hi = int(ts_arr.max()) if ts_arr is not None else fallback[1]
         return lo, hi
 
     def _stream_agg_inner(self, q: _AggQuery, sparse: bool):
@@ -1826,6 +2236,47 @@ class PhysicalExecutor:
 
 
 # ---- helpers ---------------------------------------------------------------
+
+
+def _tag_key(name: str, values: np.ndarray):
+    """A tag group key: ids are codes + 1 (0 is NULL) over the registry
+    dictionary `values`. Returns (DeviceKey, decoder)."""
+
+    def decode_tag(idx):
+        out = np.empty(len(idx), dtype=object)
+        codes = idx - 1
+        valid = codes >= 0
+        out[valid] = values[codes[valid]]
+        out[~valid] = None
+        return out, DataType.STRING
+
+    return DeviceKey("tag", name, len(values) + 1), decode_tag
+
+
+def _bucket_step(kexpr, ts_col) -> Optional[int]:
+    """The bucket width, in the time index's unit, of a date_bin /
+    time_bucket key over the time index; None for any other key."""
+    if (isinstance(kexpr, ast.FuncCall)
+            and kexpr.name in ("date_bin", "time_bucket")
+            and isinstance(kexpr.args[0], ast.Interval)
+            and isinstance(kexpr.args[1], ast.Column)
+            and kexpr.args[1].name == ts_col.name):
+        unit = ts_col.dtype.time_unit.nanos_per_unit
+        return max(kexpr.args[0].nanos // unit, 1)
+    return None
+
+
+def _bucket_key(ts_col, step: int, lo: int, hi: int):
+    """A time-bucket group key over [lo, hi]: ids are bucket indexes from
+    the first bucket. Returns (DeviceKey, decoder)."""
+    base = int(np.floor_divide(lo, step))
+    size = int(np.floor_divide(hi, step)) - base + 1
+
+    def decode_bucket(idx):
+        return (idx.astype(np.int64) + base) * step, ts_col.dtype
+
+    return (DeviceKey("bucket", ts_col.name, size, step=step, base=base),
+            decode_bucket)
 
 
 def _closed_range(ts_range):

@@ -152,6 +152,15 @@ class RegionEngine:
         return self.region(region_id).scan(ts_range, projection,
                                            tag_predicates)
 
+    def scan_stream(
+        self,
+        region_id: int,
+        ts_range: Optional[tuple[int, int]] = None,
+        projection: Optional[Sequence[str]] = None,
+    ):
+        """Lazy bounded-memory scan (see region.ScanStream)."""
+        return self.region(region_id).scan_stream(ts_range, projection)
+
     def ts_extent(self, region_id: int):
         """(min, max) data timestamps from metadata only (no data read)."""
         return self.region(region_id).ts_extent()

@@ -20,13 +20,20 @@ Kept from the JAX region because they decide what a query sees:
 - `ScanData.sorted_part_offsets` and `part_keys`: each SST part's row
   range and identity, so the device hot set keys its blocks by file.
 
+`scan_stream` is the bounded-memory twin of `scan` (the JAX region's
+`scan_stream`): files pinned and the memtable's chunk list snapshotted up
+front, then lazy chunks of a few row groups each, decoded serially in
+file order, and the memtable's rows last.
+
 Left for later slices (ROADMAP.md): group commit and write workers, the
-parallel decode pool, the streaming scan, the lastpoint newest-first
-scan, seq_min incremental scans and the inverted index.
+parallel decode pool (and with it the parallel stream decode), the
+lastpoint newest-first scan, seq_min incremental scans and the inverted
+index.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import threading
@@ -114,6 +121,39 @@ class ScanData:
     # device hot set keys a part's blocks by it, so they outlive data
     # version bumps for the life of the file
     part_keys: tuple = ()
+
+
+@dataclass
+class ScanStream:
+    """Lazy scan (the JAX package's ScanStream, region.py:133-160):
+    metadata up front, columns delivered as bounded chunks, so host
+    memory stays flat whatever the scan's size. Tag dictionaries come
+    from the region's registry, complete without touching the data. Only
+    append-mode scans stream: last-write-wins needs the whole scan in one
+    sort."""
+
+    est_rows: int
+    ts_min: int  # over the pruned files and the memtable snapshot
+    ts_max: int
+    _tag_dicts: object  # () -> tag name -> registry values
+    _chunks: object  # () -> iterator of (columns dict, rows)
+    _close: object  # idempotent; releases the file pins
+
+    @functools.cached_property
+    def tag_dicts(self) -> dict[str, np.ndarray]:
+        """Read from the registry on first use, so a stream that stays
+        under the streaming threshold never copies a large dictionary.
+        The registry only appends, so codes keep their meaning."""
+        return self._tag_dicts()
+
+    def chunks(self):
+        return self._chunks()
+
+    def close(self):
+        """Release the snapshot's SST pins. Idempotent, and required when
+        the stream is abandoned before or instead of being iterated: a
+        generator that never started never runs its finally."""
+        self._close()
 
 
 #: process-wide Region instance ids: a recreated region restarts its
@@ -637,6 +677,77 @@ class Region:
             while len(self._scan_cache) > self.scan_cache_entries:
                 self._scan_cache.popitem(last=False)
         return result
+
+    def scan_stream(
+        self,
+        ts_range: Optional[tuple[int, int]] = None,
+        projection: Optional[Sequence[str]] = None,
+        groups_per_chunk: int = 8,
+    ) -> Optional[ScanStream]:
+        """Lazy bounded-memory scan (see ScanStream), or None when the time
+        range prunes every file and the memtable. Chunks come in file
+        order, then the memtable's rows; each file chunk is
+        `groups_per_chunk` row groups through `_decode_sst` (tags remapped
+        into the registry, ALTER ADD columns backfilled). Rows are not
+        ts-filtered: the device WHERE is exact."""
+        names = self._scan_columns(projection)
+        with self._lock:
+            snapshot_files = list(self.files.values())
+            self._pin_files(snapshot_files)
+            # memtable chunks are immutable once appended: the list is the
+            # snapshot, concatenated only when the stream reaches it
+            mem = self.memtable
+            mem_chunks = list(mem.chunks)
+            mem_bounds = (mem.ts_min, mem.ts_max)
+        if mem_chunks and ts_range is not None and (
+                mem_bounds[1] < ts_range[0] or mem_bounds[0] >= ts_range[1]):
+            mem_chunks = []  # the coarse range check of Memtable.concat
+        files = [m for m in snapshot_files
+                 if ts_range is None
+                 or (m.ts_max >= ts_range[0] and m.ts_min < ts_range[1])]
+        if not files and not mem_chunks:
+            self._unpin_files(snapshot_files)
+            return None
+        bounds = [(m.ts_min, m.ts_max) for m in files]
+        mem_rows = sum(len(c.seq) for c in mem_chunks)
+        if mem_rows:
+            bounds.append(mem_bounds)
+        unpinned = [False]
+
+        def unpin_once():
+            if not unpinned[0]:
+                unpinned[0] = True
+                self._unpin_files(snapshot_files)
+
+        def gen():
+            try:
+                for meta in files:
+                    for part in self.sst_reader.iter_chunks(
+                            meta, self.schema, ts_range, names,
+                            groups_per_chunk):
+                        n = part.num_rows
+                        cols = self._decode_sst(part, names)
+                        # hold one decoded chunk at a time
+                        del part
+                        if n:
+                            yield cols, n
+                        del cols
+                if mem_rows:
+                    yield {n: np.concatenate([c.columns[n]
+                                              for c in mem_chunks])
+                           for n in names}, mem_rows
+            finally:
+                unpin_once()
+
+        def tag_dicts():
+            return {c.name: self.registry.dict_array(c.name)
+                    for c in self.schema.tag_columns if c.name in names}
+
+        return ScanStream(
+            est_rows=sum(m.num_rows for m in files) + mem_rows,
+            ts_min=min(b[0] for b in bounds),
+            ts_max=max(b[1] for b in bounds),
+            _tag_dicts=tag_dicts, _chunks=gen, _close=unpin_once)
 
     def _scan_columns(self, projection: Optional[Sequence[str]]) -> list[str]:
         ts_name = self.schema.time_index.name

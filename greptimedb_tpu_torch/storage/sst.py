@@ -236,6 +236,23 @@ class SstReader:
         _ft, groups, cols = plan
         return self.read_groups(meta, groups, cols)
 
+    def iter_chunks(self, meta: FileMeta, schema: Schema,
+                    ts_range: Optional[tuple[int, int]] = None,
+                    projection: Optional[Sequence[str]] = None,
+                    groups_per_chunk: int = 8):
+        """Lazily yield the file as SstParts of `groups_per_chunk` row
+        groups each, with `read`'s ts pruning: a streamed scan holds one
+        chunk's columns at a time, whatever the file's size. Tag
+        predicates prune nothing here (the per-file inverted index is a
+        later slice); the device WHERE mask stays exact."""
+        plan = self.plan_groups(meta, schema, ts_range, projection)
+        if plan is None:
+            return
+        _ft, groups, cols = plan
+        for i in range(0, len(groups), groups_per_chunk):
+            yield self.read_groups(meta, groups[i:i + groups_per_chunk],
+                                   cols)
+
     def read_groups(self, meta: FileMeta, groups: Sequence[int],
                     columns: Sequence[str]) -> SstPart:
         """Specific row groups and columns: each column chunk lands in

@@ -160,6 +160,44 @@ def test_statements_outside_the_slice_raise_typed_errors(sql, tmp_path):
         qe.execute_one(sql)
 
 
+@pytest.mark.parametrize("sql", [
+    # the five queries of ROADMAP C1 that the JAX engine answers
+    "SELECT host, row_number() OVER (PARTITION BY host ORDER BY ts) AS rn "
+    "FROM cpu",
+    "SELECT host, avg(u) OVER (PARTITION BY host) FROM cpu",
+    "SELECT host, count(*) FROM cpu WHERE host IN "
+    "(SELECT host FROM cpu WHERE u > 99) GROUP BY host",
+    "SELECT count(*) FROM cpu WHERE u > (SELECT avg(u) FROM cpu)",
+    "SELECT table_name FROM information_schema.tables",
+    # one statement of each kind the host SQL surface slice brings
+    "SELECT count(*) FROM cpu UNION SELECT count(*) FROM cpu",
+    "SHOW TABLES",
+    "SHOW DATABASES",
+    "SHOW CREATE TABLE cpu",
+    "DESCRIBE TABLE cpu",
+    "CREATE DATABASE db2",
+    "USE db2",
+    "SET time_zone = 'UTC'",
+    "CREATE VIEW v AS SELECT host FROM cpu",
+    "DROP VIEW v",
+    "SHOW VIEWS",
+    "EXPLAIN SELECT count(*) FROM cpu",
+])
+def test_host_sql_surface_raises_naming_its_slice(sql, tmp_path):
+    qe = _engine(tmp_path)
+    _cpu_table(qe, points=2)
+    with pytest.raises(UnsupportedStatement, match="A13"):
+        qe.execute_one(sql)
+
+
+def test_explain_analyze_names_the_servers_slice(tmp_path):
+    """EXPLAIN ANALYZE needs the tracing spans, as TQL ANALYZE does."""
+    qe = _engine(tmp_path)
+    _cpu_table(qe, points=2)
+    with pytest.raises(UnsupportedStatement, match="servers and CLI"):
+        qe.execute_one("EXPLAIN ANALYZE SELECT count(*) FROM cpu")
+
+
 def test_group_space_past_the_dense_budget_raises(monkeypatch, tmp_path):
     """Past the dense budget the key space goes sparse; more observed
     groups than the sparse cap raise, with the JAX package's message."""
