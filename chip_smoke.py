@@ -17,9 +17,12 @@ greptimedb_tpu_torch/_build/. Phases:
    kernel is timed with CUDA events (median of 7 after a warm-up) beside
    its plain version, one library call where PyTorch has one, and the
    least time the card could take (and its share of that time). K2 is
-   also timed at the sparse route's shape and at PromQL's two float64
+   also timed at the sparse route's shape, at PromQL's two float64
    shapes (the label aggregation, [10,000 x 241] into G+1 = 2, and the
-   window buckets, [17,280,000 x 1] into 4,000 x 157 + 1 with max). K1 also
+   window buckets, [17,280,000 x 1] into 4,000 x 157 + 1 with max), at
+   the RANGE query's ([12 x 17,280,000 x 2] f64 slot-replicated rows into
+   4,096 x 256 + 1 with min and max) and at lastpoint's boundary subsets
+   ([524,288 x 10] and [8,192 x 10] f32 into 4,002). K1 also
    runs cases that reach each branch of its windowed design (host-major
    ids, frequent window re-bases, column groups, tiny and ragged n, all
    rows dead, G = 2), logs the plan it launched and its device counters,
@@ -37,7 +40,11 @@ greptimedb_tpu_torch/_build/. Phases:
    and after ADMIN compact_table (a full merge, sort-dedup on the card).
    Every value is held against a float64 numpy oracle over the same
    arrays; `last_path` and each state's kernel launch counts show the
-   route. Between the first two states a small write (one more 10 s step
+   route. lastpoint takes `lastscan+boundary+dense_fused` in every state:
+   Region.scan_last visits the SSTs newest-first and stops early, and
+   the boundary gather keeps two rows a host and the memtable's; the
+   SSTs visited and pruned and the rows before and after the gather are
+   printed, and fewer SSTs than the region holds must be visited. Between the first two states a small write (one more 10 s step
    for every host) and a re-query of double_groupby_all must upload only
    the memtable tail's blocks: the SST parts' blocks are keyed by file
    and hit. The compaction must drop exactly the old files' device
@@ -57,6 +64,14 @@ greptimedb_tpu_torch/_build/. Phases:
      beside the cache-off p50;
    - host order statistics: median and percentile beside an avg on K2,
      and a sparse query with a median, exact under host_agg.py's rule.
+   - RANGE ... ALIGN at full width, after the ingest (cold, warm p50 of
+     5, peak device bytes, a CUPTI profile, a cProfile breakdown) and
+     after the compaction: 1 h avg and max and 10 min min at 5 min for
+     every host, two K2 calls (one a distinct range) over 12 x 17.28 M
+     slot-replicated float64 rows and no K1, every window against numpy
+     (avg to rtol 1e-9, min and max exactly, NULL where a window is
+     empty); and a FILL PREV / FILL LINEAR query on 8 hosts over the
+     first hour at 5 s, one K2 call, against numpy.
    - PromQL through PromqlEngine.eval_matrix on the card, float64, at a
      5 min step with 1 h windows: max_over_time(cpu{__field__=
      "usage_user"}[1h]) buckets the 17.28 M rows into 4,000 x 157 + 1
@@ -102,9 +117,10 @@ greptimedb_tpu_torch/_build/. Phases:
    this query's block shape too ([2 Mi x 21] f32, host-major ids over
    G + 1 = 280,071).
 5. A `kernels` JSON line (with each kernel's launches on every path, the
-   PromQL queries' and the streamed query's included, K1's time at the
-   stream's shape and K2's at the sparse route's and PromQL's shapes),
-   the card line, and the result line.
+   PromQL queries', the streamed query's and the RANGE queries' included,
+   lastpoint's by state, K1's time at the stream's shape and K2's at the
+   sparse route's, PromQL's, RANGE's and lastpoint's shapes), the card
+   line, and the result line.
 
 Exits non-zero, and prints no result line, when CUDA is unavailable, the
 port is not beside this script, or any check fails.
@@ -136,6 +152,9 @@ STEP_S = 10
 # ingest's rows, 1M-row buckets past 1M)
 SPARSE_U = HOSTS * HOURS * 60
 SPARSE_PAD_ROWS = -(-HOSTS * HOURS * 3600 // STEP_S // (1 << 20)) * (1 << 20)
+#: the memtable tail the ingest leaves (9 puts of 524 points a host, an
+#: auto-flush every two): the last put's 128 points a host
+LASTPOINT_TAIL_ROWS = 128 * HOSTS
 T0_MS = 1456790400000  # 2016-03-01T00:00:00Z
 POINTS = HOURS * 3600 // STEP_S
 # bench.py's config #3 (bench.py:375-475; BASELINE.json configs[2]):
@@ -289,6 +308,47 @@ def cpu_bucket_ids(device):
     w = CPU_RANGE_S // CPU_EVAL_STEP_S
     b = -(-(point * STEP_S) // CPU_EVAL_STEP_S) + w - 1
     return (host * CPU_BUCKETS + b).to(torch.int32)
+
+
+def range_ids(device):
+    """The ids of the full-width RANGE query's 1 h call (every slot in
+    range): the compacted table's rows sorted by (host, ts), replicated
+    over RANGE_SLOTS slots, slot j of a row in window (its 5 min slot +
+    11 - j) of its host's rank in hostname order: 4,096 x 256 groups.
+    Returns (ids [S·N], G + 1)."""
+    import torch
+
+    per = ALIGN_S // STEP_S
+    lead = RANGE_SLOTS - 1
+    cap_b = 1 << (lead + -(-POINTS // per) - 1).bit_length()
+    cap_s = 1 << (HOSTS - 1).bit_length()
+    rank = torch.from_numpy(np.argsort(host_order())).to(device)
+    r = torch.arange(HOSTS * POINTS, device=device)
+    host, point = r // POINTS, r % POINTS
+    rel = point // per + lead
+    j = torch.arange(RANGE_SLOTS, device=device)[:, None]
+    ids = (rank[host] * cap_b + rel - j).reshape(-1).to(torch.int32)
+    return ids, cap_s * cap_b + 1
+
+
+def lastpoint_ids(tail_rows, device):
+    """The ids of the lastpoint query's K2 call over its boundary subset:
+    the visited SST's run start and end of every host (host-major), then
+    `tail_rows` memtable rows (time-major, every host a step), id =
+    registry code + 1, padded to the subset's block with dead rows.
+    Returns (ids, G + 1)."""
+    import torch
+
+    from greptimedb_tpu_torch.ops.blocks import block_size_for
+
+    h = torch.arange(HOSTS, device=device, dtype=torch.int32) + 1
+    tail = h.repeat(tail_rows // HOSTS)
+    live = torch.cat([h.repeat_interleave(2), tail])
+    n = block_size_for(len(live))
+    g = HOSTS + 2
+    pad = torch.full((n - len(live),), g - 1, dtype=torch.int32,
+                     device=device)
+    return torch.cat([live, pad]), g
 
 
 def values(n, w, dtype, gen, device, nan_frac=0.0, ties=False):
@@ -599,6 +659,17 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
         # the dead slot, F = 2 (avg(usage_user), max(usage_system))
         (SPARSE_PAD_ROWS, 2, SPARSE_U + 1, SPARSE_U, 6, 0.0, f32,
          (False, True, False), "compact"),
+        # the full-width RANGE query's 1 h call: [12 x 17,280,000 x 2]
+        # slot-replicated f64 rows (usage_user, usage_system), G+1 =
+        # 1,048,577, sum, count, min and max
+        (RANGE_SLOTS * HOSTS * POINTS, 2, None, None, 0, 0.0, f64, mm,
+         "range"),
+        # lastpoint's boundary subsets, the 10 fields in f32 over G+1 =
+        # HOSTS + 2: after the ingest (two rows a host of the newest SST
+        # and the memtable tail) and after a flush (two rows a host)
+        (None, 10, None, None, LASTPOINT_TAIL_ROWS, 0.0, f32, none,
+         "lastpoint"),
+        (None, 10, None, None, 0, 0.0, f32, none, "lastpoint"),
     ]
     branches = set()  # (dtype, F > 1, privatized) of the cases run
     for idx, (n, f, g, nb, run, dead, dtype, want, kind) in enumerate(cases):
@@ -612,6 +683,11 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
                               max=nb).to(torch.int32)
         elif kind == "prom_buckets":
             ids = cpu_bucket_ids(dev)
+        elif kind == "range":
+            ids, g = range_ids(dev)
+        elif kind == "lastpoint":
+            ids, g = lastpoint_ids(run, dev)
+            n = len(ids)
         else:
             ids = time_major_ids(n, nb, run, dead, gen, dev)
         vals = k2_values(n, f, dtype, kind, ids, gen, dev)
@@ -672,8 +748,10 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
     # every instance of the kernel ran: f32 and f64, F = 1 and F > 1,
     # privatized and global
     check(len(branches) == 8, f"K2 branches run: {sorted(map(str, branches))}")
-    return {"cases": k2, "headline": k2[3], "sparse": k2[-1],
-            "promql_label": k2[-3], "promql_buckets": k2[-2]}
+    return {"cases": k2, "headline": k2[3], "sparse": k2[-4],
+            "promql_label": k2[-6], "promql_buckets": k2[-5],
+            "range": k2[-3], "lastpoint_ingest": k2[-2],
+            "lastpoint_flushed": k2[-1]}
 
 
 def kernel_phase(sk, lib, torch) -> dict:
@@ -910,11 +988,12 @@ def tsbs_queries():
             f"{avg_list} FROM cpu WHERE ts >= {T0_MS} AND ts < {t_end} "
             f"GROUP BY hour, hostname ORDER BY hour, hostname",
             "dense_prepared", HOSTS * HOURS),
-        # the port has no lastpoint pruning yet: G+1 = 4,001 segments of
-        # last values through K2's route (ROADMAP.md C)
+        # SSTs newest-first (Region.scan_last), then the series-run
+        # boundary rows (_boundary_firstlast): K2 over G+1 = 4,002
+        # segments of that subset
         "lastpoint": (
             f"SELECT hostname, {lv_list} FROM cpu GROUP BY hostname",
-            "dense_fused", HOSTS),
+            "lastscan+boundary+dense_fused", HOSTS),
         # a raw scan: no aggregate, so no last_path
         "high_cpu_all": (
             f"SELECT * FROM cpu WHERE usage_user > 90.0 "
@@ -1081,11 +1160,18 @@ def run_queries(qe, sk, torch, grid, state, timed, lib=None) -> dict:
                 qe.execute_one(sql)
                 warm.append((time.perf_counter() - t) * 1e3)
             out[name]["warm_p50_ms"] = float(np.median(warm))
+        if name == "lastpoint":
+            out[name]["scan_last"] = lastpoint_scan(qe, sql)
         log(f"{state} query {name}: " + json.dumps(out[name]))
         if timed and torch.cuda.is_available():
+            prof = device_breakdown(lambda: qe.execute_one(sql), torch)
+            if name == "lastpoint":
+                # the whole-scan route's device ms before lastpoint
+                # pruning (PERF.md §5), for comparison
+                prof["whole_scan_device_ms_before_pruning"] = 16.570
+            out[name]["profile"] = prof
             log(f"{state} profile {name} (one warm run, profiler on): "
-                + json.dumps(device_breakdown(lambda: qe.execute_one(sql),
-                                              torch)))
+                + json.dumps(prof))
         if timed and name == "double_groupby_all":
             log(f"{state} host breakdown of a warm {name}: "
                 + json.dumps(host_breakdown(lambda: qe.execute_one(sql))))
@@ -1097,6 +1183,36 @@ def run_queries(qe, sk, torch, grid, state, timed, lib=None) -> dict:
     for k, v in launches.items():
         check(v > 0, f"{k} was not launched in the {state} state")
     return {"launches": launches, "queries": out}
+
+
+def lastpoint_scan(qe, sql) -> dict:
+    """One more run of the lastpoint query, reading the pruned scan it
+    asks the region for: SSTs visited and pruned, rows before and after
+    the boundary gather. Fewer SSTs visited than the region holds."""
+    got = []
+    real = qe.region_engine.scan_last
+
+    def spy(*a, **k):
+        got.append(real(*a, **k))
+        return got[-1]
+
+    qe.region_engine.scan_last = spy
+    try:
+        qe.execute_one(sql)
+    finally:
+        del qe.region_engine.scan_last
+    check(len(got) == 1 and got[0] is not None,
+          "lastpoint: no pruned scan served the query")
+    scan = got[0]
+    reduced = scan.__dict__.get("_boundary_fl_cache")
+    check(bool(reduced), "lastpoint: no boundary gather on its scan")
+    st = scan.stats
+    out = {"ssts": st["ssts"], "visited": st["lastpoint_visited"],
+           "pruned": st["ssts_pruned"], "rows_scanned": scan.num_rows,
+           "rows_after_gather": reduced.num_rows}
+    check(st["ssts"] < 2 or st["lastpoint_visited"] < st["ssts"],
+          f"lastpoint visited every SST: {out}")
+    return out
 
 
 def hot_set_line(qe, torch) -> str:
@@ -1152,6 +1268,8 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         with partial_cache(True):
             host_aggs = host_agg_phase(qe, sk, torch, grid)
         promql_cpu = promql_cpu_phase(qe, sk, torch, grid)
+        ranges = {"ingest": range_phase(qe, sk, torch, grid, "ingest", True),
+                  "fill": range_fill_phase(qe, sk, torch, grid)}
 
         # 3. one more 10 s step for every host, then the re-query: the SST
         # parts' file-anchored blocks hit, only the memtable tail uploads
@@ -1227,6 +1345,8 @@ def main_path_phase(sk, torch, lib=None) -> dict:
                                     lib)
         check({k[2] for k in cache.file_keys(rid)} == set(region.files),
               "compacted: the merged file's blocks were not rebuilt")
+        ranges["compacted"] = range_phase(qe, sk, torch, grid, "compacted",
+                                          False)
         cached["compacted"] = run_cached_queries(
             qe, sk, torch, grid, "compacted", {}, region, full_multi)
         engine.close()
@@ -1235,7 +1355,142 @@ def main_path_phase(sk, torch, lib=None) -> dict:
     return {"launches": main["launches"], "queries": main["queries"],
             "reopened": reopened, "compacted": compacted, "sparse": sparse,
             "cached": cached, "host_aggs": host_aggs,
-            "promql_cpu": promql_cpu}
+            "promql_cpu": promql_cpu, "range": ranges}
+
+
+# ---- RANGE ... ALIGN on the `cpu` table --------------------------------------
+
+#: the full-width RANGE query's step and its slots: 1 h windows at 5 min
+ALIGN_S = 300
+RANGE_SLOTS = 3600 // ALIGN_S
+#: the FILL query: these first hosts over the first hour, 5 s windows
+FILL_HOSTS = 8
+
+
+def range_sql() -> str:
+    """A 12 h panel of 1 h moving averages and maxima, and 10 min minima,
+    at 5 min resolution for every host."""
+    return ("SELECT ts, hostname, avg(usage_user) RANGE '1h', "
+            "max(usage_user) RANGE '1h', min(usage_system) RANGE '10m' "
+            "FROM cpu ALIGN '5m' BY (hostname)")
+
+
+def fill_sql() -> str:
+    hosts = ", ".join(f"'host_{i}'" for i in range(FILL_HOSTS))
+    return ("SELECT ts, hostname, last_value(usage_user) RANGE '5s' "
+            "FILL PREV, avg(usage_system) RANGE '5s' FILL LINEAR FROM cpu "
+            f"WHERE hostname IN ({hosts}) AND ts >= {T0_MS} "
+            f"AND ts < {T0_MS + 3600 * 1000} ALIGN '5s' BY (hostname)")
+
+
+def check_range_result(res, grid, what) -> int:
+    """The RANGE query against float64 numpy over `grid` ([points, hosts]
+    per field): one row per host and window from the 11 leading partial
+    windows to the last point's, series-major in hostname order; avg to
+    rtol 1e-9, max and min exactly, NULL where a 10 min window saw no
+    row. Returns the windows a host."""
+    pts = grid["usage_user"].shape[0]
+    per = ALIGN_S // STEP_S
+    lead = RANGE_SLOTS - 1
+    n_win = lead + -(-pts // per)
+    check(res.num_rows == HOSTS * n_win,
+          f"{what}: {res.num_rows} rows, expected {HOSTS * n_win}")
+    ts, names, avg, mx, mn = (np.asarray(c) for c in res.columns)
+    order = check_host_blocks(names, n_win, what)
+    check(np.array_equal(ts.astype(np.int64), np.tile(
+        T0_MS + (np.arange(n_win) - lead) * ALIGN_S * 1000, HOSTS)),
+        f"{what}: window timestamps")
+    want = np.full((3, n_win, HOSTS), np.nan)
+    for k in range(n_win):
+        a = max((k - lead) * per, 0)
+        hour = grid["usage_user"][a:(k - lead + RANGE_SLOTS) * per]
+        want[0, k] = hour.mean(axis=0)
+        want[1, k] = hour.max(axis=0)
+        ten = grid["usage_system"][a:max((k - lead + 2) * per, 0)]
+        if len(ten):
+            want[2, k] = ten.min(axis=0)
+    want = want[:, :, order].transpose(0, 2, 1).reshape(3, -1)
+    got_avg = avg.astype(np.float64)
+    check(np.allclose(got_avg, want[0], rtol=1e-9, atol=0),
+          f"{what} avg: max rel err "
+          f"{np.max(np.abs(got_avg - want[0]) / np.abs(want[0]))}")
+    check(np.array_equal(mx.astype(np.float64), want[1]), f"{what} max")
+    check(np.array_equal(mn.astype(np.float64), want[2], equal_nan=True),
+          f"{what} min (NULL where the 10 min window is empty)")
+    check(int(np.isnan(mn.astype(np.float64)).sum()) == HOSTS * (lead - 1),
+          f"{what}: NULL min count")
+    return n_win
+
+
+def range_phase(qe, sk, torch, grid, state, timed) -> dict:
+    """The full-width RANGE query through execute_one: two distinct
+    ranges, so two K2 calls over [S·N] = [12 x 17.28 M] slot-replicated
+    float64 rows into 4,096 x 256 + 1 segments, and no K1; the counts
+    zeroed just before and read just after. `timed` adds five warm runs,
+    a CUPTI profile and a cProfile breakdown."""
+    sql = range_sql()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    zero_launches(sk)
+    res, cold = timed_query(qe, sql, torch)
+    k1, k2 = launches(sk)
+    n_win = check_range_result(res, grid, f"{state} range")
+    check(k1 == 0 and k2 == 2, f"{state} range: K1 {k1}, K2 {k2} launches, "
+          "expected K2 twice (one a distinct range) and no K1")
+    out = {"rows": res.num_rows, "windows_a_host": n_win, "cold_ms": cold,
+           "k1_launches": k1, "k2_launches": k2,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()
+           if torch.cuda.is_available() else None}
+    if timed:
+        warm = [timed_query(qe, sql, torch)[1] for _ in range(5)]
+        out["warm_p50_ms"] = float(np.median(warm))
+        if torch.cuda.is_available():
+            out["profile"] = device_breakdown(lambda: qe.execute_one(sql),
+                                              torch)
+        out["host"] = host_breakdown(lambda: qe.execute_one(sql))
+    log(f"{state} range query: " + json.dumps(out))
+    return out
+
+
+def range_fill_phase(qe, sk, torch, grid) -> dict:
+    """RANGE with FILL on the card: FILL_HOSTS hosts over the first hour
+    at 5 s windows. Every other window is empty (10 s samples):
+    last_value FILL PREV repeats the window before, avg FILL LINEAR takes
+    the midpoint of its neighbours; one K2 call (one distinct range),
+    `last` through segment_agg's torch code."""
+    sql = fill_sql()
+    zero_launches(sk)
+    res, ms = timed_query(qe, sql, torch)
+    k1, k2 = launches(sk)
+    per_host = 2 * 360 - 1  # 5 s windows from the first to the last point
+    check(res.num_rows == FILL_HOSTS * per_host,
+          f"range fill: {res.num_rows} rows")
+    check(k1 == 0 and k2 == 1, f"range fill: K1 {k1}, K2 {k2} launches")
+    ts, names, last, avg = (np.asarray(c) for c in res.columns)
+    check(list(names) == [f"host_{h}" for h in range(FILL_HOSTS)
+                          for _ in range(per_host)], "range fill: hostnames")
+    check(np.array_equal(ts.astype(np.int64), np.tile(
+        T0_MS + np.arange(per_host) * 5000, FILL_HOSTS)),
+        "range fill: window timestamps")
+    even = np.arange(0, per_host, 2)
+    odd = np.arange(1, per_host, 2)
+    for h in range(FILL_HOSTS):
+        user = grid["usage_user"][:360, h]
+        system = grid["usage_system"][:360, h]
+        want_last = np.repeat(user, 2)[:per_host]
+        want_avg = np.empty(per_host)
+        want_avg[even] = system
+        want_avg[odd] = np.interp(odd, even, system)
+        rows = slice(h * per_host, (h + 1) * per_host)
+        check(np.array_equal(last[rows].astype(np.float64), want_last),
+              f"range fill: last_value FILL PREV of host_{h}")
+        check(np.allclose(avg[rows].astype(np.float64), want_avg,
+                          rtol=1e-12, atol=0),
+              f"range fill: avg FILL LINEAR of host_{h}")
+    out = {"rows": res.num_rows, "ms": ms, "k1_launches": k1,
+           "k2_launches": k2}
+    log("range fill query: " + json.dumps(out))
+    return out
 
 
 # ---- the slice-3 routes: sparse, incremental, host aggregates --------------
@@ -1429,8 +1684,10 @@ def cached_expectations(state, full_multi_block) -> dict:
                    None if name == "high_cpu_all" else "incremental")
             for name in tsbs_queries()}
     if state == "compacted" and full_multi_block:
-        for name in ("double_groupby_all", "lastpoint"):
-            want[name] = tsbs_queries()[name][1]
+        want["double_groupby_all"] = tsbs_queries()["double_groupby_all"][1]
+    # the boundary gather reduces the lastpoint scan before the fold is
+    # tried, in every state (the JAX package's order)
+    want["lastpoint"] = tsbs_queries()["lastpoint"][1]
     return want
 
 
@@ -1484,6 +1741,11 @@ def run_cached_queries(qe, sk, torch, grid, state, off, region,
             out[name] = rec
             log(f"cache on, {state} query {name}: " + json.dumps(rec))
             if path is None:
+                continue
+            if "boundary+" in path:
+                # a reduced scan never asks the cache
+                check(st is None and cache.events["fallback"] == fb0,
+                      f"cache on, {state} {name}: the fold was tried")
                 continue
             if "incremental" not in path:
                 check(st is None and cache.events["fallback"] > fb0,
@@ -2453,8 +2715,23 @@ def main() -> int:
                "stream_prepared (cpu_big)": {
                    "segment_sum": stream["cold"]["k1_launches"],
                    "fused_segment_agg": stream["cold"]["k2_launches"]}}
+    for state in ("ingest", "compacted"):
+        r = main["range"][state]
+        by_path[f"range (cpu, after {state})"] = {
+            "segment_sum": r["k1_launches"],
+            "fused_segment_agg": r["k2_launches"]}
+    by_path["range fill (cpu, 8 hosts)"] = {
+        "segment_sum": main["range"]["fill"]["k1_launches"],
+        "fused_segment_agg": main["range"]["fill"]["k2_launches"]}
+    for state, res in (("ingest", main), ("reopened", main["reopened"]),
+                       ("compacted", main["compacted"])):
+        q = res["queries"]["lastpoint"]
+        by_path[f"lastpoint lastscan+boundary (after {state})"] = {
+            "segment_sum": q["k1_launches"],
+            "fused_segment_agg": q["k2_launches"]}
     later_paths = ("promql prom_cpu (cold runs)", "promql cpu (cold runs)",
-                   "stream_prepared (cpu_big)")
+                   "stream_prepared (cpu_big)", "range (cpu, after ingest)",
+                   "range fill (cpu, 8 hosts)")
     sources = {"segment_sum": ("greptimedb_tpu_torch/csrc/segment_sum.cu",
                                "greptimedb_tpu/ops/pallas_segment.py:119"),
                "fused_segment_agg": (
@@ -2480,7 +2757,11 @@ def main() -> int:
         if name == "fused_segment_agg":
             for key, case in (("sparse_shape", "sparse"),
                               ("promql_label_shape", "promql_label"),
-                              ("promql_buckets_shape", "promql_buckets")):
+                              ("promql_buckets_shape", "promql_buckets"),
+                              ("range_shape", "range"),
+                              ("lastpoint_ingest_shape", "lastpoint_ingest"),
+                              ("lastpoint_flushed_shape",
+                               "lastpoint_flushed")):
                 sp = kres[name][case]
                 kernels[-1][key] = {
                     k: sp[k] for k in ("shape", "G", "dtype", "max_abs_err",

@@ -208,7 +208,8 @@ def segment_agg(
 
 
 #: segment_agg ops that K2 computes; first/last stay on the torch code
-_FUSED_OPS = frozenset({"sum", "count", "min", "max", "sumsq", "mean"})
+_FUSED_OPS = frozenset({"sum", "count", "rows", "min", "max", "sumsq",
+                        "mean"})
 
 
 def segment_agg_fused(
@@ -221,12 +222,13 @@ def segment_agg_fused(
 ) -> dict:
     """`segment_agg`'s contract through one K2 call
     (segment_kernels.fused_segment_agg) over num_segments + 1 segments,
-    the dead segment last: masked rows go there. sum, count, min, max,
-    sumsq and mean come from K2; first and last from segment_agg's torch
-    code. K2's +inf min and -inf max of an empty group become NaN, as
+    the dead segment last: masked rows go there. sum, count, rows, min,
+    max, sumsq and mean come from K2; first and last from segment_agg's
+    torch code. K2's +inf min and -inf max of an empty group become NaN, as
     segment_agg's `mins == big` does (so a group whose values are all
     +inf has a NaN min there too). The PromQL window and label
-    reductions call it; the SQL routes call the kernels themselves."""
+    reductions and RANGE ... ALIGN's windows call it; the other SQL
+    routes call the kernels themselves."""
     if not values.dtype.is_floating_point:
         raise TypeError(f"segment_agg_fused: float values only, got "
                         f"{values.dtype}")
@@ -247,6 +249,9 @@ def segment_agg_fused(
         for op in ("sum", "count", "sumsq"):
             if op in ops:
                 out[op] = k2[op][:num_segments]
+        if "rows" in ops:
+            # [G, 1], as segment_agg gives it for [N, F] values
+            out["rows"] = k2["rows"][:num_segments, None]
         if "mean" in ops:
             denom = torch.clamp(counts, min=1).to(vals.dtype)
             mean = k2["sum"][:num_segments] / denom

@@ -6,7 +6,8 @@ INSERT ... VALUES, SELECT, DELETE, DROP and TRUNCATE TABLE, ALTER TABLE
 ADD/DROP COLUMN, ADMIN flush_table / compact_table (synchronous: the
 maintenance plane is a later slice), and TQL EVAL / TQL EXPLAIN (PromQL,
 promql/engine.py). SELECT is planned by the copied planner and executed
-by the torch physical layer on the engine's device. Regions open lazily
+by the torch physical layer on the engine's device; SELECT ... RANGE ...
+ALIGN goes to query/range_select.py. Regions open lazily
 from the catalog on first use, so a persisted catalog and a reopened
 storage engine serve the tables they held. Every other statement raises
 UnsupportedStatement naming the slice of the port that brings it.
@@ -29,6 +30,7 @@ from greptimedb_tpu_torch.datatypes.types import (
 )
 from greptimedb_tpu_torch.datatypes.vector import DictVector
 from greptimedb_tpu_torch.query.expr import PlanError, eval_host
+from greptimedb_tpu_torch.query import range_select as rs
 from greptimedb_tpu_torch.query.physical import PhysicalExecutor
 from greptimedb_tpu_torch.query.planner import plan_select
 from greptimedb_tpu_torch.query.result import QueryResult
@@ -146,11 +148,10 @@ class QueryEngine:
                 self.region_engine.open_region(rid)
 
     def _select(self, sel: ast.Select, db: str) -> QueryResult:
-        if sel.ctes or sel.joins or sel.from_subquery is not None \
-                or sel.align is not None:
+        if sel.ctes or sel.joins or sel.from_subquery is not None:
             raise UnsupportedStatement(
-                "CTEs, joins, derived tables and RANGE ... ALIGN are not in "
-                "this slice of greptimedb_tpu_torch")
+                "CTEs, joins and derived tables are not in this slice of "
+                "greptimedb_tpu_torch")
         nodes = list(_ast_nodes(sel))
         for what, hit in (
                 ("window functions (OVER)", any(
@@ -172,6 +173,9 @@ class QueryEngine:
                 names.append(it.alias or f"column{i}")
             return QueryResult(names, [None] * len(names), cols)
         info = self._table(sel.table, db)
+        if rs.is_range_select(sel):
+            return rs.execute_range_select(self.executor,
+                                           rs.plan_range_select(sel, info))
         return self.executor.execute(plan_select(sel, info))
 
     # ---- TQL ---------------------------------------------------------------

@@ -31,14 +31,18 @@ the same route and `last_path` reads the same on both:
   materializes its scan. Lazy SST chunks (Region.scan_stream) become
   fixed-shape blocks on a producer thread (`_prefetch`) and fold into an
   accumulator on the device: one K1 call a block over prepared planes,
-  or plain segment reductions and `_combine_partials` for the rest.
+  or plain segment reductions and `_combine_partials` for the rest;
+- `lastscan+…`: an all-`last` aggregate grouped by one tag, with no
+  WHERE, reads SSTs newest-first and stops early (Region.scan_last);
+- `boundary+…`: an all-first/last aggregate grouped by tags keeps only
+  the rows at series-run boundaries of the sorted SST parts, and the
+  memtable's, before any route runs (`_boundary_firstlast`).
 Tensors stay on the executor's device; only the result planes come back.
 A kernel that fails raises: no route catches it and serves another.
 
 Left out (the JAX package's paths, each listed in ROADMAP.md): mesh and
-cluster fan-out, lastpoint and boundary first/last pruning, fragment
-pushdown, tier routing and its first-touch compile hedges, and vmapped
-serving.
+cluster fan-out, fragment pushdown, tier routing and its first-touch
+compile hedges, and vmapped serving.
 """
 
 from __future__ import annotations
@@ -89,6 +93,11 @@ from greptimedb_tpu_torch.sql import ast
 from greptimedb_tpu_torch.storage.region import OP_PUT, ScanData
 
 _NUMPY_OF = {torch.float32: np.float32, torch.float64: np.float64}
+
+# the boundary first/last gather pays only when it shrinks the scan: past
+# this share of candidate rows the subset would copy most of the columns
+# for no kernel savings (tests patch it to force the gather on)
+_BOUNDARY_MAX_FRACTION = 0.5
 
 # primitive kernel ops backing each SQL aggregate
 _PRIMITIVES = {
@@ -926,6 +935,20 @@ class PhysicalExecutor:
         tag_preds = extract_tag_predicates(where, table.schema) or None
 
         def run(ts_range):
+            # lastpoint pruning: an all-`last` aggregate grouped by one
+            # tag needs only each series' newest rows, so the region
+            # walks SSTs newest-first and stops early. None (tombstones,
+            # no data) takes the normal routes, as in the JAX package
+            lp_tag = self._lastpoint_tag(table, where, agg, ts_range)
+            if lp_tag is not None:
+                pruned = self.engine.scan_last(table.region_ids[0], lp_tag,
+                                               scan_node.columns)
+                if pruned is not None:
+                    res = self._execute_agg(pruned, table, where, agg,
+                                            having, project, sort, limit,
+                                            offset, scan_node)
+                    self.last_path = "lastscan+" + (self.last_path or "")
+                    return res
             if agg is not None and table.append_mode:
                 res = self._try_stream_agg(table, ts_range, where, agg,
                                            having, project, sort, limit,
@@ -954,6 +977,25 @@ class PhysicalExecutor:
                     return res
             return run(candidates[-1])
         return run(ts_range)
+
+    def _lastpoint_tag(self, table, where, agg, ts_range) -> Optional[str]:
+        """The group tag when the query is lastpoint-shaped: every
+        aggregate is a device `last`, the one group key is a plain tag
+        column, and no WHERE or time range restricts the rows the
+        newest-first stop argument reasons over. None otherwise."""
+        if agg is None or not agg.aggs or where is not None \
+                or ts_range is not None:
+            return None
+        if any(spec.func != "last" or _needs_host_agg(spec, table.schema)
+               for spec in agg.aggs):
+            return None
+        if len(agg.keys) != 1:
+            return None
+        _, kexpr = agg.keys[0]
+        if not isinstance(kexpr, ast.Column):
+            return None
+        tag_names = {c.name for c in table.schema.tag_columns}
+        return kexpr.name if kexpr.name in tag_names else None
 
     # ---- streaming aggregation ------------------------------------------------
 
@@ -1326,18 +1368,28 @@ class PhysicalExecutor:
             if not _needs_host_agg(spec, schema):
                 ops.update(_PRIMITIVES[spec.func])
 
+        # the boundary first/last gather runs before the incremental
+        # fold, as in the JAX package: a reduced scan has no part
+        # identity and takes the classic routes
+        reduced = self._boundary_firstlast(scan, table, agg, bound_where,
+                                           keys, extra_cols)
+        if reduced is not None:
+            scan = reduced
         q = self._agg_query(scan, table, bound_where, tuple(keys),
                             tuple(arg_exprs), tuple(sorted(ops)), num_groups,
                             ctx, extra_cols)
         # immutable parts' partials come from the partial-aggregate cache
         # and only uncached parts and the memtable tail run kernels; a
         # plan the per-part decomposition cannot serve returns None
-        res = self._try_incremental_agg(q, agg, decoders, spec_slot, sparse,
-                                        table, having, project, sort, limit,
-                                        offset)
-        if res is not None:
-            return res
+        if reduced is None:
+            res = self._try_incremental_agg(q, agg, decoders, spec_slot,
+                                            sparse, table, having, project,
+                                            sort, limit, offset)
+            if res is not None:
+                return res
         acc, sparse_gids = self._stream_agg_inner(q, sparse)
+        if reduced is not None:
+            self.last_path = "boundary+" + (self.last_path or "")
         host_info = (scan, extra_cols, bound_where, ctx, num_groups)
         return self._agg_tail(acc, sparse_gids, agg, keys, decoders,
                               spec_slot, host_info, having, project, sort,
@@ -1564,6 +1616,87 @@ class PhysicalExecutor:
                  "cached_rows": cached_rows, "memtable_rows": mem_rows,
                  "total_rows": scan.num_rows, "sparse": use_sparse}
         return partials, stats
+
+    def _boundary_firstlast(self, scan, table, agg, bound_where, keys,
+                            extra_cols) -> Optional[ScanData]:
+        """Lastpoint-class reduction (the JAX executor's
+        `_boundary_firstlast`): when every aggregate is first/last and
+        the keys are tag columns, the winners can only sit at series-run
+        boundaries of the (tags..., ts, seq)-sorted SST parts. Returns
+        those rows and every memtable row (unsorted) as a new scan, or
+        None when the gather does not apply or would keep past
+        _BOUNDARY_MAX_FRACTION of the rows. Memoized on the snapshot.
+
+        Last-write-wins: within one sorted part the last row of a
+        series' run holds its max ts and, among versions of that ts, the
+        max seq; the winning version of the max-ts instant is such a
+        boundary row in SOME part, so the subset's dedup picks it.
+        `first` mirrors it through the end of the first (tags, ts)
+        sub-run. A tombstone voids the argument (the newest row may be
+        one, making an interior row the answer): any tombstone in the
+        scan turns the gather off."""
+        offsets = scan.sorted_part_offsets
+        if len(offsets) < 2 or offsets[-1] == 0:
+            return None
+        if bound_where is not None or extra_cols:
+            return None
+        if not agg.aggs or any(
+                spec.func not in ("first", "last")
+                or _needs_host_agg(spec, table.schema)
+                for spec in agg.aggs):
+            return None
+        if not all(k.kind == "tag" for k in keys):
+            return None
+        cached = scan.__dict__.get("_boundary_fl_cache")
+        if cached is not None:
+            return cached if cached is not False else None
+        has_delete = scan.__dict__.get("_has_delete")
+        if has_delete is None:
+            has_delete = bool((scan.op_type != OP_PUT).any())
+            scan._has_delete = has_delete
+        if has_delete:
+            scan._boundary_fl_cache = False
+            return None
+
+        n = scan.num_rows
+        send = offsets[-1]  # end of the sorted parts
+        # row i starts a series run when a tag code differs from row
+        # i - 1, or i is a part seam (sortedness restarts there)
+        new_run = np.zeros(send, dtype=bool)
+        new_run[0] = True
+        for c in table.schema.tag_columns:
+            col = scan.columns[c.name]
+            new_run[1:] |= col[1:send] != col[:send - 1]
+        seams = np.asarray(offsets[1:-1], dtype=np.int64)
+        new_run[seams[seams < send]] = True
+        ts = scan.columns[table.schema.time_index.name]
+        new_sub = new_run.copy()
+        new_sub[1:] |= ts[1:send] != ts[:send - 1]
+        run_start = np.flatnonzero(new_run)
+        run_end = np.append(run_start[1:] - 1, send - 1)
+        # ends of (tags, ts) sub-runs: the max-seq row of each instant
+        sub_end = np.flatnonzero(np.append(new_sub[1:], True))
+        # `first` candidate: the end of the first sub-run of each run
+        first_end = sub_end[np.searchsorted(sub_end, run_start)]
+        parts = [run_start, run_end, first_end]
+        if send < n:
+            parts.append(np.arange(send, n))
+        idx = np.unique(np.concatenate(parts))
+        if idx.size >= n * _BOUNDARY_MAX_FRACTION:
+            scan._boundary_fl_cache = False
+            return None
+        reduced = ScanData(
+            schema=scan.schema,
+            columns={k: v[idx] for k, v in scan.columns.items()},
+            seq=scan.seq[idx], op_type=scan.op_type[idx],
+            tag_dicts=scan.tag_dicts, num_rows=idx.size,
+            needs_dedup=scan.needs_dedup, region_id=scan.region_id,
+            data_version=scan.data_version, incarnation=scan.incarnation,
+            # no part identity, and a fingerprint of its own: the subset
+            # never shares a device block with a full scan
+            scan_fingerprint=scan.scan_fingerprint + ("__boundary_fl__",))
+        scan._boundary_fl_cache = reduced
+        return reduced
 
     def _parts_ts_disjoint(self, scan, ts_name: str) -> bool:
         """Whether every SST part's ts extent (and the memtable tail's) is

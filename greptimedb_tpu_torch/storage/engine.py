@@ -152,6 +152,14 @@ class RegionEngine:
         return self.region(region_id).scan(ts_range, projection,
                                            tag_predicates)
 
+    def scan_last(self, region_id: int, group_tag: str,
+                  projection: Optional[Sequence[str]] = None,
+                  ) -> Optional[ScanData]:
+        """Lastpoint-pruned newest-first scan (see Region.scan_last);
+        None when it cannot serve the query exactly: the caller runs the
+        full scan."""
+        return self.region(region_id).scan_last(group_tag, projection)
+
     def scan_stream(
         self,
         region_id: int,

@@ -25,10 +25,12 @@ Kept from the JAX region because they decide what a query sees:
 front, then lazy chunks of a few row groups each, decoded serially in
 file order, and the memtable's rows last.
 
+`scan_last` is the lastpoint scan (the JAX region's `scan_last`): SSTs
+newest-first, stopping once every series' newest row is in hand.
+
 Left for later slices (ROADMAP.md): group commit and write workers, the
-parallel decode pool (and with it the parallel stream decode), the
-lastpoint newest-first scan, seq_min incremental scans and the inverted
-index.
+parallel decode pool (and with it the parallel stream decode), seq_min
+incremental scans and the inverted index.
 """
 
 from __future__ import annotations
@@ -121,6 +123,9 @@ class ScanData:
     # device hot set keys a part's blocks by it, so they outlive data
     # version bumps for the life of the file
     part_keys: tuple = ()
+    # the lastpoint scan's counters (Region.scan_last): ssts,
+    # ssts_pruned, lastpoint_visited, cache_hits
+    stats: Optional[dict] = None
 
 
 @dataclass
@@ -673,9 +678,159 @@ class Region:
             sorted_part_offsets=tuple(int(o) for o in part_offsets),
             part_keys=tuple(part_keys))
         with self._lock:
-            self._scan_cache[cache_key] = result
-            while len(self._scan_cache) > self.scan_cache_entries:
-                self._scan_cache.popitem(last=False)
+            self._scan_cache_put(cache_key, result)
+        return result
+
+    def _scan_cache_put(self, key: tuple, result: ScanData) -> None:
+        """Insert a snapshot, evicting the oldest past the entry budget
+        (caller holds the lock)."""
+        self._scan_cache[key] = result
+        while len(self._scan_cache) > self.scan_cache_entries:
+            self._scan_cache.popitem(last=False)
+
+    def scan_last(self, group_tag: str,
+                  projection: Optional[Sequence[str]] = None,
+                  ) -> Optional[ScanData]:
+        """Lastpoint-pruned scan (the JAX region's scan_last): visit SSTs
+        newest-first and stop once every series grouped by `group_tag`
+        provably holds its last row in the visited set.
+
+        Files go in descending (ts_max, max_seq, file_id), so every
+        unvisited file holds only rows with ts <= the next file's ts_max.
+        Once a series has a candidate with ts STRICTLY above that bound
+        (an equal ts in an older file could carry a higher seq and win
+        last-write-wins), no unvisited file holds its winner. The known
+        series are the registry's codes (a superset of live values: a
+        code with no rows blocks the early stop, which costs pruning,
+        never correctness). The NULL group waits while an unvisited file
+        may hold it (FileMeta.null_tags; None means unknown, assumed to).
+        Decoding is serial, so the stop test runs after every file.
+
+        Returns None when any DELETE tombstone is in the memtable or a
+        visited file (the newest row may be a tombstone, making an
+        interior row the answer): the caller runs the full scan."""
+        names = self._scan_columns(projection)
+        tag_names = [c.name for c in self.schema.tag_columns]
+        if group_tag not in tag_names or group_tag not in names:
+            return None
+        pred_key = predicates_cache_key(None)
+        ts_name = self.schema.time_index.name
+        with self._lock:
+            version = self.data_version
+            cache_key = ("lastpoint", version, group_tag, tuple(names))
+            cached = self._scan_cache.get(cache_key)
+            if cached is not None:
+                self._scan_cache.move_to_end(cache_key)
+                cached.stats["cache_hits"] += 1
+                return cached
+            file_list = sorted(
+                self.files.values(),
+                key=lambda m: (m.ts_max, m.max_seq, m.file_id),
+                reverse=True)
+            self._pin_files(file_list)
+            mem = self.memtable.concat(None)
+            card = self.registry.cardinality(group_tag)
+        # suffix_null[i]: may any of file_list[i:] hold a NULL group_tag?
+        suffix_null = [False] * (len(file_list) + 1)
+        for i in range(len(file_list) - 1, -1, -1):
+            m = file_list[i]
+            has = m.null_tags is None or group_tag in m.null_tags
+            suffix_null[i] = suffix_null[i + 1] or has
+        # best[0]: newest ts seen for the NULL group, best[1 + code] for
+        # each registry code; int64 min = never seen
+        floor = np.iinfo(np.int64).min
+        best = np.full(card + 1, floor, dtype=np.int64)
+
+        def fold(codes: np.ndarray, ts: np.ndarray) -> None:
+            nonlocal best
+            if codes.size == 0:
+                return
+            slot = codes.astype(np.int64) + 1
+            mx = int(slot.max())
+            if mx >= best.size:
+                # codes the registry snapshot predates: seen here, so
+                # their entries are live
+                best = np.concatenate(
+                    [best, np.full(mx + 1 - best.size, floor,
+                                   dtype=np.int64)])
+            np.maximum.at(best, slot, ts.astype(np.int64))
+
+        aborted = False
+        if mem is not None:
+            mcols, _mseq, mop = mem
+            if bool((mop != OP_PUT).any()):
+                aborted = True
+            else:
+                fold(mcols[group_tag], mcols[ts_name])
+        visited_entries: list = []
+        try:
+            while not aborted and len(visited_entries) < len(file_list):
+                meta = file_list[len(visited_entries)]
+                (ent,) = self._cached_parts([meta], None, names)
+                visited_entries.append(ent)
+                if ent.part is not None:
+                    cols, _seq_col, op_col = ent.part
+                    if bool((op_col != OP_PUT).any()):
+                        aborted = True
+                        break
+                    fold(cols[group_tag], cols[ts_name])
+                visited = len(visited_entries)
+                if visited >= len(file_list):
+                    break
+                nxt = file_list[visited].ts_max
+                if bool((best[1:] > nxt).all()) and \
+                        (not suffix_null[visited] or best[0] > nxt):
+                    break
+        finally:
+            self._unpin_files(file_list)
+        if aborted:
+            return None
+        parts_cols, parts_seq, parts_op = [], [], []
+        part_lens, part_keys = [], []
+        for meta, ent in zip(file_list, visited_entries):
+            if ent.part is None:
+                continue
+            cols, seq_col, op_col = ent.part
+            parts_cols.append(cols)
+            parts_seq.append(seq_col)
+            parts_op.append(op_col)
+            part_lens.append(len(seq_col))
+            # whole-file parts (no window, no predicates): their device
+            # blocks are the full scan's blocks of the same file
+            part_keys.append((meta.file_id, None, pred_key))
+        if mem is not None:
+            mcols, mseq, mop = mem
+            parts_cols.append({n: mcols[n] for n in names})
+            parts_seq.append(mseq)
+            parts_op.append(mop)
+        if not parts_cols:
+            return None
+        if len(parts_cols) == 1:
+            columns = dict(parts_cols[0])
+            seq, op = parts_seq[0], parts_op[0]
+        else:
+            columns = {n: np.concatenate([p[n] for p in parts_cols])
+                       for n in names}
+            seq = np.concatenate(parts_seq)
+            op = np.concatenate(parts_op)
+        visited = len(visited_entries)
+        result = ScanData(
+            schema=self.schema, columns=columns, seq=seq, op_type=op,
+            tag_dicts={c.name: self.registry.dict_array(c.name)
+                       for c in self.schema.tag_columns if c.name in names},
+            num_rows=len(seq), region_id=self.region_id,
+            data_version=version, incarnation=self.incarnation,
+            # distinct from every full scan: the row set is pruned, so
+            # snapshot-keyed device blocks are never shared with one
+            scan_fingerprint=("lastpoint", group_tag, tuple(names)),
+            sorted_part_offsets=tuple(
+                int(o) for o in np.cumsum([0] + part_lens)),
+            part_keys=tuple(part_keys),
+            stats={"ssts": len(file_list),
+                   "ssts_pruned": len(file_list) - visited,
+                   "lastpoint_visited": visited, "cache_hits": 0})
+        with self._lock:
+            self._scan_cache_put(cache_key, result)
         return result
 
     def scan_stream(

@@ -19,12 +19,13 @@ fold cached per-part partials). A dense budget both engines read sends
 one hostname x minute query down the sparse route.
 
 Every query must return equal row lists (floats within rtol=1e-9: the
-port reduces in another order) and report the same `last_path`, but for
-the known differences below. Across states the port must also agree
-with itself where no write came between (reopened = flushed, compacted
-= reopened). GREPTIMEDB_TPU_PALLAS=on is read when the JAX package
-traces its kernels, so the fused-route comparison runs in a subprocess
-started with it set.
+port reduces in another order) and report the same `last_path` (the
+lastpoint query's `lastscan+` and `boundary+` prefixes included).
+Across states the port must also agree with itself where no write came
+between (reopened = flushed, compacted = reopened).
+GREPTIMEDB_TPU_PALLAS=on is read when the JAX package traces its
+kernels, so the fused-route comparison runs in a subprocess started
+with it set.
 """
 
 import json
@@ -138,25 +139,6 @@ QUERIES = [
     "percentile(usage_idle, 90), count(*) FROM cpu "
     "WHERE hostname != 'host_4' GROUP BY b ORDER BY b",
 ]
-
-#: last_path differences by design, per query: the JAX engine prunes
-#: lastpoint scans newest-first (`lastscan+`), a path the port has not
-#: ported yet (ROADMAP.md A, "lastpoint pruning"; C lists the difference)
-#: (with SSTs it adds `boundary+`, the sorted-part first/last gather,
-#: also not ported)
-KNOWN_PATHS = {LASTPOINT: {"lastscan+dense": "dense",
-                           "lastscan+dense_fused": "dense_fused",
-                           "lastscan+boundary+dense": "dense",
-                           "lastscan+boundary+dense_fused": "dense_fused"}}
-#: with the partial-aggregate cache on: the JAX engine's boundary gather
-#: reduces the lastpoint scan before its incremental fold is tried, so it
-#: never folds that query; the port, without the gather, folds it
-#: (ROADMAP.md C)
-KNOWN_PATHS_CACHED = {LASTPOINT: dict(
-    KNOWN_PATHS[LASTPOINT], **{"lastscan+boundary+dense": "incremental",
-                               "lastscan+boundary+dense_fused":
-                               "incremental"})}
-
 
 # ---- the same writes for both engines ----------------------------------------
 
@@ -359,9 +341,8 @@ def _assert_same(jrows, trows):
                 assert a == b, (jr, tr)
 
 
-def _assert_path(sql, jpath, tpath, known=KNOWN_PATHS):
-    assert tpath == known.get(sql, {}).get(jpath, jpath), \
-        (sql, jpath, tpath)
+def _assert_path(sql, jpath, tpath):
+    assert tpath == jpath, (sql, jpath, tpath)
 
 
 @pytest.fixture(scope="module")
@@ -395,7 +376,7 @@ def test_same_rows_and_path_with_partial_cache(results_cached, state, i):
     jrows, trows, jpath, tpath = results_cached[state][i]
     assert jrows, "the query must return rows"
     _assert_same(jrows, trows)
-    _assert_path(QUERIES[i], jpath, tpath, KNOWN_PATHS_CACHED)
+    _assert_path(QUERIES[i], jpath, tpath)
 
 
 def test_every_route_is_taken(results, results_cached):
