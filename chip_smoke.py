@@ -72,6 +72,17 @@ greptimedb_tpu_torch/_build/. Phases:
      (avg to rtol 1e-9, min and max exactly, NULL where a window is
      empty); and a FILL PREV / FILL LINEAR query on 8 hosts over the
      first hour at 5 s, one K2 call, against numpy.
+   - the host SQL surface, partial cache off: seven dashboard statements
+     through execute_sql, each cold, five times warm and once under
+     torch.profiler: a CTE top-10 drill-down with IN (SELECT ...), lag
+     and rank over the 48,000-group hourly aggregate (the second over a
+     derived table), a ROWS moving average over the last hour's 1.44 M
+     raw rows, a join of two CTE aggregates, an INSERT ... SELECT
+     rollup into cpu_1h and its count, and a SELECT over an aggregate
+     view. Every value against numpy (max exactly, avg to rtol 1e-5,
+     lag equal to the previous row's avg, ranks from the returned
+     avgs); every inner aggregate on K1 or K2, on the route the same
+     statement takes alone, with that kernel launched.
    - PromQL through PromqlEngine.eval_matrix on the card, float64, at a
      5 min step with 1 h windows: max_over_time(cpu{__field__=
      "usage_user"}[1h]) buckets the 17.28 M rows into 4,000 x 157 + 1
@@ -117,7 +128,8 @@ greptimedb_tpu_torch/_build/. Phases:
    this query's block shape too ([2 Mi x 21] f32, host-major ids over
    G + 1 = 280,071).
 5. A `kernels` JSON line (with each kernel's launches on every path, the
-   PromQL queries', the streamed query's and the RANGE queries' included,
+   PromQL queries', the streamed query's, the RANGE queries' and the
+   host SQL statements' included,
    lastpoint's by state, K1's time at the stream's shape and K2's at the
    sparse route's, PromQL's, RANGE's and lastpoint's shapes), the card
    line, and the result line.
@@ -1270,6 +1282,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         promql_cpu = promql_cpu_phase(qe, sk, torch, grid)
         ranges = {"ingest": range_phase(qe, sk, torch, grid, "ingest", True),
                   "fill": range_fill_phase(qe, sk, torch, grid)}
+        host_sql = host_sql_phase(qe, sk, torch, grid)
 
         # 3. one more 10 s step for every host, then the re-query: the SST
         # parts' file-anchored blocks hit, only the memtable tail uploads
@@ -1355,7 +1368,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
     return {"launches": main["launches"], "queries": main["queries"],
             "reopened": reopened, "compacted": compacted, "sparse": sparse,
             "cached": cached, "host_aggs": host_aggs,
-            "promql_cpu": promql_cpu, "range": ranges}
+            "promql_cpu": promql_cpu, "range": ranges, "host_sql": host_sql}
 
 
 # ---- RANGE ... ALIGN on the `cpu` table --------------------------------------
@@ -1491,6 +1504,252 @@ def range_fill_phase(qe, sk, torch, grid) -> dict:
            "k2_launches": k2}
     log("range fill query: " + json.dumps(out))
     return out
+
+
+# ---- the host SQL surface on the `cpu` table --------------------------------
+
+#: Q1's top-N hosts by their peak usage_user
+TOP_N = 10
+#: the routes a host SQL query's inner aggregates may take: K1 or K2
+DEVICE_ROUTES = ("dense_prepared", "dense_fused")
+HOURLY_SQL = ("SELECT hostname, date_bin(INTERVAL '1 hour', ts) AS h, "
+              "avg(usage_user) AS a FROM cpu GROUP BY hostname, h")
+
+
+def host_sql_queries(top_hosts) -> dict:
+    """The seven dashboard statements: name -> (setup SQL run once before
+    it, the SQL timed (one execute_sql call), the statements whose device
+    aggregates run inside it, each as it runs alone). `top_hosts` are
+    the oracle's top-N names, for Q1's literal IN-list twin."""
+    last_hour = T0_MS + (HOURS - 1) * 3600 * 1000
+    top_sql = ("SELECT hostname, max(usage_user) AS m FROM cpu GROUP BY "
+               f"hostname ORDER BY m DESC, hostname LIMIT {TOP_N}")
+    drill = ("SELECT date_bin(INTERVAL '1 hour', ts) AS h, hostname, "
+             "avg(usage_user) AS a FROM cpu WHERE hostname IN ({}) "
+             "GROUP BY h, hostname ORDER BY h, hostname")
+    by_host = ("SELECT hostname, {}({}) AS {} FROM cpu GROUP BY hostname")
+    return {
+        "top_hosts_drilldown": (
+            None, f"WITH top AS ({top_sql}) "
+            + drill.format("SELECT hostname FROM top"),
+            [top_sql, drill.format(", ".join(f"'{h}'" for h in top_hosts))]),
+        "hourly_delta": (
+            None, "SELECT hostname, date_bin(INTERVAL '1 hour', ts) AS h, "
+            "avg(usage_user) AS a, lag(avg(usage_user)) OVER (PARTITION BY "
+            "hostname ORDER BY date_bin(INTERVAL '1 hour', ts)) AS prev "
+            "FROM cpu GROUP BY hostname, h ORDER BY hostname, h",
+            [HOURLY_SQL]),
+        "hourly_rank": (
+            None, "SELECT h, hostname, a, rank() OVER (PARTITION BY h ORDER "
+            f"BY a DESC) AS r FROM ({HOURLY_SQL}) t ORDER BY h, r, hostname",
+            [HOURLY_SQL]),
+        "moving_avg": (
+            None, "SELECT hostname, ts, avg(usage_user) OVER (PARTITION BY "
+            "hostname ORDER BY ts ROWS BETWEEN 5 PRECEDING AND CURRENT ROW) "
+            f"AS ma FROM cpu WHERE ts >= {last_hour} ORDER BY hostname, ts",
+            []),
+        "user_vs_system": (
+            None, f"WITH u AS ({by_host.format('avg', 'usage_user', 'a')}), "
+            f"s AS ({by_host.format('max', 'usage_system', 'm')}) "
+            "SELECT u.hostname, u.a, s.m FROM u JOIN s ON "
+            "u.hostname = s.hostname ORDER BY u.hostname",
+            [by_host.format("avg", "usage_user", "a"),
+             by_host.format("max", "usage_system", "m")]),
+        # cpu_1h keys on (hostname, h) without append mode: a repeated
+        # INSERT overwrites its rows (last write wins)
+        "rollup_insert": (
+            "CREATE TABLE cpu_1h (hostname STRING, h TIMESTAMP(3) NOT NULL, "
+            "a DOUBLE, TIME INDEX (h), PRIMARY KEY (hostname))",
+            f"INSERT INTO cpu_1h {HOURLY_SQL}; "
+            "SELECT count(*), avg(a) FROM cpu_1h",
+            [HOURLY_SQL, "SELECT count(*), avg(a) FROM cpu_1h"]),
+        "view_hourly": (
+            f"CREATE VIEW hourly AS {HOURLY_SQL}",
+            "SELECT hostname, max(a) FROM hourly GROUP BY hostname "
+            "ORDER BY hostname", [HOURLY_SQL]),
+    }
+
+
+def check_host_sql(name, results, grid, top_hosts) -> None:
+    """Every value of one host SQL query against float64 numpy over
+    `grid`: max and min exactly (as the f32 kernels see them), averages
+    to rtol 1e-5, counts exactly, lag equal to the previous row's
+    returned avg, ranks recomputed from the returned avgs."""
+    res = results[-1]
+    per_hour = 3600 // STEP_S
+    user = grid["usage_user"][:HOURS * per_hour]
+    hourly = user.reshape(HOURS, per_hour, HOSTS).mean(axis=1)
+    lex = np.argsort(np.asarray([f"host_{i}" for i in range(HOSTS)]),
+                     kind="stable")
+    cols = [np.asarray(c) for c in res.columns]
+
+    def close(got, want, rtol, what):
+        got = np.asarray(got, dtype=np.float64)
+        check(got.shape == want.shape and np.allclose(got, want, rtol=rtol,
+                                                      atol=0),
+              f"host sql {name} {what}: max rel err "
+              f"{np.max(np.abs(got - want) / np.abs(want))}")
+
+    if name == "top_hosts_drilldown":
+        hosts = np.sort(np.asarray(top_hosts))
+        idx = host_index(hosts)
+        check(res.num_rows == HOURS * TOP_N, f"{name}: {res.num_rows} rows")
+        hours = np.repeat(np.arange(HOURS), TOP_N)
+        check(np.array_equal(cols[0].astype(np.int64),
+                             T0_MS + hours * 3_600_000), f"{name} hours")
+        check(list(cols[1].astype(str)) == list(hosts) * HOURS,
+              f"{name} hostnames")
+        close(cols[2], hourly[hours, np.tile(idx, HOURS)], 1e-5, "avg")
+    elif name in ("hourly_delta", "hourly_rank"):
+        check(res.num_rows == HOSTS * HOURS, f"{name}: {res.num_rows} rows")
+        if name == "hourly_delta":
+            host, hour, a, prev = cols
+            want_host = np.repeat(lex, HOURS)
+            want_hour = np.tile(np.arange(HOURS), HOSTS)
+        else:
+            hour, host, a, r = cols
+            want_hour = np.repeat(np.arange(HOURS), HOSTS)
+            want_host = None
+        check(np.array_equal(hour.astype(np.int64),
+                             T0_MS + want_hour * 3_600_000), f"{name} hours")
+        hidx = host_index(host)
+        if want_host is not None:
+            check(np.array_equal(hidx, want_host), f"{name} hostnames")
+        else:
+            check(np.array_equal(np.sort(hidx.reshape(HOURS, HOSTS), axis=1),
+                                 np.tile(np.arange(HOSTS), (HOURS, 1))),
+                  f"{name}: every host in every hour")
+        a = a.astype(np.float64)
+        close(a, hourly[want_hour, hidx], 1e-5, "avg")
+        if name == "hourly_delta":
+            first = want_hour == 0
+            check(all(v is None for v in prev[first]),
+                  f"{name}: lag is NULL on each host's first hour")
+            check(np.array_equal(prev[~first].astype(np.float64),
+                                 a[np.flatnonzero(~first) - 1]),
+                  f"{name}: lag equals the previous row's avg")
+        else:
+            blocks = a.reshape(HOURS, HOSTS)
+            check(bool(np.all(np.diff(blocks, axis=1) <= 0)),
+                  f"{name}: avg not descending within an hour")
+            pos = np.tile(np.arange(1, HOSTS + 1), (HOURS, 1))
+            new = np.concatenate([np.ones((HOURS, 1), bool),
+                                  np.diff(blocks, axis=1) != 0], axis=1)
+            want_r = np.maximum.accumulate(np.where(new, pos, 0), axis=1)
+            check(np.array_equal(r.astype(np.int64).reshape(HOURS, HOSTS),
+                                 want_r), f"{name}: ranks")
+    elif name == "moving_avg":
+        x = user[-per_hour:]  # [points of the last hour, hosts]
+        check(res.num_rows == per_hour * HOSTS, f"{name}: {res.num_rows} rows")
+        check(np.array_equal(host_index(cols[0]), np.repeat(lex, per_hour)),
+              f"{name} hostnames")
+        check(np.array_equal(cols[1].astype(np.int64), np.tile(
+            T0_MS + (HOURS * per_hour - per_hour + np.arange(per_hour))
+            * STEP_S * 1000, HOSTS)), f"{name} timestamps")
+        cs = np.concatenate([np.zeros((1, HOSTS)), np.cumsum(x, axis=0)])
+        p = np.arange(per_hour)
+        lo = np.maximum(p - 5, 0)
+        want = (cs[p + 1] - cs[lo]) / (p + 1 - lo)[:, None]
+        # the window sums as cumulative-sum differences over the whole
+        # relation: about 1e-8 relative error at 1.44 M rows
+        close(cols[2], want[:, lex].T.reshape(-1), 1e-5, "moving avg")
+    elif name == "user_vs_system":
+        check(res.num_rows == HOSTS, f"{name}: {res.num_rows} rows")
+        check(np.array_equal(host_index(cols[0]), lex), f"{name} hostnames")
+        close(cols[1], user.mean(axis=0)[lex], 1e-5, "avg")
+        system = grid["usage_system"][:HOURS * per_hour]
+        check(np.array_equal(cols[2].astype(np.float64),
+                             f32_exact(system.max(axis=0))[lex]),
+              f"{name} max")
+    elif name == "rollup_insert":
+        check(results[0].affected_rows == HOSTS * HOURS,
+              f"{name}: {results[0].affected_rows} rows written")
+        check(int(cols[0][0]) == HOSTS * HOURS, f"{name}: count {cols[0][0]}")
+        close(cols[1], np.asarray([hourly.mean()]), 1e-5, "avg")
+    else:  # view_hourly
+        check(res.num_rows == HOSTS, f"{name}: {res.num_rows} rows")
+        check(np.array_equal(host_index(cols[0]), lex), f"{name} hostnames")
+        close(cols[1], hourly.max(axis=0)[lex], 1e-5, "max of avg")
+
+
+def host_sql_phase(qe, sk, torch, grid) -> dict:
+    """The seven host SQL statements at full width on the `cpu` table,
+    partial cache off: each cold (its first run in this process; the
+    hot set already holds the table's blocks), five times warm, once
+    under torch.profiler, every value against numpy. Each one's inner
+    aggregates must take K1 or K2 (DEVICE_ROUTES), each the route the
+    same statement takes alone, with that kernel launched; Q4's raw scan
+    takes none. The counts are zeroed just before each cold run and read
+    just after it. cpu_1h and the view are dropped at the end."""
+    t_phase = time.perf_counter()
+    user = grid["usage_user"][:HOURS * 3600 // STEP_S]
+    peak = f32_exact(user.max(axis=0))
+    top = sorted(range(HOSTS), key=lambda i: (-peak[i], f"host_{i}"))[:TOP_N]
+    top_hosts = [f"host_{i}" for i in top]
+    out: dict = {}
+    total = {"segment_sum": 0, "fused_segment_agg": 0}
+    with partial_cache(False):
+        for name, (setup, sql, alone) in host_sql_queries(top_hosts).items():
+            if setup is not None:
+                qe.execute_one(setup)
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            zero_launches(sk)
+            sync(torch)
+            t = time.perf_counter()
+            results = qe.execute_sql(sql)
+            sync(torch)
+            cold = (time.perf_counter() - t) * 1e3
+            k1, k2 = launches(sk)
+            paths = list(qe.executor.statement_paths)
+            check_host_sql(name, results, grid, top_hosts)
+            q = {"cold_ms": cold, "rows": results[-1].num_rows,
+                 "paths": paths, "k1_launches": k1, "k2_launches": k2,
+                 "peak_device_bytes": torch.cuda.max_memory_allocated()
+                 if torch.cuda.is_available() else None}
+            total["segment_sum"] += k1
+            total["fused_segment_agg"] += k2
+            warm = []
+            for _ in range(5):
+                sync(torch)
+                t = time.perf_counter()
+                qe.execute_sql(sql)
+                sync(torch)
+                warm.append((time.perf_counter() - t) * 1e3)
+            q["warm_p50_ms"] = float(np.median(warm))
+            if torch.cuda.is_available():
+                prof = device_breakdown(lambda: qe.execute_sql(sql), torch)
+                q["device_ms"] = prof["device_ms"]
+                q["idle_share"] = prof["idle_share"]
+                q["device_top"] = prof["top"]
+            if name == "moving_avg":
+                q["host"] = host_breakdown(lambda: qe.execute_sql(sql))
+            # each inner statement alone: its route is the one it took
+            # inside the query, and that route is a kernel's
+            q["alone_paths"] = []
+            for stmt in alone:
+                qe.execute_one(stmt)
+                q["alone_paths"].append(qe.executor.last_path)
+            check(paths == q["alone_paths"],
+                  f"host sql {name}: routes {paths}, alone "
+                  f"{q['alone_paths']}")
+            check(all(p in DEVICE_ROUTES for p in paths),
+                  f"host sql {name}: an inner aggregate left the K1/K2 "
+                  f"routes: {paths}")
+            check(("dense_prepared" not in paths or k1 > 0)
+                  and ("dense_fused" not in paths or k2 > 0)
+                  and (k1 + k2 > 0) == bool(paths),
+                  f"host sql {name}: K1 {k1}, K2 {k2} launches for routes "
+                  f"{paths}")
+            out[name] = q
+            log(f"host sql {name}: " + json.dumps(q))
+        qe.execute_one("DROP VIEW hourly")
+        qe.execute_one("DROP TABLE cpu_1h")
+    check(total["segment_sum"] > 0 or total["fused_segment_agg"] > 0,
+          "host sql: no kernel was launched")
+    log("host sql launches (cold runs): " + json.dumps(total)
+        + f", phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": total, "queries": out}
 
 
 # ---- the slice-3 routes: sparse, incremental, host aggregates --------------
@@ -2723,6 +2982,8 @@ def main() -> int:
     by_path["range fill (cpu, 8 hosts)"] = {
         "segment_sum": main["range"]["fill"]["k1_launches"],
         "fused_segment_agg": main["range"]["fill"]["k2_launches"]}
+    by_path["host sql (cpu, 7 queries, cold runs)"] = main["host_sql"][
+        "launches"]
     for state, res in (("ingest", main), ("reopened", main["reopened"]),
                        ("compacted", main["compacted"])):
         q = res["queries"]["lastpoint"]
@@ -2731,7 +2992,8 @@ def main() -> int:
             "fused_segment_agg": q["k2_launches"]}
     later_paths = ("promql prom_cpu (cold runs)", "promql cpu (cold runs)",
                    "stream_prepared (cpu_big)", "range (cpu, after ingest)",
-                   "range fill (cpu, 8 hosts)")
+                   "range fill (cpu, 8 hosts)",
+                   "host sql (cpu, 7 queries, cold runs)")
     sources = {"segment_sum": ("greptimedb_tpu_torch/csrc/segment_sum.cu",
                                "greptimedb_tpu/ops/pallas_segment.py:119"),
                "fused_segment_agg": (

@@ -1,10 +1,11 @@
-"""Catalog manager: databases + tables over a KvBackend (copy of
-greptimedb_tpu/catalog/catalog.py without views).
+"""Catalog manager: databases, tables and views over a KvBackend (copy
+of greptimedb_tpu/catalog/catalog.py).
 
 Key schema mirrors reference src/common/meta/src/key/:
   __catalog/<db>                      -> "{}"
   __table_name/<db>/<table>           -> table_id
   __table_info/<table_id>             -> {name, db, schema, options, regions}
+  __view/<db>/<view>                  -> the view's defining SQL
   __seq/table_id                      -> id sequence
 """
 
@@ -107,6 +108,10 @@ class Catalog:
     ) -> TableInfo:
         if not self.database_exists(db):
             raise CatalogError(f"database {db!r} not found")
+        if self.kv.get(f"__view/{db}/{name}") is not None:
+            # a view would shadow the table at read time while writes hit
+            # the table — never allow the name collision
+            raise CatalogError(f"{db}.{name} exists as a view")
         existing = self.kv.get(f"__table_name/{db}/{name}")
         if existing is not None:
             if if_not_exists:
@@ -138,6 +143,37 @@ class Catalog:
 
     def table_exists(self, db: str, name: str) -> bool:
         return self.kv.get(f"__table_name/{db}/{name}") is not None
+
+    # ---- views (reference common/meta view keys + ddl create_view) ---------
+
+    def create_view(self, db: str, name: str, query_sql: str,
+                    or_replace: bool = False,
+                    if_not_exists: bool = False) -> None:
+        if not self.database_exists(db):
+            raise CatalogError(f"database {db!r} not found")
+        if self.table_exists(db, name):
+            raise CatalogError(f"{db}.{name} exists as a table")
+        key = f"__view/{db}/{name}"
+        if self.kv.get(key) is not None and not or_replace:
+            if if_not_exists:
+                return
+            raise CatalogError(f"view {db}.{name} already exists")
+        self.kv.put(key, query_sql)
+
+    def view(self, db: str, name: str) -> Optional[str]:
+        return self.kv.get(f"__view/{db}/{name}")
+
+    def drop_view(self, db: str, name: str, if_exists: bool = False) -> bool:
+        key = f"__view/{db}/{name}"
+        if self.kv.get(key) is None:
+            if if_exists:
+                return False
+            raise CatalogError(f"view {db}.{name} not found")
+        self.kv.delete(key)
+        return True
+
+    def list_views(self, db: str) -> list[str]:
+        return [k.rsplit("/", 1)[1] for k, _ in self.kv.range(f"__view/{db}/")]
 
     def list_tables(self, db: str) -> list[str]:
         return [k.rsplit("/", 1)[1] for k, _ in self.kv.range(f"__table_name/{db}/")]

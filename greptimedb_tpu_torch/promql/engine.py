@@ -53,6 +53,7 @@ from greptimedb_tpu_torch.promql.parser import (
     parse_promql,
 )
 from greptimedb_tpu_torch.query.result import QueryResult
+from greptimedb_tpu_torch.session import QueryContext
 from greptimedb_tpu_torch.storage.index import InSet, Regex
 from greptimedb_tpu_torch.storage.region import OP_PUT
 
@@ -476,7 +477,7 @@ class PromqlEngine:
             raise PromqlError("selector needs a metric name")
 
         try:
-            info = self.qe._table(metric, db)
+            info = self.qe._table(metric, QueryContext(db=db))
         except CatalogError:
             return None
         schema = info.schema

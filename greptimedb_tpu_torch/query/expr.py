@@ -19,6 +19,7 @@ projection) via an identity-keyed env.
 
 from __future__ import annotations
 
+import contextvars
 import re
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -34,10 +35,30 @@ from greptimedb_tpu_torch.utils.time import (
 )
 
 
+# session timezone for naive timestamp-literal coercion. A contextvar —
+# not a parameter — because coercion happens at every depth of binding,
+# host eval, and ts-bound extraction; the engine installs it per
+# statement.
+_SESSION_TZ: contextvars.ContextVar = contextvars.ContextVar(
+    "gtpu_torch_session_tz", default=None)
+
+
+def set_session_tz(tz):
+    return _SESSION_TZ.set(tz)
+
+
+def reset_session_tz(token) -> None:
+    _SESSION_TZ.reset(token)
+
+
+def current_session_tz():
+    return _SESSION_TZ.get()
+
+
 def coerce_ts_literal(value, dtype, tz=None):
     """Timestamp literal -> the column's storage unit; naive literals in
-    `tz`, else UTC (the port has no session timezone yet)."""
-    return _coerce_ts_literal_raw(value, dtype, tz)
+    `tz`, else in the session timezone."""
+    return _coerce_ts_literal_raw(value, dtype, tz or _SESSION_TZ.get())
 
 
 MISSING_CODE = -2  # literal not present in the tag dictionary: matches nothing
@@ -533,6 +554,9 @@ def eval_host(
             rx = _like_to_regex(str(b))
             return np.asarray([v is not None and rx.fullmatch(str(v)) is not None
                                for v in np.atleast_1d(a)])
+        if e.op in ("+", "-", "*", "/", "%") and (
+                _holds_null(a) or _holds_null(b)):
+            return _null_arith(e.op, a, b)
         ops = {
             "+": lambda: a + b, "-": lambda: a - b, "*": lambda: a * b,
             "%": lambda: a % b,
@@ -1019,3 +1043,44 @@ AGG_FUNCS = {
     "argmax", "argmin", "median", "percentile", "approx_percentile_cont",
     "polyval",
 }
+
+
+def _holds_null(v) -> bool:
+    return isinstance(v, np.ndarray) and v.dtype == object \
+        and any(x is None for x in v.ravel())
+
+
+def _null_arith(op: str, a, b):
+    """`a op b` where an operand is an object column holding SQL NULL as
+    None (a window's lag/lead column): NULL in, NULL out, as `x + NULL`
+    gives. The JAX package raises a TypeError here instead (ROADMAP C)."""
+
+    def split(v):
+        arr = np.asarray(v)
+        if arr.dtype != object:
+            return arr, np.zeros(arr.shape, dtype=bool)
+        flat = arr.ravel()
+        null = np.asarray([x is None for x in flat], dtype=bool)
+        vals = np.asarray([0 if x is None else x for x in flat])
+        return vals.reshape(arr.shape), null.reshape(arr.shape)
+
+    av, a_null = split(a)
+    bv, b_null = split(b)
+    if op == "/":
+        res = av // bv if np.issubdtype(np.result_type(av, bv),
+                                        np.integer) else av / bv
+    else:
+        res = {"+": np.add, "-": np.subtract, "*": np.multiply,
+               "%": np.mod}[op](av, bv)
+    out = np.asarray(res).astype(object)
+    out[np.broadcast_to(a_null | b_null, out.shape)] = None
+    return out
+
+
+def split_conjuncts(where) -> list:
+    """The AND-conjunction atoms of a WHERE clause (None -> [])."""
+    if where is None:
+        return []
+    if isinstance(where, ast.BinaryOp) and where.op == "and":
+        return split_conjuncts(where.left) + split_conjuncts(where.right)
+    return [where]

@@ -856,6 +856,20 @@ class PhysicalExecutor:
         self._tls.last_path = v
 
     @property
+    def statement_paths(self) -> list:
+        """The route of each aggregate this thread's last statement ran,
+        in order (a CTE's, a subquery's, a view's and the outer one's);
+        `last_path` is the last of them."""
+        paths = getattr(self._tls, "statement_paths", None)
+        if paths is None:
+            paths = self._tls.statement_paths = []
+        return paths
+
+    @statement_paths.setter
+    def statement_paths(self, v):
+        self._tls.statement_paths = v
+
+    @property
     def last_partial_stats(self) -> Optional[dict]:
         return getattr(self._tls, "last_partial_stats", None)
 

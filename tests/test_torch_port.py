@@ -1,8 +1,9 @@
 """The port's boundaries: greptimedb_tpu_torch and chip_smoke.py import
 nothing of JAX, of the JAX package or of pyarrow, at any level; engines
 run on CUDA unless asked for the CPU and raise when CUDA is absent; the
-hot set makes a warm repeat upload nothing; statements outside this
-slice raise a typed error."""
+hot set makes a warm repeat upload nothing; the host SQL surface gives
+the JAX engine's results; statements outside this slice raise a typed
+error naming the slice that brings them."""
 
 import ast
 import os
@@ -143,21 +144,33 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
     assert qe.execute_one("SELECT count(*) FROM cpu").rows() == [[200]]
 
 
-@pytest.mark.parametrize("sql", [
-    "COPY cpu TO 'cpu.parquet'",
-    "SHOW TABLES",
-    "ADMIN rollup_table('cpu', '1m')",
+@pytest.mark.parametrize("sql,slice_name", [
+    ("COPY cpu TO 'cpu.parquet'", "COPY import and export"),
+    # SHOW TABLES runs on the port now (the host SQL surface); the case
+    # keeps its id and checks a SHOW statement that stays outside
+    ("SHOW FLOWS", "servers and CLI"),
+    ("ADMIN rollup_table('cpu', '1m')", "maintenance plane"),
     # TQL EVAL runs on the port now; the case keeps its id and checks the
     # TQL statement that stays outside the slice
-    pytest.param("TQL ANALYZE (0, 10, '5s') up",
-                 id="TQL EVAL (0, 10, '5s') up"),
-    "SELECT a.u FROM cpu a JOIN cpu b ON a.ts = b.ts",
-])
-def test_statements_outside_the_slice_raise_typed_errors(sql, tmp_path):
+    ("TQL ANALYZE (0, 10, '5s') up", "servers and CLI"),
+    # joins run on the port now; the case keeps its id and checks a
+    # runtime information_schema table, which stays outside
+    ("SELECT * FROM information_schema.slow_queries", "servers and CLI"),
+], ids=["COPY cpu TO 'cpu.parquet'", "SHOW TABLES",
+        "ADMIN rollup_table('cpu', '1m')", "TQL EVAL (0, 10, '5s') up",
+        "SELECT a.u FROM cpu a JOIN cpu b ON a.ts = b.ts"])
+def test_statements_outside_the_slice_raise_typed_errors(sql, slice_name,
+                                                         tmp_path):
     qe = _engine(tmp_path)
     _cpu_table(qe, points=2)
-    with pytest.raises(UnsupportedStatement, match="slice"):
+    with pytest.raises(UnsupportedStatement,
+                       match=f"the {slice_name}.* brings"):
         qe.execute_one(sql)
+
+
+# statements a case needs to have run first, on both engines
+_SETUP = {"USE db2": "CREATE DATABASE db2",
+          "DROP VIEW v": "CREATE VIEW v AS SELECT host FROM cpu"}
 
 
 @pytest.mark.parametrize("sql", [
@@ -183,11 +196,31 @@ def test_statements_outside_the_slice_raise_typed_errors(sql, tmp_path):
     "SHOW VIEWS",
     "EXPLAIN SELECT count(*) FROM cpu",
 ])
-def test_host_sql_surface_raises_naming_its_slice(sql, tmp_path):
-    qe = _engine(tmp_path)
-    _cpu_table(qe, points=2)
-    with pytest.raises(UnsupportedStatement, match="A13"):
-        qe.execute_one(sql)
+def test_host_sql_surface_matches_the_jax_engine(sql, tmp_path):
+    """Each statement of the host SQL surface gives the JAX engine's
+    column names and rows (or affected-row count) on the port."""
+    from greptimedb_tpu.catalog.catalog import Catalog as JCatalog
+    from greptimedb_tpu.catalog.kv import MemoryKv as JMemoryKv
+    from greptimedb_tpu.query.engine import QueryEngine as JQueryEngine
+    from greptimedb_tpu.storage.engine import EngineConfig as JConfig
+    from greptimedb_tpu.storage.engine import RegionEngine as JRegionEngine
+
+    jengine = JRegionEngine(JConfig(data_dir=str(tmp_path / "jax"),
+                                    maintenance_workers=0))
+    try:
+        outcomes = []
+        for qe in (JQueryEngine(JCatalog(JMemoryKv()), jengine),
+                   _engine(tmp_path / "port")):
+            _cpu_table(qe, points=2)
+            if sql in _SETUP:
+                qe.execute_one(_SETUP[sql])
+            r = qe.execute_one(sql)
+            outcomes.append((r.affected_rows, list(r.names), [
+                [v.item() if isinstance(v, np.generic) else v for v in row]
+                for row in r.rows()]))
+        assert outcomes[0] == outcomes[1]
+    finally:
+        jengine.close()
 
 
 def test_explain_analyze_names_the_servers_slice(tmp_path):
