@@ -83,6 +83,20 @@ greptimedb_tpu_torch/_build/. Phases:
      lag equal to the previous row's avg, ranks from the returned
      avgs); every inner aggregate on K1 or K2, on the route the same
      statement takes alone, with that kernel launched.
+   - serving (a), after the host SQL statements: an in-process
+     HttpServer with bench.py's clients over real keep-alive HTTP,
+     qps_single_groupby (50 clients, 2,000 requests of the
+     single-groupby-1-1-1 statement without ORDER BY: they coalesce) and
+     qps_mixed_tenants (dash / ops / analytics, 10 clients a tenant; its
+     requests cut to MIXED_REQUESTS_CPU and the cut printed). The table
+     is past the batcher's 4 Mi-row bound, so no dash batch stacks. Per
+     traffic: qps, p50 / p99 / p999 a tenant, errors (none allowed),
+     batch events by kind and the mean vmapped width, K1 and K2 launches
+     a request, peak device bytes, and the card's idle share over a
+     profiled burst of a tenth of the requests; every response body
+     against its statement's serial result on the same engine (batching
+     off, once a distinct statement), the dash and ops results against
+     numpy, and no server or encode thread left after the server stops.
    - PromQL through PromqlEngine.eval_matrix on the card, float64, at a
      5 min step with 1 h windows: max_over_time(cpu{__field__=
      "usage_user"}[1h]) buckets the 17.28 M rows into 4,000 x 157 + 1
@@ -107,7 +121,18 @@ greptimedb_tpu_torch/_build/. Phases:
    against numpy on the generated matrix at rtol 1e-9 (bench.py's
    promql_anchor.eval_rate with the counter zero-crossing limit, and a
    window mean). The data directories are removed at the end.
-4. Streaming beyond device memory, last: BASELINE.json configs[1]
+4. Serving (b) and (c): the mixed traffic again, all 3,000 requests, on
+   a second data dir holding bench.py's generator at 4,000 hosts x 1 h at
+   10 s (1,440,000 rows, flushed into one SST, so each part is one device
+   block): dash siblings stack into vmapped groups, and each group must
+   make exactly one K2 call (counted on its own thread). K2 is then held
+   against its plain version at the shape a real dash batch of the mean
+   width gives it ([M x 360 rows x 1] f32, G+1 = 60 M + 1, max). The dir
+   is closed and served by `python -m greptimedb_tpu_torch standalone
+   start` as a subprocess: /health, a /v1/sql and a Prometheus
+   query_range answer as the in-process server did, and SIGTERM ends it
+   with exit code 0.
+5. Streaming beyond device memory, last: BASELINE.json configs[1]
    (bench.py's bench_double_groupby_100m, bench.py:750-845), cpu_big,
    4,000 hosts x 25,000 points at 10 s = 100,000,000 rows (seed 23),
    puts of 524 points through RegionEngine.put with the WAL fsynced, a
@@ -127,12 +152,12 @@ greptimedb_tpu_torch/_build/. Phases:
    disk or the run's time limit forces it. The kernel phase times K1 at
    this query's block shape too ([2 Mi x 21] f32, host-major ids over
    G + 1 = 280,071).
-5. A `kernels` JSON line (with each kernel's launches on every path, the
-   PromQL queries', the streamed query's, the RANGE queries' and the
-   host SQL statements' included,
+6. A `kernels` JSON line (with each kernel's launches on every path, the
+   PromQL queries', the streamed query's, the RANGE queries', the host
+   SQL statements' and the three served traffics' included,
    lastpoint's by state, K1's time at the stream's shape and K2's at the
-   sparse route's, PromQL's, RANGE's and lastpoint's shapes), the card
-   line, and the result line.
+   sparse route's, PromQL's, RANGE's, lastpoint's and the vmapped
+   batch's shapes), the card line, and the result line.
 
 Exits non-zero, and prints no result line, when CUDA is unavailable, the
 port is not beside this script, or any check fails.
@@ -616,6 +641,64 @@ def check_k1_window(case, torch) -> None:
           f"K1 headline global atomics {stats}: not the windowed branch")
 
 
+def k2_case(sk, lib, torch, vals, ids, g, want, kind, run) -> dict:
+    """One K2 call on the card against its float64 plain version on the
+    same inputs (counts, rows, min and max exactly; sums within sum_ok's
+    tolerance), then timed beside the plain version with its bound and
+    launch plan."""
+    mn, mx, sq = want
+    n, f = vals.shape
+    dtype = vals.dtype
+    got = sk.fused_segment_agg(vals, ids, g, mn, mx, sq)
+    torch.cuda.synchronize()
+    want64 = sk.fused_segment_agg_plain(vals.double(), ids, g, mn, mx,
+                                        sq)
+    absx = sk.fused_segment_agg_plain(vals.double().abs(), ids, g,
+                                      False, False, sq)
+    what = f"{n}x{f} G={g} {dtype} {kind}"
+    for k in ("count", "rows"):
+        check(torch.equal(got[k], want64[k]), f"fused {k} {what}")
+    for k in ("min", "max"):
+        if k in got:
+            check(torch.equal(got[k].double(), want64[k]),
+                  f"fused {k} {what}")
+    if kind == "specials":
+        check_zero_signs(got, want64, what)
+    ok, err = sum_ok(got["sum"], want64["sum"], absx["sum"], dtype)
+    check(ok, f"fused sum {what}: max err {err}")
+    if sq:
+        ok_q, err_q = sum_ok(got["sumsq"], want64["sumsq"],
+                             absx["sumsq"], dtype)
+        check(ok_q, f"fused sumsq {what}: err {err_q}")
+    live_mask = (ids >= 0) & (ids < g - 1)
+    live = int(live_mask.sum().item())
+    es = vals.element_size()
+    outs = g * f * (es + 4) + g * 4 + g * f * es * (mn + mx + sq)
+    nbytes = 4 * n + live * f * es + outs
+    b_ms, b_by = bound(nbytes, live * f * (2 + mn + mx + 2 * sq), dtype)
+
+    def call():
+        return sk.fused_segment_agg(vals, ids, g, mn, mx, sq)
+
+    k_ms = cuda_ms(call)
+    d_ms = device_ms_a_call(call, torch)
+    p_ms = cuda_ms(lambda: sk.fused_segment_agg_plain(vals, ids, g, mn,
+                                                      mx, sq), runs=5)
+    plan = k2_plan(lib, n, f, g, dtype, sk._flags(*want))
+    smem = g * f * ((1 + mn + mx + sq) * es + 4) + g * 4
+    check(plan["smem_bytes"] == smem
+          and plan["privatized"] == int(smem <= 48 * 1024),
+          f"K2 {what}: plan {plan}")
+    case = {"shape": [n, f], "G": g, "dtype": str(dtype),
+            "want": {"min": mn, "max": mx, "sumsq": sq}, "ids": kind,
+            "live_rows": live, "run": run, "max_abs_err": err,
+            "ms": k_ms, "device_ms": d_ms, "bound_share": b_ms / k_ms,
+            "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by, "plan": plan}
+    log("K2 fused_segment_agg " + json.dumps(case))
+    return case
+
+
 def k2_phase(sk, lib, torch, gen, dev) -> dict:
     """K2 against its float64 plain version, case by case."""
     # K2: fused_segment_agg over raw values. Main-path shapes: the padded
@@ -685,7 +768,6 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
     ]
     branches = set()  # (dtype, F > 1, privatized) of the cases run
     for idx, (n, f, g, nb, run, dead, dtype, want, kind) in enumerate(cases):
-        mn, mx, sq = want
         if kind == "random":
             ids = torch.randint(0, nb, (n,), generator=gen, device=dev,
                                 dtype=torch.int32)
@@ -703,59 +785,14 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
         else:
             ids = time_major_ids(n, nb, run, dead, gen, dev)
         vals = k2_values(n, f, dtype, kind, ids, gen, dev)
-        got = sk.fused_segment_agg(vals, ids, g, mn, mx, sq)
-        torch.cuda.synchronize()
-        want64 = sk.fused_segment_agg_plain(vals.double(), ids, g, mn, mx,
-                                            sq)
-        absx = sk.fused_segment_agg_plain(vals.double().abs(), ids, g,
-                                          False, False, sq)
-        what = f"{n}x{f} G={g} {dtype} {kind}"
-        for k in ("count", "rows"):
-            check(torch.equal(got[k], want64[k]), f"fused {k} {what}")
-        for k in ("min", "max"):
-            if k in got:
-                check(torch.equal(got[k].double(), want64[k]),
-                      f"fused {k} {what}")
-        if kind == "specials":
-            check_zero_signs(got, want64, what)
-        ok, err = sum_ok(got["sum"], want64["sum"], absx["sum"], dtype)
-        check(ok, f"fused sum {what}: max err {err}")
-        if sq:
-            ok_q, err_q = sum_ok(got["sumsq"], want64["sumsq"],
-                                 absx["sumsq"], dtype)
-            check(ok_q, f"fused sumsq {what}: err {err_q}")
-        live_mask = (ids >= 0) & (ids < g - 1)
-        live = int(live_mask.sum().item())
-        es = vals.element_size()
-        outs = g * f * (es + 4) + g * 4 + g * f * es * (mn + mx + sq)
-        nbytes = 4 * n + live * f * es + outs
-        b_ms, b_by = bound(nbytes, live * f * (2 + mn + mx + 2 * sq), dtype)
-        def call():
-            return sk.fused_segment_agg(vals, ids, g, mn, mx, sq)
-
-        k_ms = cuda_ms(call)
-        d_ms = device_ms_a_call(call, torch)
-        p_ms = cuda_ms(lambda: sk.fused_segment_agg_plain(vals, ids, g, mn,
-                                                          mx, sq), runs=5)
-        plan = k2_plan(lib, n, f, g, dtype, sk._flags(*want))
-        smem = g * f * ((1 + mn + mx + sq) * es + 4) + g * 4
-        check(plan["smem_bytes"] == smem
-              and plan["privatized"] == int(smem <= 48 * 1024),
-              f"K2 {what}: plan {plan}")
-        branches.add((dtype, f > 1, plan["privatized"]))
-        case = {"shape": [n, f], "G": g, "dtype": str(dtype),
-                "want": {"min": mn, "max": mx, "sumsq": sq}, "ids": kind,
-                "live_rows": live, "run": run, "max_abs_err": err,
-                "ms": k_ms, "device_ms": d_ms, "bound_share": b_ms / k_ms,
-                "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms,
-                "bound_by": b_by, "plan": plan}
-        log("K2 fused_segment_agg " + json.dumps(case))
+        case = k2_case(sk, lib, torch, vals, ids, g, want, kind, run)
+        branches.add((dtype, f > 1, case["plan"]["privatized"]))
         k2.append(case)
         if idx == 3:
             case["one_call"] = check_k2_call(sk, vals, ids, g, want, torch)
             case["host_us"] = k2_host_cost(sk, lib, vals, ids, g, want,
                                            torch)
-        del vals, ids, got, want64, absx
+        del vals, ids
         torch.cuda.empty_cache()
     # every instance of the kernel ran: f32 and f64, F = 1 and F > 1,
     # privatized and global
@@ -932,10 +969,10 @@ def put_points(engine, info, rng, p0, p1, host_names, fields) -> int:
     return engine.put(info.region_ids[0], RecordBatch(info.schema, cols))
 
 
-def build_and_ingest(root, rng):
-    engine, qe = open_engine(root)
+def cpu_ddl() -> str:
+    """bench.py's `cpu` table: one hostname tag, the ten usage fields."""
     field_defs = ",\n  ".join(f"{f} DOUBLE" for f in FIELDS)
-    qe.execute_one(f"""
+    return f"""
         CREATE TABLE cpu (
           hostname STRING,
           ts TIMESTAMP(3) NOT NULL,
@@ -943,7 +980,12 @@ def build_and_ingest(root, rng):
           TIME INDEX (ts),
           PRIMARY KEY (hostname)
         ) WITH (append_mode = 'true')
-    """)
+    """
+
+
+def build_and_ingest(root, rng):
+    engine, qe = open_engine(root)
+    qe.execute_one(cpu_ddl())
     info = qe.catalog.table("public", "cpu")
     points = HOURS * 3600 // STEP_S
     host_names = np.asarray([f"host_{i}" for i in range(HOSTS)], dtype=object)
@@ -1283,6 +1325,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         ranges = {"ingest": range_phase(qe, sk, torch, grid, "ingest", True),
                   "fill": range_fill_phase(qe, sk, torch, grid)}
         host_sql = host_sql_phase(qe, sk, torch, grid)
+        serving = serving_cpu_phase(qe, sk, torch, grid)
 
         # 3. one more 10 s step for every host, then the re-query: the SST
         # parts' file-anchored blocks hit, only the memtable tail uploads
@@ -1368,7 +1411,8 @@ def main_path_phase(sk, torch, lib=None) -> dict:
     return {"launches": main["launches"], "queries": main["queries"],
             "reopened": reopened, "compacted": compacted, "sparse": sparse,
             "cached": cached, "host_aggs": host_aggs,
-            "promql_cpu": promql_cpu, "range": ranges, "host_sql": host_sql}
+            "promql_cpu": promql_cpu, "range": ranges, "host_sql": host_sql,
+            "serving": serving}
 
 
 # ---- RANGE ... ALIGN on the `cpu` table --------------------------------------
@@ -2905,6 +2949,523 @@ def stream_phase(sk, torch, lib=None) -> dict:
     return out
 
 
+# ---- serving: the HTTP server under bench.py's qps traffic --------------------
+
+#: bench.py's two serving configurations: qps_single_groupby (bench_qps,
+#: bench.py:1625-1700: 50 keep-alive clients, 2,000 requests) and
+#: qps_mixed_tenants (bench_qps_mixed, bench.py:1917-2070: dash, ops and
+#: analytics, 10 clients a tenant, 3,000 requests)
+QPS_CLIENTS = 50
+QPS_REQUESTS = 2000
+MIXED_CLIENTS = 10
+MIXED_REQUESTS = 3000
+#: the mixed traffic on the 17.28 M-row table is cut to this many
+#: requests: its ops statements filter the whole table's tag column on
+#: the host (265-296 ms a warm run, 14-26 qps on the card), so bench.py's
+#: 3,000 requests and their serial checks would take minutes; the cut is
+#: printed
+MIXED_REQUESTS_CPU = 150
+#: the second data dir: bench.py's generator at HOSTS x 1 h at 10 s
+#: (1.44 M rows, under the batcher's 4 Mi-row stacking bound)
+SERVE_HOURS = 1
+SERVE_SEED = 31
+#: the share of a traffic's requests replayed under torch.profiler for
+#: the device's idle share
+PROFILED_SHARE = 10
+BATCH_KINDS = ("join", "coalesced", "vmapped", "stacked", "serial_fallback")
+
+
+def single_groupby_sql() -> str:
+    """bench_qps's statement: single-groupby-1-1-1 without ORDER BY."""
+    return (f"SELECT date_bin(INTERVAL '1 minute', ts) AS minute, "
+            f"max(usage_user) FROM cpu WHERE hostname = 'host_1' "
+            f"AND ts >= {T0_MS} AND ts < {T0_MS + 3600 * 1000} "
+            f"GROUP BY minute")
+
+
+def mixed_tenants(hours: int) -> list:
+    """bench_qps_mixed's three tenants over a table of `hours` hours:
+    (name, request index -> SQL)."""
+    hour_ms = 3600 * 1000
+
+    def dash(i):
+        lo = T0_MS + (i % max(1, hours - 1)) * hour_ms
+        return (f"SELECT date_bin(INTERVAL '1 minute', ts) AS minute, "
+                f"max(usage_user) FROM cpu "
+                f"WHERE hostname = 'host_{i % min(HOSTS, 64)}' "
+                f"AND ts >= {lo} AND ts < {lo + hour_ms} GROUP BY minute")
+
+    def ops(i):
+        return (f"SELECT last_value(usage_user ORDER BY ts) FROM cpu "
+                f"WHERE hostname = 'host_{i % min(HOSTS, 256)}'")
+
+    def analytics(i):
+        lo = T0_MS + (i % max(1, hours - 1)) * hour_ms
+        return (f"SELECT hostname, max(usage_user), avg(usage_system) "
+                f"FROM cpu WHERE ts >= {lo} AND ts < {lo + hour_ms} "
+                f"GROUP BY hostname")
+
+    return [("dash", dash), ("ops", ops), ("analytics", analytics)]
+
+
+def drive(port, tenants, clients, total) -> dict:
+    """bench.py's client loop: `clients` keep-alive connections a tenant,
+    `total` requests split evenly. Returns per-tenant latencies (s) and
+    error counts, the wall time, the requests done, and every statement's
+    distinct response bodies (cut before `execution_time_ms`)."""
+    import http.client
+    import threading
+    import urllib.parse
+
+    per_client = max(1, total // (len(tenants) * clients))
+    lat = {name: [] for name, _ in tenants}
+    errors = {name: 0 for name, _ in tenants}
+    bodies: dict = {}
+    first_error: list = []
+    lock = threading.Lock()
+
+    def client(name, gen, i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        headers = {"Content-Type": "application/x-www-form-urlencoded"}
+        if name != "default":
+            headers["X-Greptime-Tenant"] = name
+        mine, err, got = [], 0, []
+        try:
+            for k in range(per_client):
+                sql = gen(i * per_client + k)
+                body = urllib.parse.urlencode({"sql": sql})
+                t0 = time.perf_counter()
+                try:
+                    conn.request("POST", "/v1/sql", body=body,
+                                 headers=headers)
+                    resp = conn.getresponse()
+                    data = resp.read()
+                except Exception as e:  # noqa: BLE001 — counted, reported
+                    err += 1
+                    first_error.append(repr(e))
+                    conn.close()
+                    continue
+                if resp.status != 200:
+                    err += 1
+                    first_error.append(data[:300].decode(errors="replace"))
+                    continue
+                mine.append(time.perf_counter() - t0)
+                got.append((sql, data[:data.rindex(b', "execution_time_ms"')]))
+        finally:
+            conn.close()
+            with lock:
+                lat[name].extend(mine)
+                errors[name] += err
+                for sql, b in got:
+                    bodies.setdefault(sql, set()).add(b)
+
+    threads = [threading.Thread(target=client, args=(name, gen, i))
+               for name, gen in tenants for i in range(clients)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t
+    return {"lat": lat, "errors": errors, "wall_s": wall, "bodies": bodies,
+            "requests": sum(len(v) for v in lat.values()),
+            "first_error": first_error[:1]}
+
+
+def served_oracle(sql, res, grid) -> None:
+    """The dash, single-groupby and ops statements' serial results against
+    the numpy grid ([points, hosts] per field): a minute's max of one
+    host's hour, and a host's last value, as the f32 kernels see them."""
+    import re
+
+    cols = {n: np.asarray(c) for n, c in zip(res.names, res.columns)}
+    host = int(re.search(r"hostname = 'host_(\d+)'", sql).group(1))
+    if "last_value" in sql:
+        check(res.num_rows == 1 and np.array_equal(
+            cols[res.names[0]].astype(np.float64),
+            f32_exact(grid["usage_user"][-1:, host])), f"served {sql}")
+        return
+    lo = int(re.search(r"ts >= (\d+)", sql).group(1))
+    p0 = (lo - T0_MS) // (STEP_S * 1000)
+    want = grid["usage_user"][p0:p0 + 3600 // STEP_S, host].reshape(
+        60, -1).max(axis=1)
+    check(np.array_equal(cols["minute"], lo + np.arange(60) * 60_000)
+          and np.array_equal(cols["max(usage_user)"].astype(np.float64),
+                             f32_exact(want)), f"served {sql}")
+
+
+def check_served(qe, bodies, grid) -> dict:
+    """Every distinct response body against its statement's serial result
+    on the same engine, run once with batching off (max, min and last
+    exactly, avg to rtol 1e-5); the dash, single-groupby and ops serial
+    results against the numpy grid."""
+    from greptimedb_tpu_torch.servers.encode import json_rows
+
+    n = 0
+    for sql, prefixes in bodies.items():
+        with qe.concurrency.suppress_batching():
+            res = qe.execute_one(sql)
+        if "hostname = " in sql:
+            served_oracle(sql, res, grid)
+        want = json_rows(res)
+        for p in prefixes:
+            rec = json.loads(p + b"}")["output"][0]["records"]
+            names = [c["name"] for c in rec["schema"]["column_schemas"]]
+            got = rec["rows"]
+            check(names == list(res.names) and len(got) == len(want),
+                  f"served {sql}: {len(got)} rows, serial {len(want)}")
+            for j, name in enumerate(names):
+                a = [r[j] for r in want]
+                b = [r[j] for r in got]
+                if name.startswith("avg("):
+                    ok = all((x is None and y is None) or (
+                        x is not None and y is not None
+                        and abs(x - y) <= 1e-5 * abs(x)) for x, y in zip(a, b))
+                else:
+                    ok = a == b
+                check(ok, f"served {sql}: column {name} differs from the "
+                      "serial result")
+            n += 1
+    return {"statements": len(bodies), "bodies": n}
+
+
+def serve_traffic(qe, sk, torch, what, tenants, clients, total, grid,
+                  bench_total=None) -> dict:
+    """One traffic against an in-process HttpServer on `qe`: a warm
+    request a shape, the timed run (kernel counts zeroed just before and
+    read just after; every vmapped group's own K2 calls counted on its
+    thread), a profiled burst of 1/PROFILED_SHARE of the requests for the
+    device's idle share, then every response against its serial result.
+    The server and the plane's encode workers are stopped and must leave
+    no thread behind."""
+    import threading
+
+    from greptimedb_tpu_torch.query import vmapped as vm
+    from greptimedb_tpu_torch.servers import HttpServer
+    from greptimedb_tpu_torch.utils import metrics as m
+
+    t_phase = time.perf_counter()
+    before = set(threading.enumerate())
+    cuda = torch.cuda.is_available() and DEVICE is None
+    tls = threading.local()
+    groups: list = []
+    real_k2, real_vm = sk.fused_segment_agg, vm.run_vmapped
+
+    def k2_spy(*a, **kw):
+        tls.k2 = getattr(tls, "k2", 0) + 1
+        return real_k2(*a, **kw)
+
+    def vm_spy(executor, sel, info, pspecs, member_values):
+        tls.k2 = 0
+        out = real_vm(executor, sel, info, pspecs, member_values)
+        groups.append((len(member_values), tls.k2))
+        return out
+
+    srv = HttpServer(qe, port=0)
+    port = srv.start()
+    try:
+        for _, gen in tenants:  # one warm request a shape, as bench.py
+            warm = drive(port, [("default", gen)], 1, 1)
+            check(warm["requests"] == 1,
+                  f"{what}: warm request failed {warm['first_error']}")
+        ev0 = {k: m.QUERY_BATCH_EVENTS.get(event=k) for k in BATCH_KINDS}
+        w0 = (m.VMAP_BATCH_WIDTH.total_sum(), m.VMAP_BATCH_WIDTH.total_count())
+        sync(torch)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        zero_launches(sk)
+        # the wrapper counts on the module's name: the spy carries the
+        # count while it stands in, and hands it back
+        k2_spy.launches = real_k2.launches
+        sk.fused_segment_agg, vm.run_vmapped = k2_spy, vm_spy
+        try:
+            run = drive(port, tenants, clients, total)
+            sync(torch)
+        finally:
+            sk.fused_segment_agg, vm.run_vmapped = real_k2, real_vm
+            real_k2.launches = k2_spy.launches
+        k1, k2 = launches(sk)
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        events = {k: m.QUERY_BATCH_EVENTS.get(event=k) - ev0[k]
+                  for k in BATCH_KINDS}
+        wsum = m.VMAP_BATCH_WIDTH.total_sum() - w0[0]
+        wcount = m.VMAP_BATCH_WIDTH.total_count() - w0[1]
+        burst_n = max(total // PROFILED_SHARE, len(tenants) * clients)
+        if cuda:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                burst = drive(port, tenants, clients, burst_n)
+                torch.cuda.synchronize()
+                burst_wall = time.perf_counter() - t
+            device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                            if e.device_type
+                            == torch.autograd.DeviceType.CUDA) / 1e3
+            idle = 1.0 - device_ms / (burst_wall * 1e3)
+        else:
+            burst = drive(port, tenants, clients, burst_n)
+            burst_wall, device_ms, idle = burst["wall_s"], None, None
+    finally:
+        srv.stop()
+        qe.concurrency.shutdown()
+    left = set(threading.enumerate()) - before
+    check(not left, f"{what}: threads outlived the server: "
+          f"{sorted(t.name for t in left)}")
+    errors = sum(run["errors"].values()) + sum(burst["errors"].values())
+    check(errors == 0, f"{what}: {errors} failed requests, first "
+          f"{run['first_error'] or burst['first_error']}")
+    for sql, bs in burst["bodies"].items():
+        run["bodies"].setdefault(sql, set()).update(bs)
+    served = check_served(qe, run["bodies"], grid)
+    n = run["requests"]
+    tenants_out = {}
+    for name, ls in run["lat"].items():
+        a = np.asarray(ls) * 1e3
+        tenants_out[name] = {
+            "requests": len(ls), "errors": run["errors"][name],
+            "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)),
+            "p999_ms": float(np.percentile(a, 99.9))}
+    cut = None
+    if bench_total is not None and total != bench_total:
+        cut = {"bench_requests": bench_total, "run_requests": total}
+        log(f"serving {what}: requests cut from bench.py's {bench_total} "
+            f"to {total}")
+    out = {"requests": n, "requests_cut": cut,
+           "clients": clients * len(tenants), "wall_s": run["wall_s"],
+           "qps": n / run["wall_s"], "tenants": tenants_out,
+           "batch_events": events,
+           "mean_vmap_width": wsum / wcount if wcount else None,
+           "vmapped_groups": len(groups),
+           "k2_calls_a_vmapped_group": sorted({c for _, c in groups}),
+           "k1_launches": k1, "k2_launches": k2,
+           "k1_per_request": k1 / n, "k2_per_request": k2 / n,
+           "peak_device_bytes": peak,
+           "profiled_burst": {"requests": burst["requests"],
+                              "wall_s": burst_wall, "device_ms": device_ms,
+                              "idle_share": idle},
+           "checked": served, "phase_s": time.perf_counter() - t_phase,
+           "groups": groups}
+    log(f"serving {what}: " + json.dumps(
+        {k: v for k, v in out.items() if k != "groups"}))
+    check(all(c == 1 for _, c in groups),
+          f"{what}: a vmapped group made K2 calls {sorted(set(groups))}")
+    return out
+
+
+def serving_cpu_phase(qe, sk, torch, grid) -> dict:
+    """(a) bench.py's two serving configurations against the 17.28 M-row
+    `cpu` table: identical single-groupby statements coalesce; the mixed
+    traffic's dash siblings never stack (the table is over the batcher's
+    4 Mi-row bound), as in the JAX package."""
+    t = time.perf_counter()
+    out = {
+        "qps_single_groupby": serve_traffic(
+            qe, sk, torch, "qps_single_groupby (cpu)",
+            [("default", lambda i: single_groupby_sql())], QPS_CLIENTS,
+            QPS_REQUESTS, grid),
+        "qps_mixed_tenants": serve_traffic(
+            qe, sk, torch, "qps_mixed_tenants (cpu)", mixed_tenants(HOURS),
+            MIXED_CLIENTS, min(MIXED_REQUESTS_CPU, MIXED_REQUESTS), grid,
+            bench_total=MIXED_REQUESTS)}
+    from greptimedb_tpu_torch.concurrency import ConcurrencyConfig
+
+    # where a served statement's host time goes: one warm serial run of
+    # each tenant's statement under cProfile
+    for name, gen in mixed_tenants(HOURS):
+        with qe.concurrency.suppress_batching():
+            log(f"serving host breakdown of a warm {name} statement: "
+                + json.dumps(host_breakdown(lambda: qe.execute_one(gen(1)))))
+    if HOSTS * HOURS * 3600 // STEP_S > ConcurrencyConfig().batch_max_rows:
+        for name, r in out.items():
+            check(r["batch_events"]["vmapped"] == 0,
+                  f"{name} on cpu: a table past batch_max_rows stacked")
+    check(out["qps_single_groupby"]["batch_events"]["coalesced"] > 0,
+          "qps_single_groupby: no statement coalesced")
+    log(f"serving phase (a) on cpu: {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def vmapped_batch_inputs(qe, sk, width) -> tuple:
+    """The K2 call of a real dash batch: `width` members of the mixed
+    traffic's dash statement (hosts 0..width-1, the same hour) through
+    run_vmapped, the call's inputs captured. Returns (vals, ids, G,
+    (min, max, sumsq))."""
+    from greptimedb_tpu_torch.concurrency import batcher
+    from greptimedb_tpu_torch.query import vmapped as vm
+    from greptimedb_tpu_torch.session import QueryContext
+    from greptimedb_tpu_torch.sql import parse_sql
+
+    dash = mixed_tenants(SERVE_HOURS)[0][1]
+    info = qe._table("cpu", QueryContext())
+    sels = [parse_sql(dash(i))[0] for i in range(width)]
+    shapes = [batcher.analyze(s, info) for s in sels]
+    seen = []
+    real = sk.fused_segment_agg
+
+    def capture(vals, ids, g, *want, **kw):
+        seen.append((vals, ids, g, tuple(want) or (
+            kw.get("want_min", False), kw.get("want_max", False),
+            kw.get("want_sumsq", False))))
+        return real(vals, ids, g, *want, **kw)
+
+    capture.launches = real.launches
+    sk.fused_segment_agg = capture
+    try:
+        vm.run_vmapped(qe.executor, sels[0], info, shapes[0].params,
+                       [s.values for s in shapes])
+    finally:
+        sk.fused_segment_agg = real
+        real.launches = capture.launches
+    check(len(seen) == 1, f"vmapped batch made {len(seen)} K2 calls")
+    vals, ids, g, want = seen[0]
+    check(g == width * 60 + 1 and vals.shape[1] == 1
+          and want == (False, True, False),
+          f"vmapped K2 shape {tuple(vals.shape)} G={g} want={want}")
+    return vals, ids, g, want
+
+
+def standalone_phase(root, answers) -> dict:
+    """(c) `python -m greptimedb_tpu_torch standalone start` on the card
+    over the closed data dir: /health, the /v1/sql and query_range
+    requests against the in-process answers, then SIGTERM and exit 0."""
+    import select
+    import signal
+    import urllib.request
+
+    cmd = [sys.executable, "-m", "greptimedb_tpu_torch", "standalone",
+           "start", "--data-home", root, "--http-addr", "127.0.0.1:0"]
+    if DEVICE is not None:
+        cmd += ["--device", DEVICE]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 180)
+        line = proc.stdout.readline() if ready else ""
+        check("listening on http://127.0.0.1:" in line,
+              f"standalone did not start: {line!r} "
+              f"{proc.stderr.read()[-2000:] if proc.poll() is not None else ''}")
+        start_s = time.perf_counter() - t
+        port = int(line.rsplit(":", 1)[1])
+        base = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            check(r.status == 200, "standalone /health")
+        for path, data, want in answers:
+            req = urllib.request.Request(base + path, data=data)
+            with urllib.request.urlopen(req, timeout=120) as r:
+                body = r.read()
+            check(r.status == 200 and strip_time(body) == want,
+                  f"standalone {path}: the body differs from the in-process "
+                  "answer")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"standalone exited {rc}: {proc.stderr.read()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = {"start_s": start_s, "requests": len(answers) + 1, "exit_code": rc,
+           "wall_s": time.perf_counter() - t}
+    log("serving standalone subprocess: " + json.dumps(out))
+    return out
+
+
+def strip_time(body: bytes) -> bytes:
+    i = body.rfind(b', "execution_time_ms"')
+    return body if i < 0 else body[:i]
+
+
+def in_process_answers(qe, requests) -> list:
+    """[(path, body, response body without execution_time_ms)] from an
+    in-process HttpServer on `qe`."""
+    import urllib.request
+
+    from greptimedb_tpu_torch.servers import HttpServer
+
+    srv = HttpServer(qe, port=0)
+    port = srv.start()
+    out = []
+    try:
+        for path, data in requests:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                         data=data)
+            with urllib.request.urlopen(req, timeout=120) as r:
+                check(r.status == 200, f"in-process {path}")
+                out.append((path, data, strip_time(r.read())))
+    finally:
+        srv.stop()
+        qe.concurrency.shutdown()
+    return out
+
+
+def serving_phase(sk, torch, lib=None) -> dict:
+    """(b) the mixed traffic on a second data dir: bench.py's generator at
+    HOSTS x SERVE_HOURS h at 10 s (1.44 M rows), flushed into one SST so
+    each part is one device block; the dash siblings stack into vmapped
+    groups, one K2 launch a group. Then K2 at a real batch's shape, and
+    (c) the closed dir served by a standalone subprocess."""
+    import shutil
+    import tempfile
+    import urllib.parse
+
+    t = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        engine, qe = open_engine(root)
+        qe.execute_one(cpu_ddl())
+        info = qe.catalog.table("public", "cpu")
+        points = SERVE_HOURS * 3600 // STEP_S
+        host_names = np.asarray([f"host_{i}" for i in range(HOSTS)],
+                                dtype=object)
+        fields = {f: [] for f in FIELDS}
+        rows = put_points(engine, info, np.random.default_rng(SERVE_SEED),
+                          0, points, host_names, fields)
+        qe.execute_one("ADMIN flush_table('cpu')")
+        region = engine.region(info.region_ids[0])
+        check(rows == HOSTS * points and len(region.files) == 1
+              and region.memtable.num_rows == 0,
+              f"serving dir: {rows} rows in {len(region.files)} SSTs")
+        grid = {f: np.concatenate(fields[f]).reshape(points, HOSTS)
+                for f in FIELDS}
+        mixed = serve_traffic(qe, sk, torch, "qps_mixed_tenants (cpu_1h)",
+                              mixed_tenants(SERVE_HOURS), MIXED_CLIENTS,
+                              MIXED_REQUESTS, grid)
+        ev = mixed["batch_events"]
+        check(ev["vmapped"] > 0 and mixed["vmapped_groups"] > 0
+              and mixed["k2_launches"] >= mixed["vmapped_groups"]
+              and (mixed["mean_vmap_width"] or 0) > 1,
+              f"cpu_1h: no vmapped batches ({ev}, width "
+              f"{mixed['mean_vmap_width']})")
+        # K2 at the shape a real dash batch of the mean width gives it,
+        # against its plain version
+        width = max(2, int(round(mixed["mean_vmap_width"])))
+        vals, ids, g, want = vmapped_batch_inputs(qe, sk, width)
+        case = None
+        if lib is not None:
+            case = k2_case(sk, lib, torch, vals, ids, g, want, "vmapped",
+                           width)
+            case.update(members=width, launches=mixed["vmapped_groups"])
+        del vals, ids
+        dash = mixed_tenants(SERVE_HOURS)[0][1]
+        prom = urllib.parse.urlencode({
+            "query": 'max_over_time(cpu{__field__="usage_user", '
+                     'hostname="host_3"}[5m])',
+            "start": str(T0_MS // 1000 + 300),
+            "end": str(T0_MS // 1000 + 3300), "step": "60"})
+        answers = in_process_answers(qe, [
+            ("/v1/sql", urllib.parse.urlencode({"sql": dash(5)}).encode()),
+            ("/v1/prometheus/api/v1/query_range?" + prom, None)])
+        engine.close()
+        cli = standalone_phase(root, answers)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"serving phases (b), (c) on cpu_1h: {time.perf_counter() - t:.1f} s")
+    return {"mixed": mixed, "vmapped_case": case, "standalone": cli}
+
+
 # ---- entry point -------------------------------------------------------------
 
 
@@ -2943,6 +3504,7 @@ def main() -> int:
     try:
         kres = kernel_phase(sk, lib, torch)
         main = main_path_phase(sk, torch, lib)
+        serving = serving_phase(sk, torch, lib)
         hc = hc_phase(sk, torch)
         with partial_cache(False):
             dedup_phase(torch)
@@ -2984,6 +3546,11 @@ def main() -> int:
         "fused_segment_agg": main["range"]["fill"]["k2_launches"]}
     by_path["host sql (cpu, 7 queries, cold runs)"] = main["host_sql"][
         "launches"]
+    served = {f"serving {k} (cpu)": v for k, v in main["serving"].items()}
+    served["serving qps_mixed_tenants (cpu_1h, vmapped)"] = serving["mixed"]
+    for key, r in served.items():
+        by_path[key] = {"segment_sum": r["k1_launches"],
+                        "fused_segment_agg": r["k2_launches"]}
     for state, res in (("ingest", main), ("reopened", main["reopened"]),
                        ("compacted", main["compacted"])):
         q = res["queries"]["lastpoint"]
@@ -2993,7 +3560,7 @@ def main() -> int:
     later_paths = ("promql prom_cpu (cold runs)", "promql cpu (cold runs)",
                    "stream_prepared (cpu_big)", "range (cpu, after ingest)",
                    "range fill (cpu, 8 hosts)",
-                   "host sql (cpu, 7 queries, cold runs)")
+                   "host sql (cpu, 7 queries, cold runs)") + tuple(served)
     sources = {"segment_sum": ("greptimedb_tpu_torch/csrc/segment_sum.cu",
                                "greptimedb_tpu/ops/pallas_segment.py:119"),
                "fused_segment_agg": (
@@ -3029,6 +3596,12 @@ def main() -> int:
                     k: sp[k] for k in ("shape", "G", "dtype", "max_abs_err",
                                        "ms", "plain_ms", "bound_ms",
                                        "bound_by")}
+            vc = serving["vmapped_case"]
+            kernels[-1]["vmapped_shape"] = {
+                k: vc[k] for k in ("shape", "G", "dtype", "members",
+                                   "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "launches")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,10 @@ it needs are kept here as copies) and nothing of JAX.
 
 Layer map (the JAX package's module paths):
 
+  cli.py      `python -m greptimedb_tpu_torch standalone start`
+  servers/    the HTTP server (/v1/sql, the Prometheus API, /metrics)
+  concurrency/ admission, the query batcher (vmapped batches as one K2
+              call, query/vmapped.py), the encode pool
   query/      SQL logical plan -> torch device stages (QueryEngine)
   sql/        SQL parser (copy)
   catalog/    table catalog over a KvBackend (copy)
@@ -17,6 +21,7 @@ Layer map (the JAX package's module paths):
   ops/        segment reductions, dedup, the CUDA kernels and their
               plain versions
   datatypes/  numpy-backed type system (copy, without Arrow)
+  utils/      deadlines and cancellation, the metrics registry, time
   interop.py  loads table state (plain numpy columns) into the port
 
 Entry points run on the CUDA card unless the caller passes

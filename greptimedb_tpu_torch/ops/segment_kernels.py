@@ -23,12 +23,14 @@ caller slices it away.
 
 Each wrapper runs the plain PyTorch version only for tensors on the CPU.
 On a CUDA tensor it launches its kernel or raises. `launches` on each
-wrapper counts kernel launches and nothing else.
+wrapper counts kernel launches and nothing else, under a lock, so
+concurrent request threads lose no count.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
@@ -71,6 +73,11 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+#: the launch counts are read-modify-writes from every request thread of
+#: a server: without the lock two concurrent launches can count once
+_count_lock = threading.Lock()
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} "
@@ -111,7 +118,8 @@ def segment_sum(plane: torch.Tensor, ids: torch.Tensor,
             plane.shape[1], num_segments,
             int(plane.dtype == torch.float64), _stream(plane.device))
         _raise_on(rc, "segment_sum")
-        segment_sum.launches += 1
+        with _count_lock:
+            segment_sum.launches += 1
     return out
 
 
@@ -241,7 +249,8 @@ def fused_segment_agg(vals: torch.Tensor, ids: torch.Tensor,
                       int(vals.dtype == torch.float64), flags,
                       buf.data_ptr(), _stream(vals.device))
     _raise_on(rc, "fused_segment_agg")
-    fused_segment_agg.launches += 1
+    with _count_lock:
+        fused_segment_agg.launches += 1
     return _fused_views(buf, views)  # after the launch: host work only
 
 

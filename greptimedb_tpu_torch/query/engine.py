@@ -7,7 +7,14 @@ VALUES and INSERT ... SELECT, SELECT, UNION [ALL], DELETE, DROP and
 TRUNCATE TABLE, DROP VIEW, ALTER TABLE ADD/DROP COLUMN, USE, SET,
 SHOW TABLES / DATABASES / VIEWS / CREATE TABLE, DESCRIBE, EXPLAIN,
 ADMIN flush_table / compact_table (synchronous: the maintenance plane is
-a later slice), and TQL EVAL / TQL EXPLAIN (PromQL, promql/engine.py).
+a later slice), TQL EVAL / TQL EXPLAIN (PromQL, promql/engine.py) and
+KILL QUERY.
+
+A top-level `execute_sql` runs under one deadline and cancel token
+(utils/deadline.py) registered in the running-queries table, inside one
+admission slot of the concurrency plane (concurrency/); a table SELECT
+goes through the plane's batcher, which lands back in `_select_table`
+(straight away when the server is idle).
 
 SELECT follows the JAX engine's order: CTEs run once into virtual
 relations, uncorrelated subqueries fold to literals, then a derived
@@ -71,7 +78,9 @@ from greptimedb_tpu_torch.query.window import select_has_window
 from greptimedb_tpu_torch.session import QueryContext
 from greptimedb_tpu_torch.sql import ast, parse_sql
 from greptimedb_tpu_torch.storage.engine import RegionEngine
+from greptimedb_tpu_torch.utils import deadline as dl
 from greptimedb_tpu_torch.utils import time as ts_util
+from greptimedb_tpu_torch.utils.metrics import STMT_DURATION
 
 _SERVERS = "servers and CLI"
 # the session timezone of a context that sets none (the JAX engine's
@@ -87,7 +96,6 @@ _LATER = {
     "CreateFlow": _SERVERS,
     "DropFlow": _SERVERS,
     "ShowFlows": _SERVERS,
-    "KillQuery": _SERVERS,
 }
 
 
@@ -98,11 +106,18 @@ class UnsupportedStatement(PlanError):
 
 class QueryEngine:
     def __init__(self, catalog: Catalog, region_engine: RegionEngine,
-                 device=None):
+                 device=None, concurrency=None):
+        from greptimedb_tpu_torch.concurrency import ConcurrencyPlane
+
         self.catalog = catalog
         self.region_engine = region_engine
         self.device = config.device(device)
         self.executor = PhysicalExecutor(region_engine, self.device)
+        # frontend concurrency plane (concurrency/): admission control
+        # and cross-query batching; every statement routes through it
+        # (pass concurrency= to inject a tuned one)
+        self.concurrency = concurrency if concurrency is not None \
+            else ConcurrencyPlane()
 
     # ---- entry points ------------------------------------------------------
 
@@ -110,17 +125,67 @@ class QueryEngine:
                     db: Optional[str] = None) -> list[QueryResult]:
         """Run every statement of `sql`. `ctx` carries the session (USE
         and SET persist in it); `db=` is a shorthand for a fresh context
-        on that database."""
+        on that database. A top-level call runs under one CancelToken
+        registered in the running-queries table (KILL QUERY, DELETE
+        /v1/queries/<id>), its deadline from `_resolve_timeout_ms`."""
         if ctx is None:
             ctx = QueryContext() if db is None else QueryContext(db=db)
         if ctx.timezone is None:
             ctx.timezone = _DEFAULT_TZ
+        if dl.current() is not None:
+            # nested statement (a batch member re-entering, a caller
+            # already under a token) rides the outer statement's token —
+            # a fresh one would let inner work outlive the outer kill
+            if ctx.cancel_token is None:
+                ctx.cancel_token = dl.current()
+            return self._execute_sql_slow(sql, ctx)
+        token = ctx.cancel_token  # servers pre-create for disconnect
+        created = token is None
+        if created:
+            token = dl.CancelToken()
+            ctx.cancel_token = token
+        token.set_timeout(self._resolve_timeout_ms(ctx))
+        qid = dl.RUNNING.register(
+            token, sql, db=ctx.db,
+            channel=getattr(ctx.channel, "value", str(ctx.channel)),
+            tenant=ctx.tenant or "", trace_id=ctx.trace_id or "")
+        try:
+            with dl.activate(token):
+                return self._execute_sql_slow(sql, ctx)
+        finally:
+            dl.RUNNING.unregister(qid)
+            if created:
+                ctx.cancel_token = None
+
+    def _resolve_timeout_ms(self, ctx: QueryContext):
+        """Deadline precedence: explicit client timeout (header) >
+        session vars (MySQL max_execution_time / PG statement_timeout,
+        landed in ctx.extensions via SET) > GTPU_QUERY_DEFAULT_TIMEOUT_MS;
+        0/absent everywhere = unbounded."""
+        if ctx.timeout_ms is not None and ctx.timeout_ms > 0:
+            return float(ctx.timeout_ms)
+        for var in ("max_execution_time", "statement_timeout"):
+            t = dl.parse_timeout_ms(ctx.extensions.get(var))
+            if t is not None and t > 0:
+                return t
+        t = dl.default_timeout_ms()
+        return t if t > 0 else None
+
+    def _execute_sql_slow(self, sql: str,
+                          ctx: QueryContext) -> list[QueryResult]:
+        """Parse, then run every statement inside one admission slot
+        (bounded queue, per-tenant fair scheduling; nested statements
+        ride their top-level slot). The slot is released at
+        execute-done, before any result encoding."""
         self.executor.last_path = None
         self.executor.statement_paths = []
         self.executor.last_partial_stats = None
         self.executor.last_sparse_stats = None
         self.executor.last_stream_stats = None
-        return [self.execute_statement(s, ctx) for s in parse_sql(sql)]
+        stmts = parse_sql(sql)
+        with self.concurrency.admission.slot(
+                self.concurrency.tenant_of(ctx)):
+            return [self.execute_statement(s, ctx) for s in stmts]
 
     def execute_one(self, sql: str, ctx: Optional[QueryContext] = None, *,
                     db: Optional[str] = None) -> QueryResult:
@@ -135,7 +200,9 @@ class QueryEngine:
         # coerce in the session timezone everywhere in this statement
         token = set_session_tz(ctx.timezone or _DEFAULT_TZ)
         try:
-            return self._execute_statement(stmt, ctx)
+            with STMT_DURATION.time(stmt=type(stmt).__name__):
+                dl.check(f"{type(stmt).__name__} start")
+                return self._execute_statement(stmt, ctx)
         finally:
             reset_session_tz(token)
 
@@ -152,6 +219,12 @@ class QueryEngine:
             return QueryResult.of_affected(1)
         if isinstance(stmt, ast.SetVar):
             return self._set_var(stmt, ctx)
+        if isinstance(stmt, ast.KillQuery):
+            if not dl.RUNNING.kill(stmt.query_id, reason="KILL QUERY"):
+                raise PlanError(
+                    f"unknown query id: {stmt.query_id} (see "
+                    "information_schema.running_queries)")
+            return QueryResult.of_affected(1)
         if isinstance(stmt, ast.Union):
             return self._union(stmt, ctx)
         if isinstance(stmt, ast.Insert):
@@ -603,12 +676,18 @@ class QueryEngine:
                 names.append(it.alias or f"column{i}")
             return QueryResult(names, [None] * len(names), cols)
         info = self._table(sel.table, ctx)
-        return self._select_table(_subst_session_funcs(sel, ctx), info, ctx)
+        # concurrency plane: a top-level SELECT on a busy server may
+        # coalesce or stack with shape-compatible concurrent queries; the
+        # plane always lands back in _select_table below
+        return self.concurrency.execute_select(
+            self, _subst_session_funcs(sel, ctx), info, ctx)
 
     def _select_table(self, sel: ast.Select, info: TableInfo,
                       ctx: QueryContext) -> QueryResult:
-        """The single-table SELECT: windows over the device aggregate or
-        the device scan, RANGE ... ALIGN, or one planned device query."""
+        """The single-table SELECT below the concurrency plane: windows
+        over the device aggregate or the device scan, RANGE ... ALIGN, or
+        one planned device query. Batch leaders re-enter here with the
+        combined statement."""
         if select_has_window(sel):
             if sel.group_by:
                 # SQL evaluation order: aggregate first (the device

@@ -40,9 +40,11 @@ the same route and `last_path` reads the same on both:
 Tensors stay on the executor's device; only the result planes come back.
 A kernel that fails raises: no route catches it and serves another.
 
-Left out (the JAX package's paths, each listed in ROADMAP.md): mesh and
-cluster fan-out, fragment pushdown, tier routing and its first-touch
-compile hedges, and vmapped serving.
+Parameter-sibling batches from the serving batcher take `dense_vmapped`
+/ `sparse_vmapped` (query/vmapped.py), one K2 launch a batch. Left out
+(the JAX package's paths, each listed in ROADMAP.md): mesh and cluster
+fan-out, fragment pushdown, and tier routing and its first-touch compile
+hedges.
 """
 
 from __future__ import annotations
@@ -91,6 +93,7 @@ from greptimedb_tpu_torch.query.host_agg import HOST_AGGS
 from greptimedb_tpu_torch.query.result import QueryResult
 from greptimedb_tpu_torch.sql import ast
 from greptimedb_tpu_torch.storage.region import OP_PUT, ScanData
+from greptimedb_tpu_torch.utils import deadline as dl
 
 _NUMPY_OF = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -769,7 +772,15 @@ def _prefetch(items, depth: int = 2, stats: Optional[_StreamStats] = None):
     try:
         while True:
             t0 = time.perf_counter()
-            item = q.get()
+            while True:
+                try:
+                    item = q.get(timeout=0.1)
+                    break
+                except queue.Empty:
+                    # deadline checkpoint: a cancelled or expired query
+                    # unwinds typed; the finally stops the producer
+                    dl.check("streaming scan wait")
+            dl.check("streaming scan block")
             if stats is not None:
                 stats.wait_s += time.perf_counter() - t0
             if item is done:
@@ -2054,6 +2065,10 @@ class PhysicalExecutor:
         blocks, n_valids = [], []
         dmasks = [] if dedup_mask is not None else None
         for entry in plan:
+            # host-level deadline checkpoint per device block: an expired
+            # or killed query stops dispatching instead of walking the
+            # whole plan
+            dl.check("device dispatch")
             blocks.append(fetch(entry))
             n_valids.append(entry.end - entry.start)
             if dmasks is not None:

@@ -1,0 +1,19 @@
+"""Protocol servers of the port (counterpart of greptimedb_tpu/servers):
+the HTTP server — /v1/sql, the Prometheus query API, /metrics, /health,
+/v1/queries. MySQL, Postgres, Flight and the write protocols come later
+(ROADMAP.md A9).
+
+`HttpServer` is exported lazily (PEP 562): the HTTP server imports the
+query engine (torch), but the encode pool's spawn-mode workers import
+only the sibling `servers.encode`.
+"""
+
+__all__ = ["HttpServer"]
+
+
+def __getattr__(name: str):
+    if name == "HttpServer":
+        from greptimedb_tpu_torch.servers.http import HttpServer
+
+        return HttpServer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

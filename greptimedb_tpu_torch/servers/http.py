@@ -1,0 +1,591 @@
+"""HTTP server of the port (counterpart of greptimedb_tpu/servers/http.py,
+mirroring the reference `HttpServer::make_app`): /v1/sql, the Prometheus
+query API, /metrics, /health, and the running-queries surface.
+
+stdlib ThreadingHTTPServer with keep-alive: the host serves protocol
+traffic while queries run as kernels on the engine's device. Status
+codes and error bodies are the JAX server's. The JAX server's other
+routes (the write protocols, scripts, faults, maintenance, profiles,
+traces, pprof, slow queries, the dashboard page) answer with its error
+shape — HTTP 400, code 3000 — and a message naming the slice of the port
+that brings them; Basic auth comes with `auth/` (ROADMAP.md A9).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import threading
+import time
+import traceback
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import numpy as np
+
+from greptimedb_tpu_torch.catalog.catalog import CatalogError
+from greptimedb_tpu_torch.fault import (
+    Cancelled,
+    DeadlineExceeded,
+    FaultError,
+    Unavailable,
+)
+from greptimedb_tpu_torch.query.engine import QueryEngine
+from greptimedb_tpu_torch.session import Channel, QueryContext
+from greptimedb_tpu_torch.utils.metrics import (
+    HTTP_REQUESTS,
+    QUERY_DURATION,
+    REGISTRY,
+)
+
+#: routes of the JAX server the port does not serve yet: path (exact, or
+#: a prefix when it ends in "/") -> the slice of the port that brings it
+_A9 = "servers and CLI (ROADMAP A9"
+_LATER_ROUTES = (
+    (("/v1/influxdb/write", "/v1/influxdb/api/v2/write", "/influxdb/write",
+      "/v1/opentsdb/api/put", "/opentsdb/api/put", "/v1/prometheus/write",
+      "/v1/prometheus/read", "/v1/otlp/v1/metrics", "/v1/otlp/v1/traces"),
+     f"{_A9}: the write protocols)"),
+    (("/v1/scripts", "/v1/run-script"), f"{_A9}: flows, scripts, shm)"),
+    (("/v1/slow_queries", "/v1/traces/", "/v1/profile/", "/debug/pprof/",
+      "/dashboard", "/dashboard/"),
+     f"{_A9}: the observability plane)"),
+    (("/v1/faults",), "mesh and cluster (ROADMAP A10)"),
+    (("/v1/maintenance",), "durable storage's remainder (ROADMAP A12)"),
+)
+
+
+def _later_route(path: str) -> Optional[str]:
+    for paths, slice_name in _LATER_ROUTES:
+        for p in paths:
+            if path == p or (p.endswith("/") and path.startswith(p)):
+                return slice_name
+    return None
+
+
+class HttpServer:
+    def __init__(self, query_engine: QueryEngine, host: str = "127.0.0.1",
+                 port: int = 4000, timeout_s: Optional[float] = None):
+        self.qe = query_engine
+        self.host = host
+        self.port = port
+        self.timeout_s = timeout_s
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> int:
+        """Initialise the engine's device and build the kernels on THIS
+        thread before listening (the JAX server's `jax.devices()`): the
+        first request would otherwise build them under a client's
+        timeout. Returns the bound port (so port 0 works)."""
+        dev = self.qe.device
+        if dev.type == "cuda":
+            import torch
+
+            from greptimedb_tpu_torch.ops import _build
+
+            torch.cuda.init()
+            torch.zeros(1, device=dev)
+            _build.library()
+
+        qe = self.qe
+        conns: dict = {}  # open connection socket -> its handler thread
+        workers: list = []  # every handler thread not yet joined
+        lock = threading.Lock()
+
+        class Handler(_Handler):
+            query_engine = qe
+            # socketserver honors this as the per-connection socket
+            # timeout (http.timeout_s option)
+            if self.timeout_s:
+                timeout = self.timeout_s
+
+        class Server(ThreadingHTTPServer):
+            # default backlog (5) resets connections under benchmark-level
+            # concurrency (50 clients connecting at once)
+            request_queue_size = 128
+            daemon_threads = True
+
+            def process_request(self, request, client_address):
+                # on the serve thread: once serve_forever has returned,
+                # `workers` holds every handler thread ever started
+                t = threading.Thread(target=self.process_request_thread,
+                                     args=(request, client_address),
+                                     daemon=True)
+                with lock:
+                    workers[:] = [w for w in workers if w.is_alive()]
+                    workers.append(t)
+                    conns[request] = t
+                t.start()
+
+            def shutdown_request(self, request):
+                with lock:
+                    conns.pop(request, None)
+                super().shutdown_request(request)
+
+        self._conns, self._workers, self._lock = conns, workers, lock
+        self._httpd = Server((self.host, self.port), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="gtpu-http-serve", daemon=True)
+        self._thread.start()
+        return self.port
+
+    def stop(self):
+        """Stop accepting, close every open keep-alive connection and join
+        the serve thread and every handler thread: no server thread
+        outlives this call."""
+        if self._httpd is None:
+            return
+        import socket
+
+        self._httpd.shutdown()
+        self._thread.join()  # no connection is accepted after this
+        with self._lock:
+            open_conns = list(self._conns)
+            workers = list(self._workers)
+        for sock in open_conns:
+            # a keep-alive handler blocked reading its next request
+            # returns on the shut-down socket
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        for t in workers:
+            t.join()
+        self._httpd.server_close()
+        self._httpd = None
+
+
+class _Handler(BaseHTTPRequestHandler):
+    query_engine: QueryEngine = None  # injected
+    protocol_version = "HTTP/1.1"
+    # headers and body go out in separate send()s: without NODELAY,
+    # Nagle holds the second segment for the peer's delayed ACK and
+    # every keep-alive request eats a flat ~40 ms
+    disable_nagle_algorithm = True
+
+    def log_message(self, fmt, *args):  # quiet
+        pass
+
+    # ---- plumbing ----------------------------------------------------------
+
+    def _params(self) -> dict:
+        parsed = urllib.parse.urlparse(self.path)
+        return {k: v[0] for k, v in
+                urllib.parse.parse_qs(parsed.query).items()}
+
+    def _body(self) -> bytes:
+        length = int(self.headers.get("Content-Length") or 0)
+        return self.rfile.read(length) if length else b""
+
+    def _form_or_query(self) -> dict:
+        params = self._params()
+        body = self._body()
+        ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
+        if body and ctype in ("application/x-www-form-urlencoded", ""):
+            try:
+                form = {k: v[0] for k, v in
+                        urllib.parse.parse_qs(body.decode()).items()}
+                params = {**form, **params}
+            except UnicodeDecodeError:
+                pass
+        self._raw_body = body
+        return params
+
+    def _send(self, code: int, payload, content_type="application/json"):
+        data = payload if isinstance(payload, bytes) \
+            else json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+        route = urllib.parse.urlparse(self.path).path
+        HTTP_REQUESTS.inc(path=route, status=str(code))
+
+    def _ctx(self, params: dict) -> QueryContext:
+        from greptimedb_tpu_torch.utils import deadline
+        from greptimedb_tpu_torch.utils.time import tzinfo_for
+
+        # X-Greptime-Timezone: per-request session timezone (HTTP is
+        # stateless, so SET TIME ZONE can't persist)
+        tz = self.headers.get("X-Greptime-Timezone") or \
+            params.get("timezone")
+        if tz:
+            tzinfo_for(tz)  # fail fast on a typo'd zone name
+        # X-Greptime-Tenant: admission-control identity for fair
+        # scheduling
+        tenant = self.headers.get("X-Greptime-Tenant") \
+            or params.get("tenant")
+        # X-Greptime-Timeout: per-request deadline ("500ms", "5s", or a
+        # bare millisecond count); absent = session/config default
+        timeout_ms = deadline.parse_timeout_ms(
+            self.headers.get("X-Greptime-Timeout")
+            or params.get("timeout"))
+        return QueryContext(db=params.get("db", "public"),
+                            channel=Channel.HTTP,
+                            timezone=tz or None,
+                            tenant=tenant,
+                            timeout_ms=timeout_ms)
+
+    # ---- routing -----------------------------------------------------------
+
+    def do_GET(self):
+        self._route()
+
+    def do_POST(self):
+        self._route()
+
+    def do_DELETE(self):
+        self._route()
+
+    def _route(self):
+        path = urllib.parse.urlparse(self.path).path
+        try:
+            if path == "/health" or path == "/ready":
+                return self._send(200, {})
+            if path == "/metrics":
+                return self._send(200, REGISTRY.render().encode(),
+                                  "text/plain; version=0.0.4")
+            return self._route_data(path)
+        except DeadlineExceeded as e:
+            # typed deadline expiry: the timeout shape (408), not 503 —
+            # the client asked for the bound it just hit
+            self._send(408, {"code": 3001, "error": str(e),
+                             "execution_time_ms": 0})
+        except Cancelled as e:
+            # typed cancellation (KILL / DELETE-to-kill / disconnect):
+            # nginx's 499 "client closed request" shape
+            self._send(499, {"code": 3002, "error": str(e),
+                             "execution_time_ms": 0})
+        except Unavailable as e:
+            # typed degradation (an overloaded admission queue): a 503
+            # the client should back off on, not a stack trace
+            self._send(503, {"code": 5003, "error": str(e),
+                             "execution_time_ms": 0})
+        except Exception as e:  # noqa: BLE001 — wire boundary
+            if not isinstance(e, _Unported):
+                traceback.print_exc()
+            self._send(400, {"code": 3000, "error": str(e),
+                             "execution_time_ms": 0})
+
+    def _route_data(self, path: str):
+        if path == "/v1/queries" or path.startswith("/v1/queries/"):
+            return self._handle_queries(path)
+        if path == "/v1/sql":
+            return self._handle_sql()
+        if path == "/v1/promql":
+            return self._handle_promql_range()
+        if path.startswith("/v1/prometheus/api/v1/") \
+                or path.startswith("/api/v1/"):
+            sub = path.split("/api/v1/", 1)[1]
+            if sub == "query_range":
+                return self._handle_promql_range()
+            if sub == "query":
+                return self._handle_promql_instant()
+            if sub == "labels":
+                return self._handle_labels()
+            if sub.startswith("label/") and sub.endswith("/values"):
+                return self._handle_label_values(sub.split("/")[1])
+            if sub == "series":
+                return self._handle_series()
+            return self._send(404, _prom_err("unknown endpoint"))
+        later = _later_route(path)
+        if later is not None:
+            raise _Unported(
+                f"{path} is not in this slice of greptimedb_tpu_torch; the "
+                f"{later} slice brings it")
+        return self._send(404, {"error": f"no route {path}"})
+
+    # ---- /v1/queries (running-queries surface) -----------------------------
+
+    def _handle_queries(self, path: str):
+        """GET /v1/queries lists live statements on this frontend;
+        DELETE /v1/queries/<id> cancels one (the HTTP twin of
+        KILL QUERY <id>)."""
+        from greptimedb_tpu_torch.utils import deadline
+
+        if self.command == "DELETE":
+            qid_s = path[len("/v1/queries/"):] \
+                if path.startswith("/v1/queries/") else ""
+            try:
+                qid = int(qid_s)
+            except ValueError:
+                return self._send(400,
+                                  {"error": f"bad query id {qid_s!r}"})
+            if deadline.RUNNING.kill(qid, reason="DELETE /v1/queries"):
+                return self._send(200, {"killed": qid})
+            return self._send(404, {"error": f"no running query {qid}"})
+        return self._send(200, {"queries": deadline.RUNNING.list()})
+
+    # ---- /v1/sql -----------------------------------------------------------
+
+    def _handle_sql(self):
+        from greptimedb_tpu_torch.servers.encode import encode_sql_payload
+        from greptimedb_tpu_torch.utils import deadline
+
+        params = self._form_or_query()
+        sql = params.get("sql")
+        if not sql:
+            return self._send(400, {"code": 1004, "error": "missing sql"})
+        ctx = self._ctx(params)
+        # pre-create the statement token so a client that hangs up
+        # mid-execution cancels the work it abandoned (the engine arms
+        # the deadline and registers it in the running-queries table)
+        token = deadline.CancelToken()
+        ctx.cancel_token = token
+        stop_watch = deadline.watch_disconnect(self.connection, token)
+        t0 = time.perf_counter()
+        try:
+            with QUERY_DURATION.time(kind="sql"):
+                results = self.query_engine.execute_sql(sql, ctx)
+        finally:
+            stop_watch()
+        # the admission slot was released inside execute_sql (at
+        # execute-done): serialization below never occupies an
+        # execution slot, and runs on the bounded encode pool rather
+        # than this request thread (byte-identical either way)
+        elapsed = round((time.perf_counter() - t0) * 1000, 3)
+        pool = self.query_engine.concurrency.encode
+        rows = sum(r.num_rows for r in results if r.is_query)
+        data = pool.run(encode_sql_payload, results, elapsed,
+                        cost_rows=rows)
+        self._send(200, data)
+
+    # ---- Prometheus API ----------------------------------------------------
+
+    def _handle_promql_range(self):
+        from greptimedb_tpu_torch.promql.engine import (
+            PromqlEngine,
+            SeriesMatrix,
+        )
+
+        params = self._form_or_query()
+        query = params.get("query") or params.get("promql")
+        if not query:
+            return self._send(400, _prom_err("missing query"))
+        try:
+            start = _prom_time(params["start"])
+            end = _prom_time(params["end"])
+            step = _prom_duration(params.get("step", "60"))
+        except (KeyError, ValueError) as e:
+            return self._send(400, _prom_err(f"bad range params: {e}"))
+        ctx = self._ctx(params)
+        engine = PromqlEngine(self.query_engine)
+        with QUERY_DURATION.time(kind="promql_range"):
+            times, result = engine.eval_matrix(query, start, end, step,
+                                               ctx.db)
+        if isinstance(result, SeriesMatrix):
+            payload = _matrix_json(times, result)
+        else:
+            vals = np.broadcast_to(_host(result).astype(np.float64),
+                                   times.shape)
+            payload = {"resultType": "matrix",
+                       "result": [{"metric": {},
+                                   "values": _values_json(times, vals)}]}
+        self._send(200, {"status": "success", "data": payload})
+
+    def _handle_promql_instant(self):
+        from greptimedb_tpu_torch.promql.engine import (
+            PromqlEngine,
+            SeriesMatrix,
+        )
+
+        params = self._form_or_query()
+        query = params.get("query")
+        if not query:
+            return self._send(400, _prom_err("missing query"))
+        t = _prom_time(params.get("time", str(time.time())))
+        ctx = self._ctx(params)
+        engine = PromqlEngine(self.query_engine)
+        with QUERY_DURATION.time(kind="promql_instant"):
+            times, result = engine.eval_matrix(query, t, t, 1.0, ctx.db)
+        if isinstance(result, SeriesMatrix):
+            vals = _host(result.values)
+            out = []
+            for i, lab in enumerate(result.labels):
+                v = vals[i, -1]
+                if math.isnan(v):
+                    continue
+                metric = dict(lab)
+                if result.metric:
+                    metric["__name__"] = result.metric
+                out.append({"metric": metric, "value": [t, _fmt_float(v)]})
+            payload = {"resultType": "vector", "result": out}
+        else:
+            v = float(_host(result).reshape(-1)[-1])
+            payload = {"resultType": "scalar", "value": [t, _fmt_float(v)]}
+        self._send(200, {"status": "success", "data": payload})
+
+    def _handle_labels(self):
+        params = self._form_or_query()
+        ctx = self._ctx(params)
+        qe = self.query_engine
+        labels = {"__name__"}
+        matches = _match_params(self)
+        tables = [m for m in matches] or qe.catalog.list_tables(ctx.db)
+        for t in tables:
+            try:
+                info = qe.catalog.table(ctx.db, _metric_of(t))
+            except CatalogError:
+                continue  # matcher named a non-existent metric: skip it
+            labels.update(c.name for c in info.schema.tag_columns)
+        self._send(200, {"status": "success", "data": sorted(labels)})
+
+    def _handle_label_values(self, label: str):
+        params = self._form_or_query()
+        ctx = self._ctx(params)
+        qe = self.query_engine
+        if label == "__name__":
+            return self._send(200, {"status": "success",
+                                    "data": sorted(
+                                        qe.catalog.list_tables(ctx.db))})
+        values: set = set()
+        for t in qe.catalog.list_tables(ctx.db):
+            try:
+                info = qe._table(t, ctx)
+            except (CatalogError, Unavailable, FaultError,
+                    OSError, ValueError):
+                # dropped concurrently, or its region failed to open
+                # (WAL replay / manifest read): label discovery skips
+                # the broken table instead of failing the endpoint
+                continue
+            if label not in {c.name for c in info.schema.tag_columns}:
+                continue
+            for rid in info.region_ids:  # union across all regions
+                region = qe.region_engine.region(rid)
+                values.update(str(v) for v in
+                              region.registry.values.get(label, []))
+        self._send(200, {"status": "success", "data": sorted(values)})
+
+    def _handle_series(self):
+        from greptimedb_tpu_torch.promql.engine import (
+            EvalParams,
+            PromqlEngine,
+            SeriesMatrix,
+        )
+        from greptimedb_tpu_torch.promql.parser import (
+            VectorSelector,
+            parse_promql,
+        )
+
+        params = self._form_or_query()
+        matches = _match_params(self)
+        if not matches:
+            return self._send(400, _prom_err("match[] required"))
+        start = _prom_time(params.get("start", "0"))
+        end = _prom_time(params.get("end", str(time.time())))
+        ctx = self._ctx(params)
+        engine = PromqlEngine(self.query_engine)
+        out = []
+        for m in matches:
+            node = parse_promql(m)
+            if isinstance(node, VectorSelector):
+                # series existence over the whole [start, end] range: one
+                # eval at `end` with the range as the lookback window
+                p = EvalParams(end, end, 1.0, np.asarray([end]))
+                result = engine._eval_instant_selector(
+                    node, p, ctx.db, lookback=max(end - start, 1.0))
+            else:
+                _, result = engine.eval_matrix(m, end, end, 1.0, ctx.db)
+            if isinstance(result, SeriesMatrix):
+                vals = _host(result.values)
+                for i, lab in enumerate(result.labels):
+                    if vals.size and np.isnan(vals[i]).all():
+                        continue
+                    metric = dict(lab)
+                    if result.metric:
+                        metric["__name__"] = result.metric
+                    out.append(metric)
+        self._send(200, {"status": "success", "data": out})
+
+
+class _Unported(Exception):
+    """A JAX server route this slice of the port does not serve; the
+    message names the slice that brings it."""
+
+
+# ---- formatting ------------------------------------------------------------
+
+
+def _host(x) -> np.ndarray:
+    """A PromQL value (a device tensor, a numpy array or a scalar) as a
+    numpy array on the host."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _matrix_json(times: np.ndarray, sm) -> dict:
+    vals = _host(sm.values)
+    out = []
+    for i, lab in enumerate(sm.labels):
+        metric = dict(lab)
+        if sm.metric:
+            metric["__name__"] = sm.metric
+        series_vals = _values_json(times, vals[i])
+        if series_vals:
+            out.append({"metric": metric, "values": series_vals})
+    return {"resultType": "matrix", "result": out}
+
+
+def _values_json(times: np.ndarray, vals: np.ndarray) -> list:
+    out = []
+    for t, v in zip(times.tolist(), np.asarray(vals).tolist()):
+        if v is None or (isinstance(v, float) and math.isnan(v)):
+            continue
+        out.append([t, _fmt_float(v)])
+    return out
+
+
+def _fmt_float(v: float) -> str:
+    if math.isinf(v):
+        return "+Inf" if v > 0 else "-Inf"
+    if math.isnan(v):
+        return "NaN"
+    return repr(float(v))
+
+
+def _prom_err(msg: str) -> dict:
+    return {"status": "error", "errorType": "bad_data", "error": msg}
+
+
+def _prom_time(s: str) -> float:
+    try:
+        return float(s)
+    except ValueError:
+        pass
+    import datetime as dt
+
+    t = s.replace("Z", "+00:00")
+    return dt.datetime.fromisoformat(t).timestamp()
+
+
+def _prom_duration(s: str) -> float:
+    try:
+        return float(s)
+    except ValueError:
+        from greptimedb_tpu_torch.promql.parser import parse_duration_s
+
+        return parse_duration_s(s)
+
+
+def _match_params(handler: _Handler) -> list[str]:
+    parsed = urllib.parse.urlparse(handler.path)
+    qs = urllib.parse.parse_qs(parsed.query)
+    matches = qs.get("match[]", [])
+    body = getattr(handler, "_raw_body", b"")
+    if body:
+        try:
+            form = urllib.parse.parse_qs(body.decode())
+            matches += form.get("match[]", [])
+        except UnicodeDecodeError:
+            pass
+    return matches
+
+
+def _metric_of(match_expr: str) -> str:
+    """Metric name from a simple match[] selector."""
+    return match_expr.split("{")[0].strip() or match_expr

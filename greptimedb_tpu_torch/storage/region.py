@@ -919,6 +919,11 @@ class Region:
 
     # ---- stats -------------------------------------------------------------
 
+    @property
+    def num_sst_rows(self) -> int:
+        """Rows over the SST metas (the serving batcher's row estimate)."""
+        return sum(f.num_rows for f in self.files.values())
+
     def ts_extent(self) -> Optional[tuple[int, int]]:
         """(min, max) timestamp over SST metas + memtable, or None when
         the region is empty: metadata only, no data read."""

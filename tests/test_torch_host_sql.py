@@ -353,10 +353,9 @@ def test_db_keyword_is_a_context_shorthand(pair):
 @pytest.mark.parametrize("sql,slice_name", [
     ("EXPLAIN ANALYZE SELECT count(*) FROM cpu", "servers and CLI"),
     ("TQL ANALYZE (0, 10, '5s') cpu", "servers and CLI"),
-    ("KILL QUERY 1", "servers and CLI"),
     ("SHOW FLOWS", "servers and CLI"),
     ("COPY cpu TO 'cpu.parquet'", "COPY import and export"),
-], ids=["explain_analyze", "tql_analyze", "kill", "flows", "copy"])
+], ids=["explain_analyze", "tql_analyze", "flows", "copy"])
 def test_later_slices_raise(pair, sql, slice_name):
     with pytest.raises(UnsupportedStatement, match=slice_name):
         pair.tqe.execute_one(sql)
