@@ -97,6 +97,24 @@ greptimedb_tpu_torch/_build/. Phases:
      against its statement's serial result on the same engine (batching
      off, once a distinct statement), the dash and ops results against
      numpy, and no server or encode thread left after the server stops.
+     These phases, and every phase before the front door's, run with
+     GTPU_FAST_LANE=0 and GTPU_PLAN_CACHE_ENTRIES=0 (LANE_OFF), as they
+     ran before the port had either cache. qps_single_groupby then runs again with the
+     JAX defaults (plan cache and fast lane on), with the plan-cache hit
+     rate as bench.py computes it, the fast lane's events by kind and
+     fallback reason, and the stages' seconds (parse, plan, execute,
+     fast_bind, fast_execute) beside the same lines.
+   - the wire servers (c), after serving (a): in-process MysqlServer and
+     PostgresServer with the JAX defaults, stdlib clients written here.
+     single_groupby_1_1_1, cpu_max_all_8, groupby_orderby_limit and
+     double_groupby_all over both protocols, partial cache off, each
+     equal to the in-process result and that to numpy; double_groupby_all
+     over MySQL must launch K1 and the dash statements K2. A MySQL
+     prepared dash statement executed for 50 hosts (binary rows against
+     numpy; the template must give fast-lane or plan-cache hits), then
+     20 MySQL connections x 50 single-groupby statements for qps and
+     p50 / p99, every response equal to the in-process one, and no
+     server thread left after shutdown().
    - PromQL through PromqlEngine.eval_matrix on the card, float64, at a
      5 min step with 1 h windows: max_over_time(cpu{__field__=
      "usage_user"}[1h]) buckets the 17.28 M rows into 4,000 x 157 + 1
@@ -131,7 +149,15 @@ greptimedb_tpu_torch/_build/. Phases:
    is closed and served by `python -m greptimedb_tpu_torch standalone
    start` as a subprocess: /health, a /v1/sql and a Prometheus
    query_range answer as the in-process server did, and SIGTERM ends it
-   with exit code 0.
+   with exit code 0. Before it, the same 3,000 mixed requests with the
+   JAX defaults: learned templates are fast-lane hits, one serial
+   execution each, and no longer vmapped groups, as in the JAX package.
+   After it (d), the same dir served by `standalone start -c <toml>`
+   with MySQL, Postgres and one static user: /v1/sql answers 401 without
+   credentials and the in-process body with them, MySQL logs in with the
+   right password and is refused with a wrong one, Postgres answers a
+   query, the `dump-config` text loads back to the defaults, and SIGTERM
+   ends it with exit code 0. TLS is left out (a line says so).
 5. Streaming beyond device memory, last: BASELINE.json configs[1]
    (bench.py's bench_double_groupby_100m, bench.py:750-845), cpu_big,
    4,000 hosts x 25,000 points at 10 s = 100,000,000 rows (seed 23),
@@ -154,7 +180,8 @@ greptimedb_tpu_torch/_build/. Phases:
    G + 1 = 280,071).
 6. A `kernels` JSON line (with each kernel's launches on every path, the
    PromQL queries', the streamed query's, the RANGE queries', the host
-   SQL statements' and the three served traffics' included,
+   SQL statements', the five served traffics' and the wire phase's
+   included,
    lastpoint's by state, K1's time at the stream's shape and K2's at the
    sparse route's, PromQL's, RANGE's, lastpoint's and the vmapped
    batch's shapes), the card line, and the result line.
@@ -1326,6 +1353,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
                   "fill": range_fill_phase(qe, sk, torch, grid)}
         host_sql = host_sql_phase(qe, sk, torch, grid)
         serving = serving_cpu_phase(qe, sk, torch, grid)
+        wire = wire_phase(qe, sk, torch, grid)
 
         # 3. one more 10 s step for every host, then the re-query: the SST
         # parts' file-anchored blocks hit, only the memtable tail uploads
@@ -1412,7 +1440,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
             "reopened": reopened, "compacted": compacted, "sparse": sparse,
             "cached": cached, "host_aggs": host_aggs,
             "promql_cpu": promql_cpu, "range": ranges, "host_sql": host_sql,
-            "serving": serving}
+            "serving": serving, "wire": wire}
 
 
 # ---- RANGE ... ALIGN on the `cpu` table --------------------------------------
@@ -3170,6 +3198,7 @@ def serve_traffic(qe, sk, torch, what, tenants, clients, total, grid,
                   f"{what}: warm request failed {warm['first_error']}")
         ev0 = {k: m.QUERY_BATCH_EVENTS.get(event=k) for k in BATCH_KINDS}
         w0 = (m.VMAP_BATCH_WIDTH.total_sum(), m.VMAP_BATCH_WIDTH.total_count())
+        lane0 = lane_snapshot()
         sync(torch)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
@@ -3185,6 +3214,7 @@ def serve_traffic(qe, sk, torch, what, tenants, clients, total, grid,
             sk.fused_segment_agg, vm.run_vmapped = real_k2, real_vm
             real_k2.launches = k2_spy.launches
         k1, k2 = launches(sk)
+        lane = lane_report(lane0, run["requests"])
         peak = torch.cuda.max_memory_allocated() if cuda else None
         events = {k: m.QUERY_BATCH_EVENTS.get(event=k) - ev0[k]
                   for k in BATCH_KINDS}
@@ -3235,7 +3265,7 @@ def serve_traffic(qe, sk, torch, what, tenants, clients, total, grid,
     out = {"requests": n, "requests_cut": cut,
            "clients": clients * len(tenants), "wall_s": run["wall_s"],
            "qps": n / run["wall_s"], "tenants": tenants_out,
-           "batch_events": events,
+           "batch_events": events, "lane": lane,
            "mean_vmap_width": wsum / wcount if wcount else None,
            "vmapped_groups": len(groups),
            "k2_calls_a_vmapped_group": sorted({c for _, c in groups}),
@@ -3283,6 +3313,16 @@ def serving_cpu_phase(qe, sk, torch, grid) -> dict:
                   f"{name} on cpu: a table past batch_max_rows stacked")
     check(out["qps_single_groupby"]["batch_events"]["coalesced"] > 0,
           "qps_single_groupby: no statement coalesced")
+    # the same traffic with the JAX defaults: the plan cache and the fast
+    # lane on, identical statements single-flight on the lane
+    with defaults_plane(qe):
+        out["qps_single_groupby_defaults"] = serve_traffic(
+            qe, sk, torch, "qps_single_groupby (cpu, defaults)",
+            [("default", lambda i: single_groupby_sql())], QPS_CLIENTS,
+            QPS_REQUESTS, grid)
+    lane = out["qps_single_groupby_defaults"]["lane"]
+    check(lane["fast_lane"].get("hit", 0) > 0,
+          f"qps_single_groupby with the defaults: no fast-lane hit {lane}")
     log(f"serving phase (a) on cpu: {time.perf_counter() - t:.1f} s")
     return out
 
@@ -3439,6 +3479,17 @@ def serving_phase(sk, torch, lib=None) -> dict:
               and (mixed["mean_vmap_width"] or 0) > 1,
               f"cpu_1h: no vmapped batches ({ev}, width "
               f"{mixed['mean_vmap_width']})")
+        # the same 3,000 requests with the JAX defaults: once a template
+        # is learned its siblings are fast-lane hits, one serial K2 call
+        # each, and no longer vmapped groups
+        with defaults_plane(qe):
+            mixed_defaults = serve_traffic(
+                qe, sk, torch, "qps_mixed_tenants (cpu_1h, defaults)",
+                mixed_tenants(SERVE_HOURS), MIXED_CLIENTS, MIXED_REQUESTS,
+                grid)
+        lane = mixed_defaults["lane"]
+        check(lane["fast_lane"].get("hit", 0) > 0,
+              f"cpu_1h with the defaults: no fast-lane hit {lane}")
         # K2 at the shape a real dash batch of the mean width gives it,
         # against its plain version
         width = max(2, int(round(mixed["mean_vmap_width"])))
@@ -3460,10 +3511,634 @@ def serving_phase(sk, torch, lib=None) -> dict:
             ("/v1/prometheus/api/v1/query_range?" + prom, None)])
         engine.close()
         cli = standalone_phase(root, answers)
+        cli_options = standalone_options_phase(root, answers)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log(f"serving phases (b), (c) on cpu_1h: {time.perf_counter() - t:.1f} s")
-    return {"mixed": mixed, "vmapped_case": case, "standalone": cli}
+    log(f"serving phases (b), (c), (d) on cpu_1h: "
+        f"{time.perf_counter() - t:.1f} s")
+    return {"mixed": mixed, "mixed_defaults": mixed_defaults,
+            "vmapped_case": case, "standalone": cli,
+            "standalone_options": cli_options}
+
+
+# ---- the front door: plan cache, fast lane, wire servers, options -----------
+
+#: how the phases before the front door's run: every statement parsed and
+#: planned (as before the port had either cache), as the JAX package with
+#: these set
+LANE_OFF = {"GTPU_FAST_LANE": "0", "GTPU_PLAN_CACHE_ENTRIES": "0"}
+LANE_STAGES = ("parse", "plan", "execute", "fast_bind", "fast_execute")
+#: the wire phase's concurrent MySQL traffic: connections x requests
+WIRE_CLIENTS = 20
+WIRE_REQUESTS = 50
+#: hosts the prepared dash statement rotates over
+PREPARED_HOSTS = 50
+STATIC_USER = ("chip", "smoke")
+
+
+class defaults_plane:
+    """`qe` serves through a fresh concurrency plane with the JAX
+    defaults (plan cache 512 shapes, fast lane on) inside the block; the
+    plane is shut down and the engine's own restored after it."""
+
+    def __init__(self, qe):
+        self.qe = qe
+
+    def __enter__(self):
+        from greptimedb_tpu_torch.concurrency import (
+            ConcurrencyConfig,
+            ConcurrencyPlane,
+        )
+
+        self.saved = self.qe.concurrency
+        self.qe.concurrency = ConcurrencyPlane(ConcurrencyConfig())
+        return self.qe.concurrency
+
+    def __exit__(self, *exc):
+        self.qe.concurrency.shutdown()
+        self.qe.concurrency = self.saved
+
+
+def lane_snapshot() -> dict:
+    """The plan cache's and the fast lane's events (fallbacks and skips
+    by reason) and the serving stages' seconds and counts."""
+    from greptimedb_tpu_torch.utils import metrics as m
+
+    def by_kind(counter):
+        out: dict = {}
+        for key, v in counter._snapshot().items():
+            d = dict(key)
+            name = d["event"] + (f":{d['reason']}" if "reason" in d else "")
+            out[name] = out.get(name, 0) + v
+        return out
+
+    return {"fast_lane": by_kind(m.FAST_LANE_EVENTS),
+            "plan_cache": by_kind(m.PLAN_CACHE_EVENTS),
+            "stages": {st: (m.STAGE_SECONDS.total_sum(stage=st),
+                            m.STAGE_SECONDS.total_count(stage=st))
+                       for st in LANE_STAGES}}
+
+
+def lane_report(before, requests: int) -> dict:
+    """What moved since `before`: events by kind, bench.py's hit rates
+    (plan cache hit / (hit + miss); fast lane hit / (hit + miss +
+    fallbacks)) and each stage's seconds, count and ms a request."""
+    now = lane_snapshot()
+    out = {}
+    for part in ("fast_lane", "plan_cache"):
+        out[part] = {k: int(v - before[part].get(k, 0))
+                     for k, v in now[part].items()
+                     if v != before[part].get(k, 0)}
+    pc, fl = out["plan_cache"], out["fast_lane"]
+    hm = pc.get("hit", 0) + pc.get("miss", 0)
+    pc["hit_rate"] = pc.get("hit", 0) / hm if hm else None
+    asked = fl.get("hit", 0) + fl.get("miss", 0) + sum(
+        v for k, v in fl.items() if k.startswith("fallback"))
+    fl["hit_rate"] = fl.get("hit", 0) / asked if asked else None
+    out["stages"] = {}
+    for st in LANE_STAGES:
+        secs = now["stages"][st][0] - before["stages"][st][0]
+        n = now["stages"][st][1] - before["stages"][st][1]
+        if n:
+            out["stages"][st] = {"s": secs, "n": n,
+                                 "ms_a_request": secs * 1e3 / max(1, requests)}
+    return out
+
+
+class WireError(Exception):
+    pass
+
+
+class WireMysql:
+    """A stdlib MySQL client: the v10 handshake (mysql_native_password
+    when a password is given), COM_QUERY with text rows, and
+    COM_STMT_PREPARE / EXECUTE with string or integer parameters and
+    binary rows."""
+
+    def __init__(self, port, user="chip", password=None):
+        import hashlib
+        import socket
+        import struct
+
+        self.struct = struct
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=300)
+        self.seq = 0
+        hello = self._packet()
+        pos = hello.index(b"\x00", 1) + 1 + 4
+        salt = hello[pos:pos + 8]
+        salt += hello[pos + 8 + 1 + 2 + 1 + 2 + 2 + 1 + 10:][:12]
+        auth = b""
+        if password:
+            h1 = hashlib.sha1(password.encode()).digest()
+            h3 = hashlib.sha1(salt + hashlib.sha1(h1).digest()).digest()
+            auth = bytes(a ^ b for a, b in zip(h1, h3))
+        self._send(struct.pack("<II", 0x0200 | 0x8000, 1 << 24)
+                   + bytes([0x21]) + b"\x00" * 23 + user.encode() + b"\x00"
+                   + bytes([len(auth)]) + auth)
+        self._check(self._packet())
+
+    def _read(self, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise WireError("mysql connection closed")
+            buf += chunk
+        return buf
+
+    def _packet(self):
+        h = self._read(4)
+        self.seq = (h[3] + 1) & 0xFF
+        return self._read(h[0] | (h[1] << 8) | (h[2] << 16))
+
+    def _send(self, payload):
+        self.sock.sendall(self.struct.pack("<I", len(payload))[:3]
+                          + bytes([self.seq]) + payload)
+        self.seq = (self.seq + 1) & 0xFF
+
+    def _check(self, pkt):
+        if pkt[0] == 0xFF:
+            code = self.struct.unpack("<H", pkt[1:3])[0]
+            raise WireError(f"mysql error {code}: {pkt[9:].decode()}")
+        return pkt
+
+    @staticmethod
+    def _lenc(pkt, pos):
+        n = pkt[pos]
+        if n == 0xFC:
+            return int.from_bytes(pkt[pos + 1:pos + 3], "little"), pos + 3
+        if n == 0xFD:
+            return int.from_bytes(pkt[pos + 1:pos + 4], "little"), pos + 4
+        return n, pos + 1
+
+    def _columns(self, ncols):
+        names = []
+        for _ in range(ncols):
+            pkt, pos = self._packet(), 0
+            for _ in range(4):
+                n, pos = self._lenc(pkt, pos)
+                pos += n
+            n, pos = self._lenc(pkt, pos)
+            names.append(pkt[pos:pos + n].decode())
+        self._packet()  # EOF
+        return names
+
+    def query(self, sql):
+        self.seq = 0
+        self._send(b"\x03" + sql.encode())
+        first = self._check(self._packet())
+        if first[0] == 0x00:
+            return ("ok", self._lenc(first, 1)[0])
+        names, rows = self._columns(first[0]), []
+        while True:
+            pkt = self._packet()
+            if pkt[0] == 0xFE and len(pkt) < 9:
+                return ("rows", names, rows)
+            row, pos = [], 0
+            while pos < len(pkt):
+                if pkt[pos] == 0xFB:
+                    row.append(None)
+                    pos += 1
+                    continue
+                n, pos = self._lenc(pkt, pos)
+                row.append(pkt[pos:pos + n].decode())
+                pos += n
+            rows.append(row)
+
+    def prepare(self, sql):
+        self.seq = 0
+        self._send(b"\x16" + sql.encode())
+        first = self._check(self._packet())
+        stmt, ncols, nparams = self.struct.unpack("<IHH", first[1:9])
+        for _ in range(nparams + (1 if nparams else 0)):
+            self._packet()
+        for _ in range(ncols + (1 if ncols else 0)):
+            self._packet()
+        return stmt
+
+    def execute(self, stmt, params):
+        st = self.struct
+        types, values = b"", b""
+        for p in params:
+            if isinstance(p, int):
+                types += bytes([8, 0])
+                values += st.pack("<q", p)
+            else:
+                raw = str(p).encode()
+                types += bytes([253, 0])
+                values += bytes([len(raw)]) + raw
+        self.seq = 0
+        self._send(b"\x17" + st.pack("<IBI", stmt, 0, 1)
+                   + bytes((len(params) + 7) // 8) + b"\x01" + types
+                   + values)
+        first = self._check(self._packet())
+        names, rows = self._columns(first[0]), []
+        nb = (len(names) + 9) // 8
+        while True:
+            pkt = self._packet()
+            if pkt[0] == 0xFE and len(pkt) < 9:
+                return ("rows", names, rows)
+            pos, row = 1 + nb, []
+            for i in range(len(names)):
+                if pkt[1 + (i + 2) // 8] & (1 << ((i + 2) % 8)):
+                    row.append(None)
+                    continue
+                n, pos = self._lenc(pkt, pos)
+                row.append(pkt[pos:pos + n].decode())
+                pos += n
+            rows.append(row)
+
+    def close(self):
+        self.seq = 0
+        self._send(b"\x01")
+        self.sock.close()
+
+
+class WirePg:
+    """A stdlib PostgreSQL client: the startup message (a cleartext
+    password when asked) and the simple query protocol."""
+
+    def __init__(self, port, user="chip", password=None):
+        import socket
+        import struct
+
+        self.struct = struct
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=300)
+        body = struct.pack("!I", 196608) + b"user\x00" + user.encode() \
+            + b"\x00database\x00public\x00\x00"
+        self.sock.sendall(struct.pack("!I", len(body) + 4) + body)
+        while True:
+            t, body = self._msg()
+            if t == b"R" and struct.unpack("!I", body[:4])[0] == 3:
+                pw = (password or "").encode() + b"\x00"
+                self.sock.sendall(b"p" + struct.pack("!I", len(pw) + 4) + pw)
+            elif t == b"E":
+                raise WireError(f"pg error: {body!r}")
+            elif t == b"Z":
+                return
+
+    def _read(self, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise WireError("postgres connection closed")
+            buf += chunk
+        return buf
+
+    def _msg(self):
+        t = self._read(1)
+        n = self.struct.unpack("!I", self._read(4))[0]
+        return t, self._read(n - 4) if n > 4 else b""
+
+    def query(self, sql):
+        st = self.struct
+        body = sql.encode() + b"\x00"
+        self.sock.sendall(b"Q" + st.pack("!I", len(body) + 4) + body)
+        cols, rows, tag, err = [], [], None, None
+        while True:
+            t, body = self._msg()
+            if t == b"T":
+                pos = 2
+                for _ in range(st.unpack("!h", body[:2])[0]):
+                    end = body.index(b"\x00", pos)
+                    cols.append(body[pos:end].decode())
+                    pos = end + 19
+            elif t == b"D":
+                pos, row = 2, []
+                for _ in range(st.unpack("!h", body[:2])[0]):
+                    n = st.unpack("!i", body[pos:pos + 4])[0]
+                    pos += 4
+                    row.append(None if n < 0
+                               else body[pos:pos + n].decode())
+                    pos += max(n, 0)
+                rows.append(row)
+            elif t == b"C":
+                tag = body.rstrip(b"\x00").decode()
+            elif t == b"E":
+                err = body
+            elif t == b"Z":
+                if err is not None:
+                    raise WireError(f"pg error: {err!r}")
+                return cols, rows, tag
+
+    def close(self):
+        self.sock.sendall(b"X" + self.struct.pack("!I", 4))
+        self.sock.close()
+
+
+def wire_text(res) -> list:
+    """The in-process result as both wires' text rows: floats as their
+    repr, NULL (None or NaN) as None, everything else as str."""
+    out = []
+    for row in res.rows():
+        out.append([None if v is None or (isinstance(v, float) and v != v)
+                    else repr(float(v)) if isinstance(v, float)
+                    else str(v) for v in row])
+    return out
+
+
+def wire_rows_match(names, got, want) -> bool:
+    """Text rows of a wire against the in-process result's: exact, but
+    averages to rtol 1e-5 — a rerun's f32 sums on the card add in
+    another order (atomics), as check_served holds served bodies."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        for name, a, b in zip(names, g, w):
+            if name.startswith("avg(") and a is not None and b is not None:
+                if abs(float(a) - float(b)) > 1e-5 * abs(float(b)):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+def wire_phase(qe, sk, torch, grid) -> dict:
+    """(c) in-process MysqlServer and PostgresServer over the 17.28 M-row
+    `cpu` table, the engine on a plane with the JAX defaults: bench.py's
+    four dashboard queries over both wires, each equal to the in-process
+    result and that to numpy (double_groupby_all's MySQL run counted:
+    K1); a prepared dash statement executed for PREPARED_HOSTS hosts
+    (binary rows against numpy; the template's later hosts must be
+    fast-lane hits); then WIRE_CLIENTS MySQL connections x WIRE_REQUESTS
+    single-groupby statements for qps and latency, every response equal
+    to the in-process one. No server thread may outlive shutdown()."""
+    import threading
+
+    from greptimedb_tpu_torch.servers.mysql import MysqlServer
+    from greptimedb_tpu_torch.servers.postgres import PostgresServer
+
+    t_phase = time.perf_counter()
+    before_threads = set(threading.enumerate())
+    queries = tsbs_queries()
+    out = {"queries": {}}
+    with defaults_plane(qe):
+        ms, ps = MysqlServer(qe, port=0), PostgresServer(qe, port=0)
+        ms.start()
+        ps.start()
+        try:
+            my, pg = WireMysql(ms.port), WirePg(ps.port)
+            zero_launches(sk)
+            wire_k = np.zeros(2, dtype=np.int64)  # K1, K2 of wire requests
+            for name in ("single_groupby_1_1_1", "cpu_max_all_8",
+                         "groupby_orderby_limit", "double_groupby_all"):
+                sql = queries[name][0]
+                # the classic routes, as the main path: cached partials
+                # of the earlier phases would serve these without a launch.
+                # The in-process run first: it warms the hot set, so both
+                # wires are timed warm
+                with partial_cache(False):
+                    t = time.perf_counter()
+                    res = qe.execute_one(sql)
+                    local_ms = (time.perf_counter() - t) * 1e3
+                    k0 = launches(sk)
+                    t = time.perf_counter()
+                    got_my = my.query(sql)
+                    my_ms = (time.perf_counter() - t) * 1e3
+                    k1 = launches(sk)
+                    t = time.perf_counter()
+                    got_pg = pg.query(sql)
+                    pg_ms = (time.perf_counter() - t) * 1e3
+                    wire_k += np.subtract(launches(sk), k0)
+                check_result(name, res, grid)
+                want, names = wire_text(res), list(res.names)
+                check(got_my[:2] == ("rows", names)
+                      and wire_rows_match(names, got_my[2], want),
+                      f"wire {name}: the MySQL rows differ from the "
+                      "in-process result")
+                check(got_pg[0] == names and got_pg[2] == f"SELECT {len(want)}"
+                      and wire_rows_match(names, got_pg[1], want),
+                      f"wire {name}: the Postgres rows differ from the "
+                      "in-process result")
+                out["queries"][name] = {
+                    "rows": len(want), "in_process_ms": local_ms,
+                    "mysql_ms": my_ms, "postgres_ms": pg_ms,
+                    "mysql_k1": k1[0] - k0[0], "mysql_k2": k1[1] - k0[1]}
+            q = out["queries"]
+            check(q["double_groupby_all"]["mysql_k1"] >= 1,
+                  "wire double_groupby_all over MySQL launched no K1")
+            check(q["single_groupby_1_1_1"]["mysql_k2"] >= 1
+                  and q["cpu_max_all_8"]["mysql_k2"] >= 1,
+                  "wire dash statements over MySQL launched no K2")
+            # a prepared dash statement rotated over the hosts
+            lane0 = lane_snapshot()
+            stmt = my.prepare(
+                "SELECT date_bin(INTERVAL '1 minute', ts) AS minute, "
+                "max(usage_user) FROM cpu WHERE hostname = ? AND ts >= ? "
+                "AND ts < ? GROUP BY minute")
+            k0 = launches(sk)
+            t = time.perf_counter()
+            for h in range(PREPARED_HOSTS):
+                kind, names, rows = my.execute(
+                    stmt, [f"host_{h}", T0_MS, T0_MS + 3600 * 1000])
+                want = grid["usage_user"][:3600 // STEP_S, h].reshape(
+                    60, -1).max(axis=1)
+                check(names == ["minute", "max(usage_user)"]
+                      and [int(r[0]) for r in rows]
+                      == [T0_MS + i * 60_000 for i in range(60)]
+                      and np.array_equal(
+                          np.asarray([float(r[1]) for r in rows]),
+                          f32_exact(want)),
+                      f"wire prepared dash statement, host_{h}")
+            prepared_s = time.perf_counter() - t
+            wire_k += np.subtract(launches(sk), k0)
+            lane = lane_report(lane0, PREPARED_HOSTS)
+            out["prepared"] = {"executes": PREPARED_HOSTS,
+                               "ms_an_execute": prepared_s * 1e3
+                               / PREPARED_HOSTS, "lane": lane}
+            check(lane["fast_lane"].get("hit", 0)
+                  + lane["plan_cache"].get("hit", 0) > 0,
+                  f"the prepared dash statement made no cache hit: {lane}")
+            my.close()
+            pg.close()
+            # WIRE_CLIENTS connections x WIRE_REQUESTS statements
+            sql = single_groupby_sql()
+            want = ("rows", ["minute", "max(usage_user)"],
+                    wire_text(qe.execute_one(sql)))
+            lat, errors, lock = [], [], threading.Lock()
+            lane0 = lane_snapshot()
+            k0 = launches(sk)
+
+            def client():
+                mine = []
+                try:
+                    c = WireMysql(ms.port)
+                    for _ in range(WIRE_REQUESTS):
+                        t = time.perf_counter()
+                        got = c.query(sql)
+                        mine.append(time.perf_counter() - t)
+                        if got != want:
+                            raise WireError("a response differs from the "
+                                            "in-process result")
+                    c.close()
+                except Exception as e:  # noqa: BLE001 — counted below
+                    with lock:
+                        errors.append(repr(e))
+                with lock:
+                    lat.extend(mine)
+
+            threads = [threading.Thread(target=client)
+                       for _ in range(WIRE_CLIENTS)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t
+            k1, k2 = np.subtract(launches(sk), k0)
+            wire_k += (k1, k2)
+            check(not errors, f"wire traffic: {len(errors)} failed "
+                  f"clients, first {errors[:1]}")
+            a = np.asarray(lat) * 1e3
+            out["traffic"] = {
+                "connections": WIRE_CLIENTS, "requests": len(lat),
+                "wall_s": wall, "qps": len(lat) / wall,
+                "p50_ms": float(np.percentile(a, 50)),
+                "p99_ms": float(np.percentile(a, 99)),
+                "k1_launches": int(k1), "k2_launches": int(k2),
+                "lane": lane_report(lane0, len(lat))}
+        finally:
+            ms.shutdown()
+            ps.shutdown()
+    left = set(threading.enumerate()) - before_threads
+    check(not left, f"wire: threads outlived shutdown(): "
+          f"{sorted(t.name for t in left)}")
+    # launches of the wire requests only (not of the in-process runs
+    # they are compared with)
+    out.update(k1_launches=int(wire_k[0]), k2_launches=int(wire_k[1]),
+               phase_s=time.perf_counter() - t_phase)
+    log("wire (cpu): " + json.dumps(out))
+    return out
+
+
+def standalone_options_phase(root, answers) -> dict:
+    """(d) `standalone start -c <toml>` over the closed cpu_1h dir, with
+    MySQL, Postgres and one static user enabled and the JAX defaults of
+    the concurrency plane: /v1/sql answers 401 without credentials and
+    the in-process body with them; MySQL logs in with the right password
+    and is refused with a wrong one; Postgres answers a query; the
+    `dump-config` text loads back to the defaults; SIGTERM ends it with
+    exit code 0. TLS is left out here (the CPU tests drive it)."""
+    import base64
+    import select
+    import signal
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from greptimedb_tpu_torch import options
+
+    log("TLS: left out of chip_smoke.py; tests/test_torch_auth.py drives "
+        "MySQL and Postgres over TLS on the CPU")
+    user, password = STATIC_USER
+    cfg_dir = tempfile.mkdtemp(prefix="chip_smoke_cfg_")
+    cfg = os.path.join(cfg_dir, "standalone.toml")
+    with open(cfg, "w") as f:
+        f.write(f"[storage]\ndata_home = '{root}'\n"
+                "[http]\naddr = '127.0.0.1:0'\n"
+                "[mysql]\nenable = true\naddr = '127.0.0.1:0'\n"
+                "[postgres]\nenable = true\naddr = '127.0.0.1:0'\n"
+                f"[auth]\nstatic_users = '{user}={password}'\n")
+    env = {k: v for k, v in os.environ.items() if k not in LANE_OFF}
+    env["PYTHONPATH"] = HERE
+    dump = subprocess.run([sys.executable, "-m", "greptimedb_tpu_torch",
+                           "dump-config"], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=120)
+    dumped = os.path.join(cfg_dir, "dumped.toml")
+    with open(dumped, "w") as f:
+        f.write(dump.stdout)
+    loaded = options.load_options(dumped, env={})
+    check(dump.returncode == 0 and loaded == options.StandaloneOptions(),
+          "dump-config: its text does not load back to the defaults")
+    options.check_port_support(loaded)
+    cmd = [sys.executable, "-m", "greptimedb_tpu_torch", "standalone",
+           "start", "-c", cfg]
+    if DEVICE is not None:
+        cmd += ["--device", DEVICE]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        lines = []
+        for _ in range(3):
+            ready, _, _ = select.select([proc.stdout], [], [], 180)
+            lines.append(proc.stdout.readline() if ready else "")
+        check("listening on http://127.0.0.1:" in lines[0]
+              and lines[1].startswith("mysql on 127.0.0.1:")
+              and lines[2].startswith("postgres on 127.0.0.1:"),
+              f"standalone -c did not start: {lines!r} "
+              f"{proc.stderr.read()[-2000:] if proc.poll() is not None else ''}")
+        start_s = time.perf_counter() - t
+        http_port, my_port, pg_port = (int(x.rsplit(":", 1)[1])
+                                       for x in lines)
+        base = f"http://127.0.0.1:{http_port}"
+        token = base64.b64encode(f"{user}:{password}".encode()).decode()
+        # the /v1/sql answer only: phase (c) already held the PromQL one
+        path, data, want = answers[0]
+        steps = {}
+        t_step = time.perf_counter()
+        try:
+            urllib.request.urlopen(urllib.request.Request(base + path,
+                                                          data=data),
+                                   timeout=120)
+            status = 200
+        except urllib.error.HTTPError as e:
+            status = e.code
+        check(status == 401, f"standalone -c: /v1/sql without credentials "
+              f"answered {status}")
+        steps["http_401_s"] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
+        req = urllib.request.Request(base + path, data=data)
+        req.add_header("Authorization", "Basic " + token)
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = r.read()
+        check(r.status == 200 and strip_time(body) == want,
+              f"standalone -c {path}: the body differs from the in-process "
+              "answer")
+        steps["http_sql_s"] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
+        rows = HOSTS * SERVE_HOURS * 3600 // STEP_S
+        my = WireMysql(my_port, user, password)
+        check(my.query("SELECT count(*) FROM cpu")
+              == ("rows", ["count(*)"], [[str(rows)]]),
+              "standalone -c: MySQL count(*)")
+        my.close()
+        try:
+            WireMysql(my_port, user, "wrong")
+            refused = None
+        except WireError as e:
+            refused = str(e)
+        check(refused is not None and "mysql error 1045" in refused,
+              f"standalone -c: a wrong MySQL password got {refused!r}")
+        pg = WirePg(pg_port, user, password)
+        check(pg.query("SELECT count(*) FROM cpu")
+              == (["count(*)"], [[str(rows)]], "SELECT 1"),
+              "standalone -c: Postgres count(*)")
+        pg.close()
+        steps["mysql_postgres_s"] = time.perf_counter() - t_step
+        requests_s = time.perf_counter() - t - start_s
+        proc.send_signal(signal.SIGTERM)
+        t_stop = time.perf_counter()
+        rc = proc.wait(timeout=120)
+        stop_s = time.perf_counter() - t_stop
+        check(rc == 0, f"standalone -c exited {rc}: "
+              f"{proc.stderr.read()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        import shutil
+
+        shutil.rmtree(cfg_dir, ignore_errors=True)
+    out = {"start_s": start_s, "requests_s": requests_s, "stop_s": stop_s,
+           "steps": steps, "http_requests": 2,
+           "mysql_logins": 2, "postgres_queries": 1, "exit_code": rc,
+           "wall_s": time.perf_counter() - t}
+    log("serving standalone -c subprocess: " + json.dumps(out))
+    return out
 
 
 # ---- entry point -------------------------------------------------------------
@@ -3501,6 +4176,12 @@ def main() -> int:
     # planes for 2.9M groups) pass the partial cache's 256 MB default
     os.environ.setdefault("GREPTIMEDB_TPU_PARTIAL_CACHE_BYTES",
                           str(PARTIAL_CACHE_BYTES))
+    # the phases before the front door's run as they ran before the port
+    # had the plan cache and the fast lane, every statement parsed and
+    # planned; the front-door phases build their engines' planes with the
+    # JAX defaults (defaults_plane, standalone_options_phase)
+    for k, v in LANE_OFF.items():
+        os.environ.setdefault(k, v)
     try:
         kres = kernel_phase(sk, lib, torch)
         main = main_path_phase(sk, torch, lib)
@@ -3548,6 +4229,9 @@ def main() -> int:
         "launches"]
     served = {f"serving {k} (cpu)": v for k, v in main["serving"].items()}
     served["serving qps_mixed_tenants (cpu_1h, vmapped)"] = serving["mixed"]
+    served["serving qps_mixed_tenants (cpu_1h, defaults)"] = \
+        serving["mixed_defaults"]
+    served["wire mysql + postgres (cpu)"] = main["wire"]
     for key, r in served.items():
         by_path[key] = {"segment_sum": r["k1_launches"],
                         "fused_segment_agg": r["k2_launches"]}

@@ -1,14 +1,18 @@
 """Process entry point of the port (counterpart of greptimedb_tpu/cli.py,
-mirroring the reference `greptime standalone start`).
+mirroring the reference `greptime standalone start` and `cli` REPL).
 
     python -m greptimedb_tpu_torch standalone start --data-home /tmp/db \
-        --http-addr 127.0.0.1:4000 [--device cpu]
+        --http-addr 127.0.0.1:4000 [-c standalone.toml] [--device cpu]
+    python -m greptimedb_tpu_torch repl --data-home /tmp/db [--device cpu]
+    python -m greptimedb_tpu_torch dump-config
 
 `--device` is the port's counterpart of JAX_PLATFORMS: the server runs on
 the CUDA card unless asked for another device (`cpu` runs the kernels'
-plain versions). The layered TOML options (`-c`), the REPL, the cluster
-roles and export/import belong to later slices; they exit non-zero
-naming the slice that brings them.
+plain versions). `-c` loads the layered TOML options (options.py): the
+HTTP, MySQL and Postgres servers, static users and TLS, the concurrency
+plane and the query knobs; an option of a subsystem the port does not
+have yet exits non-zero naming the slice that brings it. The cluster
+roles and export/import belong to later slices and do the same.
 """
 
 from __future__ import annotations
@@ -26,8 +30,6 @@ _LATER = {
     "datanode": "mesh and cluster (ROADMAP A10)",
     "frontend": "mesh and cluster (ROADMAP A10)",
     "flownode": "mesh and cluster (ROADMAP A10)",
-    "repl": "servers and CLI (ROADMAP A9: options.py and the REPL)",
-    "dump-config": "servers and CLI (ROADMAP A9: options.py and the REPL)",
     "export": "durable storage's remainder (ROADMAP A12: COPY, export "
               "and import)",
     "import": "durable storage's remainder (ROADMAP A12: COPY, export "
@@ -35,18 +37,27 @@ _LATER = {
 }
 
 
-def build_standalone(data_home: str, device=None):
+def build_standalone(data_home: str, device=None, opts=None):
     """Assemble the standalone stack (kv backend -> catalog -> region
-    engine -> query engine) on `device` (None: the CUDA card)."""
+    engine -> query engine) on `device` (None: the CUDA card), with the
+    layered options applied when given."""
+    from greptimedb_tpu_torch import options as optmod
     from greptimedb_tpu_torch.catalog import Catalog, FileKv
     from greptimedb_tpu_torch.query import QueryEngine
     from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
 
     os.makedirs(data_home, exist_ok=True)
-    engine = RegionEngine(
-        EngineConfig(data_dir=os.path.join(data_home, "data")), device=device)
+    tz = "UTC"
+    if opts is not None:
+        optmod.apply_query_env(opts)
+        optmod.apply_concurrency(opts)
+        cfg = optmod.engine_config(opts, os.path.join(data_home, "data"))
+        tz = opts.default_timezone
+    else:
+        cfg = EngineConfig(data_dir=os.path.join(data_home, "data"))
+    engine = RegionEngine(cfg, device=device)
     catalog = Catalog(FileKv(os.path.join(data_home, "catalog.json")))
-    qe = QueryEngine(catalog, engine, device=device)
+    qe = QueryEngine(catalog, engine, device=device, default_timezone=tz)
     return engine, qe
 
 
@@ -61,30 +72,137 @@ def _refuse(what: str, slice_name: str) -> int:
     return 2
 
 
-def cmd_standalone(args) -> int:
-    """Boot the HTTP server over a standalone stack, serve until SIGTERM
-    or SIGINT, then stop the server, shut the concurrency plane down and
-    close the engine."""
-    if args.config_file:
-        return _refuse("-c/--config-file (layered TOML options)",
-                       "servers and CLI (ROADMAP A9: options.py and the "
-                       "REPL)")
-    from greptimedb_tpu_torch.servers import HttpServer
+def _user_provider(opts):
+    if not opts.auth.static_users:
+        return None
+    from greptimedb_tpu_torch.auth import StaticUserProvider
+    from greptimedb_tpu_torch.options import ConfigError
 
-    engine, qe = build_standalone(args.data_home, args.device)
+    pairs = {}
+    for entry in opts.auth.static_users.split(","):
+        user, sep, password = entry.partition("=")
+        if not sep or not user.strip():
+            raise ConfigError(
+                f"auth.static_users entry {entry!r} is not user=password")
+        if user.strip() in pairs:
+            raise ConfigError(
+                f"auth.static_users: duplicate user {user.strip()!r} — "
+                "note passwords may not contain ','")
+        pairs[user.strip()] = password
+    return StaticUserProvider(pairs)
+
+
+def _tls(tls_opts):
+    if tls_opts.mode == "disable":
+        return None
+    if not tls_opts.cert_path or not tls_opts.key_path:
+        # never downgrade silently: a config that asks for TLS but can't
+        # provide it must abort boot, not serve plaintext
+        from greptimedb_tpu_torch.options import ConfigError
+
+        raise ConfigError(
+            f"tls.mode = {tls_opts.mode!r} requires cert_path and key_path")
+    from greptimedb_tpu_torch.servers.tls import TlsConfig
+
+    return TlsConfig(cert_path=tls_opts.cert_path,
+                     key_path=tls_opts.key_path,
+                     mode=tls_opts.mode)
+
+
+def cmd_standalone(args) -> int:
+    """Boot the servers the layered options enable over a standalone
+    stack (always HTTP unless `http.enable = false`; MySQL and Postgres
+    on request), serve until SIGTERM or SIGINT, then stop every server,
+    shut the concurrency plane down and close the engine."""
+    from greptimedb_tpu_torch.options import check_port_support, load_options
+
+    overrides: dict = {}
+    if args.http_addr:
+        overrides.setdefault("http", {})["addr"] = args.http_addr
+    opts = load_options(args.config_file, overrides=overrides)
+    check_port_support(opts)
+    user_provider = _user_provider(opts)
+    mysql_tls, pg_tls = _tls(opts.mysql.tls), _tls(opts.postgres.tls)
+    engine, qe = build_standalone(args.data_home or opts.storage.data_home,
+                                  args.device, opts)
+    servers = []
     try:
-        host, port = _split_addr(args.http_addr)
-        server = HttpServer(qe, host, port)
-        actual = server.start()
-        print(f"greptimedb_tpu_torch standalone listening on "
-              f"http://{host}:{actual}", flush=True)
-        try:
-            _wait_stop()
-        finally:
-            server.stop()
+        if opts.http.enable:
+            from greptimedb_tpu_torch.servers import HttpServer
+
+            host, port = _split_addr(opts.http.addr)
+            http_server = HttpServer(qe, host, port,
+                                     user_provider=user_provider,
+                                     timeout_s=opts.http.timeout_s)
+            actual = http_server.start()
+            servers.append(http_server)
+            print(f"greptimedb_tpu_torch standalone listening on "
+                  f"http://{host}:{actual}", flush=True)
+        if opts.mysql.enable:
+            from greptimedb_tpu_torch.servers.mysql import MysqlServer
+
+            mhost, mport = _split_addr(opts.mysql.addr)
+            ms = MysqlServer(qe, mhost, mport, user_provider=user_provider,
+                             tls=mysql_tls)
+            ms.start()
+            servers.append(ms)
+            print(f"mysql on {mhost}:{ms.port}", flush=True)
+        if opts.postgres.enable:
+            from greptimedb_tpu_torch.servers.postgres import PostgresServer
+
+            phost, pport = _split_addr(opts.postgres.addr)
+            ps = PostgresServer(qe, phost, pport,
+                                user_provider=user_provider, tls=pg_tls)
+            ps.start()
+            servers.append(ps)
+            print(f"postgres on {phost}:{ps.port}", flush=True)
+        _wait_stop()
     finally:
+        for s in servers:
+            if hasattr(s, "stop"):
+                s.stop()
+            else:
+                s.shutdown()
         # reclaim encode workers deterministically (spawn-mode worker
         # PROCESSES especially must not outlive a clean shutdown)
+        qe.concurrency.shutdown()
+        engine.close()
+    return 0
+
+
+def cmd_dump_config(args) -> int:
+    from greptimedb_tpu_torch.options import example_toml
+
+    sys.stdout.write(example_toml())
+    return 0
+
+
+def cmd_repl(args) -> int:
+    engine, qe = build_standalone(args.data_home, args.device)
+    print("greptimedb_tpu_torch REPL — SQL or TQL, \\q to quit")
+    try:
+        while True:
+            try:
+                line = input("sql> ")
+            except EOFError:
+                break
+            if line.strip() in ("\\q", "exit", "quit"):
+                break
+            if not line.strip():
+                continue
+            try:
+                r = qe.execute_one(line)
+                if r.is_query:
+                    print("\t".join(r.names))
+                    for row in r.rows()[:100]:
+                        print("\t".join(str(v) for v in row))
+                    if r.num_rows > 100:
+                        print(f"... ({r.num_rows} rows)")
+                else:
+                    print(f"OK, {r.affected_rows} rows affected")
+            except Exception as e:  # noqa: BLE001 — REPL boundary
+                print(f"error: {e}")
+    finally:
         qe.concurrency.shutdown()
         engine.close()
     return 0
@@ -101,19 +219,28 @@ def _wait_stop():
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="greptimedb_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    device_help = ("torch device the engine runs on (default: the CUDA "
+                   "card; `cpu` for the kernels' plain versions)")
 
     p_sa = sub.add_parser("standalone", help="run the standalone server")
     sa_sub = p_sa.add_subparsers(dest="subcmd", required=True)
     p_start = sa_sub.add_parser("start")
-    p_start.add_argument("--data-home", default="./greptimedb_tpu_data")
-    p_start.add_argument("--http-addr", default="127.0.0.1:4000")
-    p_start.add_argument("--device", default=None,
-                         help="torch device the engine runs on (default: "
-                              "the CUDA card; `cpu` for the kernels' plain "
-                              "versions)")
+    p_start.add_argument("--data-home", default="")
+    p_start.add_argument("--http-addr", default="")
+    p_start.add_argument("--device", default=None, help=device_help)
     p_start.add_argument("-c", "--config-file", default=None,
-                         help="layered TOML config (a later slice)")
+                         help="layered TOML config (defaults < file < "
+                              "GREPTIMEDB_TPU__* env < flags)")
     p_start.set_defaults(fn=cmd_standalone)
+
+    p_repl = sub.add_parser("repl", help="interactive SQL/TQL shell")
+    p_repl.add_argument("--data-home", default="./greptimedb_tpu_data")
+    p_repl.add_argument("--device", default=None, help=device_help)
+    p_repl.set_defaults(fn=cmd_repl)
+
+    p_dump = sub.add_parser("dump-config",
+                            help="print the documented example TOML config")
+    p_dump.set_defaults(fn=cmd_dump_config)
 
     for name in _LATER:
         sub.add_parser(name, help=f"not in this slice ({_LATER[name]})")
@@ -123,7 +250,13 @@ def main(argv=None) -> int:
         # refused before parsing, whatever options the JAX CLI takes
         return _refuse(f"the `{argv[0]}` command", _LATER[argv[0]])
     args = parser.parse_args(argv)
-    return args.fn(args)
+    from greptimedb_tpu_torch.options import ConfigError
+
+    try:
+        return args.fn(args)
+    except ConfigError as e:
+        print(f"greptimedb_tpu_torch: {e}", file=sys.stderr, flush=True)
+        return 2
 
 
 if __name__ == "__main__":

@@ -1,9 +1,17 @@
 """Frontend concurrency plane of the port (counterpart of
 greptimedb_tpu/concurrency/__init__.py).
 
-The layer between the HTTP server and the query engine that makes
-concurrent dashboard traffic cheap:
+The layer between the protocol servers (HTTP, MySQL, Postgres) and the
+query engine that makes concurrent dashboard traffic cheap:
 
+- `plan_cache`   — shape-keyed parameterized logical-plan cache (one
+                   validated plan shared by thousands of near-identical
+                   dashboard queries), invalidated on DDL and schema
+                   drift;
+- `fast_lane`    — the parse-free serving lane: a text-keyed template
+                   cache in front of the plan cache, so a repeat-shape
+                   statement binds and executes its cached plan without
+                   parsing or planning;
 - `admission`    — bounded admission queue + per-tenant weighted fair
                    scheduling with typed `Overloaded` rejection;
 - `batcher`      — a short collection window that coalesces identical
@@ -15,11 +23,10 @@ concurrent dashboard traffic cheap:
                    execute-done, serialization never holds one).
 
 `QueryEngine` routes every statement through the plane; configuration
-comes from `configure()` or the GTPU_* environment variables the JAX
-package reads. The plan cache and the parse-free fast lane are not in
-the port yet (ROADMAP.md A9): every statement is parsed and planned, as
-the JAX package does with GTPU_FAST_LANE=0 and plan_cache_entries = 0,
-and `ConcurrencyConfig` has no fields for them.
+comes from the `[concurrency]` options section via `configure()`
+(options.py), with the GTPU_* environment variables the JAX package
+reads overriding it. The defaults are the JAX package's: the plan cache
+holds 512 shapes and the fast lane 512 templates.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from greptimedb_tpu_torch.concurrency.admission import (  # noqa: F401
 )
 from greptimedb_tpu_torch.concurrency.batcher import QueryBatcher
 from greptimedb_tpu_torch.concurrency.encode_pool import EncodePool
+from greptimedb_tpu_torch.concurrency.fast_lane import FastLane
+from greptimedb_tpu_torch.concurrency.plan_cache import PlanCache
 
 __all__ = ["ConcurrencyConfig", "ConcurrencyPlane", "Overloaded",
            "configure", "current_config"]
@@ -50,6 +59,11 @@ class ConcurrencyConfig:
     queue_timeout_s: float = 30.0
     #: "tenantA=3,tenantB=1" weighted round-robin shares; unlisted = 1
     tenant_weights: str = ""
+    plan_cache_entries: int = 512
+    #: text-keyed parse-free serving fast lane (concurrency/fast_lane.py)
+    fast_lane: bool = True
+    #: fast-lane template capacity; 0 disables
+    fast_lane_entries: int = 512
     batching: bool = True
     batch_window_ms: float = 2.0
     batch_max_queries: int = 64
@@ -107,6 +121,12 @@ def current_config() -> ConcurrencyConfig:
     cfg.enabled = _env_num("GTPU_CONCURRENCY", int(cfg.enabled), int) != 0
     cfg.max_concurrency = _env_num("GTPU_MAX_CONCURRENCY",
                                    cfg.max_concurrency, int)
+    cfg.plan_cache_entries = _env_num("GTPU_PLAN_CACHE_ENTRIES",
+                                      cfg.plan_cache_entries, int)
+    cfg.fast_lane = _env_num("GTPU_FAST_LANE", int(cfg.fast_lane),
+                             int) != 0
+    cfg.fast_lane_entries = _env_num("GTPU_FAST_LANE_ENTRIES",
+                                     cfg.fast_lane_entries, int)
     cfg.batching = _env_num("GTPU_QUERY_BATCHING", int(cfg.batching),
                             int) != 0
     cfg.batch_window_ms = _env_num("GTPU_BATCH_WINDOW_MS",
@@ -136,6 +156,14 @@ class ConcurrencyPlane:
             limit, cfg.queue_size, cfg.queue_timeout_s,
             parse_weights(cfg.tenant_weights),
             enabled=cfg.enabled)
+        self.plan_cache = PlanCache(
+            cfg.plan_cache_entries if cfg.enabled else 0)
+        # the fast lane needs the plan cache: its entries hold
+        # plan-cache entries, so disabling the cache disables the lane
+        self.fast_lane = FastLane(
+            cfg.fast_lane_entries,
+            enabled=(cfg.enabled and cfg.fast_lane
+                     and self.plan_cache.enabled))
         self.batcher = QueryBatcher(
             window_s=cfg.batch_window_ms / 1000.0,
             max_queries=cfg.batch_max_queries,
@@ -192,3 +220,11 @@ class ConcurrencyPlane:
         """Deterministic teardown of pool resources: the encode workers
         are joined, so no plane thread outlives this call."""
         self.encode.shutdown()
+
+    # ---- invalidation ------------------------------------------------------
+
+    def invalidate_table(self, db=None, name=None) -> int:
+        # one seam for both caches: DDL hooks invalidate plan shapes and
+        # text templates together
+        self.fast_lane.invalidate_table(db, name)
+        return self.plan_cache.invalidate_table(db, name)

@@ -11,10 +11,15 @@ a later slice), TQL EVAL / TQL EXPLAIN (PromQL, promql/engine.py) and
 KILL QUERY.
 
 A top-level `execute_sql` runs under one deadline and cancel token
-(utils/deadline.py) registered in the running-queries table, inside one
-admission slot of the concurrency plane (concurrency/); a table SELECT
-goes through the plane's batcher, which lands back in `_select_table`
-(straight away when the server is idle).
+(utils/deadline.py) registered in the running-queries table. Every
+statement text first meets the concurrency plane's parse-free fast lane
+(concurrency/fast_lane.py): a known template binds and executes its
+cached plan; anything else takes `_execute_sql_slow`, which parses and
+runs each statement inside one admission slot, after the permission
+check (auth/). A table SELECT goes through the plane's batcher, which
+lands back in `_select_table` (straight away when the server is idle),
+and there through the shape-keyed plan cache (concurrency/plan_cache.py)
+around the planner. DDL evicts the table's plan shapes and templates.
 
 SELECT follows the JAX engine's order: CTEs run once into virtual
 relations, uncorrelated subqueries fold to literals, then a derived
@@ -35,6 +40,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import threading
+import time
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -80,12 +88,13 @@ from greptimedb_tpu_torch.sql import ast, parse_sql
 from greptimedb_tpu_torch.storage.engine import RegionEngine
 from greptimedb_tpu_torch.utils import deadline as dl
 from greptimedb_tpu_torch.utils import time as ts_util
-from greptimedb_tpu_torch.utils.metrics import STMT_DURATION
+from greptimedb_tpu_torch.utils.metrics import (
+    PLAN_CACHE_EVENTS,
+    STAGE_SECONDS,
+    STMT_DURATION,
+)
 
 _SERVERS = "servers and CLI"
-# the session timezone of a context that sets none (the JAX engine's
-# default_timezone option, whose only value in use is UTC)
-_DEFAULT_TZ = "UTC"
 
 # statements of the JAX engine this slice leaves out, by the later slice
 # of the port that brings them (ROADMAP.md, queue A)
@@ -106,18 +115,30 @@ class UnsupportedStatement(PlanError):
 
 class QueryEngine:
     def __init__(self, catalog: Catalog, region_engine: RegionEngine,
-                 device=None, concurrency=None):
+                 device=None, concurrency=None,
+                 default_timezone: str = "UTC"):
+        from greptimedb_tpu_torch.auth import PermissionChecker
         from greptimedb_tpu_torch.concurrency import ConcurrencyPlane
 
         self.catalog = catalog
         self.region_engine = region_engine
+        # the session timezone of a context that sets none
+        # (the `default_timezone` option)
+        self.default_timezone = default_timezone
+        self.permission_checker = PermissionChecker()
         self.device = config.device(device)
         self.executor = PhysicalExecutor(region_engine, self.device)
-        # frontend concurrency plane (concurrency/): admission control
-        # and cross-query batching; every statement routes through it
-        # (pass concurrency= to inject a tuned one)
+        # frontend concurrency plane (concurrency/): the fast lane, the
+        # plan cache, admission control and cross-query batching; every
+        # statement routes through it (pass concurrency= to inject a
+        # tuned one)
         self.concurrency = concurrency if concurrency is not None \
             else ConcurrencyPlane()
+        # per-thread statement-scope flags (plan-cache skip noted once
+        # per top-level statement)
+        self._skip_tls = threading.local()
+        self._stmt_cache: "OrderedDict[str, list]" = OrderedDict()
+        self._stmt_cache_lock = threading.Lock()
 
     # ---- entry points ------------------------------------------------------
 
@@ -131,14 +152,14 @@ class QueryEngine:
         if ctx is None:
             ctx = QueryContext() if db is None else QueryContext(db=db)
         if ctx.timezone is None:
-            ctx.timezone = _DEFAULT_TZ
+            ctx.timezone = self.default_timezone
         if dl.current() is not None:
             # nested statement (a batch member re-entering, a caller
             # already under a token) rides the outer statement's token —
             # a fresh one would let inner work outlive the outer kill
             if ctx.cancel_token is None:
                 ctx.cancel_token = dl.current()
-            return self._execute_sql_slow(sql, ctx)
+            return self._dispatch_lane(sql, ctx)
         token = ctx.cancel_token  # servers pre-create for disconnect
         created = token is None
         if created:
@@ -151,11 +172,20 @@ class QueryEngine:
             tenant=ctx.tenant or "", trace_id=ctx.trace_id or "")
         try:
             with dl.activate(token):
-                return self._execute_sql_slow(sql, ctx)
+                return self._dispatch_lane(sql, ctx)
         finally:
             dl.RUNNING.unregister(qid)
             if created:
                 ctx.cancel_token = None
+
+    def _dispatch_lane(self, sql: str, ctx: QueryContext) -> list[QueryResult]:
+        # parse-free fast lane: a known statement template executes its
+        # cached bound plan with zero parse/AST/planning; everything
+        # else (and every first sighting) takes _execute_sql_slow below
+        fl = self.concurrency.fast_lane
+        if fl.enabled:
+            return fl.execute(self, sql, ctx)
+        return self._execute_sql_slow(sql, ctx)
 
     def _resolve_timeout_ms(self, ctx: QueryContext):
         """Deadline precedence: explicit client timeout (header) >
@@ -171,21 +201,58 @@ class QueryEngine:
         t = dl.default_timeout_ms()
         return t if t > 0 else None
 
-    def _execute_sql_slow(self, sql: str,
-                          ctx: QueryContext) -> list[QueryResult]:
-        """Parse, then run every statement inside one admission slot
-        (bounded queue, per-tenant fair scheduling; nested statements
-        ride their top-level slot). The slot is released at
-        execute-done, before any result encoding."""
+    def _execute_sql_slow(self, sql: str, ctx: QueryContext,
+                          _intercepted: bool = False) -> list[QueryResult]:
+        """The full statement path: parse, then run every statement
+        inside one admission slot (bounded queue, per-tenant fair
+        scheduling; nested statements ride their top-level slot). The
+        slot is released at execute-done, before any result encoding.
+        The fast lane routes through here on any miss or fallback —
+        this IS the semantics the lane must match. `_intercepted` is the
+        JAX engine's flag that the plugin interceptor chain already ran;
+        the port has no plugins yet (ROADMAP.md A9), so it changes
+        nothing."""
+        if ctx.timezone is None:
+            ctx.timezone = self.default_timezone
+        self._reset_statement_state()
+        t_parse = time.perf_counter()
+        stmts = self._parse_cached(sql)
+        STAGE_SECONDS.observe(time.perf_counter() - t_parse, stage="parse")
+        with self.concurrency.admission.slot(
+                self.concurrency.tenant_of(ctx)):
+            return [self.execute_statement(s, ctx) for s in stmts]
+
+    def _reset_statement_state(self) -> None:
+        """Clear the executor's per-statement routes and stats (thread
+        local): only aggregate paths assign them, and a statement must
+        not inherit the previous one's."""
         self.executor.last_path = None
         self.executor.statement_paths = []
         self.executor.last_partial_stats = None
         self.executor.last_sparse_stats = None
         self.executor.last_stream_stats = None
-        stmts = parse_sql(sql)
-        with self.concurrency.admission.slot(
-                self.concurrency.tenant_of(ctx)):
-            return [self.execute_statement(s, ctx) for s in stmts]
+
+    def _parse_cached(self, sql: str) -> list:
+        """Parse with a small LRU over the raw SQL text. Dashboards and
+        load generators repeat identical statements. Safe to share: the
+        AST is only mutated during parsing; every post-parse transform
+        copies via dataclasses.replace."""
+        if len(sql) > 2048:
+            # bulk INSERT texts never repeat — caching their (large)
+            # ASTs would pin memory for a zero hit rate
+            return parse_sql(sql)
+        cache = self._stmt_cache
+        with self._stmt_cache_lock:
+            stmts = cache.get(sql)
+            if stmts is not None:
+                cache.move_to_end(sql)
+                return stmts
+        stmts = parse_sql(sql)  # parse outside the lock: it dominates
+        with self._stmt_cache_lock:
+            cache[sql] = stmts
+            while len(cache) > 512:
+                cache.popitem(last=False)
+        return stmts
 
     def execute_one(self, sql: str, ctx: Optional[QueryContext] = None, *,
                     db: Optional[str] = None) -> QueryResult:
@@ -196,9 +263,14 @@ class QueryEngine:
 
     def execute_statement(self, stmt: ast.Statement,
                           ctx: QueryContext) -> QueryResult:
+        # statement authorization before dispatch (auth/)
+        self.permission_checker.check(ctx.user, stmt, ctx.db)
+        # new top-level statement: its first plan-cache skip (if any)
+        # is the one that gets counted
+        self._skip_tls.noted = False
         # naive timestamp literals — WHERE, BETWEEN, CAST, INSERT —
         # coerce in the session timezone everywhere in this statement
-        token = set_session_tz(ctx.timezone or _DEFAULT_TZ)
+        token = set_session_tz(ctx.timezone or self.default_timezone)
         try:
             with STMT_DURATION.time(stmt=type(stmt).__name__):
                 dl.check(f"{type(stmt).__name__} start")
@@ -629,7 +701,26 @@ class QueryEngine:
 
     # ---- SELECT ------------------------------------------------------------
 
+    def _note_plan_cache_skip(self, reason: str) -> None:
+        """A statement shape the plan cache cannot hold: count it with a
+        reason label, so an uncacheable dashboard query is visible
+        instead of just slow. Once per top-level statement — a CTE body
+        re-entering _select must not double-count the outer statement's
+        reason."""
+        if not self.concurrency.plan_cache.enabled:
+            return
+        if getattr(self._skip_tls, "noted", False):
+            return
+        self._skip_tls.noted = True
+        PLAN_CACHE_EVENTS.inc(event="skip", reason=reason)
+
     def _select(self, sel: ast.Select, ctx: QueryContext) -> QueryResult:
+        if sel.ctes:
+            self._note_plan_cache_skip("cte")
+        elif sel.joins:
+            self._note_plan_cache_skip("join")
+        elif sel.from_subquery is not None:
+            self._note_plan_cache_skip("subquery")
         if sel.ctes:
             # WITH ...: run each CTE once, visible to later CTEs and the
             # body
@@ -686,9 +777,10 @@ class QueryEngine:
                       ctx: QueryContext) -> QueryResult:
         """The single-table SELECT below the concurrency plane: windows
         over the device aggregate or the device scan, RANGE ... ALIGN, or
-        one planned device query. Batch leaders re-enter here with the
-        combined statement."""
+        one planned device query through the plan cache. Batch leaders
+        re-enter here with the combined statement."""
         if select_has_window(sel):
+            self._note_plan_cache_skip("window")
             if sel.group_by:
                 # SQL evaluation order: aggregate first (the device
                 # aggregate routes), then windows over the G-row grouped
@@ -729,13 +821,31 @@ class QueryEngine:
                 dict(zip(base.names, base.dtypes)),
                 alias=sel.table_alias or sel.table)
         if rs.is_range_select(sel):
+            self._note_plan_cache_skip("range_select")
             return rs.execute_range_select(self.executor,
                                            rs.plan_range_select(sel, info))
-        plan = plan_select(sel, info)
+        # shape-keyed plan cache: repeated dashboard statements re-bind
+        # a cached validated plan instead of re-planning
+        t_plan = time.perf_counter()
+        plan, entry, binding = self.concurrency.plan_cache.lookup(sel, info)
+        if plan is None:
+            plan = plan_select(sel, info)
+            entry = self.concurrency.plan_cache.store(binding, sel, info,
+                                                      plan)
+        STAGE_SECONDS.observe(time.perf_counter() - t_plan, stage="plan")
+        # stamp a fast-lane build ticket (if this thread armed one):
+        # the statement is about to execute exactly this plan-cache
+        # plan, which is what a text-template entry memoizes
+        self.concurrency.fast_lane.note_plan_execution(sel, info, entry)
         ex = self.executor
         before = ex.last_path
         ex.last_path = None
-        result = ex.execute(plan)
+        t_exec = time.perf_counter()
+        try:
+            result = ex.execute(plan)
+        finally:
+            STAGE_SECONDS.observe(time.perf_counter() - t_exec,
+                                  stage="execute")
         if ex.last_path is None:
             # a raw scan: the statement's route stays its last
             # aggregate's, as the JAX engine reports it
@@ -820,7 +930,7 @@ class QueryEngine:
             # default rather than the string 'None'. Validate NOW: a
             # typo'd zone must fail at SET, not on a later INSERT
             if stmt.value is None:
-                ctx.timezone = _DEFAULT_TZ
+                ctx.timezone = self.default_timezone
             else:
                 try:
                     ts_util.tzinfo_for(str(stmt.value))
@@ -952,6 +1062,14 @@ class QueryEngine:
 
     # ---- DDL ---------------------------------------------------------------
 
+    def _invalidate_plans(self, db: str, name: str) -> None:
+        """DDL changed `db.name`: evict its cached plan shapes and text
+        templates (the content-comparison safety net would also catch
+        it, but explicit eviction keeps the caches from serving a doomed
+        rebind and makes the invalidation observable in
+        gtpu_plan_cache_events_total)."""
+        self.concurrency.invalidate_table(db, name)
+
     def _create_table(self, stmt: ast.CreateTable,
                       ctx: QueryContext) -> QueryResult:
         if stmt.partitions or stmt.external or stmt.engine not in (
@@ -962,6 +1080,8 @@ class QueryEngine:
         db, name = ctx.db, stmt.name
         if "." in name:
             db, name = name.rsplit(".", 1)
+        # a DROP+CREATE cycle must not serve the old table's shapes
+        self._invalidate_plans(db, name)
         time_index = stmt.time_index
         pks = list(stmt.primary_keys)
         for c in stmt.columns:
@@ -1002,6 +1122,7 @@ class QueryEngine:
         db, name = ctx.db, stmt.name
         if "." in name:
             db, name = name.rsplit(".", 1)
+        self._invalidate_plans(db, name)
         if self.catalog.table_exists(db, name):
             # open first: the drop deletes the region's files on disk
             self._ensure_open(self.catalog.table(db, name))
@@ -1016,6 +1137,7 @@ class QueryEngine:
                   ctx: QueryContext) -> QueryResult:
         """Drop the regions' data and recreate them empty."""
         info = self._table(stmt.name, ctx)
+        self._invalidate_plans(info.db, info.name)
         for rid in info.region_ids:
             self.region_engine.drop_region(rid)
             self.region_engine.create_region(rid, info.schema)
@@ -1023,6 +1145,7 @@ class QueryEngine:
 
     def _alter(self, stmt: ast.AlterTable, ctx: QueryContext) -> QueryResult:
         info = self._table(stmt.name, ctx)
+        self._invalidate_plans(info.db, info.name)
         if stmt.action == "add_column":
             col = stmt.column
             if col.is_time_index or col.is_primary_key:

@@ -1,7 +1,9 @@
 """Protocol servers of the port (counterpart of greptimedb_tpu/servers):
 the HTTP server — /v1/sql, the Prometheus query API, /metrics, /health,
-/v1/queries. MySQL, Postgres, Flight and the write protocols come later
-(ROADMAP.md A9).
+/v1/queries — and the MySQL (`servers.mysql.MysqlServer`) and
+PostgreSQL (`servers.postgres.PostgresServer`) wire servers, with TLS
+(`servers.tls`). Flight and the write protocols come later (ROADMAP.md
+A9).
 
 `HttpServer` is exported lazily (PEP 562): the HTTP server imports the
 query engine (torch), but the encode pool's spawn-mode workers import

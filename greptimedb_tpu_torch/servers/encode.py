@@ -1,6 +1,6 @@
-"""Columnar result serialization for the protocol servers (the JSON
-half of greptimedb_tpu/servers/encode.py; the MySQL packet fragments
-come with the MySQL server, ROADMAP.md A9).
+"""Columnar result serialization for the protocol servers (copy of
+greptimedb_tpu/servers/encode.py): the /v1/sql JSON body and the MySQL
+resultset packets.
 
 Deliberately light on imports (json/math/numpy and the metrics
 registry): the encode pool's process mode (spawn) imports this module
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import json
 import math
+import struct
 
 import numpy as np
 
@@ -121,3 +122,131 @@ def encode_sql_payload(results, elapsed_ms: float) -> bytes:
                        json.dumps(json_rows(r)), r.num_rows))
         return ('{"code": 0, "output": [%s], "execution_time_ms": %s}'
                 % (", ".join(out), json.dumps(elapsed_ms))).encode()
+
+
+# ---- MySQL wire fragments --------------------------------------------------
+# (moved here from servers/mysql.py so the resultset encoding can run on
+# encode-pool workers without importing the engine)
+
+MYSQL_TYPE_VAR_STRING = 253
+
+
+def lenc_int(n: int) -> bytes:
+    if n < 251:
+        return bytes([n])
+    if n < 1 << 16:
+        return b"\xfc" + struct.pack("<H", n)
+    if n < 1 << 24:
+        return b"\xfd" + struct.pack("<I", n)[:3]
+    return b"\xfe" + struct.pack("<Q", n)
+
+
+def lenc_str(s: bytes) -> bytes:
+    return lenc_int(len(s)) + s
+
+
+def _eof() -> bytes:
+    return b"\xfe" + struct.pack("<H", 0) + struct.pack("<H", 0x0002)
+
+
+def _coldef(name: str, ftype: int) -> bytes:
+    return (
+        lenc_str(b"def")
+        + lenc_str(b"")  # schema
+        + lenc_str(b"")  # table
+        + lenc_str(b"")  # org_table
+        + lenc_str(name.encode())
+        + lenc_str(name.encode())
+        + bytes([0x0C])  # fixed-length fields length
+        + struct.pack("<H", 0x21)  # charset utf8
+        + struct.pack("<I", 1024)  # column length
+        + bytes([ftype])
+        + struct.pack("<H", 0)  # flags
+        + bytes([0x1F])  # decimals
+        + b"\x00\x00"
+    )
+
+
+def _fmt(v) -> str:
+    if isinstance(v, (bool, np.bool_)):
+        return "1" if v else "0"
+    if isinstance(v, (float, np.floating)):
+        return repr(float(v))
+    return str(v)
+
+
+def memo_rows(result) -> list:
+    """`QueryResult.rows()` through the batch-group memo: coalesced
+    members materialize the Python row objects once."""
+    memo = getattr(result, "encode_memo", None)
+    if memo is not None:
+        rows = memo.get("rows")
+        if rows is not None:
+            return rows
+    rows = result.rows()
+    if memo is not None:
+        memo["rows"] = rows
+    return rows
+
+
+def encode_mysql_result(result, binary: bool = False) -> list[bytes]:
+    """Resultset packets straight from a QueryResult: the row
+    materialization (`memo_rows` — the GIL-heaviest half of MySQL
+    serialization) runs HERE, so offloading this function moves it off
+    the session thread along with the packet assembly."""
+    return encode_mysql_rows(list(result.names), memo_rows(result),
+                             binary)
+
+
+#: memoized resultset header packets (column count + column definitions
+#: + EOF) keyed by the column-name tuple — every repeat of a dashboard
+#: shape re-encoded identical coldef packets. Benign-race dict, bounded
+#: by a wholesale clear.
+_HEADER_CACHE: dict = {}
+
+
+def mysql_header_packets(names) -> list[bytes]:
+    key = tuple(names)
+    cached = _HEADER_CACHE.get(key)
+    if cached is None:
+        cached = [lenc_int(len(names))] \
+            + [_coldef(n, MYSQL_TYPE_VAR_STRING) for n in names] \
+            + [_eof()]
+        if len(_HEADER_CACHE) > 512:
+            _HEADER_CACHE.clear()
+        _HEADER_CACHE[key] = cached
+    return list(cached)
+
+
+def encode_mysql_rows(names, rows, binary: bool = False) -> list[bytes]:
+    """Resultset packet payloads for one query result (column count,
+    column definitions, EOF, row packets, EOF) — the session loop only
+    stamps sequence numbers and writes. Row payloads accumulate in a
+    reusable bytearray (amortized append) instead of quadratic bytes
+    concatenation; the emitted packets are byte-identical."""
+    with ENCODE_SECONDS.time(protocol="mysql"):
+        packets = mysql_header_packets(names)
+        for row in rows:
+            payload = bytearray()
+            if binary:
+                # binary row: 0x00 header + null bitmap (offset 2) + values
+                nb = bytearray((len(row) + 7 + 2) // 8)
+                for i, v in enumerate(row):
+                    if v is None or (isinstance(v, float) and np.isnan(v)):
+                        nb[(i + 2) // 8] |= 1 << ((i + 2) % 8)
+                    else:
+                        s = _fmt(v).encode()
+                        payload += lenc_int(len(s))
+                        payload += s
+                packets.append(b"\x00" + bytes(nb) + bytes(payload))
+            else:
+                for v in row:
+                    if v is None or (isinstance(v, float) and np.isnan(v)):
+                        payload += b"\xfb"  # NULL
+                    else:
+                        s = _fmt(v).encode()
+                        payload += lenc_int(len(s))
+                        payload += s
+                packets.append(bytes(payload))
+        packets.append(_eof())
+        return packets

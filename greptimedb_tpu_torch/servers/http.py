@@ -8,7 +8,9 @@ codes and error bodies are the JAX server's. The JAX server's other
 routes (the write protocols, scripts, faults, maintenance, profiles,
 traces, pprof, slow queries, the dashboard page) answer with its error
 shape — HTTP 400, code 3000 — and a message naming the slice of the port
-that brings them; Basic auth comes with `auth/` (ROADMAP.md A9).
+that brings them (ROADMAP.md). With a user provider (auth/) every data
+route asks for Basic auth, as the JAX server does: a missing or wrong
+credential gets 401, code 7002; /health and /metrics stay open.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from greptimedb_tpu_torch.fault import (
     Unavailable,
 )
 from greptimedb_tpu_torch.query.engine import QueryEngine
+from greptimedb_tpu_torch.servers.tcp import JoinedThreads
 from greptimedb_tpu_torch.session import Channel, QueryContext
 from greptimedb_tpu_torch.utils.metrics import (
     HTTP_REQUESTS,
@@ -66,10 +69,12 @@ def _later_route(path: str) -> Optional[str]:
 
 class HttpServer:
     def __init__(self, query_engine: QueryEngine, host: str = "127.0.0.1",
-                 port: int = 4000, timeout_s: Optional[float] = None):
+                 port: int = 4000, user_provider=None,
+                 timeout_s: Optional[float] = None):
         self.qe = query_engine
         self.host = host
         self.port = port
+        self.user_provider = user_provider
         self.timeout_s = timeout_s
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -90,41 +95,21 @@ class HttpServer:
             _build.library()
 
         qe = self.qe
-        conns: dict = {}  # open connection socket -> its handler thread
-        workers: list = []  # every handler thread not yet joined
-        lock = threading.Lock()
+        provider = self.user_provider
 
         class Handler(_Handler):
             query_engine = qe
+            user_provider = provider
             # socketserver honors this as the per-connection socket
             # timeout (http.timeout_s option)
             if self.timeout_s:
                 timeout = self.timeout_s
 
-        class Server(ThreadingHTTPServer):
+        class Server(JoinedThreads, ThreadingHTTPServer):
             # default backlog (5) resets connections under benchmark-level
             # concurrency (50 clients connecting at once)
             request_queue_size = 128
-            daemon_threads = True
 
-            def process_request(self, request, client_address):
-                # on the serve thread: once serve_forever has returned,
-                # `workers` holds every handler thread ever started
-                t = threading.Thread(target=self.process_request_thread,
-                                     args=(request, client_address),
-                                     daemon=True)
-                with lock:
-                    workers[:] = [w for w in workers if w.is_alive()]
-                    workers.append(t)
-                    conns[request] = t
-                t.start()
-
-            def shutdown_request(self, request):
-                with lock:
-                    conns.pop(request, None)
-                super().shutdown_request(request)
-
-        self._conns, self._workers, self._lock = conns, workers, lock
         self._httpd = Server((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever,
@@ -138,28 +123,15 @@ class HttpServer:
         outlives this call."""
         if self._httpd is None:
             return
-        import socket
-
         self._httpd.shutdown()
         self._thread.join()  # no connection is accepted after this
-        with self._lock:
-            open_conns = list(self._conns)
-            workers = list(self._workers)
-        for sock in open_conns:
-            # a keep-alive handler blocked reading its next request
-            # returns on the shut-down socket
-            try:
-                sock.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass
-        for t in workers:
-            t.join()
-        self._httpd.server_close()
+        self._httpd.close_all()
         self._httpd = None
 
 
 class _Handler(BaseHTTPRequestHandler):
     query_engine: QueryEngine = None  # injected
+    user_provider = None  # injected; None = open
     protocol_version = "HTTP/1.1"
     # headers and body go out in separate send()s: without NODELAY,
     # Nagle holds the second segment for the peer's delayed ACK and
@@ -215,10 +187,12 @@ class _Handler(BaseHTTPRequestHandler):
             params.get("timezone")
         if tz:
             tzinfo_for(tz)  # fail fast on a typo'd zone name
+        user = getattr(self, "_user", None)
         # X-Greptime-Tenant: admission-control identity for fair
-        # scheduling
+        # scheduling; falls back to the authenticated user
         tenant = self.headers.get("X-Greptime-Tenant") \
-            or params.get("tenant")
+            or params.get("tenant") \
+            or getattr(user, "username", None)
         # X-Greptime-Timeout: per-request deadline ("500ms", "5s", or a
         # bare millisecond count); absent = session/config default
         timeout_ms = deadline.parse_timeout_ms(
@@ -228,7 +202,8 @@ class _Handler(BaseHTTPRequestHandler):
                             channel=Channel.HTTP,
                             timezone=tz or None,
                             tenant=tenant,
-                            timeout_ms=timeout_ms)
+                            timeout_ms=timeout_ms,
+                            user=user)
 
     # ---- routing -----------------------------------------------------------
 
@@ -249,6 +224,25 @@ class _Handler(BaseHTTPRequestHandler):
             if path == "/metrics":
                 return self._send(200, REGISTRY.render().encode(),
                                   "text/plain; version=0.0.4")
+            if self.user_provider is not None:
+                # Basic auth on every data route (reference
+                # servers/src/http/authorize.rs; /health and /metrics
+                # stay open)
+                from greptimedb_tpu_torch.auth import AuthError
+                try:
+                    self._user = self.user_provider.authenticate_basic(
+                        self.headers.get("Authorization") or "")
+                except AuthError as e:
+                    data = json.dumps({"code": 7002, "error": str(e)}).encode()
+                    self.send_response(401)
+                    self.send_header("WWW-Authenticate",
+                                     'Basic realm="greptimedb"')
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                    HTTP_REQUESTS.inc(path=path, status="401")
+                    return
             return self._route_data(path)
         except DeadlineExceeded as e:
             # typed deadline expiry: the timeout shape (408), not 503 —

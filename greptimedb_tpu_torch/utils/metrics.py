@@ -2,10 +2,11 @@
 greptimedb_tpu/utils/metrics.py, exposed at /metrics in the Prometheus
 text format).
 
-Only the series the serving slice touches are defined, under the JAX
+Only the series the serving slices touch are defined, under the JAX
 package's names and labels: HTTP requests, query and statement
 durations, the deadline plane's terminal events, admission, the query
-batcher (events, group sizes, vmapped widths) and the encode pool. The
+batcher (events, group sizes, vmapped widths), the encode pool, the
+plan cache, the parse-free fast lane and the serving stages. The
 rest of the observability plane (tracing and exemplars, slow queries,
 the resource ledger, flame graphs, roofline, OTLP, the shared-memory
 metrics bridge) comes with the servers-and-CLI slice's later items
@@ -293,6 +294,32 @@ ENCODE_POOL_QUEUE_DEPTH = REGISTRY.gauge(
 ENCODE_SECONDS = REGISTRY.histogram(
     "greptimedb_tpu_encode_seconds",
     "Wall time serializing one query result to its wire format (HTTP "
-    "JSON), by protocol — compare against query_duration_seconds for the "
+    "JSON, MySQL resultset packets), by protocol — compare against query_duration_seconds for the "
     "execute-vs-encode split; protocol=process series time the round "
     "trip to a spawn-mode encode worker")
+# the shape-keyed plan cache and the parse-free fast lane
+# (concurrency/{plan_cache,fast_lane}.py) with the stage histogram that
+# splits a request into parse / plan / execute (slow lane) and fast_bind /
+# fast_execute (fast lane)
+PLAN_CACHE_EVENTS = REGISTRY.sharded_counter(
+    "greptimedb_tpu_plan_cache_events_total",
+    "Shape-keyed logical-plan cache events by kind (hit/miss/evict/"
+    "invalidate — invalidations come from DDL and schema drift; skip "
+    "events carry a reason label naming why a statement never reached "
+    "the cache: join/cte/subquery/range_select/window)")
+FAST_LANE_EVENTS = REGISTRY.sharded_counter(
+    "greptimedb_tpu_fast_lane_events_total",
+    "Text-template serving fast-lane events by kind (hit = a statement "
+    "executed from its cached bound-plan template without parsing, "
+    "miss = first sighting of a template (built via the slow lane), "
+    "fallback = scanned but ineligible — the reason label names why: "
+    "ambiguous literals, comments, non-SELECT verbs — invalidate = "
+    "entries dropped by DDL or a TableInfo drift check, coalesced = "
+    "concurrent identical requests that rode another request's "
+    "in-flight execution)")
+STAGE_SECONDS = REGISTRY.histogram(
+    "greptimedb_tpu_query_stage_seconds",
+    "Per-request serving-stage wall time by stage (parse / plan = "
+    "plan-cache lookup + plan_select / execute on the slow lane; fast_bind / "
+    "fast_execute on the fast lane) — with admission_wait_seconds and "
+    "encode_seconds this makes the QPS breakdown attributable per stage")

@@ -257,7 +257,10 @@ def run_threads(fns, timeout=120):
 
 @pytest.fixture(scope="module")
 def threaded(tmp_path_factory):
-    plane = ConcurrencyPlane(ConcurrencyConfig(batch_window_ms=100.0))
+    # the batcher's own traffic: the lane and the plan cache off, as on
+    # the JAX side (a learned template would skip the batcher)
+    plane = ConcurrencyPlane(ConcurrencyConfig(
+        batch_window_ms=100.0, fast_lane=False, plan_cache_entries=0))
     e = engines(tmp_path_factory.mktemp("threaded"), tplane=plane,
                 state="flushed")
     yield e[1], e[3]

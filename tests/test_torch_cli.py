@@ -2,8 +2,9 @@
 `python -m greptimedb_tpu_torch standalone start --device cpu` binds
 port 0, prints the JAX CLI's `listening on http://H:P` line, answers
 /health and /v1/sql, and exits 0 on SIGTERM with its data durable for
-the next start; the options file and the other subcommands exit
-non-zero naming the slice that brings them.
+the next start; `-c`, `repl` and `dump-config` are served (the options
+slice), the cluster roles and export/import exit non-zero naming the
+slice that brings them.
 """
 
 import json
@@ -78,10 +79,35 @@ def test_standalone_serves_and_exits_zero_on_sigterm(tmp_path):
         assert stop(proc) == 0
 
 
+def _served(case, argv, tmp_path, monkeypatch, capsys):
+    """The three cases this test refused until the options slice: `-c`
+    now reads the layered options (a missing file is the JAX package's
+    ConfigError), `repl` answers statements on stdin and `dump-config`
+    prints the JAX package's documented TOML."""
+    if case == "config_file":
+        assert cli.main(argv + [str(tmp_path / "x.toml")]) == 2
+        assert "config file not found" in capsys.readouterr().err
+    elif case == "repl":
+        import io
+
+        monkeypatch.setattr("sys.stdin", io.StringIO(
+            "CREATE TABLE t (h STRING, v DOUBLE, ts TIMESTAMP(3) TIME "
+            "INDEX, PRIMARY KEY(h))\nINSERT INTO t VALUES ('a', 1.5, 0)\n"
+            "SELECT h, v * 2 AS w FROM t\n\\q\n"))
+        assert cli.main(argv + ["--data-home", str(tmp_path)]) == 0
+        out = capsys.readouterr().out
+        assert "OK, 1 rows affected" in out and "h\tw\na\t3.0" in out
+    else:
+        from greptimedb_tpu.options import example_toml
+
+        assert cli.main(argv) == 0
+        assert capsys.readouterr().out == example_toml()
+
+
 @pytest.mark.parametrize("argv,slice_name", [
-    (["standalone", "start", "-c", "x.toml"], "A9: options.py"),
-    (["repl"], "A9: options.py and the REPL"),
-    (["dump-config"], "A9: options.py and the REPL"),
+    (["standalone", "start", "-c"], None),
+    (["repl", "--device", "cpu"], None),
+    (["dump-config"], None),
     (["metasrv", "start"], "A10"),
     (["datanode", "start"], "A10"),
     (["frontend", "start"], "A10"),
@@ -90,7 +116,13 @@ def test_standalone_serves_and_exits_zero_on_sigterm(tmp_path):
     (["import", "--input-dir", "x"], "A12"),
 ], ids=["config_file", "repl", "dump_config", "metasrv", "datanode",
         "frontend", "flownode", "export", "import"])
-def test_later_subcommands_exit_nonzero(argv, slice_name, capsys):
+def test_later_subcommands_exit_nonzero(argv, slice_name, capsys, request,
+                                        tmp_path, monkeypatch):
+    """The JAX CLI's subcommands of later slices exit non-zero naming
+    their slice; `-c`, `repl` and `dump-config` are served (`_served`)."""
+    if slice_name is None:
+        return _served(request.node.callspec.id, argv, tmp_path,
+                       monkeypatch, capsys)
     assert cli.main(argv) != 0
     err = capsys.readouterr().err
     assert slice_name in err and "not in this slice" in err
