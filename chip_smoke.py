@@ -115,6 +115,35 @@ greptimedb_tpu_torch/_build/. Phases:
      20 MySQL connections x 50 single-groupby statements for qps and
      p50 / p99, every response equal to the in-process one, and no
      server thread left after shutdown().
+   - the write protocols (e), after the wire servers, with the JAX
+     defaults: the native host library (g++, AVAILABLE must be true; a
+     64 MiB CRC32 against zlib; snappy against the pure-Python codec on
+     a remote-write body); the first hour of `cpu` (4,000 hosts x 360
+     steps = 1,440,000 rows, the ten fields printed with repr) as 288
+     line-protocol bodies of 5,000 lines from 8 keep-alive clients to
+     /v1/influxdb/write?precision=ms, which auto-creates cpu_lp (not
+     append mode: its scans deduplicate; the sort-dedup of its memtable
+     is timed): every body 204, rows/s, MB/s, ack p50 / p99 and the
+     bodies each lane parsed; count(*) 1,440,000; bench.py's six queries
+     FROM cpu_lp (bench.py's ranges, which hold the hour;
+     double_groupby_all's 12 h range makes 48,000 groups, K1) and
+     double_groupby_all over the hour alone (4,000 groups, K2), partial
+     cache off, against numpy over the hour, each launching the kernel
+     its route over `cpu` launches; bench.py's ingest_qps in process
+     (line-protocol writers of 5,000-line ingestq bodies, one SQL INSERT
+     writer of 500 rows at 0.1 s, two readers of the warm `cpu`
+     per-minute max, 12 s; every request's keys unique, so count(*) must
+     equal the rows acknowledged; writes serial until group commit);
+     the hour's usage_user as 4,000 series over Prometheus remote write
+     (WriteRequests of 2,000 samples, cut only if the phase would pass
+     its 120 s budget), max_over_time(cpu_usage_user[1h]) at 5 min and
+     avg(cpu_usage_user) at 1 min through PromqlEngine on K2 against
+     numpy, three remote reads (equality, regex, a narrower range) bit
+     for bit against the samples sent; an OTLP metrics request (gauge,
+     sum, histogram), 300 OTLP spans, OpenTSDB JSON puts over HTTP and
+     `put` lines over the telnet server, each read back with SQL. No
+     server thread may outlive the phase. The restart of state 4 replays
+     the WAL through native.wal_scan and prints the frames it scanned.
    - PromQL through PromqlEngine.eval_matrix on the card, float64, at a
      5 min step with 1 h windows: max_over_time(cpu{__field__=
      "usage_user"}[1h]) buckets the 17.28 M rows into 4,000 x 157 + 1
@@ -180,8 +209,8 @@ greptimedb_tpu_torch/_build/. Phases:
    G + 1 = 280,071).
 6. A `kernels` JSON line (with each kernel's launches on every path, the
    PromQL queries', the streamed query's, the RANGE queries', the host
-   SQL statements', the five served traffics' and the wire phase's
-   included,
+   SQL statements', the five served traffics', the wire phase's and
+   the write protocols' included,
    lastpoint's by state, K1's time at the stream's shape and K2's at the
    sparse route's, PromQL's, RANGE's, lastpoint's and the vmapped
    batch's shapes), the card line, and the result line.
@@ -1038,9 +1067,10 @@ def build_and_ingest(root, rng):
     return engine, qe, rows, grid, host_names
 
 
-def tsbs_queries():
-    """bench.py's six `cpu` queries (bench.py:233-372): name -> (SQL,
-    last_path on the card, rows or None when the oracle counts them)."""
+def tsbs_queries(table: str = "cpu"):
+    """bench.py's six `cpu` queries (bench.py:233-372), over `table`:
+    name -> (SQL, last_path on the card over `cpu`, rows or None when the
+    oracle counts them)."""
     t_end = T0_MS + HOURS * 3600 * 1000
     cutoff = T0_MS + (HOURS * 3600 * 1000) * 3 // 4
     avg_list = ", ".join(f"avg({f})" for f in FIELDS)
@@ -1050,34 +1080,34 @@ def tsbs_queries():
     return {
         "single_groupby_1_1_1": (
             "SELECT date_bin(INTERVAL '1 minute', ts) AS minute, "
-            "max(usage_user) FROM cpu "
+            f"max(usage_user) FROM {table} "
             f"WHERE hostname = 'host_0' AND ts >= {T0_MS} "
             f"AND ts < {T0_MS + 3600 * 1000} "
             "GROUP BY minute ORDER BY minute", "dense_fused", 60),
         "cpu_max_all_8": (
             f"SELECT date_bin(INTERVAL '1 hour', ts) AS hour, {max_list} "
-            f"FROM cpu WHERE hostname IN ({hosts8}) "
+            f"FROM {table} WHERE hostname IN ({hosts8}) "
             f"AND ts >= {T0_MS} AND ts < {T0_MS + 8 * 3600 * 1000} "
             "GROUP BY hour ORDER BY hour", "dense_fused", 8),
         "groupby_orderby_limit": (
             "SELECT date_bin(INTERVAL '1 minute', ts) AS minute, "
-            f"max(usage_user) FROM cpu WHERE ts < {cutoff} "
+            f"max(usage_user) FROM {table} WHERE ts < {cutoff} "
             "GROUP BY minute ORDER BY minute DESC LIMIT 5",
             "bucket_topk+dense_fused", 5),
         "double_groupby_all": (
             f"SELECT date_bin(INTERVAL '1 hour', ts) AS hour, hostname, "
-            f"{avg_list} FROM cpu WHERE ts >= {T0_MS} AND ts < {t_end} "
+            f"{avg_list} FROM {table} WHERE ts >= {T0_MS} AND ts < {t_end} "
             f"GROUP BY hour, hostname ORDER BY hour, hostname",
             "dense_prepared", HOSTS * HOURS),
         # SSTs newest-first (Region.scan_last), then the series-run
         # boundary rows (_boundary_firstlast): K2 over G+1 = 4,002
         # segments of that subset
         "lastpoint": (
-            f"SELECT hostname, {lv_list} FROM cpu GROUP BY hostname",
+            f"SELECT hostname, {lv_list} FROM {table} GROUP BY hostname",
             "lastscan+boundary+dense_fused", HOSTS),
         # a raw scan: no aggregate, so no last_path
         "high_cpu_all": (
-            f"SELECT * FROM cpu WHERE usage_user > 90.0 "
+            f"SELECT * FROM {table} WHERE usage_user > 90.0 "
             f"AND ts >= {T0_MS} AND ts < {t_end}", None, None),
     }
 
@@ -1094,12 +1124,14 @@ def host_index(names: np.ndarray) -> np.ndarray:
     return np.asarray([int(u[5:]) for u in uniq], dtype=np.int64)[inv]
 
 
-def check_result(name, res, grid):
+def check_result(name, res, grid, hours=None):
     """Every value of `res` against the float64 oracle over `grid`
-    ([points, hosts] per field; the first HOURS of points are the
-    dashboard window, a later point may follow it)."""
+    ([points, hosts] per field; the first `hours` (HOURS unless given) of
+    points are the data inside the dashboard window, a later point may
+    follow it)."""
+    hours = HOURS if hours is None else hours
     per_hour = 3600 // STEP_S
-    window = HOURS * per_hour
+    window = hours * per_hour
     cols = {n: np.asarray(c) for n, c in zip(res.names, res.columns)}
     if name == "single_groupby_1_1_1":
         want = grid["usage_user"][:per_hour, 0].reshape(60, 6).max(axis=1)
@@ -1108,14 +1140,17 @@ def check_result(name, res, grid):
         check(np.array_equal(cols["max(usage_user)"].astype(np.float64),
                              f32_exact(want)), name + " max")
     elif name == "cpu_max_all_8":
-        check(np.array_equal(cols["hour"], T0_MS + np.arange(8) * 3_600_000),
+        h8 = min(8, hours)
+        check(np.array_equal(cols["hour"],
+                             T0_MS + np.arange(h8) * 3_600_000),
               name + " keys")
         for f in FIELDS:
-            want = grid[f][:8 * per_hour, :8].reshape(8, -1).max(axis=1)
+            want = grid[f][:h8 * per_hour, :8].reshape(h8, -1).max(axis=1)
             check(np.array_equal(cols[f"max({f})"].astype(np.float64),
                                  f32_exact(want)), f"{name} max({f})")
     elif name == "groupby_orderby_limit":
-        cut_pt = window * 3 // 4
+        # the query's cutoff is 3/4 of the dashboard's HOURS
+        cut_pt = min(HOURS * per_hour * 3 // 4, window)
         minutes = np.arange(cut_pt // 6 - 1, cut_pt // 6 - 6, -1)
         want = np.asarray([grid["usage_user"][m * 6:(m + 1) * 6].max()
                            for m in minutes])
@@ -1126,13 +1161,13 @@ def check_result(name, res, grid):
     elif name == "double_groupby_all":
         order = np.argsort(np.asarray([f"host_{i}" for i in range(HOSTS)]),
                            kind="stable")
-        hours = np.repeat(np.arange(HOURS), HOSTS)
-        check(np.array_equal(cols["hour"], T0_MS + hours * 3_600_000),
+        keys = np.repeat(np.arange(hours), HOSTS)
+        check(np.array_equal(cols["hour"], T0_MS + keys * 3_600_000),
               name + " hour keys")
         check(np.array_equal(host_index(cols["hostname"]),
-                             np.tile(order, HOURS)), name + " hostname keys")
+                             np.tile(order, hours)), name + " hostname keys")
         for f in FIELDS:
-            want = grid[f][:window].reshape(HOURS, per_hour, HOSTS).mean(
+            want = grid[f][:window].reshape(hours, per_hour, HOSTS).mean(
                 axis=1)[:, order].reshape(-1)
             got = cols[f"avg({f})"].astype(np.float64)
             check(np.allclose(got, want, rtol=1e-5, atol=0),
@@ -1354,6 +1389,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         host_sql = host_sql_phase(qe, sk, torch, grid)
         serving = serving_cpu_phase(qe, sk, torch, grid)
         wire = wire_phase(qe, sk, torch, grid)
+        writes = write_protocols_phase(qe, sk, torch, grid, host_names)
 
         # 3. one more 10 s step for every host, then the re-query: the SST
         # parts' file-anchored blocks hit, only the memtable tail uploads
@@ -1400,8 +1436,12 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         log("flush + reopen: " + json.dumps({
             "flush_s": flush_s, "reopen_s": reopen_s,
             "wal_entries_replayed": region.replayed_entries,
+            "wal_segments_scanned_natively": engine.wal.native_scans,
+            "wal_frames_scanned": engine.wal.scanned_frames,
             "sst_files": len(region.files), "sst_bytes": region.sst_bytes,
             "memtable_rows": region.memtable.num_rows}))
+        check(engine.wal.native_scans > 0,
+              "reopen: the WAL replay did not go through native.wal_scan")
         with partial_cache(False):
             reopened = run_queries(qe, sk, torch, grid, "reopened", False,
                                    lib)
@@ -1440,7 +1480,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
             "reopened": reopened, "compacted": compacted, "sparse": sparse,
             "cached": cached, "host_aggs": host_aggs,
             "promql_cpu": promql_cpu, "range": ranges, "host_sql": host_sql,
-            "serving": serving, "wire": wire}
+            "serving": serving, "wire": wire, "writes": writes}
 
 
 # ---- RANGE ... ALIGN on the `cpu` table --------------------------------------
@@ -4014,6 +4054,808 @@ def wire_phase(qe, sk, torch, grid) -> dict:
     return out
 
 
+# ---- (e) the write protocols -------------------------------------------------
+
+#: lines a line-protocol request (bench.py:1313) and the HTTP clients
+LP_BODY_LINES = 5000
+LP_CLIENTS = 8
+#: hours of `cpu` written again through the line protocol (TSBS's first)
+LP_HOURS = 1
+#: bench.py's ingest_qps traffic (bench.py:1282-1460)
+INGESTQ_SECONDS = 12.0
+INGESTQ_SQL_ROWS = 500
+INGESTQ_SQL_PACE_S = 0.1
+INGESTQ_HOSTS = 200
+INGESTQ_FIELDS = [f"f{i}" for i in range(5)]
+#: Prometheus remote write: queue_config.max_samples_per_send's default
+RW_SAMPLES_PER_SEND = 2000
+RW_CLIENTS = 4
+#: the phase's time budget on the card, and what part 4 leaves for the
+#: reads and part 5 when it sizes its writes
+WRITE_PHASE_BUDGET_S = 120.0
+RW_RESERVE_S = 25.0
+
+
+class lane_counter:
+    """Counts, for the block, the line-protocol bodies the vector lane
+    (influx._vector_parse) took and those it left to the Python lanes;
+    write_lines looks the lane up in its module at call time."""
+
+    def __enter__(self):
+        import threading
+
+        from greptimedb_tpu_torch.servers import influx
+
+        self.mod, self.saved = influx, influx._vector_parse
+        self.counts = {"vector": 0, "python": 0}
+        lock = threading.Lock()
+
+        def counted(*args, **kw):
+            got = self.saved(*args, **kw)
+            with lock:
+                self.counts["vector" if got is not None else "python"] += 1
+            return got
+
+        influx._vector_parse = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        self.mod._vector_parse = self.saved
+        return False
+
+
+def post_all(port, path, bodies, clients, headers) -> dict:
+    """`bodies` over `clients` keep-alive connections (body i on client
+    i % clients, in order): each answer's status and latency, the wall
+    time and the first failure."""
+    import http.client
+    import threading
+
+    status = [None] * len(bodies)
+    lat = [0.0] * len(bodies)
+    first_error: list = []
+
+    def client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            for i in range(c, len(bodies), clients):
+                t0 = time.perf_counter()
+                try:
+                    conn.request("POST", path, body=bodies[i],
+                                 headers=headers)
+                    resp = conn.getresponse()
+                    data = resp.read()
+                except Exception as e:  # noqa: BLE001 — counted, reported
+                    first_error.append(repr(e))
+                    conn.close()
+                    continue
+                lat[i] = time.perf_counter() - t0
+                status[i] = resp.status
+                if resp.status >= 300:
+                    first_error.append(data[:300].decode(errors="replace"))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t
+    a = np.asarray(lat) * 1e3
+    return {"status": status, "wall_s": wall,
+            "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)),
+            "first_error": first_error[:1]}
+
+
+def cpu_lp_bodies(grid, host_names) -> list:
+    """The first LP_HOURS of `cpu` as line protocol (measurement cpu_lp,
+    ms timestamps, each value printed with repr so that it parses back
+    to the same float64), in bodies of LP_BODY_LINES lines, time-major
+    like TSBS's generator."""
+    points = LP_HOURS * 3600 // STEP_S
+    fmt = "cpu_lp,hostname={} " + ",".join(f"{f}={{}}" for f in FIELDS) \
+        + " {}"
+    cols = [grid[f][:points].reshape(-1) for f in FIELDS]
+    hosts = np.tile(np.asarray(host_names, dtype=object), points)
+    ts = np.repeat(T0_MS + np.arange(points, dtype=np.int64)
+                   * STEP_S * 1000, HOSTS)
+    bodies = []
+    for lo in range(0, points * HOSTS, LP_BODY_LINES):
+        hi = min(lo + LP_BODY_LINES, points * HOSTS)
+        bodies.append("\n".join(map(
+            fmt.format, hosts[lo:hi].tolist(),
+            *(map(repr, c[lo:hi].tolist()) for c in cols),
+            ts[lo:hi].tolist())).encode())
+    return bodies
+
+
+def cpu_lp_phase(qe, sk, torch, grid, host_names, port) -> dict:
+    """Part 1: TSBS's first hour over the line protocol through the HTTP
+    server; part 2: bench.py's six queries over what it wrote."""
+    from greptimedb_tpu_torch.session import QueryContext
+
+    t = time.perf_counter()
+    bodies = cpu_lp_bodies(grid, host_names)
+    build_s = time.perf_counter() - t
+    rows = LP_HOURS * 3600 // STEP_S * HOSTS
+    nbytes = sum(len(b) for b in bodies)
+    with lane_counter() as lanes:
+        sent = post_all(port, "/v1/influxdb/write?precision=ms", bodies,
+                        LP_CLIENTS, {"Content-Type": "text/plain"})
+    check(sent["status"] == [204] * len(bodies),
+          f"cpu_lp: not every body got 204 ({sent['first_error']})")
+    wall = sent["wall_s"]
+    count = qe.execute_one("SELECT count(*) FROM cpu_lp").rows()[0][0]
+    check(count == rows, f"cpu_lp: count(*) {count}, expected {rows}")
+    info = qe._table("cpu_lp", QueryContext(db="public"))
+    check(not info.options.get("append_mode")
+          and info.schema.names == ["hostname", "ts"] + FIELDS,
+          f"cpu_lp: auto-created as {info.schema.names} {info.options}")
+    ingest = {"rows": rows, "bodies": len(bodies),
+              "lines_a_body": LP_BODY_LINES, "clients": LP_CLIENTS,
+              "body_bytes": nbytes, "build_s": build_s, "wall_s": wall,
+              "rows_per_s": rows / wall, "mb_per_s": nbytes / wall / 1e6,
+              "ack_p50_ms": sent["p50_ms"], "ack_p99_ms": sent["p99_ms"],
+              "lanes": dict(lanes)}
+    log("write protocols: cpu_lp ingest over HTTP: " + json.dumps(ingest))
+    check(lanes["vector"] == len(bodies),
+          f"cpu_lp: the vector lane took {lanes['vector']} of "
+          f"{len(bodies)} bodies")
+
+    # part 2: the queries, the partial cache off (the classic routes, so
+    # each cold run launches its kernel)
+    grid1 = {f: grid[f][:LP_HOURS * 3600 // STEP_S] for f in FIELDS}
+    cpu_routes = tsbs_queries()
+    queries = dict(tsbs_queries("cpu_lp"))
+    # double_groupby_all over the hour alone: 4,000 groups, within K2's
+    # segment budget (MAX_SEGMENTS), so the fused route
+    queries["double_groupby_all (hour range)"] = (
+        queries["double_groupby_all"][0].replace(
+            f"ts < {T0_MS + HOURS * 3600 * 1000}",
+            f"ts < {T0_MS + LP_HOURS * 3600 * 1000}"), None, None)
+    out = {"ingest": ingest, "queries": {}}
+    launched = np.zeros(2, dtype=np.int64)
+    with partial_cache(False):
+        region = qe.region_engine.region(info.region_ids[0])
+        scan = region.scan()
+        dedup_ms = []
+        for _ in range(4):
+            sync(torch)
+            t = time.perf_counter()
+            qe.executor._compute_dedup(scan, info)
+            sync(torch)
+            dedup_ms.append((time.perf_counter() - t) * 1e3)
+        out["dedup"] = {"rows": scan.num_rows, "cold_ms": dedup_ms[0],
+                        "warm_p50_ms": float(np.median(dedup_ms[1:]))}
+        log("write protocols: cpu_lp sort-dedup of the memtable scan: "
+            + json.dumps(out["dedup"]))
+        for name, (sql, _, _) in queries.items():
+            base = name.split(" (")[0]
+            k0 = launches(sk)
+            res, cold_ms = timed_query(qe, sql, torch)
+            k = np.subtract(launches(sk), k0)
+            launched += k
+            path = qe.executor.last_path if base != "high_cpu_all" else None
+            warm = [timed_query(qe, sql, torch)[1] for _ in range(3)]
+            check_result(base, res, grid1, hours=LP_HOURS)
+            want_path = cpu_routes[base][1] if name == base else \
+                "dense_fused"
+            want_k = (int(want_path == "dense_prepared"),
+                      int(want_path is not None
+                          and want_path.endswith("dense_fused")))
+            rec = {"rows": res.num_rows, "last_path": path,
+                   "route_over_cpu": want_path, "cold_ms": cold_ms,
+                   "warm_p50_ms": float(np.median(warm)),
+                   "k1_launches": int(k[0]), "k2_launches": int(k[1])}
+            out["queries"][name] = rec
+            log(f"write protocols: cpu_lp query {name}: " + json.dumps(rec))
+            check((rec["k1_launches"] > 0, rec["k2_launches"] > 0)
+                  == (bool(want_k[0]), bool(want_k[1])),
+                  f"cpu_lp {name}: launched K1 {rec['k1_launches']}, K2 "
+                  f"{rec['k2_launches']}; the route over cpu is {want_path}")
+    out["k1_launches"], out["k2_launches"] = (int(x) for x in launched)
+    return out
+
+
+def ingestq_template(w: int, rng) -> str:
+    """bench.py's ingest_qps body (ingestq, 5 fields, 200 hosts, 5,000
+    lines) with its timestamps as an 8-digit request slot and a 4-digit
+    line number: `.replace(" 99999999", f" {slot:08d}")` makes a body
+    whose keys no other request repeats."""
+    vals = rng.uniform(0.0, 100.0, (LP_BODY_LINES, len(INGESTQ_FIELDS)))
+    hosts = rng.integers(0, INGESTQ_HOSTS, LP_BODY_LINES)
+    return "\n".join(
+        f"ingestq,hostname=host_{int(h)} "
+        + ",".join(f"{f}={v:.3f}" for f, v in zip(INGESTQ_FIELDS, row))
+        + f" 99999999{j:04d}"
+        for j, (h, row) in enumerate(zip(hosts, vals)))
+
+
+def ingest_qps_phase(qe, sk, torch) -> dict:
+    """Part 3: bench.py's ingest_qps in process: line-protocol writers
+    (bench.py's writer count for this machine, less the SQL writer) of
+    5,000-line ingestq bodies, one SQL INSERT writer of 500 rows paced at
+    0.1 s, two readers of the warm `cpu` per-minute max query, for
+    INGESTQ_SECONDS. Every request writes keys no other writes, so
+    count(*) must equal the rows acknowledged. Writes are serial: one
+    WAL append and fsync each, no group commit until ROADMAP A12-write."""
+    import threading
+
+    from greptimedb_tpu_torch.servers.influx import write_lines
+
+    rng = np.random.default_rng(23)
+    writers = max(5, min(12, 2 * (os.cpu_count() or 4) + 1))
+    lp_writers = writers - 1
+    templates = [ingestq_template(w, rng) for w in range(lp_writers)]
+    n_sql = int(INGESTQ_SECONDS / INGESTQ_SQL_PACE_S) + 10
+    sql_pool = []
+    for i in range(n_sql):
+        t0 = 500_000_000 + i * INGESTQ_SQL_ROWS
+        vals = rng.uniform(0.0, 100.0, (INGESTQ_SQL_ROWS,
+                                         len(INGESTQ_FIELDS)))
+        hosts = rng.integers(0, INGESTQ_HOSTS, INGESTQ_SQL_ROWS)
+        sql_pool.append(
+            f"INSERT INTO ingestq (hostname, ts, "
+            f"{', '.join(INGESTQ_FIELDS)}) VALUES " + ", ".join(
+                f"('host_{int(h)}', {t0 + j}, "
+                + ", ".join(f"{v:.3f}" for v in row) + ")"
+                for j, (h, row) in enumerate(zip(hosts, vals))))
+    # the table is created (auto-create, not append mode) outside the clock
+    write_lines(qe, "public", templates[0].replace(" 99999999",
+                                                   " 00000000"), "ms")
+    read_sql = (
+        f"SELECT date_bin(INTERVAL '1 minute', ts) AS minute, "
+        f"max(usage_user) FROM cpu WHERE hostname = 'host_1' "
+        f"AND ts >= {T0_MS} AND ts < {T0_MS + 3600 * 1000} GROUP BY minute")
+    qe.execute_one(read_sql)  # warm
+    idle = [timed_query(qe, read_sql, torch)[1] for _ in range(20)]
+    stop = threading.Event()
+    rows_done = [0] * writers
+    lp_lat: list = [[] for _ in range(lp_writers)]
+    sql_lat: list = []
+    read_lat: list = [[] for _ in range(2)]
+    errors: list = []
+
+    def lp_writer(w):
+        i = 0
+        while not stop.is_set():
+            body = templates[w].replace(
+                " 99999999", f" {1 + w * 100_000 + i:08d}")
+            t0 = time.perf_counter()
+            try:
+                write_lines(qe, "public", body, precision="ms")
+            except Exception as e:  # noqa: BLE001 — counted, none allowed
+                errors.append(repr(e))
+                return
+            lp_lat[w].append(time.perf_counter() - t0)
+            rows_done[w] += LP_BODY_LINES
+            i += 1
+
+    def sql_writer():
+        for stmt in sql_pool:
+            if stop.is_set():
+                return
+            t0 = time.perf_counter()
+            try:
+                qe.execute_one(stmt)
+            except Exception as e:  # noqa: BLE001 — counted, none allowed
+                errors.append(repr(e))
+                return
+            sql_lat.append(time.perf_counter() - t0)
+            rows_done[-1] += INGESTQ_SQL_ROWS
+            time.sleep(INGESTQ_SQL_PACE_S)
+        errors.append("the SQL writer ran out of statements")
+
+    def reader(r):
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                res = qe.execute_one(read_sql)
+            except Exception as e:  # noqa: BLE001 — counted, none allowed
+                errors.append(repr(e))
+                return
+            read_lat[r].append(time.perf_counter() - t0)
+            if res.num_rows != 60:
+                errors.append(f"a read returned {res.num_rows} rows, "
+                              "not 60")
+                return
+
+    threads = ([threading.Thread(target=lp_writer, args=(w,))
+                for w in range(lp_writers)]
+               + [threading.Thread(target=sql_writer)]
+               + [threading.Thread(target=reader, args=(r,))
+                  for r in range(2)])
+    syncs0 = qe.region_engine.wal.sync_count
+    k0 = launches(sk)
+    t_start = time.perf_counter()
+    for th in threads:
+        th.start()
+    time.sleep(INGESTQ_SECONDS)
+    stop.set()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t_start
+    k = np.subtract(launches(sk), k0)
+    reads = sum(len(r) for r in read_lat)
+    acked = sum(rows_done)
+    count = qe.execute_one("SELECT count(*) FROM ingestq").rows()[0][0]
+    lp_all = np.asarray([x for ls in lp_lat for x in ls]) * 1e3
+    reads_ms = np.asarray([x for ls in read_lat for x in ls]) * 1e3
+    out = {"rows_per_s": acked / wall, "wall_s": wall,
+           "writers": {"line_protocol": lp_writers, "sql_insert": 1},
+           "rows_acknowledged": acked, "count_read_back": count - LP_BODY_LINES,
+           "lp_requests": int(lp_all.size),
+           "lp_p99_ack_ms": float(np.percentile(lp_all, 99)),
+           "sql_statements": len(sql_lat),
+           "sql_p99_ack_ms": float(np.percentile(sql_lat, 99) * 1e3),
+           "wal_fsyncs": qe.region_engine.wal.sync_count - syncs0,
+           "read_p50_idle_ms": float(np.median(idle)),
+           "read_p50_loaded_ms": float(np.median(reads_ms)),
+           "reads": reads, "k1_launches": int(k[0]),
+           "k2_launches": int(k[1]), "errors": len(errors),
+           "writes": "serial: one WAL append and fsync a request, no group "
+                     "commit (ROADMAP A12-write)"}
+    log("write protocols: ingest_qps: " + json.dumps(out))
+    check(not errors, f"ingest_qps: {len(errors)} errors, first {errors[:1]}")
+    check(count == acked + LP_BODY_LINES,
+          f"ingest_qps: count(*) {count}, acknowledged {acked} + "
+          f"{LP_BODY_LINES} before the clock")
+    # the two readers' identical statements may join one execution
+    # (the batcher's coalescing), so K2 launches a read or fewer
+    check(reads > 0 and 0 < int(k[1]) <= reads and int(k[0]) == 0,
+          f"ingest_qps: {reads} reads launched K1 {int(k[0])}, K2 "
+          f"{int(k[1])} times")
+    return out
+
+
+def remote_write_bodies(grid, host_names, p0, p1) -> list:
+    """usage_user of points [p0, p1) for every host as snappy
+    WriteRequests of RW_SAMPLES_PER_SEND samples (one sample a series a
+    request, as one scrape's samples leave a Prometheus queue shard)."""
+    import struct
+
+    from greptimedb_tpu_torch.utils import protowire as pw
+    from greptimedb_tpu_torch.utils import snappy
+
+    name = pw.field_bytes(1, pw.field_str(1, "__name__")
+                          + pw.field_str(2, "cpu_usage_user"))
+    labels = [name + pw.field_bytes(1, pw.field_str(1, "hostname")
+                                    + pw.field_str(2, h))
+              for h in host_names]
+    vals = grid["usage_user"][p0:p1].reshape(-1)
+    packed = struct.pack(f"<{vals.size}d", *vals.tolist())
+    bodies = []
+    for lo in range(0, vals.size, RW_SAMPLES_PER_SEND):
+        parts = []
+        for r in range(lo, min(lo + RW_SAMPLES_PER_SEND, vals.size)):
+            p, h = divmod(r, HOSTS)
+            sample = (b"\x09" + packed[8 * r:8 * r + 8]
+                      + pw.field_varint(2, T0_MS + (p0 + p) * STEP_S * 1000))
+            parts.append(pw.field_bytes(
+                1, labels[h] + pw.field_bytes(2, sample)))
+        bodies.append(snappy.compress(b"".join(parts)))
+    return bodies
+
+
+def remote_read(port, queries) -> list:
+    """One ReadRequest of `queries` [(start_ms, end_ms, [(type, name,
+    value)])] -> per query {hostname: [(ts_ms, value)]}."""
+    import http.client
+
+    from greptimedb_tpu_torch.utils import protowire as pw
+    from greptimedb_tpu_torch.utils import snappy
+
+    body = b""
+    for start, end, matchers in queries:
+        q = pw.field_varint(1, start) + pw.field_varint(2, end)
+        for mtype, name, value in matchers:
+            q += pw.field_bytes(3, pw.field_varint(1, mtype)
+                                + pw.field_str(2, name)
+                                + pw.field_str(3, value))
+        body += pw.field_bytes(1, q)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/v1/prometheus/read",
+                     body=snappy.compress(body))
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    check(resp.status == 200, f"remote read: HTTP {resp.status}")
+    out = []
+    for _, _, qr in pw.iter_fields(snappy.decompress(data)):
+        series = {}
+        for _, _, ts_blob in pw.iter_fields(qr):
+            labels, samples = {}, []
+            for f, _, v in pw.iter_fields(ts_blob):
+                if f == 1:
+                    kv = {f2: v2.decode() for f2, _, v2 in pw.iter_fields(v)}
+                    labels[kv.get(1, "")] = kv.get(2, "")
+                elif f == 2:
+                    d = dict((f2, v2) for f2, _, v2 in pw.iter_fields(v))
+                    samples.append((pw.varint_to_sint64(d.get(2, 0)),
+                                    pw.fixed64_to_double(d.get(1, 0))))
+            check(labels.get("__name__") == "cpu_usage_user",
+                  f"remote read: labels {labels}")
+            series[labels["hostname"]] = samples
+        out.append(series)
+    return out
+
+
+def remote_write_phase(qe, sk, torch, grid, host_names, port,
+                       t_phase) -> dict:
+    """Part 4: the hour's usage_user as 4,000 series over remote write,
+    two PromQL queries on the card against numpy, three remote reads bit
+    for bit against what was sent. The points sent are cut (and the cut
+    printed) when the phase would otherwise pass WRITE_PHASE_BUDGET_S."""
+    from greptimedb_tpu_torch.promql.engine import PromqlEngine
+
+    points = LP_HOURS * 3600 // STEP_S
+    per_send = RW_SAMPLES_PER_SEND // HOSTS or 1
+    # the first points serially: the cost of a point, to size the rest
+    t = time.perf_counter()
+    first = remote_write_bodies(grid, host_names, 0, per_send)
+    sent0 = post_all(port, "/v1/prometheus/write", first, 1, {})
+    per_point = (time.perf_counter() - t) / per_send
+    left = WRITE_PHASE_BUDGET_S - RW_RESERVE_S \
+        - (time.perf_counter() - t_phase)
+    sent_points = int(min(points, max(12, per_send + left / per_point)))
+    cut = None if sent_points == points else {
+        "points_sent": sent_points, "points_in_the_hour": points,
+        "reason": f"{per_point:.3f} s a point with {left:.1f} s left in "
+                  f"the phase's {WRITE_PHASE_BUDGET_S:.0f} s budget"}
+    t = time.perf_counter()
+    bodies = remote_write_bodies(grid, host_names, per_send, sent_points)
+    build_s = time.perf_counter() - t
+    sent = post_all(port, "/v1/prometheus/write", bodies, RW_CLIENTS, {})
+    status = sent0["status"] + sent["status"]
+    check(status == [204] * len(status),
+          f"remote write: not every request got 204 "
+          f"({sent0['first_error'] + sent['first_error']})")
+    samples = sent_points * HOSTS
+    count = qe.execute_one("SELECT count(*) FROM cpu_usage_user").rows()[0][0]
+    check(count == samples, f"remote write: count(*) {count}, expected "
+          f"{samples}")
+    out = {"samples": samples, "requests": len(status),
+           "samples_a_request": RW_SAMPLES_PER_SEND, "clients": RW_CLIENTS,
+           "build_s": build_s, "wall_s": sent["wall_s"],
+           "samples_per_s": (samples - per_send * HOSTS) / sent["wall_s"],
+           "ack_p50_ms": sent["p50_ms"], "ack_p99_ms": sent["p99_ms"],
+           "cut": cut}
+    log("write protocols: remote write: " + json.dumps(out))
+
+    # PromQL on the card over what remote write stored
+    user = grid["usage_user"][:sent_points].T  # [hosts, points]
+    t0 = T0_MS // 1000
+    grid_s = t0 + np.arange(sent_points) * float(STEP_S)
+    t_end = t0 + (sent_points - 1) * STEP_S
+    prom = PromqlEngine(qe)
+    promql = {}
+    k2 = 0
+    for name, q, step, rng_s in (
+            ("max_over_time", "max_over_time(cpu_usage_user[1h])", 300,
+             3600),
+            ("avg", "avg(cpu_usage_user)", 60, 300)):
+        times = t0 + np.arange((t_end - t0) // step + 1) * float(step)
+        sk.fused_segment_agg.launches = 0
+        sync(torch)
+        t = time.perf_counter()
+        got_times, m = prom.eval_matrix(q, t0, t_end, float(step))
+        sync(torch)
+        cold_ms = (time.perf_counter() - t) * 1e3
+        launched = sk.fused_segment_agg.launches
+        k2 += launched
+        check(np.array_equal(got_times, times), f"promql {name}: times")
+        vals = m.values.cpu().numpy()
+        if name == "avg":
+            i0, i1 = window_index(grid_s, times, rng_s)
+            want = np.where(i1 > i0, user[:, np.maximum(i1 - 1, 0)].mean(
+                axis=0), np.nan)
+            err = check_close(vals[0], want, 1e-9, f"promql {name}")
+        else:
+            hosts = host_index(np.asarray([lab["hostname"]
+                                           for lab in m.labels]))
+            check(np.array_equal(np.sort(hosts), np.arange(HOSTS)),
+                  f"promql {name}: hostname labels")
+            want = window_maxes(user, grid_s, times, rng_s)[hosts]
+            check(np.array_equal(vals, want, equal_nan=True),
+                  f"promql {name}: window maxes differ from numpy")
+            err = 0.0
+        warm = []
+        for _ in range(3):
+            sync(torch)
+            t = time.perf_counter()
+            prom.eval_matrix(q, t0, t_end, float(step))
+            sync(torch)
+            warm.append((time.perf_counter() - t) * 1e3)
+        promql[name] = {"query": q, "step_s": step, "steps": len(times),
+                        "cold_ms": cold_ms, "warm_p50_ms":
+                        float(np.median(warm)), "k2_launches_cold": launched,
+                        "window_paths": qe.executor.last_promql_paths,
+                        "max_rel_err": err}
+        check(launched >= 1, f"promql {name} over remote write launched "
+              "no K2")
+        log(f"write protocols: promql {name}: " + json.dumps(promql[name]))
+    out["promql"] = promql
+    out["k2_launches"] = k2
+
+    # remote read: bit for bit against what was sent
+    end_ms = T0_MS + (sent_points - 1) * STEP_S * 1000
+    lo_p, hi_p = sent_points // 4, sent_points // 2
+    reads = {
+        "equality": (T0_MS, end_ms, [(0, "__name__", "cpu_usage_user"),
+                                     (0, "hostname", "host_7")]),
+        "regex": (T0_MS, end_ms, [(0, "__name__", "cpu_usage_user"),
+                                  (2, "hostname", "host_1[0-9]")]),
+        "time_range": (T0_MS + lo_p * STEP_S * 1000,
+                       T0_MS + hi_p * STEP_S * 1000,
+                       [(0, "__name__", "cpu_usage_user"),
+                        (2, "hostname", "host_(2|3)")]),
+    }
+    t = time.perf_counter()
+    got = remote_read(port, list(reads.values()))
+    read_ms = (time.perf_counter() - t) * 1e3
+    wants = {"equality": (["host_7"], 0, sent_points),
+             "regex": ([f"host_1{d}" for d in range(10)], 0, sent_points),
+             "time_range": (["host_2", "host_3"], lo_p, hi_p + 1)}
+    for (name, (hosts, p0, p1)), series in zip(wants.items(), got):
+        check(sorted(series) == sorted(hosts),
+              f"remote read {name}: series {sorted(series)[:5]}")
+        for h in hosts:
+            ts = T0_MS + np.arange(p0, p1) * STEP_S * 1000
+            vals = grid["usage_user"][p0:p1, int(h[5:])]
+            check(series[h] == list(zip(ts.tolist(), vals.tolist())),
+                  f"remote read {name}: {h}'s samples differ from those "
+                  "sent")
+    out["remote_read"] = {"queries": len(reads), "ms": read_ms,
+                          "samples": sum(len(v) for s in got
+                                         for v in s.values())}
+    log("write protocols: remote read: " + json.dumps(out["remote_read"]))
+    return out
+
+
+def otlp_metrics_body() -> tuple:
+    """A small OTLP ExportMetricsServiceRequest (a gauge, a sum with int
+    points, a histogram) and the rows each table must hold."""
+    import struct
+
+    from greptimedb_tpu_torch.utils import protowire as pw
+
+    def kv(k, v):
+        return pw.field_str(1, k) + pw.field_bytes(2, pw.field_str(1, v))
+
+    def fixed64(field, v):
+        return pw.write_varint((field << 3) | 1) + struct.pack("<Q", v)
+
+    rng = np.random.default_rng(SEED)
+    gauge, sums, want = b"", b"", {}
+    for i, v in enumerate(rng.uniform(0, 100, 8).tolist()):
+        gauge += pw.field_bytes(1, pw.field_bytes(7, kv("host", f"h{i}"))
+                                + fixed64(3, (T0_MS + i * 1000) * 10**6)
+                                + pw.field_double(4, v))
+        want.setdefault("otlp_gauge", []).append(
+            [f"h{i}", "chip", T0_MS + i * 1000, v])
+    for i, v in enumerate(rng.integers(0, 10**6, 4).tolist()):
+        sums += pw.field_bytes(1, pw.field_bytes(7, kv("host", f"h{i}"))
+                               + fixed64(3, (T0_MS + i * 1000) * 10**6)
+                               + pw.write_varint((6 << 3) | 1)
+                               + struct.pack("<q", v))
+        want.setdefault("otlp_sum", []).append(
+            [f"h{i}", "chip", T0_MS + i * 1000, float(v)])
+    counts, bounds = [3, 5, 0, 2], [0.1, 1.0, 10.0]
+    hist = pw.field_bytes(1, pw.field_bytes(9, kv("route", "/q"))
+                          + fixed64(3, T0_MS * 10**6) + fixed64(4, 10)
+                          + pw.field_double(5, 12.5)
+                          + pw.field_bytes(6, struct.pack("<4Q", *counts))
+                          + pw.field_bytes(7, struct.pack("<3d", *bounds)))
+    cum = np.cumsum(counts).tolist()
+    want["otlp_hist_bucket"] = sorted(
+        [[le, "/q", "chip", T0_MS, float(c)]
+         for le, c in zip(["0.1", "1.0", "10.0", "+Inf"], cum)])
+    want["otlp_hist_sum"] = [["/q", "chip", T0_MS, 12.5]]
+    want["otlp_hist_count"] = [["/q", "chip", T0_MS, 10.0]]
+    metrics = (pw.field_str(1, "otlp.gauge") + pw.field_bytes(5, gauge),
+               pw.field_str(1, "otlp.sum") + pw.field_bytes(7, sums),
+               pw.field_str(1, "otlp.hist") + pw.field_bytes(9, hist))
+    resource = pw.field_bytes(1, pw.field_bytes(1, kv("service", "chip")))
+    scope = b"".join(pw.field_bytes(2, m) for m in metrics)
+    return pw.field_bytes(1, resource + pw.field_bytes(2, scope)), want
+
+
+OTLP_SPANS = 300
+
+
+def otlp_traces_body() -> tuple:
+    """OTLP_SPANS spans of a few traces, and their (trace_id, span_id,
+    parent_span_id, span_name, duration_nano) rows."""
+    import struct
+
+    from greptimedb_tpu_torch.utils import protowire as pw
+
+    rng = np.random.default_rng(SEED + 1)
+    spans, want = b"", []
+    for i in range(OTLP_SPANS):
+        tid, sid = bytes([i % 5 + 1]) * 16, (i + 1).to_bytes(8, "big")
+        parent = i.to_bytes(8, "big") if i % 5 else b""
+        start = T0_MS * 10**6 + int(rng.integers(0, 10**9))
+        dur = int(rng.integers(0, 10**8))
+        span = (pw.field_bytes(1, tid) + pw.field_bytes(2, sid)
+                + (pw.field_bytes(4, parent) if parent else b"")
+                + pw.field_str(5, f"op{i % 7}") + pw.field_varint(6, 2)
+                + pw.write_varint((7 << 3) | 1) + struct.pack("<Q", start)
+                + pw.write_varint((8 << 3) | 1)
+                + struct.pack("<Q", start + dur))
+        spans += pw.field_bytes(2, span)
+        want.append([tid.hex(), sid.hex(), parent.hex(), f"op{i % 7}",
+                     float(dur)])
+    scope = pw.field_bytes(1, pw.field_str(1, "chip") + pw.field_str(2, "1"))
+    body = pw.field_bytes(1, pw.field_bytes(2, scope + spans))
+    return body, sorted(want, key=lambda r: r[1])
+
+
+def otlp_opentsdb_phase(qe, port) -> dict:
+    """Part 5: an OTLP metrics request (gauge, sum, histogram), a traces
+    request of OTLP_SPANS spans, OpenTSDB JSON puts over HTTP and `put`
+    lines over the telnet server's socket, each read back with SQL and
+    compared with what was sent."""
+    import socket
+
+    from greptimedb_tpu_torch.servers.opentsdb import OpentsdbServer
+
+    def rows(sql):
+        return [[float(v) if isinstance(v, np.floating) else
+                 int(v) if isinstance(v, np.integer) else v for v in r]
+                for r in qe.execute_one(sql).rows()]
+
+    out = {}
+    body, want = otlp_metrics_body()
+    got = post_all(port, "/v1/otlp/v1/metrics", [body], 1, {})
+    check(got["status"] == [200], f"otlp metrics: {got['first_error']}")
+    for table, rs in want.items():
+        cols = "le, route" if "bucket" in table else \
+            "route" if "hist" in table else "host"
+        have = rows(f"SELECT {cols}, service, ts, "
+                    f"greptime_value FROM {table} ORDER BY {cols}")
+        if "bucket" in table:
+            have = sorted(have)
+        check(have == rs, f"otlp {table}: {have[:3]} != {rs[:3]}")
+    out["otlp_metrics_rows"] = sum(len(v) for v in want.values())
+
+    body, want = otlp_traces_body()
+    got = post_all(port, "/v1/otlp/v1/traces", [body], 1, {})
+    check(got["status"] == [200], f"otlp traces: {got['first_error']}")
+    have = rows("SELECT trace_id, span_id, parent_span_id, span_name, "
+                "duration_nano FROM opentelemetry_traces ORDER BY span_id")
+    check(have == want, f"otlp traces: {len(have)} rows, {have[:2]}")
+    out["otlp_spans"] = len(have)
+
+    rng = np.random.default_rng(SEED + 2)
+    puts = [{"metric": "tsdb_http", "timestamp": T0_MS // 1000 + i,
+             "value": v, "tags": {"host": f"h{i % 4}"}}
+            for i, v in enumerate(rng.uniform(0, 100, 50).tolist())]
+    got = post_all(port, "/v1/opentsdb/api/put",
+                   [json.dumps(puts).encode()], 1, {})
+    check(got["status"] == [200], f"opentsdb put: {got['first_error']}")
+    have = rows("SELECT host, ts, greptime_value FROM "
+                "tsdb_http ORDER BY ts")
+    check(have == [[p["tags"]["host"], p["timestamp"] * 1000, p["value"]]
+                   for p in puts], "opentsdb JSON puts: rows differ")
+    out["opentsdb_http_rows"] = len(have)
+
+    srv = OpentsdbServer(qe, port=0)
+    srv.start()
+    try:
+        lines = [f"put tsdb_telnet {T0_MS // 1000 + i} {float(v)!r} "
+                 f"host=h{i % 3}"
+                 for i, v in enumerate(rng.uniform(0, 100, 50).tolist())]
+        with socket.create_connection(("127.0.0.1", srv.port),
+                                      timeout=60) as s:
+            s.sendall(("\n".join(lines + ["exit"]) + "\n").encode())
+            answer = s.makefile("rb").read()
+    finally:
+        srv.shutdown()
+    check(answer == b"", f"opentsdb telnet answered {answer[:200]!r}")
+    have = rows("SELECT host, ts, greptime_value FROM "
+                "tsdb_telnet ORDER BY ts")
+    want = [[ln.split()[4][5:], int(ln.split()[2]) * 1000,
+             float(ln.split()[3])] for ln in lines]
+    check(have == want, "opentsdb telnet puts: rows differ")
+    out["opentsdb_telnet_rows"] = len(have)
+    log("write protocols: otlp and opentsdb: " + json.dumps(out))
+    return out
+
+
+def native_line() -> dict:
+    """The native host library: built with g++ here, CRC32 over 64 MiB
+    against zlib, and the snappy codec timed against the pure-Python one
+    on one remote-write body."""
+    import zlib
+
+    from greptimedb_tpu_torch import native
+    from greptimedb_tpu_torch.utils import snappy
+
+    t = time.perf_counter()
+    lib = native.try_load()
+    load_s = time.perf_counter() - t
+    check(lib is not None and native.AVAILABLE,
+          "native: the g++ build of greptimedb_tpu_torch/native failed")
+    data = np.random.default_rng(SEED).integers(
+        0, 256, 64 << 20, dtype=np.uint8).tobytes()
+    t = time.perf_counter()
+    got = native.crc32(data)
+    crc_native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = zlib.crc32(data)
+    crc_zlib_s = time.perf_counter() - t
+    check(got == want, f"native crc32 {got:#x} != zlib {want:#x}")
+    grid = {"usage_user": np.random.default_rng(SEED).uniform(
+        0, 100, (1, HOSTS))}
+    body = remote_write_bodies(grid, [f"host_{h}" for h in range(HOSTS)],
+                               0, 1)[0]
+    raw = snappy.decompress(body)
+    times = {}
+    for name, fn, arg in (
+            ("native_compress", native.snappy_compress, raw),
+            ("python_compress", snappy._py_compress, raw),
+            ("native_decompress", native.snappy_decompress, body),
+            ("python_decompress", snappy._py_decompress, body)):
+        t = time.perf_counter()
+        for _ in range(5):
+            res = fn(arg)
+        times[name + "_ms"] = (time.perf_counter() - t) / 5 * 1e3
+        if name.endswith("decompress"):
+            check(res == raw, f"snappy {name} differs")
+        else:
+            check(snappy.decompress(res) == raw, f"snappy {name} roundtrip")
+    out = {"available": native.AVAILABLE, "load_s": load_s,
+           "crc32_mib": 64, "crc32_native_ms": crc_native_s * 1e3,
+           "crc32_zlib_ms": crc_zlib_s * 1e3, "crc32_equal": True,
+           "snappy_body_bytes": len(raw), **times}
+    log("write protocols: native: " + json.dumps(out))
+    return out
+
+
+def write_protocols_phase(qe, sk, torch, grid, host_names) -> dict:
+    """(e) the write protocols on the main path's engine, with the JAX
+    defaults (plan cache and fast lane) and the partial cache off where
+    launches are counted: the hour of `cpu` as line protocol through the
+    HTTP server into cpu_lp and bench.py's six queries over it, bench.py's
+    ingest_qps traffic in process, Prometheus remote write with PromQL and
+    remote read over it, OTLP and OpenTSDB. No server thread outlives
+    the phase."""
+    import threading
+
+    from greptimedb_tpu_torch.servers import HttpServer
+
+    t_phase = time.perf_counter()
+    before = set(threading.enumerate())
+    out = {"native": native_line()}
+    with defaults_plane(qe):
+        srv = HttpServer(qe, port=0)
+        port = srv.start()
+        try:
+            out["cpu_lp"] = cpu_lp_phase(qe, sk, torch, grid, host_names,
+                                         port)
+            with partial_cache(False):
+                out["ingest_qps"] = ingest_qps_phase(qe, sk, torch)
+            out["remote_write"] = remote_write_phase(
+                qe, sk, torch, grid, host_names, port, t_phase)
+            out["otlp_opentsdb"] = otlp_opentsdb_phase(qe, port)
+        finally:
+            srv.stop()
+    left = [t for t in set(threading.enumerate()) - before if t.is_alive()]
+    check(not left, f"write protocols: threads outlived the servers: "
+          f"{sorted(t.name for t in left)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"write protocols: phase took {out['phase_s']:.1f} s "
+        f"(budget {WRITE_PHASE_BUDGET_S:.0f} s)")
+    return out
+
+
 def standalone_options_phase(root, answers) -> dict:
     """(d) `standalone start -c <toml>` over the closed cpu_1h dir, with
     MySQL, Postgres and one static user enabled and the JAX defaults of
@@ -4241,10 +5083,24 @@ def main() -> int:
         by_path[f"lastpoint lastscan+boundary (after {state})"] = {
             "segment_sum": q["k1_launches"],
             "fused_segment_agg": q["k2_launches"]}
+    w = main["writes"]
+    by_path["write protocols: cpu_lp (line protocol, cache off)"] = {
+        "segment_sum": w["cpu_lp"]["k1_launches"],
+        "fused_segment_agg": w["cpu_lp"]["k2_launches"]}
+    by_path["write protocols: ingest_qps readers"] = {
+        "segment_sum": w["ingest_qps"]["k1_launches"],
+        "fused_segment_agg": w["ingest_qps"]["k2_launches"]}
+    by_path["write protocols: promql over remote write"] = {
+        "segment_sum": 0,
+        "fused_segment_agg": w["remote_write"]["k2_launches"]}
     later_paths = ("promql prom_cpu (cold runs)", "promql cpu (cold runs)",
                    "stream_prepared (cpu_big)", "range (cpu, after ingest)",
                    "range fill (cpu, 8 hosts)",
-                   "host sql (cpu, 7 queries, cold runs)") + tuple(served)
+                   "host sql (cpu, 7 queries, cold runs)",
+                   "write protocols: cpu_lp (line protocol, cache off)",
+                   "write protocols: ingest_qps readers",
+                   "write protocols: promql over remote write") \
+        + tuple(served)
     sources = {"segment_sum": ("greptimedb_tpu_torch/csrc/segment_sum.cu",
                                "greptimedb_tpu/ops/pallas_segment.py:119"),
                "fused_segment_agg": (

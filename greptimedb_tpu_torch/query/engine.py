@@ -95,6 +95,9 @@ from greptimedb_tpu_torch.utils.metrics import (
 )
 
 _SERVERS = "servers and CLI"
+_MAINT = "maintenance plane, metric and file engines (ROADMAP A12-maint)"
+_FLOWS = "flows, scripts, plugins and shm (ROADMAP A9-flows)"
+_CLUSTER = "mesh and cluster (ROADMAP A10)"
 
 # statements of the JAX engine this slice leaves out, by the later slice
 # of the port that brings them (ROADMAP.md, queue A)
@@ -102,9 +105,9 @@ _LATER = {
     # COPY reads and writes Parquet/CSV files
     "CopyTable": "COPY import and export",
     "CopyDatabase": "COPY import and export",
-    "CreateFlow": _SERVERS,
-    "DropFlow": _SERVERS,
-    "ShowFlows": _SERVERS,
+    "CreateFlow": _FLOWS,
+    "DropFlow": _FLOWS,
+    "ShowFlows": _FLOWS,
 }
 
 
@@ -1072,11 +1075,6 @@ class QueryEngine:
 
     def _create_table(self, stmt: ast.CreateTable,
                       ctx: QueryContext) -> QueryResult:
-        if stmt.partitions or stmt.external or stmt.engine not in (
-                "mito", None):
-            raise UnsupportedStatement(
-                "partitioned, external and metric-engine tables are not in "
-                "this slice of greptimedb_tpu_torch")
         db, name = ctx.db, stmt.name
         if "." in name:
             db, name = name.rsplit(".", 1)
@@ -1091,8 +1089,6 @@ class QueryEngine:
                 pks.append(c.name)
         if time_index is None and stmt.columns:
             raise PlanError("CREATE TABLE requires a TIME INDEX column")
-        if not stmt.columns:
-            raise PlanError("CREATE TABLE requires a column list")
         cols = []
         for c in stmt.columns:
             dtype = parse_sql_type(c.type_name)
@@ -1106,6 +1102,22 @@ class QueryEngine:
             if c.default is not None and isinstance(c.default, ast.Literal):
                 default = c.default.value
             cols.append(ColumnSchema(c.name, dtype, sem, c.nullable, default))
+        # the JAX engine's order: the columns validate first, then the
+        # file engine, the column list, the metric engine, the partitions
+        if stmt.external or stmt.engine == "file":
+            raise UnsupportedStatement(
+                "external (file engine) tables are not in this slice of "
+                f"greptimedb_tpu_torch; the {_MAINT} slice brings them")
+        if not stmt.columns:
+            raise PlanError("CREATE TABLE requires a column list")
+        if stmt.engine == "metric":
+            raise UnsupportedStatement(
+                "ENGINE = metric tables are not in this slice of "
+                f"greptimedb_tpu_torch; the {_MAINT} slice brings them")
+        if stmt.partitions:
+            raise UnsupportedStatement(
+                "partitioned tables (PARTITION ON) are not in this slice of "
+                f"greptimedb_tpu_torch; the {_CLUSTER} slice brings them")
         schema = Schema(cols)
         existed = self.catalog.table_exists(db, name)
         info = self.catalog.create_table(
@@ -1155,19 +1167,32 @@ class QueryEngine:
             new_schema = Schema(list(info.schema.columns) + [ColumnSchema(
                 col.name, parse_sql_type(col.type_name), SemanticType.FIELD,
                 True, default)])
-            if info.column_order:
-                info.column_order = list(info.column_order) + [col.name]
+            self._refresh_column_order(info, added=col.name)
         elif stmt.action == "drop_column":
             dropped = info.schema.column(stmt.column_name)
             if dropped.semantic is not SemanticType.FIELD:
                 raise PlanError("can only DROP field columns")
             new_schema = Schema([c for c in info.schema.columns
                                  if c.name != stmt.column_name])
-            if info.column_order:
-                info.column_order = [n for n in info.column_order
-                                     if n != stmt.column_name]
+            self._refresh_column_order(info, dropped=stmt.column_name)
         else:
             raise PlanError(f"unsupported ALTER action {stmt.action}")
+        return self._apply_alter(info, new_schema)
+
+    def _refresh_column_order(self, info: TableInfo,
+                              added: Optional[str] = None,
+                              dropped: Optional[str] = None) -> None:
+        if info.column_order:
+            if added:
+                info.column_order = list(info.column_order) + [added]
+            if dropped:
+                info.column_order = [n for n in info.column_order
+                                     if n != dropped]
+
+    def _apply_alter(self, info: TableInfo,
+                     new_schema: Schema) -> QueryResult:
+        """Swap the table's schema in its regions and the catalog (the
+        ALTER statements and the write protocols' auto-alter)."""
         for rid in info.region_ids:
             self.region_engine.alter_region_schema(rid, new_schema)
         info.schema = new_schema
@@ -1175,13 +1200,31 @@ class QueryEngine:
         return QueryResult.of_affected(0)
 
     def _admin(self, stmt: ast.AdminFunc, ctx: QueryContext) -> QueryResult:
-        """ADMIN flush_table / compact_table, run synchronously; the
-        manual compaction is a full merge."""
+        """The JAX engine's dispatch without a maintenance plane:
+        flush_table / compact_table and flush_region / compact_region run
+        synchronously (the manual compaction is a full merge) and return
+        0 affected rows; the plane's and the flows' functions name the
+        slice that brings them; any other name is the JAX PlanError."""
         fn = stmt.func
-        if fn.name not in ("flush_table", "compact_table"):
+        if fn.name in ("rollup_table", "expire_table", "maintenance_status"):
             raise UnsupportedStatement(
                 f"ADMIN {fn.name} is not in this slice of "
-                "greptimedb_tpu_torch; the maintenance plane brings it")
+                f"greptimedb_tpu_torch; the {_MAINT} slice brings it")
+        if fn.name == "flush_flow":
+            raise UnsupportedStatement(
+                "ADMIN flush_flow is not in this slice of "
+                f"greptimedb_tpu_torch; the {_FLOWS} slice brings it")
+        if fn.name in ("flush_region", "compact_region"):
+            args = [a.value if isinstance(a, ast.Literal) else None
+                    for a in fn.args]
+            rid = int(args[0])
+            if fn.name == "flush_region":
+                self.region_engine.flush(rid)
+            else:
+                self.region_engine.compact(rid)
+            return QueryResult.of_affected(0)
+        if fn.name not in ("flush_table", "compact_table"):
+            raise PlanError(f"unknown admin function {fn.name!r}")
         if not fn.args or not isinstance(fn.args[0], ast.Literal):
             raise PlanError(f"ADMIN {fn.name} takes a table name")
         info = self._table(str(fn.args[0].value), ctx)
@@ -1222,6 +1265,20 @@ class QueryEngine:
                 cols[c.name] = np.zeros(n, dtype=c.dtype.to_numpy())
         return QueryResult.of_affected(self.region_engine.delete(
             info.region_ids[0], RecordBatch(schema, cols)))
+
+    def _sharded_write(self, info: TableInfo, batch: RecordBatch,
+                       delete: bool) -> int:
+        """The write protocols' bulk write (the JAX engine's partition-rule
+        scatter): one region is written; a table of several regions is
+        the mesh and cluster slice's."""
+        if len(info.region_ids) != 1:
+            raise UnsupportedStatement(
+                f"writes to a table of {len(info.region_ids)} regions are "
+                f"not in this slice of greptimedb_tpu_torch; the "
+                f"{_CLUSTER} slice brings them")
+        write = self.region_engine.delete if delete \
+            else self.region_engine.put
+        return write(info.region_ids[0], batch)
 
     # ---- INSERT ------------------------------------------------------------
 

@@ -1,12 +1,14 @@
 """HTTP server of the port (counterpart of greptimedb_tpu/servers/http.py,
 mirroring the reference `HttpServer::make_app`): /v1/sql, the Prometheus
-query API, /metrics, /health, and the running-queries surface.
+query API, the write protocols (Influx line protocol, Prometheus remote
+write and read, OTLP metrics and traces, OpenTSDB JSON puts), /metrics,
+/health, and the running-queries surface.
 
 stdlib ThreadingHTTPServer with keep-alive: the host serves protocol
 traffic while queries run as kernels on the engine's device. Status
 codes and error bodies are the JAX server's. The JAX server's other
-routes (the write protocols, scripts, faults, maintenance, profiles,
-traces, pprof, slow queries, the dashboard page) answer with its error
+routes (scripts, faults, maintenance, profiles, traces, pprof, slow
+queries, the dashboard page) answer with its error
 shape — HTTP 400, code 3000 — and a message naming the slice of the port
 that brings them (ROADMAP.md). With a user provider (auth/) every data
 route asks for Basic auth, as the JAX server does: a missing or wrong
@@ -46,10 +48,6 @@ from greptimedb_tpu_torch.utils.metrics import (
 #: a prefix when it ends in "/") -> the slice of the port that brings it
 _A9 = "servers and CLI (ROADMAP A9"
 _LATER_ROUTES = (
-    (("/v1/influxdb/write", "/v1/influxdb/api/v2/write", "/influxdb/write",
-      "/v1/opentsdb/api/put", "/opentsdb/api/put", "/v1/prometheus/write",
-      "/v1/prometheus/read", "/v1/otlp/v1/metrics", "/v1/otlp/v1/traces"),
-     f"{_A9}: the write protocols)"),
     (("/v1/scripts", "/v1/run-script"), f"{_A9}: flows, scripts, shm)"),
     (("/v1/slow_queries", "/v1/traces/", "/v1/profile/", "/debug/pprof/",
       "/dashboard", "/dashboard/"),
@@ -286,6 +284,22 @@ class _Handler(BaseHTTPRequestHandler):
             if sub == "series":
                 return self._handle_series()
             return self._send(404, _prom_err("unknown endpoint"))
+        if path in ("/v1/influxdb/write", "/v1/influxdb/api/v2/write",
+                    "/influxdb/write"):
+            return self._handle_influx_write()
+        if path in ("/v1/opentsdb/api/put", "/opentsdb/api/put"):
+            return self._handle_opentsdb_put()
+        # the /v1/prometheus/api/v1/{write,read} spellings the JAX server
+        # also lists fall into the Prometheus API branch above first and
+        # answer 404 "unknown endpoint" there as here
+        if path == "/v1/prometheus/write":
+            return self._handle_prom_remote_write()
+        if path == "/v1/prometheus/read":
+            return self._handle_prom_remote_read()
+        if path == "/v1/otlp/v1/metrics":
+            return self._handle_otlp_metrics()
+        if path == "/v1/otlp/v1/traces":
+            return self._handle_otlp_traces()
         later = _later_route(path)
         if later is not None:
             raise _Unported(
@@ -494,6 +508,103 @@ class _Handler(BaseHTTPRequestHandler):
                         metric["__name__"] = result.metric
                     out.append(metric)
         self._send(200, {"status": "success", "data": out})
+
+
+    # ---- write protocols ---------------------------------------------------
+
+    def _handle_influx_write(self):
+        from greptimedb_tpu_torch.servers.influx import (
+            LineProtocolError,
+            write_lines,
+        )
+
+        params = self._form_or_query()
+        body = getattr(self, "_raw_body", b"") or self._body()
+        db = params.get("db") or params.get("bucket") or "public"
+        precision = params.get("precision", "ns")
+        try:
+            write_lines(self.query_engine, db, body.decode(), precision)
+        except LineProtocolError as e:
+            # typed 4xx naming the bad line numbers: a torn/partial line
+            # from a crashed client must fail loudly, never silently
+            # sink the rest of the batch (_send counts the request)
+            return self._send(400, {"code": 1004, "error": str(e),
+                                    "lines": e.lines})
+        self._send_empty(204, "/v1/influxdb/write")
+
+    def _handle_prom_remote_write(self):
+        from greptimedb_tpu_torch.servers.prom_store import (
+            handle_remote_write,
+        )
+
+        params = self._params()
+        body = self._body()
+        handle_remote_write(self.query_engine, body,
+                            params.get("db", "public"))
+        self._send_empty(204, "/v1/prometheus/write")
+
+    def _handle_prom_remote_read(self):
+        from greptimedb_tpu_torch.servers.prom_store import (
+            handle_remote_read,
+        )
+
+        params = self._params()
+        body = self._body()
+        resp = handle_remote_read(self.query_engine, body,
+                                  params.get("db", "public"))
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-protobuf")
+        self.send_header("Content-Encoding", "snappy")
+        self.send_header("Content-Length", str(len(resp)))
+        self.end_headers()
+        self.wfile.write(resp)
+        HTTP_REQUESTS.inc(path="/v1/prometheus/read", status="200")
+
+    def _handle_otlp_metrics(self):
+        from greptimedb_tpu_torch.servers.otlp import handle_otlp_metrics
+
+        body = self._body()
+        handle_otlp_metrics(self.query_engine, body,
+                            self._params().get("db", "public"))
+        self._send(200, {"partialSuccess": {}})
+
+    def _handle_otlp_traces(self):
+        from greptimedb_tpu_torch.servers.otlp import handle_otlp_traces
+
+        body = self._body()
+        handle_otlp_traces(self.query_engine, body,
+                           self._params().get("db", "public"))
+        self._send(200, {"partialSuccess": {}})
+
+    def _handle_opentsdb_put(self):
+        """OpenTSDB JSON put (reference servers/src/opentsdb.rs +
+        http.rs:793-797)."""
+        from greptimedb_tpu_torch.servers.influx import Point, write_points
+
+        data = json.loads(self._body().decode())
+        if isinstance(data, dict):
+            data = [data]
+        points = []
+        for d in data:
+            ts = int(d["timestamp"])
+            # OpenTSDB: seconds or milliseconds by magnitude
+            ts_ms = ts * 1000 if ts < 10_000_000_000 else ts
+            points.append(Point(
+                measurement=d["metric"],
+                tags=sorted(d.get("tags", {}).items()),
+                fields=[("greptime_value", float(d["value"]))],
+                ts=ts_ms,
+            ))
+        n = write_points(self.query_engine, "public", points, precision="ms")
+        self._send(200, {"success": n, "failed": 0})
+
+    def _send_empty(self, code: int, route: str) -> None:
+        """A bodiless answer (the write routes' 204), counted under the
+        route's canonical path as the JAX server counts it."""
+        self.send_response(code)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+        HTTP_REQUESTS.inc(path=route, status=str(code))
 
 
 class _Unported(Exception):

@@ -6,6 +6,10 @@ replaces only the payload codec).
 Frame: header `<IIQQB` (payload length, crc32 of the payload, region id,
 seq of the batch's first row, op type), then the payload. A torn or
 corrupt tail fails its length or CRC check and is truncated on replay.
+Replay validates a segment's frames in one pass of the native scan
+(greptimedb_tpu_torch/native, `wal_scan`) when it built, as the JAX WAL
+does, and walks them in Python otherwise; both give the same entries
+and the same truncation point.
 
 Durability: fsync at the append boundary by default (`sync=True`). One
 `append_many` call writes all its frames with one write pass and one
@@ -37,6 +41,7 @@ from typing import Iterator
 
 import numpy as np
 
+from greptimedb_tpu_torch import native
 from greptimedb_tpu_torch.datatypes.recordbatch import RecordBatch
 from greptimedb_tpu_torch.datatypes.schema import Schema
 from greptimedb_tpu_torch.datatypes.vector import DictVector
@@ -67,6 +72,10 @@ class Wal:
         self.segment_bytes = segment_bytes
         self.sync_count = 0  # fsyncs issued
         self.bytes_written = 0
+        # replay: segments the native scan validated, and the frames it
+        # found intact in them
+        self.native_scans = 0
+        self.scanned_frames = 0
         os.makedirs(wal_dir, exist_ok=True)
         # region -> (segno, open append handle)
         self._files: dict[int, tuple[int, io.BufferedWriter]] = {}
@@ -161,19 +170,31 @@ class Wal:
                 data = f.read()
             view = memoryview(data)
             entries = []
-            pos = 0
-            valid_end = 0
-            while pos + _HEADER.size <= len(data):
-                plen, crc, rid, seq, op = _HEADER.unpack_from(data, pos)
-                body = pos + _HEADER.size
-                payload = view[body:body + plen]
-                if len(payload) != plen or zlib.crc32(payload) != crc:
-                    break  # torn tail
-                pos = body + plen
-                valid_end = pos
-                if seq >= from_seq:
-                    entries.append(WalEntry(rid, seq, op,
-                                            decode_batch(payload)))
+            lib = native.try_load()
+            if lib is not None:
+                # one native pass: bounds + checksum + record table
+                recs, valid_end = lib.wal_scan(data)
+                self.native_scans += 1
+                self.scanned_frames += len(recs)
+                for off, plen, rid, seq, op in recs:
+                    if seq >= from_seq:
+                        entries.append(WalEntry(
+                            rid, seq, op,
+                            decode_batch(view[off:off + plen])))
+            else:
+                pos = 0
+                valid_end = 0
+                while pos + _HEADER.size <= len(data):
+                    plen, crc, rid, seq, op = _HEADER.unpack_from(data, pos)
+                    body = pos + _HEADER.size
+                    payload = view[body:body + plen]
+                    if len(payload) != plen or zlib.crc32(payload) != crc:
+                        break  # torn tail
+                    pos = body + plen
+                    valid_end = pos
+                    if seq >= from_seq:
+                        entries.append(WalEntry(rid, seq, op,
+                                                decode_batch(payload)))
             if valid_end < len(data):
                 with open(path, "r+b") as f:
                     f.truncate(valid_end)

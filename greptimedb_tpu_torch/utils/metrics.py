@@ -250,6 +250,9 @@ HTTP_REQUESTS = REGISTRY.sharded_counter(
     "HTTP requests by path and status")
 QUERY_DURATION = REGISTRY.histogram("greptimedb_tpu_query_duration_seconds",
                                     "Query execution latency")
+INGEST_ROWS = REGISTRY.sharded_counter(
+    "greptimedb_tpu_ingest_rows_total",
+    "Rows ingested by protocol")
 STMT_DURATION = REGISTRY.histogram(
     "greptimedb_tpu_statement_duration_seconds",
     "Statement execution latency by statement kind")

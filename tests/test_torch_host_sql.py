@@ -353,7 +353,7 @@ def test_db_keyword_is_a_context_shorthand(pair):
 @pytest.mark.parametrize("sql,slice_name", [
     ("EXPLAIN ANALYZE SELECT count(*) FROM cpu", "servers and CLI"),
     ("TQL ANALYZE (0, 10, '5s') cpu", "servers and CLI"),
-    ("SHOW FLOWS", "servers and CLI"),
+    ("SHOW FLOWS", "flows, scripts, plugins and shm"),
     ("COPY cpu TO 'cpu.parquet'", "COPY import and export"),
 ], ids=["explain_analyze", "tql_analyze", "flows", "copy"])
 def test_later_slices_raise(pair, sql, slice_name):

@@ -60,7 +60,13 @@ def test_port_imports_no_jax_and_no_jax_package(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import greptimedb_tpu_torch.query, "
-            "greptimedb_tpu_torch.interop, greptimedb_tpu_torch.storage; "
+            "greptimedb_tpu_torch.interop, greptimedb_tpu_torch.storage, "
+            "greptimedb_tpu_torch.ingest, greptimedb_tpu_torch.native, "
+            "greptimedb_tpu_torch.servers.influx, "
+            "greptimedb_tpu_torch.servers.prom_store, "
+            "greptimedb_tpu_torch.servers.otlp, "
+            "greptimedb_tpu_torch.servers.opentsdb, "
+            "greptimedb_tpu_torch.servers.http; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'greptimedb_tpu', 'pyarrow')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -148,7 +154,7 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
     ("COPY cpu TO 'cpu.parquet'", "COPY import and export"),
     # SHOW TABLES runs on the port now (the host SQL surface); the case
     # keeps its id and checks a SHOW statement that stays outside
-    ("SHOW FLOWS", "servers and CLI"),
+    ("SHOW FLOWS", "flows, scripts, plugins and shm"),
     ("ADMIN rollup_table('cpu', '1m')", "maintenance plane"),
     # TQL EVAL runs on the port now; the case keeps its id and checks the
     # TQL statement that stays outside the slice
@@ -156,9 +162,23 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
     # joins run on the port now; the case keeps its id and checks a
     # runtime information_schema table, which stays outside
     ("SELECT * FROM information_schema.slow_queries", "servers and CLI"),
+    # ROADMAP C3: each refusal names its slice, after the JAX validation
+    ("CREATE TABLE p (a STRING, ts TIMESTAMP TIME INDEX, v DOUBLE, "
+     "PRIMARY KEY (a)) PARTITION ON COLUMNS (a) (a < 'm', a >= 'm')",
+     "mesh and cluster .ROADMAP A10."),
+    ("CREATE TABLE m (ts TIMESTAMP TIME INDEX, v DOUBLE) ENGINE = metric",
+     "maintenance plane, metric and file engines .ROADMAP A12-maint."),
+    ("CREATE EXTERNAL TABLE x (ts TIMESTAMP TIME INDEX, a STRING) WITH "
+     "(location = '/nonexistent/x.csv', format = 'csv')",
+     "maintenance plane, metric and file engines .ROADMAP A12-maint."),
+    ("ADMIN flush_flow('f')",
+     "flows, scripts, plugins and shm .ROADMAP A9-flows."),
+    ("ADMIN expire_table('cpu', '1d')", "maintenance plane"),
 ], ids=["COPY cpu TO 'cpu.parquet'", "SHOW TABLES",
         "ADMIN rollup_table('cpu', '1m')", "TQL EVAL (0, 10, '5s') up",
-        "SELECT a.u FROM cpu a JOIN cpu b ON a.ts = b.ts"])
+        "SELECT a.u FROM cpu a JOIN cpu b ON a.ts = b.ts",
+        "PARTITION ON", "ENGINE = metric", "CREATE EXTERNAL TABLE",
+        "ADMIN flush_flow", "ADMIN expire_table"])
 def test_statements_outside_the_slice_raise_typed_errors(sql, slice_name,
                                                          tmp_path):
     qe = _engine(tmp_path)
@@ -166,6 +186,77 @@ def test_statements_outside_the_slice_raise_typed_errors(sql, slice_name,
     with pytest.raises(UnsupportedStatement,
                        match=f"the {slice_name}.* brings"):
         qe.execute_one(sql)
+
+
+def _jax_engine(data_dir):
+    from greptimedb_tpu.catalog.catalog import Catalog as JCatalog
+    from greptimedb_tpu.catalog.kv import MemoryKv as JMemoryKv
+    from greptimedb_tpu.query.engine import QueryEngine as JQueryEngine
+    from greptimedb_tpu.storage.engine import EngineConfig as JConfig
+    from greptimedb_tpu.storage.engine import RegionEngine as JRegionEngine
+
+    jengine = JRegionEngine(JConfig(data_dir=str(data_dir),
+                                    maintenance_workers=0))
+    return jengine, JQueryEngine(JCatalog(JMemoryKv()), jengine)
+
+
+@pytest.mark.parametrize("sql", [
+    "ADMIN bogus('cpu')",
+    "CREATE EXTERNAL TABLE x (a STRING) WITH "
+    "(location = '/nonexistent/x.csv', format = 'csv')",
+    "CREATE TABLE p (a STRING, v DOUBLE) PARTITION ON COLUMNS (a) "
+    "(a < 'm', a >= 'm')",
+    "CREATE TABLE m (a STRING) ENGINE = metric",
+])
+def test_statements_the_jax_engine_refuses_raise_its_error(sql, tmp_path):
+    """Where the JAX engine's own validation refuses a statement, the
+    port raises the same error type and text (ROADMAP C3): the JAX
+    validation runs before the port's refusals."""
+    jengine, jqe = _jax_engine(tmp_path / "jax")
+    try:
+        errors = []
+        for qe in (jqe, _engine(tmp_path / "port")):
+            _cpu_table(qe, points=2)
+            with pytest.raises(Exception) as ei:
+                qe.execute_one(sql)
+            errors.append((type(ei.value).__name__, str(ei.value)))
+        assert errors[1] == errors[0]
+        assert errors[1][0] == "PlanError"
+    finally:
+        jengine.close()
+
+
+@pytest.mark.parametrize("fn", ["flush_region", "compact_region"])
+def test_region_flush_and_compaction_match_the_jax_engine(fn, tmp_path):
+    """ADMIN flush_region / compact_region run synchronously, as on a
+    JAX engine without a maintenance plane (ROADMAP C2): 0 affected rows,
+    the region's files change the same way, and the rows stay the JAX
+    rows."""
+    jengine, jqe = _jax_engine(tmp_path / "jax")
+    try:
+        outcomes = []
+        for qe, eng in ((jqe, jengine),
+                        (_engine(tmp_path / "port"), None)):
+            eng = eng or qe.region_engine
+            _cpu_table(qe, points=4)
+            info = qe.catalog.table("public", "cpu")
+            rid = info.region_ids[0]
+            qe.execute_one(f"ADMIN flush_region({rid})")
+            qe.execute_one("INSERT INTO cpu VALUES ('h0', 999000, 1.0, 2.0)")
+            if fn == "compact_region":
+                qe.execute_one(f"ADMIN flush_region({rid})")
+            r = qe.execute_one(f"ADMIN {fn}({rid})")
+            region = eng.region(rid)
+            rows = qe.execute_one("SELECT * FROM cpu ORDER BY host, ts")
+            outcomes.append((r.affected_rows, len(region.files),
+                             region.memtable.num_rows, list(rows.names), [
+                [v.item() if isinstance(v, np.generic) else v for v in row]
+                for row in rows.rows()]))
+        assert outcomes[1] == outcomes[0]
+        assert outcomes[1][0] == 0
+        assert outcomes[1][1] == (1 if fn == "compact_region" else 2)
+    finally:
+        jengine.close()
 
 
 # statements a case needs to have run first, on both engines
@@ -195,6 +286,8 @@ _SETUP = {"USE db2": "CREATE DATABASE db2",
     "DROP VIEW v",
     "SHOW VIEWS",
     "EXPLAIN SELECT count(*) FROM cpu",
+    # an engine name neither engine knows makes a plain table on both
+    "CREATE TABLE e (ts TIMESTAMP TIME INDEX, v DOUBLE) ENGINE = mito2",
 ])
 def test_host_sql_surface_matches_the_jax_engine(sql, tmp_path):
     """Each statement of the host SQL surface gives the JAX engine's

@@ -40,11 +40,14 @@ CASES = sorted(
                                "order/order_with_window.sql")])
 
 # (case, first 60 characters of the statement) -> the UnsupportedStatement
-# text the port raises: statements of a later slice of the port
+# text the port raises: statements of a later slice of the port (or, for
+# a statement that reads what a refused one would have written, the
+# port's whole outcome as `_outcome` gives it)
 LATER = {
     ("show/show_full_surface", "SHOW FLOWS"):
         "ShowFlows is not in this slice of greptimedb_tpu_torch; the "
-        "servers and CLI slice brings it",
+        "flows, scripts, plugins and shm (ROADMAP A9-flows) slice brings "
+        "it",
 }
 
 
@@ -105,6 +108,15 @@ def _same(jout, tout, where):
 @pytest.mark.parametrize(
     "case", CASES, ids=[str(c.relative_to(CASES_DIR))[:-4] for c in CASES])
 def test_sqlness_case_matches_the_jax_engine(case, tmp_path):
+    replay_case(case, tmp_path, LATER)
+
+
+def replay_case(case, tmp_path, later, rewrite=None) -> None:
+    """Replay one case file through both engines (`later`: the port's
+    refusals, as LATER above; `rewrite`, when given, edits each
+    statement before it runs, its LATER key staying the file's text);
+    tests/test_torch_sqlness_rest.py replays the other case files
+    through it."""
     name = str(case.relative_to(CASES_DIR))[:-4]
     jengine = JRegionEngine(JConfig(data_dir=str(tmp_path / "jax"),
                                     maintenance_workers=0))
@@ -119,15 +131,19 @@ def test_sqlness_case_matches_the_jax_engine(case, tmp_path):
             code = " ".join(ln for ln in stmt.splitlines()
                             if ln.strip() and not ln.strip().startswith("--"))
             key = (name, code[:60])
+            if rewrite is not None:
+                stmt = rewrite(stmt)
             tout = _outcome(tqe, stmt, tctx)
-            if key in LATER:
+            if key in later:
                 later_seen.add(key)
-                assert tout == ("error", UnsupportedStatement.__name__,
-                                LATER[key]), (key, tout)
+                want = later[key]
+                if isinstance(want, str):
+                    want = ("error", UnsupportedStatement.__name__, want)
+                assert tout == want, (key, tout)
                 continue
             _same(_outcome(jqe, stmt, jctx), tout, f"{name}: {code}")
             assert (tctx.db, tctx.timezone) == (jctx.db, jctx.timezone), code
     finally:
         jengine.close()
         tengine.close()
-    assert later_seen == {k for k in LATER if k[0] == name}
+    assert later_seen == {k for k in later if k[0] == name}
