@@ -21,8 +21,10 @@ greptimedb_tpu_torch/_build/. Phases:
    shapes (the label aggregation, [10,000 x 241] into G+1 = 2, and the
    window buckets, [17,280,000 x 1] into 4,000 x 157 + 1 with max), at
    the RANGE query's ([12 x 17,280,000 x 2] f64 slot-replicated rows into
-   4,096 x 256 + 1 with min and max) and at lastpoint's boundary subsets
-   ([524,288 x 10] and [8,192 x 10] f32 into 4,002). K1 also
+   4,096 x 256 + 1 with min and max), at lastpoint's boundary subsets
+   ([524,288 x 10] and [8,192 x 10] f32 into 4,002) and at a rollup job's
+   planes ([17,280,000 x 10] f64 into 4,000 x 720 + 1 with min and max,
+   one segment a run of 6 rows, bound reckoned by bytes). K1 also
    runs cases that reach each branch of its windowed design (host-major
    ids, frequent window re-bases, column groups, tiny and ragged n, all
    rows dead, G = 2), logs the plan it launched and its device counters,
@@ -133,7 +135,7 @@ greptimedb_tpu_torch/_build/. Phases:
      (line-protocol writers of 5,000-line ingestq bodies, one SQL INSERT
      writer of 500 rows at 0.1 s, two readers of the warm `cpu`
      per-minute max, 12 s; every request's keys unique, so count(*) must
-     equal the rows acknowledged; writes serial until group commit);
+     equal the rows acknowledged; group commit on, no write workers);
      the hour's usage_user as 4,000 series over Prometheus remote write
      (WriteRequests of 2,000 samples, cut only if the phase would pass
      its 120 s budget), max_over_time(cpu_usage_user[1h]) at 5 min and
@@ -207,13 +209,33 @@ greptimedb_tpu_torch/_build/. Phases:
    disk or the run's time limit forces it. The kernel phase times K1 at
    this query's block shape too ([2 Mi x 21] f32, host-major ids over
    G + 1 = 280,071).
-6. A `kernels` JSON line (with each kernel's launches on every path, the
+6. The write plane (f), after the stream phase, on the main path's data
+   dir (closed after its compaction, kept for this): engines built from
+   `standalone start`'s default options (cpu/2 write workers, group
+   commit with overlap, one maintenance worker). bench.py's ingest_qps
+   (as in (e), into fresh tables) once with those defaults and once
+   with `ingest.group_commit = false`, each with rows/s, line-protocol
+   and SQL ack p50 / p99, read p50, WAL fsyncs, group-commit events,
+   rows a commit, maintenance jobs and stalled seconds; 0 errors and
+   count(*) equal to the rows acknowledged; no plane thread outlives
+   close(). Then ADMIN rollup_table('cpu', '1m') on the 17.28 M-row
+   table: one job, exactly one K2 launch and no K1, its device profile
+   and host ms by stage, and every plane row against numpy (min, max,
+   counts exactly, sums to 1e-12). Then bench.py's coarse rollup query
+   (min, max, sum, count(*) by host and 5-minute bin) and
+   double_groupby_all, each substituted (`+rollup`) and raw
+   (GTPU_ROLLUP_SUBSTITUTE=0), cold with launches and warm p50, against
+   numpy and each other. Then ADMIN expire_table on a two-SST table
+   (one ten days old): exactly the old SST goes, count(*) follows.
+7. A `kernels` JSON line (with each kernel's launches on every path, the
    PromQL queries', the streamed query's, the RANGE queries', the host
-   SQL statements', the five served traffics', the wire phase's and
-   the write protocols' included,
+   SQL statements', the five served traffics', the wire phase's, the
+   write protocols' and the write plane's included (the two ingest_qps
+   runs, the rollup job, the substituted and raw queries),
    lastpoint's by state, K1's time at the stream's shape and K2's at the
-   sparse route's, PromQL's, RANGE's, lastpoint's and the vmapped
-   batch's shapes), the card line, and the result line.
+   sparse route's, PromQL's, RANGE's, lastpoint's, the vmapped
+   batch's and the rollup job's shapes), the card line, and the result
+   line.
 
 Exits non-zero, and prints no result line, when CUDA is unavailable, the
 port is not beside this script, or any check fails.
@@ -244,6 +266,9 @@ STEP_S = 10
 # the whole scan padded as ops/blocks.py::block_size_for pads it (the
 # ingest's rows, 1M-row buckets past 1M)
 SPARSE_U = HOSTS * HOURS * 60
+#: plane rows of ADMIN rollup_table('cpu', '1m') over the whole table:
+#: one a host and minute (the bucket of the newest row stays raw)
+ROLLUP_GROUPS = HOSTS * HOURS * 60
 SPARSE_PAD_ROWS = -(-HOSTS * HOURS * 3600 // STEP_S // (1 << 20)) * (1 << 20)
 #: the memtable tail the ingest leaves (9 puts of 524 points a host, an
 #: auto-flush every two): the last put's 128 points a host
@@ -821,6 +846,12 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
         (None, 10, None, None, LASTPOINT_TAIL_ROWS, 0.0, f32, none,
          "lastpoint"),
         (None, 10, None, None, 0, 0.0, f32, none, "lastpoint"),
+        # a rollup job's planes (maintenance/rollup.py, ADMIN
+        # rollup_table('cpu', '1m')): the deduplicated rows in (hostname,
+        # ts) order, the 10 fields in f64, one segment a (host, minute)
+        # run of 6 rows, G+1 = HOSTS x 720 + 1, min and max
+        (HOSTS * POINTS, 10, ROLLUP_GROUPS + 1, ROLLUP_GROUPS,
+         60 // STEP_S, 0.0, f64, mm, "rollup"),
     ]
     branches = set()  # (dtype, F > 1, privatized) of the cases run
     for idx, (n, f, g, nb, run, dead, dtype, want, kind) in enumerate(cases):
@@ -828,7 +859,7 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
             ids = torch.randint(0, nb, (n,), generator=gen, device=dev,
                                 dtype=torch.int32)
             ids[torch.rand(n, generator=gen, device=dev) < dead] = nb
-        elif kind == "compact":  # sorted; the padding rows dead at the end
+        elif kind in ("compact", "rollup"):  # sorted; padding rows dead
             ids = torch.clamp(torch.arange(n, device=dev) // run,
                               max=nb).to(torch.int32)
         elif kind == "prom_buckets":
@@ -853,10 +884,10 @@ def k2_phase(sk, lib, torch, gen, dev) -> dict:
     # every instance of the kernel ran: f32 and f64, F = 1 and F > 1,
     # privatized and global
     check(len(branches) == 8, f"K2 branches run: {sorted(map(str, branches))}")
-    return {"cases": k2, "headline": k2[3], "sparse": k2[-4],
-            "promql_label": k2[-6], "promql_buckets": k2[-5],
-            "range": k2[-3], "lastpoint_ingest": k2[-2],
-            "lastpoint_flushed": k2[-1]}
+    return {"cases": k2, "headline": k2[3], "sparse": k2[-5],
+            "promql_label": k2[-7], "promql_buckets": k2[-6],
+            "range": k2[-4], "lastpoint_ingest": k2[-3],
+            "lastpoint_flushed": k2[-2], "rollup": k2[-1]}
 
 
 def kernel_phase(sk, lib, torch) -> dict:
@@ -993,7 +1024,10 @@ FLUSH_THRESHOLD_BYTES = 256 << 20
 
 def open_engine(root):
     """A disk-backed engine (WAL fsynced at every put) and a query engine
-    over a catalog persisted beside it, both on DEVICE."""
+    over a catalog persisted beside it, both on DEVICE. The maintenance
+    plane is off (maintenance_workers=0): flushes and compactions run in
+    the caller, so the phases before the write plane's keep their SST
+    layouts and their synchronous ADMIN statements."""
     from greptimedb_tpu_torch.catalog import Catalog, FileKv
     from greptimedb_tpu_torch.query import QueryEngine
     from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
@@ -1001,7 +1035,8 @@ def open_engine(root):
     engine = RegionEngine(EngineConfig(
         data_dir=os.path.join(root, "data"), wal_sync=True,
         flush_threshold_bytes=FLUSH_THRESHOLD_BYTES,
-        scan_part_cache_bytes=PART_CACHE_BYTES), device=DEVICE)
+        scan_part_cache_bytes=PART_CACHE_BYTES, maintenance_workers=0),
+        device=DEVICE)
     qe = QueryEngine(Catalog(FileKv(os.path.join(root, "catalog.json"))),
                      engine, device=DEVICE)
     return engine, qe
@@ -1359,6 +1394,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
     full_multi = block_size_for(HOSTS * (HOURS * 3600 // STEP_S + 1)) \
         > DEFAULT_BLOCK_ROWS
     root = tempfile.mkdtemp(prefix="chip_smoke_")
+    kept = False
     try:
         du = shutil.disk_usage(root)
         log(f"disk at {root}: total {du.total}, free {du.free} bytes")
@@ -1474,13 +1510,18 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         cached["compacted"] = run_cached_queries(
             qe, sk, torch, grid, "compacted", {}, region, full_multi)
         engine.close()
+        kept = True
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(root, ignore_errors=True)
+    # the closed data dir and the oracle's arrays stay for the write
+    # plane's phase (f), which runs last; main() removes the dir
     return {"launches": main["launches"], "queries": main["queries"],
             "reopened": reopened, "compacted": compacted, "sparse": sparse,
             "cached": cached, "host_aggs": host_aggs,
             "promql_cpu": promql_cpu, "range": ranges, "host_sql": host_sql,
-            "serving": serving, "wire": wire, "writes": writes}
+            "serving": serving, "wire": wire, "writes": writes,
+            "root": root, "grid": grid}
 
 
 # ---- RANGE ... ALIGN on the `cpu` table --------------------------------------
@@ -4261,7 +4302,7 @@ def cpu_lp_phase(qe, sk, torch, grid, host_names, port) -> dict:
     return out
 
 
-def ingestq_template(w: int, rng) -> str:
+def ingestq_template(w: int, rng, table: str = "ingestq") -> str:
     """bench.py's ingest_qps body (ingestq, 5 fields, 200 hosts, 5,000
     lines) with its timestamps as an 8-digit request slot and a 4-digit
     line number: `.replace(" 99999999", f" {slot:08d}")` makes a body
@@ -4269,20 +4310,42 @@ def ingestq_template(w: int, rng) -> str:
     vals = rng.uniform(0.0, 100.0, (LP_BODY_LINES, len(INGESTQ_FIELDS)))
     hosts = rng.integers(0, INGESTQ_HOSTS, LP_BODY_LINES)
     return "\n".join(
-        f"ingestq,hostname=host_{int(h)} "
+        f"{table},hostname=host_{int(h)} "
         + ",".join(f"{f}={v:.3f}" for f, v in zip(INGESTQ_FIELDS, row))
         + f" 99999999{j:04d}"
         for j, (h, row) in enumerate(zip(hosts, vals)))
 
 
-def ingest_qps_phase(qe, sk, torch) -> dict:
-    """Part 3: bench.py's ingest_qps in process: line-protocol writers
+def write_plane_counters(engine) -> dict:
+    """The write plane's counters, to difference around a run: WAL
+    fsyncs, group-commit events, rows a commit (the batch histogram's sum
+    and count), maintenance jobs and stalled seconds."""
+    from greptimedb_tpu_torch.utils.metrics import (
+        INGEST_BATCH_SIZE,
+        INGEST_GROUP_COMMIT_EVENTS,
+        MAINTENANCE_JOBS,
+        WRITE_STALL_SECONDS,
+    )
+
+    out = {"wal_fsyncs": engine.wal.sync_count,
+           "commit_rows": INGEST_BATCH_SIZE.total_sum(),
+           "commits": INGEST_BATCH_SIZE.total_count(),
+           "maintenance_jobs": MAINTENANCE_JOBS.total(),
+           "stall_s": WRITE_STALL_SECONDS.total()}
+    for ev in ("lead", "follow", "overflow", "deadline"):
+        out[ev] = INGEST_GROUP_COMMIT_EVENTS.total(event=ev)
+    return out
+
+
+def ingest_qps_phase(qe, sk, torch, table: str = "ingestq") -> dict:
+    """bench.py's ingest_qps in process: line-protocol writers
     (bench.py's writer count for this machine, less the SQL writer) of
-    5,000-line ingestq bodies, one SQL INSERT writer of 500 rows paced at
-    0.1 s, two readers of the warm `cpu` per-minute max query, for
-    INGESTQ_SECONDS. Every request writes keys no other writes, so
-    count(*) must equal the rows acknowledged. Writes are serial: one
-    WAL append and fsync each, no group commit until ROADMAP A12-write."""
+    5,000-line bodies into `table`, one SQL INSERT writer of 500 rows
+    paced at 0.1 s, two readers of the warm `cpu` per-minute max query,
+    for INGESTQ_SECONDS. Every request writes keys no other writes, so
+    count(*) must equal the rows acknowledged. The engine's write plane
+    decides how writes commit (group commit, write workers, the
+    maintenance plane's async flushes): its counters are printed."""
     import threading
 
     from greptimedb_tpu_torch.servers.influx import write_lines
@@ -4290,7 +4353,7 @@ def ingest_qps_phase(qe, sk, torch) -> dict:
     rng = np.random.default_rng(23)
     writers = max(5, min(12, 2 * (os.cpu_count() or 4) + 1))
     lp_writers = writers - 1
-    templates = [ingestq_template(w, rng) for w in range(lp_writers)]
+    templates = [ingestq_template(w, rng, table) for w in range(lp_writers)]
     n_sql = int(INGESTQ_SECONDS / INGESTQ_SQL_PACE_S) + 10
     sql_pool = []
     for i in range(n_sql):
@@ -4299,7 +4362,7 @@ def ingest_qps_phase(qe, sk, torch) -> dict:
                                          len(INGESTQ_FIELDS)))
         hosts = rng.integers(0, INGESTQ_HOSTS, INGESTQ_SQL_ROWS)
         sql_pool.append(
-            f"INSERT INTO ingestq (hostname, ts, "
+            f"INSERT INTO {table} (hostname, ts, "
             f"{', '.join(INGESTQ_FIELDS)}) VALUES " + ", ".join(
                 f"('host_{int(h)}', {t0 + j}, "
                 + ", ".join(f"{v:.3f}" for v in row) + ")"
@@ -4369,7 +4432,7 @@ def ingest_qps_phase(qe, sk, torch) -> dict:
                + [threading.Thread(target=sql_writer)]
                + [threading.Thread(target=reader, args=(r,))
                   for r in range(2)])
-    syncs0 = qe.region_engine.wal.sync_count
+    plane0 = write_plane_counters(qe.region_engine)
     k0 = launches(sk)
     t_start = time.perf_counter()
     for th in threads:
@@ -4382,24 +4445,35 @@ def ingest_qps_phase(qe, sk, torch) -> dict:
     k = np.subtract(launches(sk), k0)
     reads = sum(len(r) for r in read_lat)
     acked = sum(rows_done)
-    count = qe.execute_one("SELECT count(*) FROM ingestq").rows()[0][0]
+    plane = {k: v - plane0[k] for k, v in
+             write_plane_counters(qe.region_engine).items()}
+    count = qe.execute_one(f"SELECT count(*) FROM {table}").rows()[0][0]
     lp_all = np.asarray([x for ls in lp_lat for x in ls]) * 1e3
     reads_ms = np.asarray([x for ls in read_lat for x in ls]) * 1e3
     out = {"rows_per_s": acked / wall, "wall_s": wall,
            "writers": {"line_protocol": lp_writers, "sql_insert": 1},
            "rows_acknowledged": acked, "count_read_back": count - LP_BODY_LINES,
            "lp_requests": int(lp_all.size),
+           "lp_p50_ack_ms": float(np.percentile(lp_all, 50)),
            "lp_p99_ack_ms": float(np.percentile(lp_all, 99)),
            "sql_statements": len(sql_lat),
+           "sql_p50_ack_ms": float(np.percentile(sql_lat, 50) * 1e3),
            "sql_p99_ack_ms": float(np.percentile(sql_lat, 99) * 1e3),
-           "wal_fsyncs": qe.region_engine.wal.sync_count - syncs0,
+           "wal_fsyncs": plane["wal_fsyncs"],
+           "group_commit": {ev: plane[ev] for ev in
+                            ("lead", "follow", "overflow", "deadline")},
+           "rows_a_commit": plane["commit_rows"] / plane["commits"]
+           if plane["commits"] else None,
+           "maintenance_jobs": plane["maintenance_jobs"],
+           "stall_s": plane["stall_s"],
            "read_p50_idle_ms": float(np.median(idle)),
            "read_p50_loaded_ms": float(np.median(reads_ms)),
            "reads": reads, "k1_launches": int(k[0]),
            "k2_launches": int(k[1]), "errors": len(errors),
-           "writes": "serial: one WAL append and fsync a request, no group "
-                     "commit (ROADMAP A12-write)"}
-    log("write protocols: ingest_qps: " + json.dumps(out))
+           "engine": {k: getattr(qe.region_engine.config, k) for k in (
+               "write_workers", "ingest_group_commit", "ingest_overlap",
+               "maintenance_workers")}}
+    log(f"ingest_qps ({table}): " + json.dumps(out))
     check(not errors, f"ingest_qps: {len(errors)} errors, first {errors[:1]}")
     check(count == acked + LP_BODY_LINES,
           f"ingest_qps: count(*) {count}, acknowledged {acked} + "
@@ -4856,6 +4930,303 @@ def write_protocols_phase(qe, sk, torch, grid, host_names) -> dict:
     return out
 
 
+# ---- (f) the write plane: group commit, the maintenance plane, rollups ----
+
+#: rows of each of the retention table's two SSTs
+TTL_ROWS = 1000
+
+
+def defaults_engine(root, **overrides):
+    """The engine `standalone start` builds from its default options
+    (cpu/2 write workers, group commit with overlap, one maintenance
+    worker) over the main path's data dir, on DEVICE. `overrides` maps
+    option paths to values ("ingest.group_commit": False); the decoded
+    part cache keeps the main path's budget."""
+    from greptimedb_tpu_torch import options
+    from greptimedb_tpu_torch.catalog import Catalog, FileKv
+    from greptimedb_tpu_torch.query import QueryEngine
+    from greptimedb_tpu_torch.storage import RegionEngine
+
+    opts = options.StandaloneOptions()
+    opts.scan.part_cache_bytes = PART_CACHE_BYTES
+    for path, value in overrides.items():
+        section, key = path.split(".")
+        setattr(getattr(opts, section), key, value)
+    options.check_port_support(opts)
+    engine = RegionEngine(options.engine_config(
+        opts, os.path.join(root, "data")), device=DEVICE)
+    qe = QueryEngine(Catalog(FileKv(os.path.join(root, "catalog.json"))),
+                     engine, device=DEVICE)
+    return engine, qe
+
+
+def plane_threads() -> list:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate()
+                  if t.name.startswith(("gtpu-maint", "gtpu-write-worker")))
+
+
+def write_plane_ingest(root, sk, torch, table, **overrides) -> dict:
+    """bench.py's ingest_qps (ingest_qps_phase) on an engine with
+    standalone's default options plus `overrides`, the JAX defaults of
+    the concurrency plane, the partial cache off; then the maintenance
+    plane drains and the engine closes, joining every plane thread."""
+    engine, qe = defaults_engine(root, **overrides)
+    try:
+        check(engine.workers is not None and engine.maintenance is not None,
+              "write plane: standalone's defaults built no write workers "
+              "or no maintenance plane")
+        with defaults_plane(qe), partial_cache(False):
+            out = ingest_qps_phase(qe, sk, torch, table)
+        t = time.perf_counter()
+        check(engine.maintenance.wait_idle(timeout=300),
+              f"write plane ({table}): the maintenance plane did not drain")
+        jobs = [j.to_dict() for j in engine.maintenance.jobs()]
+        out["jobs"] = [{k: j[k] for k in ("kind", "state", "duration_ms")}
+                       for j in jobs]
+        out["drain_s"] = time.perf_counter() - t
+        check(all(j["state"] == "done" for j in jobs),
+              f"write plane ({table}): a maintenance job failed: {jobs}")
+    finally:
+        engine.close()
+    check(not plane_threads(),
+          f"write plane: threads outlived close(): {plane_threads()}")
+    log(f"write plane ingest ({table}, {overrides or 'defaults'}): "
+        + json.dumps({k: out[k] for k in ("jobs", "drain_s")}))
+    return out
+
+
+def coarse_sql() -> str:
+    """bench.py's rollup query (bench.py:985) over `cpu`: min, max, sum
+    and count(*) of usage_user by host and 5-minute bin, over the rolled
+    hours."""
+    t_end = T0_MS + HOURS * 3600 * 1000
+    return ("SELECT hostname, date_bin(INTERVAL '5 minutes', ts) AS b, "
+            "min(usage_user), max(usage_user), sum(usage_user), count(*) "
+            f"FROM cpu WHERE ts >= {T0_MS} AND ts < {t_end} "
+            "GROUP BY hostname, b ORDER BY hostname, b")
+
+
+def check_coarse(res, grid, what) -> None:
+    """The coarse query against numpy over the first HOURS of points:
+    keys, min and max exactly (as float32 computes them), count exactly,
+    sums to rtol 1e-5 (float32 accumulation)."""
+    order = np.argsort(np.asarray([f"host_{i}" for i in range(HOSTS)]),
+                       kind="stable")
+    bins = HOURS * 12
+    window = grid["usage_user"][:HOURS * 3600 // STEP_S]
+    v = window.reshape(bins, 300 // STEP_S, HOSTS)[:, :, order]
+    cols = {n: np.asarray(c) for n, c in zip(res.names, res.columns)}
+    check(res.num_rows == HOSTS * bins, f"{what}: {res.num_rows} rows")
+    check(np.array_equal(host_index(cols["hostname"]),
+                         np.repeat(order, bins)), f"{what}: hostname keys")
+    check(np.array_equal(cols["b"], np.tile(
+        T0_MS + np.arange(bins) * 300_000, HOSTS)), f"{what}: bin keys")
+    for name, want in (("min(usage_user)", v.min(axis=1)),
+                       ("max(usage_user)", v.max(axis=1))):
+        check(np.array_equal(cols[name].astype(np.float64),
+                             f32_exact(want.T.reshape(-1))),
+              f"{what}: {name}")
+    check(np.all(cols["count(*)"] == 300 // STEP_S), f"{what}: count(*)")
+    want = v.sum(axis=1).T.reshape(-1)
+    got = cols["sum(usage_user)"].astype(np.float64)
+    check(np.allclose(got, want, rtol=1e-5, atol=0),
+          f"{what}: sum, max rel err "
+          f"{np.max(np.abs(got - want) / np.abs(want))}")
+
+
+def rows_agree(a, b, what) -> None:
+    """Two results of one statement (the raw route, the substituted one):
+    the same names and keys, equal counts, extremes and values to rtol
+    1e-5 (both compute in float32 on the card)."""
+    check(a.names == b.names and a.num_rows == b.num_rows,
+          f"{what}: {a.names} x {a.num_rows} vs {b.names} x {b.num_rows}")
+    for name, x, y in zip(a.names, a.columns, b.columns):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype == object or np.issubdtype(x.dtype, np.integer):
+            check(np.array_equal(x, y), f"{what}: {name}")
+        elif name.startswith(("min(", "max(")):
+            check(np.array_equal(x.astype(np.float32), y.astype(np.float32)),
+                  f"{what}: {name}")
+        else:
+            check(np.allclose(x, y, rtol=1e-5, atol=0), f"{what}: {name}")
+
+
+def check_planes(engine, rid, rrid, grid) -> dict:
+    """The companion region's plane rows against numpy over the rolled
+    minutes: f__min, f__max exactly, f__count and rows__count exactly,
+    f__sum to rtol 1e-12 (K2 sums float64 in another order)."""
+    scan = engine.scan(rrid)
+    minutes = HOURS * 60
+    check(scan is not None and scan.num_rows == HOSTS * minutes,
+          f"rollup: {0 if scan is None else scan.num_rows} plane rows")
+    host = host_index(scan.tag_dicts["hostname"][scan.columns["hostname"]])
+    minute = (scan.columns["ts"].astype(np.int64) - T0_MS) // 60_000
+    check(minute.min() == 0 and minute.max() == minutes - 1,
+          "rollup: plane minutes")
+    at = minute * HOSTS + host
+    check(np.array_equal(np.sort(at), np.arange(HOSTS * minutes)),
+          "rollup: one plane row a host and minute")
+    order = np.argsort(at)
+    check(np.all(scan.columns["rows__count"][order] == 60 // STEP_S),
+          "rollup: rows__count")
+    worst = 0.0
+    for f in FIELDS:
+        v = grid[f][:minutes * 60 // STEP_S].reshape(minutes, -1, HOSTS)
+        for plane, want in (("min", v.min(axis=1)), ("max", v.max(axis=1))):
+            check(np.array_equal(scan.columns[f"{f}__{plane}"][order],
+                                 want.reshape(-1)), f"rollup: {f}__{plane}")
+        check(np.all(scan.columns[f"{f}__count"][order] == 60 // STEP_S),
+              f"rollup: {f}__count")
+        want = v.sum(axis=1).reshape(-1)
+        got = scan.columns[f"{f}__sum"][order]
+        err = float(np.max(np.abs(got - want) / np.abs(want)))
+        check(err <= 1e-12, f"rollup: {f}__sum rel err {err}")
+        worst = max(worst, err)
+    return {"plane_rows": scan.num_rows, "sum_max_rel_err": worst}
+
+
+def substitution_runs(qe, sk, torch, grid, name, sql) -> dict:
+    """`sql` through the rollup planes and through the raw route
+    (GTPU_ROLLUP_SUBSTITUTE=0): cold with each route's kernel launches,
+    warm p50 of 5, every value against numpy and the routes against each
+    other."""
+    out = {}
+    results = {}
+    for route, flag in (("substituted", "1"), ("raw", "0")):
+        with env_value("GTPU_ROLLUP_SUBSTITUTE", flag), \
+                partial_cache(False):
+            k0 = launches(sk)
+            res, cold = timed_query(qe, sql, torch)
+            k = np.subtract(launches(sk), k0)
+            path = qe.executor.last_path or ""
+            warm = [timed_query(qe, sql, torch)[1] for _ in range(5)]
+            host = host_breakdown(lambda: qe.execute_one(sql), top=6)
+        check(("+rollup" in path) == (route == "substituted"),
+              f"{name} {route}: last_path {path!r}")
+        check(int(k[0]) + int(k[1]) > 0,
+              f"{name} {route}: no kernel was launched")
+        if name == "double_groupby_all":
+            check_result(name, res, grid)
+        else:
+            check_coarse(res, grid, f"{name} {route}")
+        results[route] = res
+        out[route] = {"last_path": path, "cold_ms": cold,
+                      "warm_p50_ms": float(np.median(warm)),
+                      "k1_launches": int(k[0]), "k2_launches": int(k[1]),
+                      "host": host}
+    rows_agree(results["substituted"], results["raw"], f"{name} routes")
+    log(f"rollup substitution {name}: " + json.dumps(out))
+    return out
+
+
+def rollup_phase(root, sk, torch, grid) -> dict:
+    """ADMIN rollup_table('cpu', '1m') on the 17.28 M-row `cpu` table
+    after its compaction: one job, one K2 launch, the planes against
+    numpy; then the two substituted queries; then retention on a small
+    TTL table."""
+    from greptimedb_tpu_torch.maintenance.rollup import (
+        rollup_region_id,
+        rule_slot,
+    )
+
+    engine, qe = defaults_engine(root)
+    try:
+        info = qe.catalog.table("public", "cpu")
+        rid = info.region_ids[0]
+        maint = engine.maintenance
+        zero_launches(sk)
+        r = qe.execute_one("ADMIN rollup_table('cpu', '1m')")
+        job_id = int(r.rows()[0][0])
+        if DEVICE == "cpu":  # a CPU rehearsal: no CUPTI to read
+            maint.wait(job_id, timeout=900)
+            prof = {"top": []}
+        else:
+            prof = device_breakdown(
+                lambda: maint.wait(job_id, timeout=900), torch)
+        job = maint.job(job_id)
+        k = launches(sk)
+        check(job.state == "done", f"rollup job: {job.state} {job.error}")
+        check(k == (0, 1), f"rollup job launched K1 {k[0]}, K2 {k[1]} "
+              "times: one K2 call a job")
+        k2_ms = sum(v for n, v in prof["top"] if "fused_" in n)
+        rollup = {"job_ms": job.duration_ms, "detail": job.detail,
+                  "k1_launches": k[0], "k2_launches": k[1],
+                  "k2_device_ms": k2_ms, "profile": prof}
+        rrid = rollup_region_id(rid, rule_slot(60_000))
+        rollup.update(check_planes(engine, rid, rrid, grid))
+        check(job.detail["rows_out"] == rollup["plane_rows"],
+              f"rollup: rows_out {job.detail['rows_out']}")
+        log("rollup (cpu, 1m): " + json.dumps(rollup))
+        subs = {"coarse": substitution_runs(qe, sk, torch, grid, "coarse",
+                                            coarse_sql()),
+                "double_groupby_all": substitution_runs(
+                    qe, sk, torch, grid, "double_groupby_all",
+                    tsbs_queries()["double_groupby_all"][0])}
+        retention = retention_phase(qe, engine)
+    finally:
+        engine.close()
+    check(not plane_threads(),
+          f"write plane: threads outlived close(): {plane_threads()}")
+    return {"rollup": rollup, "substitution": subs, "retention": retention}
+
+
+def retention_phase(qe, engine) -> dict:
+    """ADMIN expire_table on a small table of two SSTs, one ten days old:
+    the old SST goes whole, the new one stays whole, count(*) follows."""
+    maint = engine.maintenance
+
+    def run(sql):
+        r = qe.execute_one(sql)
+        jobs = [maint.wait(int(row[0]), timeout=60) for row in r.rows()]
+        check(all(j.state == "done" for j in jobs),
+              f"{sql}: {[j.error for j in jobs]}")
+        return jobs
+
+    qe.execute_one("CREATE TABLE ttl_t (host STRING, v DOUBLE, "
+                   "ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host))")
+    now = int(time.time() * 1000)
+    for t0 in (now - 10 * 86_400_000, now - TTL_ROWS):
+        qe.execute_one("INSERT INTO ttl_t (host, v, ts) VALUES " + ", ".join(
+            f"('h{i % 7}', {i}.5, {t0 + i})" for i in range(TTL_ROWS)))
+        run("ADMIN flush_table('ttl_t')")
+    region = engine.region(qe.catalog.table("public",
+                                            "ttl_t").region_ids[0])
+    files = sorted(region.files.values(), key=lambda m: m.ts_max)
+    check(len(files) == 2, f"retention: {len(files)} SSTs before expiry")
+    (job,) = run("ADMIN expire_table('ttl_t', '7d')")
+    count = qe.execute_one("SELECT count(*) FROM ttl_t").rows()[0][0]
+    out = {"removed": job.detail["removed"], "ssts_left": len(region.files),
+           "count": count, "job_ms": job.duration_ms}
+    log("retention (ttl_t, 7d): " + json.dumps(out))
+    check(out["removed"] == 1 and set(region.files) == {files[1].file_id}
+          and count == TTL_ROWS,
+          "retention: expiry did not drop exactly the old SST whole")
+    return out
+
+
+def write_plane_phase(root, sk, torch, grid) -> dict:
+    """(f) the write plane on the main path's data dir, after the other
+    phases: bench.py's ingest_qps with standalone's defaults and again
+    with ingest.group_commit = false, then the rollup, substitution and
+    retention of rollup_phase."""
+    t_phase = time.perf_counter()
+    out = {"ingest_defaults": write_plane_ingest(
+               root, sk, torch, "ingestq_gc"),
+           "ingest_serial": write_plane_ingest(
+               root, sk, torch, "ingestq_serial",
+               **{"ingest.group_commit": False})}
+    d, s = out["ingest_defaults"], out["ingest_serial"]
+    check(d["group_commit"]["lead"] > 0 and s["group_commit"]["lead"] == 0,
+          "write plane: group commit events "
+          f"{d['group_commit']} / {s['group_commit']}")
+    out.update(rollup_phase(root, sk, torch, grid))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"write plane: phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def standalone_options_phase(root, answers) -> dict:
     """(d) `standalone start -c <toml>` over the closed cpu_1h dir, with
     MySQL, Postgres and one static user enabled and the JAX defaults of
@@ -5024,18 +5395,35 @@ def main() -> int:
     # JAX defaults (defaults_plane, standalone_options_phase)
     for k, v in LANE_OFF.items():
         os.environ.setdefault(k, v)
+    import shutil
+
+    def elapsed(what):
+        log(f"[{time.perf_counter() - T_START:.1f} s] {what}")
+
+    main = {}
     try:
         kres = kernel_phase(sk, lib, torch)
+        elapsed("kernel phase done")
         main = main_path_phase(sk, torch, lib)
+        elapsed("main path done")
         serving = serving_phase(sk, torch, lib)
         hc = hc_phase(sk, torch)
         with partial_cache(False):
             dedup_phase(torch)
         prom = promql_phase(sk, torch)
+        elapsed("serving, hc, dedup and PromQL done")
         stream = stream_phase(sk, torch, lib)
+        elapsed("stream done")
+        # (f) last: its ingest and rollup must not push the stream's
+        # ingest past its deadline
+        plane = write_plane_phase(main["root"], sk, torch, main["grid"])
+        elapsed("write plane done")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if main.get("root"):
+            shutil.rmtree(main["root"], ignore_errors=True)
     by_path = {"main (cache off, after ingest)": main["launches"],
                "sparse_fused": {
                    "segment_sum": main["sparse"]["sparse"]["k1_launches"],
@@ -5093,6 +5481,19 @@ def main() -> int:
     by_path["write protocols: promql over remote write"] = {
         "segment_sum": 0,
         "fused_segment_agg": w["remote_write"]["k2_launches"]}
+    plane_paths = {
+        "write plane: ingest_qps readers (standalone defaults)":
+        plane["ingest_defaults"],
+        "write plane: ingest_qps readers (ingest.group_commit = false)":
+        plane["ingest_serial"],
+        "rollup (cpu, 1m)": plane["rollup"]}
+    for name, q in plane["substitution"].items():
+        for route in ("substituted", "raw"):
+            plane_paths[f"rollup substitution: {name} ({route}, cold)"] = \
+                q[route]
+    for key, r in plane_paths.items():
+        by_path[key] = {"segment_sum": r["k1_launches"],
+                        "fused_segment_agg": r["k2_launches"]}
     later_paths = ("promql prom_cpu (cold runs)", "promql cpu (cold runs)",
                    "stream_prepared (cpu_big)", "range (cpu, after ingest)",
                    "range fill (cpu, 8 hosts)",
@@ -5100,7 +5501,7 @@ def main() -> int:
                    "write protocols: cpu_lp (line protocol, cache off)",
                    "write protocols: ingest_qps readers",
                    "write protocols: promql over remote write") \
-        + tuple(served)
+        + tuple(served) + tuple(plane_paths)
     sources = {"segment_sum": ("greptimedb_tpu_torch/csrc/segment_sum.cu",
                                "greptimedb_tpu/ops/pallas_segment.py:119"),
                "fused_segment_agg": (
@@ -5130,7 +5531,8 @@ def main() -> int:
                               ("range_shape", "range"),
                               ("lastpoint_ingest_shape", "lastpoint_ingest"),
                               ("lastpoint_flushed_shape",
-                               "lastpoint_flushed")):
+                               "lastpoint_flushed"),
+                              ("rollup_shape", "rollup")):
                 sp = kres[name][case]
                 kernels[-1][key] = {
                     k: sp[k] for k in ("shape", "G", "dtype", "max_abs_err",

@@ -4,16 +4,18 @@ src/catalog/src/information_schema/*.rs).
 
 The catalog-backed tables (schemata, tables, columns, engines, views,
 key_column_usage, table_constraints, character_sets, collations,
-build_info) materialize from catalog state at query time as host-side
-column dicts; a small host evaluator applies WHERE / projection / ORDER
-BY / LIMIT (these tables are tiny — no device round-trip). build_info
-reports this package's version. The runtime tables are listed, as the
-JAX package lists them, but reading one raises UnsupportedStatement
-naming the later slice of the port that brings its plane.
+build_info) and maintenance_jobs (the maintenance plane's queue and
+history) materialize at query time as host-side column dicts; a small
+host evaluator applies WHERE / projection / ORDER BY / LIMIT (these
+tables are tiny — no device round-trip). build_info reports this
+package's version. The other runtime tables are listed, as the JAX
+package lists them, but reading one raises UnsupportedStatement naming
+the later slice of the port that brings its plane.
 """
 
 from __future__ import annotations
 
+import json
 import time
 
 import numpy as np
@@ -158,7 +160,32 @@ def _cluster_faults(qe, ctx):
 
 @_virtual("maintenance_jobs")
 def _maintenance_jobs(qe, ctx):
-    raise _runtime_plane("maintenance_jobs", "maintenance plane (ROADMAP A12)")
+    """The maintenance plane's job queue and recent history
+    (maintenance/scheduler.py), newest first. Empty when the engine has
+    no plane (maintenance_workers=0)."""
+    cols = {k: [] for k in (
+        "job_id", "kind", "region_id", "state", "priority", "error",
+        "detail", "queued_at", "started_at", "finished_at",
+        "duration_ms")}
+    maint = qe.region_engine.maintenance
+    for job in (maint.jobs() if maint is not None else []):
+        d = job.to_dict()
+        cols["job_id"].append(d["job_id"])
+        cols["kind"].append(d["kind"])
+        cols["region_id"].append(d["region_id"])
+        cols["state"].append(d["state"])
+        cols["priority"].append(d["priority"])
+        cols["error"].append(d["error"])
+        cols["detail"].append(json.dumps(d["detail"], sort_keys=True))
+        cols["queued_at"].append(int(d["queued_at"] * 1000))
+        cols["started_at"].append(
+            None if d["started_at"] is None else int(d["started_at"] * 1000))
+        cols["finished_at"].append(
+            None if d["finished_at"] is None
+            else int(d["finished_at"] * 1000))
+        cols["duration_ms"].append(
+            None if d["duration_ms"] is None else round(d["duration_ms"], 3))
+    return cols
 
 
 @_virtual("engines")

@@ -47,11 +47,16 @@ serially, one K1/K2 launch sequence a statement, and never reaches the
 batcher, as in the JAX package. Nothing here catches a kernel failure:
 a launch error in a hit raises to the client.
 
+Rollup-substitution eligibility rides the plan-cache entry's
+version-stamped memo: an aggregate template whose memo does not prove
+it ineligible under the current rollup state is served through the slow
+lane (fallback reason "substitution"), which re-probes and re-points the
+template at the plan-cache entry it stamped.
+
 Left out, each with its later item (ROADMAP.md A9): the plugin
 interceptor chain, the slow-query watch, tracing spans, the resource
 ledger and roofline accounting, and the shared-memory fabric's template
-adoption and publishing. With no rollup substitution in the port (A12)
-a hit has no substitution re-probe to wait for.
+adoption and publishing.
 """
 
 from __future__ import annotations
@@ -186,10 +191,10 @@ class _Entry:
     request needs to execute without parsing."""
 
     __slots__ = ("db", "table", "stmt", "info", "plan_entry", "binder",
-                 "pinned", "shape")
+                 "pinned", "needs_sub_check", "shape")
 
     def __init__(self, db, table, stmt, info, plan_entry, binder, pinned,
-                 shape):
+                 needs_sub_check, shape):
         self.db = db                  # resolved table database
         self.table = table            # resolved table name
         self.stmt = stmt              # template Select (permission check)
@@ -197,6 +202,7 @@ class _Entry:
         self.plan_entry = plan_entry  # plan-cache _Entry (plan + slots)
         self.binder = binder          # per-param: ("s", slot) | ("c", v)
         self.pinned = pinned          # ((slot, type_name, value), ...)
+        self.needs_sub_check = needs_sub_check
         self.shape = shape            # plan-cache shape key
 
     def matches_pinned(self, values) -> bool:
@@ -345,10 +351,16 @@ class FastLane:
             return
         binder, pinned = self._probe_binder(sql, spans, values, shape0,
                                             params0)
+        from greptimedb_tpu_torch.query.expr import has_aggregate
+
         entry = _Entry(
             db=info.db, table=info.name, stmt=sel, info=info,
             plan_entry=plan_entry, binder=tuple(binder),
-            pinned=tuple(pinned), shape=shape0)
+            pinned=tuple(pinned),
+            needs_sub_check=bool(sel.group_by
+                                 or any(has_aggregate(it.expr)
+                                        for it in sel.items)),
+            shape=shape0)
         with self._lock:
             tmpl = self._templates.get(key)
             if tmpl is None:
@@ -437,9 +449,42 @@ class FastLane:
             self._drop_entry(key, entry)
             return self._miss(qe, sql, ctx, key, values, spans,
                               "invalidate")
+        if entry.needs_sub_check \
+                and not entry.plan_entry.skip_substitution():
+            # rollup state moved (or was never probed): only the slow
+            # lane can decide substitution; serve through it, then
+            # re-point the entry at the plan-cache entry it stamped
+            FAST_LANE_EVENTS.inc(event="fallback", reason="substitution")
+            return self._refresh_entry(qe, sql, ctx, entry)
         params = entry.bind_params(values)
         FAST_LANE_EVENTS.inc(event="hit")
         return self._run(qe, sql, ctx, key, entry, params)
+
+    def _refresh_entry(self, qe, sql, ctx, entry) -> list:
+        """Serve a pending-substitution statement through the slow lane
+        and re-arm the template: the slow run re-probes and stamps a
+        plan-cache entry for this shape (possibly a NEW object if the
+        old one was evicted), and the binder survives the swap (it maps
+        text slots to parameter positions, which depend only on the
+        shape). Without this, eviction plus a rollup-state bump would
+        strand the template on the slow lane."""
+        if qe.concurrency.admission.depth() != 0:
+            return qe._execute_sql_slow(sql, ctx)
+        ticket = _Ticket()
+        self._tls.ticket = ticket
+        try:
+            with qe.concurrency.suppress_batching():
+                results = qe._execute_sql_slow(sql, ctx)
+        finally:
+            self._tls.ticket = None
+        if ticket.stamps == 1 and ticket.entry is not None \
+                and len(ticket.entry.slots) == len(entry.binder) \
+                and normalize(ticket.sel)[0] == entry.shape:
+            # an atomic re-point; racing readers see old or new, both
+            # safe (old just falls back here again)
+            entry.plan_entry = ticket.entry
+            entry.info = ticket.info
+        return results
 
     def _run(self, qe, sql, ctx, key, entry, params) -> list:
         """The parse-free statement scaffold: everything the slow lane

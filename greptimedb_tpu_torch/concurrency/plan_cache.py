@@ -20,10 +20,14 @@ Invalidation is two-layered:
   DDL this process never saw still evicts the stale shape instead of
   serving it.
 
-Left out, each with its later item (ROADMAP.md): the shared-memory
-fabric tier (peer processes adopting published entries, A9's shm item)
-and the negative rollup-substitution memo (A12, with rollup
-substitution itself).
+Entries also memoize a NEGATIVE rollup-substitution decision (the
+shape's probe proved no rollup can serve it): the memo is stamped with
+`rollup.substitution_state_version()` and the GTPU_ROLLUP_SUBSTITUTE
+toggle, and dies the moment any rollup state changes (a new roll, a
+drop), so a shape that becomes eligible is re-probed.
+
+Left out, with its later item (ROADMAP.md): the shared-memory fabric
+tier (peer processes adopting published entries, A9's shm item).
 
 Every event lands in gtpu_plan_cache_events_total{event=hit|miss|evict|
 invalidate}.
@@ -109,13 +113,39 @@ def _info_matches(a, b) -> bool:
 
 
 class _Entry:
-    __slots__ = ("plan", "where", "slots", "info")
+    __slots__ = ("plan", "where", "slots", "info", "sub_skip_version")
 
     def __init__(self, plan, where, slots, info):
         self.plan = plan
         self.where = where          # the Filter predicate template
         self.slots = slots          # its Literal objects, slot order
         self.info = info            # TableInfo snapshot at build
+        self.sub_skip_version = None  # substitution_stamp() when proven
+        #                               substitution-ineligible
+
+    def skip_substitution(self) -> bool:
+        # the stamp pairs the rollup-state version with the enable
+        # toggle: a probe skipped while substitution was OFF proves
+        # nothing about it being ON (and vice versa)
+        return self.sub_skip_version is not None \
+            and self.sub_skip_version == substitution_stamp()
+
+    def mark_sub_ineligible(self, stamp=None) -> None:
+        # callers that probed pass the stamp captured BEFORE the probe: a
+        # rollup finishing mid-probe bumps the version, and stamping with
+        # the post-probe value would memoize "ineligible" against state
+        # the probe never saw
+        self.sub_skip_version = (substitution_stamp() if stamp is None
+                                 else stamp)
+
+
+def substitution_stamp() -> tuple:
+    """The (rollup state version, enable toggle) pair a negative
+    substitution probe is memoized against."""
+    from greptimedb_tpu_torch.maintenance import rollup
+
+    return (rollup.substitution_state_version(),
+            rollup.substitution_enabled())
 
 
 class PlanCache:

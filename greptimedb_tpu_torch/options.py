@@ -651,16 +651,41 @@ def apply_concurrency(opts: "StandaloneOptions") -> None:
 
 
 def engine_config(opts: "StandaloneOptions", data_dir: str):
-    """[wal], [engine] and [scan] -> the storage EngineConfig (the keys
-    check_port_support lets through)."""
+    """[wal], [engine], [scan], [ingest] and [maintenance] -> the storage
+    EngineConfig (the keys check_port_support lets through), as the JAX
+    `to_engine_config` maps them."""
     from greptimedb_tpu_torch.storage import EngineConfig
 
+    from greptimedb_tpu_torch.maintenance import parse_duration_ms
+
+    m = opts.maintenance
+    rollup_rules = [
+        {"resolution_ms": parse_duration_ms(r.resolution),
+         "fields": [s.strip() for s in r.fields.split(",") if s.strip()],
+         "auto": r.auto}
+        for r in m.rollup
+    ]
     return EngineConfig(
         data_dir=data_dir,
         wal_sync=opts.wal.sync,
         wal_segment_bytes=opts.wal.segment_bytes,
         flush_threshold_bytes=opts.engine.flush_threshold_bytes,
         scan_part_cache_bytes=opts.scan.part_cache_bytes,
+        write_workers=opts.engine.write_workers,
+        ingest_group_commit=opts.ingest.group_commit,
+        ingest_max_batch_rows=opts.ingest.max_batch_rows,
+        ingest_max_batch_bytes=opts.ingest.max_batch_bytes,
+        ingest_queue_depth=opts.ingest.queue_depth,
+        ingest_overlap=opts.ingest.overlap,
+        maintenance_workers=m.workers,
+        maintenance_queue=m.queue_size,
+        maintenance_tick_s=m.tick_interval_s,
+        stall_memtable_bytes=m.stall_memtable_bytes,
+        stall_l0_files=m.stall_l0_files,
+        stall_timeout_s=m.stall_timeout_s,
+        retention_ttl_ms=parse_duration_ms(m.retention_ttl)
+        if m.retention_ttl else 0,
+        rollup_rules=rollup_rules,
     )
 
 
@@ -673,10 +698,6 @@ _A10 = "mesh and cluster (ROADMAP A10)"
 _A11 = "tier routing (ROADMAP A11)"
 _A12_STORE = "durable storage's remainder (ROADMAP A12: object stores " \
     "and the remote WAL)"
-_A12_WORKERS = "durable storage's remainder (ROADMAP A12: write workers " \
-    "and group commit)"
-_A12_MAINT = "durable storage's remainder (ROADMAP A12: the maintenance " \
-    "plane)"
 _A12_SCAN = "durable storage's remainder (ROADMAP A12: the parallel " \
     "decode pool)"
 
@@ -692,14 +713,8 @@ _UNPORTED = {
     "storage.s3": (_A12_STORE, ()),
     "storage.gcs": (_A12_STORE, ()),
     "storage.azblob": (_A12_STORE, ()),
-    # 0 = synchronous writes: the port's only mode
-    "engine.write_workers": (_A12_WORKERS, (0,)),
-    "maintenance": (_A12_MAINT, ()),
     # 1 = sequential decode: the port's only mode
     "scan.decode_threads": (_A12_SCAN, (1,)),
-    # false = the serial write path: the port's only one
-    "ingest": (_A12_WORKERS, ()),
-    "ingest.group_commit": (_A12_WORKERS, (False,)),
     "query.mesh": (_A10, ()),
     "query.tier_admission": (_A11, ()),
     "query.tier_adaptive": (_A11, ()),

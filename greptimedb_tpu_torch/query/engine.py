@@ -6,9 +6,10 @@ QueryContext (session/): CREATE TABLE / DATABASE / VIEW, INSERT ...
 VALUES and INSERT ... SELECT, SELECT, UNION [ALL], DELETE, DROP and
 TRUNCATE TABLE, DROP VIEW, ALTER TABLE ADD/DROP COLUMN, USE, SET,
 SHOW TABLES / DATABASES / VIEWS / CREATE TABLE, DESCRIBE, EXPLAIN,
-ADMIN flush_table / compact_table (synchronous: the maintenance plane is
-a later slice), TQL EVAL / TQL EXPLAIN (PromQL, promql/engine.py) and
-KILL QUERY.
+ADMIN flush_table / compact_table / rollup_table / expire_table /
+maintenance_status (job ids from the engine's maintenance plane, or
+synchronous flushes and compactions when the plane is off), TQL EVAL /
+TQL EXPLAIN (PromQL, promql/engine.py) and KILL QUERY.
 
 A top-level `execute_sql` runs under one deadline and cancel token
 (utils/deadline.py) registered in the running-queries table. Every
@@ -27,8 +28,12 @@ table, a CTE relation, joins (query/join.py), information_schema
 (catalog/information_schema.py), views (inlined into one table query
 when simple), literal SELECTs, and last the table path: window
 functions over the device aggregate or the device scan
-(query/window.py), RANGE ... ALIGN (query/range_select.py), or the
-copied planner and the torch physical layer on the engine's device.
+(query/window.py), RANGE ... ALIGN (query/range_select.py), rollup
+substitution (maintenance/rollup.py: an eligible coarse-bucket aggregate
+served from the companion region's plane rows, `last_path` ending in
+`+rollup`; GTPU_ROLLUP_SUBSTITUTE=0 turns it off), or the copied planner
+and the torch physical layer on the engine's device. DROP and TRUNCATE
+take a table's rollup companions down with it.
 Everything around those device calls runs on the host over numpy.
 Regions open lazily from the catalog on first use, so a persisted
 catalog and a reopened storage engine serve the tables they held.
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 import threading
 import time
 from collections import OrderedDict
@@ -95,7 +101,7 @@ from greptimedb_tpu_torch.utils.metrics import (
 )
 
 _SERVERS = "servers and CLI"
-_MAINT = "maintenance plane, metric and file engines (ROADMAP A12-maint)"
+_MAINT = "metric and file engines (ROADMAP A12-engines)"
 _FLOWS = "flows, scripts, plugins and shm (ROADMAP A9-flows)"
 _CLUSTER = "mesh and cluster (ROADMAP A10)"
 
@@ -828,13 +834,47 @@ class QueryEngine:
             return rs.execute_range_select(self.executor,
                                            rs.plan_range_select(sel, info))
         # shape-keyed plan cache: repeated dashboard statements re-bind
-        # a cached validated plan instead of re-planning
+        # a cached validated plan instead of re-planning; the entry also
+        # memoizes a negative rollup-substitution probe (version-stamped:
+        # any rollup state change re-probes)
         t_plan = time.perf_counter()
         plan, entry, binding = self.concurrency.plan_cache.lookup(sel, info)
+        # a probed shape may memoize the negative outcome only when it
+        # was STRUCTURAL (sub_note): coverage / alignment failures depend
+        # on this query's literal values
+        sub_note = {"memoizable": True}
+        sub_stamp = None
+        if sel.group_by or any(has_aggregate(it.expr) for it in sel.items):
+            # rollup substitution: eligible coarse-bucket aggregates are
+            # served from the planes (maintenance/rollup.py); None =
+            # ineligible or uncovered, fall through to the raw scan
+            if entry is None or not entry.skip_substitution():
+                from greptimedb_tpu_torch.concurrency.plan_cache import (
+                    substitution_stamp,
+                )
+                from greptimedb_tpu_torch.maintenance.rollup import (
+                    try_substitute,
+                )
+
+                # pre-probe stamp: a roll finishing mid-probe must not
+                # lend its fresher version to this negative outcome
+                sub_stamp = substitution_stamp()
+                t_sub = time.perf_counter()
+                res = try_substitute(self, sel, info, ctx,
+                                     shape_note=sub_note)
+                if res is not None:
+                    STAGE_SECONDS.observe(t_sub - t_plan, stage="plan")
+                    STAGE_SECONDS.observe(time.perf_counter() - t_sub,
+                                          stage="execute")
+                    return res
+                if entry is not None and sub_note.get("memoizable"):
+                    entry.mark_sub_ineligible(sub_stamp)
         if plan is None:
             plan = plan_select(sel, info)
             entry = self.concurrency.plan_cache.store(binding, sel, info,
                                                       plan)
+            if entry is not None and sub_note.get("memoizable"):
+                entry.mark_sub_ineligible(sub_stamp)
         STAGE_SECONDS.observe(time.perf_counter() - t_plan, stage="plan")
         # stamp a fast-lane build ticket (if this thread armed one):
         # the statement is about to execute exactly this plan-cache
@@ -1141,17 +1181,26 @@ class QueryEngine:
         info = self.catalog.drop_table(db, name, stmt.if_exists)
         if info is None:
             return QueryResult.of_affected(0)
+        from greptimedb_tpu_torch.maintenance.rollup import drop_companions
+
         for rid in info.region_ids:
             self.region_engine.drop_region(rid)
+            # rollup planes die with the raw data, or substituted
+            # aggregates would resurrect the dropped table's rows
+            drop_companions(self.region_engine, rid)
         return QueryResult.of_affected(0)
 
     def _truncate(self, stmt: ast.TruncateTable,
                   ctx: QueryContext) -> QueryResult:
         """Drop the regions' data and recreate them empty."""
+        from greptimedb_tpu_torch.maintenance.rollup import drop_companions
+
         info = self._table(stmt.name, ctx)
         self._invalidate_plans(info.db, info.name)
         for rid in info.region_ids:
             self.region_engine.drop_region(rid)
+            # coverage claims over truncated data go with it
+            drop_companions(self.region_engine, rid)
             self.region_engine.create_region(rid, info.schema)
         return QueryResult.of_affected(0)
 
@@ -1199,41 +1248,102 @@ class QueryEngine:
         self.catalog.update_table(info)
         return QueryResult.of_affected(0)
 
+    #: ADMIN fn name -> maintenance job kind (the async job-id flow)
+    _ADMIN_JOBS = {"flush_table": "flush", "compact_table": "compact",
+                   "rollup_table": "rollup", "expire_table": "expire"}
+
     def _admin(self, stmt: ast.AdminFunc, ctx: QueryContext) -> QueryResult:
-        """The JAX engine's dispatch without a maintenance plane:
-        flush_table / compact_table and flush_region / compact_region run
-        synchronously (the manual compaction is a full merge) and return
-        0 affected rows; the plane's and the flows' functions name the
-        slice that brings them; any other name is the JAX PlanError."""
+        """The JAX engine's dispatch. With the maintenance plane,
+        flush_table / compact_table / rollup_table / expire_table submit
+        a job a region and return the job ids (manual compaction is a
+        full merge), flush_region / compact_region one job, and
+        maintenance_status(job_id) reports one job. Without it
+        (`maintenance_workers=0`), flushes and compactions run
+        synchronously and return 0 affected rows, and the rollup,
+        expiry and status functions raise the JAX PlanError. The flows'
+        function names the slice that brings it; any other name is the
+        JAX PlanError."""
+        from greptimedb_tpu_torch.maintenance import parse_duration_ms
+
         fn = stmt.func
-        if fn.name in ("rollup_table", "expire_table", "maintenance_status"):
-            raise UnsupportedStatement(
-                f"ADMIN {fn.name} is not in this slice of "
-                f"greptimedb_tpu_torch; the {_MAINT} slice brings it")
+        args = [a.value if isinstance(a, ast.Literal) else None
+                for a in fn.args]
+        maint = self.region_engine.maintenance
         if fn.name == "flush_flow":
             raise UnsupportedStatement(
                 "ADMIN flush_flow is not in this slice of "
                 f"greptimedb_tpu_torch; the {_FLOWS} slice brings it")
+        if fn.name in self._ADMIN_JOBS:
+            if not fn.args or not isinstance(fn.args[0], ast.Literal):
+                raise PlanError(f"ADMIN {fn.name} takes a table name")
+            info = self._table(str(args[0]), ctx)
+            kind = self._ADMIN_JOBS[fn.name]
+            if maint is None:
+                # no plane: flush and compact keep their synchronous shape
+                if kind == "flush":
+                    for rid in info.region_ids:
+                        self.region_engine.flush(rid)
+                elif kind == "compact":
+                    for rid in info.region_ids:
+                        self.region_engine.compact(rid)
+                else:
+                    raise PlanError(
+                        f"{fn.name} needs the maintenance plane "
+                        "(engine.maintenance_workers > 0)")
+                return QueryResult.of_affected(0)
+            params: dict = {}
+            if kind == "compact":
+                # manual compaction is a full merge; background TWCS
+                # stays windowed
+                params["strategy"] = "full"
+            if kind == "rollup":
+                res_ms = parse_duration_ms(args[1]) if len(args) > 1 \
+                    else (maint.rollup_rules[0].resolution_ms
+                          if maint.rollup_rules else 60_000)
+                maint.rule_for(res_ms)  # register ad-hoc resolutions
+                params["resolution"] = res_ms
+            elif kind == "expire" and len(args) > 1:
+                params["ttl_ms"] = parse_duration_ms(args[1])
+            job_ids = [maint.submit(kind, rid, params).job_id
+                       for rid in info.region_ids]
+            return QueryResult(["job_id"], [DataType.INT64],
+                               [np.asarray(job_ids, dtype=np.int64)])
+        if fn.name == "maintenance_status":
+            if maint is None:
+                raise PlanError("maintenance plane is disabled")
+            job = maint.job(int(args[0]))
+            if job is None:
+                raise PlanError(f"unknown maintenance job {args[0]}")
+            d = job.to_dict()
+            names = ["job_id", "kind", "region_id", "state", "error",
+                     "duration_ms", "detail"]
+            dtypes = [DataType.INT64, DataType.STRING, DataType.INT64,
+                      DataType.STRING, DataType.STRING, DataType.FLOAT64,
+                      DataType.STRING]
+            cols = [np.asarray([d["job_id"]], dtype=np.int64),
+                    np.asarray([d["kind"]], dtype=object),
+                    np.asarray([d["region_id"]], dtype=np.int64),
+                    np.asarray([d["state"]], dtype=object),
+                    np.asarray([d["error"]], dtype=object),
+                    np.asarray([d["duration_ms"] if d["duration_ms"]
+                                is not None else np.nan]),
+                    np.asarray([json.dumps(d["detail"], sort_keys=True)],
+                               dtype=object)]
+            return QueryResult(names, dtypes, cols)
         if fn.name in ("flush_region", "compact_region"):
-            args = [a.value if isinstance(a, ast.Literal) else None
-                    for a in fn.args]
             rid = int(args[0])
+            if maint is not None:
+                kind = "flush" if fn.name == "flush_region" else "compact"
+                job = maint.submit(kind, rid)
+                return QueryResult(["job_id"], [DataType.INT64],
+                                   [np.asarray([job.job_id],
+                                               dtype=np.int64)])
             if fn.name == "flush_region":
                 self.region_engine.flush(rid)
             else:
                 self.region_engine.compact(rid)
             return QueryResult.of_affected(0)
-        if fn.name not in ("flush_table", "compact_table"):
-            raise PlanError(f"unknown admin function {fn.name!r}")
-        if not fn.args or not isinstance(fn.args[0], ast.Literal):
-            raise PlanError(f"ADMIN {fn.name} takes a table name")
-        info = self._table(str(fn.args[0].value), ctx)
-        for rid in info.region_ids:
-            if fn.name == "flush_table":
-                self.region_engine.flush(rid)
-            else:
-                self.region_engine.compact(rid)
-        return QueryResult.of_affected(0)
+        raise PlanError(f"unknown admin function {fn.name!r}")
 
     # ---- DELETE ------------------------------------------------------------
 

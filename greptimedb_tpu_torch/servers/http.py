@@ -2,13 +2,14 @@
 mirroring the reference `HttpServer::make_app`): /v1/sql, the Prometheus
 query API, the write protocols (Influx line protocol, Prometheus remote
 write and read, OTLP metrics and traces, OpenTSDB JSON puts), /metrics,
-/health, and the running-queries surface.
+/health, the running-queries surface and /v1/maintenance (the
+maintenance plane's queue, rules, stall seconds and jobs).
 
 stdlib ThreadingHTTPServer with keep-alive: the host serves protocol
 traffic while queries run as kernels on the engine's device. Status
 codes and error bodies are the JAX server's. The JAX server's other
-routes (scripts, faults, maintenance, profiles, traces, pprof, slow
-queries, the dashboard page) answer with its error
+routes (scripts, faults, profiles, traces, pprof, slow queries, the
+dashboard page) answer with its error
 shape — HTTP 400, code 3000 — and a message naming the slice of the port
 that brings them (ROADMAP.md). With a user provider (auth/) every data
 route asks for Basic auth, as the JAX server does: a missing or wrong
@@ -42,6 +43,7 @@ from greptimedb_tpu_torch.utils.metrics import (
     HTTP_REQUESTS,
     QUERY_DURATION,
     REGISTRY,
+    WRITE_STALL_SECONDS,
 )
 
 #: routes of the JAX server the port does not serve yet: path (exact, or
@@ -53,7 +55,6 @@ _LATER_ROUTES = (
       "/dashboard", "/dashboard/"),
      f"{_A9}: the observability plane)"),
     (("/v1/faults",), "mesh and cluster (ROADMAP A10)"),
-    (("/v1/maintenance",), "durable storage's remainder (ROADMAP A12)"),
 )
 
 
@@ -266,6 +267,8 @@ class _Handler(BaseHTTPRequestHandler):
     def _route_data(self, path: str):
         if path == "/v1/queries" or path.startswith("/v1/queries/"):
             return self._handle_queries(path)
+        if path == "/v1/maintenance":
+            return self._handle_maintenance()
         if path == "/v1/sql":
             return self._handle_sql()
         if path == "/v1/promql":
@@ -308,6 +311,22 @@ class _Handler(BaseHTTPRequestHandler):
         return self._send(404, {"error": f"no route {path}"})
 
     # ---- /v1/queries (running-queries surface) -----------------------------
+
+    def _handle_maintenance(self):
+        """The maintenance plane's debug surface: queue depth, rollup
+        rules, stall seconds and the jobs, newest first."""
+        maint = self.query_engine.region_engine.maintenance
+        n = int(self._params().get("limit", "100"))
+        return self._send(200, {
+            "enabled": maint is not None,
+            "queue_depth": maint.queue_depth() if maint else 0,
+            "rollup_rules": [
+                {"resolution_ms": r.resolution_ms,
+                 "fields": list(r.fields), "auto": r.auto}
+                for r in (maint.rollup_rules if maint else [])],
+            "write_stall_seconds": WRITE_STALL_SECONDS.total(),
+            "jobs": [j.to_dict() for j in (maint.jobs() if maint else [])[:n]],
+        })
 
     def _handle_queries(self, path: str):
         """GET /v1/queries lists live statements on this frontend;

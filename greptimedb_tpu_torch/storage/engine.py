@@ -3,22 +3,35 @@
 
 Each region lives under `<data_dir>/region_<id>/` (manifest deltas and
 checkpoints, SSTs); the WAL segments of every region share
-`<data_dir>/wal/`. Writes are synchronous in the caller: WAL append and
-fsync, memtable apply, and once the memtable passes
-`flush_threshold_bytes`, a flush followed by a TWCS compaction pass.
-Compaction's merge runs the torch sort-dedup on the engine's device —
-the CUDA card unless the caller passes device="cpu".
+`<data_dir>/wal/`. Compaction's merge and the rollup jobs run on the
+engine's device: the CUDA card unless the caller passes device="cpu".
 
-Left for later slices (ROADMAP.md): write worker groups, group commit,
-the background maintenance plane, remote WALs and object stores.
+The write plane follows the JAX engine's defaults:
+- a write goes through the write worker group when `write_workers` is
+  set (storage/worker.py; -1 = cpu/2), else in the caller, and lands in
+  the region's group committer (storage/group_commit.py: one WAL append,
+  fsync and memtable apply a drained group) unless `ingest_group_commit`
+  is off, where the serial path holds the region lock across the fsync;
+- past `flush_threshold_bytes` the writer only SUBMITS a flush to the
+  maintenance plane (maintenance/scheduler.py), and stalls only while
+  the region sits past the hard memtable or L0 limits (`_maybe_stall`),
+  flushing inline after `stall_timeout_s`;
+- `maintenance_workers=0` turns the plane off: the writer flushes and
+  runs a TWCS compaction pass inline, as the port did before the plane.
+
+`close()` stops the workers and the scheduler and joins every thread
+before it returns.
+
+Left for later slices (ROADMAP.md): remote WALs and object stores.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 import weakref
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 from greptimedb_tpu_torch import config as port_config
@@ -26,6 +39,7 @@ from greptimedb_tpu_torch.datatypes.recordbatch import RecordBatch
 from greptimedb_tpu_torch.datatypes.schema import Schema
 from greptimedb_tpu_torch.objectstore import FsStore
 from greptimedb_tpu_torch.storage.format import check_and_stamp
+from greptimedb_tpu_torch.storage.group_commit import GroupCommitter
 from greptimedb_tpu_torch.storage.region import (
     OP_DELETE,
     OP_PUT,
@@ -33,6 +47,11 @@ from greptimedb_tpu_torch.storage.region import (
     ScanData,
 )
 from greptimedb_tpu_torch.storage.wal import DEFAULT_SEGMENT_BYTES, Wal
+from greptimedb_tpu_torch.storage.worker import WorkerGroup
+from greptimedb_tpu_torch.utils.metrics import (
+    WRITE_STALL_SECONDS,
+    WRITE_STALL_TIMEOUTS,
+)
 
 
 @dataclass
@@ -45,6 +64,40 @@ class EngineConfig:
     flush_threshold_bytes: int = 256 << 20
     # byte budget of each region's decoded SST part cache
     scan_part_cache_bytes: int = 1 << 30
+    # write worker group size: 0 = synchronous in-caller writes; -1 =
+    # auto (cpu/2); N = N workers
+    write_workers: int = 0
+    # ---- ingest pipeline (storage/group_commit.py) ----
+    # per-region group commit: concurrent writers coalesce into one WAL
+    # append + one fsync + one memtable apply; off = the serial path
+    ingest_group_commit: bool = True
+    # caps on one drained commit group (ack latency bound)
+    ingest_max_batch_rows: int = 65536
+    ingest_max_batch_bytes: int = 8 << 20
+    # bounded per-region ingest queue; full -> typed Overloaded
+    ingest_queue_depth: int = 512
+    # encode group N+1's WAL frames while group N's fsync is in flight
+    ingest_overlap: bool = True
+    # ---- background maintenance plane (maintenance/ package) ----
+    # worker pool size; 0 disables the plane (flush/compact run inline
+    # on the writer)
+    maintenance_workers: int = 1
+    maintenance_queue: int = 64
+    # periodic sweep submitting threshold flushes / compactions /
+    # rollups / expiry; 0 = event-driven only (writes + ADMIN)
+    maintenance_tick_s: float = 0.0
+    # hard write-stall thresholds: writers block once a region's
+    # memtable bytes or L0 count cross these; 0 bytes = 2x
+    # flush_threshold_bytes
+    stall_memtable_bytes: int = 0
+    stall_l0_files: int = 32
+    # give up stalling after this long and flush inline
+    stall_timeout_s: float = 30.0
+    # engine-wide TTL for retention expiry jobs; 0 = never expire
+    retention_ttl_ms: int = 0
+    # rollup rules as dicts: {"resolution_ms": 60000, "fields": [...],
+    # "auto": True}
+    rollup_rules: list = field(default_factory=list)
 
 
 class RegionEngine:
@@ -64,6 +117,30 @@ class RegionEngine:
         # (compaction) or a region (DROP, TRUNCATE, close) die
         self.caches: "weakref.WeakSet" = weakref.WeakSet()
         self._lock = threading.RLock()
+        self.workers = None
+        if config.write_workers:
+            n = None if config.write_workers < 0 else config.write_workers
+            self.workers = WorkerGroup(self, num_workers=n)
+        # the background maintenance plane owns every flush, compaction,
+        # rollup and expiry off the write path
+        self.maintenance = None
+        if config.maintenance_workers > 0:
+            from greptimedb_tpu_torch.maintenance import MaintenanceScheduler
+
+            try:
+                self.maintenance = MaintenanceScheduler(
+                    self,
+                    workers=config.maintenance_workers,
+                    queue_size=config.maintenance_queue,
+                    tick_interval_s=config.maintenance_tick_s,
+                    retention_ttl_ms=config.retention_ttl_ms,
+                    rollup_rules=config.rollup_rules,
+                )
+            except BaseException:
+                # a refused rule set: no worker thread may outlive it
+                if self.workers is not None:
+                    self.workers.stop()
+                raise
 
     def _region_dir(self, region_id: int) -> str:
         return os.path.join(self.config.data_dir, f"region_{region_id}")
@@ -73,7 +150,14 @@ class RegionEngine:
                 "caches": self.caches}
 
     def _adopt(self, region: Region) -> Region:
-        region.part_cache_budget = self.config.scan_part_cache_bytes
+        cfg = self.config
+        region.part_cache_budget = cfg.scan_part_cache_bytes
+        if cfg.ingest_group_commit:
+            region.committer = GroupCommitter(
+                region, max_batch_rows=cfg.ingest_max_batch_rows,
+                max_batch_bytes=cfg.ingest_max_batch_bytes,
+                queue_depth=cfg.ingest_queue_depth,
+                overlap=cfg.ingest_overlap)
         self.regions[region.region_id] = region
         return region
 
@@ -109,6 +193,14 @@ class RegionEngine:
             r.drop()
 
     def close(self) -> None:
+        """Stop the write workers (their queued writes complete), then the
+        maintenance plane (a running job finishes; queued ones are
+        dropped: the WAL keeps their data), joining every thread, then
+        close the regions and the WAL."""
+        if self.workers is not None:
+            self.workers.stop()
+        if self.maintenance is not None:
+            self.maintenance.stop()
         with self._lock:
             for r in self.regions.values():
                 r.close()
@@ -125,13 +217,69 @@ class RegionEngine:
         return self._write(region_id, batch, OP_DELETE)
 
     def _write(self, region_id: int, batch: RecordBatch, op: int) -> int:
-        region = self.region(region_id)
-        n = region.write(batch, op)
+        if self.workers is not None:
+            n = self.workers.write(region_id, batch, op)
+        else:
+            n = self.region(region_id).write(batch, op)
+        try:
+            region = self.region(region_id)
+        except KeyError:
+            # closed or dropped right after the write committed: the
+            # write succeeded; only the flush check is moot
+            return n
         if region.memtable_bytes >= self.config.flush_threshold_bytes:
-            region.flush()
-            # the TWCS picker no-ops unless a window passes its limit
-            region.compact()
+            if self.maintenance is not None:
+                # the writer only SUBMITS; it stalls below only past a
+                # hard threshold
+                self.maintenance.submit("flush", region_id)
+                self._maybe_stall(region_id, region)
+            else:
+                region.flush()
+                # the TWCS picker no-ops unless a window passes its limit
+                region.compact()
         return n
+
+    def _maybe_stall(self, region_id: int, region: Region) -> None:
+        """Write-stall backpressure: block the writer while the region
+        sits past the HARD memtable or L0 limits, counting every stalled
+        second in greptimedb_tpu_write_stall_seconds_total. After
+        stall_timeout_s the writer flushes (or compacts, for L0 pressure)
+        inline: memory safety beats latency when the plane is wedged."""
+        hard_bytes = self.config.stall_memtable_bytes or \
+            2 * self.config.flush_threshold_bytes
+        hard_l0 = self.config.stall_l0_files
+
+        def over() -> Optional[str]:
+            if region.memtable_bytes >= hard_bytes:
+                return "memtable"
+            if hard_l0 and region.l0_count >= hard_l0:
+                return "l0"
+            return None
+
+        reason = over()
+        if reason is None:
+            return
+        if reason == "l0":
+            self.maintenance.submit("compact", region_id)
+        deadline = time.monotonic() + self.config.stall_timeout_s
+        cv = self.maintenance._cv
+        while True:
+            t0 = time.monotonic()
+            if t0 >= deadline:
+                WRITE_STALL_TIMEOUTS.inc()
+                # the escape hatch matches the reason: a flush cannot
+                # relieve L0 pressure (it ADDS an L0 file)
+                if reason == "l0":
+                    region.compact()
+                else:
+                    region.flush()
+                return
+            with cv:
+                cv.wait(min(0.05, deadline - t0))
+            WRITE_STALL_SECONDS.inc(time.monotonic() - t0, reason=reason)
+            reason = over()
+            if reason is None:
+                return
 
     def flush(self, region_id: int) -> None:
         self.region(region_id).flush()

@@ -28,9 +28,19 @@ file order, and the memtable's rows last.
 `scan_last` is the lastpoint scan (the JAX region's `scan_last`): SSTs
 newest-first, stopping once every series' newest row is in hand.
 
-Left for later slices (ROADMAP.md): group commit and write workers, the
-parallel decode pool (and with it the parallel stream decode), seq_min
-incremental scans and the inverted index.
+Group commit (storage/group_commit.py drives it): `group_reserve` takes
+a ticket and the group's sequences under the region lock,
+`group_commit` appends and fsyncs the WAL outside it in ticket order and
+applies the memtable under it, `group_abort` retires a ticket whose
+commit never started. `flush` and `drop` first wait for every reserved
+group to apply (`_quiesce_commits_locked`): a flush between reserve and
+apply would record a flushed sequence past rows not yet in the memtable
+and lose them on replay. Without a committer, `write_many_serial` keeps
+the WAL append and the apply under one lock hold.
+
+Left for later slices (ROADMAP.md): the parallel decode pool (and with it
+the parallel stream decode), seq_min incremental scans and the inverted
+index.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from greptimedb_tpu_torch.datatypes.recordbatch import RecordBatch
 from greptimedb_tpu_torch.datatypes.schema import Schema
 from greptimedb_tpu_torch.datatypes.types import SemanticType
 from greptimedb_tpu_torch.datatypes.vector import DictVector, remap_codes
+from greptimedb_tpu_torch.fault import FAULTS
 from greptimedb_tpu_torch.ops import dedup
 from greptimedb_tpu_torch.ops.segment import combine_group_ids
 from greptimedb_tpu_torch.storage.compaction import TwcsPicker
@@ -68,6 +79,7 @@ from greptimedb_tpu_torch.storage.sst import (
     SstWriter,
 )
 from greptimedb_tpu_torch.storage.wal import Wal
+from greptimedb_tpu_torch.utils.metrics import INGEST_WAL_FSYNC_SECONDS
 
 OP_PUT = 0
 OP_DELETE = 1
@@ -211,6 +223,33 @@ class Region:
         self._part_cache: "OrderedDict[tuple, _PartEntry]" = OrderedDict()
         self._part_cache_bytes = 0
         self.part_cache_budget = 1 << 30
+        # ---- group-commit ingest pipeline (storage/group_commit.py) ----
+        # attached by the engine when group commit is on; None = the
+        # serial write path
+        self.committer = None
+        # commit tickets order the WAL appends of concurrent group
+        # commits: sequences are reserved under the region lock, the
+        # append+fsync runs outside it, and the ticket turn keeps the WAL
+        # file in sequence order
+        self._commit_tickets = itertools.count()
+        self._wal_turn = 0
+        self._wal_turn_cv = threading.Condition()
+        # tickets reserved but not yet applied: flush/drop wait for these
+        self._inflight_commits: set = set()
+        self._commit_idle = threading.Condition(self._lock)
+        # tickets abandoned before their turn (interrupt mid-wait): the
+        # turn counter skips them instead of wedging every later commit
+        self._dead_tickets: set = set()
+        # flush/drop waiting for the pipeline to drain: while nonzero,
+        # group_reserve holds new reservations back, so the quiesce
+        # cannot starve under sustained overlapped ingest
+        self._quiesce_waiters = 0
+
+    @property
+    def store(self):
+        """The object store the region's manifest, SSTs and side files
+        (rollup coverage state) live in."""
+        return self.manifest.store
 
     # ---- lifecycle ---------------------------------------------------------
 
@@ -250,6 +289,10 @@ class Region:
     def drop(self) -> None:
         with self._lock:
             self.dropped = True
+            # in-flight group commits may still be appending to the WAL
+            # this is about to delete; `dropped` blocks new reservations
+            # and fails the in-flight ones at apply time
+            self._quiesce_commits_locked()
             self._drain_purge(force=True)
             self.wal.delete_region(self.region_id)
             for fid in list(self.files):
@@ -306,18 +349,150 @@ class Region:
     def write(self, batch: RecordBatch, op_type: int = OP_PUT) -> int:
         """Durable write: WAL append and fsync, then the memtable.
         Returns the rows written."""
-        n = batch.num_rows
-        if n == 0:
-            return 0
+        return self.write_many([(batch, op_type)])[0]
+
+    def write_many(self, items: list[tuple[RecordBatch, int]]) -> list[int]:
+        """Apply several mutations with ONE WAL append and fsync; returns
+        each item's rows. With a committer attached, concurrent callers
+        coalesce through its bounded queue (the fsync outside the region
+        lock); otherwise the serial path runs."""
+        if self.committer is not None:
+            return self.committer.write_many(items)
+        return self.write_many_serial(items)
+
+    def write_many_serial(self, items: list[tuple[RecordBatch, int]]
+                          ) -> list[int]:
+        """The serial write path: WAL append (and its fsync) and the
+        memtable apply under one region-lock hold."""
+        counts = [b.num_rows for b, _ in items]
+        live = [(b, op) for b, op in items if b.num_rows]
+        if not live:
+            return counts
         with self._lock:
+            if self.dropped:
+                # a write racing DROP must error, not resurrect the
+                # deleted region's WAL
+                raise RegionDroppedError(
+                    f"region {self.region_id} is dropped")
+            entries = self._sequence_locked(live)
+            self.wal.append_many(self.region_id, entries)
+            for s, op_type, batch in entries:
+                self.memtable.write(batch, s, op_type)
+            self.data_version += 1
+        return counts
+
+    def _sequence_locked(self, live: list) -> list:
+        """(seq, op_type, batch) entries from next_seq on; advances it."""
+        seq = self.next_seq
+        entries = []
+        for batch, op_type in live:
+            entries.append((seq, op_type, batch))
+            seq += batch.num_rows
+        self.next_seq = seq
+        return entries
+
+    # ---- group-commit hooks (storage/group_commit.py drives these) ---------
+
+    def group_reserve(self, live: list[tuple[RecordBatch, int]]
+                      ) -> tuple[int, list]:
+        """Reserve the group's WAL sequences and a commit ticket under the
+        region lock (metadata only; the encode and the fsync run
+        outside). Returns (ticket, [(seq, op_type, batch), ...])."""
+        with self._lock:
+            # a pending flush/DROP quiesce has priority: new reservations
+            # wait so the in-flight set can drain
+            while self._quiesce_waiters:
+                self._commit_idle.wait(timeout=1.0)
             if self.dropped:
                 raise RegionDroppedError(
                     f"region {self.region_id} is dropped")
-            self.wal.append(self.region_id, self.next_seq, op_type, batch)
-            self.memtable.write(batch, self.next_seq, op_type)
-            self.next_seq += n
-            self.data_version += 1
-        return n
+            entries = self._sequence_locked(live)
+            ticket = next(self._commit_tickets)
+            self._inflight_commits.add(ticket)
+            return ticket, entries
+
+    def group_commit(self, ticket: int, entries: list, blob=None) -> None:
+        """Ticket-ordered durable commit: the WAL append and fsync OUTSIDE
+        the region lock (readers and other regions' writers never wait on
+        the disk), then the memtable apply under it. `blob` is the
+        pre-encoded frames (encoded outside every lock, so the next
+        group's encode overlaps this one's fsync); None encodes here."""
+        try:
+            with self._wal_turn_cv:
+                while self._wal_turn != ticket:
+                    # bounded laps, never abandoned: the ticket MUST
+                    # retire in sequence or every later commit wedges
+                    self._wal_turn_cv.wait(timeout=1.0)
+            # sole owner of this region's WAL tail until the turn
+            # advances; a crash in here leaves at most a torn tail that
+            # replay truncates (nothing in the group was acknowledged)
+            FAULTS.fire("ingest.commit", op="append",
+                        region=str(self.region_id))
+            with INGEST_WAL_FSYNC_SECONDS.time():
+                if blob is not None:
+                    self.wal.append_blob(self.region_id, blob)
+                else:
+                    self.wal.append_many(self.region_id, entries)
+            FAULTS.fire("ingest.commit", op="apply",
+                        region=str(self.region_id))
+            with self._lock:
+                dropped = self.dropped
+                if not dropped:
+                    for s, op_type, batch in entries:
+                        self.memtable.write(batch, s, op_type)
+                    self.data_version += 1
+            if dropped:
+                # durable in a WAL that drop() is about to delete: the
+                # write must not be acknowledged
+                raise RegionDroppedError(
+                    f"region {self.region_id} is dropped")
+        finally:
+            self._finish_commit(ticket)
+
+    def group_abort(self, ticket: int) -> None:
+        """Release a reserved ticket whose commit never started (the
+        encode failed). Waits its WAL turn so the turn counter stays
+        sequential; the reserved sequences become a gap, which replay
+        tolerates. An interrupt mid-wait still retires the ticket (as a
+        dead one)."""
+        try:
+            with self._wal_turn_cv:
+                while self._wal_turn != ticket:
+                    self._wal_turn_cv.wait(timeout=1.0)
+        finally:
+            self._finish_commit(ticket)
+
+    def _finish_commit(self, ticket: int) -> None:
+        with self._wal_turn_cv:
+            if self._wal_turn == ticket:
+                self._wal_turn = ticket + 1
+                while self._wal_turn in self._dead_tickets:
+                    self._dead_tickets.discard(self._wal_turn)
+                    self._wal_turn += 1
+                self._wal_turn_cv.notify_all()
+            elif self._wal_turn < ticket:
+                # abandoned before its turn came up: the predecessor's
+                # advance skips it
+                self._dead_tickets.add(ticket)
+        with self._lock:
+            self._inflight_commits.discard(ticket)
+            if not self._inflight_commits:
+                self._commit_idle.notify_all()
+
+    def _quiesce_commits_locked(self) -> None:
+        """Wait (holding self._lock, released during the wait) until no
+        group commit sits between reserve and apply. While waiting,
+        group_reserve holds new reservations back, so the drain is
+        bounded by the already-reserved groups' fsyncs; commits always
+        retire through their finally."""
+        self._quiesce_waiters += 1
+        try:
+            while self._inflight_commits:
+                self._commit_idle.wait(timeout=5.0)
+        finally:
+            self._quiesce_waiters -= 1
+            if not self._quiesce_waiters:
+                self._commit_idle.notify_all()
 
     def load(self, columns: dict[str, np.ndarray],
              tag_dicts: dict[str, np.ndarray], seq: np.ndarray,
@@ -345,6 +520,7 @@ class Region:
     def flush(self) -> Optional[FileMeta]:
         """Memtable -> sorted SST; manifest edit; WAL truncation."""
         with self._lock:
+            self._quiesce_commits_locked()
             return self._flush_locked()
 
     def _flush_locked(self) -> Optional[FileMeta]:
@@ -436,6 +612,10 @@ class Region:
         meta = self.sst_writer.write(cols, tag_dicts, seq[order], op[order],
                                      level=1)
         removed = [f.file_id for f in group]
+        # chaos seam: a crash HERE (new SST durable, manifest not yet
+        # edited) must leave the pre-compaction file list authoritative:
+        # the new file is an unreferenced orphan, never a half-swap
+        FAULTS.fire("maintenance.job", op="compact", phase="swap")
         with self._lock:
             for fid in removed:
                 self.files.pop(fid, None)
@@ -938,6 +1118,12 @@ class Region:
     @property
     def memtable_bytes(self) -> int:
         return self.memtable.bytes_estimate
+
+    @property
+    def l0_count(self) -> int:
+        """Unmerged flush outputs: the write-stall backpressure signal."""
+        with self._lock:
+            return sum(1 for f in self.files.values() if f.level == 0)
 
     @property
     def sst_bytes(self) -> int:

@@ -13,7 +13,10 @@ and the same truncation point.
 
 Durability: fsync at the append boundary by default (`sync=True`). One
 `append_many` call writes all its frames with one write pass and one
-fsync, so a batch of mutations shares the cost.
+fsync, so a batch of mutations shares the cost. `append_many` is
+`encode_entries` (pure CPU, no file state) then `append_blob` (the write
+and the fsync): group commit encodes outside every lock and appends in
+ticket order.
 
 Segments: `region_<id>.<segno>.wal`, rolled once the active file passes
 `segment_bytes`. `obsolete(up_to_seq)` deletes whole sealed segments
@@ -35,6 +38,7 @@ import json
 import os
 import re
 import struct
+import threading
 import zlib
 from dataclasses import dataclass
 from typing import Iterator
@@ -76,6 +80,7 @@ class Wal:
         # found intact in them
         self.native_scans = 0
         self.scanned_frames = 0
+        self._count_lock = threading.Lock()
         os.makedirs(wal_dir, exist_ok=True)
         # region -> (segno, open append handle)
         self._files: dict[int, tuple[int, io.BufferedWriter]] = {}
@@ -122,12 +127,19 @@ class Wal:
 
     def append_many(self, region_id: int,
                     entries: list[tuple[int, int, RecordBatch]]) -> None:
-        """Durably append (seq, op_type, batch) frames with ONE fsync.
-        A failed append truncates its partial bytes before the error
-        surfaces: replay stops at the first bad frame, so a partial tail
-        left in place would orphan every later acknowledged frame."""
+        """Durably append (seq, op_type, batch) frames with ONE fsync."""
         if not entries:
             return
+        self.append_blob(region_id, self.encode_entries(region_id, entries))
+
+    @staticmethod
+    def encode_entries(region_id: int,
+                       entries: list[tuple[int, int, RecordBatch]]) -> list:
+        """Frame (seq, op_type, batch) entries into the append blob
+        without touching file state: the frames' pieces (bytes and
+        buffers) in write order. Pure CPU, so the group-commit pipeline
+        runs it outside every lock: group N+1 encodes while group N's
+        fsync is in flight."""
         pieces = []
         for seq, op_type, batch in entries:
             payload = encode_batch(batch)
@@ -137,6 +149,17 @@ class Wal:
                 plen += len(p)
             pieces.append(_HEADER.pack(plen, crc, region_id, seq, op_type))
             pieces.extend(payload)
+        return pieces
+
+    def append_blob(self, region_id: int, blob) -> None:
+        """Durably append a pre-encoded blob (`encode_entries`' pieces,
+        or bytes): one write pass, one fsync. A failed append truncates
+        its partial bytes before the error surfaces: replay stops at the
+        first bad frame, so a partial tail left in place would orphan
+        every later acknowledged frame. Callers serialize per region:
+        group commit by ticket order, the serial path under the region
+        lock."""
+        pieces = [blob] if isinstance(blob, (bytes, bytearray)) else blob
         _segno, f = self._writer(region_id)
         start = f.tell()
         try:
@@ -145,7 +168,6 @@ class Wal:
             f.flush()
             if self.sync:
                 os.fsync(f.fileno())  # the durability boundary
-                self.sync_count += 1
         except BaseException:
             try:
                 f.flush()
@@ -154,7 +176,10 @@ class Wal:
             except OSError:
                 pass
             raise
-        self.bytes_written += f.tell() - start
+        with self._count_lock:
+            # regions' leaders append concurrently: count under a lock
+            self.sync_count += int(self.sync)
+            self.bytes_written += f.tell() - start
         if f.tell() >= self.segment_bytes:
             self._roll(region_id)
 

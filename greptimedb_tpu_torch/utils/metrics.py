@@ -6,7 +6,9 @@ Only the series the serving slices touch are defined, under the JAX
 package's names and labels: HTTP requests, query and statement
 durations, the deadline plane's terminal events, admission, the query
 batcher (events, group sizes, vmapped widths), the encode pool, the
-plan cache, the parse-free fast lane and the serving stages. The
+plan cache, the parse-free fast lane and the serving stages, and the
+write plane's: group commit, the maintenance plane and its write
+stalls, rollup substitutions, retention expiry and injected faults. The
 rest of the observability plane (tracing and exemplars, slow queries,
 the resource ledger, flame graphs, roofline, OTLP, the shared-memory
 metrics bridge) comes with the servers-and-CLI slice's later items
@@ -326,3 +328,54 @@ STAGE_SECONDS = REGISTRY.histogram(
     "plan-cache lookup + plan_select / execute on the slow lane; fast_bind / "
     "fast_execute on the fast lane) — with admission_wait_seconds and "
     "encode_seconds this makes the QPS breakdown attributable per stage")
+
+# ingest pipeline (storage/group_commit.py): these series show the fsync
+# amortization (batch size > 1 under concurrency) and where admission
+# pressure lands
+INGEST_BATCH_SIZE = REGISTRY.histogram(
+    "greptimedb_tpu_ingest_batch_size",
+    "Rows per group-committed WAL batch (one fsync each; sizes > the "
+    "per-writer batch mean concurrent writers were coalesced)",
+    buckets=(1, 8, 64, 256, 1024, 4096, 16384, 65536, 262144))
+INGEST_GROUP_COMMIT_EVENTS = REGISTRY.counter(
+    "greptimedb_tpu_ingest_group_commit_events_total",
+    "Group-commit events by kind (lead = a writer drained the queue and "
+    "paid the fsync, follow = a writer rode another's commit, overflow "
+    "= the bounded ingest queue rejected a writer with typed "
+    "Overloaded)")
+INGEST_WAL_FSYNC_SECONDS = REGISTRY.histogram(
+    "greptimedb_tpu_ingest_wal_fsync_seconds",
+    "WAL append+fsync wall time per group commit (the durability "
+    "boundary every queued writer amortizes over)")
+# the resilience plane's injected faults (fault/)
+FAULT_INJECTIONS = REGISTRY.counter(
+    "greptimedb_tpu_fault_injections_total",
+    "Injected faults by injection point and kind")
+# background maintenance plane (maintenance/ package): job throughput,
+# queue pressure, writer stalls, and the rollup/retention outcomes
+MAINTENANCE_JOBS = REGISTRY.counter(
+    "greptimedb_tpu_maintenance_jobs_total",
+    "Maintenance jobs by kind (flush/compact/rollup/expire) and "
+    "terminal status (done/failed)")
+MAINTENANCE_QUEUE_DEPTH = REGISTRY.gauge(
+    "greptimedb_tpu_maintenance_queue_depth",
+    "Maintenance jobs currently queued (bounded; excess submissions "
+    "run inline on the caller)")
+MAINTENANCE_JOB_SECONDS = REGISTRY.histogram(
+    "greptimedb_tpu_maintenance_job_duration_seconds",
+    "Maintenance job execution wall time by kind")
+WRITE_STALL_SECONDS = REGISTRY.counter(
+    "greptimedb_tpu_write_stall_seconds_total",
+    "Seconds writers spent stalled at the hard memtable/L0 backpressure "
+    "threshold, by reason (memtable/l0)")
+WRITE_STALL_TIMEOUTS = REGISTRY.counter(
+    "greptimedb_tpu_write_stall_timeouts_total",
+    "Stalls that hit stall_timeout_s and fell back to an inline flush "
+    "(the maintenance plane is wedged or saturated)")
+ROLLUP_SUBSTITUTIONS = REGISTRY.counter(
+    "greptimedb_tpu_maintenance_rollup_substitutions_total",
+    "Aggregate queries served from rollup plane SSTs instead of raw "
+    "data, by table and resolution")
+EXPIRED_SSTS = REGISTRY.counter(
+    "greptimedb_tpu_maintenance_expired_ssts_total",
+    "SSTs dropped whole by retention (TTL) expiry")

@@ -139,7 +139,7 @@ def test_engine_checks_every_statement(tmp_path):
     jeng = JRegionEngine(JConfig(data_dir=str(tmp_path / "jax"),
                                  maintenance_workers=0))
     jqe = JQueryEngine(JCatalog(JMemoryKv()), jeng)
-    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port")),
+    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port"), maintenance_workers=0),
                         device="cpu")
     tqe = QueryEngine(Catalog(MemoryKv()), teng, device="cpu")
     try:
@@ -173,7 +173,7 @@ def engines(tmp_path):
     jeng = JRegionEngine(JConfig(data_dir=str(tmp_path / "jax"),
                                  maintenance_workers=0))
     jqe = JQueryEngine(JCatalog(JMemoryKv()), jeng)
-    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port")),
+    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port"), maintenance_workers=0),
                         device="cpu")
     tqe = QueryEngine(Catalog(MemoryKv()), teng, device="cpu")
     for qe in (jqe, tqe):

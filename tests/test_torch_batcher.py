@@ -81,7 +81,7 @@ def engines(root, jplane=None, tplane=None, state="memtable"):
     jqe = JQueryEngine(JCatalog(JMemoryKv()), jeng,
                        concurrency=jplane or JPlane(JPlaneConfig(
                            fast_lane=False, plan_cache_entries=0)))
-    teng = RegionEngine(EngineConfig(data_dir=str(root / "port")),
+    teng = RegionEngine(EngineConfig(data_dir=str(root / "port"), maintenance_workers=0),
                         device="cpu")
     tqe = QueryEngine(Catalog(MemoryKv()), teng, device="cpu",
                       concurrency=tplane)

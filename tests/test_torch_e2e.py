@@ -231,7 +231,7 @@ class Pair:
                                              maintenance_workers=0))
         self.jqe = JQueryEngine(JCatalog(JFileKv(f"{r}/jax_catalog.json")),
                                 self.jengine)
-        self.tengine = RegionEngine(EngineConfig(data_dir=f"{r}/port"),
+        self.tengine = RegionEngine(EngineConfig(data_dir=f"{r}/port", maintenance_workers=0),
                                     device="cpu")
         self.tqe = QueryEngine(Catalog(FileKv(f"{r}/port_catalog.json")),
                                self.tengine, device="cpu")
@@ -471,7 +471,8 @@ def test_post_flush_write_uploads_only_the_tail(tmp_path, monkeypatch):
     from greptimedb_tpu_torch.query.physical import _block_plan
     from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
 
-    engine = RegionEngine(EngineConfig(data_dir=str(tmp_path)), device="cpu")
+    engine = RegionEngine(EngineConfig(data_dir=str(tmp_path),
+                                       maintenance_workers=0), device="cpu")
     qe = QueryEngine(Catalog(MemoryKv()), engine, device="cpu")
     qe.execute_one(CREATE[0])
     rng = np.random.default_rng(5)

@@ -75,7 +75,7 @@ def engines(root, **plane):
                                  maintenance_workers=0))
     jqe = JQueryEngine(JCatalog(JMemoryKv()), jeng,
                        concurrency=JPlane(JPlaneConfig(**plane)))
-    teng = RegionEngine(EngineConfig(data_dir=str(root / "port")),
+    teng = RegionEngine(EngineConfig(data_dir=str(root / "port"), maintenance_workers=0),
                         device="cpu")
     tqe = QueryEngine(Catalog(MemoryKv()), teng, device="cpu",
                       concurrency=ConcurrencyPlane(ConcurrencyConfig(**plane)))
@@ -605,3 +605,32 @@ def test_kernel_failure_over_mysql_reaches_the_client(pair,
         c.close()
     finally:
         srv.shutdown()
+
+
+def test_rollup_state_change_falls_back_until_reprobed(pair):
+    """A rollup-state change (a roll finishing, a companion dropped)
+    turns an aggregate template's hits into one slow-lane fallback with
+    reason "substitution", which re-probes and re-stamps the plan-cache
+    entry; hits resume. The events and rows are the JAX package's."""
+    from greptimedb_tpu.maintenance import rollup as jrollup
+
+    from greptimedb_tpu_torch.maintenance import rollup as trollup
+
+    jqe, tqe = pair
+    sql = ("SELECT max(v) FROM cpu WHERE host = 'h0' AND ts >= 0 "
+           "AND ts < 60000")
+    got = {}
+    for qe, rollup, counter in ((jqe, jrollup, jmetrics.FAST_LANE_EVENTS),
+                                (tqe, trollup, tmetrics.FAST_LANE_EVENTS)):
+        before = events(counter)
+        rows = [qe.execute_one(sql) for _ in range(3)]  # mark, build, hit
+        mid = events(counter)
+        rollup._bump_substitution_state()
+        rows += [qe.execute_one(sql) for _ in range(2)]  # fallback, hit
+        got[qe] = (delta(mid, before), delta(events(counter), mid), rows)
+    (jd1, jd2, jrows), (td1, td2, trows) = got[jqe], got[tqe]
+    assert td1 == jd1 and td2 == jd2
+    assert td2 == {(("event", "fallback"), ("reason", "substitution")): 1,
+                   (("event", "hit"),): 1}
+    for w, g in zip(jrows, trows):
+        assert_rows(w, g)

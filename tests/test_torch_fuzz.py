@@ -115,7 +115,7 @@ def test_fuzz_session_matches_the_jax_engine(seed, tmp_path):
     jengine = JRegionEngine(JConfig(data_dir=str(tmp_path / "jax"),
                                     maintenance_workers=0))
     jqe = JQueryEngine(JCatalog(JMemoryKv()), jengine)
-    tengine = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port")),
+    tengine = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port"), maintenance_workers=0),
                            device="cpu")
     tqe = QueryEngine(Catalog(MemoryKv()), tengine, device="cpu")
     jctx, tctx = JQueryContext(), QueryContext()

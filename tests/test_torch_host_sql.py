@@ -311,7 +311,7 @@ def test_build_info_reports_the_port_version(pair):
     ("running_queries", "servers and CLI"), ("cluster_profile",
                                              "servers and CLI"),
     ("cluster_faults", "servers and CLI"), ("flows", "servers and CLI"),
-    ("maintenance_jobs", "A12"), ("partitions", "A10"),
+    ("partitions", "A10"),
     ("region_peers", "A10"), ("cluster_info", "A10")])
 def test_runtime_information_schema_tables_name_their_slice(
         pair, table, slice_name):

@@ -63,7 +63,7 @@ def build(root, jplane=None, tplane=None):
     jqe = JQueryEngine(JCatalog(JMemoryKv()), jeng,
                        concurrency=jplane or JPlane(JPlaneConfig(
                            fast_lane=False, plan_cache_entries=0)))
-    teng = RegionEngine(EngineConfig(data_dir=str(root / "port")),
+    teng = RegionEngine(EngineConfig(data_dir=str(root / "port"), maintenance_workers=0),
                         device="cpu")
     tqe = QueryEngine(Catalog(MemoryKv()), teng, device="cpu",
                       concurrency=tplane)
@@ -222,7 +222,6 @@ def test_statuses_and_error_bodies_match_jax(servers, name):
     ("/v1/traces/abc", "observability plane"),
     ("/debug/pprof/cpu", "observability plane"),
     ("/v1/faults", "A10"),
-    ("/v1/maintenance", "A12"),
 ])
 def test_unported_routes_name_their_slice(servers, path, slice_name):
     status, body = call(servers[1], path, b"", "POST")

@@ -58,7 +58,7 @@ def engines(tmp_path):
     """A JAX engine and a port engine (on the CPU), each in its own dir."""
     jeng = JRegionEngine(JConfig(data_dir=str(tmp_path / "jax"),
                                  maintenance_workers=0))
-    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port")),
+    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port"), maintenance_workers=0),
                         device="cpu")
     return ((jeng, JQueryEngine(JCatalog(JMemoryKv()), jeng)),
             (teng, QueryEngine(Catalog(MemoryKv()), teng, device="cpu")))

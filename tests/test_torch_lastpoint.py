@@ -59,7 +59,7 @@ class Pair:
         self.jengine = JRegionEngine(JConfig(data_dir=f"{root}/jax",
                                              maintenance_workers=0))
         self.jqe = JQueryEngine(JCatalog(JMemoryKv()), self.jengine)
-        self.tengine = RegionEngine(EngineConfig(data_dir=f"{root}/port"),
+        self.tengine = RegionEngine(EngineConfig(data_dir=f"{root}/port", maintenance_workers=0),
                                     device="cpu")
         self.tqe = QueryEngine(Catalog(MemoryKv()), self.tengine,
                                device="cpu")
@@ -288,7 +288,7 @@ class Engines:
 
         self.j = JRegionEngine(JConfig(data_dir=f"{root}/jax",
                                        maintenance_workers=0))
-        self.t = RegionEngine(EngineConfig(data_dir=f"{root}/port"),
+        self.t = RegionEngine(EngineConfig(data_dir=f"{root}/port", maintenance_workers=0),
                               device="cpu")
         self.pkgs = (("greptimedb_tpu", self.j),
                      ("greptimedb_tpu_torch", self.t))

@@ -124,11 +124,7 @@ def test_dump_config_equals_jax_and_loads_back(tmp_path, capsys):
     ("storage.type", "'s3'", "A12: object stores"),
     ("storage.s3.bucket", "'b'", "A12: object stores"),
     ("wal.backend", "'remote'", "A12: object stores"),
-    ("engine.write_workers", "4", "A12: write workers"),
-    ("maintenance.workers", "2", "A12: the maintenance plane"),
-    ("maintenance.retention_ttl", "'7d'", "A12: the maintenance plane"),
     ("scan.decode_threads", "4", "A12: the parallel decode pool"),
-    ("ingest.max_batch_rows", "10", "A12: write workers"),
     ("query.mesh", "'2x2'", "A10"),
     ("query.tier_admission", "false", "A11"),
     ("cluster.hedge_enabled", "false", "A10"),
@@ -153,11 +149,44 @@ def test_unported_key_refused_naming_its_slice(key, value, slice_name,
     assert slice_name in str(e.value) and "not in this slice" in str(e.value)
 
 
-def test_rollup_rules_refused_and_port_values_accepted(tmp_path):
+@pytest.mark.parametrize("key,value", [
+    ("engine.write_workers", "4"), ("maintenance.workers", "2"),
+    ("maintenance.retention_ttl", "'7d'"), ("ingest.max_batch_rows", "10"),
+    ("ingest.group_commit", "false"), ("ingest.overlap", "false"),
+    ("maintenance.stall_timeout_s", "0.5"),
+])
+def test_write_plane_keys_boot_and_map_as_the_jax_package(key, value,
+                                                          tmp_path):
+    """The write plane's options (write workers, [ingest], [maintenance])
+    boot, and reach EngineConfig as the JAX engine_config maps them."""
+    section, name = key.rsplit(".", 1)
     p = tmp_path / "cfg.toml"
-    p.write_text("[[maintenance.rollup]]\nresolution = '1h'\n")
-    with pytest.raises(options.ConfigError, match="maintenance.rollup"):
-        options.check_port_support(options.load_options(str(p), env={}))
+    p.write_text(f"[{section}]\n{name} = {value}\n")
+    opts = options.load_options(str(p), env={})
+    options.check_port_support(opts)
+    cfg = options.engine_config(opts, "/tmp/x")
+    jcfg = jopt.engine_config(jopt.load_options(str(p), env={}), "/tmp/x")
+    for f in ("write_workers", "ingest_group_commit", "ingest_max_batch_rows",
+              "ingest_max_batch_bytes", "ingest_queue_depth",
+              "ingest_overlap", "maintenance_workers", "maintenance_queue",
+              "maintenance_tick_s", "stall_memtable_bytes", "stall_l0_files",
+              "stall_timeout_s", "retention_ttl_ms", "rollup_rules"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+
+
+def test_rollup_rules_refused_and_port_values_accepted(tmp_path):
+    """Rollup rules boot (the maintenance plane runs them) and reach
+    EngineConfig as the JAX package maps them."""
+    p = tmp_path / "cfg.toml"
+    p.write_text("[[maintenance.rollup]]\nresolution = '1h'\n"
+                 "fields = 'v, w'\n")
+    opts = options.load_options(str(p), env={})
+    options.check_port_support(opts)
+    assert options.engine_config(opts, "/tmp/x").rollup_rules == \
+        jopt.engine_config(jopt.load_options(str(p), env={}),
+                           "/tmp/x").rollup_rules == [
+            {"resolution_ms": 3_600_000, "fields": ["v", "w"],
+             "auto": True}]
     # values that ask for what the port does, XLA-only keys, and every
     # key the port runs boot
     p.write_text(

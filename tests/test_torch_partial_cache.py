@@ -60,7 +60,7 @@ def pair(tmp_path):
 
     jeng = JRegionEngine(JConfig(data_dir=str(tmp_path / "jax"),
                                  maintenance_workers=0))
-    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port")),
+    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port"), maintenance_workers=0),
                         device="cpu")
     yield (JQueryEngine(JCatalog(JMemoryKv()), jeng),
            QueryEngine(Catalog(MemoryKv()), teng, device="cpu"))

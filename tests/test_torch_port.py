@@ -75,8 +75,9 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def _engine(data_dir, device="cpu"):
-    engine = RegionEngine(EngineConfig(data_dir=str(data_dir)), device=device)
+def _engine(data_dir, device="cpu", **cfg):
+    engine = RegionEngine(EngineConfig(data_dir=str(data_dir), **cfg),
+                          device=device)
     return QueryEngine(Catalog(MemoryKv()), engine, device=device)
 
 
@@ -155,7 +156,6 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
     # SHOW TABLES runs on the port now (the host SQL surface); the case
     # keeps its id and checks a SHOW statement that stays outside
     ("SHOW FLOWS", "flows, scripts, plugins and shm"),
-    ("ADMIN rollup_table('cpu', '1m')", "maintenance plane"),
     # TQL EVAL runs on the port now; the case keeps its id and checks the
     # TQL statement that stays outside the slice
     ("TQL ANALYZE (0, 10, '5s') up", "servers and CLI"),
@@ -167,18 +167,17 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
      "PRIMARY KEY (a)) PARTITION ON COLUMNS (a) (a < 'm', a >= 'm')",
      "mesh and cluster .ROADMAP A10."),
     ("CREATE TABLE m (ts TIMESTAMP TIME INDEX, v DOUBLE) ENGINE = metric",
-     "maintenance plane, metric and file engines .ROADMAP A12-maint."),
+     "metric and file engines .ROADMAP A12-engines."),
     ("CREATE EXTERNAL TABLE x (ts TIMESTAMP TIME INDEX, a STRING) WITH "
      "(location = '/nonexistent/x.csv', format = 'csv')",
-     "maintenance plane, metric and file engines .ROADMAP A12-maint."),
+     "metric and file engines .ROADMAP A12-engines."),
     ("ADMIN flush_flow('f')",
      "flows, scripts, plugins and shm .ROADMAP A9-flows."),
-    ("ADMIN expire_table('cpu', '1d')", "maintenance plane"),
 ], ids=["COPY cpu TO 'cpu.parquet'", "SHOW TABLES",
-        "ADMIN rollup_table('cpu', '1m')", "TQL EVAL (0, 10, '5s') up",
+        "TQL EVAL (0, 10, '5s') up",
         "SELECT a.u FROM cpu a JOIN cpu b ON a.ts = b.ts",
         "PARTITION ON", "ENGINE = metric", "CREATE EXTERNAL TABLE",
-        "ADMIN flush_flow", "ADMIN expire_table"])
+        "ADMIN flush_flow"])
 def test_statements_outside_the_slice_raise_typed_errors(sql, slice_name,
                                                          tmp_path):
     qe = _engine(tmp_path)
@@ -236,7 +235,8 @@ def test_region_flush_and_compaction_match_the_jax_engine(fn, tmp_path):
     try:
         outcomes = []
         for qe, eng in ((jqe, jengine),
-                        (_engine(tmp_path / "port"), None)):
+                        (_engine(tmp_path / "port", maintenance_workers=0),
+                         None)):
             eng = eng or qe.region_engine
             _cpu_table(qe, points=4)
             info = qe.catalog.table("public", "cpu")
@@ -257,6 +257,91 @@ def test_region_flush_and_compaction_match_the_jax_engine(fn, tmp_path):
         assert outcomes[1][1] == (1 if fn == "compact_region" else 2)
     finally:
         jengine.close()
+
+
+@pytest.mark.parametrize("sql", [
+    "ADMIN rollup_table('cpu', '1m')", "ADMIN expire_table('cpu', '1d')",
+    "ADMIN maintenance_status(1)"])
+def test_maintenance_functions_without_the_plane_match_the_jax_engine(
+        sql, tmp_path):
+    """With maintenance_workers=0 the plane's functions raise the JAX
+    engine's PlanError, text for text (they were refusals naming A12
+    before the plane was ported)."""
+    jengine, jqe = _jax_engine(tmp_path / "jax")
+    try:
+        qe = _engine(tmp_path / "port", maintenance_workers=0)
+        errors = []
+        for q in (jqe, qe):
+            _cpu_table(q, points=2)
+            with pytest.raises(Exception) as e:
+                q.execute_one(sql)
+            errors.append((type(e.value).__name__, str(e.value)))
+        assert errors[1] == errors[0]
+        assert errors[1][0] == "PlanError"
+        qe.region_engine.close()
+    finally:
+        jengine.close()
+
+
+@pytest.mark.parametrize("fn", ["flush_table", "compact_table",
+                                "rollup_table", "expire_table"])
+def test_admin_functions_return_job_ids_on_the_plane(fn, tmp_path):
+    """With the JAX defaults (one maintenance worker) each table function
+    returns one job id a region, as the JAX engine does, and the job
+    finishes."""
+    qe = _engine(tmp_path)
+    _cpu_table(qe, points=20)
+    args = {"rollup_table": ", '1m'", "expire_table": ", '1d'"}.get(fn, "")
+    r = qe.execute_one(f"ADMIN {fn}('cpu'{args})")
+    assert r.names == ["job_id"] and r.num_rows == 1
+    job = qe.region_engine.maintenance.wait(int(r.rows()[0][0]), timeout=30)
+    assert job.state == "done", job.error
+    st = qe.execute_one(f"ADMIN maintenance_status({job.job_id})")
+    assert dict(zip(st.names, st.rows()[0]))["state"] == "done"
+    qe.region_engine.close()
+
+
+def test_distributed_rollup_substitution_names_a10(tmp_path):
+    """A frontend whose regions live on datanodes (an engine with a
+    rollup_probe and no local plane) would probe them for companion
+    coverage: that is the mesh and cluster slice's."""
+    qe = _engine(tmp_path, maintenance_workers=0)
+    _cpu_table(qe, points=2)
+    qe.region_engine.rollup_probe = lambda rid, lo, hi: []
+    with pytest.raises(UnsupportedStatement,
+                       match="distributed rollup substitution.*A10"):
+        qe.execute_one("SELECT host, max(u) FROM cpu WHERE ts >= 0 AND "
+                       "ts < 60000 GROUP BY host")
+    qe.region_engine.close()
+
+
+def test_standalone_defaults_run_the_write_plane(tmp_path):
+    """standalone start's default options: cpu/2 write workers, group
+    commit with overlap and one maintenance worker, as the JAX package
+    runs them; close() joins every thread of the plane."""
+    import threading
+
+    from greptimedb_tpu_torch import options
+
+    opts = options.StandaloneOptions()
+    options.check_port_support(opts)
+    cfg = options.engine_config(opts, str(tmp_path / "data"))
+    assert cfg.write_workers == -1 and cfg.ingest_group_commit
+    assert cfg.ingest_overlap and cfg.maintenance_workers == 1
+    before = set(threading.enumerate())
+    qe = QueryEngine(Catalog(MemoryKv()), RegionEngine(cfg, device="cpu"),
+                     device="cpu")
+    eng = qe.region_engine
+    assert eng.workers is not None and eng.workers.n == max(
+        1, (os.cpu_count() or 2) // 2)
+    assert eng.maintenance is not None
+    _cpu_table(qe, points=3)
+    rid = qe.catalog.table("public", "cpu").region_ids[0]
+    assert eng.region(rid).committer is not None
+    assert qe.execute_one("SELECT count(*) FROM cpu").rows() == [[12]]
+    assert set(threading.enumerate()) - before
+    eng.close()
+    assert set(threading.enumerate()) - before == set()
 
 
 # statements a case needs to have run first, on both engines

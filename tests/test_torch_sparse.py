@@ -187,7 +187,7 @@ def _open_pair(root):
 
     jeng = JRegionEngine(JConfig(data_dir=os.path.join(root, "jax"),
                                  maintenance_workers=0))
-    teng = RegionEngine(EngineConfig(data_dir=os.path.join(root, "port")),
+    teng = RegionEngine(EngineConfig(data_dir=os.path.join(root, "port"), maintenance_workers=0),
                         device="cpu")
     return ((JQueryEngine(JCatalog(JMemoryKv()), jeng),
              QueryEngine(Catalog(MemoryKv()), teng, device="cpu")),

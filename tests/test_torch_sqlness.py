@@ -121,7 +121,7 @@ def replay_case(case, tmp_path, later, rewrite=None) -> None:
     jengine = JRegionEngine(JConfig(data_dir=str(tmp_path / "jax"),
                                     maintenance_workers=0))
     jqe = JQueryEngine(JCatalog(JMemoryKv()), jengine)
-    tengine = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port")),
+    tengine = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port"), maintenance_workers=0),
                            device="cpu")
     tqe = QueryEngine(Catalog(MemoryKv()), tengine, device="cpu")
     jctx, tctx = JQueryContext(), QueryContext()

@@ -18,8 +18,6 @@ from test_torch_sqlness import CASES_DIR, replay_case
 CASES = sorted(set(CASES_DIR.glob("**/*.sql")) - set(REPLAYED))
 
 _OUTSIDE = " is not in this slice of greptimedb_tpu_torch; the "
-_MAINT = (_OUTSIDE + "maintenance plane, metric and file engines (ROADMAP "
-          "A12-maint) slice brings it")
 _COPY = "CopyTable" + _OUTSIDE + "COPY import and export slice brings it"
 _FLOWS = _OUTSIDE + "flows, scripts, plugins and shm (ROADMAP A9-flows) " \
     "slice brings it"
@@ -30,10 +28,6 @@ _NO_SINK = ("error", "CatalogError", "table public.sink not found")
 # a statement that reads what a refused one would have written, the
 # port's whole outcome)
 LATER = {
-    ("admin/maintenance", "ADMIN rollup_table('mj', '1m')"):
-        "ADMIN rollup_table" + _MAINT,
-    ("admin/maintenance", "ADMIN expire_table('mj', '100000d')"):
-        "ADMIN expire_table" + _MAINT,
     ("copy/copy_orc", "COPY src_orc TO '/tmp/sqlness_copy_src.orc'"): _COPY,
     ("copy/copy_orc",
      "COPY dst_orc FROM '/tmp/sqlness_copy_src.orc' WITH (format ="): _COPY,

@@ -106,8 +106,8 @@ class Engines:
         from greptimedb_tpu.storage.engine import EngineConfig as JConfig
 
         self.port = RegionEngine(EngineConfig(
-            data_dir=os.path.join(self.root, "port"), **self.cfg),
-            device="cpu")
+            data_dir=os.path.join(self.root, "port"), maintenance_workers=0,
+            **self.cfg), device="cpu")
         self.jax = JRegionEngine(JConfig(
             data_dir=os.path.join(self.root, "jax"), maintenance_workers=0,
             **self.cfg))
@@ -648,7 +648,7 @@ class Sql:
             data_dir=os.path.join(root, "jax"), maintenance_workers=0))
         self.j = JQueryEngine(JCatalog(JMemoryKv()), self.jengine)
         self.tengine = RegionEngine(
-            EngineConfig(data_dir=os.path.join(root, "port")), device="cpu")
+            EngineConfig(data_dir=os.path.join(root, "port"), maintenance_workers=0), device="cpu")
         self.t = QueryEngine(Catalog(MemoryKv()), self.tengine, device="cpu")
         self.both("CREATE TABLE cpu (host STRING, usage DOUBLE, "
                   "ts TIMESTAMP TIME INDEX, PRIMARY KEY(host))")
@@ -811,7 +811,8 @@ def test_device_blocks_die_with_their_files(tmp_path):
     """File-anchored blocks survive writes (a newer snapshot retires only
     snapshot blocks), die exactly with the files a compaction removes,
     and all die on TRUNCATE."""
-    engine = RegionEngine(EngineConfig(data_dir=str(tmp_path)), device="cpu")
+    engine = RegionEngine(EngineConfig(data_dir=str(tmp_path),
+                                       maintenance_workers=0), device="cpu")
     qe = QueryEngine(Catalog(MemoryKv()), engine, device="cpu")
     qe.execute_one("CREATE TABLE t (h STRING, ts TIMESTAMP(3) NOT NULL, "
                    "v DOUBLE, TIME INDEX (ts), PRIMARY KEY (h)) "

@@ -54,7 +54,7 @@ def pair(tmp_path):
 
     jeng = JRegionEngine(JConfig(data_dir=str(tmp_path / "jax"),
                                  maintenance_workers=0))
-    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port")),
+    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port"), maintenance_workers=0),
                         device="cpu")
     yield (JQueryEngine(JCatalog(JMemoryKv()), jeng),
            QueryEngine(Catalog(MemoryKv()), teng, device="cpu"))
@@ -243,7 +243,8 @@ def port(tmp_path):
     from greptimedb_tpu_torch.query import QueryEngine
     from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
 
-    eng = RegionEngine(EngineConfig(data_dir=str(tmp_path)), device="cpu")
+    eng = RegionEngine(EngineConfig(data_dir=str(tmp_path),
+                                    maintenance_workers=0), device="cpu")
     qe = QueryEngine(Catalog(MemoryKv()), eng, device="cpu")
     qe.execute_one("CREATE TABLE t (host STRING, v DOUBLE, "
                    "ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "

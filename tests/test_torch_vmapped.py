@@ -101,7 +101,7 @@ def pair(request, tmp_path_factory):
                                  maintenance_workers=0))
     jqe = JQueryEngine(JCatalog(JMemoryKv()), jeng, concurrency=JPlane(
         JConfigPlane(fast_lane=False, plan_cache_entries=0)))
-    teng = RegionEngine(EngineConfig(data_dir=str(root / "port")),
+    teng = RegionEngine(EngineConfig(data_dir=str(root / "port"), maintenance_workers=0),
                         device="cpu")
     tqe = QueryEngine(Catalog(MemoryKv()), teng, device="cpu")
     rng = np.random.default_rng(SEED)

@@ -68,7 +68,8 @@ class Side:
 
     def __init__(self, root, port_side: bool, **plane):
         if port_side:
-            self.eng = RegionEngine(EngineConfig(data_dir=str(root)),
+            self.eng = RegionEngine(EngineConfig(data_dir=str(root),
+                                                 maintenance_workers=0),
                                     device="cpu")
             self.qe = QueryEngine(
                 Catalog(MemoryKv()), self.eng, device="cpu",

@@ -102,7 +102,7 @@ class Pair:
         self.jengine = JRegionEngine(JConfig(data_dir=f"{root}/jax",
                                              maintenance_workers=0))
         self.jqe = JQueryEngine(JCatalog(JMemoryKv()), self.jengine)
-        self.tengine = RegionEngine(EngineConfig(data_dir=f"{root}/port"),
+        self.tengine = RegionEngine(EngineConfig(data_dir=f"{root}/port", maintenance_workers=0),
                                     device="cpu")
         self.tqe = QueryEngine(Catalog(MemoryKv()), self.tengine,
                                device="cpu")

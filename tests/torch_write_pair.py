@@ -27,7 +27,7 @@ class Pair:
         self.jeng = JRegionEngine(JConfig(data_dir=str(root / "jax"),
                                           maintenance_workers=0))
         self.jqe = JQueryEngine(JCatalog(JMemoryKv()), self.jeng)
-        self.teng = RegionEngine(EngineConfig(data_dir=str(root / "port")),
+        self.teng = RegionEngine(EngineConfig(data_dir=str(root / "port"), maintenance_workers=0),
                                  device="cpu")
         self.tqe = QueryEngine(Catalog(MemoryKv()), self.teng, device="cpu")
         self.jsrv, self.tsrv = JHttpServer(self.jqe, port=0), \
