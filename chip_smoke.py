@@ -245,6 +245,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -305,8 +306,9 @@ STREAM_HOURS = -(-(STREAM_ROWS // STREAM_HOSTS) * STEP_S // 3600)
 # write sequence and the op type (an SST holds the same)
 STREAM_ROW_BYTES = 4 + 8 + 8 * 10 + 8 + 1
 # the ingest stops at a put boundary once the run is this old, so the
-# whole script stays inside its time limit; a cut is printed
-STREAM_INGEST_DEADLINE_S = 650.0
+# whole script stays inside its time limit (after it: the stream's
+# queries ~125 s and the write plane ~50 s); a cut is printed
+STREAM_INGEST_DEADLINE_S = 720.0
 T_START = time.perf_counter()
 FIELDS = [f"usage_{n}" for n in (
     "user", "system", "idle", "nice", "iowait", "irq", "softirq",
@@ -1426,6 +1428,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         serving = serving_cpu_phase(qe, sk, torch, grid)
         wire = wire_phase(qe, sk, torch, grid)
         writes = write_protocols_phase(qe, sk, torch, grid, host_names)
+        obs = observability_phase(qe, sk, torch, grid, rows)
 
         # 3. one more 10 s step for every host, then the re-query: the SST
         # parts' file-anchored blocks hit, only the memtable tail uploads
@@ -1521,7 +1524,7 @@ def main_path_phase(sk, torch, lib=None) -> dict:
             "cached": cached, "host_aggs": host_aggs,
             "promql_cpu": promql_cpu, "range": ranges, "host_sql": host_sql,
             "serving": serving, "wire": wire, "writes": writes,
-            "root": root, "grid": grid}
+            "obs": obs, "root": root, "grid": grid}
 
 
 # ---- RANGE ... ALIGN on the `cpu` table --------------------------------------
@@ -3562,12 +3565,18 @@ def serving_phase(sk, torch, lib=None) -> dict:
               f"{mixed['mean_vmap_width']})")
         # the same 3,000 requests with the JAX defaults: once a template
         # is learned its siblings are fast-lane hits, one serial K2 call
-        # each, and no longer vmapped groups
+        # each, and no longer vmapped groups. The observability plane
+        # runs as `standalone start` runs it: spans and the ledger, and
+        # the flame sampler at 19 Hz (the server's stop joins it)
+        from greptimedb_tpu_torch.utils import flame
+
         with defaults_plane(qe):
+            flame.configure(enabled=True)
             mixed_defaults = serve_traffic(
                 qe, sk, torch, "qps_mixed_tenants (cpu_1h, defaults)",
                 mixed_tenants(SERVE_HOURS), MIXED_CLIENTS, MIXED_REQUESTS,
                 grid)
+        plane_ab = plane_ab_phase(qe, sk, torch, grid)
         lane = mixed_defaults["lane"]
         check(lane["fast_lane"].get("hit", 0) > 0,
               f"cpu_1h with the defaults: no fast-lane hit {lane}")
@@ -3598,8 +3607,88 @@ def serving_phase(sk, torch, lib=None) -> dict:
     log(f"serving phases (b), (c), (d) on cpu_1h: "
         f"{time.perf_counter() - t:.1f} s")
     return {"mixed": mixed, "mixed_defaults": mixed_defaults,
-            "vmapped_case": case, "standalone": cli,
+            "plane_ab": plane_ab, "vmapped_case": case, "standalone": cli,
             "standalone_options": cli_options}
+
+
+#: requests a round of the observability plane's on/off comparison, and
+#: the rounds: "on" = the defaults, "off" = no spans, ledger or sampler,
+#: "spans" = spans and the ledger without the sampler
+PLANE_AB_REQUESTS = 800
+PLANE_AB_ROUNDS = ("off", "on", "spans", "off", "on", "spans")
+
+
+def plane_ab_phase(qe, sk, torch, grid) -> dict:
+    """The cost of the observability plane on the served mixed traffic
+    (cpu_1h, the JAX defaults of the concurrency plane): rounds in turn
+    with the plane at its defaults (spans, the ledger and the 19 Hz
+    flame sampler), off (GTPU_TRACING=off, no sampler) and with spans
+    and the ledger alone; the median qps and p99 of each arm and the
+    device's idle share. The JAX package's budget is <= 2 %
+    (greptimedb_tpu/options.py:366)."""
+    from greptimedb_tpu_torch.utils import flame, tracing
+    from greptimedb_tpu_torch.utils.metrics import ENCODE_SECONDS
+
+    runs = {"on": [], "off": [], "spans": []}
+    k1 = k2 = 0
+    http_ms = []
+    for arm in PLANE_AB_ROUNDS:
+        e0 = (ENCODE_SECONDS.sum(protocol="http"),
+              ENCODE_SECONDS.count(protocol="http"))
+        with defaults_plane(qe), env_value(
+                "GTPU_TRACING", "off" if arm == "off" else ""):
+            if arm == "on":
+                flame.configure(enabled=True)
+            r = serve_traffic(
+                qe, sk, torch, f"qps_mixed_tenants (cpu_1h, defaults, "
+                f"observability {arm})", mixed_tenants(SERVE_HOURS),
+                MIXED_CLIENTS, PLANE_AB_REQUESTS, grid)
+        check(not flame.running(), "the flame sampler outlived its server")
+        if arm == "on":
+            # the request's HTTP layer from its spans: the request root
+            # span's time outside its statement (body read and form
+            # parse, the context, the disconnect watcher, the result's
+            # JSON encode and send), and the encode alone
+            spans = tracing.recent_spans(tracing._RING_CAP)
+            stmt = {}
+            for sp in spans:
+                if sp.name.startswith("stmt:") and sp.parent_id:
+                    stmt[sp.parent_id] = stmt.get(sp.parent_id, 0.0) \
+                        + sp.duration_ms
+            http_ms.extend(sp.duration_ms - stmt[sp.span_id]
+                           for sp in spans if sp.name == "http:/v1/sql"
+                           and sp.span_id in stmt)
+            n_enc = ENCODE_SECONDS.count(protocol="http") - e0[1]
+            enc_ms = (ENCODE_SECONDS.sum(protocol="http") - e0[0]) \
+                / max(n_enc, 1) * 1e3
+        k1 += r["k1_launches"]
+        k2 += r["k2_launches"]
+        runs[arm].append({"qps": r["qps"], "p99_ms_max_tenant": max(
+                          v["p99_ms"] for v in r["tenants"].values()),
+                          "p50_ms": {t: v["p50_ms"]
+                                     for t, v in r["tenants"].items()},
+                          "p99_ms": {t: v["p99_ms"]
+                                     for t, v in r["tenants"].items()},
+                          "idle_share": r["profiled_burst"]["idle_share"]})
+        if arm == "on":
+            runs[arm][-1]["encode_ms_mean"] = enc_ms
+    med = {arm: float(np.median([x["qps"] for x in rs]))
+           for arm, rs in runs.items()}
+    check(len(http_ms) > 0, "no http:/v1/sql span with its statement")
+    h = np.asarray(http_ms)
+    out = {"rounds": list(PLANE_AB_ROUNDS), "requests": PLANE_AB_REQUESTS,
+           "runs": runs, "median_qps": med,
+           "http_outside_statement_ms": {
+               "spans": len(h), "p50": float(np.percentile(h, 50)),
+               "p99": float(np.percentile(h, 99)),
+               "mean": float(h.mean())},
+           "qps_cost": 1.0 - med["on"] / med["off"],
+           "qps_cost_spans_alone": 1.0 - med["spans"] / med["off"],
+           "k1_launches": k1, "k2_launches": k2}
+    log("observability plane on/off, cpu_1h mixed traffic: " + json.dumps(
+        {k: v for k, v in out.items() if k != "runs"}) + " runs "
+        + json.dumps(runs))
+    return out
 
 
 # ---- the front door: plan cache, fast lane, wire servers, options -----------
@@ -5227,6 +5316,46 @@ def write_plane_phase(root, sk, torch, grid) -> dict:
     return out
 
 
+def first_query_breakdown(base, token, tid) -> dict:
+    """A served process's first query, from its own observability
+    surfaces: the span tree and ledger of its trace (/v1/traces) and
+    the flame sampler's stages and hottest frames (/v1/profile/cluster),
+    logged."""
+    import urllib.request
+
+    def get(path):
+        req = urllib.request.Request(base + path)
+        req.add_header("Authorization", "Basic " + token)
+        deadline = time.time() + 10
+        while True:
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    return json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                # the root span records just after the response is sent
+                if e.code != 404 or time.time() > deadline:
+                    raise
+                time.sleep(0.05)
+
+    import urllib.error
+
+    doc = get(f"/v1/traces/{tid}")
+    spans = {s["name"]: s for s in doc["spans"]}
+    check("http:/v1/sql" in spans and "stmt:Select" in spans,
+          f"standalone -c: the first query's trace has {sorted(spans)}")
+    view = get("/v1/profile/cluster")["merged"]
+    out = {"tree": doc["tree"],
+           "ms": {name: s["duration_ms"] for name, s in spans.items()},
+           "ledger": spans["stmt:Select"]["attrs"].get("ledger", ""),
+           "flame_stages": view["stages"], "flame_top": view["top"][:8]}
+    log("standalone -c: the first query's span tree (its own "
+        "/v1/traces):\n" + "\n".join(doc["tree"]))
+    log("standalone -c: the first query's ledger and the flame sampler "
+        "since boot: " + json.dumps({k: v for k, v in out.items()
+                                     if k != "tree"}))
+    return out
+
+
 def standalone_options_phase(root, answers) -> dict:
     """(d) `standalone start -c <toml>` over the closed cpu_1h dir, with
     MySQL, Postgres and one static user enabled and the JAX defaults of
@@ -5304,14 +5433,20 @@ def standalone_options_phase(root, answers) -> dict:
               f"answered {status}")
         steps["http_401_s"] = time.perf_counter() - t_step
         t_step = time.perf_counter()
+        # the process's first query, traced: its span tree and ledger say
+        # where its time goes
+        tid = f"{os.getpid():08x}f1f57a11"[-16:]
         req = urllib.request.Request(base + path, data=data)
         req.add_header("Authorization", "Basic " + token)
+        req.add_header("traceparent",
+                       f"00-{tid.rjust(32, '0')}-00f067aa0ba902b7-01")
         with urllib.request.urlopen(req, timeout=120) as r:
             body = r.read()
         check(r.status == 200 and strip_time(body) == want,
               f"standalone -c {path}: the body differs from the in-process "
               "answer")
         steps["http_sql_s"] = time.perf_counter() - t_step
+        first = first_query_breakdown(base, token, tid)
         t_step = time.perf_counter()
         rows = HOSTS * SERVE_HOURS * 3600 // STEP_S
         my = WireMysql(my_port, user, password)
@@ -5347,10 +5482,434 @@ def standalone_options_phase(root, answers) -> dict:
 
         shutil.rmtree(cfg_dir, ignore_errors=True)
     out = {"start_s": start_s, "requests_s": requests_s, "stop_s": stop_s,
-           "steps": steps, "http_requests": 2,
+           "steps": steps, "first_query": first, "http_requests": 2,
            "mysql_logins": 2, "postgres_queries": 1, "exit_code": rc,
            "wall_s": time.perf_counter() - t}
     log("serving standalone -c subprocess: " + json.dumps(out))
+    return out
+
+
+# ---- (g) the observability plane ---------------------------------------------
+
+#: the K1 and K2 kernels' device function names (csrc/), for the
+#: profiler's per-kernel device time
+K1_KERNELS = ("window_sum_kernel",)
+K2_KERNELS = ("fused_agg_kernel", "fused_init_kernel")
+#: one span line of an ANALYZE tree: indent, name, ms
+TREE_LINE = re.compile(r"^(?P<pad>\s+)(?P<name>[^\s\[][^:]*): "
+                       r"(?P<ms>[0-9.]+) ms")
+
+
+def analyze_report(res) -> dict:
+    """An EXPLAIN / TQL ANALYZE result: its trace id, total ms, rows,
+    execution path, span tree ((depth, name) rows), resource ledger and
+    roofline fold, as printed."""
+    lines = [row[0] for row in res.rows()]
+    i = next(k for k, ln in enumerate(lines)
+             if ln.startswith("ANALYZE trace="))
+    head = dict(kv.split("=", 1) for kv in lines[i].split()[1:]
+                if "=" in kv)
+    out = {"trace_id": head["trace"], "total_ms": float(
+        lines[i].split("total=")[1].split()[0]),
+        "rows": int(head["rows"]), "path": None, "tree": [], "ledger": {},
+        "roofline": None}
+    for ln in lines[i + 1:]:
+        if ln.startswith("  execution path: "):
+            out["path"] = ln.split(": ", 1)[1]
+        elif ln.startswith("  resource ledger: "):
+            out["ledger"] = {k: float(v) for k, v in (
+                kv.split("=") for kv in ln.split(": ", 1)[1].split())}
+        elif ln.startswith("  roofline: "):
+            out["roofline"] = {k: float(v) for k, v in (
+                kv.split("=") for kv in ln.split(": ", 1)[1].split())}
+        else:
+            m = TREE_LINE.match(ln)
+            check(m is not None, f"ANALYZE: unparsed line {ln!r}")
+            out["tree"].append((len(m.group("pad")) // 2 - 1,
+                                m.group("name"), float(m.group("ms"))))
+    return out
+
+
+def trace_tree(tid) -> list:
+    """(depth, name) rows of one trace in this process's span ring."""
+    from greptimedb_tpu_torch.utils import tracing
+
+    return [(d, s.name) for d, s, _ in
+            tracing.span_tree(tracing.spans_for(tid))]
+
+
+def kernel_device_ms(fn, torch, names) -> tuple:
+    """One run of `fn` under torch.profiler: the device ms of the CUDA
+    kernels whose name holds one of `names`, and fn's result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    ms = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(n in e.name for n in names)) / 1e3
+    return ms, res
+
+
+def analyze_checks(name, rep, peak_gbps, *, rows_scanned=None,
+                   h2d=None) -> dict:
+    """The ledger and roofline checks of one ANALYZE report."""
+    led = rep["ledger"]
+    if rows_scanned is not None:
+        check(led.get("rows_scanned") == rows_scanned,
+              f"{name}: ledger rows_scanned {led.get('rows_scanned')}, "
+              f"the table holds {rows_scanned}")
+    if h2d is not None:
+        check(led.get("h2d_bytes", 0) == h2d,
+              f"{name}: ledger h2d_bytes {led.get('h2d_bytes')}, the hot "
+              f"set uploaded {h2d}")
+    rf = rep["roofline"]
+    if rf is not None:
+        check(abs(rf["peak_gbps"] - peak_gbps) <= 1e-3 * peak_gbps,
+              f"{name}: roofline peak {rf['peak_gbps']} is not the card's "
+              f"{peak_gbps}")
+        check(0 < rf["roofline_fraction"] <= 1.05,
+              f"{name}: roofline_fraction {rf['roofline_fraction']}")
+    return {"path": rep["path"], "rows": rep["rows"],
+            "total_ms": rep["total_ms"], "ledger": led, "roofline": rf,
+            "tree": [[d, n, ms] for d, n, ms in rep["tree"]]}
+
+
+class OtlpCollector:
+    """An in-process OTLP/HTTP trace sink: records every posted span."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+
+        self.spans: list = []
+        outer = self
+
+        class H(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                doc = json.loads(self.rfile.read(n))
+                outer.spans.extend(
+                    s for r in doc.get("resourceSpans", ())
+                    for sc in r["scopeSpans"] for s in sc["spans"])
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = HTTPServer(("127.0.0.1", 0), H)
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       name="chip-smoke-otlp-sink")
+        self.thread.start()
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def observability_phase(qe, sk, torch, grid, rows) -> dict:
+    """(g) the observability plane on the `cpu` table at full width:
+    EXPLAIN ANALYZE of double_groupby_all cold (hot set dropped) and warm
+    and of cpu_max_all_8, and one TQL ANALYZE, each with its span tree,
+    ledger, roofline against the card's own peak, kernel launches and
+    rows; the ledger's device_ms beside the kernel's own device time
+    (CUPTI); then a live HttpServer with the flame sampler at its 19 Hz
+    default and the OTLP exporter posting to an in-process collector:
+    /v1/traces of a traced request, /v1/slow_queries under a lowered
+    threshold, /v1/profile/flame and /cluster, /metrics with exemplars,
+    and exported spans equal to recorded ones with none dropped."""
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    from greptimedb_tpu_torch.servers import HttpServer
+    from greptimedb_tpu_torch.utils import (
+        flame,
+        otlp_trace,
+        roofline,
+        slow_query,
+        tracing,
+    )
+    from greptimedb_tpu_torch.utils.otlp_trace import OTLP_TRACE_SPANS
+
+    t_phase = time.perf_counter()
+    cuda = torch.cuda.is_available() and DEVICE is None
+    out: dict = {}
+    peak = roofline.peak_gbps()
+    out["peak_gbps"] = peak
+    log(f"observability: the card's peak memory rate, read from the card "
+        f"(2 x memory clock x bus width): {peak:.3f} GB/s; the data sheet "
+        f"figure of the kernel bounds: {HBM_BYTES_PER_S / 1e9:.0f} GB/s")
+    if cuda:
+        check(abs(peak * 1e9 - HBM_BYTES_PER_S) <= 0.05 * HBM_BYTES_PER_S,
+              f"the card's peak {peak} GB/s is not within 5 % of the "
+              "H100 data sheet")
+    queries = tsbs_queries()
+    rid = qe.catalog.table("public", "cpu").region_ids[0]
+    cache = qe.executor.cache
+    zero_launches(sk)
+    with partial_cache(False):
+        # double_groupby_all: the plain statement, then EXPLAIN ANALYZE
+        # cold (the hot set's blocks of the table dropped) and warm
+        sql = queries["double_groupby_all"][0]
+        k1, k2 = launches(sk)
+        plain = qe.execute_one(sql)
+        # the plain statement's launches: one K1 call a device block of
+        # the scan (SST parts and the memtable tail)
+        plain_k1 = launches(sk)[0] - k1
+        check_result("double_groupby_all", plain, grid)
+        # its trace: stmt:Select over scan and aggregate > device_agg
+        from greptimedb_tpu_torch.session import QueryContext
+
+        ctx = QueryContext(trace_id=tracing.new_trace_id())
+        qe.execute_sql(sql, ctx)
+        tree = trace_tree(ctx.trace_id)
+        check(tree[:1] == [(0, "stmt:Select")] and (1, "scan") in tree
+              and (1, "aggregate") in tree
+              and tree[tree.index((1, "aggregate")) + 1]
+              == (2, "device_agg"),
+              f"double_groupby_all: span tree {tree}")
+        out["double_groupby_all_trace"] = tree
+        for state in ("cold", "warm"):
+            if state == "cold":
+                # cold: the table's device blocks, and the region's
+                # decoded parts and scan snapshots, dropped: the scan
+                # decodes every SST again (Region.scan measured alone)
+                cache.invalidate_region(rid)
+                region = qe.region_engine.region(rid)
+                with region._lock:
+                    region._scan_cache.clear()
+                    region._part_cache.clear()
+                    region._part_cache_bytes = 0
+            h2d0 = cache.h2d_bytes
+            k1, k2 = launches(sk)
+            sync(torch)
+            res = qe.execute_one("EXPLAIN ANALYZE " + sql)
+            sync(torch)
+            k1, k2 = launches(sk)[0] - k1, launches(sk)[1] - k2
+            rep = analyze_report(res)
+            uploaded = cache.h2d_bytes - h2d0
+            check(k1 == plain_k1 >= 1 and k2 == 0,
+                  f"EXPLAIN ANALYZE double_groupby_all ({state}): {k1} K1 "
+                  f"and {k2} K2 launches, the plain statement {plain_k1} K1")
+            check(rep["path"] == "dense_prepared" and rep["rows"]
+                  == plain.num_rows, f"EXPLAIN ANALYZE double_groupby_all "
+                  f"({state}): path {rep['path']}, rows {rep['rows']}")
+            names = [(d, n) for d, n, _ in rep["tree"]]
+            check((0, "scan") in names and (0, "aggregate") in names
+                  and (1, "device_agg") in names,
+                  f"EXPLAIN ANALYZE double_groupby_all tree {names}")
+            check((uploaded > 0) if state == "cold" else (uploaded == 0),
+                  f"double_groupby_all ({state}): the hot set uploaded "
+                  f"{uploaded} bytes")
+            out[f"double_groupby_all_{state}"] = analyze_checks(
+                f"EXPLAIN ANALYZE double_groupby_all ({state})", rep, peak,
+                rows_scanned=rows, h2d=uploaded)
+            out[f"double_groupby_all_{state}"].update(k1_launches=k1,
+                                                      k2_launches=k2)
+            log(f"observability: EXPLAIN ANALYZE double_groupby_all "
+                f"({state}): " + json.dumps(out[
+                    f"double_groupby_all_{state}"]))
+        # the ledger's device_ms against K1's own device time
+        if cuda:
+            kms, res = kernel_device_ms(
+                lambda: qe.execute_one("EXPLAIN ANALYZE " + sql), torch,
+                K1_KERNELS)
+            rep = analyze_report(res)
+            dms = rep["ledger"]["device_ms"]
+            check(kms > 0 and dms >= kms, f"double_groupby_all: the "
+                  f"ledger's device_ms {dms} is under K1's {kms} ms")
+            out["device_ms_vs_kernel"] = {"double_groupby_all": {
+                "ledger_device_ms": dms, "k1_device_ms": kms}}
+        # cpu_max_all_8: K2
+        sql8, path8, rows8 = queries["cpu_max_all_8"]
+        k2 = launches(sk)[1]
+        plain8 = qe.execute_one(sql8)
+        plain_k2 = launches(sk)[1] - k2
+        check_result("cpu_max_all_8", plain8, grid)
+        k1, k2 = launches(sk)
+        res = qe.execute_one("EXPLAIN ANALYZE " + sql8)
+        k1, k2 = launches(sk)[0] - k1, launches(sk)[1] - k2
+        rep = analyze_report(res)
+        check(k2 == plain_k2 >= 1 and k1 == 0, f"EXPLAIN ANALYZE "
+              f"cpu_max_all_8: {k1} K1 and {k2} K2 launches, the plain "
+              f"statement {plain_k2} K2")
+        check(rep["path"] == path8 and rep["rows"] == plain8.num_rows == rows8,
+              f"EXPLAIN ANALYZE cpu_max_all_8: path {rep['path']}, rows "
+              f"{rep['rows']}")
+        # the rows its scan holds: the 8 hosts' rows over the first 8 h
+        # (a tag predicate keeps the exact in-set rows and range)
+        out["cpu_max_all_8"] = analyze_checks(
+            "EXPLAIN ANALYZE cpu_max_all_8", rep, peak,
+            rows_scanned=8 * (8 * 3600 // STEP_S))
+        out["cpu_max_all_8"].update(k1_launches=k1, k2_launches=k2)
+        log("observability: EXPLAIN ANALYZE cpu_max_all_8: "
+            + json.dumps(out["cpu_max_all_8"]))
+        if cuda:
+            kms, res = kernel_device_ms(
+                lambda: qe.execute_one("EXPLAIN ANALYZE " + sql8), torch,
+                K2_KERNELS)
+            dms = analyze_report(res)["ledger"]["device_ms"]
+            check(kms > 0 and dms >= kms, f"cpu_max_all_8: the ledger's "
+                  f"device_ms {dms} is under K2's {kms} ms")
+            out["device_ms_vs_kernel"]["cpu_max_all_8"] = {
+                "ledger_device_ms": dms, "k2_device_ms": kms}
+            log("observability: the ledger's device_ms beside the "
+                "kernels' own device time (one warm EXPLAIN ANALYZE each "
+                "under torch.profiler): "
+                + json.dumps(out["device_ms_vs_kernel"]))
+    # one TQL ANALYZE over the PromQL selector of `cpu`: K2 with sumsq
+    t0 = T0_MS // 1000
+    tql = (f"({t0}, {t0 + HOURS * 3600}, '{CPU_EVAL_STEP_S}s') "
+           f"stddev(avg_over_time(cpu{{__field__=\"usage_user\"}}"
+           f"[{CPU_RANGE_S // 3600}h]))")
+    plain_tql = qe.execute_one("TQL EVAL " + tql)
+    k1, k2 = launches(sk)
+    res = qe.execute_one("TQL ANALYZE " + tql)
+    k1, k2 = launches(sk)[0] - k1, launches(sk)[1] - k2
+    rep = analyze_report(res)
+    check(k2 >= 1 and k1 == 0, f"TQL ANALYZE: {k1} K1 and {k2} K2 launches")
+    check(rep["rows"] == plain_tql.num_rows == CPU_STEPS,
+          f"TQL ANALYZE: rows {rep['rows']}, TQL EVAL {plain_tql.num_rows}")
+    check([n for _, n, _ in rep["tree"]] == ["promql_scan"],
+          f"TQL ANALYZE tree {rep['tree']}")
+    out["tql"] = analyze_checks("TQL ANALYZE", rep, peak)
+    out["tql"].update(k1_launches=k1, k2_launches=k2)
+    log("observability: TQL ANALYZE: " + json.dumps(out["tql"]))
+
+    # a live HttpServer: the flame sampler at its defaults, the OTLP
+    # exporter posting to an in-process collector, a lowered slow-query
+    # threshold
+    before = set(threading.enumerate())
+    col = OtlpCollector()
+    exp = otlp_trace.configure(f"http://127.0.0.1:{col.port}",
+                               flush_interval_s=0.2)
+    flame.reset()
+    flame.configure(enabled=True)
+    slow_query.clear()
+    dropped0 = OTLP_TRACE_SPANS.total(event="dropped")
+    failed0 = OTLP_TRACE_SPANS.total(event="failed")
+    srv = HttpServer(qe, port=0)
+    port = srv.start()
+    base = f"http://127.0.0.1:{port}"
+    traced = []
+    slow_env = env_value("GTPU_SLOW_QUERY_MS", "1")
+    slow_env.__enter__()
+    try:
+        with partial_cache(False):
+            for sql in (queries["double_groupby_all"][0],
+                        queries["cpu_max_all_8"][0],
+                        queries["double_groupby_all"][0]):
+                tid = tracing.new_trace_id()
+                req = urllib.request.Request(
+                    base + "/v1/sql",
+                    data=urllib.parse.urlencode({"sql": sql}).encode(),
+                    headers={"traceparent":
+                             f"00-{tid.rjust(32, '0')}-00f067aa0ba902b7-01"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    check(r.status == 200, f"/v1/sql answered {r.status}")
+                    echoed = r.headers.get("traceparent") or ""
+                    r.read()
+                check(tracing.parse_traceparent(echoed)[0] == tid,
+                      f"/v1/sql echoed traceparent {echoed!r}")
+                traced.append(tid)
+        deadline = time.time() + 10
+        while time.time() < deadline and not all(
+                any(s.name.startswith("http:")
+                    for s in tracing.spans_for(t)) for t in traced):
+            time.sleep(0.01)
+        with urllib.request.urlopen(f"{base}/v1/traces/{traced[0]}",
+                                    timeout=60) as r:
+            doc = json.loads(r.read())
+        names = [s["name"] for s in doc["spans"]]
+        check({"http:/v1/sql", "stmt:Select", "scan", "aggregate",
+               "device_agg"} <= set(names), f"/v1/traces: spans {names}")
+        out["http_trace_tree"] = doc["tree"]
+        log("observability: /v1/traces of a traced double_groupby_all "
+            "request:\n" + "\n".join(doc["tree"]))
+        with urllib.request.urlopen(f"{base}/v1/slow_queries?limit=10",
+                                    timeout=60) as r:
+            slow = json.loads(r.read())
+        recs = [x for x in slow["slow_queries"]
+                if x["trace_id"] in traced]
+        check(slow["threshold_ms"] == 1.0 and len(recs) == 3,
+              f"/v1/slow_queries: {len(recs)} of the 3 statements, "
+              f"threshold {slow['threshold_ms']}")
+        dga = next(x for x in recs if x["trace_id"] == traced[0])
+        check(dga["ledger"].get("rows_scanned") == rows
+              and dga["execution_path"] == "dense_prepared"
+              and dga["achieved_gbps"],
+              f"/v1/slow_queries: the double_groupby_all record {dga}")
+        out["slow_query"] = {k: dga[k] for k in (
+            "duration_ms", "rows", "execution_path", "ledger",
+            "achieved_gbps", "roofline_fraction", "stages")}
+        log("observability: /v1/slow_queries, double_groupby_all: "
+            + json.dumps(out["slow_query"]))
+        with urllib.request.urlopen(f"{base}/v1/profile/flame",
+                                    timeout=60) as r:
+            folded = r.read().decode()
+        with urllib.request.urlopen(f"{base}/v1/profile/cluster",
+                                    timeout=60) as r:
+            view = json.loads(r.read())
+        merged = view["merged"]
+        body = [ln for ln in folded.splitlines()[1:] if ln]
+        check(body and merged["samples"] > 0,
+              "/v1/profile/flame: no samples")
+        out["flame"] = {"samples": merged["samples"],
+                        "attributed_ratio": merged["attributed"]
+                        / merged["samples"],
+                        "stages": merged["stages"], "paths": merged["paths"],
+                        "top": merged["top"][:5]}
+        log("observability: /v1/profile/cluster: " + json.dumps(out["flame"]))
+        req = urllib.request.Request(
+            f"{base}/metrics",
+            headers={"Accept": "application/openmetrics-text"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            ctype = r.headers["Content-Type"]
+            om = r.read().decode()
+        ex = [ln for ln in om.splitlines()
+              if not ln.startswith("#") and " # {trace_id=" in ln]
+        check("openmetrics-text" in ctype and om.rstrip().endswith("# EOF")
+              and ex and all(ln.split("{")[0].endswith("_bucket")
+                             for ln in ex)
+              and any(t in ln for t in traced for ln in ex),
+              "/metrics (OpenMetrics): no trace_id exemplar of the traced "
+              "requests on a histogram bucket")
+        out["exemplar_lines"] = len(ex)
+        check(exp.flush(timeout_s=30.0), "OTLP: the exporter did not drain")
+        recorded = {s.span_id for t in traced for s in tracing.spans_for(t)}
+        padded = {t.rjust(32, "0") for t in traced}
+        exported = {s["spanId"] for s in col.spans
+                    if s["traceId"] in padded}
+        out["otlp"] = {"recorded": len(recorded), "exported": len(exported),
+                       "dropped": OTLP_TRACE_SPANS.total(event="dropped")
+                       - dropped0,
+                       "failed": OTLP_TRACE_SPANS.total(event="failed")
+                       - failed0}
+        log("observability: OTLP export: " + json.dumps(out["otlp"]))
+        check(recorded and exported == recorded
+              and out["otlp"]["dropped"] == 0 and out["otlp"]["failed"] == 0,
+              f"OTLP: exported spans differ from recorded {out['otlp']}")
+    finally:
+        slow_env.__exit__(None, None, None)
+        srv.stop()  # joins the server, the flame sampler and the exporter
+        qe.concurrency.shutdown()
+        col.stop()
+        slow_query.clear()
+    left = set(threading.enumerate()) - before
+    check(not left, f"observability: threads outlived the server: "
+          f"{sorted(t.name for t in left)}")
+    k1, k2 = launches(sk)
+    out["k1_launches"], out["k2_launches"] = k1, k2
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"observability phase (g): {out['phase_s']:.1f} s, launches "
+        f"K1 {k1}, K2 {k2}")
     return out
 
 
@@ -5461,6 +6020,8 @@ def main() -> int:
     served["serving qps_mixed_tenants (cpu_1h, vmapped)"] = serving["mixed"]
     served["serving qps_mixed_tenants (cpu_1h, defaults)"] = \
         serving["mixed_defaults"]
+    served["serving qps_mixed_tenants (cpu_1h, observability on/off "
+           "rounds)"] = serving["plane_ab"]
     served["wire mysql + postgres (cpu)"] = main["wire"]
     for key, r in served.items():
         by_path[key] = {"segment_sum": r["k1_launches"],
@@ -5491,6 +6052,7 @@ def main() -> int:
         for route in ("substituted", "raw"):
             plane_paths[f"rollup substitution: {name} ({route}, cold)"] = \
                 q[route]
+    plane_paths["observability (g): ANALYZE and HTTP (cpu)"] = main["obs"]
     for key, r in plane_paths.items():
         by_path[key] = {"segment_sum": r["k1_launches"],
                         "fused_segment_agg": r["k2_launches"]}

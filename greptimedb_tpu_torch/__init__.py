@@ -21,7 +21,9 @@ Layer map (the JAX package's module paths):
   ops/        segment reductions, dedup, the CUDA kernels and their
               plain versions
   datatypes/  numpy-backed type system (copy, without Arrow)
-  utils/      deadlines and cancellation, the metrics registry, time
+  utils/      deadlines and cancellation, the metrics registry, time,
+              the observability plane (spans, the resource ledger and
+              roofline, slow queries, the flame sampler, OTLP export)
   interop.py  loads table state (plain numpy columns) into the port
 
 Entry points run on the CUDA card unless the caller passes

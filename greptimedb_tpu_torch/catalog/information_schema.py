@@ -4,13 +4,16 @@ src/catalog/src/information_schema/*.rs).
 
 The catalog-backed tables (schemata, tables, columns, engines, views,
 key_column_usage, table_constraints, character_sets, collations,
-build_info) and maintenance_jobs (the maintenance plane's queue and
-history) materialize at query time as host-side column dicts; a small
-host evaluator applies WHERE / projection / ORDER BY / LIMIT (these
-tables are tiny — no device round-trip). build_info reports this
-package's version. The other runtime tables are listed, as the JAX
-package lists them, but reading one raises UnsupportedStatement naming
-the later slice of the port that brings its plane.
+build_info), maintenance_jobs (the maintenance plane's queue and
+history) and the observability plane's runtime tables (runtime_metrics,
+slow_queries, running_queries, cluster_profile, cluster_faults)
+materialize at query time as host-side column dicts; a small host
+evaluator applies WHERE / projection / ORDER BY / LIMIT (these tables
+are tiny — no device round-trip). build_info reports this package's
+version. The cluster tables (partitions, region_peers, cluster_info)
+and flows are listed, as the JAX package lists them, but reading one
+raises UnsupportedStatement naming the later slice of the port that
+brings its plane.
 """
 
 from __future__ import annotations
@@ -135,27 +138,144 @@ def _cluster_info(qe, ctx):
 
 @_virtual("runtime_metrics")
 def _runtime_metrics(qe, ctx):
-    raise _runtime_plane("runtime_metrics", "servers and CLI (ROADMAP A9)")
+    from greptimedb_tpu_torch.utils.metrics import REGISTRY
+
+    cols = {"metric_name": [], "value": [], "labels": [],
+            "timestamp": []}
+    now = int(time.time() * 1000)
+    for name, value, labels in REGISTRY.samples():
+        cols["metric_name"].append(name)
+        cols["value"].append(float(value))
+        cols["labels"].append(labels)
+        cols["timestamp"].append(now)
+    return cols
 
 
 @_virtual("slow_queries")
 def _slow_queries(qe, ctx):
-    raise _runtime_plane("slow_queries", "servers and CLI (ROADMAP A9)")
+    """Slow-query ring (utils/slow_query.py), newest first — the system
+    table surface of the slow-query log."""
+    from greptimedb_tpu_torch.utils import ledger, slow_query
+
+    cols = {k: [] for k in (
+        "trace_id", "kind", "query", "db", "duration_ms", "threshold_ms",
+        "rows", "execution_path", "plan_cache_skip", "started_at",
+        "stages", "ledger", "achieved_gbps", "roofline_fraction")}
+    for rec in slow_query.records():
+        cols["trace_id"].append(rec.trace_id)
+        cols["kind"].append(rec.kind)
+        cols["query"].append(rec.query)
+        cols["db"].append(rec.db)
+        cols["duration_ms"].append(round(rec.duration_ms, 3))
+        cols["threshold_ms"].append(rec.threshold_ms)
+        cols["rows"].append(rec.rows)
+        cols["execution_path"].append(rec.execution_path or "")
+        cols["plan_cache_skip"].append(rec.plan_cache_skip or "")
+        cols["started_at"].append(int(rec.started_at * 1000))
+        cols["stages"].append("; ".join(
+            f"{'' if n == 'local' else '[' + str(n) + '] '}{s}={d:.2f}ms"
+            for n, s, d in rec.stages))
+        cols["ledger"].append(ledger.format_dict(rec.ledger))
+        cols["achieved_gbps"].append(rec.achieved_gbps)
+        cols["roofline_fraction"].append(rec.roofline_fraction)
+    return cols
 
 
 @_virtual("running_queries")
 def _running_queries(qe, ctx):
-    raise _runtime_plane("running_queries", "servers and CLI (ROADMAP A9)")
+    """Live statements on this frontend (utils/deadline.py RUNNING
+    registry) — id, text, origin, elapsed vs remaining budget, and
+    whether a cancel is already pending. The id column feeds
+    KILL QUERY <id> and DELETE /v1/queries/<id>."""
+    from greptimedb_tpu_torch.utils import deadline
+
+    cols = {k: [] for k in (
+        "id", "query", "db", "channel", "tenant", "trace_id",
+        "started_at", "elapsed_ms", "remaining_ms", "cancelled")}
+    for e in deadline.RUNNING.list():
+        cols["id"].append(e["id"])
+        cols["query"].append(e["query"][:4096])
+        cols["db"].append(e["db"])
+        cols["channel"].append(e["channel"])
+        cols["tenant"].append(e["tenant"])
+        cols["trace_id"].append(e["trace_id"])
+        cols["started_at"].append(e["start_time_ms"])
+        cols["elapsed_ms"].append(round(e["elapsed_ms"], 3))
+        cols["remaining_ms"].append(
+            None if e["remaining_ms"] is None
+            else round(e["remaining_ms"], 3))
+        cols["cancelled"].append(e["cancelled"])
+    return cols
 
 
 @_virtual("cluster_profile")
 def _cluster_profile(qe, ctx):
-    raise _runtime_plane("cluster_profile", "servers and CLI (ROADMAP A9)")
+    """Continuous-profiling view (utils/flame.py): one row per (node x
+    coarse stage). The port has no cluster yet, so the view holds the
+    local node only; empty when profiling is disabled. `share` is that
+    stage's fraction of the node's samples; `top_frames` names the
+    node's hottest self-time frames."""
+    from greptimedb_tpu_torch.utils import flame
+
+    cols = {k: [] for k in (
+        "node", "stage", "stage_samples", "share", "node_samples",
+        "attributed_ratio", "hz", "window_s", "captured_at",
+        "top_frames")}
+    view = flame.cluster_view()
+    for node in sorted(view["nodes"]):
+        summ = view["nodes"][node]
+        total = summ.get("samples", 0) or 0
+        top = "; ".join(f"{r['frame']} x{r['self']}"
+                        for r in (summ.get("top") or [])[:3])
+        for stage, n in sorted((summ.get("stages") or {}).items()):
+            cols["node"].append(node)
+            cols["stage"].append(stage)
+            cols["stage_samples"].append(int(n))
+            cols["share"].append(round(n / total, 4) if total else 0.0)
+            cols["node_samples"].append(int(total))
+            cols["attributed_ratio"].append(
+                round(summ.get("attributed", 0) / total, 4) if total
+                else 0.0)
+            cols["hz"].append(float(summ.get("hz", 0.0)))
+            cols["window_s"].append(float(summ.get("window_s", 0.0)))
+            cols["captured_at"].append(int(summ.get("ts_ms", 0)))
+            cols["top_frames"].append(top)
+    return cols
 
 
 @_virtual("cluster_faults")
 def _cluster_faults(qe, ctx):
-    raise _runtime_plane("cluster_faults", "servers and CLI (ROADMAP A9)")
+    """Armed chaos state and fire counts (fault/): one row per (armed
+    point x observed counter series). Empty when chaos is off. The port
+    has no network partitions or edges yet (ROADMAP A10): those columns
+    stay empty."""
+    from greptimedb_tpu_torch.fault import FAULTS, chaos_seed
+    from greptimedb_tpu_torch.utils.metrics import FAULT_INJECTIONS
+
+    cols = {k: [] for k in ("point", "kind", "schedule", "matchers",
+                            "edge", "node", "fires", "chaos_seed")}
+    seed = chaos_seed()
+
+    def add(point, kind, schedule, matchers, edge, node, fires):
+        cols["point"].append(point)
+        cols["kind"].append(kind)
+        cols["schedule"].append(schedule)
+        cols["matchers"].append(matchers)
+        cols["edge"].append(edge)
+        cols["node"].append(node)
+        cols["fires"].append(fires)
+        cols["chaos_seed"].append(seed)
+
+    for f in FAULTS.describe():
+        matchers = ",".join(f"{k}:{v}" for k, v in sorted(f["match"].items()))
+        fired = FAULT_INJECTIONS.series(point=f["point"], kind=f["kind"])
+        if not fired:
+            add(f["point"], f["kind"], f["schedule"], matchers, "", "", 0.0)
+            continue
+        for labels, count in fired:
+            add(f["point"], f["kind"], f["schedule"], matchers,
+                labels.get("edge", ""), labels.get("node", ""), count)
+    return cols
 
 
 @_virtual("maintenance_jobs")
@@ -217,7 +337,8 @@ def _views(qe, ctx):
 
 @_virtual("flows")
 def _flows(qe, ctx):
-    raise _runtime_plane("flows", "servers and CLI (ROADMAP A9)")
+    raise _runtime_plane("flows",
+                         "flows, scripts, plugins and shm (ROADMAP A9-flows)")
 
 
 # ---- host-side mini executor ------------------------------------------------

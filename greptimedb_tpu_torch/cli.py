@@ -10,9 +10,13 @@ mirroring the reference `greptime standalone start` and `cli` REPL).
 the CUDA card unless asked for another device (`cpu` runs the kernels'
 plain versions). `-c` loads the layered TOML options (options.py): the
 HTTP, MySQL and Postgres servers, static users and TLS, the concurrency
-plane and the query knobs; an option of a subsystem the port does not
-have yet exits non-zero naming the slice that brings it. The cluster
-roles and export/import belong to later slices and do the same.
+plane, the query knobs and the observability plane ([tracing],
+[profiling], [slow_query], [metrics] self-scrape, [telemetry]); an
+option of a subsystem the port does not have yet exits non-zero naming
+the slice that brings it. The cluster roles and export/import belong to
+later slices and do the same. On exit every thread `standalone start`
+started is joined: the servers', the self-scrape and telemetry tasks',
+the flame sampler and the OTLP exporter.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ def build_standalone(data_home: str, device=None, opts=None):
     tz = "UTC"
     if opts is not None:
         optmod.apply_query_env(opts)
+        optmod.apply_observability(opts)
         optmod.apply_concurrency(opts)
         cfg = optmod.engine_config(opts, os.path.join(data_home, "data"))
         tz = opts.default_timezone
@@ -126,6 +131,7 @@ def cmd_standalone(args) -> int:
     engine, qe = build_standalone(args.data_home or opts.storage.data_home,
                                   args.device, opts)
     servers = []
+    tasks = []
     try:
         if opts.http.enable:
             from greptimedb_tpu_torch.servers import HttpServer
@@ -156,13 +162,45 @@ def cmd_standalone(args) -> int:
             ps.start()
             servers.append(ps)
             print(f"postgres on {phost}:{ps.port}", flush=True)
+        if opts.metrics.enable:
+            from greptimedb_tpu_torch.utils.export_metrics import (
+                ExportMetricsTask,
+            )
+
+            task = ExportMetricsTask(qe, db=opts.metrics.db,
+                                     interval_s=opts.metrics.write_interval_s)
+            task.start()
+            tasks.append(task)
+        if opts.telemetry.enable:
+            from greptimedb_tpu_torch.utils.telemetry import TelemetryTask
+
+            post = None
+            if not opts.telemetry.url:
+                # no endpoint configured: log the payload locally so the
+                # operator can see exactly what WOULD be sent
+                def post(_url, body):
+                    print(f"telemetry: {body.decode()}", flush=True)
+            telemetry = TelemetryTask(
+                opts.telemetry.url, "standalone",
+                args.data_home or opts.storage.data_home,
+                interval_s=opts.telemetry.interval_s, post=post)
+            telemetry.start()
+            tasks.append(telemetry)
         _wait_stop()
     finally:
+        for t in tasks:
+            t.stop()  # joins its thread
         for s in servers:
             if hasattr(s, "stop"):
                 s.stop()
             else:
                 s.shutdown()
+        from greptimedb_tpu_torch.utils import flame, otlp_trace
+
+        # the continuous sampler and the span exporter (apply_observability
+        # started them) are joined too: no thread outlives the server
+        flame.shutdown()
+        otlp_trace.shutdown()
         # reclaim encode workers deterministically (spawn-mode worker
         # PROCESSES especially must not outlive a clean shutdown)
         qe.concurrency.shutdown()

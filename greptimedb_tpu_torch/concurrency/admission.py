@@ -1,6 +1,6 @@
 """Admission control + per-tenant weighted fair scheduling (copy of
-greptimedb_tpu/concurrency/admission.py; the resource ledger's
-admission_wait_ms comes with the rest of the observability plane, A9).
+greptimedb_tpu/concurrency/admission.py; a queued wait also feeds the
+request's resource ledger as admission_wait_ms).
 
 A bounded queue in front of statement execution (the reference frontend
 bounds its runtime the same way): at most `max_concurrency` statements
@@ -38,6 +38,7 @@ from contextlib import contextmanager
 
 from greptimedb_tpu_torch.fault import Unavailable
 from greptimedb_tpu_torch.utils import deadline as dl
+from greptimedb_tpu_torch.utils import ledger
 from greptimedb_tpu_torch.utils.metrics import (
     ADMISSION_EVENTS,
     ADMISSION_QUEUE_DEPTH,
@@ -180,6 +181,7 @@ class AdmissionController:
         except Unavailable:
             waited = time.perf_counter() - t0
             ADMISSION_WAIT_SECONDS.observe(waited)
+            ledger.add("admission_wait_ms", waited * 1000.0)
             with self._lock:
                 granted_in_race = w.granted
                 if not granted_in_race:
@@ -199,6 +201,7 @@ class AdmissionController:
             raise
         waited = time.perf_counter() - t0
         ADMISSION_WAIT_SECONDS.observe(waited)
+        ledger.add("admission_wait_ms", waited * 1000.0)
         if granted:
             return
         with self._lock:

@@ -36,7 +36,9 @@ card it would be a fallback that hides the kernel, so a failing vmapped
 dispatch raises into the statement like every other K2 failure. The
 typed turns stay: `VmapIneligible`, `Unavailable` / `FaultError`, and
 the statement-scoped errors of `_statement_errors()` are decisions about
-the plan, not failures of the kernel.
+the plan, not failures of the kernel. A leader's failure reaches only
+the members that share its statement; a member with other parameters
+then runs its own (a bad literal fails its own statement only).
 
 Batched results carry a shared `encode_memo` dict so the result encoder
 materializes the (identical) wire rows once per group, not once per
@@ -103,12 +105,13 @@ def _conjuncts(e) -> list:
 
 def _statement_errors() -> tuple:
     """Error classes that belong to ONE statement (plan validation,
-    catalog lookups): the member's own serial run surfaces the same
-    error, so the group turns to the fallbacks."""
+    catalog lookups, a literal that does not parse, such as a bad
+    timestamp): the member's own serial run surfaces the same error, so
+    the group turns to the fallbacks."""
     from greptimedb_tpu_torch.catalog.catalog import CatalogError
     from greptimedb_tpu_torch.query.expr import PlanError
 
-    return (PlanError, CatalogError)
+    return (PlanError, CatalogError, ValueError)
 
 
 class BatchParam:
@@ -528,9 +531,17 @@ class QueryBatcher:
                         m.event.set()
             raise
         except BaseException as e:
-            for m in g.members:
-                if not m.event.is_set():
-                    m.error = e
+            # the leader's failure is the error of the leader's own
+            # statement: members coalesced onto it share it, a member
+            # with other parameters runs its own statement
+            with self._lock:
+                for m in g.members:
+                    if m.event.is_set():
+                        continue
+                    if g.shape is not None and m.value != g.value:
+                        m.self_execute = True
+                    else:
+                        m.error = e
                     m.event.set()
             raise
 

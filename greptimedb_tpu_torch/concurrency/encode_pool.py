@@ -38,6 +38,7 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Optional
 
 from greptimedb_tpu_torch.utils import deadline
+from greptimedb_tpu_torch.utils import tracing
 from greptimedb_tpu_torch.utils.metrics import (
     ENCODE_POOL_EVENTS,
     ENCODE_POOL_QUEUE_DEPTH,
@@ -178,7 +179,10 @@ class EncodePool:
             return fn(*args)
         try:
             try:
-                fut = self._pool(process).submit(fn, *args)
+                # a thread worker encodes under the request's trace and
+                # ledger (a process worker cannot carry them)
+                fut = self._pool(process).submit(
+                    fn if process else tracing.propagate(fn), *args)
             except RuntimeError:
                 # executor torn down concurrently (submit after
                 # shutdown): the request still gets its bytes. Errors

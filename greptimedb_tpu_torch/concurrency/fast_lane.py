@@ -53,10 +53,11 @@ it ineligible under the current rollup state is served through the slow
 lane (fallback reason "substitution"), which re-probes and re-points the
 template at the plan-cache entry it stamped.
 
-Left out, each with its later item (ROADMAP.md A9): the plugin
-interceptor chain, the slow-query watch, tracing spans, the resource
-ledger and roofline accounting, and the shared-memory fabric's template
-adoption and publishing.
+A hit runs under the slow-query watch, in a `stmt:Select` span, with
+the resource ledger and the roofline fold, as the JAX lane does. Left
+out, with their later item (ROADMAP.md A9-flows): the plugin
+interceptor chain and the shared-memory fabric's template adoption and
+publishing.
 """
 
 from __future__ import annotations
@@ -69,8 +70,10 @@ from typing import Optional
 
 from greptimedb_tpu_torch.concurrency.plan_cache import _info_matches, normalize
 from greptimedb_tpu_torch.sql import ast
+from greptimedb_tpu_torch.utils import ledger, roofline
 from greptimedb_tpu_torch.utils.metrics import (
     FAST_LANE_EVENTS,
+    QUERY_ACHIEVED_GBPS,
     STAGE_SECONDS,
     STMT_DURATION,
 )
@@ -278,6 +281,7 @@ class FastLane:
             # must not pay — the SECOND sighting proves the template
             # repeats and builds the entry.
             FAST_LANE_EVENTS.inc(event="miss")
+            ledger.cache_event("fast_lane", "miss")
             self._note_seen(key)
             return qe._execute_sql_slow(sql, ctx)
         if tmpl.uncacheable:
@@ -458,6 +462,7 @@ class FastLane:
             return self._refresh_entry(qe, sql, ctx, entry)
         params = entry.bind_params(values)
         FAST_LANE_EVENTS.inc(event="hit")
+        ledger.cache_event("fast_lane", "hit")
         return self._run(qe, sql, ctx, key, entry, params)
 
     def _refresh_entry(self, qe, sql, ctx, entry) -> list:
@@ -488,31 +493,54 @@ class FastLane:
 
     def _run(self, qe, sql, ctx, key, entry, params) -> list:
         """The parse-free statement scaffold: everything the slow lane
-        does per statement except parse/plan — admission, authorization,
-        session timezone, statement metrics — then bind + execute."""
+        does per statement except parse/plan — slow-query watch,
+        admission, authorization, session timezone, statement metrics
+        and span — then bind + execute."""
+        from greptimedb_tpu_torch.fault import Cancelled, DeadlineExceeded
         from greptimedb_tpu_torch.query.expr import (
             reset_session_tz,
             set_session_tz,
         )
+        from greptimedb_tpu_torch.utils import slow_query, tracing
 
         ex = qe.executor
-        qe._reset_statement_state()
-        with qe.concurrency.admission.slot(qe.concurrency.tenant_of(ctx)):
-            qe.permission_checker.check(ctx.user, entry.stmt, ctx.db)
-            tz = ctx.timezone or qe.default_timezone
-            tz_token = set_session_tz(tz)
-            try:
-                with STMT_DURATION.time(stmt="Select"):
-                    result = self._execute_shared(qe, entry, params, tz)
-            except _BindFailed:
-                # template drift the probes could not foresee: drop the
-                # entry, serve through the slow lane (re-entrant
-                # admission: the nested statement rides this slot)
-                self._drop_entry(key, entry)
-                FAST_LANE_EVENTS.inc(event="invalidate")
-                return qe._execute_sql_slow(sql, ctx)
-            finally:
-                reset_session_tz(tz_token)
+        with slow_query.watch("sql", sql, ctx.db) as w:
+            qe._reset_statement_state()
+            with qe.concurrency.admission.slot(
+                    qe.concurrency.tenant_of(ctx)):
+                qe.permission_checker.check(ctx.user, entry.stmt, ctx.db)
+                ctx.trace_id = tracing.set_trace(ctx.trace_id)
+                tz = ctx.timezone or qe.default_timezone
+                tz_token = set_session_tz(tz)
+                try:
+                    # the same stmt span the slow lane opens per
+                    # statement: warm traffic must not vanish from
+                    # span-based trace tooling
+                    with STMT_DURATION.time(stmt="Select"), \
+                            tracing.span("stmt:Select"):
+                        result = self._execute_shared(qe, entry, params,
+                                                      tz)
+                except _BindFailed:
+                    # template drift the probes could not foresee: drop
+                    # the entry, serve through the slow lane (re-entrant
+                    # admission: the nested statement rides this slot)
+                    self._drop_entry(key, entry)
+                    FAST_LANE_EVENTS.inc(event="invalidate")
+                    return qe._execute_sql_slow(sql, ctx)
+                except (DeadlineExceeded, Cancelled):
+                    # the fast lane bypasses execute_statement, so the
+                    # deadline event is stamped on the slow-query
+                    # record here
+                    from greptimedb_tpu_torch.utils import deadline as dl
+
+                    tok = dl.current()
+                    w.deadline_event = (tok.kind if tok and tok.kind
+                                        else "expired")
+                    raise
+                finally:
+                    reset_session_tz(tz_token)
+            w.rows = result.num_rows
+            w.execution_path = ex.last_path
         if ex.last_path is not None:
             ex.statement_paths.append(ex.last_path)
         return [result]
@@ -573,8 +601,22 @@ class FastLane:
         t1 = time.perf_counter()
         try:
             # the executor finalizes on the host: the result's columns
-            # are numpy arrays, safe to share with coalesced followers
-            result = qe.executor.execute(plan)
+            # are numpy arrays, safe to share with coalesced followers.
+            # The parse-free lane bypasses execute_statement, so the
+            # roofline accountant folds here too — one observation per
+            # materialization (coalesced followers share the leader's)
+            with ledger.attach() as led:
+                led0 = led.snapshot() if led is not None else {}
+                try:
+                    result = qe.executor.execute(plan)
+                finally:
+                    if led is not None:
+                        d = ledger.diff(led0, led.snapshot())
+                        rf = roofline.account(
+                            d, duration_ms=(time.perf_counter() - t1) * 1e3)
+                        if rf is not None:
+                            QUERY_ACHIEVED_GBPS.observe(
+                                rf["achieved_gbps"], stmt="Select")
         finally:
             STAGE_SECONDS.observe(time.perf_counter() - t1,
                                   stage="fast_execute")

@@ -42,6 +42,7 @@ from typing import Optional
 
 from greptimedb_tpu_torch.query import logical as lp
 from greptimedb_tpu_torch.sql import ast
+from greptimedb_tpu_torch.utils import ledger
 from greptimedb_tpu_torch.utils.metrics import PLAN_CACHE_EVENTS
 
 
@@ -179,6 +180,7 @@ class PlanCache:
                 self._entries.move_to_end(key)
         if ent is None:
             PLAN_CACHE_EVENTS.inc(event="miss")
+            ledger.cache_event("plan", "miss")
             return None, None, (key, params)
         if not _info_matches(ent.info, info):
             # DDL this process never executed (DROP+CREATE behind the
@@ -186,13 +188,16 @@ class PlanCache:
             with self._lock:
                 self._entries.pop(key, None)
             PLAN_CACHE_EVENTS.inc(event="invalidate")
+            ledger.cache_event("plan", "invalidate")
             return None, None, (key, params)
         try:
             plan = self._bind(ent, params)
         except Exception:  # noqa: BLE001 — any doubt means re-plan
             PLAN_CACHE_EVENTS.inc(event="miss")
+            ledger.cache_event("plan", "miss")
             return None, None, (key, params)
         PLAN_CACHE_EVENTS.inc(event="hit")
+        ledger.cache_event("plan", "hit")
         return plan, ent, (key, params)
 
     def _bind(self, ent: _Entry, params: tuple) -> lp.LogicalPlan:

@@ -19,6 +19,8 @@ one dict lookup. The port's seams are the write plane's:
     maintenance.job  (maintenance/: op=flush|compact|rollup|expire,
                       phase=start at job start and phase=swap at the
                       manifest or coverage swap)
+    otlp.export      (utils/otlp_trace.py: before each span or log
+                      batch is posted to the collector)
 
 Arming is programmatic (`FAULTS.arm("ingest.commit", Fault(...))`) or
 through the environment, read once when this module is imported, so a
@@ -28,7 +30,7 @@ child process inherits its parent's schedule:
     GTPU_CHAOS_SEED=42
 
 The JAX registry's other points (object store, WAL, Flight, heartbeats,
-the metadata KV, elections, the OTLP exporter), its network partitions,
+the metadata KV, elections), its network partitions,
 edge matchers and node registration belong to seams the port does not
 have yet: arming them raises naming the slice that brings them. Every
 injection counts in `greptimedb_tpu_fault_injections_total{point,kind}`.
@@ -52,14 +54,15 @@ __all__ = ["Cancelled", "DeadlineExceeded", "FAULTS", "Fault", "FaultError",
 
 _A10 = "mesh and cluster (ROADMAP A10)"
 
-#: the port's injection points (the write plane's seams)
-POINTS = frozenset({"ingest.commit", "maintenance.job"})
+#: the port's injection points (the write plane's seams and the OTLP
+#: exporter's)
+POINTS = frozenset({"ingest.commit", "maintenance.job", "otlp.export"})
 
 #: the JAX registry's points whose seams the port does not have yet
 _LATER_POINTS = frozenset({
     "objectstore.read", "objectstore.write", "wal.append", "wal.replay",
     "flight.do_get", "flight.do_put", "heartbeat.send", "datanode.crash",
-    "metasrv.kv", "election.lease", "otlp.export",
+    "metasrv.kv", "election.lease",
 })
 
 KINDS = frozenset({"fail", "latency", "torn", "short_read", "enospc"})
@@ -208,6 +211,27 @@ class FaultRegistry:
 
     def armed(self, point: str) -> bool:
         return point in self._points
+
+    def describe(self) -> list[dict]:
+        """Armed schedules as dicts (the debug surface behind
+        information_schema.cluster_faults)."""
+        with self._lock:
+            out = []
+            for point, f in sorted(self._points.items()):
+                sched = "always"
+                if f.nth is not None:
+                    sched = f"nth:{f.nth}" + \
+                        (f",times:{f.times}" if f.times != 1 else "")
+                elif f.prob:
+                    sched = f"prob:{f.prob}"
+                out.append({
+                    "point": point, "kind": f.kind, "schedule": sched,
+                    "arg": f.arg,
+                    "match": dict(f.match) if f.match else {},
+                    "edges": [],
+                    "calls": f.calls,
+                })
+            return out
 
     def arm_from_env(self, spec: Optional[str] = None) -> None:
         """Parse GTPU_CHAOS and arm each entry. Grammar (`;`-separated):

@@ -26,10 +26,11 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 from greptimedb_tpu_torch.fault import FAULTS
 from greptimedb_tpu_torch.storage.compaction import TwcsPicker
+from greptimedb_tpu_torch.utils import tracing
 from greptimedb_tpu_torch.utils.metrics import (
     MAINTENANCE_JOB_SECONDS,
     MAINTENANCE_JOBS,
@@ -61,6 +62,10 @@ def parse_duration_ms(spec) -> int:
     return int(float(s))
 
 
+def _call(fn):
+    return fn()
+
+
 @dataclass
 class Job:
     """One maintenance job: identity + lifecycle + result detail."""
@@ -75,6 +80,10 @@ class Job:
     queued_at: float = field(default_factory=time.time)
     started_at: Optional[float] = None
     finished_at: Optional[float] = None
+    #: runs the job under its submitter's trace, span parent and ledger
+    #: (tracing.propagate): an ADMIN statement's job reports into that
+    #: statement's trace; a tick's job has no trace
+    scope: Callable = field(default=_call, repr=False, compare=False)
 
     @property
     def duration_ms(self) -> Optional[float]:
@@ -170,7 +179,8 @@ class MaintenanceScheduler:
             if dup is not None:
                 return dup
             job = Job(job_id=next(self._ids), kind=kind,
-                      region_id=region_id, params=params)
+                      region_id=region_id, params=params,
+                      scope=tracing.propagate(_call))
             self._remember(job)
             if len(self._heap) >= self.queue_size:
                 inline = True  # full: degrade to caller-side execution
@@ -413,7 +423,7 @@ class MaintenanceScheduler:
             # chaos seam: a seeded schedule can fail or delay any job
             # class before it touches region state
             FAULTS.fire("maintenance.job", op=job.kind, phase="start")
-            self._execute(job)
+            job.scope(lambda: self._execute(job))
             job.state = "done"
         except Exception as e:  # noqa: BLE001 — a job must never kill a worker
             job.state = "failed"

@@ -5,7 +5,10 @@ Two backends behind one contract: `FsStore` (keys are filesystem paths,
 writes are atomic through a fsynced tmp file and a rename) and
 `MemoryStore` (tests). Methods: write, read, read_into (a byte range
 straight into a caller's buffer, so an SST column chunk lands in its
-output array with one copy), size, delete and list. Remote backends,
+output array with one copy), size, delete and list. `read` and `write`
+run in `objectstore_read` / `objectstore_write` spans, as in the JAX
+package (backends implement `_do_read` / `_do_write`); the SST reader
+opens one `objectstore_read` span a file it reads. Remote backends,
 the read cache, retries and fault seams are later slices (ROADMAP.md).
 """
 
@@ -14,6 +17,8 @@ from __future__ import annotations
 import os
 import threading
 from typing import Optional
+
+from greptimedb_tpu_torch.utils import tracing
 
 
 class ObjectStoreError(Exception):
@@ -24,9 +29,22 @@ class ObjectStore:
     name = "base"
 
     def write(self, key: str, data) -> None:
-        raise NotImplementedError
+        nbytes = sum(len(p) for p in data) if isinstance(data, list) \
+            else len(data)
+        with tracing.span("objectstore_write", backend=self.name,
+                          bytes=nbytes):
+            self._do_write(key, data)
 
     def read(self, key: str) -> bytes:
+        with tracing.span("objectstore_read", backend=self.name) as attrs:
+            data = self._do_read(key)
+            attrs["bytes"] = len(data)
+            return data
+
+    def _do_write(self, key: str, data) -> None:
+        raise NotImplementedError
+
+    def _do_read(self, key: str) -> bytes:
         raise NotImplementedError
 
     def read_into(self, key: str, offset: int, buf) -> None:
@@ -47,7 +65,7 @@ class ObjectStore:
 class FsStore(ObjectStore):
     name = "fs"
 
-    def write(self, key: str, data) -> None:
+    def _do_write(self, key: str, data) -> None:
         """Atomic: readers see the old object or the whole new one.
         `data` is bytes or a list of buffers written in order."""
         parent = os.path.dirname(key)
@@ -61,7 +79,7 @@ class FsStore(ObjectStore):
             os.fsync(f.fileno())  # durable before the rename
         os.replace(tmp, key)
 
-    def read(self, key: str) -> bytes:
+    def _do_read(self, key: str) -> bytes:
         try:
             with open(key, "rb") as f:
                 return f.read()
@@ -111,26 +129,26 @@ class MemoryStore(ObjectStore):
         self._data: dict[str, bytes] = {}
         self._lock = threading.Lock()
 
-    def write(self, key: str, data) -> None:
+    def _do_write(self, key: str, data) -> None:
         blob = b"".join(data) if isinstance(data, list) else bytes(data)
         with self._lock:
             self._data[key] = blob
 
-    def read(self, key: str) -> bytes:
+    def _do_read(self, key: str) -> bytes:
         with self._lock:
             if key not in self._data:
                 raise ObjectStoreError(f"object {key!r} not found")
             return self._data[key]
 
     def read_into(self, key: str, offset: int, buf) -> None:
-        data = self.read(key)
+        data = self._do_read(key)
         view = memoryview(buf).cast("B")
         if offset + len(view) > len(data):
             raise ObjectStoreError(f"object {key!r}: short read at {offset}")
         view[:] = data[offset:offset + len(view)]
 
     def size(self, key: str) -> int:
-        return len(self.read(key))
+        return len(self._do_read(key))
 
     def delete(self, key: str) -> None:
         with self._lock:

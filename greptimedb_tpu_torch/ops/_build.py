@@ -42,6 +42,9 @@ _SIGNATURES = {
     "gtpu_fused_segment_agg": [_C, _C, ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _C,
                                _C],
+    # device, out (double*): the card's peak memory rate, bytes/s
+    "gtpu_device_peak_bytes_per_s": [ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_double)],
 }
 
 
@@ -108,6 +111,10 @@ def build() -> str:
     with open(stamp, "w", encoding="utf-8") as f:
         f.write(digest)
     build_seconds = time.perf_counter() - t0
+    # the JAX package's xla_compile_* families count this build
+    from greptimedb_tpu_torch.utils import device_telemetry
+
+    device_telemetry.note_build(build_seconds)
     return LIB_PATH
 
 

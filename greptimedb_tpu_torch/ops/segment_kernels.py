@@ -34,6 +34,8 @@ import threading
 
 import torch
 
+from greptimedb_tpu_torch.utils.metrics import PALLAS_DISPATCHES
+
 _FLOATS = (torch.float32, torch.float64)
 
 
@@ -120,6 +122,7 @@ def segment_sum(plane: torch.Tensor, ids: torch.Tensor,
         _raise_on(rc, "segment_sum")
         with _count_lock:
             segment_sum.launches += 1
+        PALLAS_DISPATCHES.inc(kernel="segment_sum")
     return out
 
 
@@ -251,6 +254,7 @@ def fused_segment_agg(vals: torch.Tensor, ids: torch.Tensor,
     _raise_on(rc, "fused_segment_agg")
     with _count_lock:
         fused_segment_agg.launches += 1
+    PALLAS_DISPATCHES.inc(kernel="fused_agg")
     return _fused_views(buf, views)  # after the launch: host work only
 
 

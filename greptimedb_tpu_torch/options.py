@@ -650,6 +650,64 @@ def apply_concurrency(opts: "StandaloneOptions") -> None:
     ))
 
 
+def apply_observability(opts: "StandaloneOptions") -> None:
+    """Feed [slow_query] into the process-global slow-query ring,
+    install the trace-id logging filter, and apply the [tracing] plane
+    (span recording switch + OTLP exporter) and [profiling] (the
+    continuous sampler). An operator-set env var (GTPU_SLOW_QUERY_MS,
+    GTPU_TRACING, GTPU_OTLP_*, GTPU_PROFILE*) wins over the config file
+    (env beats file for runtime knobs); the [tracing] and [profiling]
+    values are written THROUGH env so child processes inherit them."""
+    from greptimedb_tpu_torch.utils import (
+        flame,
+        otlp_trace,
+        slow_query,
+        tracing,
+    )
+
+    tracing.install_trace_logging()
+    dq = SlowQueryOptions()
+    threshold = None
+    if "GTPU_SLOW_QUERY_MS" not in os.environ \
+            or "GTPU_SLOW_QUERY_MS" in _APPLIED_ENV_KEYS:
+        threshold = float(opts.slow_query.threshold_ms)
+        _APPLIED_ENV_KEYS.add("GTPU_SLOW_QUERY_MS")
+    ring = opts.slow_query.ring_size \
+        if opts.slow_query.ring_size != dq.ring_size else None
+    slow_query.configure(threshold=threshold, ring_size=ring)
+    t, dt = opts.tracing, TracingOptions()
+    p, dp = opts.profiling, ProfilingOptions()
+    env = {
+        "GTPU_TRACING": ("" if t.enabled else "off", ""),
+        "GTPU_OTLP_ENDPOINT": (t.otlp_endpoint, dt.otlp_endpoint),
+        "GTPU_OTLP_SAMPLE_RATIO":
+            (str(t.sample_ratio) if t.sample_ratio != dt.sample_ratio
+             else "", ""),
+        "GTPU_OTLP_QUEUE":
+            (str(t.queue_size) if t.queue_size != dt.queue_size else "",
+             ""),
+        "GTPU_OTLP_FLUSH_S":
+            (str(t.flush_interval_s)
+             if t.flush_interval_s != dt.flush_interval_s else "", ""),
+        "GTPU_PROFILE": ("" if p.enabled else "off", ""),
+        "GTPU_PROFILE_HZ": (str(p.hz) if p.hz != dp.hz else "", ""),
+        "GTPU_PROFILE_WINDOW_S":
+            (str(p.window_s) if p.window_s != dp.window_s else "", ""),
+        "GTPU_PROFILE_WINDOWS":
+            (str(p.windows) if p.windows != dp.windows else "", ""),
+    }
+    for k, (v, default) in env.items():
+        if v and v != default and (k not in os.environ
+                                   or k in _APPLIED_ENV_KEYS):
+            os.environ[k] = v
+            _APPLIED_ENV_KEYS.add(k)
+        elif v == default and k in _APPLIED_ENV_KEYS:
+            os.environ.pop(k, None)
+            _APPLIED_ENV_KEYS.discard(k)
+    otlp_trace.maybe_install()
+    flame.maybe_install()
+
+
 def engine_config(opts: "StandaloneOptions", data_dir: str):
     """[wal], [engine], [scan], [ingest] and [maintenance] -> the storage
     EngineConfig (the keys check_port_support lets through), as the JAX
@@ -692,7 +750,6 @@ def engine_config(opts: "StandaloneOptions", data_dir: str):
 # ---- what the port runs ----------------------------------------------------
 
 _A9_FLIGHT = "servers and CLI (ROADMAP A9: Flight)"
-_A9_OBS = "servers and CLI (ROADMAP A9: the observability plane)"
 _A9_SHM = "servers and CLI (ROADMAP A9: flows, scripts, plugins and shm)"
 _A10 = "mesh and cluster (ROADMAP A10)"
 _A11 = "tier routing (ROADMAP A11)"
@@ -721,14 +778,6 @@ _UNPORTED = {
     "cluster": (_A10, ()),
     "parallel": (_A10, ()),
     "partition": (_A10, ()),
-    # false turns the plane off: the port has none
-    "tracing": (_A9_OBS, ()),
-    "tracing.enabled": (_A9_OBS, (False,)),
-    "profiling": (_A9_OBS, ()),
-    "profiling.enabled": (_A9_OBS, (False,)),
-    "slow_query": (_A9_OBS, ()),
-    "metrics": (_A9_OBS, ()),
-    "telemetry": (_A9_OBS, ()),
     "shm": (_A9_SHM, ()),
 }
 

@@ -56,6 +56,7 @@ from greptimedb_tpu_torch.query.result import QueryResult
 from greptimedb_tpu_torch.session import QueryContext
 from greptimedb_tpu_torch.storage.index import InSet, Regex
 from greptimedb_tpu_torch.storage.region import OP_PUT
+from greptimedb_tpu_torch.utils import slow_query, tracing
 
 F64 = torch.float64
 _NAN = float("nan")
@@ -198,11 +199,18 @@ class PromqlEngine:
                     db: str = "public"):
         if step <= 0:
             raise PromqlError("step must be positive")
-        node = parse_promql(query)
-        self.qe.executor.last_promql_paths = []
-        n_steps = int(math.floor((end - start) / step)) + 1
-        times = start + np.arange(n_steps) * step
-        result = self._eval(node, EvalParams(start, end, step, times), db)
+        # slow-query watch for the direct PromQL HTTP entry points; a
+        # TQL statement arrives under execute_sql's watch, where this
+        # one is a no-op (the re-entrancy guard)
+        with slow_query.watch("promql", query, db or "public") as w:
+            node = parse_promql(query)
+            self.qe.executor.last_promql_paths = []
+            n_steps = int(math.floor((end - start) / step)) + 1
+            times = start + np.arange(n_steps) * step
+            result = self._eval(node, EvalParams(start, end, step, times),
+                                db)
+            if isinstance(result, SeriesMatrix):
+                w.rows = len(result.labels)
         return times, result
 
     def eval_instant(self, query: str, t: float, db: str = "public"):
@@ -511,10 +519,12 @@ class PromqlEngine:
                 idx_preds.setdefault(m.label, []).append(InSet.of([m.value]))
             elif m.op == "=~":
                 idx_preds.setdefault(m.label, []).append(Regex(m.value))
-        scan = self.qe.region_engine.scan(
-            info.region_ids[0], (lo, hi), [field_name],
-            tag_predicates={k: tuple(v) for k, v in idx_preds.items()}
-            or None)
+        with tracing.span("promql_scan", metric=metric,
+                          field=field_name):
+            scan = self.qe.region_engine.scan(
+                info.region_ids[0], (lo, hi), [field_name],
+                tag_predicates={k: tuple(v) for k, v in idx_preds.items()}
+                or None)
         if scan is None or scan.num_rows == 0:
             return None
 

@@ -17,6 +17,10 @@ PhysicalExecutor._hot_key keys blocks:
 
 `h2d_bytes` counts what cache misses (and uncacheable blocks) uploaded;
 `h2d_by_anchor` splits the misses' bytes into file and snapshot blocks.
+Every upload also feeds `device_transfer_bytes_total{direction="h2d"}`
+and the request's ledger (utils/device_telemetry.py), and hits, misses,
+pins and evictions the JAX package's hot-set series and the ledger's
+`cache.device_hot_set.*`.
 """
 
 from __future__ import annotations
@@ -26,6 +30,13 @@ from collections import OrderedDict
 from typing import Callable
 
 import torch
+
+from greptimedb_tpu_torch.utils import device_telemetry, ledger
+from greptimedb_tpu_torch.utils.metrics import (
+    DEVICE_CACHE_EVENTS,
+    DEVICE_HOT_SET_BYTES,
+    DEVICE_HOT_SET_EVENTS,
+)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -56,6 +67,7 @@ class DeviceCache:
         # (region, file) pairs invalidated: a build in flight when its
         # file died must not make the dead key resident
         self._dead_files: "OrderedDict[tuple, None]" = OrderedDict()
+        device_telemetry.register_cache(self)
 
     @property
     def resident_bytes(self) -> int:
@@ -69,8 +81,16 @@ class DeviceCache:
             if hit is not None:
                 self._lru.move_to_end(key)
                 self.hits += 1
-                return hit
-            self.misses += 1
+            else:
+                self.misses += 1
+        if hit is not None:
+            DEVICE_CACHE_EVENTS.inc(event="hit")
+            DEVICE_HOT_SET_EVENTS.inc(event="hit")
+            ledger.cache_event("device_hot_set", "hit")
+            return hit
+        DEVICE_CACHE_EVENTS.inc(event="miss")
+        DEVICE_HOT_SET_EVENTS.inc(event="miss")
+        ledger.cache_event("device_hot_set", "miss")
         arr = build()
         self.count_upload(arr)
         with self._lock:
@@ -80,8 +100,10 @@ class DeviceCache:
 
     def count_upload(self, arr: torch.Tensor) -> None:
         """Account an upload (cache misses, and uncacheable blocks)."""
+        n = _nbytes(arr)
         with self._lock:
-            self.h2d_bytes += _nbytes(arr)
+            self.h2d_bytes += n
+        device_telemetry.count_h2d(n)
 
     def _store(self, key: tuple, arr: torch.Tensor) -> None:
         nbytes = _nbytes(arr)
@@ -107,14 +129,24 @@ class DeviceCache:
                 self._bytes -= _nbytes(old)
             self._lru[key] = arr
             self._bytes += nbytes
+            evictions = 0
             while self._bytes > self.budget and self._lru:
                 _, evicted = self._lru.popitem(last=False)
                 self._bytes -= _nbytes(evicted)
+                evictions += 1
+            DEVICE_HOT_SET_BYTES.set(float(self._bytes))
+        DEVICE_HOT_SET_EVENTS.inc(event="pin")
+        if evictions:
+            DEVICE_CACHE_EVENTS.inc(float(evictions), event="evict")
+            DEVICE_HOT_SET_EVENTS.inc(float(evictions), event="evict")
 
     def _drop_locked(self, pred) -> int:
         doomed = [k for k in self._lru if pred(k)]
         for k in doomed:
             self._bytes -= _nbytes(self._lru.pop(k))
+        if doomed:
+            DEVICE_HOT_SET_BYTES.set(float(self._bytes))
+            DEVICE_HOT_SET_EVENTS.inc(float(len(doomed)), event="evict")
         return len(doomed)
 
     def invalidate_files(self, region_id: int, file_ids) -> int:

@@ -5,11 +5,17 @@ SQL text -> statements over the durable region engine, under a
 QueryContext (session/): CREATE TABLE / DATABASE / VIEW, INSERT ...
 VALUES and INSERT ... SELECT, SELECT, UNION [ALL], DELETE, DROP and
 TRUNCATE TABLE, DROP VIEW, ALTER TABLE ADD/DROP COLUMN, USE, SET,
-SHOW TABLES / DATABASES / VIEWS / CREATE TABLE, DESCRIBE, EXPLAIN,
-ADMIN flush_table / compact_table / rollup_table / expire_table /
-maintenance_status (job ids from the engine's maintenance plane, or
-synchronous flushes and compactions when the plane is off), TQL EVAL /
-TQL EXPLAIN (PromQL, promql/engine.py) and KILL QUERY.
+SHOW TABLES / DATABASES / VIEWS / CREATE TABLE, DESCRIBE, EXPLAIN and
+EXPLAIN ANALYZE, ADMIN flush_table / compact_table / rollup_table /
+expire_table / maintenance_status (job ids from the engine's maintenance
+plane, or synchronous flushes and compactions when the plane is off),
+TQL EVAL / EXPLAIN / ANALYZE (PromQL, promql/engine.py) and KILL QUERY.
+
+The observability plane (utils/): each statement runs in a
+`stmt:<Type>` span whose attrs carry its slice of the request's resource
+ledger and the roofline fold, under the slow-query watch; EXPLAIN
+ANALYZE and TQL ANALYZE run the statement under a fresh trace id and
+ledger and print the span tree, the ledger and the roofline line.
 
 A top-level `execute_sql` runs under one deadline and cancel token
 (utils/deadline.py) registered in the running-queries table. Every
@@ -37,8 +43,8 @@ take a table's rollup companions down with it.
 Everything around those device calls runs on the host over numpy.
 Regions open lazily from the catalog on first use, so a persisted
 catalog and a reopened storage engine serve the tables they held.
-Every other statement raises UnsupportedStatement naming the slice of
-the port that brings it.
+COPY and the flow statements raise UnsupportedStatement naming the
+slice of the port that brings them.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from greptimedb_tpu_torch.datatypes.types import (
     parse_sql_type,
 )
 from greptimedb_tpu_torch.datatypes.vector import DictVector
+from greptimedb_tpu_torch.fault import Cancelled, DeadlineExceeded
 from greptimedb_tpu_torch.query import logical as lp
 from greptimedb_tpu_torch.query import range_select as rs
 from greptimedb_tpu_torch.query.expr import (
@@ -93,14 +100,15 @@ from greptimedb_tpu_torch.session import QueryContext
 from greptimedb_tpu_torch.sql import ast, parse_sql
 from greptimedb_tpu_torch.storage.engine import RegionEngine
 from greptimedb_tpu_torch.utils import deadline as dl
+from greptimedb_tpu_torch.utils import ledger, roofline, slow_query, tracing
 from greptimedb_tpu_torch.utils import time as ts_util
 from greptimedb_tpu_torch.utils.metrics import (
     PLAN_CACHE_EVENTS,
+    QUERY_ACHIEVED_GBPS,
     STAGE_SECONDS,
     STMT_DURATION,
 )
 
-_SERVERS = "servers and CLI"
 _MAINT = "metric and file engines (ROADMAP A12-engines)"
 _FLOWS = "flows, scripts, plugins and shm (ROADMAP A9-flows)"
 _CLUSTER = "mesh and cluster (ROADMAP A10)"
@@ -136,6 +144,8 @@ class QueryEngine:
         self.default_timezone = default_timezone
         self.permission_checker = PermissionChecker()
         self.device = config.device(device)
+        # the roofline accountant reads this device's peak
+        roofline.note_device(self.device)
         self.executor = PhysicalExecutor(region_engine, self.device)
         # frontend concurrency plane (concurrency/): the fast lane, the
         # plan cache, admission control and cross-query batching; every
@@ -223,13 +233,28 @@ class QueryEngine:
         nothing."""
         if ctx.timezone is None:
             ctx.timezone = self.default_timezone
-        self._reset_statement_state()
-        t_parse = time.perf_counter()
-        stmts = self._parse_cached(sql)
-        STAGE_SECONDS.observe(time.perf_counter() - t_parse, stage="parse")
-        with self.concurrency.admission.slot(
-                self.concurrency.tenant_of(ctx)):
-            return [self.execute_statement(s, ctx) for s in stmts]
+        # slow-query watch: a statement over the threshold leaves a
+        # structured record (trace id, text, duration, rows, path, stage
+        # breakdown, ledger) in the ring behind
+        # information_schema.slow_queries and /v1/slow_queries
+        with slow_query.watch("sql", sql, ctx.db) as w:
+            self._reset_statement_state()
+            t_parse = time.perf_counter()
+            stmts = self._parse_cached(sql)
+            STAGE_SECONDS.observe(time.perf_counter() - t_parse,
+                                  stage="parse")
+            # queueing counts into the watch: it IS part of the latency
+            # the operator debugs; nested statements ride their
+            # top-level slot
+            with self.concurrency.admission.slot(
+                    self.concurrency.tenant_of(ctx)):
+                results = [self.execute_statement(s, ctx) for s in stmts]
+            last = results[-1] if results else None
+            if last is not None:
+                w.rows = last.num_rows if last.is_query \
+                    else last.affected_rows
+            w.execution_path = self.executor.last_path
+            return results
 
     def _reset_statement_state(self) -> None:
         """Clear the executor's per-statement routes and stats (thread
@@ -277,13 +302,44 @@ class QueryEngine:
         # new top-level statement: its first plan-cache skip (if any)
         # is the one that gets counted
         self._skip_tls.noted = False
+        ctx.trace_id = tracing.set_trace(ctx.trace_id)
+        kind = type(stmt).__name__
         # naive timestamp literals — WHERE, BETWEEN, CAST, INSERT —
         # coerce in the session timezone everywhere in this statement
         token = set_session_tz(ctx.timezone or self.default_timezone)
         try:
-            with STMT_DURATION.time(stmt=type(stmt).__name__):
-                dl.check(f"{type(stmt).__name__} start")
-                return self._execute_statement(stmt, ctx)
+            with STMT_DURATION.time(stmt=kind), \
+                    tracing.span(f"stmt:{kind}") as sp:
+                # the statement's resource-ledger slice is stamped onto
+                # its root span (diffed: a multi-statement request
+                # shares one request-scoped ledger)
+                with ledger.attach() as led:
+                    led0 = led.snapshot() if led is not None else {}
+                    try:
+                        dl.check(f"{kind} start")
+                        return self._execute_statement(stmt, ctx)
+                    except (DeadlineExceeded, Cancelled) as e:
+                        # stamp the terminal deadline event on the
+                        # statement span, the ledger and (if the
+                        # statement turns out slow) the slow-query record
+                        tok = dl.current()
+                        event = (tok.kind if tok and tok.kind else
+                                 ("expired"
+                                  if isinstance(e, DeadlineExceeded)
+                                  else "cancelled"))
+                        sp["deadline_event"] = event
+                        ledger.add(f"deadline_{event}", 1)
+                        slow_query.annotate(deadline_event=event)
+                        raise
+                    finally:
+                        if led is not None:
+                            d = ledger.diff(led0, led.snapshot())
+                            if d:
+                                sp["ledger"] = ledger.format_dict(d)
+                                rf = roofline.stamp(sp, d)
+                                if rf is not None:
+                                    QUERY_ACHIEVED_GBPS.observe(
+                                        rf["achieved_gbps"], stmt=kind)
         finally:
             reset_session_tz(token)
 
@@ -354,9 +410,11 @@ class QueryEngine:
         if isinstance(stmt, ast.Tql):
             return self._tql(stmt, ctx)
         name = type(stmt).__name__
-        raise UnsupportedStatement(
-            f"{name} is not in this slice of greptimedb_tpu_torch; the "
-            f"{_LATER.get(name, _SERVERS)} slice brings it")
+        if name in _LATER:
+            raise UnsupportedStatement(
+                f"{name} is not in this slice of greptimedb_tpu_torch; the "
+                f"{_LATER[name]} slice brings it")
+        raise PlanError(f"unsupported statement {name}")
 
     # ---- CTEs / subqueries -------------------------------------------------
 
@@ -712,16 +770,17 @@ class QueryEngine:
 
     def _note_plan_cache_skip(self, reason: str) -> None:
         """A statement shape the plan cache cannot hold: count it with a
-        reason label, so an uncacheable dashboard query is visible
-        instead of just slow. Once per top-level statement — a CTE body
-        re-entering _select must not double-count the outer statement's
-        reason."""
+        reason label and stamp the slow-query record, so an uncacheable
+        dashboard query is visible instead of just slow. Once per
+        top-level statement — a CTE body re-entering _select must not
+        double-count or overwrite the outer statement's reason."""
         if not self.concurrency.plan_cache.enabled:
             return
         if getattr(self._skip_tls, "noted", False):
             return
         self._skip_tls.noted = True
         PLAN_CACHE_EVENTS.inc(event="skip", reason=reason)
+        slow_query.annotate(plan_cache_skip=reason)
 
     def _select(self, sel: ast.Select, ctx: QueryContext) -> QueryResult:
         if sel.ctes:
@@ -1058,12 +1117,8 @@ class QueryEngine:
 
     def _explain(self, stmt: ast.Explain, ctx: QueryContext) -> QueryResult:
         """EXPLAIN: the logical plan of a table query, the view or the
-        join it names. EXPLAIN ANALYZE needs the tracing spans of the
-        servers and CLI slice."""
-        if stmt.analyze:
-            raise UnsupportedStatement(
-                "EXPLAIN ANALYZE is not in this slice of "
-                f"greptimedb_tpu_torch; the {_SERVERS} slice brings it")
+        join it names. EXPLAIN ANALYZE also runs the statement and
+        appends its span tree, resource ledger and roofline fold."""
         if isinstance(stmt.inner, ast.Select) and stmt.inner.joins:
             sides = [stmt.inner.table] + [j.table for j in stmt.inner.joins]
             text = "Join: " + " ⋈ ".join(
@@ -1080,28 +1135,77 @@ class QueryEngine:
                 text = lp.explain_plan(plan_select(stmt.inner, info))
         else:
             text = f"{type(stmt.inner).__name__}"
+        lines = text.split("\n")
+        if stmt.analyze:
+            # the inner statement really runs: it needs its OWN
+            # authorization (EXPLAIN itself only required read — without
+            # this a read-only user could EXPLAIN ANALYZE a DELETE)
+            self.permission_checker.check(ctx.user, stmt.inner, ctx.db)
+            lines += self._analyze_run(
+                lambda: self._execute_statement(stmt.inner, ctx),
+                show_path=True)
         return QueryResult(["plan"], [DataType.STRING],
-                           [np.asarray(text.split("\n"), dtype=object)])
+                           [np.asarray(lines, dtype=object)])
+
+    def _analyze_run(self, run, show_path: bool = False) -> list[str]:
+        """Execute `run` under a FRESH trace id and report its span tree
+        (shared by EXPLAIN ANALYZE and TQL ANALYZE). A fresh id matters:
+        connection-scoped contexts pin one trace id, and reusing it would
+        dump every prior statement's spans into this report. The
+        connection's trace AND parent-span context are restored
+        afterwards (adopt_remote with a cleared parent makes the inner
+        run its own tree root instead of a child of the request span)."""
+        tid = tracing.new_trace_id()
+        with tracing.adopt_remote(tid, None):
+            # a fresh ledger too: the report must attribute THIS
+            # statement's resources, not the whole request's
+            with ledger.attach_fresh() as led:
+                t0 = time.perf_counter()
+                # ANALYZE must run ITS OWN execution: riding a batch
+                # leader's run would report someone else's (empty) trace
+                with self.concurrency.suppress_batching():
+                    result = run()
+                total_ms = (time.perf_counter() - t0) * 1000.0
+            spans = tracing.spans_for(tid)
+        lines = ["", f"ANALYZE trace={tid} total={total_ms:.2f} ms "
+                     f"rows={result.num_rows}"]
+        if show_path:
+            path = self.executor.last_path
+            if path:
+                lines.append(f"  execution path: {path}")
+        # the span TREE: children nest under their parents, each parent
+        # reporting self-time
+        lines.extend(tracing.render_tree(spans))
+        if led is not None:
+            summary = led.summary()
+            if summary:
+                lines.append(f"  resource ledger: {summary}")
+                rf = roofline.account(ledger.derive(led.snapshot()))
+                if rf is not None:
+                    lines.append(f"  roofline: {roofline.format_line(rf)}")
+        return lines
 
     # ---- TQL ---------------------------------------------------------------
 
     def _tql(self, stmt: ast.Tql, ctx: QueryContext) -> QueryResult:
         """TQL EVAL: the PromQL range query on this engine's device, in
-        the long table format; TQL EXPLAIN: the parsed PromQL tree."""
+        the long table format; TQL EXPLAIN: the parsed PromQL tree; TQL
+        ANALYZE also runs the query and appends its span tree."""
         from greptimedb_tpu_torch.promql.engine import PromqlEngine
         from greptimedb_tpu_torch.promql.parser import parse_promql
 
-        if stmt.analyze:
-            raise UnsupportedStatement(
-                "TQL ANALYZE is not in this slice of greptimedb_tpu_torch; "
-                f"the {_SERVERS} slice brings EXPLAIN ANALYZE")
-        if stmt.explain:
+        engine = PromqlEngine(self)
+        if stmt.explain or stmt.analyze:
             lines = [f"PromQL: {stmt.query}",
                      _explain_promql(parse_promql(stmt.query))]
+            if stmt.analyze:
+                lines += self._analyze_run(
+                    lambda: engine.eval_range(stmt.query, stmt.start,
+                                              stmt.end, stmt.step, ctx.db))
             return QueryResult(["plan"], [DataType.STRING],
                                [np.asarray(lines, dtype=object)])
-        return PromqlEngine(self).eval_range(stmt.query, stmt.start,
-                                             stmt.end, stmt.step, ctx.db)
+        return engine.eval_range(stmt.query, stmt.start, stmt.end,
+                                 stmt.step, ctx.db)
 
     # ---- DDL ---------------------------------------------------------------
 

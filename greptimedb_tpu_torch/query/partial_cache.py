@@ -33,7 +33,9 @@ fold: a typed decision (PartialCacheIneligible), never an error.
 
 The cache counts its events in `events` ("hit", "miss", "evict",
 "invalidate" and the executor's "fallback") and its resident bytes in
-`bytes`. This module imports numpy only.
+`bytes`, mirrored in the JAX package's `partial_agg_cache_*` series and
+the request ledger's `cache.partial_agg.*`. This module imports numpy
+and the port's light utils only.
 """
 
 from __future__ import annotations
@@ -44,6 +46,12 @@ from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
+
+from greptimedb_tpu_torch.utils import ledger
+from greptimedb_tpu_torch.utils.metrics import (
+    PARTIAL_AGG_CACHE_BYTES,
+    PARTIAL_AGG_CACHE_EVENTS,
+)
 
 class PartialCacheIneligible(Exception):
     """This scan/shape cannot ride the incremental per-part fold; the
@@ -129,14 +137,18 @@ class PartialAggCache:
             hit = self._lru.get(key)
             if hit is None:
                 self.events["miss"] += 1
-                return None
-            self._lru.move_to_end(key)
-            self.events["hit"] += 1
-            return hit[0]
+            else:
+                self._lru.move_to_end(key)
+                self.events["hit"] += 1
+        event = "miss" if hit is None else "hit"
+        PARTIAL_AGG_CACHE_EVENTS.inc(event=event)
+        ledger.cache_event("partial_agg", event)
+        return None if hit is None else hit[0]
 
     def count_event(self, event: str, n: int = 1) -> None:
         with self._lock:
             self.events[event] += n
+        PARTIAL_AGG_CACHE_EVENTS.inc(float(n), event=event)
 
     def put(self, key: tuple, partial: dict,
             epoch: Optional[int] = None) -> None:
@@ -165,12 +177,19 @@ class PartialAggCache:
                 self._bytes -= nb
                 evictions += 1
             self.events["evict"] += evictions
+            PARTIAL_AGG_CACHE_BYTES.set(float(self._bytes))
+        if evictions:
+            PARTIAL_AGG_CACHE_EVENTS.inc(float(evictions), event="evict")
 
     def _drop_locked(self, pred) -> int:
         doomed = [k for k in self._lru if pred(k)]
         for k in doomed:
             _, nb = self._lru.pop(k)
             self._bytes -= nb
+        if doomed:
+            PARTIAL_AGG_CACHE_BYTES.set(float(self._bytes))
+            PARTIAL_AGG_CACHE_EVENTS.inc(float(len(doomed)),
+                                         event="invalidate")
         return len(doomed)
 
     def invalidate_files(self, region_id: int, file_ids) -> None:
@@ -206,6 +225,7 @@ class PartialAggCache:
         with self._lock:
             self._lru.clear()
             self._bytes = 0
+        PARTIAL_AGG_CACHE_BYTES.set(0.0)
 
     @property
     def bytes(self) -> int:

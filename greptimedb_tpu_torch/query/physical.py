@@ -94,6 +94,31 @@ from greptimedb_tpu_torch.query.result import QueryResult
 from greptimedb_tpu_torch.sql import ast
 from greptimedb_tpu_torch.storage.region import OP_PUT, ScanData
 from greptimedb_tpu_torch.utils import deadline as dl
+from greptimedb_tpu_torch.utils import device_telemetry, tracing
+from greptimedb_tpu_torch.utils import flame as _flame
+
+# device memory telemetry: the CUDA allocator and the hot set's bytes,
+# read at scrape time
+device_telemetry.install()
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """D2H result materialization, counted: the aggregation routes pull
+    their planes to the host through here (device_transfer_bytes and
+    the request ledger's d2h_bytes). On the card the copy waits for the
+    kernels that produced `t`, so a span that closes after it covers
+    them — no synchronize is added."""
+    arr = t.cpu().numpy()
+    device_telemetry.count_d2h(arr.nbytes)
+    return arr
+
+
+def _upload_counted(arr: np.ndarray, device) -> torch.Tensor:
+    """An upload that bypasses the hot set (streamed blocks, dedup
+    inputs, RANGE's slot columns), counted as H2D."""
+    t = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    device_telemetry.count_h2d(t.numel() * t.element_size())
+    return t
 
 _NUMPY_OF = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -660,7 +685,7 @@ def _pad_device_mask(mask: torch.Tensor, start: int, end: int,
 def _unpack_acc(packed_f, packed_i, float_ops, int_ops, widths):
     """Split the packed output matrices back into per-op host planes: the
     one device -> host readback of an aggregate."""
-    host_f = packed_f.cpu().numpy()
+    host_f = _to_host(packed_f)
     acc: dict = {}
     off = 0
     for k in float_ops:
@@ -671,7 +696,7 @@ def _unpack_acc(packed_f, packed_i, float_ops, int_ops, widths):
             sl = sl.astype(np.int64)
         acc[k] = sl
     if int_ops:
-        host_i = packed_i.cpu().numpy()
+        host_i = _to_host(packed_i)
         for j, k in enumerate(int_ops):
             acc[k] = host_i[:, j]
     return acc
@@ -766,7 +791,10 @@ def _prefetch(items, depth: int = 2, stats: Optional[_StreamStats] = None):
                 close()  # on this thread: runs the stream's finally
             put(done)
 
-    t = threading.Thread(target=producer, name="gtpu-stream-prefetch",
+    # the producer's spans and ledger adds (chunk decode) belong to the
+    # query that streams
+    t = threading.Thread(target=tracing.propagate(producer),
+                         name="gtpu-stream-prefetch",
                          daemon=True)
     t.start()
     try:
@@ -865,6 +893,11 @@ class PhysicalExecutor:
     @last_path.setter
     def last_path(self, v):
         self._tls.last_path = v
+        # the continuous profiler attributes samples by execution path;
+        # this setter is the one choke point every path tag flows
+        # through (one attribute read when profiling is off)
+        if _flame._ENABLED:
+            _flame.note_path(v)
 
     @property
     def statement_paths(self) -> list:
@@ -966,12 +999,15 @@ class PhysicalExecutor:
             # no data) takes the normal routes, as in the JAX package
             lp_tag = self._lastpoint_tag(table, where, agg, ts_range)
             if lp_tag is not None:
-                pruned = self.engine.scan_last(table.region_ids[0], lp_tag,
-                                               scan_node.columns)
+                with tracing.span("scan", table=table.name, regions=1,
+                                  lastpoint=True):
+                    pruned = self.engine.scan_last(table.region_ids[0],
+                                                   lp_tag, scan_node.columns)
                 if pruned is not None:
-                    res = self._execute_agg(pruned, table, where, agg,
-                                            having, project, sort, limit,
-                                            offset, scan_node)
+                    with tracing.span("aggregate", rows=pruned.num_rows):
+                        res = self._execute_agg(pruned, table, where, agg,
+                                                having, project, sort,
+                                                limit, offset, scan_node)
                     self.last_path = "lastscan+" + (self.last_path or "")
                     return res
             if agg is not None and table.append_mode:
@@ -980,14 +1016,24 @@ class PhysicalExecutor:
                                            offset, scan_node)
                 if res is not None:
                     return res
-            scan = self.engine.scan(table.region_ids[0], ts_range,
-                                    scan_node.columns, tag_preds)
+            with tracing.span("scan", table=table.name,
+                              regions=len(table.region_ids)) as scan_attrs:
+                scan = self.engine.scan(table.region_ids[0], ts_range,
+                                        scan_node.columns, tag_preds)
+                # rows land on the span (and, through it, the resource
+                # ledger's rows_scanned)
+                scan_attrs["rows"] = 0 if scan is None else scan.num_rows
+            nrows = 0 if scan is None else scan.num_rows
             if agg is not None:
-                return self._execute_agg(scan, table, where, agg, having,
-                                         project, sort, limit, offset,
-                                         scan_node)
-            return self._execute_raw(scan, table, where, project, sort,
-                                     limit, offset)
+                with tracing.span("aggregate", rows=nrows):
+                    return self._execute_agg(scan, table, where, agg,
+                                             having, project, sort, limit,
+                                             offset, scan_node)
+            # every port query runs on the engine's device: the JAX
+            # package's tier label is "device" there too
+            with tracing.span("filter_project", rows=nrows, tier="device"):
+                return self._execute_raw(scan, table, where, project, sort,
+                                         limit, offset)
 
         # bucket-top-k narrowing: ORDER BY <time bucket> DESC/ASC LIMIT k
         # only needs the k newest/oldest buckets — scan those, and widen
@@ -1154,7 +1200,7 @@ class PhysicalExecutor:
                     if op in ("first", "last"):
                         out[op + "_ts"] = np.zeros(G, dtype=np.int64)
             return out
-        out = {k: v.cpu().numpy() for k, v in acc.items()}
+        out = {k: _to_host(v) for k, v in acc.items()}
         for k in ("count", "rows"):
             if k in out:
                 out[k] = out[k].astype(np.int64)
@@ -1234,7 +1280,7 @@ class PhysicalExecutor:
                 del cols, plane, mask, gid, ids
         finally:
             gen.close()
-        host = total.cpu().numpy()
+        host = _to_host(total)
         out: dict = {}
         for op in ops:
             if op == "sum":
@@ -1245,12 +1291,12 @@ class PhysicalExecutor:
             elif op == "rows":
                 out[op] = host[:, 2 * nf:].astype(np.int64)
             elif op == "sumsq":
-                out[op] = tsq.cpu().numpy()
+                out[op] = _to_host(tsq)
             elif op == "min":  # an empty or all-NULL group reads as NULL
-                ext = tmin.cpu().numpy()
+                ext = _to_host(tmin)
                 out[op] = np.where(np.isposinf(ext), np.nan, ext)
             else:
-                ext = tmax.cpu().numpy()
+                ext = _to_host(tmax)
                 out[op] = np.where(np.isneginf(ext), np.nan, ext)
         return out
 
@@ -1258,7 +1304,7 @@ class PhysicalExecutor:
         """One streamed block to the device: a synchronous copy from
         pageable host memory, so the host arrays are free when it
         returns."""
-        cols = {k: self._upload(a) for k, a in blk.items()}
+        cols = {k: _upload_counted(a, self.device) for k, a in blk.items()}
         stats.release(sum(int(a.nbytes) for a in blk.values()),
                       uploaded=True)
         return cols
@@ -1412,7 +1458,11 @@ class PhysicalExecutor:
                                             sort, limit, offset)
             if res is not None:
                 return res
-        acc, sparse_gids = self._stream_agg_inner(q, sparse)
+        with tracing.span("device_agg", rows=scan.num_rows,
+                          groups=num_groups):
+            # closes after the planes' pull to the host (_to_host), which
+            # waits for the kernels: device_ms covers them
+            acc, sparse_gids = self._stream_agg_inner(q, sparse)
         if reduced is not None:
             self.last_path = "boundary+" + (self.last_path or "")
         host_info = (scan, extra_cols, bound_where, ctx, num_groups)
@@ -1491,7 +1541,11 @@ class PhysicalExecutor:
         except pc.PartialCacheIneligible:
             pc.global_cache().count_event("fallback")
             return None
-        combined = combine_partials(partials, len(agg.keys), q.ops)
+        with tracing.span("incremental_agg", parts=stats["parts"],
+                          part_hits=stats["part_hits"],
+                          delta_rows=stats["delta_rows"],
+                          total_rows=stats["total_rows"]):
+            combined = combine_partials(partials, len(agg.keys), q.ops)
         self.last_path = "incremental_sparse" if stats["sparse"] \
             else "incremental"
         self.last_partial_stats = stats
@@ -1598,7 +1652,7 @@ class PhysicalExecutor:
                     dedup_mask, entry.start, entry.end, entry.block)
                 packed_f, packed_i, uniq, u = _agg_block_sparse(
                     cols, entry.end - entry.start, dmask, q, cap, fused)
-                return {"keys": decode_keys(uniq.cpu().numpy()),
+                return {"keys": decode_keys(_to_host(uniq)),
                         "planes": _unpack_acc(packed_f, packed_i,
                                               q.float_ops, q.int_ops,
                                               q.widths)}
@@ -2012,7 +2066,7 @@ class PhysicalExecutor:
             "compaction_ratio": sparse_ops.compaction_ratio(u, n)}
         acc = _unpack_acc(packed_f, packed_i, q.float_ops, q.int_ops,
                           q.widths)
-        return acc, uniq.cpu().numpy()
+        return acc, _to_host(uniq)
 
     def _whole_column(self, scan, name, n_pad, extra_cols, cast_dtype):
         """One whole-scan column padded to n_pad rows, on the device. It
@@ -2198,7 +2252,9 @@ class PhysicalExecutor:
                 _NUMPY_OF[acc_dtype], has_nan, kind))
 
         if scan.region_id < 0:
-            return build()
+            out = build()  # uncacheable rows: upload, counted
+            self.cache.count_upload(out)
+            return out
         tag = "__prep__" if kind is None else f"__prep_{kind}__"
         return self.cache.get(self._hot_key(
             scan, entry, (tag,) + arg_names, (str(acc_dtype), has_nan)),
@@ -2237,13 +2293,16 @@ class PhysicalExecutor:
         if tag_names:
             sizes = [len(scan.tag_dicts[t]) + 1 for t in tag_names]
             sid = combine_group_ids(
-                [self._upload(scan.columns[t]) + 1 for t in tag_names],
+                [_upload_counted(scan.columns[t], self.device) + 1
+                 for t in tag_names],
                 sizes, dtype=torch.int64)
         else:
             sid = torch.zeros(n, dtype=torch.int64, device=self.device)
-        ts = self._upload(scan.columns[table.schema.time_index.name])
+        ts = _upload_counted(scan.columns[table.schema.time_index.name],
+                             self.device)
         order, keep = sort_dedup(
-            sid, ts, self._upload(scan.seq), self._upload(scan.op_type),
+            sid, ts, _upload_counted(scan.seq, self.device),
+            _upload_counted(scan.op_type, self.device),
             torch.ones(n, dtype=torch.bool, device=self.device))
         mask = torch.zeros(n, dtype=torch.bool, device=self.device)
         mask[order] = keep

@@ -47,6 +47,7 @@ from greptimedb_tpu_torch.query.physical import (
 from greptimedb_tpu_torch.query.planner import _default_name
 from greptimedb_tpu_torch.sql import ast
 from greptimedb_tpu_torch.storage.index import extract_tag_predicates
+from greptimedb_tpu_torch.utils import tracing
 
 
 @dataclass
@@ -270,8 +271,10 @@ def execute_range_select(executor, rp: RangePlan):
         collect_columns(a.arg, needed)
     proj_cols = [c for c in schema.names if c in needed]
 
-    scan = executor.engine.scan(table.region_ids[0], ts_range, proj_cols,
-                                tag_preds)
+    with tracing.span("scan", table=table.name,
+                      regions=len(table.region_ids)):
+        scan = executor.engine.scan(table.region_ids[0], ts_range,
+                                    proj_cols, tag_preds)
     project = lp.Project(None, rp.items)
     sort = lp.Sort(None, rp.order_keys) if rp.order_keys else None
 
@@ -379,13 +382,17 @@ def execute_range_select(executor, rp: RangePlan):
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    accs = _range_kernel(
-        up(ts), up(series_code.astype(np.int32)), up(vals),
-        up(base_slot - slot_lo), n_slots=n_slots, cap_buckets=cap_buckets,
-        num_groups=num_groups, ranges=ranges, ops=tuple(sorted(ops)),
-        need_ts=need_ts)
-    accs = {r: {k: v.cpu().numpy() for k, v in acc.items()}
-            for r, acc in accs.items()}
+    # the span closes after the planes' pull to the host, which waits
+    # for the K2 calls: its time covers them on the card
+    with tracing.span("range_agg", rows=n, slots=n_slots,
+                      groups=num_groups):
+        accs = _range_kernel(
+            up(ts), up(series_code.astype(np.int32)), up(vals),
+            up(base_slot - slot_lo), n_slots=n_slots,
+            cap_buckets=cap_buckets, num_groups=num_groups, ranges=ranges,
+            ops=tuple(sorted(ops)), need_ts=need_ts)
+        accs = {r: {k: v.cpu().numpy() for k, v in acc.items()}
+                for r, acc in accs.items()}
 
     # windows observed by ANY aggregate's range
     present_mask = np.zeros(num_groups, dtype=bool)

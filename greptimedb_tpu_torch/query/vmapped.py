@@ -460,7 +460,7 @@ def _run_vmapped_dense(q: _Batch, block_plan) -> list:
                        ts=torch.cat(ts) if q.need_ts else None,
                        blk=torch.cat(blk) if q.need_ts else None,
                        n_blocks=len(blocks))
-    host = _pack(out, q.float_ops, q.pack_dtype).cpu().numpy()
+    host = ph._to_host(_pack(out, q.float_ops, q.pack_dtype))
     results = [q.tail(_member_acc(host, i * g, (i + 1) * g, q.float_ops,
                                   q.widths), None)
                for i in range(q.m)]
@@ -504,7 +504,7 @@ def _run_vmapped_sparse(q: _Batch, cap: int) -> list:
                                 [op for _n, op in q.cols_ops], q.params)
     out = _stacked_agg(vals, ids, member_mask, u, q.float_ops,
                        ts=cols[q.ts_name][order] if q.need_ts else None)
-    host = _pack(out, q.float_ops, q.pack_dtype).cpu().numpy()
+    host = ph._to_host(_pack(out, q.float_ops, q.pack_dtype))
     gids_u = uniq.cpu().numpy()
     results = []
     for i in range(q.m):

@@ -2,18 +2,27 @@
 mirroring the reference `HttpServer::make_app`): /v1/sql, the Prometheus
 query API, the write protocols (Influx line protocol, Prometheus remote
 write and read, OTLP metrics and traces, OpenTSDB JSON puts), /metrics,
-/health, the running-queries surface and /v1/maintenance (the
-maintenance plane's queue, rules, stall seconds and jobs).
+/health, the running-queries surface, /v1/maintenance (the
+maintenance plane's queue, rules, stall seconds and jobs) and the
+observability plane's routes: /v1/slow_queries, /v1/traces/<id>,
+/v1/profile/flame and /v1/profile/cluster, /debug/pprof/cpu and
+/debug/pprof/mem, /dashboard, and /metrics with OpenMetrics exemplars
+when the scraper asks for them.
 
 stdlib ThreadingHTTPServer with keep-alive: the host serves protocol
 traffic while queries run as kernels on the engine's device. Status
 codes and error bodies are the JAX server's. The JAX server's other
-routes (scripts, faults, profiles, traces, pprof, slow queries, the
-dashboard page) answer with its error
-shape — HTTP 400, code 3000 — and a message naming the slice of the port
-that brings them (ROADMAP.md). With a user provider (auth/) every data
-route asks for Basic auth, as the JAX server does: a missing or wrong
-credential gets 401, code 7002; /health and /metrics stay open.
+routes (scripts, faults) answer with its error shape — HTTP 400, code
+3000 — and a message naming the slice of the port that brings them
+(ROADMAP.md). Every data route runs in a `request_span("http:<path>")`
+that adopts an incoming W3C `traceparent` and echoes the request's
+context back. With a user provider (auth/) every data route asks for
+Basic auth, as the JAX server does: a missing or wrong credential gets
+401, code 7002; /health, /metrics and /dashboard stay open.
+
+`stop()` joins the server's threads and stops the process-wide flame
+sampler and OTLP exporter (utils/flame.py, utils/otlp_trace.py), so no
+thread of the plane outlives its server.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from greptimedb_tpu_torch.fault import (
 from greptimedb_tpu_torch.query.engine import QueryEngine
 from greptimedb_tpu_torch.servers.tcp import JoinedThreads
 from greptimedb_tpu_torch.session import Channel, QueryContext
+from greptimedb_tpu_torch.utils import tracing
 from greptimedb_tpu_torch.utils.metrics import (
     HTTP_REQUESTS,
     QUERY_DURATION,
@@ -51,9 +61,6 @@ from greptimedb_tpu_torch.utils.metrics import (
 _A9 = "servers and CLI (ROADMAP A9"
 _LATER_ROUTES = (
     (("/v1/scripts", "/v1/run-script"), f"{_A9}: flows, scripts, shm)"),
-    (("/v1/slow_queries", "/v1/traces/", "/v1/profile/", "/debug/pprof/",
-      "/dashboard", "/dashboard/"),
-     f"{_A9}: the observability plane)"),
     (("/v1/faults",), "mesh and cluster (ROADMAP A10)"),
 )
 
@@ -126,6 +133,10 @@ class HttpServer:
         self._thread.join()  # no connection is accepted after this
         self._httpd.close_all()
         self._httpd = None
+        from greptimedb_tpu_torch.utils import flame, otlp_trace
+
+        flame.shutdown()
+        otlp_trace.shutdown()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -171,6 +182,11 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_response(code)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
+        # W3C egress: echo the request's trace context so the caller can
+        # join its spans to ours (set per traced request in _route)
+        tp = getattr(self, "_traceparent", None)
+        if tp:
+            self.send_header("traceparent", tp)
         self.end_headers()
         self.wfile.write(data)
         route = urllib.parse.urlparse(self.path).path
@@ -202,7 +218,11 @@ class _Handler(BaseHTTPRequestHandler):
                             timezone=tz or None,
                             tenant=tenant,
                             timeout_ms=timeout_ms,
-                            user=user)
+                            user=user,
+                            # the request trace of _route's ingress span
+                            # (adopted from a traceparent header, or
+                            # minted): the engine joins the same trace
+                            trace_id=tracing.current_trace_id())
 
     # ---- routing -----------------------------------------------------------
 
@@ -217,12 +237,27 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _route(self):
         path = urllib.parse.urlparse(self.path).path
+        self._traceparent = None
         try:
             if path == "/health" or path == "/ready":
                 return self._send(200, {})
+            if path in ("/dashboard", "/dashboard/"):
+                from greptimedb_tpu_torch.servers.dashboard import PAGE
+
+                return self._send(200, PAGE.encode(),
+                                  "text/html; charset=utf-8")
             if path == "/metrics":
-                return self._send(200, REGISTRY.render().encode(),
-                                  "text/plain; version=0.0.4")
+                # content negotiation: an OpenMetrics scraper gets the
+                # exemplar-bearing exposition (trace_id exemplars on
+                # histogram buckets and the spec's # EOF); classic
+                # scrapers keep the byte-stable text format
+                om = "application/openmetrics-text" in \
+                    (self.headers.get("Accept") or "")
+                ctype = ("application/openmetrics-text; version=1.0.0; "
+                         "charset=utf-8") if om \
+                    else "text/plain; version=0.0.4"
+                return self._send(
+                    200, REGISTRY.render(openmetrics=om).encode(), ctype)
             if self.user_provider is not None:
                 # Basic auth on every data route (reference
                 # servers/src/http/authorize.rs; /health and /metrics
@@ -242,7 +277,14 @@ class _Handler(BaseHTTPRequestHandler):
                     self.wfile.write(data)
                     HTTP_REQUESTS.inc(path=path, status="401")
                     return
-            return self._route_data(path)
+            # every data route runs under a request root span: an
+            # incoming W3C traceparent is adopted so our spans join the
+            # caller's trace, and _send echoes the context back
+            with tracing.request_span(
+                    f"http:{path}",
+                    traceparent=self.headers.get("traceparent")):
+                self._traceparent = tracing.to_traceparent()
+                return self._route_data(path)
         except DeadlineExceeded as e:
             # typed deadline expiry: the timeout shape (408), not 503 —
             # the client asked for the bound it just hit
@@ -265,6 +307,19 @@ class _Handler(BaseHTTPRequestHandler):
                              "execution_time_ms": 0})
 
     def _route_data(self, path: str):
+        if path.startswith("/debug/pprof/"):
+            return self._handle_pprof(path)
+        if path == "/v1/profile/flame":
+            return self._handle_flame()
+        if path == "/v1/profile/cluster":
+            # the local node's digest (the port has no cluster yet)
+            from greptimedb_tpu_torch.utils import flame
+
+            return self._send(200, flame.cluster_view())
+        if path == "/v1/slow_queries":
+            return self._handle_slow_queries()
+        if path.startswith("/v1/traces/"):
+            return self._handle_trace(path)
         if path == "/v1/queries" or path.startswith("/v1/queries/"):
             return self._handle_queries(path)
         if path == "/v1/maintenance":
@@ -309,6 +364,70 @@ class _Handler(BaseHTTPRequestHandler):
                 f"{path} is not in this slice of greptimedb_tpu_torch; the "
                 f"{later} slice brings it")
         return self._send(404, {"error": f"no route {path}"})
+
+    # ---- the observability plane's debug surfaces -------------------------
+
+    def _handle_pprof(self, path: str):
+        """On-demand profiling (reference servers/src/http/pprof.rs and
+        mem_prof.rs): folded CPU stacks, tracemalloc heap. Behind the
+        auth gate: stack samples and heap contents are sensitive."""
+        from greptimedb_tpu_torch.utils import profiling
+
+        params = self._params()
+        if path == "/debug/pprof/cpu":
+            secs = min(float(params.get("seconds", "5")), 60.0)
+            out = profiling.sample_cpu(seconds=secs)
+            return self._send(200, out.encode(), "text/plain")
+        if path == "/debug/pprof/mem":
+            if params.get("action", "") == "stop":
+                out = profiling.mem_profile_stop()
+            else:
+                out = profiling.mem_profile(top=int(params.get("top", "50")))
+            return self._send(200, out.encode(), "text/plain")
+        return self._send(404, {"error": f"no route {path}"})
+
+    def _handle_flame(self):
+        """The continuous profiler's rolling flame windows: folded
+        stacks (text) by default, ?format=speedscope for the JSON
+        document, ?stage= to filter one stage."""
+        from greptimedb_tpu_torch.utils import flame
+
+        params = self._params()
+        if not flame.running():
+            return self._send(503, {
+                "error": "continuous profiling is disabled "
+                         "(enable [profiling] / GTPU_PROFILE)"})
+        if params.get("format", "folded") == "speedscope":
+            return self._send(200, flame.speedscope())
+        out = flame.folded(stage=params.get("stage") or None)
+        return self._send(200, out.encode(), "text/plain")
+
+    def _handle_slow_queries(self):
+        """The slow-query ring, newest first (query text is sensitive:
+        behind the auth gate, unlike /metrics)."""
+        from greptimedb_tpu_torch.utils import slow_query
+
+        n = int(self._params().get("limit", "50"))
+        return self._send(200, {
+            "slow_queries": [r.to_dict() for r in slow_query.records(n)],
+            "threshold_ms": slow_query.threshold_ms()})
+
+    def _handle_trace(self, path: str):
+        """One trace's span tree by id; the stage-histogram exemplars at
+        /metrics point here."""
+        tid = path.rsplit("/", 1)[1].lower()
+        # accept the zero-padded 32-hex form our own traceparent egress
+        # emits for internally minted ids
+        if len(tid) == 32 and tid.startswith("0" * 16):
+            tid = tid[16:]
+        spans = tracing.spans_for(tid)
+        if not spans:
+            return self._send(404, {"error": f"no spans for trace {tid!r}"})
+        wire = tracing.spans_to_wire(spans)
+        for w, s in zip(wire, spans):
+            w["node"] = s.node
+        return self._send(200, {"trace_id": tid, "spans": wire,
+                                "tree": tracing.render_tree(spans)})
 
     # ---- /v1/queries (running-queries surface) -----------------------------
 

@@ -19,9 +19,10 @@ simple and broadly compatible.
 `shutdown()` closes every open connection and joins every handler
 thread (servers/tcp.py); the disconnect watcher of a statement is
 joined when the statement ends. A resultset goes out in ~1 MiB writes
-(`_PacketIO.send_packets`), not one write a packet: the same bytes. A W3C traceparent in a leading SQL
-comment is not read: tracing comes with the observability plane
-(ROADMAP.md A9).
+(`_PacketIO.send_packets`), not one write a packet: the same bytes.
+Each statement is one `request_span("mysql:query")`; a W3C traceparent
+in a leading SQL comment (`/* traceparent='00-...' */`) joins it to the
+caller's trace.
 """
 
 from __future__ import annotations
@@ -372,20 +373,27 @@ def _dispatch(engine: QueryEngine, sql: str, ctx: QueryContext,
             vals.append(str(ctx.extensions.get(
                 name, _SESSION_VARS.get(name, ""))))
         return ("rows", names, [vals])
-    from greptimedb_tpu_torch.utils import deadline
+    from greptimedb_tpu_torch.utils import deadline, tracing
 
-    # per-statement cancel token: a client that hangs up mid-query
-    # cancels the work (EOF on the session socket); the engine arms
-    # the deadline from max_execution_time / config defaults
-    token = deadline.CancelToken()
-    ctx.cancel_token = token
-    stop_watch = deadline.watch_disconnect(sock, token) \
-        if sock is not None else (lambda: None)
-    try:
-        res = engine.execute_one(sql, ctx)
-    finally:
-        stop_watch()
-        ctx.cancel_token = None
+    # the MySQL wire has no headers: a W3C traceparent rides a leading
+    # SQL comment instead. Each statement is one request-root span; the
+    # connection-scoped ctx adopts the per-statement trace so the
+    # engine (and its spans and ledger) join it.
+    with tracing.request_span(
+            "mysql:query", traceparent=tracing.traceparent_from_sql(sql)):
+        ctx.trace_id = tracing.current_trace_id()
+        # per-statement cancel token: a client that hangs up mid-query
+        # cancels the work (EOF on the session socket); the engine arms
+        # the deadline from max_execution_time / config defaults
+        token = deadline.CancelToken()
+        ctx.cancel_token = token
+        stop_watch = deadline.watch_disconnect(sock, token) \
+            if sock is not None else (lambda: None)
+        try:
+            res = engine.execute_one(sql, ctx)
+        finally:
+            stop_watch()
+            ctx.cancel_token = None
     if not res.is_query:
         return ("affected", res.affected_rows)
     # the QueryResult itself, NOT materialized rows: row building is

@@ -8,8 +8,9 @@ psql and standard drivers. All values are sent in text format with proper
 type OIDs so clients render ints/floats/timestamps natively.
 
 `shutdown()` closes every open connection and joins every handler
-thread (servers/tcp.py). A W3C traceparent in a leading SQL comment is
-not read: tracing comes with the observability plane (ROADMAP.md A9).
+thread (servers/tcp.py). Each statement is one
+`request_span("postgres:query")`; a W3C traceparent in a leading SQL
+comment joins it to the caller's trace.
 """
 
 from __future__ import annotations
@@ -312,20 +313,26 @@ class _Session(socketserver.BaseRequestHandler):
                 pass
             conn.send(b"C", b"SET\x00")
             return
-        from greptimedb_tpu_torch.utils import deadline
+        from greptimedb_tpu_torch.utils import deadline, tracing
 
         try:
-            # the CONNECTION ctx executes (a fresh one here used to drop
-            # the session vars SET just stored); per-statement token so
-            # a hung-up client cancels its work
-            token = deadline.CancelToken()
-            ctx.cancel_token = token
-            stop_watch = deadline.watch_disconnect(conn.sock, token)
-            try:
-                res = engine.execute_one(sql, ctx)
-            finally:
-                stop_watch()
-                ctx.cancel_token = None
+            # header-less wire: a W3C traceparent rides a leading SQL
+            # comment; each statement is one request-root span
+            with tracing.request_span(
+                    "postgres:query",
+                    traceparent=tracing.traceparent_from_sql(sql)):
+                # the CONNECTION ctx executes (a fresh one here used to
+                # drop the session vars SET just stored); per-statement
+                # token so a hung-up client cancels its work
+                ctx.trace_id = tracing.current_trace_id()
+                token = deadline.CancelToken()
+                ctx.cancel_token = token
+                stop_watch = deadline.watch_disconnect(conn.sock, token)
+                try:
+                    res = engine.execute_one(sql, ctx)
+                finally:
+                    stop_watch()
+                    ctx.cancel_token = None
         except (DeadlineExceeded, Cancelled) as e:
             # query_canceled: PG uses 57014 for both statement_timeout
             # expiry and pg_cancel_backend-style cancellation

@@ -79,7 +79,13 @@ from greptimedb_tpu_torch.storage.sst import (
     SstWriter,
 )
 from greptimedb_tpu_torch.storage.wal import Wal
-from greptimedb_tpu_torch.utils.metrics import INGEST_WAL_FSYNC_SECONDS
+from greptimedb_tpu_torch.utils import ledger
+from greptimedb_tpu_torch.utils.metrics import (
+    INGEST_WAL_FSYNC_SECONDS,
+    SCAN_DECODE_BYTES,
+    SCAN_DECODE_SECONDS,
+    SCAN_PART_CACHE_EVENTS,
+)
 
 OP_PUT = 0
 OP_DELETE = 1
@@ -644,9 +650,13 @@ class Region:
             self._part_cache_bytes -= old.nbytes
         self._part_cache[key] = ent
         self._part_cache_bytes += ent.nbytes
+        evicted = 0
         while self._part_cache_bytes > self.part_cache_budget:
             _, e = self._part_cache.popitem(last=False)
             self._part_cache_bytes -= e.nbytes
+            evicted += 1
+        if evicted:
+            SCAN_PART_CACHE_EVENTS.inc(float(evicted), event="evict")
 
     def _invalidate_file_parts(self, file_ids) -> None:
         """Drop decoded parts and device blocks of removed SSTs
@@ -663,22 +673,34 @@ class Region:
         (compaction reads its doomed inputs once)."""
         keys = [(m.file_id, ts_range, tuple(names)) for m in file_list]
         out: list = [None] * len(file_list)
+        hits = 0
         with self._lock:
             for i, k in enumerate(keys):
                 ent = self._part_cache.get(k)
                 if ent is not None:
                     self._part_cache.move_to_end(k)
                     out[i] = ent
-        for i, meta in enumerate(file_list):
-            if out[i] is not None:
-                continue
-            part = self._decode_file_part(meta, ts_range, names)
+                    hits += 1
+        missing = [i for i in range(len(file_list)) if out[i] is None]
+        for i in missing:
+            meta = file_list[i]
+            with SCAN_DECODE_SECONDS.time():
+                part = self._decode_file_part(meta, ts_range, names)
             out[i] = _PartEntry(part, _part_nbytes(part))
+            SCAN_DECODE_BYTES.inc(float(out[i].nbytes))
             with self._lock:
                 # a file compacted away while it decoded must not strand
                 # its part in the budget
                 if insert and meta.file_id in self.files:
                     self._part_cache_put(keys[i], out[i])
+        if hits:
+            SCAN_PART_CACHE_EVENTS.inc(float(hits), event="hit")
+            ledger.cache_event("scan_part", "hit", float(hits))
+        if missing:
+            SCAN_PART_CACHE_EVENTS.inc(float(len(missing)), event="miss")
+            ledger.cache_event("scan_part", "miss", float(len(missing)))
+            ledger.add("bytes_decoded",
+                       float(sum(out[i].nbytes for i in missing)))
         return out
 
     def _decode_file_part(self, meta: FileMeta, ts_range,

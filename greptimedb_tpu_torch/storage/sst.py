@@ -36,6 +36,7 @@ from greptimedb_tpu_torch.datatypes.schema import Schema
 from greptimedb_tpu_torch.datatypes.types import SemanticType
 from greptimedb_tpu_torch.datatypes.vector import DictVector
 from greptimedb_tpu_torch.objectstore import default_store
+from greptimedb_tpu_torch.utils import tracing
 from greptimedb_tpu_torch.storage.format import (
     FORMAT_NAME,
     FORMAT_VERSIONS,
@@ -230,11 +231,13 @@ class SstReader:
              ) -> Optional[SstPart]:
         """Read the row groups that survive ts pruning; None when none
         do. Internal columns are always read."""
-        plan = self.plan_groups(meta, schema, ts_range, projection)
-        if plan is None:
-            return None
-        _ft, groups, cols = plan
-        return self.read_groups(meta, groups, cols)
+        # one span a file read, as the JAX reader's `open_input`
+        with tracing.span("objectstore_read", backend=self.store.name):
+            plan = self.plan_groups(meta, schema, ts_range, projection)
+            if plan is None:
+                return None
+            _ft, groups, cols = plan
+            return self.read_groups(meta, groups, cols)
 
     def iter_chunks(self, meta: FileMeta, schema: Schema,
                     ts_range: Optional[tuple[int, int]] = None,
@@ -245,7 +248,9 @@ class SstReader:
         chunk's columns at a time, whatever the file's size. Tag
         predicates prune nothing here (the per-file inverted index is a
         later slice); the device WHERE mask stays exact."""
-        plan = self.plan_groups(meta, schema, ts_range, projection)
+        # the span holds no yield: it covers the footer and the plan
+        with tracing.span("objectstore_read", backend=self.store.name):
+            plan = self.plan_groups(meta, schema, ts_range, projection)
         if plan is None:
             return
         _ft, groups, cols = plan

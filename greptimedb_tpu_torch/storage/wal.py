@@ -49,6 +49,7 @@ from greptimedb_tpu_torch import native
 from greptimedb_tpu_torch.datatypes.recordbatch import RecordBatch
 from greptimedb_tpu_torch.datatypes.schema import Schema
 from greptimedb_tpu_torch.datatypes.vector import DictVector
+from greptimedb_tpu_torch.utils import tracing
 
 _HEADER = struct.Struct("<IIQQB")  # payload_len, crc32, region_id, seq, op
 _META_LEN = struct.Struct("<I")
@@ -162,20 +163,26 @@ class Wal:
         pieces = [blob] if isinstance(blob, (bytes, bytearray)) else blob
         _segno, f = self._writer(region_id)
         start = f.tell()
-        try:
-            for p in pieces:
-                f.write(p)
-            f.flush()
-            if self.sync:
-                os.fsync(f.fileno())  # the durability boundary
-        except BaseException:
+        # span-covered durability boundary: on the serial write path the
+        # append lands in the request's trace; a group-commit leader
+        # records one span per drained group in its own trace (it
+        # serves many writers' traces at once)
+        with tracing.span("wal_append", region=region_id,
+                          bytes=sum(len(p) for p in pieces)):
             try:
+                for p in pieces:
+                    f.write(p)
                 f.flush()
-                f.truncate(start)
-                f.seek(start)
-            except OSError:
-                pass
-            raise
+                if self.sync:
+                    os.fsync(f.fileno())  # the durability boundary
+            except BaseException:
+                try:
+                    f.flush()
+                    f.truncate(start)
+                    f.seek(start)
+                except OSError:
+                    pass
+                raise
         with self._count_lock:
             # regions' leaders append concurrently: count under a lock
             self.sync_count += int(self.sync)
@@ -190,9 +197,14 @@ class Wal:
         tail is truncated in place and ends the replay: nothing after a
         bad frame was acknowledged in order."""
         self.close_region(region_id)
-        for _segno, path in self._segments(region_id):
-            with open(path, "rb") as f:
-                data = f.read()
+        for segno, path in self._segments(region_id):
+            # the with-block holds no yield: the span closes before the
+            # generator can suspend, so the caller's span parent is
+            # never left dangling across a consumption gap
+            with tracing.span("wal_replay_read", region=region_id,
+                              segment=segno):
+                with open(path, "rb") as f:
+                    data = f.read()
             view = memoryview(data)
             entries = []
             lib = native.try_load()

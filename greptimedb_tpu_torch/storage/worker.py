@@ -21,9 +21,15 @@ import queue
 import threading
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
+
+from greptimedb_tpu_torch.utils import tracing
 
 BATCH_MAX = 64  # requests drained per worker cycle
+
+
+def _call(fn):
+    return fn()
 
 
 @dataclass
@@ -32,6 +38,10 @@ class _WriteReq:
     batch: object
     op_type: int
     future: Future = field(default_factory=Future)
+    #: runs a callable under the submitter's trace, span parent and
+    #: ledger (tracing.propagate), so the WAL append of its cycle lands
+    #: on a request's trace
+    scope: Callable = _call
 
 
 class WorkerGroup:
@@ -60,7 +70,8 @@ class WorkerGroup:
         return (table_id % self.n + region_number % self.n) % self.n
 
     def submit(self, region_id: int, batch, op_type: int) -> Future:
-        req = _WriteReq(region_id, batch, op_type)
+        req = _WriteReq(region_id, batch, op_type,
+                        scope=tracing.propagate(_call))
         with self._submit_lock:
             if self._stopping:
                 raise RuntimeError("worker group is stopped")
@@ -117,8 +128,10 @@ class WorkerGroup:
         for region_id, reqs in by_region.items():
             try:
                 region = self.engine.region(region_id)
-                counts = region.write_many(
-                    [(r.batch, r.op_type) for r in reqs])
+                # one commit serves every request of the cycle: it runs
+                # in the first submitter's trace
+                counts = reqs[0].scope(lambda: region.write_many(
+                    [(r.batch, r.op_type) for r in reqs]))
             except BaseException as e:  # noqa: BLE001 — deliver to callers
                 for r in reqs:
                     if not r.future.done():

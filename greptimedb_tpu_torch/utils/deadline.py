@@ -263,6 +263,7 @@ def watch_disconnect(sock, token: CancelToken):
     finishes; it joins the watcher. Non-fatal best effort: a TLS-wrapped
     socket can't be MSG_PEEKed with flags, so the watcher just stands
     down."""
+    import select as _select
     import socket as _socket
 
     done = threading.Event()
@@ -270,6 +271,14 @@ def watch_disconnect(sock, token: CancelToken):
     def run():
         while not done.wait(POLL_S):
             try:
+                # poll first: on a socket with a timeout (the HTTP
+                # server's `http.timeout_s`) Python waits up to that
+                # timeout inside recv whatever the flags, and stop()
+                # would join a watcher that cannot see `done` meanwhile
+                # (a statement past POLL_S took the whole 30 s)
+                readable, _, _ = _select.select([sock], [], [], 0)
+                if not readable:
+                    continue  # nothing readable: the client is still there
                 data = sock.recv(1, _socket.MSG_PEEK | _socket.MSG_DONTWAIT)
             except (BlockingIOError, InterruptedError, TimeoutError):
                 continue  # nothing readable: the client is still there

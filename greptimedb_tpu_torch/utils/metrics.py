@@ -1,18 +1,22 @@
 """Internal metrics registry of the port (copy of the registry of
 greptimedb_tpu/utils/metrics.py, exposed at /metrics in the Prometheus
-text format).
+text format, or in OpenMetrics with trace_id exemplars when the scraper
+asks for it).
 
-Only the series the serving slices touch are defined, under the JAX
-package's names and labels: HTTP requests, query and statement
-durations, the deadline plane's terminal events, admission, the query
-batcher (events, group sizes, vmapped widths), the encode pool, the
-plan cache, the parse-free fast lane and the serving stages, and the
-write plane's: group commit, the maintenance plane and its write
-stalls, rollup substitutions, retention expiry and injected faults. The
-rest of the observability plane (tracing and exemplars, slow queries,
-the resource ledger, flame graphs, roofline, OTLP, the shared-memory
-metrics bridge) comes with the servers-and-CLI slice's later items
-(ROADMAP.md, A9).
+Only the series the port's modules touch are defined, under the JAX
+package's names and labels (so grafana/greptimedb_tpu.json reads the
+port unchanged): HTTP requests, query and statement durations, the
+deadline plane's terminal events, admission, the query batcher, the
+encode pool, the plan cache, the parse-free fast lane and the serving
+stages, the write plane's (group commit, maintenance, write stalls,
+rollup substitutions, retention expiry, injected faults), and the
+observability plane's: slow queries, the roofline's achieved GB/s,
+profiler samples, device memory and transfers, the hot set, the
+partial-aggregate and scan-part caches, scan decode and the OTLP
+exporter (utils/otlp_trace.py). Two families keep a name that says XLA
+or Pallas: `xla_compile_*` counts the nvcc builds of the kernel library
+(ops/_build.py) and `pallas_dispatch_total` the K1/K2 launches.
+The shared-memory metrics bridge of the JAX package is not here.
 
 Light on imports (threading, time, collections): the encode pool's
 spawn-mode workers import the encoder, which imports this module.
@@ -48,13 +52,28 @@ class Counter:
         return sum(v for key, v in self._snapshot().items()
                    if want <= set(key))
 
+    def series(self, **labels) -> list:
+        """Every (labels dict, value) series whose labels are a superset
+        of the given ones (information_schema.cluster_faults)."""
+        want = set(labels.items())
+        return [(dict(key), v)
+                for key, v in sorted(self._snapshot().items())
+                if want <= set(key)]
+
     def _snapshot(self) -> dict:
         with self._lock:
             return dict(self._values)
 
-    def render(self) -> list[str]:
-        out = [f"# HELP {self.name} {self.help}",
-               f"# TYPE {self.name} counter"]
+    def render(self, exemplars: bool = False) -> list[str]:
+        # OpenMetrics family naming: the metric FAMILY drops the _total
+        # suffix while counter samples keep it (a strict OM parser
+        # rejects a family named ..._total); the classic text format
+        # keeps the suffixed name, byte-stable for legacy scrapers
+        family = self.name
+        if exemplars and family.endswith("_total"):
+            family = family[:-len("_total")]
+        out = [f"# HELP {family} {self.help}",
+               f"# TYPE {family} counter"]
         for key, v in sorted(self._snapshot().items()):
             out.append(f"{self.name}{_labels(key)} {v}")
         return out
@@ -116,7 +135,7 @@ class Gauge(Counter):
         with self._lock:
             self._values[key] = value
 
-    def render(self) -> list[str]:
+    def render(self, exemplars: bool = False) -> list[str]:
         out = [f"# HELP {self.name} {self.help}",
                f"# TYPE {self.name} gauge"]
         for key, v in sorted(self._snapshot().items()):
@@ -127,7 +146,8 @@ class Gauge(Counter):
 class Histogram:
     BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 60.0)
 
-    def __init__(self, name: str, help_: str, buckets=None):
+    def __init__(self, name: str, help_: str, buckets=None,
+                 exemplars: bool = False):
         self.name = name
         self.help = help_
         if buckets is not None:
@@ -135,9 +155,22 @@ class Histogram:
         self._buckets: dict[tuple, list[int]] = {}
         self._sum: dict[tuple, float] = defaultdict(float)
         self._count: dict[tuple, int] = defaultdict(int)
+        # OpenMetrics exemplars: per (labels, bucket) the most recent
+        # (trace_id, value, ts) — the metrics->trace join (a slow bucket
+        # links to a trace to pull from /v1/traces/<id>)
+        self._exemplars_on = exemplars
+        self._exemplar: dict[tuple, tuple] = {}
         self._lock = threading.Lock()
 
     def observe(self, value: float, **labels):
+        tid = None
+        if self._exemplars_on:
+            from greptimedb_tpu_torch.utils import tracing
+
+            # with tracing off no spans exist, so an exemplar would
+            # point at a trace whose /v1/traces lookup can only 404
+            if tracing.enabled():
+                tid = tracing.current_trace_id()
         key = tuple(sorted(labels.items()))
         with self._lock:
             b = self._buckets.setdefault(key, [0] * (len(self.BUCKETS) + 1))
@@ -146,12 +179,23 @@ class Histogram:
                     b[i] += 1
                     break
             else:
+                i = len(self.BUCKETS)
                 b[-1] += 1
             self._sum[key] += value
             self._count[key] += 1
+            if tid:
+                self._exemplar[(key, i)] = (tid, value, time.time())
 
     def time(self, **labels):
         return _Timer(self, labels)
+
+    def sum(self, **labels) -> float:
+        with self._lock:
+            return self._sum.get(tuple(sorted(labels.items())), 0.0)
+
+    def count(self, **labels) -> int:
+        with self._lock:
+            return self._count.get(tuple(sorted(labels.items())), 0)
 
     def total_count(self, **labels) -> int:
         want = set(labels.items())
@@ -165,21 +209,23 @@ class Histogram:
             return sum(s for key, s in self._sum.items()
                        if want <= set(key))
 
-    def render(self) -> list[str]:
+    def render(self, exemplars: bool = False) -> list[str]:
         out = [f"# HELP {self.name} {self.help}",
                f"# TYPE {self.name} histogram"]
         with self._lock:
             snapshot = sorted((key, list(b), self._sum[key],
                                self._count[key])
                               for key, b in self._buckets.items())
+            ex = dict(self._exemplar) if exemplars else {}
         for key, b, total, count in snapshot:
             cum = 0
             for i, ub in enumerate(self.BUCKETS):
                 cum += b[i]
                 out.append(f"{self.name}_bucket{_labels(key, le=str(ub))} "
-                           f"{cum}")
+                           f"{cum}{_exemplar_suffix(ex.get((key, i)))}")
             cum += b[-1]
-            out.append(f"{self.name}_bucket{_labels(key, le='+Inf')} {cum}")
+            out.append(f"{self.name}_bucket{_labels(key, le='+Inf')} {cum}"
+                       f"{_exemplar_suffix(ex.get((key, len(self.BUCKETS))))}")
             out.append(f"{self.name}_sum{_labels(key)} {total}")
             out.append(f"{self.name}_count{_labels(key)} {count}")
         return out
@@ -196,6 +242,17 @@ class _Timer:
 
     def __exit__(self, *exc):
         self.hist.observe(time.perf_counter() - self.t0, **self.labels)
+
+
+def _exemplar_suffix(ex) -> str:
+    """OpenMetrics exemplar rendering for one bucket line:
+    ` # {trace_id="<id>"} <value> <timestamp>`, or "" when the bucket
+    has none."""
+    if ex is None:
+        return ""
+    tid, value, ts = ex
+    return (f' # {{trace_id="{_escape_label_value(tid)}"}} '
+            f"{value} {round(ts, 3)}")
 
 
 def _escape_label_value(v) -> str:
@@ -216,7 +273,23 @@ def _labels(key: tuple, **extra) -> str:
 class Registry:
     def __init__(self):
         self._metrics: list = []
+        self._collectors: list = []
         self._lock = threading.Lock()
+
+    def register_collector(self, fn) -> None:
+        """A callback run before every render or sample pass, for gauges
+        whose truth lives elsewhere (device memory, cache residency)."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def _collect(self) -> None:
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — a scrape must never fail
+                pass
 
     def _add(self, m):
         with self._lock:
@@ -232,17 +305,52 @@ class Registry:
     def gauge(self, name, help_="") -> Gauge:
         return self._add(Gauge(name, help_))
 
-    def histogram(self, name, help_="", buckets=None) -> Histogram:
-        return self._add(Histogram(name, help_, buckets=buckets))
+    def histogram(self, name, help_="", buckets=None,
+                  exemplars: bool = False) -> Histogram:
+        return self._add(Histogram(name, help_, buckets=buckets,
+                                   exemplars=exemplars))
 
-    def render(self) -> str:
-        """The Prometheus text exposition format (version 0.0.4)."""
+    def render(self, openmetrics: bool = False) -> str:
+        """The Prometheus text exposition format (version 0.0.4), or
+        with `openmetrics=True` (the scraper sent Accept:
+        application/openmetrics-text) exemplar suffixes on histogram
+        bucket lines and the spec's `# EOF` terminator."""
+        self._collect()
         with self._lock:
             metrics = list(self._metrics)
         lines = []
         for m in metrics:
-            lines.extend(m.render())
+            lines.extend(m.render(exemplars=openmetrics))
+        if openmetrics:
+            lines.append("# EOF")
         return "\n".join(lines) + "\n"
+
+    def _iter_samples(self):
+        """(metric_name, value, label-pairs tuple) over every metric."""
+        self._collect()
+        with self._lock:
+            metrics = list(self._metrics)
+        for m in metrics:
+            if isinstance(m, Histogram):
+                with m._lock:
+                    items = [(key, m._sum[key], m._count[key])
+                             for key in list(m._count)]
+                for key, total, count in items:
+                    yield m.name + "_sum", total, key
+                    yield m.name + "_count", count, key
+            else:
+                for key, v in sorted(m._snapshot().items()):
+                    yield m.name, v, key
+
+    def samples(self):
+        """Flat (metric_name, value, rendered labels) samples — feeds
+        information_schema.runtime_metrics."""
+        return [(n, v, _labels(k)) for n, v, k in self._iter_samples()]
+
+    def samples_dict(self):
+        """(metric_name, value, labels dict) — feeds the self-scrape
+        exporter (utils/export_metrics.py)."""
+        return [(n, v, dict(k)) for n, v, k in self._iter_samples()]
 
 
 REGISTRY = Registry()
@@ -251,13 +359,14 @@ HTTP_REQUESTS = REGISTRY.sharded_counter(
     "greptimedb_tpu_http_requests_total",
     "HTTP requests by path and status")
 QUERY_DURATION = REGISTRY.histogram("greptimedb_tpu_query_duration_seconds",
-                                    "Query execution latency")
+                                    "Query execution latency",
+                                    exemplars=True)
 INGEST_ROWS = REGISTRY.sharded_counter(
     "greptimedb_tpu_ingest_rows_total",
     "Rows ingested by protocol")
 STMT_DURATION = REGISTRY.histogram(
     "greptimedb_tpu_statement_duration_seconds",
-    "Statement execution latency by statement kind")
+    "Statement execution latency by statement kind", exemplars=True)
 DEADLINE_EVENTS = REGISTRY.counter(
     "greptimedb_tpu_query_deadline_events_total",
     "Query deadline-plane terminal events by event (expired = the "
@@ -273,7 +382,8 @@ ADMISSION_QUEUE_DEPTH = REGISTRY.gauge(
     "Statements currently waiting in the bounded admission queue")
 ADMISSION_WAIT_SECONDS = REGISTRY.histogram(
     "greptimedb_tpu_admission_wait_seconds",
-    "Time queued statements waited for an execution slot")
+    "Time queued statements waited for an execution slot",
+    exemplars=True)
 QUERY_BATCH_EVENTS = REGISTRY.sharded_counter(
     "greptimedb_tpu_query_batch_events_total",
     "Cross-query batching events by kind (join/coalesced/vmapped/"
@@ -281,12 +391,12 @@ QUERY_BATCH_EVENTS = REGISTRY.sharded_counter(
     "skipped their own device dispatch)")
 QUERY_BATCH_SIZE = REGISTRY.histogram(
     "greptimedb_tpu_query_batch_size",
-    "Queries served per batch group (leader + members)")
+    "Queries served per batch group (leader + members)", exemplars=True)
 VMAP_BATCH_WIDTH = REGISTRY.histogram(
     "greptimedb_tpu_query_vmap_batch_width",
     "Distinct parameter-sibling queries executed per vmapped multi-"
     "query dispatch (the stacked member axis M)",
-    buckets=(2, 4, 8, 16, 32, 64, 128))
+    buckets=(2, 4, 8, 16, 32, 64, 128), exemplars=True)
 ENCODE_POOL_EVENTS = REGISTRY.sharded_counter(
     "greptimedb_tpu_encode_pool_events_total",
     "Result-encode pool decisions by kind (offload = serialized on a "
@@ -301,7 +411,7 @@ ENCODE_SECONDS = REGISTRY.histogram(
     "Wall time serializing one query result to its wire format (HTTP "
     "JSON, MySQL resultset packets), by protocol — compare against query_duration_seconds for the "
     "execute-vs-encode split; protocol=process series time the round "
-    "trip to a spawn-mode encode worker")
+    "trip to a spawn-mode encode worker", exemplars=True)
 # the shape-keyed plan cache and the parse-free fast lane
 # (concurrency/{plan_cache,fast_lane}.py) with the stage histogram that
 # splits a request into parse / plan / execute (slow lane) and fast_bind /
@@ -327,7 +437,9 @@ STAGE_SECONDS = REGISTRY.histogram(
     "Per-request serving-stage wall time by stage (parse / plan = "
     "plan-cache lookup + plan_select / execute on the slow lane; fast_bind / "
     "fast_execute on the fast lane) — with admission_wait_seconds and "
-    "encode_seconds this makes the QPS breakdown attributable per stage")
+    "encode_seconds this makes the QPS breakdown attributable per stage; "
+    "buckets carry OpenMetrics trace_id exemplars — a slow bucket links "
+    "straight to a trace to pull via /v1/traces/<id>", exemplars=True)
 
 # ingest pipeline (storage/group_commit.py): these series show the fsync
 # amortization (batch size > 1 under concurrency) and where admission
@@ -379,3 +491,87 @@ ROLLUP_SUBSTITUTIONS = REGISTRY.counter(
 EXPIRED_SSTS = REGISTRY.counter(
     "greptimedb_tpu_maintenance_expired_ssts_total",
     "SSTs dropped whole by retention (TTL) expiry")
+
+
+# ---- the observability plane (utils/{slow_query,flame,roofline,
+# device_telemetry,otlp_trace}.py) and the device and cache series the
+# port's modules feed ------------------------------------------------------
+
+SLOW_QUERIES = REGISTRY.counter(
+    "greptimedb_tpu_slow_queries_total",
+    "Statements slower than the slow-query threshold, by kind")
+# kernel-library builds and device telemetry (utils/device_telemetry.py):
+# the xla_compile_* families keep the JAX names; in the port they count
+# the nvcc builds of the CUDA kernel library (backend="cuda")
+XLA_COMPILES = REGISTRY.counter(
+    "greptimedb_tpu_xla_compile_total",
+    "Kernel compilations by backend (the port: nvcc builds of the CUDA "
+    "kernel library, ops/_build.py)")
+XLA_COMPILE_SECONDS = REGISTRY.histogram(
+    "greptimedb_tpu_xla_compile_duration_seconds",
+    "Kernel compile wall time per compilation, by backend (the port: "
+    "one nvcc build of the kernel library)")
+DEVICE_MEMORY = REGISTRY.gauge(
+    "greptimedb_tpu_device_memory_bytes",
+    "Accelerator memory by kind (in_use/reserved/peak from the CUDA "
+    "caching allocator when a card is initialised, cache = bytes pinned "
+    "by the device hot set)")
+DEVICE_TRANSFER_BYTES = REGISTRY.counter(
+    "greptimedb_tpu_device_transfer_bytes_total",
+    "Host<->device bytes moved by the query engine, by direction "
+    "(h2d uploads of scan blocks, d2h result readbacks)")
+DEVICE_CACHE_EVENTS = REGISTRY.counter(
+    "greptimedb_tpu_device_cache_events_total",
+    "Device block cache events by kind (hit/miss/evict)")
+DEVICE_HOT_SET_EVENTS = REGISTRY.counter(
+    "greptimedb_tpu_device_hot_set_events_total",
+    "Device-resident columnar hot set events by kind (hit/miss/evict/"
+    "pin — pin = a file-anchored column block entered device residency "
+    "and stays across queries and data versions until its file dies)")
+DEVICE_HOT_SET_BYTES = REGISTRY.gauge(
+    "greptimedb_tpu_device_hot_set_bytes",
+    "Bytes currently pinned in device memory by the columnar hot set")
+PALLAS_DISPATCHES = REGISTRY.counter(
+    "greptimedb_tpu_pallas_dispatch_total",
+    "Segment-kernel dispatches by kernel (the port: K1 launches as "
+    "segment_sum, K2 launches as fused_agg; the family keeps the JAX "
+    "package's Pallas name)")
+# scan pipeline (storage/region.py)
+SCAN_DECODE_SECONDS = REGISTRY.histogram(
+    "greptimedb_tpu_scan_decode_seconds",
+    "Per-SST read+decode wall time inside the region scan (part-cache "
+    "misses only)")
+SCAN_PART_CACHE_EVENTS = REGISTRY.counter(
+    "greptimedb_tpu_scan_part_cache_events_total",
+    "Per-file decoded-part scan cache events by kind (hit/miss/evict)")
+SCAN_DECODE_BYTES = REGISTRY.counter(
+    "greptimedb_tpu_scan_decode_bytes_total",
+    "Host bytes materialized by SST scan decode (part-cache misses)")
+# incremental aggregation (query/partial_cache.py)
+PARTIAL_AGG_CACHE_EVENTS = REGISTRY.counter(
+    "greptimedb_tpu_partial_agg_cache_events_total",
+    "Partial-aggregate cache events by kind (hit = an immutable part's "
+    "[G, F] partial served without touching its rows, miss = computed "
+    "and cached, evict = aged out of the byte budget, invalidate = "
+    "dropped by a region seam — compaction swap, retention expiry, "
+    "DROP/TRUNCATE, fallback = an aggregate shape the incremental fold "
+    "could not serve exactly)")
+PARTIAL_AGG_CACHE_BYTES = REGISTRY.gauge(
+    "greptimedb_tpu_partial_agg_cache_bytes",
+    "Host bytes held by the partial-aggregate cache")
+# continuous profiling and the roofline (utils/flame.py,
+# utils/roofline.py)
+PROFILE_SAMPLES = REGISTRY.counter(
+    "greptimedb_tpu_profile_samples_total",
+    "Continuous-profiler stack samples by coarse stage (http/stmt/scan/"
+    "device_agg/... from the innermost active span; host = a busy "
+    "thread outside any span) — attributed/total ratio is the sampler's "
+    "own health metric")
+QUERY_ACHIEVED_GBPS = REGISTRY.histogram(
+    "greptimedb_tpu_query_achieved_gbps",
+    "Per-statement achieved memory bandwidth in GB/s from the roofline "
+    "accountant ((h2d + d2h + decoded bytes) / device span time); "
+    "compare against the card's peak (read from the card) for the "
+    "roofline fraction; buckets carry trace_id exemplars",
+    buckets=(0.1, 0.5, 1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 200.0, 400.0,
+             800.0, 1600.0, 3200.0), exemplars=True)

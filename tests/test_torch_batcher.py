@@ -282,6 +282,46 @@ def test_threaded_siblings_equal_serial(threaded):
     assert ev.get(event="join") > joins0
 
 
+def test_failing_leader_reaches_its_statement_only(threaded):
+    """The bad statement opens the group, so it leads: its error is its
+    own, and the members with other parameters run their statements."""
+    from greptimedb_tpu_torch.session import QueryContext
+
+    jqe, tqe = threaded
+    good = [DASH.format(h=f"h{i}", lo=0, hi=120_000) for i in range(3)]
+    bad = DASH.format(h="h0", lo="'not a time'", hi=120_000)
+    with tqe.concurrency.suppress_batching():
+        want = [tqe.execute_one(s) for s in good]
+    b = tqe.concurrency.batcher
+    out: dict = {}
+
+    def call(i, sql):
+        ctx = QueryContext()
+        sel = tqe._parse_cached(sql)[0]
+        try:
+            out[i] = b.execute(tqe, sel, tqe._table(sel.table, ctx), ctx,
+                               busy=True)
+        except Exception as e:  # noqa: BLE001 — compared below
+            out[i] = e
+
+    lead = threading.Thread(target=call, args=(0, bad))
+    lead.start()
+    for _ in range(200):  # the leader's group is open and collecting
+        if b._open:
+            break
+        time.sleep(0.001)
+    members = [threading.Thread(target=call, args=(i + 1, s))
+               for i, s in enumerate(good)]
+    for t in members:
+        t.start()
+    for t in [lead] + members:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert isinstance(out[0], ValueError)
+    for i, w in enumerate(want):
+        assert_same(w, out[i + 1])
+
+
 def test_bad_literal_reaches_its_member_only(threaded):
     jqe, tqe = threaded
     good = [DASH.format(h=f"h{i}", lo=0, hi=120_000) for i in range(4)]

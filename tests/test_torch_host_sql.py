@@ -307,10 +307,7 @@ def test_build_info_reports_the_port_version(pair):
 
 
 @pytest.mark.parametrize("table,slice_name", [
-    ("runtime_metrics", "servers and CLI"), ("slow_queries", "servers and CLI"),
-    ("running_queries", "servers and CLI"), ("cluster_profile",
-                                             "servers and CLI"),
-    ("cluster_faults", "servers and CLI"), ("flows", "servers and CLI"),
+    ("flows", "flows, scripts, plugins and shm .ROADMAP A9-flows."),
     ("partitions", "A10"),
     ("region_peers", "A10"), ("cluster_info", "A10")])
 def test_runtime_information_schema_tables_name_their_slice(
@@ -351,11 +348,9 @@ def test_db_keyword_is_a_context_shorthand(pair):
 
 
 @pytest.mark.parametrize("sql,slice_name", [
-    ("EXPLAIN ANALYZE SELECT count(*) FROM cpu", "servers and CLI"),
-    ("TQL ANALYZE (0, 10, '5s') cpu", "servers and CLI"),
     ("SHOW FLOWS", "flows, scripts, plugins and shm"),
     ("COPY cpu TO 'cpu.parquet'", "COPY import and export"),
-], ids=["explain_analyze", "tql_analyze", "flows", "copy"])
+], ids=["flows", "copy"])
 def test_later_slices_raise(pair, sql, slice_name):
     with pytest.raises(UnsupportedStatement, match=slice_name):
         pair.tqe.execute_one(sql)

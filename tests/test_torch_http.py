@@ -218,9 +218,6 @@ def test_statuses_and_error_bodies_match_jax(servers, name):
 
 @pytest.mark.parametrize("path,slice_name", [
     ("/v1/scripts", "flows, scripts, shm"),
-    ("/v1/slow_queries", "observability plane"),
-    ("/v1/traces/abc", "observability plane"),
-    ("/debug/pprof/cpu", "observability plane"),
     ("/v1/faults", "A10"),
 ])
 def test_unported_routes_name_their_slice(servers, path, slice_name):

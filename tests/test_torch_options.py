@@ -130,10 +130,6 @@ def test_dump_config_equals_jax_and_loads_back(tmp_path, capsys):
     ("cluster.hedge_enabled", "false", "A10"),
     ("parallel.mesh_min_rows", "1", "A10"),
     ("partition.default_hash_regions", "4", "A10"),
-    ("tracing.otlp_endpoint", "'http://x:4318'", "A9: the observability"),
-    ("slow_query.threshold_ms", "5", "A9: the observability"),
-    ("metrics.enable", "true", "A9: the observability"),
-    ("telemetry.enable", "true", "A9: the observability"),
     ("shm.fabric", "true", "A9: flows, scripts, plugins and shm"),
 ])
 def test_unported_key_refused_naming_its_slice(key, value, slice_name,

@@ -75,6 +75,18 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _inline_jax_decode():
+    """The JAX engines here decode SST parts inline: the JAX package's
+    process-wide decode pool would leave idle worker threads in this test
+    process, and tests/test_profile_plane.py's sampler counts them when
+    xdist runs that file later on the same worker."""
+    env = pytest.MonkeyPatch()
+    env.setenv("GREPTIMEDB_TPU_SCAN_DECODE_THREADS", "1")
+    yield
+    env.undo()
+
+
 def _engine(data_dir, device="cpu", **cfg):
     engine = RegionEngine(EngineConfig(data_dir=str(data_dir), **cfg),
                           device=device)
@@ -156,12 +168,14 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
     # SHOW TABLES runs on the port now (the host SQL surface); the case
     # keeps its id and checks a SHOW statement that stays outside
     ("SHOW FLOWS", "flows, scripts, plugins and shm"),
-    # TQL EVAL runs on the port now; the case keeps its id and checks the
-    # TQL statement that stays outside the slice
-    ("TQL ANALYZE (0, 10, '5s') up", "servers and CLI"),
-    # joins run on the port now; the case keeps its id and checks a
-    # runtime information_schema table, which stays outside
-    ("SELECT * FROM information_schema.slow_queries", "servers and CLI"),
+    # TQL EVAL, EXPLAIN and ANALYZE run on the port now; the case keeps
+    # its id and checks a statement that stays outside the slice
+    ("DROP FLOW f", "flows, scripts, plugins and shm"),
+    # joins and the runtime information_schema tables run on the port
+    # now; the case keeps its id and checks a cluster table, which
+    # stays outside
+    ("SELECT * FROM information_schema.partitions",
+     "mesh and cluster .ROADMAP A10."),
     # ROADMAP C3: each refusal names its slice, after the JAX validation
     ("CREATE TABLE p (a STRING, ts TIMESTAMP TIME INDEX, v DOUBLE, "
      "PRIMARY KEY (a)) PARTITION ON COLUMNS (a) (a < 'm', a >= 'm')",
@@ -399,14 +413,6 @@ def test_host_sql_surface_matches_the_jax_engine(sql, tmp_path):
         assert outcomes[0] == outcomes[1]
     finally:
         jengine.close()
-
-
-def test_explain_analyze_names_the_servers_slice(tmp_path):
-    """EXPLAIN ANALYZE needs the tracing spans, as TQL ANALYZE does."""
-    qe = _engine(tmp_path)
-    _cpu_table(qe, points=2)
-    with pytest.raises(UnsupportedStatement, match="servers and CLI"):
-        qe.execute_one("EXPLAIN ANALYZE SELECT count(*) FROM cpu")
 
 
 def test_group_space_past_the_dense_budget_raises(monkeypatch, tmp_path):

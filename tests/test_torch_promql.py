@@ -17,7 +17,7 @@ PromqlEngine / TQL against the JAX package's, on the CPU.
   rtol=1e-10, atol=1e-9. The range queries also run with
   GREPTIMEDB_TPU_PROMQL_EDGES=off in both packages, the TQL statements
   through `execute_one` (row lists), and every query's TQL EXPLAIN text
-  must be equal. TQL ANALYZE raises UnsupportedStatement on the port.
+  must be equal.
 """
 
 import re
@@ -41,7 +41,7 @@ from greptimedb_tpu_torch.ops import segment_kernels as sk
 from greptimedb_tpu_torch.ops import window as tw
 from greptimedb_tpu_torch.ops.segment import segment_agg_fused
 from greptimedb_tpu_torch.promql.engine import PromqlEngine
-from greptimedb_tpu_torch.query import QueryEngine, UnsupportedStatement
+from greptimedb_tpu_torch.query import QueryEngine
 from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
 
 RTOL, ATOL = 1e-10, 1e-9
@@ -673,13 +673,6 @@ def test_same_tql_explain(pairs):
             assert terr is not None and str(terr) == str(jerr), q[1]
             continue
         assert got.rows() == want.rows(), q[1]
-
-
-def test_tql_analyze_is_outside_the_slice(pairs):
-    pair = pairs("http", "memtable")
-    with pytest.raises(UnsupportedStatement, match="servers and CLI"):
-        pair.tq.execute_one(
-            f"TQL ANALYZE ({T0}, {T0 + 60}, '60') sum(http_requests)")
 
 
 def test_label_aggregation_takes_one_k2_call(pairs, monkeypatch):
