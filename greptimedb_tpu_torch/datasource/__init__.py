@@ -1,0 +1,392 @@
+"""External file formats, the text half (counterpart of
+greptimedb_tpu/datasource/__init__.py, which reads every format through
+pyarrow; the port has no pyarrow, so CSV and ndjson are parsed here by
+hand with numpy).
+
+`read_file` returns a `TextTable`: column names, numpy columns, a
+validity mask where a column holds NULLs, and each column's inferred
+type under pyarrow's names, so the file engine infers the schema the
+JAX engine infers for the same file:
+
+- CSV (pyarrow.csv's defaults): the header names the columns; pyarrow's
+  NULL spellings ("", "NULL", "NaN", "N/A", ...) are NULL outside
+  string columns; a column is the first of int64, bool, date32,
+  timestamp[s] (ISO 8601 without fractions, "T" or " ", an optional "Z"
+  or UTC offset), timestamp[ns] (with fractions), double, string that
+  holds every value; all-NULL is `null`.
+- ndjson (pyarrow.json's): keys in order of first appearance; JSON
+  ints are int64, with floats double; bools bool; strings are
+  timestamp[s] when every one is an ISO date or date-time (no
+  fraction, an optional "Z"), else string; null everywhere is `null`;
+  a key whose values mix kinds is refused, as pyarrow refuses it.
+
+`.gz` files are gunzipped first. Parquet and ORC, COPY and `write_file`
+raise UnsupportedStatement naming the slice that brings them (ROADMAP
+A12-io).
+"""
+
+from __future__ import annotations
+
+import csv
+import datetime as dt
+import gzip
+import json
+import os
+import re
+from dataclasses import dataclass
+from operator import itemgetter
+from typing import Optional
+
+import numpy as np
+
+from greptimedb_tpu_torch.datatypes.types import DataType
+
+FORMATS = ("csv", "json", "parquet", "orc")
+TEXT_FORMATS = ("csv", "json")
+IO_SLICE = "COPY import and export (ROADMAP A12-io)"
+
+# pyarrow.csv.ConvertOptions' default null_values
+_CSV_NULLS = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "N/A", "NA", "NULL", "NaN", "n/a", "nan", "null"))
+_CSV_TRUE = frozenset(("1", "True", "TRUE", "true"))
+_CSV_FALSE = frozenset(("0", "False", "FALSE", "false"))
+_INT = re.compile(r"[+-]?\d+\Z")
+_DATE = re.compile(r"\d{4}-\d{2}-\d{2}\Z")
+_TS_S = re.compile(
+    r"\d{4}-\d{2}-\d{2}([T ]\d{2}:\d{2}(:\d{2})?(Z|[+-]\d{2}:?\d{2})?)?\Z")
+_TS_NS = re.compile(
+    r"\d{4}-\d{2}-\d{2}[T ]\d{2}:\d{2}:\d{2}\.\d{1,9}"
+    r"(Z|[+-]\d{2}:?\d{2})?\Z")
+_JSON_TS = re.compile(
+    r"\d{4}-\d{2}-\d{2}([T ]\d{2}:\d{2}(:\d{2})?Z?)?\Z")
+
+#: inferred type -> the DataType the JAX engine's DataType.from_arrow gives
+TYPE_OF = {
+    "int64": DataType.INT64,
+    "double": DataType.FLOAT64,
+    "bool": DataType.BOOL,
+    "string": DataType.STRING,
+    "timestamp[s]": DataType.TIMESTAMP_SECOND,
+    "timestamp[ns]": DataType.TIMESTAMP_NANOSECOND,
+    "date32": DataType.TIMESTAMP_MILLISECOND,
+}
+#: nanoseconds a stored unit of each time type
+_TIME_NS = {"timestamp[s]": 10**9, "timestamp[ns]": 1,
+            "date32": 86_400 * 10**9}
+
+
+class DataSourceError(Exception):
+    pass
+
+
+def _unsupported(what: str):
+    from greptimedb_tpu_torch.query.engine import UnsupportedStatement
+
+    return UnsupportedStatement(
+        f"{what} is not in this slice of greptimedb_tpu_torch; the "
+        f"{IO_SLICE} slice brings it")
+
+
+def infer_format(path: str, explicit: Optional[str] = None) -> str:
+    """Format from the WITH (format=...) option or the file extension
+    (reference file_format.rs `try_from` on extension)."""
+    if explicit:
+        f = explicit.lower()
+        if f == "ndjson":
+            f = "json"
+        if f not in FORMATS:
+            raise DataSourceError(f"unsupported format {explicit!r} "
+                                  f"(supported: {', '.join(FORMATS)})")
+        return f
+    base = path[:-3] if path.endswith(".gz") else path
+    ext = os.path.splitext(base)[1].lstrip(".").lower()
+    if ext in ("ndjson", "jsonl"):
+        ext = "json"
+    if ext in FORMATS:
+        return ext
+    raise DataSourceError(f"cannot infer format from {path!r}; "
+                          "pass WITH (format = '...')")
+
+
+def check_text_format(fmt: str) -> None:
+    """Refuse the container formats, naming the slice that brings them."""
+    if fmt not in TEXT_FORMATS:
+        raise _unsupported(f"{fmt} files")
+
+
+@dataclass
+class TextColumn:
+    """One column: `values` (int64 / float64 / bool / int64 time units /
+    object strings), `valid` (None when no NULL) and the inferred type."""
+
+    values: np.ndarray
+    valid: Optional[np.ndarray]
+    type: str
+
+    def to_pylist(self) -> list:
+        """Python values as pyarrow's `to_pylist` gives them."""
+        if self.type in ("timestamp[s]", "timestamp[ns]"):
+            ns = _TIME_NS[self.type]
+            epoch = dt.datetime(1970, 1, 1)
+            out = [epoch + dt.timedelta(microseconds=int(v) * ns // 1000)
+                   for v in self.values.tolist()]
+        elif self.type == "date32":
+            epoch = dt.date(1970, 1, 1)
+            out = [epoch + dt.timedelta(days=int(v))
+                   for v in self.values.tolist()]
+        elif self.type == "null":
+            return [None] * len(self.values)
+        else:
+            out = self.values.tolist()
+        if self.valid is not None:
+            out = [v if ok else None
+                   for v, ok in zip(out, self.valid.tolist())]
+        return out
+
+
+@dataclass
+class TextTable:
+    names: list[str]
+    columns: dict[str, TextColumn]
+    num_rows: int
+
+    def column(self, name: str) -> TextColumn:
+        return self.columns[name]
+
+
+def read_file(path: str, fmt: Optional[str] = None) -> TextTable:
+    fmt = infer_format(path, fmt)
+    check_text_format(fmt)
+    if not os.path.exists(path):
+        raise DataSourceError(f"file {path!r} not found")
+    with open(path, "rb") as f:
+        raw = f.read()
+    if path.endswith(".gz"):
+        raw = gzip.decompress(raw)
+    text = raw.decode("utf-8")
+    if fmt == "csv":
+        return _read_csv(text)
+    return _read_ndjson(text)
+
+
+def write_file(table, path: str, fmt: Optional[str] = None) -> int:
+    raise _unsupported("writing files (COPY TO)")
+
+
+# ---- CSV ---------------------------------------------------------------------
+
+
+#: rows the CSV reader infers from before it parses numeric columns in C
+_CSV_SAMPLE_ROWS = 4096
+
+
+def _read_csv(text: str) -> TextTable:
+    lines = text.split("\n")
+    if lines and lines[-1] == "":
+        lines.pop()
+    lines = [ln[:-1] if ln.endswith("\r") else ln for ln in lines]
+    if not lines:
+        raise DataSourceError("CSV file is empty (no header row)")
+    quoted = '"' in text
+    names = next(csv.reader(lines[:1])) if quoted else lines[0].split(",")
+    body = lines[1:]
+    if not quoted and len(body) > _CSV_SAMPLE_ROWS:
+        fast = _read_csv_fast(names, body)
+        if fast is not None:
+            return fast
+    rows = list(csv.reader(body)) if quoted else \
+        [ln.split(",") for ln in body]
+    width = len(names)
+    for i, r in enumerate(rows):
+        if len(r) != width:
+            raise DataSourceError(
+                f"CSV parse error: expected {width} columns, got "
+                f"{len(r)} in row {i + 1}")
+    fields = list(zip(*rows)) if rows else [()] * width
+    cols = {name: _csv_column(np.asarray(vals, dtype=object))
+            for name, vals in zip(names, fields)}
+    return TextTable(list(names), cols, len(body))
+
+
+def _read_csv_fast(names: list, body: list) -> Optional[TextTable]:
+    """Columns a sample infers as int64 or double, with no NULL in it,
+    parse in C (numpy.loadtxt) in one pass; the others as strings, then
+    through `_csv_column`. None when the full parse disagrees with the
+    sample (a NULL, a non-number, an int past its type, a NaN), and the
+    caller takes the general path: the result is always the general
+    path's."""
+    import warnings
+
+    sample = [ln.split(",") for ln in body[:_CSV_SAMPLE_ROWS]]
+    if any(len(r) != len(names) for r in sample):
+        return None
+    kinds = [_csv_column(np.asarray(c, dtype=object))
+             for c in zip(*sample)]
+    numeric = [k for k, c in enumerate(kinds)
+               if c.type in ("int64", "double") and c.valid is None]
+    others = [k for k in range(len(names)) if k not in numeric]
+    cols: dict = {}
+    try:
+        with warnings.catch_warnings():
+            # "1.5" in an int64 column: an error, not a truncation
+            warnings.simplefilter("error")
+            if numeric:
+                nums = np.loadtxt(body, delimiter=",", usecols=numeric,
+                                  dtype=[(f"c{k}", "i8" if kinds[k].type
+                                          == "int64" else "f8")
+                                         for k in numeric], ndmin=1,
+                                  comments=None)
+            for k in others:
+                strs = np.loadtxt(body, delimiter=",", usecols=[k],
+                                  dtype=str, ndmin=1, comments=None)
+                cols[names[k]] = _csv_column(strs.astype(object))
+    except (ValueError, DeprecationWarning):
+        return None
+    for k in numeric:
+        arr = np.ascontiguousarray(nums[f"c{k}"])
+        if arr.dtype.kind == "f" and np.isnan(arr).any():
+            return None  # a NULL spelling parsed as NaN
+        cols[names[k]] = TextColumn(arr, None, kinds[k].type)
+    return TextTable(list(names), {n: cols[n] for n in names}, len(body))
+
+
+def _matches(rx, vals: np.ndarray) -> bool:
+    """Every value matches `rx` (the first is tried alone first: most
+    columns fail there)."""
+    return bool(rx.match(vals[0])) and bool(
+        np.frompyfunc(rx.match, 1, 1)(vals).astype(bool).all())
+
+
+def _csv_column(raw: np.ndarray) -> TextColumn:
+    n = len(raw)
+    valid = ~np.frompyfunc(_CSV_NULLS.__contains__, 1, 1)(raw).astype(bool)
+    vals = raw[valid]
+    if not len(vals):
+        return TextColumn(np.zeros(n, dtype=np.int64), valid, "null")
+
+    def widen(arr, fill):
+        out = np.full(n, fill, dtype=arr.dtype)
+        out[valid] = arr
+        return out
+
+    mask = None if valid.all() else valid
+    m = len(vals)
+    if _matches(_INT, vals):
+        return TextColumn(widen(np.fromiter(map(int, vals), np.int64, m),
+                                0), mask, "int64")
+    bools = _CSV_TRUE | _CSV_FALSE
+    if vals[0] in bools and bool(np.frompyfunc(bools.__contains__, 1, 1)(
+            vals).astype(bool).all()):
+        truth = np.frompyfunc(_CSV_TRUE.__contains__, 1, 1)(vals)
+        return TextColumn(widen(truth.astype(bool), False), mask, "bool")
+    if _matches(_DATE, vals):
+        days = vals.astype(str).astype("datetime64[D]").astype(np.int64)
+        return TextColumn(widen(days, 0), mask, "date32")
+    for kind, rx in (("timestamp[s]", _TS_S), ("timestamp[ns]", _TS_NS)):
+        if _matches(rx, vals):
+            # zoned and naive values do not share a type: a string column
+            zoned = np.frompyfunc(_zoned, 1, 1)(vals).astype(bool)
+            if zoned.all() or not zoned.any():
+                return TextColumn(widen(_parse_iso(vals, kind), 0), mask,
+                                  kind)
+            break
+    try:
+        floats = np.fromiter(map(float, vals), np.float64, m)
+    except ValueError:
+        # a string column keeps every value: pyarrow's strings_can_be_null
+        # is off, so its NULL spellings stay strings
+        return TextColumn(raw, None, "string")
+    return TextColumn(widen(floats, np.nan), mask, "double")
+
+
+def _zoned(v: str) -> bool:
+    return v.endswith("Z") or "+" in v[10:] or "-" in v[10:]
+
+
+def _parse_iso(vals: np.ndarray, kind: str) -> np.ndarray:
+    """ISO 8601 strings -> int64 seconds (timestamp[s]) or nanoseconds;
+    naive strings are UTC, an offset converts to UTC."""
+    unit = "s" if kind == "timestamp[s]" else "ns"
+    strs = vals.astype(str)
+    if not any(_zoned(v) for v in strs):
+        return strs.astype(f"datetime64[{unit}]").astype(np.int64)
+    out = np.empty(len(strs), dtype=np.int64)
+    scale = 10**9 if unit == "s" else 1
+    for i, v in enumerate(strs):
+        t = dt.datetime.fromisoformat(v.replace("Z", "+00:00"))
+        if t.tzinfo is None:
+            t = t.replace(tzinfo=dt.timezone.utc)
+        d = t - dt.datetime(1970, 1, 1, tzinfo=dt.timezone.utc)
+        ns = (d.days * 86_400 + d.seconds) * 10**9 \
+            + d.microseconds * 1000
+        out[i] = ns // scale
+    return out
+
+
+# ---- ndjson ------------------------------------------------------------------
+
+
+def _read_ndjson(text: str) -> TextTable:
+    body = text.strip()
+    if "\n\n" in body or "\r" in body:
+        body = ",".join(ln for ln in body.split("\n") if ln.strip())
+    else:
+        body = body.replace("\n", ",")
+    try:
+        rows = json.loads("[" + body + "]")
+    except json.JSONDecodeError as e:
+        raise DataSourceError(f"JSON parse error: {e}") from None
+    if not all(isinstance(r, dict) for r in rows):
+        raise DataSourceError("JSON parse error: a line is not an object")
+    first = rows[0].keys() if rows else {}.keys()
+    if all(r.keys() == first for r in rows):
+        # every line has the same keys: one C-level pass a column
+        names = dict.fromkeys(first)
+        cols = {name: _json_column(name, list(map(itemgetter(name), rows)))
+                for name in names}
+    else:
+        names = {}
+        for r in rows:
+            names.update(dict.fromkeys(r))
+        cols = {name: _json_column(name, [r.get(name) for r in rows])
+                for name in names}
+    return TextTable(list(names), cols, len(rows))
+
+
+def _json_column(name: str, vals: list) -> TextColumn:
+    n = len(vals)
+    nulls = vals.count(None)
+    present = [v for v in vals if v is not None] if nulls else vals
+    valid = np.asarray([v is not None for v in vals]) if nulls else None
+    if not present:
+        return TextColumn(np.zeros(n, dtype=np.int64), valid, "null")
+
+    def widen(arr, fill):
+        if valid is None:
+            return arr
+        out = np.full(n, fill, dtype=arr.dtype)
+        out[valid] = arr
+        return out
+
+    kinds = set(map(type, present))
+    if kinds == {bool}:
+        return TextColumn(widen(np.asarray(present, dtype=bool), False),
+                          valid, "bool")
+    if kinds == {int}:
+        return TextColumn(widen(np.asarray(present, dtype=np.int64), 0),
+                          valid, "int64")
+    if kinds == {int, float} or kinds == {float}:
+        return TextColumn(widen(np.asarray(present, dtype=np.float64),
+                                np.nan), valid, "double")
+    if kinds == {str}:
+        strs = np.asarray(present, dtype=object)
+        if _matches(_JSON_TS, strs):
+            full = np.frompyfunc(
+                lambda v: v if len(v) > 10 else v + "T00:00:00", 1, 1)(strs)
+            return TextColumn(widen(_parse_iso(full, "timestamp[s]"), 0),
+                              valid, "timestamp[s]")
+        return TextColumn(np.asarray(vals, dtype=object), valid, "string")
+    kind_names = sorted(k.__name__ for k in kinds)
+    raise DataSourceError(
+        f"JSON parse error: column {name!r} mixes {', '.join(kind_names)}")

@@ -43,7 +43,12 @@ take a table's rollup companions down with it.
 Everything around those device calls runs on the host over numpy.
 Regions open lazily from the catalog on first use, so a persisted
 catalog and a reopened storage engine serve the tables they held.
-COPY and the flow statements raise UnsupportedStatement naming the
+CREATE TABLE … ENGINE = metric makes a logical table over the database's
+shared physical region (storage/metric_engine.py) and CREATE EXTERNAL
+TABLE a read-only table over a CSV or ndjson file
+(storage/file_engine.py); both engines are built eagerly and register
+openers, so their tables reopen after a restart. COPY, Parquet and ORC
+files and the flow statements raise UnsupportedStatement naming the
 slice of the port that brings them.
 """
 
@@ -99,6 +104,8 @@ from greptimedb_tpu_torch.query.window import select_has_window
 from greptimedb_tpu_torch.session import QueryContext
 from greptimedb_tpu_torch.sql import ast, parse_sql
 from greptimedb_tpu_torch.storage.engine import RegionEngine
+from greptimedb_tpu_torch.storage.file_engine import FileEngine
+from greptimedb_tpu_torch.storage.metric_engine import MetricEngine
 from greptimedb_tpu_torch.utils import deadline as dl
 from greptimedb_tpu_torch.utils import ledger, roofline, slow_query, tracing
 from greptimedb_tpu_torch.utils import time as ts_util
@@ -109,7 +116,6 @@ from greptimedb_tpu_torch.utils.metrics import (
     STMT_DURATION,
 )
 
-_MAINT = "metric and file engines (ROADMAP A12-engines)"
 _FLOWS = "flows, scripts, plugins and shm (ROADMAP A9-flows)"
 _CLUSTER = "mesh and cluster (ROADMAP A10)"
 
@@ -158,6 +164,10 @@ class QueryEngine:
         self._skip_tls = threading.local()
         self._stmt_cache: "OrderedDict[str, list]" = OrderedDict()
         self._stmt_cache_lock = threading.Lock()
+        # eager: both engines register openers, so their tables reopen
+        # after a restart
+        self.metric_engine = MetricEngine(region_engine, catalog.kv)
+        self.file_engine = FileEngine(region_engine, catalog.kv)
 
     # ---- entry points ------------------------------------------------------
 
@@ -1248,21 +1258,17 @@ class QueryEngine:
             cols.append(ColumnSchema(c.name, dtype, sem, c.nullable, default))
         # the JAX engine's order: the columns validate first, then the
         # file engine, the column list, the metric engine, the partitions
+        schema = Schema(cols) if stmt.columns else None
         if stmt.external or stmt.engine == "file":
-            raise UnsupportedStatement(
-                "external (file engine) tables are not in this slice of "
-                f"greptimedb_tpu_torch; the {_MAINT} slice brings them")
-        if not stmt.columns:
+            return self._create_file_table(db, name, schema, stmt)
+        if schema is None:
             raise PlanError("CREATE TABLE requires a column list")
         if stmt.engine == "metric":
-            raise UnsupportedStatement(
-                "ENGINE = metric tables are not in this slice of "
-                f"greptimedb_tpu_torch; the {_MAINT} slice brings them")
+            return self._create_metric_table(db, name, schema, stmt)
         if stmt.partitions:
             raise UnsupportedStatement(
                 "partitioned tables (PARTITION ON) are not in this slice of "
                 f"greptimedb_tpu_torch; the {_CLUSTER} slice brings them")
-        schema = Schema(cols)
         existed = self.catalog.table_exists(db, name)
         info = self.catalog.create_table(
             db, name, schema, options=dict(stmt.options),
@@ -1271,6 +1277,52 @@ class QueryEngine:
         if not existed:
             for rid in info.region_ids:
                 self.region_engine.create_region(rid, schema)
+        return QueryResult.of_affected(0)
+
+    def _create_file_table(self, db, name, schema, stmt) -> QueryResult:
+        """CREATE EXTERNAL TABLE: an external file as a read-only table
+        (reference file-engine, src/file-engine/src/engine.rs)."""
+        location = stmt.options.get("location")
+        if not location:
+            raise PlanError(
+                "CREATE EXTERNAL TABLE requires WITH (location = '...')")
+        if self.catalog.table_exists(db, name):
+            if stmt.if_not_exists:
+                return QueryResult.of_affected(0)
+            raise CatalogError(f"table {db}.{name} already exists")
+        rid, schema = self.file_engine.create_file_table(
+            db, name, schema, location, stmt.options.get("format"))
+        self.catalog.create_table(
+            db, name, schema,
+            options={**dict(stmt.options), "engine": "file"},
+            if_not_exists=True,
+            column_order=[c.name for c in stmt.columns] or None,
+            region_ids=[rid])
+        return QueryResult.of_affected(0)
+
+    def _create_metric_table(self, db, name, schema: Schema,
+                             stmt) -> QueryResult:
+        """CREATE TABLE ... ENGINE=metric: a logical table multiplexed onto
+        the shared physical region (reference metric-engine, SURVEY §2.3)."""
+        fields = schema.field_columns
+        if len(fields) != 1:
+            raise PlanError(
+                "metric engine tables need exactly one field column")
+        if self.catalog.table_exists(db, name):
+            if stmt.if_not_exists:
+                return QueryResult.of_affected(0)
+            raise CatalogError(f"table {db}.{name} already exists")
+        meta = self.metric_engine.create_logical_table(
+            db, name, [c.name for c in schema.tag_columns],
+            ts_name=schema.time_index.name, value_name=fields[0].name,
+        )
+        self.catalog.create_table(
+            db, name, schema,
+            options={**dict(stmt.options), "engine": "metric"},
+            if_not_exists=True,
+            column_order=[c.name for c in stmt.columns] or None,
+            region_ids=[meta.logical_region],
+        )
         return QueryResult.of_affected(0)
 
     def _drop_table(self, stmt: ast.DropTable,
@@ -1284,6 +1336,15 @@ class QueryEngine:
             self._ensure_open(self.catalog.table(db, name))
         info = self.catalog.drop_table(db, name, stmt.if_exists)
         if info is None:
+            return QueryResult.of_affected(0)
+        if info.options.get("engine") == "metric":
+            # the rows stay in the shared physical region, as in JAX
+            self.metric_engine.drop_logical_table(db, name)
+            return QueryResult.of_affected(0)
+        if info.options.get("engine") == "file":
+            # the external file itself is kept
+            for rid in info.region_ids:
+                self.file_engine.drop_file_table(rid)
             return QueryResult.of_affected(0)
         from greptimedb_tpu_torch.maintenance.rollup import drop_companions
 
@@ -1301,6 +1362,13 @@ class QueryEngine:
 
         info = self._table(stmt.name, ctx)
         self._invalidate_plans(info.db, info.name)
+        engine_kind = info.options.get("engine")
+        if engine_kind == "file":
+            raise PlanError("file engine tables are read-only; "
+                            "TRUNCATE is not supported")
+        if engine_kind == "metric":
+            raise PlanError("TRUNCATE is not supported on metric engine "
+                            "logical tables")
         for rid in info.region_ids:
             self.region_engine.drop_region(rid)
             # coverage claims over truncated data go with it

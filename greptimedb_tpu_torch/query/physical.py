@@ -1013,7 +1013,7 @@ class PhysicalExecutor:
             if agg is not None and table.append_mode:
                 res = self._try_stream_agg(table, ts_range, where, agg,
                                            having, project, sort, limit,
-                                           offset, scan_node)
+                                           offset, scan_node, tag_preds)
                 if res is not None:
                     return res
             with tracing.span("scan", table=table.name,
@@ -1071,15 +1071,15 @@ class PhysicalExecutor:
     # ---- streaming aggregation ------------------------------------------------
 
     def _try_stream_agg(self, table, ts_range, where, agg, having, project,
-                        sort, limit, offset,
-                        scan_node) -> Optional[QueryResult]:
+                        sort, limit, offset, scan_node,
+                        tag_preds=None) -> Optional[QueryResult]:
         """Beyond-RAM aggregate scans stream (the JAX executor's dispatch,
         physical.py:1590-1615): before the materialized scan and the
         incremental fold. None when the row estimate is under
         config.stream_threshold_rows() or the plan is _NotStreamable; the
         caller then takes the materialized route."""
         stream = self.engine.scan_stream(table.region_ids[0], ts_range,
-                                         scan_node.columns)
+                                         scan_node.columns, tag_preds)
         if stream is None:
             return None
         try:

@@ -22,6 +22,14 @@ The write plane follows the JAX engine's defaults:
 `close()` stops the workers and the scheduler and joins every thread
 before it returns.
 
+Alternate engines (storage/metric_engine.py, storage/file_engine.py)
+register openers (`register_opener`): `open_region` asks each one before
+it opens a native region, so a logical or file region id reopens as
+what it was after a restart. Their regions are not `Region`s, and every
+engine-wide walk (group commit, stalls, close, scan_last, scan_stream,
+ts_extent) accepts a region without those attributes, as the JAX
+engine's `hasattr` guards do.
+
 Left for later slices (ROADMAP.md): remote WALs and object stores.
 """
 
@@ -112,6 +120,9 @@ class RegionEngine:
                        sync=config.wal_sync,
                        segment_bytes=config.wal_segment_bytes)
         self.regions: dict[int, Region] = {}
+        # alternate engines (metric, file) hook region-open by id — the
+        # RegionServer multi-engine registration analog (datanode.rs:328)
+        self.openers: list = []
         # caches of the query engines over this engine (device hot sets,
         # the partial-aggregate cache): regions tell them when files
         # (compaction) or a region (DROP, TRUNCATE, close) die
@@ -149,10 +160,16 @@ class RegionEngine:
         return {"store": self.store, "device": self.device,
                 "caches": self.caches}
 
-    def _adopt(self, region: Region) -> Region:
+    def register_opener(self, fn) -> None:
+        """`fn(region_id)` returns a region object for ids its engine
+        owns, else None."""
+        self.openers.append(fn)
+
+    def _adopt(self, region) -> Region:
         cfg = self.config
-        region.part_cache_budget = cfg.scan_part_cache_bytes
-        if cfg.ingest_group_commit:
+        if hasattr(region, "part_cache_budget"):
+            region.part_cache_budget = cfg.scan_part_cache_bytes
+        if cfg.ingest_group_commit and hasattr(region, "group_reserve"):
             region.committer = GroupCommitter(
                 region, max_batch_rows=cfg.ingest_max_batch_rows,
                 max_batch_bytes=cfg.ingest_max_batch_bytes,
@@ -177,10 +194,15 @@ class RegionEngine:
                     self.wal, **self._region_kw()))
 
     def open_region(self, region_id: int) -> Region:
-        """Open a region from its manifest and WAL (no-op when open)."""
+        """Open a region (no-op when open): an opener's region when one
+        owns the id, else a native region from its manifest and WAL."""
         with self._lock:
             r = self.regions.get(region_id)
             if r is None:
+                for opener in self.openers:
+                    r = opener(region_id)
+                    if r is not None:
+                        return self._adopt(r)
                 r = self._adopt(Region.open(
                     region_id, self._region_dir(region_id), self.wal,
                     **self._region_kw()))
@@ -203,7 +225,8 @@ class RegionEngine:
             self.maintenance.stop()
         with self._lock:
             for r in self.regions.values():
-                r.close()
+                if hasattr(r, "close"):
+                    r.close()
             self.regions.clear()
         self.wal.close()
 
@@ -227,17 +250,26 @@ class RegionEngine:
             # closed or dropped right after the write committed: the
             # write succeeded; only the flush check is moot
             return n
+        self.maybe_flush(region_id, region)
+        return n
+
+    def maybe_flush(self, region_id: int, region) -> None:
+        """The post-write flush policy: past `flush_threshold_bytes` a
+        flush is submitted to the maintenance plane (and the writer
+        stalls past the hard limits), or, with the plane off, runs
+        inline with a TWCS pass. A logical region (memtable_bytes 0)
+        calls it for its physical region."""
         if region.memtable_bytes >= self.config.flush_threshold_bytes:
             if self.maintenance is not None:
                 # the writer only SUBMITS; it stalls below only past a
                 # hard threshold
                 self.maintenance.submit("flush", region_id)
-                self._maybe_stall(region_id, region)
+                if hasattr(region, "l0_count"):
+                    self._maybe_stall(region_id, region)
             else:
                 region.flush()
                 # the TWCS picker no-ops unless a window passes its limit
                 region.compact()
-        return n
 
     def _maybe_stall(self, region_id: int, region: Region) -> None:
         """Write-stall backpressure: block the writer while the region
@@ -306,20 +338,27 @@ class RegionEngine:
         """Lastpoint-pruned newest-first scan (see Region.scan_last);
         None when it cannot serve the query exactly: the caller runs the
         full scan."""
-        return self.region(region_id).scan_last(group_tag, projection)
+        fn = getattr(self.region(region_id), "scan_last", None)
+        return None if fn is None else fn(group_tag, projection)
 
     def scan_stream(
         self,
         region_id: int,
         ts_range: Optional[tuple[int, int]] = None,
         projection: Optional[Sequence[str]] = None,
+        tag_predicates: Optional[dict] = None,
     ):
-        """Lazy bounded-memory scan (see region.ScanStream)."""
-        return self.region(region_id).scan_stream(ts_range, projection)
+        """Lazy bounded-memory scan (see region.ScanStream); None when
+        the region cannot stream (the caller scans whole)."""
+        fn = getattr(self.region(region_id), "scan_stream", None)
+        return None if fn is None else fn(ts_range, projection,
+                                          tag_predicates=tag_predicates)
 
     def ts_extent(self, region_id: int):
-        """(min, max) data timestamps from metadata only (no data read)."""
-        return self.region(region_id).ts_extent()
+        """(min, max) data timestamps from metadata only (no data read);
+        None when the region keeps no such metadata."""
+        fn = getattr(self.region(region_id), "ts_extent", None)
+        return None if fn is None else fn()
 
     def alter_region_schema(self, region_id: int, schema: Schema) -> None:
         """Apply an ALTER'd schema: flush under the old schema, then swap

@@ -20,6 +20,13 @@ Kept from the JAX region because they decide what a query sees:
 - `ScanData.sorted_part_offsets` and `part_keys`: each SST part's row
   range and identity, so the device hot set keys its blocks by file.
 
+Tag predicates reach the SST reader: its inverted index (storage/index.py)
+drops files and row groups no predicate value can be in, before decode.
+A decoded part is cached under the row groups it holds (all of them
+when the index pruned none, so unpredicated and unpruned scans share
+it); `ScanData.stats` and the region's running `prune_stats` count the
+files and row groups scanned and pruned.
+
 `scan_stream` is the bounded-memory twin of `scan` (the JAX region's
 `scan_stream`): files pinned and the memtable's chunk list snapshotted up
 front, then lazy chunks of a few row groups each, decoded serially in
@@ -39,8 +46,7 @@ and lose them on replay. Without a committer, `write_many_serial` keeps
 the WAL append and the apply under one lock hold.
 
 Left for later slices (ROADMAP.md): the parallel decode pool (and with it
-the parallel stream decode), seq_min incremental scans and the inverted
-index.
+the parallel stream decode) and seq_min incremental scans.
 """
 
 from __future__ import annotations
@@ -79,7 +85,7 @@ from greptimedb_tpu_torch.storage.sst import (
     SstWriter,
 )
 from greptimedb_tpu_torch.storage.wal import Wal
-from greptimedb_tpu_torch.utils import ledger
+from greptimedb_tpu_torch.utils import ledger, tracing
 from greptimedb_tpu_torch.utils.metrics import (
     INGEST_WAL_FSYNC_SECONDS,
     SCAN_DECODE_BYTES,
@@ -142,7 +148,8 @@ class ScanData:
     # version bumps for the life of the file
     part_keys: tuple = ()
     # the lastpoint scan's counters (Region.scan_last): ssts,
-    # ssts_pruned, lastpoint_visited, cache_hits
+    # ssts_pruned, lastpoint_visited, cache_hits; a scan's index pruning
+    # (Region.scan): ssts, ssts_pruned, row_groups, row_groups_pruned
     stats: Optional[dict] = None
 
 
@@ -178,6 +185,8 @@ class ScanStream:
         generator that never started never runs its finally."""
         self._close()
 
+
+_PRUNE_KEYS = ("ssts", "ssts_pruned", "row_groups", "row_groups_pruned")
 
 #: process-wide Region instance ids: a recreated region restarts its
 #: data_version, so snapshot identity also carries WHICH instance made it
@@ -222,13 +231,18 @@ class Region:
         # predicates): repeated dashboard queries reuse the host columns
         self._scan_cache: "OrderedDict[tuple, ScanData]" = OrderedDict()
         self.scan_cache_entries = 4
-        # decoded SST parts keyed by (file_id, ts_range, names),
-        # byte-budgeted: SSTs are immutable, so a post-flush scan decodes
-        # only the new file. Tag predicates filter after the concat, so
-        # one part serves every predicate.
+        # decoded SST parts keyed by (file_id, ts_range, names, row
+        # groups), byte-budgeted: SSTs are immutable, so a post-flush scan
+        # decodes only the new file. The row groups are None unless the
+        # index pruned some, so one whole-file part serves every scan the
+        # index cannot narrow; the exact tag filter runs after the concat
         self._part_cache: "OrderedDict[tuple, _PartEntry]" = OrderedDict()
         self._part_cache_bytes = 0
         self.part_cache_budget = 1 << 30
+        # running index-pruning counters of the scans that decoded
+        # (scan-cache hits add nothing): ssts, ssts_pruned, row_groups,
+        # row_groups_pruned
+        self.prune_stats: dict[str, int] = dict.fromkeys(_PRUNE_KEYS, 0)
         # ---- group-commit ingest pipeline (storage/group_commit.py) ----
         # attached by the engine when group commit is on; None = the
         # serial write path
@@ -667,15 +681,29 @@ class Region:
         self._notify("invalidate_files", gone)
 
     def _cached_parts(self, file_list, ts_range, names,
-                      insert: bool = True) -> list[_PartEntry]:
+                      tag_predicates=None, insert: bool = True,
+                      stats: Optional[dict] = None) -> list[_PartEntry]:
         """Decoded parts of `file_list` (pinned by the caller) through
-        the part cache. `insert=False` reuses hits but keeps misses out
+        the part cache, after ts and index pruning (`stats` counts the
+        pruning). `insert=False` reuses hits but keeps misses out
         (compaction reads its doomed inputs once)."""
-        keys = [(m.file_id, ts_range, tuple(names)) for m in file_list]
+        plans = [self.sst_reader.plan_groups(m, self.schema, ts_range,
+                                             names, tag_predicates, stats)
+                 for m in file_list]
         out: list = [None] * len(file_list)
+        keys: list = [None] * len(file_list)
+        for i, (m, plan) in enumerate(zip(file_list, plans)):
+            if plan is None:
+                out[i] = _PartEntry(None, _part_nbytes(None))
+            else:
+                _ft, groups, _cols, pruned = plan
+                keys[i] = (m.file_id, ts_range, tuple(names),
+                           tuple(groups) if pruned else None)
         hits = 0
         with self._lock:
             for i, k in enumerate(keys):
+                if k is None:
+                    continue
                 ent = self._part_cache.get(k)
                 if ent is not None:
                     self._part_cache.move_to_end(k)
@@ -685,7 +713,8 @@ class Region:
         for i in missing:
             meta = file_list[i]
             with SCAN_DECODE_SECONDS.time():
-                part = self._decode_file_part(meta, ts_range, names)
+                part = self._decode_file_part(meta, ts_range, names,
+                                              plans[i])
             out[i] = _PartEntry(part, _part_nbytes(part))
             SCAN_DECODE_BYTES.inc(float(out[i].nbytes))
             with self._lock:
@@ -703,11 +732,16 @@ class Region:
                        float(sum(out[i].nbytes for i in missing)))
         return out
 
-    def _decode_file_part(self, meta: FileMeta, ts_range,
-                          names) -> Optional[tuple]:
-        """One SST's rows under the shape: (cols, seq, op) or None."""
-        part = self.sst_reader.read(meta, self.schema, ts_range, names)
-        if part is None or part.num_rows == 0:
+    def _decode_file_part(self, meta: FileMeta, ts_range, names,
+                          plan) -> Optional[tuple]:
+        """One SST's planned row groups under the shape: (cols, seq, op)
+        or None."""
+        _ft, groups, cols, _pruned = plan
+        # one span a file read, as the JAX reader's `open_input`
+        with tracing.span("objectstore_read",
+                          backend=self.sst_reader.store.name):
+            part = self.sst_reader.read_groups(meta, groups, cols)
+        if part.num_rows == 0:
             return None
         return self._decode_table_part(part, ts_range, names)
 
@@ -827,10 +861,15 @@ class Region:
             file_list = list(self.files.values())
             self._pin_files(file_list)
             mem = self.memtable.concat(ts_range)
+        stats = dict.fromkeys(_PRUNE_KEYS, 0)
         try:
-            entries = self._cached_parts(file_list, ts_range, names)
+            entries = self._cached_parts(file_list, ts_range, names,
+                                         tag_predicates, stats=stats)
         finally:
             self._unpin_files(file_list)
+        with self._lock:
+            for k in _PRUNE_KEYS:
+                self.prune_stats[k] += stats[k]
         parts_cols, parts_seq, parts_op = [], [], []
         part_lens, part_keys = [], []
         for meta, ent in zip(file_list, entries):
@@ -878,7 +917,7 @@ class Region:
             incarnation=self.incarnation,
             scan_fingerprint=(ts_range, tuple(names), pred_key),
             sorted_part_offsets=tuple(int(o) for o in part_offsets),
-            part_keys=tuple(part_keys))
+            part_keys=tuple(part_keys), stats=stats)
         with self._lock:
             self._scan_cache_put(cache_key, result)
         return result
@@ -1040,13 +1079,15 @@ class Region:
         ts_range: Optional[tuple[int, int]] = None,
         projection: Optional[Sequence[str]] = None,
         groups_per_chunk: int = 8,
+        tag_predicates: Optional[dict] = None,
     ) -> Optional[ScanStream]:
         """Lazy bounded-memory scan (see ScanStream), or None when the time
         range prunes every file and the memtable. Chunks come in file
         order, then the memtable's rows; each file chunk is
-        `groups_per_chunk` row groups through `_decode_sst` (tags remapped
-        into the registry, ALTER ADD columns backfilled). Rows are not
-        ts-filtered: the device WHERE is exact."""
+        `groups_per_chunk` row groups, after the index's pruning, through
+        `_decode_sst` (tags remapped into the registry, ALTER ADD columns
+        backfilled). Rows are not ts- or tag-filtered: the device WHERE
+        is exact."""
         names = self._scan_columns(projection)
         with self._lock:
             snapshot_files = list(self.files.values())
@@ -1081,7 +1122,7 @@ class Region:
                 for meta in files:
                     for part in self.sst_reader.iter_chunks(
                             meta, self.schema, ts_range, names,
-                            groups_per_chunk):
+                            groups_per_chunk, tag_predicates):
                         n = part.num_rows
                         cols = self._decode_sst(part, names)
                         # hold one decoded chunk at a time

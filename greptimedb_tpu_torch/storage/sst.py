@@ -17,7 +17,13 @@ Tag and string columns are int32 codes into the file's dictionaries
 (code -1 is NULL); the region remaps them into its registry on read.
 Row groups default to 1M rows; the footer's ts min/max prune whole row
 groups, and the region applies the exact ts row filter after decode.
-The per-file inverted index of the JAX package is a later slice.
+
+Beside each SST the writer puts its inverted index (`<file_id>.puffin`,
+storage/index.py, the JAX package's blobs over segments of
+min(8192, row_group_size) rows). Scans with tag predicates ask the
+index first: a file it rules out is never opened, and only the row
+groups its surviving segments touch are read (the segments map onto
+the footer's row counts).
 """
 
 from __future__ import annotations
@@ -42,6 +48,11 @@ from greptimedb_tpu_torch.storage.format import (
     FORMAT_VERSIONS,
     FormatError,
     check_version,
+)
+from greptimedb_tpu_torch.storage.index import (
+    DEFAULT_SEGMENT_ROWS,
+    IndexApplier,
+    InvertedIndexWriter,
 )
 
 SEQ_COL = "__seq"
@@ -143,6 +154,14 @@ class SstWriter:
         file_id = uuid.uuid4().hex
         path = os.path.join(self.sst_dir, file_id + SUFFIX)
         self.store.write(path, [p for p in pieces if len(p)])
+        # the per-file inverted index (tag value -> segment bitmap)
+        InvertedIndexWriter(
+            self.sst_dir, self.store,
+            segment_rows=min(DEFAULT_SEGMENT_ROWS, self.row_group_size),
+        ).write(
+            file_id,
+            {c.name: arrays[c.name] for c in self.schema.tag_columns},
+            tag_dicts, self.row_group_size, n)
         null_tags = [c.name for c in self.schema.tag_columns
                      if n and bool((arrays[c.name] < 0).any())]
         return FileMeta(
@@ -176,6 +195,7 @@ class SstReader:
         # footers of immutable files, parsed once
         self._footers: dict[str, dict] = {}
         self._lock = threading.Lock()
+        self.index_applier = IndexApplier(sst_dir, self.store)
 
     def path(self, file_id: str) -> str:
         return os.path.join(self.sst_dir, file_id + SUFFIX)
@@ -207,53 +227,85 @@ class SstReader:
     def plan_groups(self, meta: FileMeta, schema: Schema,
                     ts_range: Optional[tuple[int, int]] = None,
                     projection: Optional[Sequence[str]] = None,
-                    ) -> Optional[tuple]:
+                    tag_predicates: Optional[dict] = None,
+                    stats: Optional[dict] = None) -> Optional[tuple]:
         """Pruning phase of `read`: (footer, row-group indices, column
-        names to read) or None when the file or every row group falls
-        outside `ts_range`. Columns the file predates (ALTER ADD) are
-        left out; the region backfills them."""
+        names to read, row groups the index pruned) or None when the
+        file or every row group falls outside `ts_range`, or the index
+        rules the file out (then the footer is not read). Columns the
+        file predates (ALTER ADD) are left out; the region backfills
+        them. `stats` (optional) counts ssts / ssts_pruned / row_groups /
+        row_groups_pruned, the pruned ones by the index."""
         if ts_range is not None and (meta.ts_max < ts_range[0]
                                      or meta.ts_min >= ts_range[1]):
             return None
+        if stats is not None:
+            stats["ssts"] = stats.get("ssts", 0) + 1
+        # inverted-index pruning first: may rule the file out with no
+        # footer read at all (reference reader.rs:335-425)
+        sel = None
+        if tag_predicates:
+            sel = self.index_applier.select(meta.file_id, tag_predicates)
+            if sel is not None and sel.is_empty:
+                if stats is not None:
+                    stats["ssts_pruned"] = stats.get("ssts_pruned", 0) + 1
+                return None
         ft = self.footer(meta.file_id)
         groups = self._prune_row_groups(ft, ts_range)
+        pruned = 0
+        if sel is not None and not sel.all_set:
+            allowed = set(sel.row_groups(
+                [rg["rows"] for rg in ft["row_groups"]]))
+            kept = [g for g in groups if g in allowed]
+            pruned = len(groups) - len(kept)
+            groups = kept
+        if stats is not None:
+            stats["row_groups"] = stats.get("row_groups", 0) \
+                + len(groups) + pruned
+            stats["row_groups_pruned"] = \
+                stats.get("row_groups_pruned", 0) + pruned
         if not groups:
+            if stats is not None and pruned:
+                stats["ssts_pruned"] = stats.get("ssts_pruned", 0) + 1
             return None
         avail = [name for name, _ in ft["columns"]]
         want = avail if projection is None else list(dict.fromkeys(
             list(projection) + [schema.time_index.name, SEQ_COL, OP_COL]))
         cols = [n for n in want if n in avail]
-        return ft, groups, cols
+        return ft, groups, cols, pruned
 
     def read(self, meta: FileMeta, schema: Schema,
              ts_range: Optional[tuple[int, int]] = None,
              projection: Optional[Sequence[str]] = None,
+             tag_predicates: Optional[dict] = None,
              ) -> Optional[SstPart]:
-        """Read the row groups that survive ts pruning; None when none
-        do. Internal columns are always read."""
+        """Read the row groups that survive ts and index pruning; None
+        when none do. Internal columns are always read."""
         # one span a file read, as the JAX reader's `open_input`
         with tracing.span("objectstore_read", backend=self.store.name):
-            plan = self.plan_groups(meta, schema, ts_range, projection)
+            plan = self.plan_groups(meta, schema, ts_range, projection,
+                                    tag_predicates)
             if plan is None:
                 return None
-            _ft, groups, cols = plan
+            _ft, groups, cols, _pruned = plan
             return self.read_groups(meta, groups, cols)
 
     def iter_chunks(self, meta: FileMeta, schema: Schema,
                     ts_range: Optional[tuple[int, int]] = None,
                     projection: Optional[Sequence[str]] = None,
-                    groups_per_chunk: int = 8):
+                    groups_per_chunk: int = 8,
+                    tag_predicates: Optional[dict] = None):
         """Lazily yield the file as SstParts of `groups_per_chunk` row
-        groups each, with `read`'s ts pruning: a streamed scan holds one
-        chunk's columns at a time, whatever the file's size. Tag
-        predicates prune nothing here (the per-file inverted index is a
-        later slice); the device WHERE mask stays exact."""
+        groups each, with `read`'s ts and index pruning: a streamed scan
+        holds one chunk's columns at a time, whatever the file's size.
+        The device WHERE mask stays exact."""
         # the span holds no yield: it covers the footer and the plan
         with tracing.span("objectstore_read", backend=self.store.name):
-            plan = self.plan_groups(meta, schema, ts_range, projection)
+            plan = self.plan_groups(meta, schema, ts_range, projection,
+                                    tag_predicates)
         if plan is None:
             return
-        _ft, groups, cols = plan
+        _ft, groups, cols, _pruned = plan
         for i in range(0, len(groups), groups_per_chunk):
             yield self.read_groups(meta, groups[i:i + groups_per_chunk],
                                    cols)
@@ -294,5 +346,7 @@ class SstReader:
 
     def delete(self, file_id: str) -> None:
         self.store.delete(self.path(file_id))
+        InvertedIndexWriter(self.sst_dir, self.store).delete(file_id)
+        self.index_applier.invalidate(file_id)
         with self._lock:
             self._footers.pop(file_id, None)

@@ -1,0 +1,428 @@
+"""The port's file engine and text readers (greptimedb_tpu_torch/
+storage/file_engine.py, greptimedb_tpu_torch/datasource/) held against
+the JAX package's on the CPU: the same CSV, ndjson and gzip'd files,
+read by pyarrow in the JAX package and by hand in the port, give the
+same columns, types, DESCRIBE output, rows and errors.
+
+The twins of tests/test_file_engine.py's CSV, ndjson and .gz cases:
+explicit and inferred schemas, the time filter, reopen (through the
+opener and on a fresh engine), NULL tags, the read-only and TRUNCATE
+errors, DROP. Parquet and ORC stay outside the slice: the port refuses
+them naming A12-io. The files are written here with plain Python.
+"""
+
+import gzip
+import json
+import os
+
+import numpy as np
+import pytest
+
+from greptimedb_tpu import datasource as jds
+from greptimedb_tpu.catalog.catalog import Catalog as JCatalog
+from greptimedb_tpu.catalog.kv import MemoryKv as JMemoryKv
+from greptimedb_tpu.query.engine import QueryEngine as JQueryEngine
+from greptimedb_tpu.storage.engine import EngineConfig as JConfig
+from greptimedb_tpu.storage.engine import RegionEngine as JRegionEngine
+from greptimedb_tpu_torch import datasource
+from greptimedb_tpu_torch.catalog import Catalog, MemoryKv
+from greptimedb_tpu_torch.query import QueryEngine, UnsupportedStatement
+from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
+from greptimedb_tpu_torch.storage.file_engine import FileRegion
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _inline_jax_decode():
+    """The JAX engines here decode SST parts inline: the JAX package's
+    process-wide decode pool would leave idle worker threads in this test
+    process, and tests/test_profile_plane.py's sampler counts them when
+    xdist runs that file later on the same worker."""
+    env = pytest.MonkeyPatch()
+    env.setenv("GREPTIMEDB_TPU_SCAN_DECODE_THREADS", "1")
+    yield
+    env.undo()
+
+
+CPU_DDL = ("CREATE TABLE cpu (host STRING, usage DOUBLE, "
+           "ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host))")
+CPU_ROWS = ("INSERT INTO cpu (host, usage, ts) VALUES "
+            "('a', 1.0, 1000), ('a', 3.0, 61000), ('b', 10.0, 2000)")
+
+
+@pytest.fixture
+def pair(tmp_path):
+    je = JRegionEngine(JConfig(data_dir=str(tmp_path / "jax"),
+                               write_workers=0, maintenance_workers=0))
+    jq = JQueryEngine(JCatalog(JMemoryKv()), je)
+    te = RegionEngine(EngineConfig(data_dir=str(tmp_path / "port"),
+                                   maintenance_workers=0), device="cpu")
+    tq = QueryEngine(Catalog(MemoryKv()), te, device="cpu")
+    for qe in (jq, tq):
+        qe.execute_one(CPU_DDL)
+        qe.execute_one(CPU_ROWS)
+    yield jq, tq
+    je.close()
+    te.close()
+
+
+def both(pair, sql):
+    out = [qe.execute_one(sql).rows() for qe in pair]
+    assert out[1] == out[0], sql
+    return out[1]
+
+
+def both_err(pair, sql):
+    errs = []
+    for qe in pair:
+        with pytest.raises(Exception) as ei:
+            qe.execute_one(sql)
+        errs.append((type(ei.value).__name__, str(ei.value)))
+    assert errs[1] == errs[0], sql
+    return errs[1]
+
+
+def write_csv(path, names, rows):
+    text = ",".join(names) + "\n" + "".join(
+        ",".join("" if v is None else str(v) for v in r) + "\n"
+        for r in rows)
+    data = text.encode()
+    with open(path, "wb") as f:
+        f.write(gzip.compress(data) if path.endswith(".gz") else data)
+    return path
+
+
+def write_ndjson(path, names, rows):
+    text = "".join(json.dumps(dict(zip(names, r))) + "\n" for r in rows)
+    data = text.encode()
+    with open(path, "wb") as f:
+        f.write(gzip.compress(data) if path.endswith(".gz") else data)
+    return path
+
+
+# ---- datasource ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("args", [
+    ("/x/a.csv",), ("/x/a.json.gz",), ("/x/a.ndjson",), ("/x/a.jsonl",),
+    ("/x/a.parquet",), ("/x/a.orc",), ("/x/a.bin", "CSV"),
+    ("/x/a.bin", "ndjson"), ("/x/a.bin",), ("/x/a.csv", "avro"),
+])
+def test_format_inference_matches_jax(args):
+    outs = []
+    for mod in (jds, datasource):
+        try:
+            outs.append(mod.infer_format(*args))
+        except mod.DataSourceError as e:
+            outs.append(("DataSourceError", str(e)))
+    assert outs[1] == outs[0]
+
+
+MIXED = (["i", "f", "b", "s", "t", "ti", "n", "e"], [
+    [1, 1.5, "true", "x", "2024-01-01T00:00:00", 10, None, "a,b"],
+    [2, 2, "false", "y", "2024-01-02 03:04:05", 20, None, ""],
+    [None, -0.25, "True", "z", "2024-01-03T00:00:00Z", 30, None, "c"],
+])
+
+
+@pytest.mark.parametrize("ext", ["csv", "csv.gz", "json", "ndjson.gz"])
+def test_text_readers_match_pyarrow(tmp_path, ext):
+    names, rows = MIXED
+    if ext.startswith("csv"):
+        # a quoted field takes the csv module's path
+        rows = [r[:-1] + [f'"{r[-1]}"'] for r in rows]
+        path = write_csv(str(tmp_path / f"t.{ext}"), names, rows)
+    else:
+        path = write_ndjson(str(tmp_path / f"t.{ext}"), names,
+                            [[v in ("true", "True") if v in (
+                                "true", "True", "false") else v
+                              for v in r] for r in rows])
+    jt = jds.read_file(path)
+    pt = datasource.read_file(path)
+    assert pt.names == list(jt.schema.names)
+    assert pt.num_rows == jt.num_rows
+    for f in jt.schema:
+        col = pt.column(f.name)
+        assert col.type == str(f.type).replace(", tz=UTC", ""), f.name
+        got, want = col.to_pylist(), jt.column(f.name).to_pylist()
+        want = [w.replace(tzinfo=None) if hasattr(w, "tzinfo") and w.tzinfo
+                else w for w in want]
+        assert got == want, f.name
+
+
+def test_csv_null_spellings_and_strings(tmp_path):
+    path = write_csv(str(tmp_path / "n.csv"), ["a", "b", "c", "d"], [
+        [1, "N/A", "NULL", "x"], [2, "null", None, "NULL"],
+        [None, "NaN", "-inf", ""]])
+    jt, pt = jds.read_file(path), datasource.read_file(path)
+    for f in jt.schema:
+        assert pt.column(f.name).type == str(f.type), f.name
+        assert pt.column(f.name).to_pylist() == \
+            jt.column(f.name).to_pylist(), f.name
+
+
+def test_mixed_json_kinds_are_refused(tmp_path):
+    path = write_ndjson(str(tmp_path / "m.json"), ["a"], [[1], ["x"]])
+    with pytest.raises(Exception):
+        jds.read_file(path)
+    with pytest.raises(datasource.DataSourceError, match="mixes"):
+        datasource.read_file(path)
+
+
+@pytest.mark.parametrize("ext", ["parquet", "orc"])
+def test_parquet_and_orc_name_a12_io(tmp_path, ext):
+    with pytest.raises(UnsupportedStatement, match="A12-io"):
+        datasource.read_file(str(tmp_path / f"t.{ext}"))
+    with pytest.raises(UnsupportedStatement, match="A12-io"):
+        datasource.write_file(None, str(tmp_path / f"t.{ext}"))
+
+
+# ---- the file engine ---------------------------------------------------------
+
+
+def test_external_table_explicit_schema(pair, tmp_path):
+    path = write_csv(str(tmp_path / "city.csv"), ["city", "pop", "ts"],
+                     [["sf", 1.0, 1000], ["nyc", 2.0, 2000],
+                      ["sf", 3.0, 3000]])
+    both(pair, f"CREATE EXTERNAL TABLE city (city STRING, pop DOUBLE, "
+               f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(city)) "
+               f"WITH (location = '{path}', format = 'csv')")
+    assert both(pair, "SELECT city, pop FROM city ORDER BY ts") == [
+        ["sf", 1.0], ["nyc", 2.0], ["sf", 3.0]]
+    assert both(pair, "SELECT city, sum(pop) FROM city GROUP BY city "
+                      "ORDER BY city") == [["nyc", 2.0], ["sf", 4.0]]
+    both(pair, "DESCRIBE TABLE city")
+    both(pair, "SHOW CREATE TABLE city")
+
+
+@pytest.mark.parametrize("ext", ["csv", "csv.gz", "ndjson", "json.gz"])
+def test_external_table_inferred_schema(pair, tmp_path, ext):
+    names = ["host", "v", "n", "ok", "ts"]
+    rows = [["x", 1.5, 1, True, "2024-01-01T00:00:00"],
+            ["y", 2.5, 2, False, "2024-01-01T00:00:10"],
+            ["x", 3.5, 3, True, "2024-01-01T00:00:20"]]
+    if ext.startswith("csv"):
+        path = write_csv(str(tmp_path / f"infer.{ext}"), names,
+                         [[str(v).lower() if isinstance(v, bool) else v
+                           for v in r] for r in rows])
+    else:
+        path = write_ndjson(str(tmp_path / f"infer.{ext}"), names, rows)
+    both(pair, f"CREATE EXTERNAL TABLE ext WITH (location = '{path}')")
+    desc = both(pair, "DESCRIBE TABLE ext")
+    sem = {row[0]: row[5] for row in desc}
+    assert sem["host"] == "TAG" and sem["v"] == "FIELD"
+    assert sem["ts"] == "TIMESTAMP"
+    assert both(pair, "SELECT count(*) FROM ext") == [[3]]
+    both(pair, "SELECT host, sum(v), max(n), count(ok) FROM ext "
+               "GROUP BY host ORDER BY host")
+    both(pair, "SELECT * FROM ext ORDER BY ts")
+
+
+def test_infer_without_time_index_fails_alike(pair, tmp_path):
+    path = write_csv(str(tmp_path / "nots.csv"), ["host", "v"],
+                     [["x", 1.0]])
+    kind, text = both_err(
+        pair, f"CREATE EXTERNAL TABLE nots WITH (location = '{path}')")
+    assert kind == "FileEngineError" and "time index" in text
+
+
+def test_external_table_readonly(pair, tmp_path):
+    path = write_csv(str(tmp_path / "ro.csv"), ["host", "v", "ts"],
+                     [["x", 1.0, 1000]])
+    both(pair, f"CREATE EXTERNAL TABLE ro (host STRING, v DOUBLE, "
+               f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "
+               f"WITH (location = '{path}')")
+    kind, text = both_err(
+        pair, "INSERT INTO ro (host, v, ts) VALUES ('y', 2, 2000)")
+    assert kind == "FileEngineError" and "read-only" in text
+
+
+def test_external_table_time_filter(pair, tmp_path):
+    path = write_ndjson(str(tmp_path / "tf.ndjson"), ["host", "v", "ts"],
+                        [["x", 1.0, 1000], ["x", 2.0, 2000],
+                         ["x", 3.0, 3000]])
+    both(pair, f"CREATE EXTERNAL TABLE tf (host STRING, v DOUBLE, "
+               f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "
+               f"WITH (location = '{path}')")
+    assert both(pair, "SELECT v FROM tf WHERE ts >= 2000 ORDER BY ts") == [
+        [2.0], [3.0]]
+    # R3 (ROADMAP C): the JAX engine answers a second window over the
+    # same file from the first window's device blocks (its file scans
+    # carry no fingerprint); the port is held to the rows themselves,
+    # which a fresh JAX engine gives
+    second = "SELECT v FROM tf WHERE ts >= 1000 AND ts < 3000 ORDER BY ts"
+    assert pair[1].execute_one(second).rows() == [[1.0], [2.0]]
+    assert pair[0].execute_one(second).rows() == [[1.0]]
+    je = JRegionEngine(JConfig(data_dir=str(tmp_path / "fresh"),
+                               write_workers=0, maintenance_workers=0))
+    try:
+        jq = JQueryEngine(JCatalog(JMemoryKv()), je)
+        jq.execute_one(f"CREATE EXTERNAL TABLE tf (host STRING, v DOUBLE, "
+                       f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "
+                       f"WITH (location = '{path}')")
+        assert jq.execute_one(second).rows() == [[1.0], [2.0]]
+    finally:
+        je.close()
+
+
+def test_external_table_reopen(pair, tmp_path):
+    """File region metadata survives in kv; the opener reopens it, and a
+    second query is served from the mtime cache."""
+    path = write_csv(str(tmp_path / "ro2.csv"), ["host", "v", "ts"],
+                     [["x", 9.0, 1000]])
+    both(pair, f"CREATE EXTERNAL TABLE ro2 (host STRING, v DOUBLE, "
+               f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "
+               f"WITH (location = '{path}')")
+    for qe in pair:
+        rid = qe.catalog.table("public", "ro2").region_ids[0]
+        qe.region_engine.regions.pop(rid)
+        getattr(qe, "_open_regions", set()).discard(rid)
+    assert both(pair, "SELECT v FROM ro2") == [[9.0]]
+    region = pair[1].region_engine.region(
+        pair[1].catalog.table("public", "ro2").region_ids[0])
+    assert isinstance(region, FileRegion)
+    loads = region.loads
+    assert both(pair, "SELECT count(*) FROM ro2") == [[1]]
+    assert region.loads == loads and region.cache_hits >= 1
+    # a rewritten file is read again (data_version is its mtime)
+    write_csv(path, ["host", "v", "ts"], [["x", 9.0, 1000],
+                                          ["y", 1.0, 2000]])
+    os.utime(path, ns=(10**18, 10**18))
+    assert both(pair, "SELECT count(*) FROM ro2") == [[2]]
+    assert region.loads == loads + 1
+
+
+def test_truncate_external_rejected(pair, tmp_path):
+    path = write_csv(str(tmp_path / "tr.csv"), ["host", "v", "ts"],
+                     [["x", 1.0, 1000]])
+    both(pair, f"CREATE EXTERNAL TABLE tr (host STRING, v DOUBLE, "
+               f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "
+               f"WITH (location = '{path}')")
+    kind, _ = both_err(pair, "TRUNCATE TABLE tr")
+    assert kind == "PlanError"
+    assert both(pair, "SELECT count(*) FROM tr") == [[1]]
+
+
+def test_external_reopen_fresh_engine(pair, tmp_path):
+    """A new RegionEngine + QueryEngine over the same kv registers the
+    file opener eagerly and the external table still reads."""
+    path = write_csv(str(tmp_path / "fresh.csv"), ["host", "v", "ts"],
+                     [["z", 5.0, 1000]])
+    sql = (f"CREATE EXTERNAL TABLE fr (host STRING, v DOUBLE, "
+           f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "
+           f"WITH (location = '{path}')")
+    both(pair, sql)
+    engine2 = RegionEngine(EngineConfig(data_dir=str(tmp_path / "d2"),
+                                        maintenance_workers=0),
+                           device="cpu")
+    qe2 = QueryEngine(pair[1].catalog, engine2, device="cpu")
+    try:
+        assert qe2.execute_one("SELECT v FROM fr").rows() == [[5.0]]
+    finally:
+        engine2.close()
+
+
+def test_null_tags_match_native_semantics(pair, tmp_path):
+    path = write_ndjson(str(tmp_path / "nulls.json"), ["host", "v", "ts"],
+                        [["x", 1.0, 1000], [None, 2.0, 2000]])
+    both(pair, f"CREATE EXTERNAL TABLE nt (host STRING, v DOUBLE, "
+               f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "
+               f"WITH (location = '{path}')")
+    assert both(pair, "SELECT host, v FROM nt ORDER BY ts") == [
+        ["x", 1.0], [None, 2.0]]
+    both(pair, "SELECT host, count(*) FROM nt GROUP BY host ORDER BY host")
+
+
+def test_drop_external_table(pair, tmp_path):
+    path = write_csv(str(tmp_path / "dr.csv"), ["host", "v", "ts"],
+                     [["x", 1.0, 1000]])
+    both(pair, f"CREATE EXTERNAL TABLE dr (host STRING, v DOUBLE, "
+               f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "
+               f"WITH (location = '{path}')")
+    both(pair, "DROP TABLE dr")
+    assert os.path.exists(path)  # dropping the table keeps the file
+    assert "dr" not in [r[0] for r in both(pair, "SHOW TABLES")]
+    entries = [sorted(qe.catalog.kv.range("__file_engine/"))
+               for qe in pair]
+    assert entries[1] == entries[0]
+
+
+def test_kv_entries_and_information_schema(pair, tmp_path):
+    path = write_csv(str(tmp_path / "kv.csv"), ["host", "v", "ts"],
+                     [["x", 1.0, 1000]])
+    for name in ("e1", "e2"):
+        both(pair, f"CREATE EXTERNAL TABLE {name} (host STRING, v DOUBLE, "
+                   f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "
+                   f"WITH (location = '{path}')")
+    entries = [dict(qe.catalog.kv.range("__file_engine/")) for qe in pair]
+    assert entries[1].keys() == entries[0].keys()
+    for k in entries[0]:
+        v0, v1 = entries[0][k], entries[1][k]
+        assert (json.loads(v1) if v1.startswith("{") else v1) == \
+            (json.loads(v0) if v0.startswith("{") else v0), k
+    both(pair, "SELECT table_name, engine FROM information_schema.tables "
+               "WHERE table_schema = 'public' ORDER BY table_name")
+    both_err(pair, f"CREATE EXTERNAL TABLE e1 (host STRING, v DOUBLE, "
+                   f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) "
+                   f"WITH (location = '{path}')")
+    both(pair, f"CREATE EXTERNAL TABLE IF NOT EXISTS e1 WITH "
+               f"(location = '{path}')")
+    both_err(pair, "CREATE EXTERNAL TABLE nl (host STRING, "
+                   "ts TIMESTAMP(3) TIME INDEX)")
+
+
+@pytest.mark.parametrize("fmt", ["parquet", "orc"])
+def test_container_formats_refused_naming_a12_io(pair, tmp_path, fmt):
+    tq = pair[1]
+    for sql in (
+            f"CREATE EXTERNAL TABLE p (host STRING, v DOUBLE, "
+            f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) WITH "
+            f"(location = '{tmp_path}/p.{fmt}')",
+            f"CREATE EXTERNAL TABLE p WITH (location = '{tmp_path}/x.bin', "
+            f"format = '{fmt}')"):
+        with pytest.raises(UnsupportedStatement, match="A12-io"):
+            tq.execute_one(sql)
+    assert not tq.catalog.table_exists("public", "p")
+
+
+@pytest.mark.parametrize("late", [None, "1.5", "", "nan", "x", "7"])
+def test_csv_fast_path_matches_pyarrow(tmp_path, late):
+    """Past the sample rows the numeric columns parse in C; a late value
+    the sample did not foresee (a float in an int column, a NULL, a NaN
+    spelling, a string) sends the file down the general path, and either
+    way the columns are pyarrow's."""
+    n = datasource._CSV_SAMPLE_ROWS + 600
+    rng = np.random.default_rng(5)
+    rows = [[f"h{i % 7}", i * 1000, repr(float(v)), int(v * 10)]
+            for i, v in enumerate(rng.uniform(0, 100, n))]
+    if late is not None:
+        rows[-3][3] = late
+        rows[-2][2] = late
+    path = write_csv(str(tmp_path / "big.csv"), ["host", "ts", "f", "i"],
+                     rows)
+    jt, pt = jds.read_file(path), datasource.read_file(path)
+    for f in jt.schema:
+        col = pt.column(f.name)
+        assert col.type == str(f.type), f.name
+        assert col.to_pylist() == jt.column(f.name).to_pylist(), f.name
+
+
+def test_inferred_table_parses_its_file_once(pair, tmp_path, monkeypatch):
+    """CREATE's schema inference parses the file; the first scan coerces
+    that parse instead of reading the file again, until its mtime
+    changes."""
+    path = write_ndjson(str(tmp_path / "once.ndjson"), ["host", "v", "ts"],
+                        [["x", 1.0, 1000], ["y", 2.0, 2000]])
+    calls = []
+    read_file = datasource.read_file
+    monkeypatch.setattr(datasource, "read_file",
+                        lambda *a: calls.append(a) or read_file(*a))
+    pair[1].execute_one(f"CREATE EXTERNAL TABLE once WITH "
+                        f"(location = '{path}')")
+    assert len(calls) == 1
+    assert pair[1].execute_one("SELECT sum(v) FROM once").rows() == [[3.0]]
+    assert pair[1].execute_one("SELECT count(*) FROM once").rows() == [[2]]
+    assert len(calls) == 1
+    write_ndjson(path, ["host", "v", "ts"], [["x", 5.0, 1000]])
+    os.utime(path, ns=(10**18, 10**18))
+    assert pair[1].execute_one("SELECT sum(v) FROM once").rows() == [[5.0]]
+    assert len(calls) == 2

@@ -397,7 +397,9 @@ def test_sst_round_trip_and_row_group_pruning(tmp_path, store):
         == (10, 0, 900, 9)
     assert meta.null_tags == ["hostname"]
     path = str(tmp_path / (meta.file_id + ".sst"))
-    assert store.list(str(tmp_path) + os.sep) == [path]
+    # the SST and its inverted index (storage/index.py) beside it
+    assert store.list(str(tmp_path) + os.sep) == sorted(
+        [path, str(tmp_path / (meta.file_id + ".puffin"))])
     assert meta.size_bytes == store.size(path)
     r = SstReader(str(tmp_path), store)
     part = r.read(meta, ps)
