@@ -258,12 +258,38 @@ greptimedb_tpu_torch/_build/. Phases:
    (GTPU_ROLLUP_SUBSTITUTE=0), cold with launches and warm p50, against
    numpy and each other. Then ADMIN expire_table on a two-SST table
    (one ten days old): exactly the old SST goes, count(*) follows.
+   Before (f), phase (h) runs on a copy of that closed data dir (SSTs
+   hard-linked, the rest copied), so (f) still reads the original:
+   - parallel decode: a cold Region.scan of `cpu` (every cache dropped)
+     with one decode worker and with the engine's auto count, byte for
+     byte the same columns; workers, wall ms, the objectstore_read spans
+     and the decoded bytes of each. The stream phase (5) decodes its
+     files in parallel too and logs its producer and consumer split;
+   - flows: CREATE FLOW cpu_hourly (hostname x hour, avg of the ten
+     fields, max(usage_user), count(*)); the first ADMIN flush_flow
+     folds every row with one K2 call and no K1; one more hour for every
+     host in two halves around ADMIN flush_table, and a tick that scans
+     exactly 1,440,000 rows, leaves the old SST on disk (pruned by
+     sequence) and launches K2 once; the sink against a float64 numpy
+     oracle over all hours (avg and max to rtol 1e-9, counts exactly)
+     and against the same SELECT run directly (rtol 1e-5); a restart
+     whose tick folds nothing, launches nothing and leaves the sink as
+     it was; a dirty-span flow (median) against numpy; the tick ms split
+     into scan, K2 and the sink merge / write;
+   - scripts and plugins: a coprocessor saved through /v1/scripts and run
+     through /v1/run-script (torch on the card in the sandbox worker)
+     against numpy; a scalar-function plugin in double_groupby_all's
+     WHERE, equal to the plain query; an SQL interceptor counted once a
+     statement on the fast lane and on the slow lane.
+   The stream's ingest deadline pays for (h) by cutting the stream's
+   depth (the cut is printed).
 8. A `kernels` JSON line (with each kernel's launches on every path, the
    PromQL queries', the streamed query's, the RANGE queries', the host
    SQL statements', the five served traffics', the wire phase's, the
    write protocols' and the write plane's included (the two ingest_qps
    runs, the rollup job, the substituted and raw queries), the index
-   query's, the metric engine's and the file engine's,
+   query's, the metric engine's and the file engine's, the flows',
+   the script's, the plugin query's and the interceptor runs',
    lastpoint's by state, K1's time at the stream's shape and K2's at the
    sparse route's, PromQL's, RANGE's, lastpoint's, the vmapped
    batch's and the rollup job's shapes), the card line, and the result
@@ -339,9 +365,13 @@ STREAM_HOURS = -(-(STREAM_ROWS // STREAM_HOSTS) * STEP_S // 3600)
 STREAM_ROW_BYTES = 4 + 8 + 8 * 10 + 8 + 1
 # the ingest stops at a put boundary once the run is this old, so the
 # whole script stays inside its time limit (after it: the stream's
-# queries ~125 s, the metric and file engines ~140 s and the write plane
-# ~50 s); a cut is printed
-STREAM_INGEST_DEADLINE_S = 720.0
+# queries ~125 s at full depth, the metric and file engines ~140 s, the
+# flows' phase (h) ~90 s and the write plane ~50 s); a cut is printed.
+# 720 s until phase (h) came; it pays for (h) by cutting the stream's
+# depth (its ingest has started 510-654 s into full runs, PERF.md), never
+# below STREAM_MIN_PUTS puts
+STREAM_INGEST_DEADLINE_S = 690.0
+STREAM_MIN_PUTS = 2 * STREAM_FLUSH_EVERY
 T_START = time.perf_counter()
 FIELDS = [f"usage_{n}" for n in (
     "user", "system", "idle", "nice", "iowait", "irq", "softirq",
@@ -1441,6 +1471,9 @@ def main_path_phase(sk, torch, lib=None) -> dict:
         rid = info.region_ids[0]
         check(len(engine.region(rid).files) >= 2,
               "ingest: the auto-flush left fewer than two SSTs")
+        # (h)'s parallel decode over the ingest's SSTs and memtable (the
+        # compacted file's case runs in flow_phase); caches dropped after
+        decode_ingest = decode_phase(engine, rid, "after the ingest")
         # 2. the six queries on the classic routes (the partial cache
         # off): the main path's launch counts come from here
         with partial_cache(False):
@@ -1558,7 +1591,8 @@ def main_path_phase(sk, torch, lib=None) -> dict:
             "cached": cached, "host_aggs": host_aggs,
             "promql_cpu": promql_cpu, "range": ranges, "host_sql": host_sql,
             "serving": serving, "index": index, "wire": wire,
-            "writes": writes, "obs": obs, "root": root, "grid": grid}
+            "writes": writes, "obs": obs, "root": root, "grid": grid,
+            "decode_ingest": decode_ingest}
 
 
 # ---- RANGE ... ALIGN on the `cpu` table --------------------------------------
@@ -3298,7 +3332,8 @@ def stream_ingest(root, rows_target):
     engine_s = 0.0
     t_wall = time.perf_counter()
     for i, p0 in enumerate(range(0, points, STREAM_PUT_POINTS)):
-        if time.perf_counter() - T_START > STREAM_INGEST_DEADLINE_S:
+        if puts >= STREAM_MIN_PUTS and \
+                time.perf_counter() - T_START > STREAM_INGEST_DEADLINE_S:
             cut = (f"time: the ingest stopped at {rows} rows, "
                    f"{STREAM_INGEST_DEADLINE_S} s into the run")
             break
@@ -3519,6 +3554,20 @@ def stream_phase(sk, torch, lib=None) -> dict:
             "host_rss_before": runs[0]["host_rss_before"],
             "host_rss_peak": runs[0]["host_rss_peak"],
             "cut": out["cut"]}))
+        from greptimedb_tpu_torch.storage import scan_pool
+
+        cold = runs[0]["stream"]
+        out["decode"] = {
+            "decode_workers": scan_pool.resolve(region.decode_threads,
+                                                len(region.files)),
+            "sst_files": len(region.files), "cold_ms": runs[0]["ms"],
+            "producer_busy_s": cold["produce_s"],
+            "consumer_wait_s": cold["wait_s"]}
+        # the serial decode's figures at this depth (PERF.md §5): 17.6-18.8
+        # s cold, the producer busy 10.8-11.7 s, the SST read 4.2-4.5 s
+        log("stream decode (parallel files, beside the serial decode's "
+            "17.6-18.8 s cold, producer 10.8-11.7 s busy): "
+            + json.dumps(out["decode"]))
 
         # the materialized route on the same table, for comparison
         avail, need = mem_available(), 3 * rows * STREAM_ROW_BYTES
@@ -6000,6 +6049,457 @@ def standalone_options_phase(root, answers) -> dict:
     return out
 
 
+# ---- (h) flows, parallel decode, scripts and plugins ---------------------------
+
+#: the continuous aggregate: the headline's hostname x hour groups, the
+#: ten fields' averages, the peak usage_user and the rows a group
+FLOW_SQL = ("CREATE FLOW cpu_hourly SINK TO cpu_hourly_sink AS SELECT "
+            "hostname, date_bin(INTERVAL '1 hour', ts) AS hour, "
+            + ", ".join(f"avg({f})" for f in FIELDS)
+            + ", max(usage_user), count(*) FROM cpu GROUP BY hostname, hour")
+#: the sink's visible columns (the flow engine's identifiers of the
+#: query's output names)
+FLOW_COLS = [f"avg_{f}_" for f in FIELDS] + ["max_usage_user_", "count___"]
+#: a dirty-span flow: median has no mergeable state
+P50_HOSTS = 8
+P50_SQL = ("CREATE FLOW cpu_p50 SINK TO cpu_p50_sink AS SELECT hostname, "
+           "median(usage_user) AS p50 FROM cpu WHERE hostname IN ("
+           + ", ".join(f"'host_{i}'" for i in range(P50_HOSTS))
+           + ") GROUP BY hostname")
+FLOW_SEED = 41
+#: the coprocessor: per-host sums of the first ten minutes on the
+#: engine's device, run in the sandbox worker
+SCRIPT_MINUTES = 10
+
+
+def clone_data_dir(src: str, dst: str) -> None:
+    """A copy of a closed data dir that the copy's engine may write:
+    SSTs and their puffin indexes (immutable once written) as hard links,
+    WAL segments, manifests and the catalog as bytes."""
+    import shutil
+
+    def copy(s, d):
+        if s.endswith((".sst", ".puffin")):
+            try:
+                os.link(s, d)
+                return d
+            except OSError:
+                pass
+        return shutil.copy2(s, d)
+
+    shutil.copytree(src, dst, copy_function=copy)
+
+
+def clear_region_caches(region) -> None:
+    with region._lock:
+        region._scan_cache_clear()
+        region._part_cache.clear()
+        region._part_cache_bytes = 0
+
+
+def decode_phase(engine, rid, state: str) -> dict:
+    """A cold Region.scan of `cpu` (every cache dropped) with one decode
+    worker and with the engine's auto count: byte for byte the same
+    columns; workers, wall ms, the objectstore_read spans and
+    SCAN_DECODE_BYTES of each. The region's caches are dropped again
+    after it, so the next query still starts cold."""
+    from greptimedb_tpu_torch.utils import tracing
+    from greptimedb_tpu_torch.utils.metrics import SCAN_DECODE_BYTES
+
+    region = engine.region(rid)
+    scans, out = {}, {}
+    for label, threads in (("1", 1), ("auto", 0)):
+        region.decode_threads = threads
+        clear_region_caches(region)
+        b0 = SCAN_DECODE_BYTES.get()
+        with tracing.collect_spans() as spans:
+            t = time.perf_counter()
+            scan = engine.scan(rid)
+            ms = (time.perf_counter() - t) * 1e3
+        reads = [s for s in spans if s.name == "objectstore_read"]
+        scans[label] = scan
+        out[label] = {"ms": ms, "rows": scan.num_rows,
+                      "workers": scan.stats["decode_workers"],
+                      "files_decoded": scan.stats["files_decoded"],
+                      "decode_bytes": SCAN_DECODE_BYTES.get() - b0,
+                      "objectstore_reads": len(reads),
+                      "objectstore_read_ms": sum(s.duration_ms
+                                                 for s in reads)}
+    a, b = scans["1"], scans["auto"]
+    same = (a.num_rows == b.num_rows
+            and a.sorted_part_offsets == b.sorted_part_offsets
+            and set(a.columns) == set(b.columns)
+            and all(a.columns[k].dtype == b.columns[k].dtype
+                    and np.array_equal(a.columns[k], b.columns[k])
+                    for k in a.columns)
+            and np.array_equal(a.seq, b.seq)
+            and np.array_equal(a.op_type, b.op_type))
+    out["byte_for_byte"] = same
+    out["speedup"] = out["1"]["ms"] / out["auto"]["ms"]
+    out["ssts"] = len(region.files)
+    del scans, a, b
+    clear_region_caches(region)
+    log(f"parallel decode (cold Region.scan of cpu, {state}): "
+        + json.dumps(out))
+    check(same, "parallel decode: the auto-worker scan differs from the "
+          "one-worker scan")
+    check(out["1"]["workers"] == 1 and (out["auto"]["workers"] > 1
+                                        or (os.cpu_count() or 1) == 1),
+          f"parallel decode: workers {out['1']['workers']} / "
+          f"{out['auto']['workers']}")
+    region.decode_threads = engine.config.scan_decode_threads
+    return out
+
+
+def hourly_oracle(fields: dict) -> dict:
+    """float64 numpy over [points, hosts] per field: the avg of each field,
+    max(usage_user) and the rows of each (hour, host)."""
+    points = len(fields[FIELDS[0]])
+    per_hour = 3600 // STEP_S
+    starts = np.arange(0, points, per_hour)
+    counts = np.diff(np.append(starts, points))
+    out = {f"avg_{f}_": np.add.reduceat(fields[f], starts, axis=0)
+           / counts[:, None] for f in FIELDS}
+    out["max_usage_user_"] = np.maximum.reduceat(fields["usage_user"], starts,
+                                                 axis=0)
+    out["count___"] = np.repeat(counts[:, None], HOSTS, axis=1)
+    return out
+
+
+def sink_grid(res, hours: int) -> dict:
+    """A result of (hostname, hour, FLOW_COLS...) rows as [hours, hosts]
+    arrays; every (hour, host) must appear once."""
+    cols = dict(zip(res.names, res.columns))
+    h = host_index(np.asarray(cols["hostname"]))
+    t = (np.asarray(cols["hour"], dtype=np.int64) - T0_MS) // 3_600_000
+    check(res.num_rows == hours * HOSTS and len(set(zip(h.tolist(),
+                                                         t.tolist())))
+          == res.num_rows, f"flow sink: {res.num_rows} rows for "
+          f"{hours} x {HOSTS} groups")
+    out = {}
+    for c in FLOW_COLS:
+        g = np.full((hours, HOSTS), np.nan)
+        g[t, h] = np.asarray(cols[c], dtype=np.float64)
+        out[c] = g
+    return out
+
+
+def check_sink(got: dict, want: dict, rtol: float, what: str) -> float:
+    worst = 0.0
+    for c in FLOW_COLS:
+        g, w = got[c], want[c]
+        if c == "count___":
+            check(np.array_equal(g, w), f"{what}: {c} differs")
+            continue
+        err = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-300)))
+        worst = max(worst, err)
+        check(np.allclose(g, w, rtol=rtol, atol=0), f"{what}: {c} off by "
+              f"{err:.3g} (rtol {rtol})")
+    return worst
+
+
+def flush_flow(qe, sk, name: str, torch) -> dict:
+    """ADMIN flush_flow with its launches and the tick's stats."""
+    from greptimedb_tpu_torch.flow import FlowEngine
+
+    FlowEngine.last_tick_stats = None
+    zero_launches(sk)
+    sync(torch)
+    t = time.perf_counter()
+    n = qe.execute_one(f"ADMIN flush_flow('{name}')").affected_rows
+    sync(torch)
+    k = launches(sk)
+    return {"ms": (time.perf_counter() - t) * 1e3, "rows_upserted": n,
+            "k1_launches": k[0], "k2_launches": k[1],
+            "tick": FlowEngine.last_tick_stats}
+
+
+def read_sink(qe):
+    cols = ", ".join(["hostname", "hour"] + FLOW_COLS)
+    return qe.execute_one(f"SELECT {cols} FROM cpu_hourly_sink")
+
+
+def script_plugin_phase(qe, sk, torch, fields) -> dict:
+    """A coprocessor saved through /v1/scripts and run through
+    /v1/run-script (torch on the engine's device in the sandbox worker)
+    against numpy; a scalar-function plugin in the headline's WHERE
+    against the plain query; an interceptor counted once a statement on
+    the fast lane and on the slow lane."""
+    import urllib.request
+
+    from greptimedb_tpu_torch.servers import HttpServer
+
+    out = {}
+    lo, hi = T0_MS, T0_MS + SCRIPT_MINUTES * 60_000
+    code = f'''
+@coprocessor(args=["hostname", "usage_user"],
+             returns=["host", "total", "n", "on_device"],
+             sql="SELECT hostname, usage_user FROM cpu WHERE ts >= {lo} "
+                 "AND ts < {hi}")
+def per_host(hostname, usage_user):
+    import torch
+    names, inv = np.unique(np.asarray(hostname, dtype=str),
+                           return_inverse=True)
+    ids = torch.as_tensor(inv.reshape(-1).astype(np.int64), device=device)
+    u = torch.as_tensor(np.asarray(usage_user, dtype=np.float64),
+                        device=device)
+    total = torch.zeros(len(names), dtype=torch.float64,
+                        device=device).index_add_(0, ids, u)
+    n = torch.zeros(len(names), dtype=torch.int64,
+                    device=device).index_add_(0, ids, torch.ones_like(ids))
+    where = u.device.type == torch.device(device).type
+    return names, total, n, np.asarray([where] * len(names))
+'''
+    srv = HttpServer(qe, port=0)
+    port = srv.start()
+    try:
+        def post(path, body=b""):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                         data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.loads(r.read())
+
+        zero_launches(sk)
+        t = time.perf_counter()
+        saved = post("/v1/scripts?db=public&name=per_host", code.encode())
+        save_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        doc = post("/v1/run-script?db=public&name=per_host")
+        run_ms = (time.perf_counter() - t) * 1e3
+        k = launches(sk)
+        worker = qe._script_engine._worker[0]
+    finally:
+        srv.stop()
+    worker.wait(30)
+    check(saved.get("code") == 0 and doc.get("code") == 0,
+          f"script: {saved} / {str(doc)[:300]}")
+    rows = doc["output"][0]["records"]["rows"]
+    points = SCRIPT_MINUTES * 60 // STEP_S
+    want = fields["usage_user"][:points].sum(axis=0)
+    got = np.full(HOSTS, np.nan)
+    n = np.zeros(HOSTS, dtype=np.int64)
+    hosts = host_index(np.asarray([r[0] for r in rows], dtype=object))
+    got[hosts] = [r[1] for r in rows]
+    n[hosts] = [r[2] for r in rows]
+    check(len(rows) == HOSTS and np.all(n == points)
+          and np.allclose(got, want, rtol=1e-12, atol=0)
+          and all(r[3] for r in rows),
+          "script per_host: the coprocessor's sums differ from numpy or "
+          "its tensors were not on the engine's device")
+    check(worker.poll() is not None, "script: the sandbox worker outlived "
+          "the server")
+    out["script"] = {"save_ms": save_ms, "run_ms": run_ms, "rows": len(rows),
+                     "k1_launches": k[0], "k2_launches": k[1],
+                     "engine_device": str(qe.device)}
+    log("script per_host (/v1/scripts, /v1/run-script): "
+        + json.dumps(out["script"]))
+
+    # a scalar-function plugin in the headline's WHERE
+    sql = tsbs_queries()["double_groupby_all"][0]
+    psql = sql.replace("WHERE ", "WHERE smoke_abs(usage_user) >= 0 AND ", 1)
+    qe.plugins.register_scalar_function("smoke_abs", np.abs)
+    try:
+        with partial_cache(False):
+            zero_launches(sk)
+            res_p, ms_p = timed_query(qe, psql, torch)
+            kp = launches(sk)
+            path_p = qe.executor.last_path
+            res, ms = timed_query(qe, sql, torch)
+    finally:
+        qe.plugins._scalar_functions.pop("smoke_abs", None)
+    rows_agree(res, res_p, "plugin in the headline's WHERE")
+    out["plugin"] = {"ms": ms_p, "plain_ms": ms, "last_path": path_p,
+                     "rows": res_p.num_rows, "k1_launches": kp[0],
+                     "k2_launches": kp[1]}
+    log("plugin smoke_abs(usage_user) >= 0 in double_groupby_all: "
+        + json.dumps(out["plugin"]))
+
+    # the interceptor chain: once a statement, fast lane and slow lane
+    calls = []
+
+    def audit(text, ctx):
+        calls.append(text)
+        return text
+
+    stmt = tsbs_queries()["single_groupby_1_1_1"][0]
+    qe.plugins.register_sql_interceptor(audit)
+    counts = {}
+    try:
+        zero_launches(sk)
+        with defaults_plane(qe) as plane:
+            for _ in range(4):  # mark, build, hit, hit
+                qe.execute_one(stmt)
+            counts["fast"] = len(calls)
+            hits = len(plane.fast_lane)
+        calls.clear()
+        for _ in range(3):  # the engine's own plane: lane off here
+            qe.execute_one(stmt)
+        counts["slow"] = len(calls)
+        k = launches(sk)
+    finally:
+        qe.plugins._sql_interceptors.remove(audit)
+    check(counts == {"fast": 4, "slow": 3} and hits == 1,
+          f"interceptor: {counts}, fast-lane templates {hits}")
+    out["interceptor"] = {"counts": counts, "k1_launches": k[0],
+                          "k2_launches": k[1]}
+    log("interceptor chain (single_groupby_1_1_1): "
+        + json.dumps(out["interceptor"]))
+    return out
+
+
+def flow_phase(root, sk, torch, grid) -> dict:
+    """(h) on a copy of the main path's closed data dir (the write
+    plane's phase reads the original): the cold parallel decode
+    comparison; the hourly continuous aggregate of `cpu` (first fold, an
+    appended hour in two halves around a flush, a restart); a dirty-span
+    flow; the script and plugin checks."""
+    import shutil
+
+    from greptimedb_tpu_torch.datatypes import DictVector, RecordBatch
+    from greptimedb_tpu_torch.utils.metrics import SCAN_DECODE_BYTES
+
+    import threading
+
+    from greptimedb_tpu_torch.storage.scan_pool import THREAD_PREFIX
+
+    t_phase = time.perf_counter()
+    threads_before = set(threading.enumerate())
+    froot = root + "_flow"
+    t = time.perf_counter()
+    clone_data_dir(root, froot)
+    out: dict = {"clone_s": time.perf_counter() - t}
+    engine = None
+    try:
+        engine, qe = open_engine(froot)
+        info = qe.catalog.table("public", "cpu")
+        rid = info.region_ids[0]
+        region = engine.open_region(rid)
+        out["decode"] = decode_phase(engine, rid, "compacted: one SST")
+
+        # the continuous aggregate
+        zero_launches(sk)
+        t = time.perf_counter()
+        qe.execute_one(FLOW_SQL)
+        k = launches(sk)
+        out["create"] = {"ms": (time.perf_counter() - t) * 1e3,
+                         "k1_launches": k[0], "k2_launches": k[1],
+                         "incremental": qe.flow_engine.list_flows()[0]
+                         .incremental}
+        check(out["create"]["incremental"], "flow cpu_hourly: not on the "
+              "incremental path")
+        first = flush_flow(qe, sk, "cpu_hourly", torch)
+        rows0 = region.num_sst_rows + region.memtable.num_rows
+        out["first_fold"] = first
+        log("flow cpu_hourly first fold: " + json.dumps(first))
+        check(first["tick"]["path"] == "incremental"
+              and first["tick"]["scanned_rows"] == rows0
+              and first["k2_launches"] == 1 and first["k1_launches"] == 0,
+              f"flow first fold: {first}")
+
+        # one more hour for every host, in two halves around a flush
+        rng = np.random.default_rng(FLOW_SEED)
+        names = np.asarray([f"host_{i}" for i in range(HOSTS)], dtype=object)
+        p0 = len(grid[FIELDS[0]])
+        per_hour = 3600 // STEP_S
+        new = {f: [] for f in FIELDS}
+        half = per_hour // 2
+        for a, b in ((p0, p0 + half), (p0 + half, p0 + per_hour)):
+            put_points(engine, info, rng, a, b, names, new)
+            if a == p0:
+                qe.execute_one("ADMIN flush_table('cpu')")
+        fields = {f: np.concatenate([grid[f]] + [x.reshape(-1, HOSTS)
+                                                 for x in new[f]])
+                  for f in FIELDS}
+        b0 = SCAN_DECODE_BYTES.get()
+        tick = flush_flow(qe, sk, "cpu_hourly", torch)
+        tick["decode_bytes"] = SCAN_DECODE_BYTES.get() - b0
+        out["appended_hour"] = tick
+        log("flow cpu_hourly tick after one more hour: " + json.dumps(tick))
+        check(tick["tick"]["scanned_rows"] == HOSTS * per_hour
+              and tick["k2_launches"] == 1 and tick["k1_launches"] == 0
+              and tick["tick"]["ssts_seq_pruned"] >= 1
+              and tick["tick"]["files_decoded"] == 1,
+              f"flow tick: {tick} (the old SSTs must stay on disk)")
+
+        # the sink against numpy over every hour, and the direct SQL
+        hours = -(-len(fields[FIELDS[0]]) // per_hour)
+        want = hourly_oracle(fields)
+        t = time.perf_counter()
+        sink = sink_grid(read_sink(qe), hours)
+        read_ms = (time.perf_counter() - t) * 1e3
+        out["oracle_max_rel_err"] = check_sink(sink, want, 1e-9,
+                                               "flow sink vs numpy")
+        direct_sql = FLOW_SQL.split(" AS ", 1)[1]
+        with partial_cache(False):
+            zero_launches(sk)
+            direct, direct_ms = timed_query(qe, direct_sql, torch)
+            kd = launches(sk)
+        dcols = dict(zip(direct.names, direct.columns))
+        renamed = dict(zip(["hostname", "hour"] + FLOW_COLS,
+                           [dcols[n] for n in direct.names]))
+        dres = type("R", (), {"names": list(renamed),
+                              "columns": list(renamed.values()),
+                              "num_rows": direct.num_rows})
+        out["direct_max_rel_err"] = check_sink(
+            sink, sink_grid(dres, hours), 1e-5, "flow sink vs direct SQL")
+        out["direct"] = {"ms": direct_ms, "k1_launches": kd[0],
+                         "k2_launches": kd[1],
+                         "last_path": qe.executor.last_path}
+        out["sink_read_ms"] = read_ms
+        log("flow cpu_hourly sink: " + json.dumps({
+            "groups": hours * HOSTS, "oracle_max_rel_err":
+            out["oracle_max_rel_err"], "direct_max_rel_err":
+            out["direct_max_rel_err"], "direct": out["direct"],
+            "sink_read_ms": read_ms}))
+
+        # a restart: the tick folds nothing and leaves the sink as it was
+        engine.close()
+        engine = None
+        engine, qe = open_engine(froot)
+        engine.open_region(rid)
+        again = flush_flow(qe, sk, "cpu_hourly", torch)
+        out["after_restart"] = again
+        after = sink_grid(read_sink(qe), hours)
+        log("flow cpu_hourly after a restart: " + json.dumps(again))
+        check(again["rows_upserted"] == 0 and again["k1_launches"] == 0
+              and again["k2_launches"] == 0
+              and again["tick"]["scanned_rows"] == 0
+              and all(np.array_equal(after[c], sink[c], equal_nan=True)
+                      for c in FLOW_COLS),
+              f"flow after a restart: {again}")
+
+        # a dirty-span flow (median is not decomposable)
+        zero_launches(sk)
+        t = time.perf_counter()
+        qe.execute_one(P50_SQL)
+        create_ms = (time.perf_counter() - t) * 1e3
+        p50 = flush_flow(qe, sk, "cpu_p50", torch)
+        p50["create_ms"] = create_ms
+        got = qe.execute_one("SELECT hostname, p50 FROM cpu_p50_sink")
+        h = host_index(np.asarray(got.columns[0]))
+        want_p50 = np.median(fields["usage_user"][:, :P50_HOSTS], axis=0)
+        check(p50["tick"]["path"] == "dirty_span" and got.num_rows
+              == P50_HOSTS and np.allclose(np.asarray(got.columns[1],
+                                                      dtype=float),
+                                           want_p50[h], rtol=1e-12, atol=0),
+              f"flow cpu_p50: {p50}")
+        out["dirty_span"] = p50
+        log("flow cpu_p50 (dirty span): " + json.dumps(p50))
+        out["scripts"] = script_plugin_phase(qe, sk, torch, fields)
+    finally:
+        if engine is not None:
+            engine.close()
+        shutil.rmtree(froot, ignore_errors=True)
+    # every decode step joined its workers when it ended
+    left = [t.name for t in set(threading.enumerate()) - threads_before
+            if t.is_alive() and t.name.startswith(THREAD_PREFIX)]
+    check(not left, f"flows: decode threads outlived their scans: {left}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"flows, decode, scripts and plugins: phase took "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
 # ---- (g) the observability plane ---------------------------------------------
 
 #: the K1 and K2 kernels' device function names (csrc/), for the
@@ -6490,6 +6990,10 @@ def main() -> int:
         elapsed("metric engine done")
         files = file_engine_phase(sk, torch)
         elapsed("file engine done")
+        # (h) on a copy of the main path's closed data dir, before (f)
+        # touches the original
+        flows = flow_phase(main["root"], sk, torch, main["grid"])
+        elapsed("flows, parallel decode, scripts and plugins done")
         # (f) last: its ingest and rollup must not push the stream's
         # ingest past its deadline
         plane = write_plane_phase(main["root"], sk, torch, main["grid"])
@@ -6574,6 +7078,22 @@ def main() -> int:
     plane_paths["metric engine: prom_cpu_m PromQL, SQL panel, neighbour"] = \
         metric
     plane_paths["file engine: cpu_csv and cpu_json (3 queries x 2)"] = files
+    plane_paths["flow cpu_hourly: CREATE FLOW (its probe query)"] = \
+        flows["create"]
+    plane_paths["flow cpu_hourly: first fold (17.28 M rows)"] = \
+        flows["first_fold"]
+    plane_paths["flow cpu_hourly: tick after one more hour"] = \
+        flows["appended_hour"]
+    plane_paths["flow cpu_hourly: tick after a restart"] = \
+        flows["after_restart"]
+    plane_paths["flow cpu_hourly: the direct SQL it is held to"] = \
+        flows["direct"]
+    plane_paths["flow cpu_p50 (dirty span)"] = flows["dirty_span"]
+    for key, name in (("script", "script per_host (/v1/run-script)"),
+                      ("plugin", "plugin in double_groupby_all's WHERE"),
+                      ("interceptor", "interceptor: 4 fast-lane + 3 "
+                       "slow-lane statements")):
+        plane_paths[name] = flows["scripts"][key]
     for key, r in plane_paths.items():
         by_path[key] = {"segment_sum": r["k1_launches"],
                         "fused_segment_agg": r["k2_launches"]}

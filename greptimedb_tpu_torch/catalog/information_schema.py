@@ -6,14 +6,14 @@ The catalog-backed tables (schemata, tables, columns, engines, views,
 key_column_usage, table_constraints, character_sets, collations,
 build_info), maintenance_jobs (the maintenance plane's queue and
 history) and the observability plane's runtime tables (runtime_metrics,
-slow_queries, running_queries, cluster_profile, cluster_faults)
-materialize at query time as host-side column dicts; a small host
-evaluator applies WHERE / projection / ORDER BY / LIMIT (these tables
-are tiny — no device round-trip). build_info reports this package's
-version. The cluster tables (partitions, region_peers, cluster_info)
-and flows are listed, as the JAX package lists them, but reading one
-raises UnsupportedStatement naming the later slice of the port that
-brings its plane.
+slow_queries, running_queries, cluster_profile, cluster_faults) and
+flows (the flow engine's flows in every database) materialize at query
+time as host-side column dicts; a small host evaluator applies WHERE /
+projection / ORDER BY / LIMIT (these tables are tiny — no device
+round-trip). build_info reports this package's version. The cluster
+tables (partitions, region_peers, cluster_info) are listed, as the JAX
+package lists them, but reading one raises UnsupportedStatement naming
+the later slice of the port that brings its plane.
 """
 
 from __future__ import annotations
@@ -337,8 +337,17 @@ def _views(qe, ctx):
 
 @_virtual("flows")
 def _flows(qe, ctx):
-    raise _runtime_plane("flows",
-                         "flows, scripts, plugins and shm (ROADMAP A9-flows)")
+    cols = {"flow_name": [], "table_catalog": [], "flow_schema": [],
+            "source_table": [], "sink_table": [], "raw_sql": []}
+    for db in qe.catalog.list_databases():
+        for f in qe.flow_engine.list_flows(db):
+            cols["flow_name"].append(f.name)
+            cols["table_catalog"].append("greptime")
+            cols["flow_schema"].append(db)
+            cols["source_table"].append(f.source_table)
+            cols["sink_table"].append(f.sink_table)
+            cols["raw_sql"].append(f.sql)
+    return cols
 
 
 # ---- host-side mini executor ------------------------------------------------

@@ -1,6 +1,6 @@
 """Bounded result-encode pool: serving I/O off the engine threads (copy
 of greptimedb_tpu/concurrency/encode_pool.py without the shared-memory
-result arena, which comes with the serving fabric, ROADMAP.md A9).
+result arena, which comes with the serving fabric, ROADMAP.md A9-shm).
 
 The 50-client qps bench is parse/JSON-bound on host threads: every
 connection thread that just finished executing re-enters the GIL to

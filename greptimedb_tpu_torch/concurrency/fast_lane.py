@@ -54,10 +54,14 @@ lane (fallback reason "substitution"), which re-probes and re-points the
 template at the plan-cache entry it stamped.
 
 A hit runs under the slow-query watch, in a `stmt:Select` span, with
-the resource ledger and the roofline fold, as the JAX lane does. Left
-out, with their later item (ROADMAP.md A9-flows): the plugin
-interceptor chain and the shared-memory fabric's template adoption and
-publishing.
+the resource ledger and the roofline fold, and with the engine's plugin
+container active (plugin scalar functions resolve), as the JAX lane
+does. The plugin interceptor chain runs ONCE a statement, here, before
+the scan: an interceptor that rewrites the text sends the statement to
+the slow lane (fallback reason "plugin"), and the slow lane is told
+(`_intercepted`) that the chain already ran. Left out, with its later
+item (ROADMAP.md A9-shm): the shared-memory fabric's template adoption
+and publishing.
 """
 
 from __future__ import annotations
@@ -265,10 +269,23 @@ class FastLane:
         the way when the statement proves eligible)."""
         if not self.enabled:
             return qe._execute_sql_slow(sql, ctx)
+        # run the plugin interceptor chain at most ONCE a statement
+        # (auditing and rate-limit interceptors count invocations); the
+        # slow lane is told via _intercepted that it already ran
+        intercepted = False
+        if qe.plugins._sql_interceptors:
+            rewritten = qe.plugins.intercept_sql(sql, ctx)
+            if rewritten != sql:
+                # a rewriting plugin: the text does not determine the
+                # statement, so the slow lane runs the rewritten text
+                FAST_LANE_EVENTS.inc(event="fallback", reason="plugin")
+                return qe._execute_sql_slow(rewritten, ctx,
+                                            _intercepted=True)
+            intercepted = True
         scanned, reason = scan(sql)
         if scanned is None:
             FAST_LANE_EVENTS.inc(event="fallback", reason=reason)
-            return qe._execute_sql_slow(sql, ctx)
+            return qe._execute_sql_slow(sql, ctx, _intercepted=intercepted)
         template, values, spans = scanned
         key = (ctx.db, template)
         with self._lock:
@@ -283,10 +300,10 @@ class FastLane:
             FAST_LANE_EVENTS.inc(event="miss")
             ledger.cache_event("fast_lane", "miss")
             self._note_seen(key)
-            return qe._execute_sql_slow(sql, ctx)
+            return qe._execute_sql_slow(sql, ctx, _intercepted=intercepted)
         if tmpl.uncacheable:
             FAST_LANE_EVENTS.inc(event="fallback", reason="uncacheable")
-            return qe._execute_sql_slow(sql, ctx)
+            return qe._execute_sql_slow(sql, ctx, _intercepted=intercepted)
         entry = None
         with self._lock:
             for e in tmpl.entries:
@@ -296,8 +313,10 @@ class FastLane:
         if entry is None:
             # seen template, no matching variant (second sighting, or a
             # different LIMIT / interval): build through the slow lane
-            return self._miss(qe, sql, ctx, key, values, spans, "miss")
-        return self._hit(qe, sql, ctx, key, entry, values, spans)
+            return self._miss(qe, sql, ctx, key, values, spans, "miss",
+                              intercepted)
+        return self._hit(qe, sql, ctx, key, entry, values, spans,
+                         intercepted)
 
     def _note_seen(self, key) -> None:
         with self._lock:
@@ -308,12 +327,13 @@ class FastLane:
 
     # ---- miss / build ------------------------------------------------------
 
-    def _miss(self, qe, sql, ctx, key, values, spans, event: str) -> list:
+    def _miss(self, qe, sql, ctx, key, values, spans, event: str,
+              intercepted: bool = False) -> list:
         FAST_LANE_EVENTS.inc(event=event)
         if qe.concurrency.admission.depth() != 0:
             # nested statement: serve it, but only top-level statements
             # build templates
-            return qe._execute_sql_slow(sql, ctx)
+            return qe._execute_sql_slow(sql, ctx, _intercepted=intercepted)
         ticket = _Ticket()
         self._tls.ticket = ticket
         try:
@@ -322,7 +342,8 @@ class FastLane:
             # (serial execution is the batcher's own fallback, so the
             # semantics are unchanged)
             with qe.concurrency.suppress_batching():
-                results = qe._execute_sql_slow(sql, ctx)
+                results = qe._execute_sql_slow(
+                    sql, ctx, _intercepted=intercepted)
         finally:
             self._tls.ticket = None
         try:
@@ -438,34 +459,36 @@ class FastLane:
 
     # ---- hit ---------------------------------------------------------------
 
-    def _hit(self, qe, sql, ctx, key, entry, values, spans) -> list:
+    def _hit(self, qe, sql, ctx, key, entry, values, spans,
+             intercepted: bool = False) -> list:
         try:
             info = qe.catalog.table(entry.db, entry.table)
             qe._ensure_open(info)
         except Exception:  # noqa: BLE001 — dropped table etc.: slow lane raises it
             self._drop_entry(key, entry)
             FAST_LANE_EVENTS.inc(event="invalidate")
-            return qe._execute_sql_slow(sql, ctx)
+            return qe._execute_sql_slow(sql, ctx, _intercepted=intercepted)
         if not _info_matches(entry.info, info):
             # DDL this process never executed: the snapshot comparison
             # is the safety net, same as the plan cache's — drop and
             # rebuild through the slow lane
             self._drop_entry(key, entry)
             return self._miss(qe, sql, ctx, key, values, spans,
-                              "invalidate")
+                              "invalidate", intercepted)
         if entry.needs_sub_check \
                 and not entry.plan_entry.skip_substitution():
             # rollup state moved (or was never probed): only the slow
             # lane can decide substitution; serve through it, then
             # re-point the entry at the plan-cache entry it stamped
             FAST_LANE_EVENTS.inc(event="fallback", reason="substitution")
-            return self._refresh_entry(qe, sql, ctx, entry)
+            return self._refresh_entry(qe, sql, ctx, entry, intercepted)
         params = entry.bind_params(values)
         FAST_LANE_EVENTS.inc(event="hit")
         ledger.cache_event("fast_lane", "hit")
-        return self._run(qe, sql, ctx, key, entry, params)
+        return self._run(qe, sql, ctx, key, entry, params, intercepted)
 
-    def _refresh_entry(self, qe, sql, ctx, entry) -> list:
+    def _refresh_entry(self, qe, sql, ctx, entry,
+                       intercepted: bool = False) -> list:
         """Serve a pending-substitution statement through the slow lane
         and re-arm the template: the slow run re-probes and stamps a
         plan-cache entry for this shape (possibly a NEW object if the
@@ -474,12 +497,13 @@ class FastLane:
         shape). Without this, eviction plus a rollup-state bump would
         strand the template on the slow lane."""
         if qe.concurrency.admission.depth() != 0:
-            return qe._execute_sql_slow(sql, ctx)
+            return qe._execute_sql_slow(sql, ctx, _intercepted=intercepted)
         ticket = _Ticket()
         self._tls.ticket = ticket
         try:
             with qe.concurrency.suppress_batching():
-                results = qe._execute_sql_slow(sql, ctx)
+                results = qe._execute_sql_slow(
+                    sql, ctx, _intercepted=intercepted)
         finally:
             self._tls.ticket = None
         if ticket.stamps == 1 and ticket.entry is not None \
@@ -491,11 +515,23 @@ class FastLane:
             entry.info = ticket.info
         return results
 
-    def _run(self, qe, sql, ctx, key, entry, params) -> list:
+    def _run(self, qe, sql, ctx, key, entry, params,
+             intercepted: bool = False) -> list:
         """The parse-free statement scaffold: everything the slow lane
-        does per statement except parse/plan — slow-query watch,
-        admission, authorization, session timezone, statement metrics
-        and span — then bind + execute."""
+        does per statement except parse/plan — plugin function scope,
+        slow-query watch, admission, authorization, session timezone,
+        statement metrics and span — then bind + execute."""
+        from greptimedb_tpu_torch.plugins import reset_active, set_active
+
+        token = set_active(qe.plugins)
+        try:
+            return self._run_scoped(qe, sql, ctx, key, entry, params,
+                                    intercepted)
+        finally:
+            reset_active(token)
+
+    def _run_scoped(self, qe, sql, ctx, key, entry, params,
+                    intercepted: bool) -> list:
         from greptimedb_tpu_torch.fault import Cancelled, DeadlineExceeded
         from greptimedb_tpu_torch.query.expr import (
             reset_session_tz,
@@ -526,7 +562,8 @@ class FastLane:
                     # admission: the nested statement rides this slot)
                     self._drop_entry(key, entry)
                     FAST_LANE_EVENTS.inc(event="invalidate")
-                    return qe._execute_sql_slow(sql, ctx)
+                    return qe._execute_sql_slow(
+                        sql, ctx, _intercepted=intercepted)
                 except (DeadlineExceeded, Cancelled):
                     # the fast lane bypasses execute_statement, so the
                     # deadline event is stamped on the slow-query

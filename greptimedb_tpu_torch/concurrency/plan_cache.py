@@ -27,7 +27,7 @@ toggle, and dies the moment any rollup state changes (a new roll, a
 drop), so a shape that becomes eligible is re-probed.
 
 Left out, with its later item (ROADMAP.md): the shared-memory fabric
-tier (peer processes adopting published entries, A9's shm item).
+tier (peer processes adopting published entries, ROADMAP A9-shm).
 
 Every event lands in gtpu_plan_cache_events_total{event=hit|miss|evict|
 invalidate}.

@@ -230,18 +230,29 @@ def ensure_table(query_engine, ctx, name: str, slab: TableSlab,
     try:
         info = qe._table(name, ctx)
     except CatalogError:
-        cols = [ColumnSchema(t, DataType.STRING, SemanticType.TAG)
-                for t in slab.tags]
-        cols.append(ColumnSchema(time_index, DataType.TIMESTAMP_MILLISECOND,
-                                 SemanticType.TIMESTAMP, nullable=False))
-        for fn in slab.fields:
-            cols.append(ColumnSchema(fn, slab.field_type(fn),
-                                     SemanticType.FIELD))
-        info = qe.catalog.create_table(ctx.db, name, Schema(cols),
-                                       options={}, if_not_exists=True)
-        for rid in info.region_ids:
-            qe.region_engine.create_region(rid, info.schema)
-        return info
+        # concurrent first writes of one new table (every client of a
+        # fresh measurement) create it once: the others wait here and
+        # find it, regions included, instead of losing the catalog's
+        # compare-and-put ("concurrent create")
+        with qe._auto_create_lock:
+            try:
+                return qe._table(name, ctx)
+            except CatalogError:
+                pass
+            cols = [ColumnSchema(t, DataType.STRING, SemanticType.TAG)
+                    for t in slab.tags]
+            cols.append(ColumnSchema(time_index,
+                                     DataType.TIMESTAMP_MILLISECOND,
+                                     SemanticType.TIMESTAMP,
+                                     nullable=False))
+            for fn in slab.fields:
+                cols.append(ColumnSchema(fn, slab.field_type(fn),
+                                         SemanticType.FIELD))
+            info = qe.catalog.create_table(ctx.db, name, Schema(cols),
+                                           options={}, if_not_exists=True)
+            for rid in info.region_ids:
+                qe.region_engine.create_region(rid, info.schema)
+            return info
     missing_tags = [t for t in slab.tags if t not in info.schema]
     if missing_tags:
         raise ValueError(

@@ -728,6 +728,7 @@ def engine_config(opts: "StandaloneOptions", data_dir: str):
         wal_sync=opts.wal.sync,
         wal_segment_bytes=opts.wal.segment_bytes,
         flush_threshold_bytes=opts.engine.flush_threshold_bytes,
+        scan_decode_threads=opts.scan.decode_threads,
         scan_part_cache_bytes=opts.scan.part_cache_bytes,
         write_workers=opts.engine.write_workers,
         ingest_group_commit=opts.ingest.group_commit,
@@ -749,14 +750,12 @@ def engine_config(opts: "StandaloneOptions", data_dir: str):
 
 # ---- what the port runs ----------------------------------------------------
 
-_A9_FLIGHT = "servers and CLI (ROADMAP A9: Flight)"
-_A9_SHM = "servers and CLI (ROADMAP A9: flows, scripts, plugins and shm)"
+_A9_FLIGHT = "Arrow Flight (ROADMAP A9-flight)"
+_A9_SHM = "shared-memory fabric (ROADMAP A9-shm)"
 _A10 = "mesh and cluster (ROADMAP A10)"
 _A11 = "tier routing (ROADMAP A11)"
 _A12_STORE = "durable storage's remainder (ROADMAP A12: object stores " \
     "and the remote WAL)"
-_A12_SCAN = "durable storage's remainder (ROADMAP A12: the parallel " \
-    "decode pool)"
 
 #: option path (a section, or one key) -> (the slice that brings it,
 #: the values besides the default that ask for what the port already
@@ -770,8 +769,6 @@ _UNPORTED = {
     "storage.s3": (_A12_STORE, ()),
     "storage.gcs": (_A12_STORE, ()),
     "storage.azblob": (_A12_STORE, ()),
-    # 1 = sequential decode: the port's only mode
-    "scan.decode_threads": (_A12_SCAN, (1,)),
     "query.mesh": (_A10, ()),
     "query.tier_admission": (_A11, ()),
     "query.tier_adaptive": (_A11, ()),

@@ -1,6 +1,14 @@
-"""Partial-aggregate combine (counterpart of the numpy part of
-greptimedb_tpu/query/dist_agg.py): the Final step of a partial
-aggregation, the reference's MergeScan role (merge_scan.rs:122).
+"""Partial aggregation (counterpart of greptimedb_tpu/query/dist_agg.py):
+the Partial step on a region and the Final combine, the reference's
+MergeScan role (merge_scan.rs:122).
+
+`partial_region_agg` runs on the node owning a region: scan (optionally
+only the rows written after a sequence, `seq_min`), filter, evaluate
+the group keys and aggregate arguments, and reduce them to primitive
+planes (sum/count/min/max/first/last/sumsq/rows) with ONE K2 call
+(`ops/segment.py::segment_agg_fused`) on the executor's device; the
+planes stay float64, as in the JAX package. The flow engine's
+incremental ticks (flow/engine.py) are its caller in this slice.
 
 Partials carry their group keys as decoded VALUES, so partials computed
 under different tag dictionaries (other regions, or one region's parts
@@ -9,13 +17,36 @@ min/max fold, first/last resolve by their companion timestamps. The
 incremental fold (query/partial_cache.py) combines its per-part
 partials here. The fragment and top-k functions of the JAX module wait
 for the cluster slice of the port.
+
+Where the JAX prologue decodes every tag column of the scan and
+factorizes the group keys by their decoded strings, the port decodes
+only the columns the keys and arguments name and factorizes a bare tag
+key by its dictionary codes, ranking the distinct values as the JAX
+`np.unique` over strings does: the same keys in the same order, without
+a sort over every row's string.
 """
 
 from __future__ import annotations
 
+import time
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
+import torch
+
+from greptimedb_tpu_torch.datatypes.vector import DictVector
+from greptimedb_tpu_torch.ops.segment import segment_agg_fused
+from greptimedb_tpu_torch.query.expr import (
+    BindContext,
+    bind_expr,
+    collect_columns,
+    eval_host,
+    reset_session_tz,
+    set_session_tz,
+)
+from greptimedb_tpu_torch.sql import ast
+from greptimedb_tpu_torch.storage.index import extract_tag_predicates
 
 
 def _factorize_with_null(vals: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -47,6 +78,232 @@ def _factorize_with_null(vals: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     uniq[:len(uniq_nn)] = uniq_nn
     uniq[len(uniq_nn)] = None
     return uniq, codes
+
+
+def _factorize_codes(codes: np.ndarray, values: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """`_factorize_with_null` of a dictionary-coded tag column (code -1 =
+    NULL) without decoding it: the distinct codes' values sorted as
+    strings, NULL last. A region dictionary holds each value once, so
+    this is exactly the factorization of the decoded strings."""
+    uc, inv = np.unique(codes, return_inverse=True)
+    vals = [None if c < 0 else str(values[c]) for c in uc.tolist()]
+    present = [i for i, v in enumerate(vals) if v is not None]
+    order = sorted(present, key=lambda i: vals[i])
+    rank = np.empty(len(uc), dtype=np.int64)
+    rank[order] = np.arange(len(order))
+    has_null = len(present) < len(vals)
+    if has_null:
+        rank[[i for i, v in enumerate(vals) if v is None]] = len(order)
+    uniq = np.empty(len(order) + has_null, dtype=object)
+    uniq[:len(order)] = [vals[i] for i in order]
+    if has_null:
+        uniq[len(order)] = None
+    return uniq, rank[inv.reshape(-1)]
+
+
+def _region_host_columns(executor, region_id: int, where, ts_range,
+                         needed: set, append_mode: bool,
+                         schema=None, tz=None, seq_min=None,
+                         stats_out=None, coded=frozenset(),
+                         tag_dicts_out=None) -> Optional[dict]:
+    """Shared Partial-step prologue: scan (projected + index-pruned),
+    LWW-dedup/filter, decode tags, apply the exact ts bounds. Returns the
+    filtered host columns of `needed`, or None for an empty result. `tz`
+    is the frontend's session timezone: naive ts literals in the WHERE
+    must coerce identically on the region. `seq_min` restricts to rows
+    written after that sequence (the incremental-flow fold boundary);
+    `stats_out` (a dict) receives {"rows", "max_seq", "max_ts"} of the
+    RAW scan, pre-filter, so the caller's boundary advances past rows
+    WHERE rejects and never rescans them, and the scan's "scan_stats".
+    Tags in `coded` stay int32 codes, their dictionaries in
+    `tag_dicts_out`."""
+    tz_token = set_session_tz(tz)
+    try:
+        return _region_host_columns_inner(
+            executor, region_id, where, ts_range, needed, append_mode,
+            schema, seq_min=seq_min, stats_out=stats_out, coded=coded,
+            tag_dicts_out=tag_dicts_out)
+    finally:
+        reset_session_tz(tz_token)
+
+
+def _region_host_columns_inner(executor, region_id, where, ts_range, needed,
+                               append_mode, schema, seq_min=None,
+                               stats_out=None, coded=frozenset(),
+                               tag_dicts_out=None):
+    # the schema first, so projection and index pruning match what the
+    # frontend's gather path gets
+    probe = executor.engine.region(region_id)
+    schema = schema or probe.schema
+    ts_name = schema.time_index.name
+    proj = [c for c in schema.names if c in needed]
+    tag_preds = extract_tag_predicates(where, schema) or None
+    if seq_min is not None:
+        scan = executor.engine.scan(region_id, ts_range, proj, tag_preds,
+                                    seq_min=seq_min)
+    else:
+        scan = executor.engine.scan(region_id, ts_range, proj, tag_preds)
+    if stats_out is not None:
+        stats_out["rows"] = 0 if scan is None else int(scan.num_rows)
+        if scan is None or scan.num_rows == 0:
+            stats_out["max_seq"] = None
+            stats_out["max_ts"] = None
+        else:
+            stats_out["max_seq"] = int(np.max(scan.seq))
+            stats_out["max_ts"] = int(np.max(scan.columns[ts_name]))
+            stats_out["scan_stats"] = scan.stats
+    if scan is None or scan.num_rows == 0:
+        return None
+
+    ctx = BindContext(schema, scan.tag_dicts)
+    bound_where = bind_expr(where, ctx) if where is not None else None
+    # _filtered_row_indices consults only .schema and (for dedup)
+    # .append_mode: a region-local shim stands in for the TableInfo
+    shim = SimpleNamespace(schema=schema, append_mode=append_mode)
+    idx = None
+    if bound_where is not None or executor._maybe_dedup(scan, shim) \
+            is not None:
+        idx = executor._filtered_row_indices(scan, shim, ctx, bound_where,
+                                             where_unbound=where)
+        if len(idx) == 0:
+            return None
+    host: dict[str, np.ndarray] = {}
+    for name, arr in scan.columns.items():
+        if name not in needed:
+            continue
+        taken = arr if idx is None else arr[idx]
+        if name in scan.tag_dicts:
+            if name in coded:
+                tag_dicts_out[name] = scan.tag_dicts[name]
+            else:
+                taken = DictVector(taken, scan.tag_dicts[name]).decode()
+        host[name] = taken
+    if ts_range is not None:
+        # the scan's ts_range is coarse (row-group pruning); the exact
+        # [lo, hi) bounds apply here
+        lo, hi = ts_range
+        tsv = host[ts_name].astype(np.int64)
+        m = np.ones(len(tsv), dtype=bool)
+        if lo is not None:
+            m &= tsv >= lo
+        if hi is not None:
+            m &= tsv < hi
+        if not m.all():
+            host = {k: v[m] for k, v in host.items()}
+    if len(host[ts_name]) == 0:
+        return None
+    return host
+
+
+def partial_region_agg(executor, region_id: int, frag,
+                       schema=None, seq_min=None,
+                       stats_out=None) -> Optional[dict]:
+    """One region's partial aggregate: {"keys": [np.ndarray per key],
+    "planes": {op: [G, F] np.ndarray}} with G the groups observed in the
+    region, or None for an empty scan. The reduction is one K2 call
+    (segment_agg_fused) on the executor's device; first/last come from
+    segment_agg's torch code, as segment_agg_fused gives them.
+
+    `seq_min` folds only rows written after that sequence (incremental
+    flow ticks); `stats_out` (a dict) then receives {"rows": raw scan
+    row count, "max_seq": highest sequence scanned, "max_ts"} for the
+    caller's boundary bookkeeping, and "scan_s" / "agg_s", the host wall
+    time of the scan prologue and of the key factorization, upload, K2
+    call and download."""
+    t0 = time.perf_counter()
+    probe = executor.engine.region(region_id)
+    schema = schema or probe.schema
+    ts_name = schema.time_index.name
+    ts_range = tuple(frag.ts_range) if frag.ts_range else None
+    needed: set[str] = {ts_name}
+    collect_columns(frag.where, needed)
+    for _, k in frag.keys:
+        collect_columns(k, needed)
+    arg_cols: set[str] = set()
+    for a in frag.args:
+        collect_columns(a, arg_cols)
+    needed |= arg_cols
+    tags = {c.name for c in schema.tag_columns}
+    # bare tag keys no argument reads factorize by code (never decoded)
+    coded = frozenset(k.name for _, k in frag.keys
+                      if isinstance(k, ast.Column) and k.name in tags
+                      and k.name not in arg_cols)
+    tag_dicts: dict = {}
+    host = _region_host_columns(executor, region_id, frag.where, ts_range,
+                                needed, frag.append_mode, schema,
+                                tz=frag.tz, seq_min=seq_min,
+                                stats_out=stats_out, coded=coded,
+                                tag_dicts_out=tag_dicts)
+    t1 = time.perf_counter()
+    if stats_out is not None:
+        stats_out["scan_s"] = t1 - t0
+    if host is None:
+        return None
+    n = len(host[ts_name])
+
+    # group keys: evaluate, factorize by VALUE (null-safe: NULL is its
+    # own group, matching the single-node path's semantics)
+    key_uniqs: list[np.ndarray] = []
+    gcode = np.zeros(n, dtype=np.int64)
+    for _, kexpr in frag.keys:
+        if isinstance(kexpr, ast.Column) and kexpr.name in coded:
+            uniq, codes = _factorize_codes(host[kexpr.name],
+                                           tag_dicts[kexpr.name])
+        else:
+            vals = np.asarray(eval_host(kexpr, host, schema))
+            if vals.ndim == 0:
+                vals = np.broadcast_to(vals, (n,))
+            uniq, codes = _factorize_with_null(vals)
+        key_uniqs.append(uniq)
+        gcode = gcode * len(uniq) + codes
+    if frag.keys:
+        gids_uniq, gcode = np.unique(gcode, return_inverse=True)
+        num_groups = len(gids_uniq)
+    else:
+        gids_uniq = np.zeros(1, dtype=np.int64)
+        num_groups = 1
+
+    if frag.args:
+        planes = []
+        for a in frag.args:
+            p = np.asarray(eval_host(a, host, schema))
+            if p.dtype == object or p.dtype.kind in ("U", "S"):
+                # string argument: only count() rides pushdown, which
+                # needs just validity — 1.0 per non-null
+                p = np.where(
+                    np.asarray([v is None for v in p.ravel()]).reshape(p.shape)
+                    if p.dtype == object else np.zeros(p.shape, bool),
+                    np.nan, 1.0)
+            planes.append(np.asarray(p, dtype=np.float64))
+        vals = np.stack([np.broadcast_to(p, (n,)) for p in planes], axis=1)
+    else:
+        vals = np.zeros((n, 1), dtype=np.float64)
+
+    from greptimedb_tpu_torch.query.physical import _upload_counted
+
+    dev = executor.device
+    ops = set(frag.ops)
+    need_ts = bool({"first", "last"} & ops)
+    out = segment_agg_fused(
+        _upload_counted(vals, dev),
+        _upload_counted(gcode.reshape(-1).astype(np.int32), dev),
+        torch.ones(n, dtype=torch.bool, device=dev), num_groups,
+        ops=tuple(sorted(ops)),
+        ts=_upload_counted(host[ts_name].astype(np.int64), dev)
+        if need_ts else None)
+    planes_np = {k: v.cpu().numpy() for k, v in out.items()}
+    if stats_out is not None:
+        stats_out["agg_s"] = time.perf_counter() - t1
+
+    # decode each group's key values from the compacted ids
+    key_cols: list[np.ndarray] = []
+    rem = gids_uniq
+    for uniq in reversed(key_uniqs):
+        key_cols.append(uniq[rem % len(uniq)])
+        rem = rem // len(uniq)
+    key_cols.reverse()
+    return {"keys": key_cols, "planes": planes_np}
 
 
 _ADDITIVE = frozenset({"sum", "count", "rows", "sumsq"})

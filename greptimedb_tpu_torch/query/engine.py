@@ -47,9 +47,15 @@ CREATE TABLE … ENGINE = metric makes a logical table over the database's
 shared physical region (storage/metric_engine.py) and CREATE EXTERNAL
 TABLE a read-only table over a CSV or ndjson file
 (storage/file_engine.py); both engines are built eagerly and register
-openers, so their tables reopen after a restart. COPY, Parquet and ORC
-files and the flow statements raise UnsupportedStatement naming the
-slice of the port that brings them.
+openers, so their tables reopen after a restart. CREATE FLOW / DROP
+FLOW / SHOW FLOWS and ADMIN flush_flow drive the flow engine
+(flow/engine.py); its incremental ticks reduce new rows with one K2
+call a region. The plugin container (plugins.py) runs its SQL
+interceptors once a statement, before parsing (here or in the fast
+lane, which tells this path it already ran them), and its scalar
+functions resolve in expressions while a statement of this engine runs.
+COPY, Parquet and ORC files raise UnsupportedStatement naming the slice
+of the port that brings them.
 """
 
 from __future__ import annotations
@@ -116,7 +122,6 @@ from greptimedb_tpu_torch.utils.metrics import (
     STMT_DURATION,
 )
 
-_FLOWS = "flows, scripts, plugins and shm (ROADMAP A9-flows)"
 _CLUSTER = "mesh and cluster (ROADMAP A10)"
 
 # statements of the JAX engine this slice leaves out, by the later slice
@@ -125,9 +130,6 @@ _LATER = {
     # COPY reads and writes Parquet/CSV files
     "CopyTable": "COPY import and export",
     "CopyDatabase": "COPY import and export",
-    "CreateFlow": _FLOWS,
-    "DropFlow": _FLOWS,
-    "ShowFlows": _FLOWS,
 }
 
 
@@ -139,9 +141,10 @@ class UnsupportedStatement(PlanError):
 class QueryEngine:
     def __init__(self, catalog: Catalog, region_engine: RegionEngine,
                  device=None, concurrency=None,
-                 default_timezone: str = "UTC"):
+                 default_timezone: str = "UTC", plugins=None):
         from greptimedb_tpu_torch.auth import PermissionChecker
         from greptimedb_tpu_torch.concurrency import ConcurrencyPlane
+        from greptimedb_tpu_torch.plugins import default_plugins
 
         self.catalog = catalog
         self.region_engine = region_engine
@@ -149,6 +152,7 @@ class QueryEngine:
         # (the `default_timezone` option)
         self.default_timezone = default_timezone
         self.permission_checker = PermissionChecker()
+        self.plugins = plugins if plugins is not None else default_plugins()
         self.device = config.device(device)
         # the roofline accountant reads this device's peak
         roofline.note_device(self.device)
@@ -164,6 +168,8 @@ class QueryEngine:
         self._skip_tls = threading.local()
         self._stmt_cache: "OrderedDict[str, list]" = OrderedDict()
         self._stmt_cache_lock = threading.Lock()
+        # the write protocols' auto-create of a new table (ingest.py)
+        self._auto_create_lock = threading.Lock()
         # eager: both engines register openers, so their tables reopen
         # after a restart
         self.metric_engine = MetricEngine(region_engine, catalog.kv)
@@ -237,34 +243,47 @@ class QueryEngine:
         scheduling; nested statements ride their top-level slot). The
         slot is released at execute-done, before any result encoding.
         The fast lane routes through here on any miss or fallback —
-        this IS the semantics the lane must match. `_intercepted` is the
-        JAX engine's flag that the plugin interceptor chain already ran;
-        the port has no plugins yet (ROADMAP.md A9), so it changes
-        nothing."""
+        this IS the semantics the lane must match. `_intercepted=True`
+        means the fast lane already ran the plugin interceptor chain on
+        this exact text: it runs ONCE a statement (auditing and
+        rate-limit interceptors count calls)."""
+        from greptimedb_tpu_torch.plugins import reset_active, set_active
+
         if ctx.timezone is None:
             ctx.timezone = self.default_timezone
-        # slow-query watch: a statement over the threshold leaves a
-        # structured record (trace id, text, duration, rows, path, stage
-        # breakdown, ledger) in the ring behind
-        # information_schema.slow_queries and /v1/slow_queries
-        with slow_query.watch("sql", sql, ctx.db) as w:
-            self._reset_statement_state()
-            t_parse = time.perf_counter()
-            stmts = self._parse_cached(sql)
-            STAGE_SECONDS.observe(time.perf_counter() - t_parse,
-                                  stage="parse")
-            # queueing counts into the watch: it IS part of the latency
-            # the operator debugs; nested statements ride their
-            # top-level slot
-            with self.concurrency.admission.slot(
-                    self.concurrency.tenant_of(ctx)):
-                results = [self.execute_statement(s, ctx) for s in stmts]
-            last = results[-1] if results else None
-            if last is not None:
-                w.rows = last.num_rows if last.is_query \
-                    else last.affected_rows
-            w.execution_path = self.executor.last_path
-            return results
+        # plugin interceptors may rewrite or veto the statement before
+        # parsing (reference SqlQueryInterceptor, frontend/src/instance.rs)
+        if not _intercepted:
+            sql = self.plugins.intercept_sql(sql, ctx)
+        # expression evaluation resolves plugin scalar functions against
+        # THIS engine's container for the duration of the statement
+        token = set_active(self.plugins)
+        try:
+            # slow-query watch: a statement over the threshold leaves a
+            # structured record (trace id, text, duration, rows, path,
+            # stage breakdown, ledger) in the ring behind
+            # information_schema.slow_queries and /v1/slow_queries
+            with slow_query.watch("sql", sql, ctx.db) as w:
+                self._reset_statement_state()
+                t_parse = time.perf_counter()
+                stmts = self._parse_cached(sql)
+                STAGE_SECONDS.observe(time.perf_counter() - t_parse,
+                                      stage="parse")
+                # queueing counts into the watch: it IS part of the
+                # latency the operator debugs; nested statements ride
+                # their top-level slot
+                with self.concurrency.admission.slot(
+                        self.concurrency.tenant_of(ctx)):
+                    results = [self.execute_statement(s, ctx)
+                               for s in stmts]
+                last = results[-1] if results else None
+                if last is not None:
+                    w.rows = last.num_rows if last.is_query \
+                        else last.affected_rows
+                w.execution_path = self.executor.last_path
+                return results
+        finally:
+            reset_active(token)
 
     def _reset_statement_state(self) -> None:
         """Clear the executor's per-statement routes and stats (thread
@@ -419,12 +438,36 @@ class QueryEngine:
             return self._admin(stmt, ctx)
         if isinstance(stmt, ast.Tql):
             return self._tql(stmt, ctx)
+        if isinstance(stmt, ast.CreateFlow):
+            self.flow_engine.create_flow(stmt, ctx)
+            return QueryResult.of_affected(0)
+        if isinstance(stmt, ast.DropFlow):
+            self.flow_engine.drop_flow(stmt.name, ctx.db, stmt.if_exists)
+            return QueryResult.of_affected(0)
+        if isinstance(stmt, ast.ShowFlows):
+            flows = self.flow_engine.list_flows(ctx.db)
+            return QueryResult(
+                ["Flows", "Sink", "Source", "Query"],
+                [DataType.STRING] * 4,
+                [np.asarray([f.name for f in flows], dtype=object),
+                 np.asarray([f.sink_table for f in flows], dtype=object),
+                 np.asarray([f.source_table for f in flows], dtype=object),
+                 np.asarray([f.sql for f in flows], dtype=object)],
+            )
         name = type(stmt).__name__
         if name in _LATER:
             raise UnsupportedStatement(
                 f"{name} is not in this slice of greptimedb_tpu_torch; the "
                 f"{_LATER[name]} slice brings it")
         raise PlanError(f"unsupported statement {name}")
+
+    @property
+    def flow_engine(self):
+        if not hasattr(self, "_flow_engine"):
+            from greptimedb_tpu_torch.flow import FlowEngine
+
+            self._flow_engine = FlowEngine(self)
+        return self._flow_engine
 
     # ---- CTEs / subqueries -------------------------------------------------
 
@@ -1432,9 +1475,9 @@ class QueryEngine:
         maintenance_status(job_id) reports one job. Without it
         (`maintenance_workers=0`), flushes and compactions run
         synchronously and return 0 affected rows, and the rollup,
-        expiry and status functions raise the JAX PlanError. The flows'
-        function names the slice that brings it; any other name is the
-        JAX PlanError."""
+        expiry and status functions raise the JAX PlanError.
+        flush_flow(name) ticks the named flow now and returns the rows it
+        upserted; any other name is the JAX PlanError."""
         from greptimedb_tpu_torch.maintenance import parse_duration_ms
 
         fn = stmt.func
@@ -1442,9 +1485,13 @@ class QueryEngine:
                 for a in fn.args]
         maint = self.region_engine.maintenance
         if fn.name == "flush_flow":
-            raise UnsupportedStatement(
-                "ADMIN flush_flow is not in this slice of "
-                f"greptimedb_tpu_torch; the {_FLOWS} slice brings it")
+            # tick the named flow now (reference flow flush admin fn,
+            # common/function/src/flush_flow.rs)
+            try:
+                n = self.flow_engine.flush(str(args[0]), ctx.db)
+            except KeyError as e:
+                raise PlanError(str(e)) from None
+            return QueryResult.of_affected(n)
         if fn.name in self._ADMIN_JOBS:
             if not fn.args or not isinstance(fn.args[0], ast.Literal):
                 raise PlanError(f"ADMIN {fn.name} takes a table name")

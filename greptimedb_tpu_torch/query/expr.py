@@ -438,7 +438,28 @@ def _eval_device_func(e: ast.FuncCall, ev, cols, schema: Schema):
         ts_expr = e.args[0]
         unit = _col_unit_nanos(ts_expr, schema)
         return _floor_div(ev(ts_expr) * unit, 10**9)
+    from greptimedb_tpu_torch.plugins import active_plugins
+    plugin_fn = active_plugins().scalar_function(name)
+    if plugin_fn is not None:
+        return _device_plugin_call(plugin_fn, [ev(a) for a in e.args])
     raise PlanError(f"unsupported device function {name!r}")
+
+
+def _device_plugin_call(fn, args: list):
+    """A plugin scalar function inside a device expression: its tensor
+    arguments go to the host as numpy arrays (plugins are numpy-
+    vectorized callables, as on the host path) and its result comes back
+    to the first argument's device. Where the JAX engine raises
+    `unsupported device function` for a plugin in an aggregate's WHERE,
+    the port evaluates it here."""
+    dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
+               None)
+    host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    out = np.asarray(fn(*host))
+    if dev is None:
+        return out
+    return torch.as_tensor(np.ascontiguousarray(out), device=dev)
 
 
 _TRUNC_UNITS = {
@@ -772,6 +793,12 @@ def _eval_host_func(e: ast.FuncCall, ev, schema):
             for s in secs.tolist()], dtype=np.int64)
     if name in _STRING_FUNCS:
         return _STRING_FUNCS[name](e, ev)
+    # extension seam: plugin-registered scalar functions (resolved against
+    # the executing engine's container, falling back to the process default)
+    from greptimedb_tpu_torch.plugins import active_plugins
+    plugin_fn = active_plugins().scalar_function(name)
+    if plugin_fn is not None:
+        return plugin_fn(*(ev(a) for a in e.args))
     raise PlanError(f"unsupported host function {name!r}")
 
 

@@ -6,23 +6,25 @@ write and read, OTLP metrics and traces, OpenTSDB JSON puts), /metrics,
 maintenance plane's queue, rules, stall seconds and jobs) and the
 observability plane's routes: /v1/slow_queries, /v1/traces/<id>,
 /v1/profile/flame and /v1/profile/cluster, /debug/pprof/cpu and
-/debug/pprof/mem, /dashboard, and /metrics with OpenMetrics exemplars
-when the scraper asks for them.
+/debug/pprof/mem, /dashboard, /metrics with OpenMetrics exemplars
+when the scraper asks for them, and the scripts routes (/v1/scripts to
+save, list and read coprocessors, /v1/run-script to run one; script/).
 
 stdlib ThreadingHTTPServer with keep-alive: the host serves protocol
 traffic while queries run as kernels on the engine's device. Status
 codes and error bodies are the JAX server's. The JAX server's other
-routes (scripts, faults) answer with its error shape — HTTP 400, code
-3000 — and a message naming the slice of the port that brings them
+route (/v1/faults) answers with its error shape — HTTP 400, code 3000 —
+and a message naming the slice of the port that brings it
 (ROADMAP.md). Every data route runs in a `request_span("http:<path>")`
 that adopts an incoming W3C `traceparent` and echoes the request's
 context back. With a user provider (auth/) every data route asks for
 Basic auth, as the JAX server does: a missing or wrong credential gets
 401, code 7002; /health, /metrics and /dashboard stay open.
 
-`stop()` joins the server's threads and stops the process-wide flame
-sampler and OTLP exporter (utils/flame.py, utils/otlp_trace.py), so no
-thread of the plane outlives its server.
+`stop()` joins the server's threads, ends the scripts' sandbox worker
+process, and stops the process-wide flame sampler and OTLP exporter
+(utils/flame.py, utils/otlp_trace.py), so no thread or worker of the
+server outlives it.
 """
 
 from __future__ import annotations
@@ -58,9 +60,7 @@ from greptimedb_tpu_torch.utils.metrics import (
 
 #: routes of the JAX server the port does not serve yet: path (exact, or
 #: a prefix when it ends in "/") -> the slice of the port that brings it
-_A9 = "servers and CLI (ROADMAP A9"
 _LATER_ROUTES = (
-    (("/v1/scripts", "/v1/run-script"), f"{_A9}: flows, scripts, shm)"),
     (("/v1/faults",), "mesh and cluster (ROADMAP A10)"),
 )
 
@@ -133,6 +133,10 @@ class HttpServer:
         self._thread.join()  # no connection is accepted after this
         self._httpd.close_all()
         self._httpd = None
+        # the scripts routes' sandbox worker process ends with the server
+        se = getattr(self.qe, "_script_engine", None)
+        if se is not None:
+            se.close()
         from greptimedb_tpu_torch.utils import flame, otlp_trace
 
         flame.shutdown()
@@ -358,12 +362,69 @@ class _Handler(BaseHTTPRequestHandler):
             return self._handle_otlp_metrics()
         if path == "/v1/otlp/v1/traces":
             return self._handle_otlp_traces()
+        if path == "/v1/scripts":
+            return self._handle_scripts()
+        if path == "/v1/run-script":
+            return self._handle_run_script()
         later = _later_route(path)
         if later is not None:
             raise _Unported(
                 f"{path} is not in this slice of greptimedb_tpu_torch; the "
                 f"{later} slice brings it")
         return self._send(404, {"error": f"no route {path}"})
+
+    # ---- scripts (reference http.rs scripts router + src/script) -----------
+
+    def _script_engine(self):
+        qe = self.query_engine
+        if not hasattr(qe, "_script_engine"):
+            from greptimedb_tpu_torch.script import ScriptEngine
+            qe._script_engine = ScriptEngine(qe)
+        return qe._script_engine
+
+    def _handle_scripts(self):
+        from greptimedb_tpu_torch.script import ScriptError
+
+        params = self._params()
+        db = params.get("db", "public")
+        name = params.get("name")
+        if self.command == "GET":
+            if name:
+                code = self._script_engine().get_script(db, name)
+                if code is None:
+                    return self._send(
+                        404, {"error": f"script {name!r} not found"})
+                return self._send(200, {"code": 0, "script": code})
+            return self._send(200, {
+                "code": 0, "scripts": self._script_engine().list_scripts(db)})
+        if not name:
+            return self._send(400, {"error": "missing name"})
+        code = self._body().decode()
+        try:
+            self._script_engine().insert_script(db, name, code)
+        except ScriptError as e:
+            return self._send(400, {"code": 1004, "error": str(e)})
+        return self._send(200, {"code": 0})
+
+    def _handle_run_script(self):
+        from greptimedb_tpu_torch.script import ScriptError
+        from greptimedb_tpu_torch.servers.encode import records_json
+
+        params = self._params()
+        db = params.get("db", "public")
+        name = params.get("name")
+        if not name:
+            return self._send(400, {"error": "missing name"})
+        t0 = time.perf_counter()
+        try:
+            with QUERY_DURATION.time(kind="script"):
+                result = self._script_engine().run_script(db, name)
+        except ScriptError as e:
+            return self._send(400, {"code": 1004, "error": str(e)})
+        elapsed = round((time.perf_counter() - t0) * 1000, 3)
+        return self._send(200, {"code": 0,
+                                "output": [{"records": records_json(result)}],
+                                "execution_time_ms": elapsed})
 
     # ---- the observability plane's debug surfaces -------------------------
 

@@ -19,8 +19,16 @@ The write plane follows the JAX engine's defaults:
 - `maintenance_workers=0` turns the plane off: the writer flushes and
   runs a TWCS compaction pass inline, as the port did before the plane.
 
-`close()` stops the workers and the scheduler and joins every thread
-before it returns.
+The engine owns the SST decode pool (storage/scan_pool.py): every
+native region's scans fan their part-cache misses, and the concatenation
+of their columns, across `gtpu-scan-decode` workers that start with the
+step and are joined when it ends, sized by `decode_threads` (0 = auto,
+min(8, cpu_count); 1 = the serial path; the
+GREPTIMEDB_TPU_SCAN_DECODE_THREADS environment variable wins). No decode
+thread is idle between scans.
+
+`close()` stops the workers and the scheduler, closes the regions and
+joins any decode step still running: no engine thread outlives it.
 
 Alternate engines (storage/metric_engine.py, storage/file_engine.py)
 register openers (`register_opener`): `open_region` asks each one before
@@ -48,6 +56,7 @@ from greptimedb_tpu_torch.datatypes.schema import Schema
 from greptimedb_tpu_torch.objectstore import FsStore
 from greptimedb_tpu_torch.storage.format import check_and_stamp
 from greptimedb_tpu_torch.storage.group_commit import GroupCommitter
+from greptimedb_tpu_torch.storage.scan_pool import DecodePool
 from greptimedb_tpu_torch.storage.region import (
     OP_DELETE,
     OP_PUT,
@@ -70,8 +79,12 @@ class EngineConfig:
     wal_segment_bytes: int = DEFAULT_SEGMENT_BYTES
     # auto-flush once a memtable holds this many bytes
     flush_threshold_bytes: int = 256 << 20
-    # byte budget of each region's decoded SST part cache
+    # byte budget of each region's decoded SST parts and whole-scan
+    # snapshots (one shared budget)
     scan_part_cache_bytes: int = 1 << 30
+    # SST decode fan-out per scan over the engine's decode pool; 0 = auto
+    # (min(8, cpu_count)), 1 = the serial path
+    scan_decode_threads: int = 0
     # write worker group size: 0 = synchronous in-caller writes; -1 =
     # auto (cpu/2); N = N workers
     write_workers: int = 0
@@ -128,6 +141,8 @@ class RegionEngine:
         # (compaction) or a region (DROP, TRUNCATE, close) die
         self.caches: "weakref.WeakSet" = weakref.WeakSet()
         self._lock = threading.RLock()
+        # the SST decode pool of every region here; close() joins it
+        self.decode_pool = DecodePool()
         self.workers = None
         if config.write_workers:
             n = None if config.write_workers < 0 else config.write_workers
@@ -158,7 +173,7 @@ class RegionEngine:
 
     def _region_kw(self) -> dict:
         return {"store": self.store, "device": self.device,
-                "caches": self.caches}
+                "caches": self.caches, "decode_pool": self.decode_pool}
 
     def register_opener(self, fn) -> None:
         """`fn(region_id)` returns a region object for ids its engine
@@ -169,6 +184,8 @@ class RegionEngine:
         cfg = self.config
         if hasattr(region, "part_cache_budget"):
             region.part_cache_budget = cfg.scan_part_cache_bytes
+        if hasattr(region, "decode_threads"):
+            region.decode_threads = cfg.scan_decode_threads
         if cfg.ingest_group_commit and hasattr(region, "group_reserve"):
             region.committer = GroupCommitter(
                 region, max_batch_rows=cfg.ingest_max_batch_rows,
@@ -218,7 +235,7 @@ class RegionEngine:
         """Stop the write workers (their queued writes complete), then the
         maintenance plane (a running job finishes; queued ones are
         dropped: the WAL keeps their data), joining every thread, then
-        close the regions and the WAL."""
+        close the regions and the WAL and join the decode pool."""
         if self.workers is not None:
             self.workers.stop()
         if self.maintenance is not None:
@@ -229,6 +246,7 @@ class RegionEngine:
                     r.close()
             self.regions.clear()
         self.wal.close()
+        self.decode_pool.shutdown()
 
     # ---- writes ------------------------------------------------------------
 
@@ -328,9 +346,13 @@ class RegionEngine:
         ts_range: Optional[tuple[int, int]] = None,
         projection: Optional[Sequence[str]] = None,
         tag_predicates: Optional[dict] = None,
+        seq_min: Optional[int] = None,
     ) -> Optional[ScanData]:
+        """Memtable + pruned SSTs of a region (Region.scan); `seq_min`
+        keeps only rows written after that sequence (the flow engine's
+        incremental ticks), which the metric and file engines refuse."""
         return self.region(region_id).scan(ts_range, projection,
-                                           tag_predicates)
+                                           tag_predicates, seq_min=seq_min)
 
     def scan_last(self, region_id: int, group_tag: str,
                   projection: Optional[Sequence[str]] = None,
@@ -369,6 +391,6 @@ class RegionEngine:
             region.schema = schema
             region.memtable.schema = schema
             region.sst_writer.schema = schema
-            region._scan_cache.clear()
+            region._scan_cache_clear()
             region.manifest.record_schema(schema)
             region.data_version += 1

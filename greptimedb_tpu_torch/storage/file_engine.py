@@ -74,7 +74,10 @@ class FileRegion:
             return 0
 
     def scan(self, ts_range=None, projection: Optional[Sequence[str]] = None,
-             tag_predicates=None) -> Optional[ScanData]:
+             tag_predicates=None, seq_min=None) -> Optional[ScanData]:
+        if seq_min is not None:
+            raise NotImplementedError(
+                "seq_min scans are not supported on external tables")
         version = self.data_version
         columns, tag_dicts, nrows = self._load(version)
         if nrows == 0:

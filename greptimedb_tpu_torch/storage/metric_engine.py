@@ -241,13 +241,19 @@ class LogicalRegion:
         ts_range: Optional[tuple[int, int]] = None,
         projection: Optional[Sequence[str]] = None,
         tag_predicates: Optional[dict] = None,
+        seq_min: Optional[int] = None,
     ) -> Optional[ScanData]:
         """The table's rows from the physical region: the `__table`
         predicate reaches the physical scan, whose index prunes the other
         tables' files and row groups and whose exact tag filter keeps
         only this table's rows. Logical tag predicates stay with the
         device WHERE (they name virtual columns), so they do not key the
-        memo."""
+        memo. A sequence boundary over the shared physical region is not
+        table-scoped, so `seq_min` is refused as in the JAX engine."""
+        if seq_min is not None:
+            raise NotImplementedError(
+                "seq_min scans are not supported on metric-engine "
+                "logical regions")
         phys = self._physical()
         names = list(projection or self.schema.names)
         key = (phys.incarnation, phys.data_version, ts_range, tuple(names))

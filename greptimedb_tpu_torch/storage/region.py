@@ -27,10 +27,26 @@ when the index pruned none, so unpredicated and unpruned scans share
 it); `ScanData.stats` and the region's running `prune_stats` count the
 files and row groups scanned and pruned.
 
+Misses of the part cache decode in parallel on workers of the engine's
+decode pool (storage/scan_pool.py), started for the step and joined
+when it ends: one file a unit, or, when one file misses alone, contiguous
+runs of its row groups, each read into its place in the part's columns.
+Either way the parts come out byte for byte as the serial path's. Decoded parts and whole-scan
+snapshots share one host byte budget (`part_cache_budget`): a snapshot is
+a concatenated copy of the parts, and the newest snapshot always caches.
+
+`scan(seq_min=...)` is the incremental consumers' scan (`_scan_since`,
+the flow engine's ticks): only rows written after the sequence; SSTs
+whose `max_seq <= seq_min` never leave disk, and the boundary applies to
+copies of cached parts.
+
 `scan_stream` is the bounded-memory twin of `scan` (the JAX region's
 `scan_stream`): files pinned and the memtable's chunk list snapshotted up
-front, then lazy chunks of a few row groups each, decoded serially in
-file order, and the memtable's rows last.
+front, then lazy chunks of a few row groups each, in file order, and the
+memtable's rows last. With more than one decode worker the files decode
+on a per-stream executor (`gtpu-stream-decode`) into small bounded
+queues drained in file order, so chunks come out in exactly the serial
+order; its `finally` joins every producer.
 
 `scan_last` is the lastpoint scan (the JAX region's `scan_last`): SSTs
 newest-first, stopping once every series' newest row is in hand.
@@ -44,9 +60,6 @@ group to apply (`_quiesce_commits_locked`): a flush between reserve and
 apply would record a flushed sequence past rows not yet in the memtable
 and lose them on replay. Without a committer, `write_many_serial` keeps
 the WAL append and the apply under one lock hold.
-
-Left for later slices (ROADMAP.md): the parallel decode pool (and with it
-the parallel stream decode) and seq_min incremental scans.
 """
 
 from __future__ import annotations
@@ -54,7 +67,9 @@ from __future__ import annotations
 import functools
 import itertools
 import os
+import queue
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -75,16 +90,19 @@ from greptimedb_tpu_torch.storage.index import (
     normalize_predicates,
     predicates_cache_key,
 )
+from greptimedb_tpu_torch.storage import scan_pool
 from greptimedb_tpu_torch.storage.manifest import ManifestManager
 from greptimedb_tpu_torch.storage.memtable import Memtable, TagRegistry
 from greptimedb_tpu_torch.storage.sst import (
     OP_COL,
     SEQ_COL,
     FileMeta,
+    SstPart,
     SstReader,
     SstWriter,
 )
 from greptimedb_tpu_torch.storage.wal import Wal
+from greptimedb_tpu_torch.utils import deadline as dl
 from greptimedb_tpu_torch.utils import ledger, tracing
 from greptimedb_tpu_torch.utils.metrics import (
     INGEST_WAL_FSYNC_SECONDS,
@@ -116,6 +134,40 @@ def _part_nbytes(part: Optional[tuple]) -> int:
     cols, seq, op = part
     return sum(int(a.nbytes) for a in cols.values()) \
         + int(seq.nbytes) + int(op.nbytes)
+
+
+def _scan_nbytes(sd: "ScanData") -> int:
+    """Host bytes a whole-scan snapshot holds (column arrays, seq and
+    op). Object columns count their pointers only, as the part cache
+    does."""
+    return sum(int(v.nbytes) for v in sd.columns.values()) \
+        + int(sd.seq.nbytes) + int(sd.op_type.nbytes)
+
+
+def _gather(futs: list, where: str) -> list:
+    """Every future's result in order. All are waited on before this
+    returns or raises, so no worker touches SST bytes after the caller
+    unpins; the first error in submission order propagates, as the
+    serial loop raised it."""
+    out, first_err = [], None
+    for f in futs:
+        try:
+            out.append(dl.wait_future(f, where))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out.append(None)
+            if first_err is None:
+                first_err = e
+    if first_err is not None:
+        # a deadline unwind can leave units queued or running: let each
+        # settle (queued ones checkpoint and fail fast), so none touches
+        # SST bytes after the caller unpins
+        for f in futs:
+            try:
+                f.result()
+            except BaseException:  # noqa: BLE001 — already surfaced
+                pass
+        raise first_err
+    return out
 
 
 @dataclass
@@ -196,7 +248,8 @@ _REGION_INCARNATIONS = itertools.count(1)
 class Region:
     def __init__(self, region_id: int, region_dir: str, schema: Schema,
                  wal: Wal, store=None, manifest: ManifestManager = None,
-                 device: torch.device = torch.device("cpu"), caches=()):
+                 device: torch.device = torch.device("cpu"), caches=(),
+                 *, decode_pool: scan_pool.DecodePool):
         self.region_id = region_id
         self.incarnation = next(_REGION_INCARNATIONS)
         self.region_dir = region_dir
@@ -228,8 +281,13 @@ class Region:
         # bumped on every mutation; device hot-set snapshot keys carry it
         self.data_version = 0
         # whole-scan snapshots keyed by (data_version, ts_range, columns,
-        # predicates): repeated dashboard queries reuse the host columns
+        # predicates): repeated dashboard queries reuse the host columns.
+        # Snapshots and decoded parts draw on ONE byte budget
+        # (part_cache_budget): a snapshot is a concatenated copy of the
+        # parts, so accounting them apart would count host RAM twice
         self._scan_cache: "OrderedDict[tuple, ScanData]" = OrderedDict()
+        self._scan_cache_sizes: dict[tuple, int] = {}
+        self._scan_cache_bytes = 0
         self.scan_cache_entries = 4
         # decoded SST parts keyed by (file_id, ts_range, names, row
         # groups), byte-budgeted: SSTs are immutable, so a post-flush scan
@@ -239,6 +297,10 @@ class Region:
         self._part_cache: "OrderedDict[tuple, _PartEntry]" = OrderedDict()
         self._part_cache_bytes = 0
         self.part_cache_budget = 1 << 30
+        # SST decode fan-out cap (0 = auto) over the engine's decode
+        # pool (workers live for one step of a scan)
+        self.decode_threads = 0
+        self.decode_pool = decode_pool
         # running index-pruning counters of the scans that decoded
         # (scan-cache hits add nothing): ssts, ssts_pruned, row_groups,
         # row_groups_pruned
@@ -321,7 +383,7 @@ class Region:
             self._notify("invalidate_region")
             self.manifest.destroy()
             self.files.clear()
-            self._scan_cache.clear()
+            self._scan_cache_clear()
             self.memtable = Memtable(self.schema, self.registry)
 
     def close(self) -> None:
@@ -655,9 +717,19 @@ class Region:
 
     # ---- decoded-part cache ------------------------------------------------
 
+    @property
+    def _host_cache_bytes(self) -> int:
+        """Bytes the part cache and the whole-scan snapshots hold: the
+        one number the shared budget bounds (caller holds the lock)."""
+        return self._part_cache_bytes + self._scan_cache_bytes
+
     def _part_cache_put(self, key: tuple, ent: _PartEntry) -> None:
-        """Insert under the byte budget (caller holds the lock)."""
-        if ent.nbytes > self.part_cache_budget:
+        """Insert under the SHARED byte budget (caller holds the lock):
+        parts get what the resident snapshots leave over, and a part
+        insert evicts older parts, never snapshots. An entry that can
+        never fit is refused rather than wiping the cache."""
+        avail = self.part_cache_budget - self._scan_cache_bytes
+        if ent.nbytes > avail:
             return
         old = self._part_cache.pop(key, None)
         if old is not None:
@@ -665,12 +737,49 @@ class Region:
         self._part_cache[key] = ent
         self._part_cache_bytes += ent.nbytes
         evicted = 0
-        while self._part_cache_bytes > self.part_cache_budget:
+        while self._part_cache_bytes > avail and self._part_cache:
             _, e = self._part_cache.popitem(last=False)
             self._part_cache_bytes -= e.nbytes
             evicted += 1
         if evicted:
             SCAN_PART_CACHE_EVENTS.inc(float(evicted), event="evict")
+
+    def _scan_cache_put(self, key: tuple, result: ScanData) -> None:
+        """Cache a whole-scan snapshot against the shared budget (caller
+        holds the lock): evict older snapshots past the entry limit, then
+        cold parts, then older snapshots until the total fits. The newest
+        snapshot always caches: it is live in the caller anyway, and a
+        bounded overshoot beats re-decoding the dashboard's table."""
+        nb = _scan_nbytes(result)
+        if self._scan_cache.pop(key, None) is not None:
+            self._scan_cache_bytes -= self._scan_cache_sizes.pop(key, 0)
+        self._scan_cache[key] = result
+        self._scan_cache_sizes[key] = nb
+        self._scan_cache_bytes += nb
+        evicted = 0
+        while len(self._scan_cache) > self.scan_cache_entries:
+            k, _ = self._scan_cache.popitem(last=False)
+            self._scan_cache_bytes -= self._scan_cache_sizes.pop(k, 0)
+            evicted += 1
+        while self._host_cache_bytes > self.part_cache_budget \
+                and self._part_cache:
+            _, e = self._part_cache.popitem(last=False)
+            self._part_cache_bytes -= e.nbytes
+            evicted += 1
+        while self._host_cache_bytes > self.part_cache_budget \
+                and len(self._scan_cache) > 1:
+            k, _ = self._scan_cache.popitem(last=False)
+            self._scan_cache_bytes -= self._scan_cache_sizes.pop(k, 0)
+            evicted += 1
+        if evicted:
+            # snapshot evictions count too: both spend the one budget
+            SCAN_PART_CACHE_EVENTS.inc(float(evicted), event="evict")
+
+    def _scan_cache_clear(self) -> None:
+        """Drop every whole-scan snapshot (caller holds the lock)."""
+        self._scan_cache.clear()
+        self._scan_cache_sizes.clear()
+        self._scan_cache_bytes = 0
 
     def _invalidate_file_parts(self, file_ids) -> None:
         """Drop decoded parts and device blocks of removed SSTs
@@ -684,9 +793,11 @@ class Region:
                       tag_predicates=None, insert: bool = True,
                       stats: Optional[dict] = None) -> list[_PartEntry]:
         """Decoded parts of `file_list` (pinned by the caller) through
-        the part cache, after ts and index pruning (`stats` counts the
-        pruning). `insert=False` reuses hits but keeps misses out
-        (compaction reads its doomed inputs once)."""
+        the part cache, after ts and index pruning; the misses decode in
+        parallel (`_decode_parts`). `stats` counts the pruning and the
+        decode: part_hits, files_decoded, decode_workers, decode_s.
+        `insert=False` reuses hits but keeps misses out (compaction reads
+        its doomed inputs once)."""
         plans = [self.sst_reader.plan_groups(m, self.schema, ts_range,
                                              names, tag_predicates, stats)
                  for m in file_list]
@@ -710,18 +821,27 @@ class Region:
                     out[i] = ent
                     hits += 1
         missing = [i for i in range(len(file_list)) if out[i] is None]
-        for i in missing:
-            meta = file_list[i]
-            with SCAN_DECODE_SECONDS.time():
-                part = self._decode_file_part(meta, ts_range, names,
-                                              plans[i])
-            out[i] = _PartEntry(part, _part_nbytes(part))
-            SCAN_DECODE_BYTES.inc(float(out[i].nbytes))
+        workers = 0
+        t0 = time.perf_counter()
+        if missing:
+            decoded, workers = self._decode_parts(
+                [file_list[i] for i in missing], [plans[i] for i in missing],
+                ts_range, names)
             with self._lock:
-                # a file compacted away while it decoded must not strand
-                # its part in the budget
-                if insert and meta.file_id in self.files:
-                    self._part_cache_put(keys[i], out[i])
+                for i, part in zip(missing, decoded):
+                    out[i] = _PartEntry(part, _part_nbytes(part))
+                    # a file compacted away while it decoded must not
+                    # strand its part in the budget
+                    if insert and file_list[i].file_id in self.files:
+                        self._part_cache_put(keys[i], out[i])
+        if stats is not None:
+            stats["part_hits"] = stats.get("part_hits", 0) + hits
+            stats["files_decoded"] = stats.get("files_decoded", 0) \
+                + len(missing)
+            stats["decode_workers"] = max(stats.get("decode_workers", 0),
+                                          workers)
+            stats["decode_s"] = stats.get("decode_s", 0.0) \
+                + time.perf_counter() - t0
         if hits:
             SCAN_PART_CACHE_EVENTS.inc(float(hits), event="hit")
             ledger.cache_event("scan_part", "hit", float(hits))
@@ -732,18 +852,116 @@ class Region:
                        float(sum(out[i].nbytes for i in missing)))
         return out
 
+    def _decode_parts(self, metas, plans, ts_range,
+                      names) -> tuple[list, int]:
+        """Decode several planned SSTs on the engine's decode pool.
+        Returns (parts in `metas` order, distinct workers observed). One
+        worker decodes inline: byte for byte the serial path. A SINGLE
+        file of several row groups splits its groups across the pool
+        instead of serializing on one worker (`_decode_file_part_split`).
+        Every future is waited on before this returns or raises (the
+        caller unpins after it), and the first error in file order
+        propagates, as the serial loop raised it."""
+        # resolve against the configured cap, not the file count: a
+        # single large SST gets its row groups split across the workers
+        threads = scan_pool.resolve(self.decode_threads,
+                                    max(len(metas), 1_000_000))
+        if len(metas) == 1 and threads > 1:
+            part, workers = self._decode_file_part_split(
+                metas[0], plans[0], ts_range, names, threads)
+            return [part], workers
+        threads = min(threads, len(metas))
+        if threads <= 1:
+            return [self._decode_file_part(m, ts_range, names, p)
+                    for m, p in zip(metas, plans)], 1
+        seen: set = set()
+
+        def work(meta, plan):
+            seen.add(threading.get_ident())
+            return self._decode_file_part(meta, ts_range, names, plan)
+
+        # the request's trace, span parent and ledger ride onto the pool
+        # workers: the objectstore_read spans land in the query's tree
+        run = tracing.propagate(work)
+        with self.decode_pool.executor(threads) as pool:
+            parts = _gather([scan_pool.submit(pool, run, m, p)
+                             for m, p in zip(metas, plans)], "decode gather")
+        return parts, max(1, len(seen))
+
+    def _decode_file_part_split(self, meta: FileMeta, plan, ts_range, names,
+                                threads: int) -> tuple[Optional[tuple], int]:
+        """One SST decoded by several workers: its planned row groups split
+        into contiguous runs, each run read on the pool straight into its
+        slice of the whole part's columns (no reassembly copy), then the
+        part decoded once — byte for byte the one-worker result. A file
+        of one row group takes the whole-file path. Returns (part or
+        None, workers observed)."""
+        ft, groups, cols, _pruned = plan
+        k = min(threads, len(groups))
+        if k <= 1:
+            return self._decode_file_part(meta, ts_range, names, plan), 1
+        bounds = [len(groups) * i // k for i in range(k + 1)]
+        runs = [groups[bounds[i]:bounds[i + 1]] for i in range(k)]
+        rows = [sum(ft["row_groups"][g]["rows"] for g in run) for run in runs]
+        starts = np.cumsum([0] + rows)
+        dtypes = dict(ft["columns"])
+        full = {c: np.empty(int(starts[-1]), dtype=np.dtype(dtypes[c]))
+                for c in cols}
+        seen: set = set()
+
+        def work(i):
+            seen.add(threading.get_ident())
+            a, b = int(starts[i]), int(starts[i + 1])
+            with tracing.span("objectstore_read",
+                              backend=self.sst_reader.store.name):
+                self.sst_reader.read_groups(
+                    meta, runs[i], cols,
+                    into={c: full[c][a:b] for c in cols})
+
+        with SCAN_DECODE_SECONDS.time():
+            wrapped = tracing.propagate(work)
+            with self.decode_pool.executor(k) as pool:
+                _gather([scan_pool.submit(pool, wrapped, i)
+                         for i in range(k)], "scan gather")
+            part = None
+            if starts[-1]:
+                dicts = {c: v for c, v in ft["dicts"].items() if c in full}
+                part = self._decode_table_part(
+                    SstPart(full, dicts, int(starts[-1])), ts_range, names)
+        if part is not None:
+            SCAN_DECODE_BYTES.inc(float(_part_nbytes(part)))
+        return part, max(1, len(seen))
+
     def _decode_file_part(self, meta: FileMeta, ts_range, names,
                           plan) -> Optional[tuple]:
         """One SST's planned row groups under the shape: (cols, seq, op)
         or None."""
         _ft, groups, cols, _pruned = plan
-        # one span a file read, as the JAX reader's `open_input`
-        with tracing.span("objectstore_read",
-                          backend=self.sst_reader.store.name):
-            part = self.sst_reader.read_groups(meta, groups, cols)
-        if part.num_rows == 0:
-            return None
-        return self._decode_table_part(part, ts_range, names)
+        with SCAN_DECODE_SECONDS.time():
+            # one span a file read, as the JAX reader's `open_input`
+            with tracing.span("objectstore_read",
+                              backend=self.sst_reader.store.name):
+                part = self.sst_reader.read_groups(meta, groups, cols)
+            out = None if part.num_rows == 0 \
+                else self._decode_table_part(part, ts_range, names)
+        if out is not None:
+            SCAN_DECODE_BYTES.inc(float(_part_nbytes(out)))
+        return out
+
+    def _concat_columns(self, names, parts_cols) -> dict:
+        """Assemble the whole-scan columns from per-file parts. Columns
+        are independent, so the concatenations fan across the decode pool
+        too (numpy releases the GIL for the copy): on the incremental path
+        this copy is the scan's remaining cost."""
+        threads = scan_pool.resolve(self.decode_threads, len(names))
+        if threads <= 1 or len(names) <= 1:
+            return {n: np.concatenate([p[n] for p in parts_cols])
+                    for n in names}
+        with self.decode_pool.executor(threads) as pool:
+            cols = _gather([scan_pool.submit(pool, np.concatenate,
+                                             [p[n] for p in parts_cols])
+                            for n in names], "concat gather")
+        return dict(zip(names, cols))
 
     def _decode_table_part(self, part, ts_range, names) -> Optional[tuple]:
         """Decoded row groups -> (cols, seq, op) with the exact ts row
@@ -842,12 +1060,17 @@ class Region:
         ts_range: Optional[tuple[int, int]] = None,
         projection: Optional[Sequence[str]] = None,
         tag_predicates: Optional[dict] = None,
+        seq_min: Optional[int] = None,
     ) -> Optional[ScanData]:
         """Memtable + pruned SSTs as concatenated host columns, or None
         when there are no rows. Tag predicates keep whole series, so
         last-write-wins and tombstones stay intact; the device WHERE
-        still evaluates every predicate exactly."""
+        still evaluates every predicate exactly. `seq_min`: only rows
+        written after that sequence (`_scan_since`)."""
         names = self._scan_columns(projection)
+        if seq_min is not None:
+            return self._scan_since(int(seq_min), ts_range, names,
+                                    tag_predicates)
         pred_key = predicates_cache_key(tag_predicates)
         if not tag_predicates:
             ts_range = self._widen_covering_range(ts_range)
@@ -892,8 +1115,7 @@ class Region:
             columns = dict(parts_cols[0])
             seq, op = parts_seq[0], parts_op[0]
         else:
-            columns = {n: np.concatenate([p[n] for p in parts_cols])
-                       for n in names}
+            columns = self._concat_columns(names, parts_cols)
             seq = np.concatenate(parts_seq)
             op = np.concatenate(parts_op)
         part_offsets = np.cumsum([0] + part_lens)
@@ -922,12 +1144,74 @@ class Region:
             self._scan_cache_put(cache_key, result)
         return result
 
-    def _scan_cache_put(self, key: tuple, result: ScanData) -> None:
-        """Insert a snapshot, evicting the oldest past the entry budget
-        (caller holds the lock)."""
-        self._scan_cache[key] = result
-        while len(self._scan_cache) > self.scan_cache_entries:
-            self._scan_cache.popitem(last=False)
+    def _scan_since(self, seq_min: int, ts_range, names,
+                    tag_predicates) -> Optional[ScanData]:
+        """The seq_min slice of scan(): rows with seq > seq_min only. The
+        whole result is uncached (each consumer's boundary differs and
+        moves every tick), but the per-file decode rides the part cache
+        and the decode pool: a boundary-straddling file decodes once, not
+        once a tick, and SSTs whose max_seq <= seq_min never leave disk.
+        `stats` counts the files the boundary pruned (ssts_seq_pruned)
+        beside the decode's."""
+        pred_key = predicates_cache_key(tag_predicates)
+        with self._lock:
+            version = self.data_version
+            all_files = len(self.files)
+            file_list = [m for m in self.files.values()
+                         if m.max_seq > seq_min]
+            self._pin_files(file_list)
+            mem = self.memtable.concat(ts_range)
+        stats = dict.fromkeys(_PRUNE_KEYS, 0)
+        stats["ssts_seq_pruned"] = all_files - len(file_list)
+        try:
+            entries = self._cached_parts(file_list, ts_range, names,
+                                         tag_predicates, stats=stats)
+        finally:
+            self._unpin_files(file_list)
+        parts_cols, parts_seq, parts_op, part_lens = [], [], [], []
+        for ent in entries:
+            if ent.part is None:
+                continue
+            # parts are ts-filtered already; the seq boundary applies on
+            # COPIES: cached entries stay whole for full scans
+            cols, seq_col, op_col = ent.part
+            m = seq_col > seq_min
+            if not m.any():
+                continue
+            if not m.all():
+                cols = {n: v[m] for n, v in cols.items()}
+                seq_col, op_col = seq_col[m], op_col[m]
+            parts_cols.append(cols)
+            parts_seq.append(seq_col)
+            parts_op.append(op_col)
+            part_lens.append(len(seq_col))
+        if mem is not None:
+            mcols, mseq, mop = mem
+            m = mseq > seq_min
+            if m.any():
+                parts_cols.append({n: mcols[n][m] for n in names})
+                parts_seq.append(mseq[m])
+                parts_op.append(mop[m])
+        if not parts_cols:
+            return None
+        if len(parts_cols) == 1:
+            columns = dict(parts_cols[0])
+            seq, op = parts_seq[0], parts_op[0]
+        else:
+            columns = self._concat_columns(names, parts_cols)
+            seq = np.concatenate(parts_seq)
+            op = np.concatenate(parts_op)
+        return ScanData(
+            schema=self.schema, columns=columns, seq=seq, op_type=op,
+            tag_dicts={c.name: self.registry.dict_array(c.name)
+                       for c in self.schema.tag_columns if c.name in names},
+            num_rows=len(seq), region_id=self.region_id,
+            data_version=version, incarnation=self.incarnation,
+            scan_fingerprint=(ts_range, tuple(names), pred_key, "seq",
+                              seq_min),
+            sorted_part_offsets=tuple(
+                int(o) for o in np.cumsum([0] + part_lens)),
+            stats=stats)
 
     def scan_last(self, group_tag: str,
                   projection: Optional[Sequence[str]] = None,
@@ -1087,7 +1371,9 @@ class Region:
         `groups_per_chunk` row groups, after the index's pruning, through
         `_decode_sst` (tags remapped into the registry, ALTER ADD columns
         backfilled). Rows are not ts- or tag-filtered: the device WHERE
-        is exact."""
+        is exact. With more than one decode worker the files decode in
+        parallel (`_stream_files_parallel`), the chunks in the same
+        order."""
         names = self._scan_columns(projection)
         with self._lock:
             snapshot_files = list(self.files.values())
@@ -1118,18 +1404,24 @@ class Region:
                 self._unpin_files(snapshot_files)
 
         def gen():
+            workers = scan_pool.resolve(self.decode_threads, len(files))
             try:
-                for meta in files:
-                    for part in self.sst_reader.iter_chunks(
-                            meta, self.schema, ts_range, names,
-                            groups_per_chunk, tag_predicates):
-                        n = part.num_rows
-                        cols = self._decode_sst(part, names)
-                        # hold one decoded chunk at a time
-                        del part
-                        if n:
-                            yield cols, n
-                        del cols
+                if workers <= 1:
+                    for meta in files:
+                        for part in self.sst_reader.iter_chunks(
+                                meta, self.schema, ts_range, names,
+                                groups_per_chunk, tag_predicates):
+                            n = part.num_rows
+                            cols = self._decode_sst(part, names)
+                            # hold one decoded chunk at a time
+                            del part
+                            if n:
+                                yield cols, n
+                            del cols
+                else:
+                    yield from self._stream_files_parallel(
+                        files, ts_range, names, tag_predicates,
+                        groups_per_chunk, workers)
                 if mem_rows:
                     yield {n: np.concatenate([c.columns[n]
                                               for c in mem_chunks])
@@ -1146,6 +1438,90 @@ class Region:
             ts_min=min(b[0] for b in bounds),
             ts_max=max(b[1] for b in bounds),
             _tag_dicts=tag_dicts, _chunks=gen, _close=unpin_once)
+
+    def _stream_files_parallel(self, files, ts_range, names, tag_predicates,
+                               groups_per_chunk: int, workers: int):
+        """The stream's decode pipeline: up to `workers` files decode at
+        once, each into its own bounded queue (2 chunks); the consumer
+        drains the queues in file order, so chunks come out in EXACTLY
+        the serial order while later files decode in the background.
+        Host memory stays bounded by workers x 3 decoded chunks. An error
+        surfaces at its file's place in the order, as the serial loop
+        raised it.
+
+        The producers run on a per-stream executor, not the engine's
+        decode pool: a stream is consumer-paced, and producers parked on
+        full queues must not starve other scans' decode. Its `finally`
+        stops every producer and joins it (`shutdown(wait=True)`), so no
+        `gtpu-stream-decode` thread outlives the stream, abandoned or
+        not."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(max_workers=workers,
+                                  thread_name_prefix="gtpu-stream-decode")
+        stop = threading.Event()
+
+        def put(out, item) -> bool:
+            while not stop.is_set():
+                try:
+                    out.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce(meta, out):
+            try:
+                for part in self.sst_reader.iter_chunks(
+                        meta, self.schema, ts_range, names,
+                        groups_per_chunk, tag_predicates):
+                    if stop.is_set():
+                        return
+                    n = part.num_rows
+                    if n and not put(out, ("chunk",
+                                           (self._decode_sst(part, names),
+                                            n))):
+                        return
+            except BaseException as e:  # noqa: BLE001 — shipped in order
+                put(out, ("error", e))
+            finally:
+                put(out, ("end", None))
+
+        run = tracing.propagate(produce)
+        queues: dict[int, queue.Queue] = {}
+        nxt = 0
+        try:
+            for i in range(len(files)):
+                while nxt < len(files) and nxt < i + workers:
+                    q: queue.Queue = queue.Queue(maxsize=2)
+                    queues[nxt] = q
+                    scan_pool.submit(pool, run, files[nxt], q)
+                    nxt += 1
+                q = queues.pop(i)
+                while True:
+                    try:
+                        kind, payload = q.get(timeout=0.1)
+                    except queue.Empty:
+                        # deadline checkpoint: a dead consumer unwinds
+                        # typed; the finally stops the producers
+                        dl.check("streaming scan wait")
+                        continue
+                    if kind == "end":
+                        break
+                    if kind == "error":
+                        raise payload
+                    yield payload
+        finally:
+            # producers poll `stop` at every put; drain their queues so
+            # none blocks, then join them all before the caller unpins
+            stop.set()
+            for q in queues.values():
+                while True:
+                    try:
+                        q.get_nowait()
+                    except queue.Empty:
+                        break
+            pool.shutdown(wait=True)
 
     def _scan_columns(self, projection: Optional[Sequence[str]]) -> list[str]:
         ts_name = self.schema.time_index.name

@@ -311,9 +311,13 @@ class SstReader:
                                    cols)
 
     def read_groups(self, meta: FileMeta, groups: Sequence[int],
-                    columns: Sequence[str]) -> SstPart:
+                    columns: Sequence[str],
+                    into: Optional[dict] = None) -> SstPart:
         """Specific row groups and columns: each column chunk lands in
-        its output array with one read."""
+        its output array with one read. `into` (column -> array of the
+        groups' rows and the column's dtype) receives the chunks in place
+        of new arrays: parallel decode reads contiguous runs of one file
+        straight into slices of the whole part's columns."""
         ft = self.footer(meta.file_id)
         path = self.path(meta.file_id)
         index = {name: (i, np.dtype(dt))
@@ -323,7 +327,7 @@ class SstReader:
         out = {}
         for name in columns:
             i, dt = index[name]
-            arr = np.empty(n, dtype=dt)
+            arr = np.empty(n, dtype=dt) if into is None else into[name]
             pos = 0
             for rg in rgs:
                 k = rg["rows"]

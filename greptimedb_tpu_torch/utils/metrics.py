@@ -547,6 +547,10 @@ SCAN_PART_CACHE_EVENTS = REGISTRY.counter(
 SCAN_DECODE_BYTES = REGISTRY.counter(
     "greptimedb_tpu_scan_decode_bytes_total",
     "Host bytes materialized by SST scan decode (part-cache misses)")
+# the flow engine (flow/engine.py)
+FLOW_TICK_ERRORS = REGISTRY.counter(
+    "greptimedb_tpu_flow_tick_errors_total",
+    "Flow engine tick failures deferred to the next tick, by flow")
 # incremental aggregation (query/partial_cache.py)
 PARTIAL_AGG_CACHE_EVENTS = REGISTRY.counter(
     "greptimedb_tpu_partial_agg_cache_events_total",

@@ -307,11 +307,17 @@ def test_build_info_reports_the_port_version(pair):
 
 
 @pytest.mark.parametrize("table,slice_name", [
-    ("flows", "flows, scripts, plugins and shm .ROADMAP A9-flows."),
+    # information_schema.flows runs on the port now (the flow engine):
+    # the case keeps its id and holds the table to the JAX engine's
+    pytest.param("flows", None, id="flows-flows, scripts, plugins and "
+                 "shm .ROADMAP A9-flows."),
     ("partitions", "A10"),
     ("region_peers", "A10"), ("cluster_info", "A10")])
 def test_runtime_information_schema_tables_name_their_slice(
         pair, table, slice_name):
+    if slice_name is None:
+        pair.same(f"SELECT * FROM information_schema.{table}")
+        return
     with pytest.raises(UnsupportedStatement, match=slice_name):
         pair.tqe.execute_one(f"SELECT * FROM information_schema.{table}")
 
@@ -348,10 +354,15 @@ def test_db_keyword_is_a_context_shorthand(pair):
 
 
 @pytest.mark.parametrize("sql,slice_name", [
-    ("SHOW FLOWS", "flows, scripts, plugins and shm"),
+    # SHOW FLOWS runs on the port now (the flow engine): the case keeps
+    # its id and holds the statement to the JAX engine's rows
+    ("SHOW FLOWS", None),
     ("COPY cpu TO 'cpu.parquet'", "COPY import and export"),
 ], ids=["flows", "copy"])
 def test_later_slices_raise(pair, sql, slice_name):
+    if slice_name is None:
+        pair.same(sql)
+        return
     with pytest.raises(UnsupportedStatement, match=slice_name):
         pair.tqe.execute_one(sql)
 

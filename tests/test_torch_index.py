@@ -467,8 +467,12 @@ def test_index_prunes_row_groups(pair):
             jreg.sst_reader.index_applier.apply(jmeta.file_id, pred) == want
     scan = reg.scan(tag_predicates={"host": {"host0"}})
     assert scan.num_rows == 8
-    assert scan.stats == {"ssts": 1, "ssts_pruned": 0, "row_groups": 4,
-                          "row_groups_pruned": 3}
+    # the pruning keys (the stats also carry the decode's since the
+    # parallel decode pool)
+    assert {k: scan.stats[k] for k in ("ssts", "ssts_pruned", "row_groups",
+                                       "row_groups_pruned")} == \
+        {"ssts": 1, "ssts_pruned": 0, "row_groups": 4,
+         "row_groups_pruned": 3}
     assert both(pair, "SELECT count(*) FROM t WHERE host = 'host0'") == [[8]]
 
 

@@ -430,3 +430,49 @@ def test_fuzz_bodies_match_jax_and_lanes(seed):
         except Exception as e:  # noqa: BLE001 — shown with the body
             raise AssertionError((body, e)) from None
         assert_same_batches(vec, py)
+
+
+def test_concurrent_first_writes_create_the_table_once(tmp_path):
+    """Every client of a fresh measurement writes at once: one of them
+    creates the table, the others find it (ROADMAP C8: the catalog's
+    compare-and-put used to turn them away with "concurrent create"),
+    and every row lands."""
+    import sys
+    import threading
+
+    from greptimedb_tpu_torch.catalog import Catalog, MemoryKv
+    from greptimedb_tpu_torch.query import QueryEngine
+    from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
+
+    clients, rounds = 16, 4
+    engine = RegionEngine(EngineConfig(data_dir=str(tmp_path / "d"),
+                                       maintenance_workers=0), device="cpu")
+    qe = QueryEngine(Catalog(MemoryKv()), engine, device="cpu")
+    old = sys.getswitchinterval()
+    try:
+        sys.setswitchinterval(1e-6)
+        for r in range(rounds):
+            barrier = threading.Barrier(clients)
+            errors = []
+
+            def client(i):
+                body = f"fresh{r},host=h{i} v={i}.5 {1000 + i}"
+                barrier.wait(timeout=30)
+                try:
+                    influx.write_lines(qe, "public", body, precision="ms")
+                except Exception as e:  # noqa: BLE001 — collected below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+            assert errors == []
+            assert qe.execute_one(f"SELECT count(*) FROM fresh{r}"
+                                  ).rows() == [[clients]]
+    finally:
+        sys.setswitchinterval(old)
+        engine.close()

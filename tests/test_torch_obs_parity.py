@@ -278,6 +278,12 @@ def test_debug_routes_answer_the_same_keys(pairs, monkeypatch):
     pair = pairs("memtable")
     jslow.clear()
     slow_query.clear()
+    # both packages name these threads alike, and a daemon started by an
+    # earlier test in this process (the JAX flame sampler that a JAX
+    # standalone's options install and never stop) is not one of these
+    # servers': the check below counts the threads started from here on
+    names = ("gtpu-http-serve", "gtpu-flame-sampler", "gtpu-otlp-export")
+    before = {t for t in threading.enumerate() if t.name in names}
     jsrv, tsrv = JHttpServer(pair.jqe, port=0), HttpServer(pair.tqe, port=0)
     ports = (jsrv.start(), tsrv.start())
     try:
@@ -309,6 +315,5 @@ def test_debug_routes_answer_the_same_keys(pairs, monkeypatch):
         tsrv.stop()
         jslow.clear()
         slow_query.clear()
-    assert not any(t.name in ("gtpu-http-serve", "gtpu-flame-sampler",
-                              "gtpu-otlp-export")
+    assert not any(t.name in names and t not in before
                    for t in threading.enumerate())

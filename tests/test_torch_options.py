@@ -120,17 +120,25 @@ def test_dump_config_equals_jax_and_loads_back(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("key,value,slice_name", [
-    ("grpc.enable", "true", "A9: Flight"),
+    # the Flight refusal names its item A9-flight (the case keeps its id)
+    pytest.param("grpc.enable", "true", "A9-flight",
+                 id="grpc.enable-true-A9: Flight"),
     ("storage.type", "'s3'", "A12: object stores"),
     ("storage.s3.bucket", "'b'", "A12: object stores"),
     ("wal.backend", "'remote'", "A12: object stores"),
-    ("scan.decode_threads", "4", "A12: the parallel decode pool"),
+    # [scan] decode_threads runs on the port now (the engine's decode
+    # pool); the case keeps its id and checks a key that stays outside
+    pytest.param("storage.cache_bytes", "1", "A12: object stores",
+                 id="scan.decode_threads-4-A12: the parallel decode pool"),
     ("query.mesh", "'2x2'", "A10"),
     ("query.tier_admission", "false", "A11"),
     ("cluster.hedge_enabled", "false", "A10"),
     ("parallel.mesh_min_rows", "1", "A10"),
     ("partition.default_hash_regions", "4", "A10"),
-    ("shm.fabric", "true", "A9: flows, scripts, plugins and shm"),
+    # flows, scripts and plugins run on the port now; shm stays outside
+    # under its own item (the case keeps its id)
+    pytest.param("shm.fabric", "true", "A9-shm",
+                 id="shm.fabric-true-A9: flows, scripts, plugins and shm"),
 ])
 def test_unported_key_refused_naming_its_slice(key, value, slice_name,
                                                tmp_path):
@@ -150,6 +158,7 @@ def test_unported_key_refused_naming_its_slice(key, value, slice_name,
     ("maintenance.retention_ttl", "'7d'"), ("ingest.max_batch_rows", "10"),
     ("ingest.group_commit", "false"), ("ingest.overlap", "false"),
     ("maintenance.stall_timeout_s", "0.5"),
+    ("scan.decode_threads", "4"), ("scan.decode_threads", "1"),
 ])
 def test_write_plane_keys_boot_and_map_as_the_jax_package(key, value,
                                                           tmp_path):
@@ -166,7 +175,8 @@ def test_write_plane_keys_boot_and_map_as_the_jax_package(key, value,
               "ingest_max_batch_bytes", "ingest_queue_depth",
               "ingest_overlap", "maintenance_workers", "maintenance_queue",
               "maintenance_tick_s", "stall_memtable_bytes", "stall_l0_files",
-              "stall_timeout_s", "retention_ttl_ms", "rollup_rules"):
+              "stall_timeout_s", "retention_ttl_ms", "rollup_rules",
+              "scan_decode_threads", "scan_part_cache_bytes"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
 
 
@@ -368,7 +378,7 @@ def test_standalone_refuses_an_unported_option(tmp_path):
     out, err = proc.communicate(timeout=60)
     assert proc.returncode == 2 and out == ""
     assert "option 'grpc.enable' = True is not in this slice" in err
-    assert "A9: Flight" in err
+    assert "A9-flight" in err
 
 
 def test_repl_answers_statements_on_stdin(tmp_path):

@@ -165,12 +165,15 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
 
 @pytest.mark.parametrize("sql,slice_name", [
     ("COPY cpu TO 'cpu.parquet'", "COPY import and export"),
-    # SHOW TABLES runs on the port now (the host SQL surface); the case
-    # keeps its id and checks a SHOW statement that stays outside
-    ("SHOW FLOWS", "flows, scripts, plugins and shm"),
-    # TQL EVAL, EXPLAIN and ANALYZE run on the port now; the case keeps
-    # its id and checks a statement that stays outside the slice
-    ("DROP FLOW f", "flows, scripts, plugins and shm"),
+    # SHOW TABLES, then SHOW FLOWS (the flow engine) run on the port
+    # now; the case keeps its id and checks a cluster table, which stays
+    # outside
+    ("SELECT * FROM information_schema.region_peers",
+     "mesh and cluster .ROADMAP A10."),
+    # TQL EVAL, EXPLAIN and ANALYZE, then DROP FLOW run on the port now;
+    # the case keeps its id and checks a statement that stays outside
+    ("SELECT * FROM information_schema.cluster_info",
+     "mesh and cluster .ROADMAP A10."),
     # joins and the runtime information_schema tables run on the port
     # now; the case keeps its id and checks a cluster table, which
     # stays outside
@@ -189,8 +192,10 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
     ("CREATE EXTERNAL TABLE x (ts TIMESTAMP TIME INDEX, a STRING) WITH "
      "(location = '/nonexistent/x.parquet', format = 'parquet')",
      "COPY import and export .ROADMAP A12-io."),
-    ("ADMIN flush_flow('f')",
-     "flows, scripts, plugins and shm .ROADMAP A9-flows."),
+    # ADMIN flush_flow ticks a flow now; the case keeps its id and
+    # checks a COPY form that stays outside the slice
+    ("COPY DATABASE public TO '/nonexistent/db_out/' "
+     "WITH (format = 'parquet')", "COPY import and export"),
 ], ids=["COPY cpu TO 'cpu.parquet'", "SHOW TABLES",
         "TQL EVAL (0, 10, '5s') up",
         "SELECT a.u FROM cpu a JOIN cpu b ON a.ts = b.ts",

@@ -43,12 +43,7 @@ CASES = sorted(
 # text the port raises: statements of a later slice of the port (or, for
 # a statement that reads what a refused one would have written, the
 # port's whole outcome as `_outcome` gives it)
-LATER = {
-    ("show/show_full_surface", "SHOW FLOWS"):
-        "ShowFlows is not in this slice of greptimedb_tpu_torch; the "
-        "flows, scripts, plugins and shm (ROADMAP A9-flows) slice brings "
-        "it",
-}
+LATER: dict = {}
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -19,9 +19,6 @@ CASES = sorted(set(CASES_DIR.glob("**/*.sql")) - set(REPLAYED))
 
 _OUTSIDE = " is not in this slice of greptimedb_tpu_torch; the "
 _COPY = "CopyTable" + _OUTSIDE + "COPY import and export slice brings it"
-_FLOWS = _OUTSIDE + "flows, scripts, plugins and shm (ROADMAP A9-flows) " \
-    "slice brings it"
-_NO_SINK = ("error", "CatalogError", "table public.sink not found")
 
 # (case, first 60 characters of the statement) -> the UnsupportedStatement
 # text the port raises: statements of a later slice of the port (or, for
@@ -39,15 +36,6 @@ LATER = {
         _COPY,
     ("copy/copy_roundtrip", "SELECT host, v FROM dst ORDER BY host"):
         ("ok", ["host", "v"], []),
-    ("flow/flow_basic",
-     "CREATE FLOW rollup SINK TO sink AS SELECT host, sum(v) AS to"):
-        "CreateFlow" + _FLOWS,
-    ("flow/flow_basic", "SHOW FLOWS"): "ShowFlows" + _FLOWS,
-    ("flow/flow_basic", "ADMIN flush_flow('rollup')"):
-        "ADMIN flush_flow" + _FLOWS,
-    ("flow/flow_basic", "SELECT host, total FROM sink ORDER BY host"):
-        _NO_SINK,
-    ("flow/flow_basic", "DROP FLOW rollup"): "DropFlow" + _FLOWS,
 }
 
 
