@@ -196,6 +196,30 @@ greptimedb_tpu_torch/_build/. Phases:
    right password and is refused with a wrong one, Postgres answers a
    query, the `dump-config` text loads back to the defaults, and SIGTERM
    ends it with exit code 0. TLS is left out (a line says so).
+   After (d), (i) the serving fabric: two `standalone start -c <toml>`
+   frontends, A and B, each over its own copy of that dir with `[shm]
+   fabric = true` and one private fabric_dir, beside a fabric-off
+   frontend C over the dir itself and a second fabric-off frontend D
+   over another copy, the control (batching off in all four, so every
+   statement runs alone; A and B encode in worker processes, C and D in
+   threads). /dev/shm's size is printed, and the segments are cut to
+   fit when it cannot hold them. A takes a short round of the mixed
+   traffic (and double_groupby_all at 1 h and at 10 min, where
+   G + 1 = 24,001 puts it on K1); B then takes the same statements
+   with other parameters: its first-sighting ms beside C's, and its
+   template and plan hits (above 0). Every body of A, B and D equals
+   C's byte for byte but in the average columns (`avg(...)`), which K1
+   and K2 sum in f32 with atomics and are held to rtol 1e-5; how many
+   bodies differ there is printed for each of A, B and the control D,
+   and MySQL and Postgres rows match. A 100,000-row
+   result goes through A's result arena (one publish, one claim; bytes
+   equal C's thread encode) and A's /metrics counts exactly its
+   workers' encodes. After A's ALTER TABLE, B's first sighting of a
+   shape A published misses it (template and plan) and still answers
+   as numpy does. B is SIGKILLed while serving; A answers on; after A
+   and C stop no segment, no child process and no detach or corrupt
+   event is left. Each frontend's K1 and K2 launches are read from its
+   /metrics and must be above 0.
 5. Streaming beyond device memory, last: BASELINE.json configs[1]
    (bench.py's bench_double_groupby_100m, bench.py:750-845), cpu_big,
    4,000 hosts x 25,000 points at 10 s = 100,000,000 rows (seed 23),
@@ -4008,11 +4032,28 @@ def vmapped_batch_inputs(qe, sk, width) -> tuple:
     return vals, ids, g, want
 
 
+def read_ready(proc, n: int, timeout: float = 180) -> list:
+    """The first `n` lines a server prints, read off the raw pipe (a
+    buffered reader could swallow several while select waits on the fd);
+    "" for each line that did not come in time."""
+    import select
+
+    fd, buf = proc.stdout.fileno(), b""
+    deadline = time.monotonic() + timeout
+    while buf.count(b"\n") < n and time.monotonic() < deadline:
+        ready, _, _ = select.select([fd], [], [], 1.0)
+        if ready:
+            chunk = os.read(fd, 4096)
+            if not chunk:
+                break
+            buf += chunk
+    return (buf.decode(errors="replace").splitlines(True) + [""] * n)[:n]
+
+
 def standalone_phase(root, answers) -> dict:
     """(c) `python -m greptimedb_tpu_torch standalone start` on the card
     over the closed data dir: /health, the /v1/sql and query_range
     requests against the in-process answers, then SIGTERM and exit 0."""
-    import select
     import signal
     import urllib.request
 
@@ -4025,8 +4066,7 @@ def standalone_phase(root, answers) -> dict:
     proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     try:
-        ready, _, _ = select.select([proc.stdout], [], [], 180)
-        line = proc.stdout.readline() if ready else ""
+        line = read_ready(proc, 1)[0]
         check("listening on http://127.0.0.1:" in line,
               f"standalone did not start: {line!r} "
               f"{proc.stderr.read()[-2000:] if proc.poll() is not None else ''}")
@@ -4160,13 +4200,14 @@ def serving_phase(sk, torch, lib=None) -> dict:
         engine.close()
         cli = standalone_phase(root, answers)
         cli_options = standalone_options_phase(root, answers)
+        fabric = fabric_phase(root, grid)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log(f"serving phases (b), (c), (d) on cpu_1h: "
+    log(f"serving phases (b), (c), (d), (i) on cpu_1h: "
         f"{time.perf_counter() - t:.1f} s")
     return {"mixed": mixed, "mixed_defaults": mixed_defaults,
             "plane_ab": plane_ab, "vmapped_case": case, "standalone": cli,
-            "standalone_options": cli_options}
+            "standalone_options": cli_options, "fabric": fabric}
 
 
 #: requests a round of the observability plane's on/off comparison, and
@@ -5925,8 +5966,7 @@ def standalone_options_phase(root, answers) -> dict:
     `dump-config` text loads back to the defaults; SIGTERM ends it with
     exit code 0. TLS is left out here (the CPU tests drive it)."""
     import base64
-    import select
-    import signal
+    import shutil
     import tempfile
     import urllib.error
     import urllib.request
@@ -5937,13 +5977,6 @@ def standalone_options_phase(root, answers) -> dict:
         "MySQL and Postgres over TLS on the CPU")
     user, password = STATIC_USER
     cfg_dir = tempfile.mkdtemp(prefix="chip_smoke_cfg_")
-    cfg = os.path.join(cfg_dir, "standalone.toml")
-    with open(cfg, "w") as f:
-        f.write(f"[storage]\ndata_home = '{root}'\n"
-                "[http]\naddr = '127.0.0.1:0'\n"
-                "[mysql]\nenable = true\naddr = '127.0.0.1:0'\n"
-                "[postgres]\nenable = true\naddr = '127.0.0.1:0'\n"
-                f"[auth]\nstatic_users = '{user}={password}'\n")
     env = {k: v for k, v in os.environ.items() if k not in LANE_OFF}
     env["PYTHONPATH"] = HERE
     dump = subprocess.run([sys.executable, "-m", "greptimedb_tpu_torch",
@@ -5956,27 +5989,13 @@ def standalone_options_phase(root, answers) -> dict:
     check(dump.returncode == 0 and loaded == options.StandaloneOptions(),
           "dump-config: its text does not load back to the defaults")
     options.check_port_support(loaded)
-    cmd = [sys.executable, "-m", "greptimedb_tpu_torch", "standalone",
-           "start", "-c", cfg]
-    if DEVICE is not None:
-        cmd += ["--device", DEVICE]
     t = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    front = Frontend("standalone", root, cfg_dir, env,
+                     extra=f"[auth]\nstatic_users = '{user}={password}'\n")
     try:
-        lines = []
-        for _ in range(3):
-            ready, _, _ = select.select([proc.stdout], [], [], 180)
-            lines.append(proc.stdout.readline() if ready else "")
-        check("listening on http://127.0.0.1:" in lines[0]
-              and lines[1].startswith("mysql on 127.0.0.1:")
-              and lines[2].startswith("postgres on 127.0.0.1:"),
-              f"standalone -c did not start: {lines!r} "
-              f"{proc.stderr.read()[-2000:] if proc.poll() is not None else ''}")
-        start_s = time.perf_counter() - t
-        http_port, my_port, pg_port = (int(x.rsplit(":", 1)[1])
-                                       for x in lines)
-        base = f"http://127.0.0.1:{http_port}"
+        front.wait_ready()
+        start_s = front.start_s
+        base = f"http://127.0.0.1:{front.port}"
         token = base64.b64encode(f"{user}:{password}".encode()).decode()
         # the /v1/sql answer only: phase (c) already held the PromQL one
         path, data, want = answers[0]
@@ -6009,43 +6028,620 @@ def standalone_options_phase(root, answers) -> dict:
         first = first_query_breakdown(base, token, tid)
         t_step = time.perf_counter()
         rows = HOSTS * SERVE_HOURS * 3600 // STEP_S
-        my = WireMysql(my_port, user, password)
+        my = WireMysql(front.my_port, user, password)
         check(my.query("SELECT count(*) FROM cpu")
               == ("rows", ["count(*)"], [[str(rows)]]),
               "standalone -c: MySQL count(*)")
         my.close()
         try:
-            WireMysql(my_port, user, "wrong")
+            WireMysql(front.my_port, user, "wrong")
             refused = None
         except WireError as e:
             refused = str(e)
         check(refused is not None and "mysql error 1045" in refused,
               f"standalone -c: a wrong MySQL password got {refused!r}")
-        pg = WirePg(pg_port, user, password)
+        pg = WirePg(front.pg_port, user, password)
         check(pg.query("SELECT count(*) FROM cpu")
               == (["count(*)"], [[str(rows)]], "SELECT 1"),
               "standalone -c: Postgres count(*)")
         pg.close()
         steps["mysql_postgres_s"] = time.perf_counter() - t_step
         requests_s = time.perf_counter() - t - start_s
-        proc.send_signal(signal.SIGTERM)
         t_stop = time.perf_counter()
-        rc = proc.wait(timeout=120)
+        rc = front.stop()
         stop_s = time.perf_counter() - t_stop
-        check(rc == 0, f"standalone -c exited {rc}: "
-              f"{proc.stderr.read()[-2000:]}")
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        import shutil
-
+        front.close()
         shutil.rmtree(cfg_dir, ignore_errors=True)
     out = {"start_s": start_s, "requests_s": requests_s, "stop_s": stop_s,
            "steps": steps, "first_query": first, "http_requests": 2,
            "mysql_logins": 2, "postgres_queries": 1, "exit_code": rc,
            "wall_s": time.perf_counter() - t}
     log("serving standalone -c subprocess: " + json.dumps(out))
+    return out
+
+
+# ---- (i) the serving fabric: two frontends on one shared-memory fabric --------
+
+#: requests in each frontend's round of the mixed traffic, and the
+#: clients a tenant: a short round, enough for every tenant's template to
+#: be built (second sighting) and then hit
+FABRIC_REQUESTS = 90
+FABRIC_CLIENTS = 2
+#: the parameters B's round is shifted by (other hosts than A's)
+FABRIC_OFFSET = 1000
+#: the least rows of the result sent through the result arena
+FABRIC_BIG_ROWS = 100_000
+#: the JAX default a segment (the artifact fabric and the result arena
+#: each); cut only when /dev/shm cannot hold both with room to spare
+FABRIC_SEGMENT_BYTES = 64 << 20
+
+
+def scrape(port) -> list:
+    """[(name, labels, value)] of a frontend's /metrics."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as r:
+        text = r.read().decode()
+    out = []
+    for line in text.splitlines():
+        m = re.match(r"^([A-Za-z_:][\w:]*)(?:\{(.*)\})? (\S+)$", line)
+        if m:
+            labels = dict(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                     m.group(2) or ""))
+            out.append((m.group(1), labels, float(m.group(3))))
+    return out
+
+
+def metric(samples, name, **labels) -> float:
+    """The sum of a family's series whose labels include `labels`."""
+    return sum(v for n, got, v in samples if n == name and all(
+        got.get(k) == w for k, w in labels.items()))
+
+
+SHM_EVENTS = "greptimedb_tpu_shm_fabric_events_total"
+DISPATCH = "greptimedb_tpu_pallas_dispatch_total"
+
+
+def fabric_events(samples) -> dict:
+    """{kind: {event: count}} of the shm fabric's events."""
+    out: dict = {}
+    for n, labels, v in samples:
+        if n == SHM_EVENTS:
+            out.setdefault(labels.get("kind"), {})[labels.get("event")] = v
+    return out
+
+
+def kernel_launches(samples) -> dict:
+    return {"segment_sum": int(metric(samples, DISPATCH,
+                                      kernel="segment_sum")),
+            "fused_segment_agg": int(metric(samples, DISPATCH,
+                                            kernel="fused_agg"))}
+
+
+def descendants(pid: int) -> set:
+    """Every live process under `pid` (from /proc)."""
+    children: dict = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children.setdefault(ppid, []).append(int(entry))
+    out, todo = set(), [pid]
+    while todo:
+        for c in children.get(todo.pop(), []):
+            if c not in out:
+                out.add(c)
+                todo.append(c)
+    return out
+
+
+def proc_line(pid: int) -> str:
+    """A process's pid, state, parent, threads and command line, for a
+    message (what /proc lets this process read)."""
+    def read(name):
+        try:
+            with open(f"/proc/{pid}/{name}", "rb") as f:
+                return f.read().replace(b"\0", b" ").decode(
+                    errors="replace").strip()
+        except OSError as e:
+            return f"?{e.errno}"
+
+    stat = read("stat").rsplit(")", 1)[-1].split()
+    try:
+        threads = len(os.listdir(f"/proc/{pid}/task"))
+    except OSError:
+        threads = "?"
+    return f"{pid} {stat[:2]} threads={threads} {read('cmdline')[:160]}"
+
+
+def alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+class Frontend:
+    """One `standalone start -c <toml>` subprocess over its own data dir:
+    HTTP, MySQL and Postgres on free ports; with a `process_mode`,
+    batching off (every statement runs alone, so bodies compare) and that
+    encode process mode, else the concurrency plane's defaults; the shm
+    fabric when `fabric_dir` is given; `extra` TOML appended. Its stderr
+    goes to a file beside its config."""
+
+    def __init__(self, name, root, cfg_dir, env, process_mode=None,
+                 fabric_dir=None, segment_bytes=FABRIC_SEGMENT_BYTES,
+                 extra=""):
+        self.name = name
+        cfg = os.path.join(cfg_dir, f"{name}.toml")
+        text = (f"[storage]\ndata_home = '{root}'\n"
+                "[http]\naddr = '127.0.0.1:0'\n"
+                "[mysql]\nenable = true\naddr = '127.0.0.1:0'\n"
+                "[postgres]\nenable = true\naddr = '127.0.0.1:0'\n"
+                + extra)
+        if process_mode is not None:
+            text += ("[concurrency]\nbatching = false\n"
+                     f"encode_process_mode = '{process_mode}'\n")
+        if fabric_dir is not None:
+            text += (f"[shm]\nfabric = true\nfabric_dir = '{fabric_dir}'\n"
+                     f"fabric_bytes = {segment_bytes}\n")
+        with open(cfg, "w") as f:
+            f.write(text)
+        cmd = [sys.executable, "-m", "greptimedb_tpu_torch", "standalone",
+               "start", "-c", cfg]
+        if DEVICE is not None:
+            cmd += ["--device", DEVICE]
+        self.err_path = os.path.join(cfg_dir, f"{name}.stderr")
+        self.err = open(self.err_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=HERE, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=self.err, bufsize=0)
+
+    def wait_ready(self) -> None:
+        """The three listening lines: HTTP, MySQL and Postgres ports."""
+        lines = read_ready(self.proc, 3)
+        check("listening on http://127.0.0.1:" in lines[0]
+              and lines[1].startswith("mysql on 127.0.0.1:")
+              and lines[2].startswith("postgres on 127.0.0.1:"),
+              f"frontend {self.name} did not start: {lines!r} "
+              f"{self.stderr_tail()}")
+        self.start_s = time.perf_counter() - self.t0
+        self.port, self.my_port, self.pg_port = (
+            int(x.rsplit(":", 1)[1]) for x in lines)
+
+    def stderr_tail(self) -> str:
+        self.err.flush()
+        with open(self.err_path) as f:
+            return f.read()[-2000:]
+
+    def sql(self, sql) -> tuple:
+        """(ms, body without execution_time_ms) of one POST /v1/sql."""
+        import urllib.parse
+        import urllib.request
+
+        data = urllib.parse.urlencode({"sql": sql}).encode()
+        t = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{self.port}/v1/sql", data=data)
+        with urllib.request.urlopen(req, timeout=300) as r:
+            body = r.read()
+            check(r.status == 200, f"{self.name}: {sql}: {r.status}")
+        return (time.perf_counter() - t) * 1000, strip_time(body)
+
+    def metrics(self) -> list:
+        return scrape(self.port)
+
+    def stop(self) -> int:
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=120)
+        check(rc == 0, f"frontend {self.name} exited {rc}: "
+              f"{self.stderr_tail()}")
+        return rc
+
+    def close(self) -> None:
+        """Kill what is left of it (after a failed check): the frontend
+        and every process under it."""
+        import signal
+
+        if self.proc.poll() is None:
+            for pid in descendants(self.proc.pid):
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            self.proc.kill()
+            self.proc.wait()
+        self.proc.stdout.close()
+        self.err.close()
+
+
+def same_answer(got: bytes, want: bytes) -> float:
+    """0.0 when two /v1/sql bodies are byte for byte equal, else the
+    largest relative difference of a cell in an average column
+    (`avg(...)`) when everything else (schema, row count, every other
+    cell) is equal; raises CheckFailed otherwise. On the card K1 and K2
+    add f32 values with atomics in no fixed order, so two runs of one
+    average may differ in the last bits; the fabric-off control D of
+    fabric_phase measures how often two processes' bodies do."""
+    if got == want:
+        return 0.0
+    a, b = (json.loads(x + b"}")["output"] for x in (got, want))
+    check(len(a) == len(b), "bodies: statement counts differ")
+    worst = 0.0
+    for ra, rb in zip(a, b):
+        check(ra.keys() == rb.keys() and "records" in ra,
+              f"bodies differ: {got[:200]!r} / {want[:200]!r}")
+        ra, rb = ra["records"], rb["records"]
+        check(ra["schema"] == rb["schema"]
+              and len(ra["rows"]) == len(rb["rows"]),
+              "bodies: schema or row count differ")
+        avg = [c["name"].startswith("avg(")
+               for c in ra["schema"]["column_schemas"]]
+        for x, y in zip(ra["rows"], rb["rows"]):
+            for is_avg, u, v in zip(avg, x, y):
+                if is_avg and isinstance(u, float) and isinstance(v, float):
+                    worst = max(worst, abs(u - v) / max(abs(v), 1e-300))
+                else:
+                    check(u == v, f"bodies: cell {u!r} != {v!r}")
+    return worst
+
+
+def shifted(tenants, offset: int) -> list:
+    """The same tenants' statements with other parameters."""
+    return [(name, (lambda g: lambda i: g(i + offset))(gen))
+            for name, gen in tenants]
+
+
+def shm_segment_bytes() -> tuple:
+    """(bytes a segment, the /dev/shm figures): the JAX default where
+    /dev/shm holds both segments three times over, else a third of what
+    is free each (the cut is printed)."""
+    st = os.statvfs("/dev/shm")
+    free, total = st.f_bavail * st.f_frsize, st.f_blocks * st.f_frsize
+    size = FABRIC_SEGMENT_BYTES
+    if free < 6 * size:
+        size = max(1 << 20, free // 6)
+    shm = {"total_bytes": total, "free_bytes": free,
+           "segment_bytes": size, "cut": size != FABRIC_SEGMENT_BYTES}
+    log("fabric: /dev/shm " + json.dumps(shm))
+    return size, shm
+
+
+def fabric_phase(root, grid) -> dict:
+    """(i) two frontends on one shm fabric over copies of the closed
+    cpu_1h dir, beside a fabric-off frontend C over the original and a
+    fabric-off control D over a third copy: A's mixed round publishes
+    templates and plans, B's first sightings adopt them (hits above 0),
+    every body of A, B and D equals C's byte for byte but in the average
+    columns, held to rtol 1e-5 (MySQL and Postgres rows equal), with the
+    bodies that differ counted for each, a 100,000-row result goes through the
+    arena with the bridged encode count exact, A's DDL makes B miss A's
+    published template, B is SIGKILLed while serving and A answers on,
+    and afterwards no segment, no child process and no detach or corrupt
+    event is left. K1 and K2 launch in both A and B."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from greptimedb_tpu_torch.shm.fabric import segment_name
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_fabric_")
+    fabric_dir = os.path.join(work, "fabric")
+    segments = [segment_name(fabric_dir),
+                segment_name(os.path.join(fabric_dir, "arena"))]
+    seg_bytes, shm_info = shm_segment_bytes()
+    env = {k: v for k, v in os.environ.items()
+           if k not in LANE_OFF and not k.startswith("GTPU_SHM_")}
+    env["PYTHONPATH"] = HERE
+    for name in ("a", "b", "d"):
+        clone_data_dir(root, os.path.join(work, name))
+    fronts = {}
+    out: dict = {"shm": shm_info}
+    try:
+        fronts["C"] = Frontend("C", root, work, env, "off")
+        fronts["A"] = Frontend("A", os.path.join(work, "a"), work, env,
+                               "on", fabric_dir, seg_bytes)
+        fronts["B"] = Frontend("B", os.path.join(work, "b"), work, env,
+                               "on", fabric_dir, seg_bytes)
+        fronts["D"] = Frontend("D", os.path.join(work, "d"), work, env,
+                               "off")
+        for f in fronts.values():
+            f.wait_ready()
+        A, B, C, D = (fronts[k] for k in "ABCD")
+        out["start_s"] = {k: f.start_s for k, f in fronts.items()}
+        log("fabric: frontends listening after (s) "
+            + json.dumps(out["start_s"]))
+        tenants = mixed_tenants(SERVE_HOURS)
+        queries = tsbs_queries()
+        dgb = queries["double_groupby_all"][0].replace(
+            f"ts < {T0_MS + HOURS * 3600 * 1000}",
+            f"ts < {T0_MS + SERVE_HOURS * 3600 * 1000}")
+        # the headline at a 10-minute bucket: G + 1 = HOSTS x 6 + 1 groups
+        # pass the fused kernel's 4,096, so K1 serves it
+        dgb_10m = dgb.replace("INTERVAL '1 hour'", "INTERVAL '10 minutes'")
+        bodies: dict = {}
+
+        def keep(who, sql, body):
+            bodies.setdefault(sql, {}).setdefault(who, set()).add(body)
+
+        # 1. A's round learns and publishes; B's first sightings adopt
+        rounds = {}
+        for sql in (dgb, dgb_10m):
+            keep("A", sql, A.sql(sql)[1])
+        rounds["A"] = drive(A.port, tenants, FABRIC_CLIENTS,
+                            FABRIC_REQUESTS)
+        b_tenants = shifted(tenants, FABRIC_OFFSET)
+        firsts = {"B": {}, "C": {}}
+        for who in ("B", "C"):
+            for name, gen in b_tenants:
+                ms, body = fronts[who].sql(gen(0))
+                firsts[who][name] = ms
+                keep(who, gen(0), body)
+            for sql in (dgb, dgb_10m):
+                ms, body = fronts[who].sql(sql)
+                firsts[who][sql[:40]] = ms
+                keep(who, sql, body)
+        ev_b_first = fabric_events(B.metrics())
+        for who in ("B", "C"):
+            rounds[who] = drive(fronts[who].port, b_tenants, FABRIC_CLIENTS,
+                                FABRIC_REQUESTS)
+        for who, r in rounds.items():
+            check(sum(r["errors"].values()) == 0,
+                  f"fabric: {who}'s round had errors {r['first_error']}")
+            for sql, got in r["bodies"].items():
+                for b in got:
+                    keep(who, sql, b)
+        ev_a, ev_b = fabric_events(A.metrics()), fabric_events(B.metrics())
+        tpl_b, plan_b = ev_b.get("template", {}), ev_b.get("plan", {})
+        check(tpl_b.get("hit", 0) > 0 and plan_b.get("hit", 0) > 0,
+              f"fabric: B adopted nothing from A ({ev_b})")
+        check(ev_a.get("template", {}).get("publish", 0) > 0
+              and ev_a.get("plan", {}).get("publish", 0) > 0,
+              f"fabric: A published nothing ({ev_a})")
+        out["events_after_rounds"] = {"A": ev_a, "B": ev_b,
+                                      "B_after_first_sightings": ev_b_first}
+        out["first_sighting_ms"] = firsts
+        out["rounds"] = {who: {"requests": r["requests"],
+                               "wall_s": r["wall_s"],
+                               "qps": r["requests"] / r["wall_s"]}
+                         for who, r in rounds.items()}
+        log("fabric: B's templates " + json.dumps(tpl_b) + ", plans "
+            + json.dumps(plan_b) + "; first sightings ms (B fabric on, C "
+            "off) " + json.dumps(firsts) + "; rounds "
+            + json.dumps(out["rounds"]))
+        # 2. every body against the fabric-off frontend C's: byte for
+        # byte but in f32 average columns (rtol 1e-5, see same_answer).
+        # D, fabric off too, runs each statement once: the control for
+        # how often two processes' averages differ without the fabric
+        for sql, by in bodies.items():
+            if "C" not in by:
+                by["C"] = {C.sql(sql)[1]}
+            by["D"] = {D.sql(sql)[1]}
+        cmp = {who: {"bodies": 0, "byte_identical": 0, "differing_rel": []}
+               for who in "ABCD"}
+        for sql, by in bodies.items():
+            want = next(iter(by["C"]))
+            for who in "ABCD":
+                for body in by.get(who, ()):
+                    rel = same_answer(body, want)
+                    check(rel <= 1e-5, f"fabric: {who}'s body for {sql} "
+                          f"differs from the fabric-off body by {rel}")
+                    c = cmp[who]
+                    c["bodies"] += 1
+                    if rel:
+                        c["differing_rel"].append(rel)
+                    else:
+                        c["byte_identical"] += 1
+        for c in cmp.values():
+            c["differing_rel"].sort()
+        # each statement's first body of C is the reference, not a
+        # reading: C's row counts only its other bodies (repeats in its
+        # round that came out otherwise)
+        cmp["C"]["bodies"] -= len(bodies)
+        cmp["C"]["byte_identical"] -= len(bodies)
+        wire = []
+        for sql in (tenants[0][1](3), tenants[1][1](5)):
+            got = []
+            for f in (A, B, C):
+                my = WireMysql(f.my_port)
+                pg = WirePg(f.pg_port)
+                try:
+                    got.append((my.query(sql), pg.query(sql)))
+                finally:
+                    my.close()
+                    pg.close()
+            check(got[0] == got[2] and got[1] == got[2],
+                  f"fabric: MySQL / Postgres rows for {sql} differ")
+            wire.append(got[2][0][2])
+        out["bodies"] = {"statements": len(bodies), "by_frontend": cmp}
+        log(f"fabric: bodies over {len(bodies)} statements against C's "
+            "(A, B fabric on; C's own repeats; D fabric off, the control): "
+            + json.dumps(cmp) + f"; MySQL and Postgres rows equal for "
+            f"{len(wire)} statements")
+        # 3. a large result through the arena, the bridged count exact
+        steps = -(-FABRIC_BIG_ROWS // HOSTS)
+        big = (f"SELECT hostname, ts, usage_user FROM cpu WHERE ts < "
+               f"{T0_MS + steps * STEP_S * 1000} ORDER BY hostname, ts")
+        before = A.metrics()
+        ms_a, body_a = A.sql(big)
+        after = A.metrics()
+        ms_c, body_c = C.sql(big)
+        rows = len(json.loads(body_c + b"}")["output"][0]["records"]["rows"])
+        res_before = fabric_events(before).get("result", {})
+        res_after = fabric_events(after).get("result", {})
+        enc = metric(after, "greptimedb_tpu_encode_seconds_count",
+                     protocol="process")
+        offloads = metric(after, "greptimedb_tpu_encode_pool_events_total",
+                          event="offload_process")
+        arena = {"rows": rows, "bytes": len(body_a), "ms_A_arena": ms_a,
+                 "ms_C_thread": ms_c,
+                 "publish": res_after.get("publish", 0)
+                 - res_before.get("publish", 0),
+                 "claim": res_after.get("hit", 0) - res_before.get("hit", 0),
+                 "process_encodes_bridged": enc,
+                 "process_offloads": offloads,
+                 "arena_bytes": metric(after,
+                                       "greptimedb_tpu_shm_fabric_bytes",
+                                       segment="arena", dim="size")}
+        log("fabric: arena " + json.dumps(arena))
+        check(rows >= FABRIC_BIG_ROWS and body_a == body_c,
+              f"fabric: the {rows}-row result differs from the thread "
+              "encode")
+        check(arena["publish"] == 1 and arena["claim"] == 1,
+              f"fabric: the large result did not ride the arena {arena}")
+        check(enc == offloads and enc > 0,
+              f"fabric: bridged process encodes {enc} != offloads "
+              f"{offloads}: " + json.dumps(
+                  [x for x in after if "encode" in x[0]]))
+        out["arena"] = arena
+        # 4. a peer's DDL reaches the other frontend
+        hour = T0_MS + 3600 * 1000
+
+        def shape2(h, lo):
+            return (f"SELECT max(usage_idle), min(usage_nice) FROM cpu WHERE "
+                    f"hostname = 'host_{h}' AND ts >= {lo} AND "
+                    f"ts < {hour}")
+
+        pub0 = fabric_events(A.metrics()).get("template", {})
+        for _ in range(2):
+            A.sql(shape2(1, T0_MS))
+        pub1 = fabric_events(A.metrics()).get("template", {})
+        check(pub1.get("publish", 0) == pub0.get("publish", 0) + 1,
+              f"fabric: A did not publish the DDL probe's template "
+              f"({pub0} -> {pub1})")
+        A.sql("ALTER TABLE cpu ADD COLUMN extra DOUBLE")
+        ev0 = fabric_events(B.metrics())
+        lo_b = T0_MS + 600 * 1000
+        _, body = B.sql(shape2(7, lo_b))
+        ev1 = fabric_events(B.metrics())
+        row = json.loads(body + b"}")["output"][0]["records"]["rows"][0]
+        p0 = (lo_b - T0_MS) // (STEP_S * 1000)
+        want = (grid["usage_idle"][p0:, 7].max(),
+                grid["usage_nice"][p0:, 7].min())
+        check(all(g in (w, float(f32_exact(np.float64(w))))
+                  for g, w in zip(row, want)),
+              f"fabric: B's rows after A's DDL {row} != numpy {want}")
+
+        def delta(kind, event):
+            return ev1.get(kind, {}).get(event, 0) \
+                - ev0.get(kind, {}).get(event, 0)
+
+        ddl = {"template_miss": delta("template", "miss"),
+               "template_hit": delta("template", "hit"),
+               "plan_miss": delta("plan", "miss"),
+               "plan_hit": delta("plan", "hit"),
+               "A_invalidates": fabric_events(A.metrics()).get(
+                   "fabric", {}).get("invalidate", 0)}
+        log("fabric: after A's ALTER, B's first sighting " + json.dumps(ddl))
+        check(ddl["template_miss"] == 1 and ddl["template_hit"] == 0
+              and ddl["plan_hit"] == 0 and ddl["A_invalidates"] >= 1,
+              f"fabric: A's DDL did not reach B {ddl}")
+        out["ddl"] = ddl
+        # 5. K1 and K2 in both fabric frontends, then B dies serving
+        samples_b = B.metrics()
+        launches = {"A": kernel_launches(A.metrics()),
+                    "B": kernel_launches(samples_b)}
+        bad = {"B": fabric_events(samples_b)}
+        kids_b = descendants(B.proc.pid)
+        log("fabric: B's processes before the kill: "
+            + "; ".join(proc_line(p) for p in sorted(kids_b)))
+        stop = threading.Event()
+        served = {"ok": 0, "failed": 0}
+
+        def hammer():
+            gen = b_tenants[0][1]
+            i = 0
+            while not stop.is_set():
+                try:
+                    B.sql(gen(i))
+                    served["ok"] += 1
+                except Exception:  # noqa: BLE001 — B is being killed
+                    served["failed"] += 1
+                    return
+                i += 1
+
+        th = threading.Thread(target=hammer)
+        th.start()
+        time.sleep(0.5)
+        B.proc.send_signal(signal.SIGKILL)
+        B.proc.wait(timeout=60)
+        stop.set()
+        th.join(timeout=60)
+        check(not th.is_alive(), "fabric: the client of B did not stop")
+        after_kill = []
+        for i in range(5):
+            sql = tenants[0][1](100 + i)
+            after_kill.append(A.sql(sql)[1] == C.sql(sql)[1])
+        check(all(after_kill), "fabric: A's bodies after B's SIGKILL differ")
+        # B's encode workers exit on their own once their parent is gone
+        # (a 5 s watchdog): they hold attach flocks, so wait for them
+        deadline = time.perf_counter() + 30
+        while any(alive(p) for p in kids_b) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.5)
+        check(not any(alive(p) for p in kids_b),
+              "fabric: B's children outlived it: "
+              + "; ".join(proc_line(p) for p in sorted(kids_b)))
+        samples_a = A.metrics()
+        bad["A"] = fabric_events(samples_a)
+        for who, ev in bad.items():
+            n = sum(e.get(k, 0) for e in ev.values()
+                    for k in ("detach", "corrupt"))
+            check(n == 0, f"fabric: {who} counted detach or corrupt {ev}")
+        kids = set()
+        for f in (A, C, D):
+            kids |= descendants(f.proc.pid) | {f.proc.pid}
+        out["stop_rc"] = {"A": A.stop(), "C": C.stop(), "D": D.stop()}
+        left = [n for n in segments if os.path.exists("/dev/shm/" + n)]
+        check(left == [], f"fabric: segments left in /dev/shm: {left}")
+        # a stopped frontend's helpers (its resource tracker) see its
+        # pipe close and exit just after it
+        deadline = time.perf_counter() + 20
+        while any(alive(p) for p in kids) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.2)
+        check(not any(alive(p) for p in kids | kids_b),
+              "fabric: a frontend's process outlived it: " + "; ".join(
+                  proc_line(p) for p in sorted(kids | kids_b) if alive(p)))
+        if DEVICE is None:
+            for who, k in launches.items():
+                check(k["segment_sum"] > 0 and k["fused_segment_agg"] > 0,
+                      f"fabric: frontend {who} launched {k}")
+        out["launches"] = launches
+        out["sigkill"] = {"B_served_before_kill": served["ok"],
+                          "A_bodies_after_kill": len(after_kill),
+                          "B_children_reaped": len(kids_b)}
+        log("fabric: K1/K2 launches by frontend " + json.dumps(launches)
+            + "; SIGKILL " + json.dumps(out["sigkill"]))
+    except CheckFailed:
+        for f in fronts.values():
+            log(f"fabric frontend {f.name} stderr: {f.stderr_tail()}")
+        raise
+    finally:
+        for f in fronts.values():
+            f.close()
+        for n in segments:
+            if os.path.exists("/dev/shm/" + n):
+                os.unlink("/dev/shm/" + n)
+        shutil.rmtree(work, ignore_errors=True)
+    out["k1_launches"] = sum(k["segment_sum"]
+                             for k in out["launches"].values())
+    out["k2_launches"] = sum(k["fused_segment_agg"]
+                             for k in out["launches"].values())
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serving fabric (cpu_1h, 2 frontends): {out['phase_s']:.1f} s")
     return out
 
 
@@ -7044,6 +7640,8 @@ def main() -> int:
     served["serving qps_mixed_tenants (cpu_1h, observability on/off "
            "rounds)"] = serving["plane_ab"]
     served["wire mysql + postgres (cpu)"] = main["wire"]
+    served["fabric: frontends A and B (cpu_1h, their own processes)"] = \
+        serving["fabric"]
     for key, r in served.items():
         by_path[key] = {"segment_sum": r["k1_launches"],
                         "fused_segment_agg": r["k2_launches"]}

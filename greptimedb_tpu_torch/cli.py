@@ -56,6 +56,7 @@ def build_standalone(data_home: str, device=None, opts=None):
         optmod.apply_query_env(opts)
         optmod.apply_observability(opts)
         optmod.apply_concurrency(opts)
+        optmod.apply_shm(opts)
         cfg = optmod.engine_config(opts, os.path.join(data_home, "data"))
         tz = opts.default_timezone
     else:

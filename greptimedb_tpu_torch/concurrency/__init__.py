@@ -178,6 +178,16 @@ class ConcurrencyPlane:
             process_mode=cfg.encode_process_mode,
             process_min_rows=cfg.encode_process_min_rows)
         self._tls = threading.local()
+        # the serving fabric (shm/): attach once per process and register
+        # the scrape-time collectors (fabric gauges, worker-metrics fold);
+        # no-ops when GTPU_SHM_FABRIC is off
+        from greptimedb_tpu_torch import shm
+
+        if cfg.enabled and shm.get_fabric() is not None:
+            from greptimedb_tpu_torch.shm import metrics_bridge
+
+            metrics_bridge.install_collector()
+            shm.install_stats_collector()
 
     # ---- batching gate -----------------------------------------------------
 
@@ -224,7 +234,26 @@ class ConcurrencyPlane:
     # ---- invalidation ------------------------------------------------------
 
     def invalidate_table(self, db=None, name=None) -> int:
-        # one seam for both caches: DDL hooks invalidate plan shapes and
-        # text templates together
+        # one seam for every layer: DDL hooks invalidate plan shapes,
+        # text templates AND (fabric on) every peer process's published
+        # artifacts for the table
+        self._fabric_invalidate(db, name)
         self.fast_lane.invalidate_table(db, name)
         return self.plan_cache.invalidate_table(db, name)
+
+    @staticmethod
+    def _fabric_invalidate(db, name) -> None:
+        """Bump the (db, table) fabric version so artifacts peers
+        published under the old one die on their next adopt check; a
+        widened match (a None field) wipes the whole fabric."""
+        from greptimedb_tpu_torch import shm
+        from greptimedb_tpu_torch.utils.metrics import SHM_FABRIC_EVENTS
+
+        def invalidate(fabric):
+            if db is None or name is None:
+                fabric.wipe()
+            else:
+                fabric.bump_version(db, name)
+            SHM_FABRIC_EVENTS.inc(event="invalidate", kind="fabric")
+
+        shm.fabric_op(invalidate)

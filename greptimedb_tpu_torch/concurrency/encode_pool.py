@@ -1,6 +1,5 @@
 """Bounded result-encode pool: serving I/O off the engine threads (copy
-of greptimedb_tpu/concurrency/encode_pool.py without the shared-memory
-result arena, which comes with the serving fabric, ROADMAP.md A9-shm).
+of greptimedb_tpu/concurrency/encode_pool.py).
 
 The 50-client qps bench is parse/JSON-bound on host threads: every
 connection thread that just finished executing re-enters the GIL to
@@ -56,19 +55,20 @@ def _worker_watchdog(parent: int) -> None:
     import os
     import time
 
-    while True:
+    while os.getppid() == parent:
         time.sleep(5.0)
-        if os.getppid() != parent:
-            # the serving process died without reclaiming us (SIGKILL:
-            # shutdown() never ran, the call-queue read blocks forever):
-            # an orphan worker must not outlive its server
-            os._exit(0)
+    # the serving process died without reclaiming us (SIGKILL: shutdown()
+    # never ran, the call-queue read blocks forever): an orphan worker
+    # must not outlive its server, nor keep the attach flocks that pin
+    # the shm fabric and result arena
+    os._exit(0)
 
 
-def _worker_init() -> None:
-    import os
-
-    t = threading.Thread(target=_worker_watchdog, args=(os.getppid(),),
+def _worker_init(parent: int) -> None:
+    """`parent` is the server's pid, taken when it built the pool: a
+    worker still starting when its server was killed is already an
+    orphan here, and its own getppid() would name the reaper."""
+    t = threading.Thread(target=_worker_watchdog, args=(parent,),
                          daemon=True, name="gtpu-encode-watchdog")
     t.start()
 
@@ -118,6 +118,7 @@ class EncodePool:
             if process:
                 if self._process_executor is None:
                     import multiprocessing
+                    import os
 
                     # spawn, not fork: the serving process has live CUDA
                     # and request threads a fork would copy mid-lock; the
@@ -125,7 +126,8 @@ class EncodePool:
                     self._process_executor = ProcessPoolExecutor(
                         max_workers=self.workers,
                         mp_context=multiprocessing.get_context("spawn"),
-                        initializer=_worker_init)
+                        initializer=_worker_init,
+                        initargs=(os.getpid(),))
                     # a discarded plane (tests, embedded engines) must
                     # not leak idle workers until interpreter exit
                     weakref.finalize(self, self._process_executor.shutdown,
@@ -151,7 +153,8 @@ class EncodePool:
 
     # ---- entry -------------------------------------------------------------
 
-    def run(self, fn, *args, cost_rows: Optional[int] = None):
+    def run(self, fn, *args, cost_rows: Optional[int] = None,
+            shm_result: bool = False):
         """Run `fn(*args)` on a pool worker and wait for the bytes; the
         calling request thread sleeps on the future (GIL released)
         instead of competing for it. Falls back to inline encoding when
@@ -160,13 +163,25 @@ class EncodePool:
         handoff twice: results under `min_rows` encode inline (handoff
         costs more than dashboard-sized serialization), and results at
         or above `process_min_rows` escape to the process pool in auto
-        mode (measured size picks the executor, not a static flag)."""
+        mode (measured size picks the executor, not a static flag).
+
+        With the serving fabric on, process-mode workers hand bytes
+        payloads back through the shared-memory result arena instead of
+        the executor's pickle queue; `shm_result=True` callers (the
+        HTTP writer) may receive a zero-copy `ShmPayload` view over the
+        segment, everyone else gets plain bytes copied out of it."""
         if not self.enabled:
             return fn(*args)
         if cost_rows is not None and cost_rows < self.min_rows:
             ENCODE_POOL_EVENTS.inc(event="small_inline")
             return fn(*args)
         process = self._want_process(cost_rows)
+        shm_results = None
+        if process:
+            from greptimedb_tpu_torch.shm import results as _sr
+
+            if _sr.get_arena() is not None:
+                shm_results = _sr
         with self._lock:
             if self._inflight >= self.queue_size:
                 saturated = True
@@ -181,8 +196,12 @@ class EncodePool:
             try:
                 # a thread worker encodes under the request's trace and
                 # ledger (a process worker cannot carry them)
-                fut = self._pool(process).submit(
-                    fn if process else tracing.propagate(fn), *args)
+                if shm_results is not None:
+                    fut = self._pool(process).submit(
+                        shm_results.shm_encode, fn, *args)
+                else:
+                    fut = self._pool(process).submit(
+                        fn if process else tracing.propagate(fn), *args)
             except RuntimeError:
                 # executor torn down concurrently (submit after
                 # shutdown): the request still gets its bytes. Errors
@@ -192,9 +211,20 @@ class EncodePool:
                 return fn(*args)
             ENCODE_POOL_EVENTS.inc(
                 event="offload_process" if process else "offload")
+            if shm_results is not None:
+                # the worker timed its encode exactly (shm_encode) and
+                # the metrics bridge folds it into /metrics
+                out = deadline.wait_future(fut, "encode offload")
+                out = shm_results.resolve(out, fn, args)
+                if getattr(out, "is_shm_payload", False) \
+                        and not shm_result:
+                    data = bytes(out)
+                    out.release()
+                    return data
+                return out
             if process:
-                # a worker PROCESS observes its metrics into its own
-                # registry (lost to the parent's /metrics): time the
+                # fabric off: a worker PROCESS observes its metrics into
+                # its own registry (lost to the parent's /metrics): time the
                 # round trip here so the encode split stays visible
                 t0 = time.perf_counter()
                 out = deadline.wait_future(fut, "encode offload")

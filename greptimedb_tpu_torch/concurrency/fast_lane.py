@@ -59,25 +59,40 @@ container active (plugin scalar functions resolve), as the JAX lane
 does. The plugin interceptor chain runs ONCE a statement, here, before
 the scan: an interceptor that rewrites the text sends the statement to
 the slow lane (fallback reason "plugin"), and the slow lane is told
-(`_intercepted`) that the chain already ran. Left out, with its later
-item (ROADMAP.md A9-shm): the shared-memory fabric's template adoption
-and publishing.
+(`_intercepted`) that the chain already ran.
+
+With the serving fabric on (`[shm] fabric`), a template another process
+on the box already validated is ADOPTED instead of re-proved: the
+published payload carries only the value-independent structure — which
+text slot binds which parameter position, which slots are pinned, the
+plan shape — never the publisher's literal values. A first sighting
+that finds a peer's payload skips both the second-sighting wait and the
+O(slots) probe parses: it runs the slow lane once (stamping its own
+plan + TableInfo) and assembles the entry from the adopted binder,
+re-checking `_type_eq` per bound slot and shape equality, so a peer
+running subtly different code degrades to the normal probe build.
 """
 
 from __future__ import annotations
 
+import pickle
 import re
 import threading
 import time
 from collections import OrderedDict
 from typing import Optional
 
-from greptimedb_tpu_torch.concurrency.plan_cache import _info_matches, normalize
+from greptimedb_tpu_torch.concurrency.plan_cache import (
+    _info_matches,
+    fabric_key,
+    normalize,
+)
 from greptimedb_tpu_torch.sql import ast
 from greptimedb_tpu_torch.utils import ledger, roofline
 from greptimedb_tpu_torch.utils.metrics import (
     FAST_LANE_EVENTS,
     QUERY_ACHIEVED_GBPS,
+    SHM_FABRIC_EVENTS,
     STAGE_SECONDS,
     STMT_DURATION,
 )
@@ -293,6 +308,20 @@ class FastLane:
             if tmpl is not None:
                 self._templates.move_to_end(key)
         if tmpl is None:
+            adopted = self._fabric_probe(key)
+            if adopted is not None and adopted.get("uncacheable"):
+                # a peer already proved this template context-dependent
+                self._mark_uncacheable(key, publish=False)
+                FAST_LANE_EVENTS.inc(event="fallback",
+                                     reason="uncacheable")
+                return qe._execute_sql_slow(sql, ctx,
+                                            _intercepted=intercepted)
+            if adopted is not None:
+                # a peer proved the template repeats AND published its
+                # verified binder: build NOW (skipping the second-
+                # sighting wait and the probe parses)
+                return self._miss(qe, sql, ctx, key, values, spans,
+                                  "miss", intercepted, adopted=adopted)
             # first sighting: just mark the template. Probing costs
             # O(slots) parses, which a never-repeated ad-hoc statement
             # must not pay — the SECOND sighting proves the template
@@ -328,7 +357,8 @@ class FastLane:
     # ---- miss / build ------------------------------------------------------
 
     def _miss(self, qe, sql, ctx, key, values, spans, event: str,
-              intercepted: bool = False) -> list:
+              intercepted: bool = False,
+              adopted: Optional[dict] = None) -> list:
         FAST_LANE_EVENTS.inc(event=event)
         if qe.concurrency.admission.depth() != 0:
             # nested statement: serve it, but only top-level statements
@@ -349,12 +379,14 @@ class FastLane:
         try:
             # the statement already ran above: _build only re-parses
             # probes, so a build bug must never fail serving
-            self._build(qe, sql, key, values, spans, ticket)
+            self._build(qe, sql, key, values, spans, ticket,
+                        adopted=adopted)
         except Exception:  # noqa: BLE001 — a build bug must never fail serving
             self._mark_uncacheable(key)
         return results
 
-    def _build(self, qe, sql, key, values, spans, ticket) -> None:
+    def _build(self, qe, sql, key, values, spans, ticket,
+               adopted: Optional[dict] = None) -> None:
         """Probe-verify a literal->parameter binder and store the entry
         (see module docstring). Any doubt marks the template
         uncacheable — the slow lane stays authoritative."""
@@ -374,8 +406,11 @@ class FastLane:
         if len(plan_entry.slots) != len(params0):
             self._mark_uncacheable(key)
             return
-        binder, pinned = self._probe_binder(sql, spans, values, shape0,
-                                            params0)
+        binder, pinned = self._adopt_binder(adopted, shape0, params0,
+                                            values)
+        if binder is None:
+            binder, pinned = self._probe_binder(sql, spans, values, shape0,
+                                                params0)
         from greptimedb_tpu_torch.query.expr import has_aggregate
 
         entry = _Entry(
@@ -386,6 +421,7 @@ class FastLane:
                                  or any(has_aggregate(it.expr)
                                         for it in sel.items)),
             shape=shape0)
+        churned = False
         with self._lock:
             tmpl = self._templates.get(key)
             if tmpl is None:
@@ -402,15 +438,59 @@ class FastLane:
                 # probe rebuild costs more than the lane saves
                 tmpl.uncacheable = True
                 tmpl.entries = []
-                return
-            tmpl.entries = [e for e in tmpl.entries
-                            if e.pinned != entry.pinned]
-            tmpl.entries.append(entry)
-            if len(tmpl.entries) > _MAX_VARIANTS:
-                tmpl.entries.pop(0)
-            self._templates.move_to_end(key)
-            while len(self._templates) > self.capacity:
-                self._templates.popitem(last=False)
+                churned = True
+            else:
+                tmpl.entries = [e for e in tmpl.entries
+                                if e.pinned != entry.pinned]
+                tmpl.entries.append(entry)
+                if len(tmpl.entries) > _MAX_VARIANTS:
+                    tmpl.entries.pop(0)
+                self._templates.move_to_end(key)
+                while len(self._templates) > self.capacity:
+                    self._templates.popitem(last=False)
+        if churned:
+            self._fabric_publish(key, None)
+            return
+        if adopted is None:
+            # locally proven binders are shared; adopted ones are
+            # already published (by their prover)
+            self._fabric_publish(key, entry)
+
+    def _adopt_binder(self, adopted: Optional[dict], shape0, params0,
+                      values):
+        """Assemble (binder, pinned) from a peer's published structure
+        — re-deriving every VALUE from this process's own parse, so the
+        payload only steers which slot feeds which position. Returns
+        (None, None) on any doubt; the caller probe-builds as usual."""
+        if adopted is None:
+            return None, None
+        try:
+            if adopted.get("shape") != shape0:
+                return None, None
+            bound_pairs = adopted["bound"]
+            pinned_idx = adopted["pinned"]
+            if len(bound_pairs) + len(pinned_idx) != len(values):
+                return None, None
+            binder: list = [("c", p) for p in params0]
+            seen_slots: set = set()
+            for pos, slot in bound_pairs:
+                if not (0 <= pos < len(params0)) \
+                        or not (0 <= slot < len(values)) \
+                        or slot in seen_slots \
+                        or not _type_eq(params0[pos], values[slot]):
+                    return None, None
+                binder[pos] = ("s", slot)
+                seen_slots.add(slot)
+            pinned: list = []
+            for i in pinned_idx:
+                if not (0 <= i < len(values)) or i in seen_slots:
+                    return None, None
+                seen_slots.add(i)
+                pinned.append((i, type(values[i]).__name__, values[i]))
+            SHM_FABRIC_EVENTS.inc(event="hit", kind="template")
+            return binder, pinned
+        except (KeyError, TypeError, ValueError):
+            return None, None
 
     def _probe_binder(self, sql, spans, values, shape0, params0):
         """Prove each text slot bindable by splicing a magic literal and
@@ -446,7 +526,7 @@ class FastLane:
                 pinned.append((i, type(val).__name__, val))
         return binder, pinned
 
-    def _mark_uncacheable(self, key) -> None:
+    def _mark_uncacheable(self, key, publish: bool = True) -> None:
         with self._lock:
             tmpl = self._templates.get(key)
             if tmpl is None:
@@ -456,6 +536,64 @@ class FastLane:
                     self._templates.popitem(last=False)
             tmpl.uncacheable = True
             tmpl.entries = []
+        if publish:
+            self._fabric_publish(key, None)
+
+    # ---- fabric tier -------------------------------------------------------
+
+    def _fabric_probe(self, key: tuple) -> Optional[dict]:
+        """First sighting of a template: fetch a peer's published
+        structure (or its uncacheable verdict). None = nothing shared
+        (or no fabric) — the normal second-sighting rule applies."""
+        from greptimedb_tpu_torch import shm
+
+        def probe(fabric):
+            payload = shm.loads(
+                fabric.get(shm.TEMPLATE_KIND, fabric_key(key)) or b"")
+            if not isinstance(payload, dict):
+                return None
+            if payload.get("uncacheable"):
+                return payload
+            try:
+                db, table = payload["db"], payload["table"]
+            except KeyError:
+                return None
+            # a peer DDL since the publish: the binder structure may
+            # describe a dead shape
+            return payload if payload.get("ver") == fabric.version(
+                db, table) else None
+
+        if shm.get_fabric() is None:
+            return None
+        payload = shm.fabric_op(probe)
+        if payload is None:  # a hit counts once the adoption proves out
+            SHM_FABRIC_EVENTS.inc(event="miss", kind="template")
+        return payload
+
+    def _fabric_publish(self, key: tuple, entry: Optional[_Entry]) -> None:
+        """Share a locally proven binder — structure only, no literal
+        values (adopters re-derive those from their own parse) — or,
+        with no entry, the verdict that the template is uncacheable."""
+        from greptimedb_tpu_torch import shm
+
+        def publish(fabric):
+            if entry is None:
+                payload = {"uncacheable": True}
+            else:
+                payload = {
+                    "db": entry.db,
+                    "table": entry.table,
+                    "shape": entry.shape,
+                    "bound": [(pos, x) for pos, (tag, x)
+                              in enumerate(entry.binder) if tag == "s"],
+                    "pinned": [i for (i, _t, _v) in entry.pinned],
+                    "ver": fabric.version(entry.db, entry.table),
+                }
+            blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
+            if fabric.put(shm.TEMPLATE_KIND, fabric_key(key), blob):
+                SHM_FABRIC_EVENTS.inc(event="publish", kind="template")
+
+        shm.fabric_op(publish)
 
     # ---- hit ---------------------------------------------------------------
 

@@ -26,16 +26,26 @@ shape's probe proved no rollup can serve it): the memo is stamped with
 toggle, and dies the moment any rollup state changes (a new roll, a
 drop), so a shape that becomes eligible is re-probed.
 
-Left out, with its later item (ROADMAP.md): the shared-memory fabric
-tier (peer processes adopting published entries, ROADMAP A9-shm).
+With the serving fabric on (`[shm] fabric`), the cache grows a third
+tier: a local miss probes the shared-memory fabric for a peer process's
+published entry before re-planning, and every local build publishes its
+entry for peers. Adoption runs the SAME safety nets an in-process hit
+runs (`_info_matches` + `_bind`), plus a fabric-version check: a peer
+DDL bumps the (db, table) version through the fabric, killing every
+artifact published under the old one. The rollup-substitution memo is
+NEVER adopted — it indexes this process's rollup state. An entry is
+host state only (the logical plan, its WHERE template and the TableInfo
+snapshot: no tensor, device or lock), so it pickles for a peer.
 
 Every event lands in gtpu_plan_cache_events_total{event=hit|miss|evict|
-invalidate}.
+invalidate}; fabric traffic in gtpu_shm_fabric_events_total{kind=plan}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import pickle
 import threading
 from collections import OrderedDict
 from typing import Optional
@@ -43,7 +53,10 @@ from typing import Optional
 from greptimedb_tpu_torch.query import logical as lp
 from greptimedb_tpu_torch.sql import ast
 from greptimedb_tpu_torch.utils import ledger
-from greptimedb_tpu_torch.utils.metrics import PLAN_CACHE_EVENTS
+from greptimedb_tpu_torch.utils.metrics import (
+    PLAN_CACHE_EVENTS,
+    SHM_FABRIC_EVENTS,
+)
 
 
 def _map_where_literals(e, fn):
@@ -140,6 +153,18 @@ class _Entry:
                                  else stamp)
 
 
+def fabric_key(key: tuple) -> bytes:
+    """A cache key of strings -> the fixed digest the fabric stores it
+    under (shape reprs routinely exceed the fabric's key cap); the plan
+    cache's (db, table, shape) and the fast lane's (db, template)."""
+    h = hashlib.blake2b(digest_size=16)
+    for part in key:
+        b = part.encode()
+        h.update(len(b).to_bytes(4, "little"))
+        h.update(b)
+    return h.digest()
+
+
 def substitution_stamp() -> tuple:
     """The (rollup state version, enable toggle) pair a negative
     substitution probe is memoized against."""
@@ -178,6 +203,10 @@ class PlanCache:
             ent = self._entries.get(key)
             if ent is not None:
                 self._entries.move_to_end(key)
+        adopted = False
+        if ent is None:
+            ent = self._fabric_probe(key, info)
+            adopted = ent is not None
         if ent is None:
             PLAN_CACHE_EVENTS.inc(event="miss")
             ledger.cache_event("plan", "miss")
@@ -196,9 +225,64 @@ class PlanCache:
             PLAN_CACHE_EVENTS.inc(event="miss")
             ledger.cache_event("plan", "miss")
             return None, None, (key, params)
+        if adopted:
+            # insert only after the bind proved the adopted entry sound
+            with self._lock:
+                self._entries[key] = ent
+                self._entries.move_to_end(key)
+                while len(self._entries) > self.capacity:
+                    self._entries.popitem(last=False)
         PLAN_CACHE_EVENTS.inc(event="hit")
         ledger.cache_event("plan", "hit")
         return plan, ent, (key, params)
+
+    # ---- fabric tier -------------------------------------------------------
+
+    def _fabric_probe(self, key: tuple, info) -> Optional[_Entry]:
+        """After a local miss: adopt a peer process's published entry.
+        Returns None on any doubt (absent fabric, stale version, info
+        drift, a blob that is not the port's) — the caller re-plans."""
+        from greptimedb_tpu_torch import shm
+
+        def probe(fabric):
+            blob = fabric.get(shm.PLAN_KIND, fabric_key(key))
+            return blob, (None if blob is None
+                          else fabric.version(key[0], key[1]))
+
+        got = shm.fabric_op(probe)
+        if got is None:  # no fabric (off, or detached just now)
+            return None
+        blob, cur = got
+        pair = None if blob is None else shm.loads(blob)
+        ent = pair[1] if isinstance(pair, tuple) and len(pair) == 2 \
+            else None
+        if not isinstance(ent, _Entry) or pair[0] != cur \
+                or not _info_matches(ent.info, info):
+            SHM_FABRIC_EVENTS.inc(event="miss", kind="plan")
+            return None
+        # the substitution memo indexes the PUBLISHER's rollup state;
+        # this process re-probes from scratch
+        ent.sub_skip_version = None
+        SHM_FABRIC_EVENTS.inc(event="hit", kind="plan")
+        return ent
+
+    def _fabric_publish(self, key: tuple, ent: _Entry) -> None:
+        """After a local build: share the validated entry. The version
+        is read BEFORE the put — a concurrent DDL bumping it makes the
+        published artifact fail its adopt check (fail closed)."""
+        from greptimedb_tpu_torch import shm
+
+        def publish(fabric):
+            ver = fabric.version(key[0], key[1])
+            try:
+                blob = pickle.dumps((ver, ent),
+                                    protocol=pickle.HIGHEST_PROTOCOL)
+            except Exception:  # noqa: BLE001 — unpicklable: not shared
+                return
+            if fabric.put(shm.PLAN_KIND, fabric_key(key), blob):
+                SHM_FABRIC_EVENTS.inc(event="publish", kind="plan")
+
+        shm.fabric_op(publish)
 
     def _bind(self, ent: _Entry, params: tuple) -> lp.LogicalPlan:
         """Re-bind the template to this query's parameter values and
@@ -269,6 +353,7 @@ class PlanCache:
                 evicted += 1
         if evicted:
             PLAN_CACHE_EVENTS.inc(float(evicted), event="evict")
+        self._fabric_publish(key, ent)
         return ent
 
     # ---- invalidation ------------------------------------------------------

@@ -8,17 +8,29 @@ validity mask where a column holds NULLs, and each column's inferred
 type under pyarrow's names, so the file engine infers the schema the
 JAX engine infers for the same file:
 
-- CSV (pyarrow.csv's defaults): the header names the columns; pyarrow's
+- CSV (pyarrow.csv's defaults): the header names the columns, empty
+  lines are skipped; pyarrow's
   NULL spellings ("", "NULL", "NaN", "N/A", ...) are NULL outside
   string columns; a column is the first of int64, bool, date32,
-  timestamp[s] (ISO 8601 without fractions, "T" or " ", an optional "Z"
-  or UTC offset), timestamp[ns] (with fractions), double, string that
-  holds every value; all-NULL is `null`.
+  timestamp[s], timestamp[ns], double, string that holds every value,
+  with pyarrow's value grammars: int64 is `-?digits` within int64 or
+  `0x` and 1-16 hex digits (no sign, wrapped as uint64); double is
+  `[+-]digits[.digits][e[+-]digits]` or inf / infinity / nan in any
+  case; both, and date32, allow spaces and tabs around the value. A
+  date is `YYYY-MM-DD` of a real calendar day; a timestamp is a date,
+  optionally `T` or " " and `HH[:MM[:SS]]` (23:59:59 at most), a
+  fraction of 1-9 digits for timestamp[ns] only, then optionally "Z"
+  or `+-HH[[:]MM]`; zoned and naive values do not share a column. An
+  int past int64 makes the column double; a date or time that is no
+  real one makes it string. All-NULL is `null`.
 - ndjson (pyarrow.json's): keys in order of first appearance; JSON
-  ints are int64, with floats double; bools bool; strings are
-  timestamp[s] when every one is an ISO date or date-time (no
-  fraction, an optional "Z"), else string; null everywhere is `null`;
-  a key whose values mix kinds is refused, as pyarrow refuses it.
+  ints are int64, double once one is past int64 or a float is among
+  them; bools bool; strings are timestamp[s] when every one is a date
+  or date-time of the CSV grammar without a fraction (zoned values
+  convert to UTC), else string; null everywhere is `null`. Objects and
+  arrays (pyarrow's struct and list) have no port type and raise
+  `NestedJsonColumn`; a key whose values mix kinds is refused, as
+  pyarrow refuses it.
 
 `.gz` files are gunzipped first. Parquet and ORC, COPY and `write_file`
 raise UnsupportedStatement naming the slice that brings them (ROADMAP
@@ -51,15 +63,20 @@ _CSV_NULLS = frozenset((
     "1.#IND", "1.#QNAN", "N/A", "NA", "NULL", "NaN", "n/a", "nan", "null"))
 _CSV_TRUE = frozenset(("1", "True", "TRUE", "true"))
 _CSV_FALSE = frozenset(("0", "False", "FALSE", "false"))
-_INT = re.compile(r"[+-]?\d+\Z")
-_DATE = re.compile(r"\d{4}-\d{2}-\d{2}\Z")
-_TS_S = re.compile(
-    r"\d{4}-\d{2}-\d{2}([T ]\d{2}:\d{2}(:\d{2})?(Z|[+-]\d{2}:?\d{2})?)?\Z")
-_TS_NS = re.compile(
-    r"\d{4}-\d{2}-\d{2}[T ]\d{2}:\d{2}:\d{2}\.\d{1,9}"
-    r"(Z|[+-]\d{2}:?\d{2})?\Z")
-_JSON_TS = re.compile(
-    r"\d{4}-\d{2}-\d{2}([T ]\d{2}:\d{2}(:\d{2})?Z?)?\Z")
+_BLANK = " \t"
+_INT = re.compile(r"[ \t]*(-?[0-9]+|0[xX][0-9a-fA-F]{1,16})[ \t]*\Z")
+_DOUBLE = re.compile(
+    r"[ \t]*[+-]?(([0-9]+\.?[0-9]*|\.[0-9]+)([eE][+-]?[0-9]+)?"
+    r"|(?i:inf|infinity|nan))[ \t]*\Z")
+_DATE = re.compile(r"[ \t]*[0-9]{4}-(0[1-9]|1[0-2])-[0-9]{2}[ \t]*\Z")
+#: date, then [T ]HH[:MM[:SS[.fraction]]], then Z or +-HH[[:]MM] (a
+#: zone only after a time)
+_TS = re.compile(
+    r"(?P<naive>[0-9]{4}-(?:0[1-9]|1[0-2])-[0-9]{2}"
+    r"(?:[T ](?P<time>(?:[01][0-9]|2[0-3])(?::[0-5][0-9](?::[0-5][0-9]"
+    r"(?P<frac>\.[0-9]{1,9})?)?)?))?)"
+    r"(?(time)(?P<zone>Z|[+-](?:[01][0-9]|2[0-3])(?::?[0-5][0-9])?)?)\Z")
+_INT64_MIN, _INT64_MAX = -(1 << 63), (1 << 63) - 1
 
 #: inferred type -> the DataType the JAX engine's DataType.from_arrow gives
 TYPE_OF = {
@@ -78,6 +95,11 @@ _TIME_NS = {"timestamp[s]": 10**9, "timestamp[ns]": 1,
 
 class DataSourceError(Exception):
     pass
+
+
+class NestedJsonColumn(DataSourceError):
+    """An ndjson key whose values are objects or arrays (pyarrow's struct
+    and list types): the port's tables have no nested column type."""
 
 
 def _unsupported(what: str):
@@ -191,8 +213,11 @@ def _read_csv(text: str) -> TextTable:
     quoted = '"' in text
     names = next(csv.reader(lines[:1])) if quoted else lines[0].split(",")
     body = lines[1:]
+    if "" in body:
+        # pyarrow skips empty lines (ignore_empty_lines)
+        body = [ln for ln in body if ln]
     if not quoted and len(body) > _CSV_SAMPLE_ROWS:
-        fast = _read_csv_fast(names, body)
+        fast = _read_csv_fast(names, body, "+" in text)
         if fast is not None:
             return fast
     rows = list(csv.reader(body)) if quoted else \
@@ -209,13 +234,16 @@ def _read_csv(text: str) -> TextTable:
     return TextTable(list(names), cols, len(body))
 
 
-def _read_csv_fast(names: list, body: list) -> Optional[TextTable]:
+def _read_csv_fast(names: list, body: list,
+                   has_plus: bool) -> Optional[TextTable]:
     """Columns a sample infers as int64 or double, with no NULL in it,
     parse in C (numpy.loadtxt) in one pass; the others as strings, then
     through `_csv_column`. None when the full parse disagrees with the
     sample (a NULL, a non-number, an int past its type, a NaN), and the
     caller takes the general path: the result is always the general
-    path's."""
+    path's. loadtxt reads "+5" as an int where pyarrow reads a double,
+    so a file with a "+" anywhere (`has_plus`) and an int64 column takes
+    the general path too."""
     import warnings
 
     sample = [ln.split(",") for ln in body[:_CSV_SAMPLE_ROWS]]
@@ -225,6 +253,8 @@ def _read_csv_fast(names: list, body: list) -> Optional[TextTable]:
              for c in zip(*sample)]
     numeric = [k for k, c in enumerate(kinds)
                if c.type in ("int64", "double") and c.valid is None]
+    if has_plus and any(kinds[k].type == "int64" for k in numeric):
+        return None
     others = [k for k in range(len(names)) if k not in numeric]
     cols: dict = {}
     try:
@@ -271,57 +301,93 @@ def _csv_column(raw: np.ndarray) -> TextColumn:
         return out
 
     mask = None if valid.all() else valid
-    m = len(vals)
     if _matches(_INT, vals):
-        return TextColumn(widen(np.fromiter(map(int, vals), np.int64, m),
-                                0), mask, "int64")
+        ints = _csv_ints(vals)
+        if ints is not None:
+            return TextColumn(widen(ints, 0), mask, "int64")
     bools = _CSV_TRUE | _CSV_FALSE
     if vals[0] in bools and bool(np.frompyfunc(bools.__contains__, 1, 1)(
             vals).astype(bool).all()):
         truth = np.frompyfunc(_CSV_TRUE.__contains__, 1, 1)(vals)
         return TextColumn(widen(truth.astype(bool), False), mask, "bool")
     if _matches(_DATE, vals):
-        days = vals.astype(str).astype("datetime64[D]").astype(np.int64)
-        return TextColumn(widen(days, 0), mask, "date32")
-    for kind, rx in (("timestamp[s]", _TS_S), ("timestamp[ns]", _TS_NS)):
-        if _matches(rx, vals):
-            # zoned and naive values do not share a type: a string column
-            zoned = np.frompyfunc(_zoned, 1, 1)(vals).astype(bool)
-            if zoned.all() or not zoned.any():
-                return TextColumn(widen(_parse_iso(vals, kind), 0), mask,
-                                  kind)
-            break
+        days = _to_datetime64(
+            np.char.strip(vals.astype(str), _BLANK), "D")
+        if days is not None:
+            return TextColumn(widen(days, 0), mask, "date32")
+    for kind in ("timestamp[s]", "timestamp[ns]"):
+        units = _timestamps(vals, kind, zones_mix=False)
+        if units is not None:
+            return TextColumn(widen(units, 0), mask, kind)
+    if _matches(_DOUBLE, vals):
+        floats = np.fromiter(map(float, vals), np.float64, len(vals))
+        return TextColumn(widen(floats, np.nan), mask, "double")
+    # a string column keeps every value: pyarrow's strings_can_be_null
+    # is off, so its NULL spellings stay strings
+    return TextColumn(raw, None, "string")
+
+
+def _csv_int(v: str) -> int:
+    v = v.strip(_BLANK)
+    if v[1:2] in ("x", "X"):
+        u = int(v[2:], 16)
+        return u - (1 << 64) if u > _INT64_MAX else u
+    return int(v)
+
+
+def _csv_ints(vals: np.ndarray) -> Optional[np.ndarray]:
+    """int64 values of strings that match `_INT`, or None when a decimal
+    one is past int64 (pyarrow then reads the column as double)."""
+    ints = list(map(_csv_int, vals))
+    if min(ints) < _INT64_MIN or max(ints) > _INT64_MAX:
+        return None
+    return np.fromiter(ints, np.int64, len(ints))
+
+
+def _to_datetime64(strs: np.ndarray, unit: str) -> Optional[np.ndarray]:
+    """int64 units of ISO strings whose fields are in range, or None when
+    one is no real calendar day (numpy refuses 2024-02-30)."""
     try:
-        floats = np.fromiter(map(float, vals), np.float64, m)
-    except ValueError:
-        # a string column keeps every value: pyarrow's strings_can_be_null
-        # is off, so its NULL spellings stay strings
-        return TextColumn(raw, None, "string")
-    return TextColumn(widen(floats, np.nan), mask, "double")
-
-
-def _zoned(v: str) -> bool:
-    return v.endswith("Z") or "+" in v[10:] or "-" in v[10:]
-
-
-def _parse_iso(vals: np.ndarray, kind: str) -> np.ndarray:
-    """ISO 8601 strings -> int64 seconds (timestamp[s]) or nanoseconds;
-    naive strings are UTC, an offset converts to UTC."""
-    unit = "s" if kind == "timestamp[s]" else "ns"
-    strs = vals.astype(str)
-    if not any(_zoned(v) for v in strs):
         return strs.astype(f"datetime64[{unit}]").astype(np.int64)
-    out = np.empty(len(strs), dtype=np.int64)
-    scale = 10**9 if unit == "s" else 1
-    for i, v in enumerate(strs):
-        t = dt.datetime.fromisoformat(v.replace("Z", "+00:00"))
-        if t.tzinfo is None:
-            t = t.replace(tzinfo=dt.timezone.utc)
-        d = t - dt.datetime(1970, 1, 1, tzinfo=dt.timezone.utc)
-        ns = (d.days * 86_400 + d.seconds) * 10**9 \
-            + d.microseconds * 1000
-        out[i] = ns // scale
-    return out
+    except ValueError:
+        return None
+
+
+def _timestamps(vals: np.ndarray, kind: str,
+                zones_mix: bool) -> Optional[np.ndarray]:
+    """int64 seconds (timestamp[s]) or nanoseconds of values that all
+    match `_TS` (no fraction for timestamp[s]), naive ones as UTC and
+    zoned ones converted to UTC; None when one does not match, is no
+    real date, or (unless `zones_mix`) zoned and naive values meet."""
+    if not _matches(_TS, vals):
+        return None
+    ms = list(map(_TS.match, vals))
+    if kind == "timestamp[s]" and any(m["frac"] for m in ms):
+        return None
+    zones = [m["zone"] for m in ms]
+    zoned = sum(z is not None for z in zones)
+    if not zones_mix and 0 < zoned < len(zones):
+        return None
+    unit = "s" if kind == "timestamp[s]" else "ns"
+    naive = np.asarray([m["naive"] for m in ms]) if zoned else \
+        vals.astype(str)
+    out = _to_datetime64(naive, unit)
+    if out is None or not zoned:
+        return out
+    per_s = 1 if unit == "s" else 10**9
+    offsets = np.fromiter((_zone_seconds(z) for z in zones), np.int64,
+                          len(zones))
+    return out - offsets * per_s
+
+
+def _zone_seconds(zone: Optional[str]) -> int:
+    """Seconds east of UTC of "Z", "+HH", "+HHMM" or "+HH:MM" (0 for a
+    naive value)."""
+    if zone is None or zone == "Z":
+        return 0
+    digits = zone[1:].replace(":", "")
+    secs = int(digits[:2]) * 3600 + int(digits[2:] or 0) * 60
+    return -secs if zone[0] == "-" else secs
 
 
 # ---- ndjson ------------------------------------------------------------------
@@ -373,20 +439,26 @@ def _json_column(name: str, vals: list) -> TextColumn:
     if kinds == {bool}:
         return TextColumn(widen(np.asarray(present, dtype=bool), False),
                           valid, "bool")
-    if kinds == {int}:
+    if kinds == {int} and _INT64_MIN <= min(present) \
+            and max(present) <= _INT64_MAX:
         return TextColumn(widen(np.asarray(present, dtype=np.int64), 0),
                           valid, "int64")
-    if kinds == {int, float} or kinds == {float}:
+    if kinds <= {int, float}:
+        # an int past int64 makes the column double, as in pyarrow
         return TextColumn(widen(np.asarray(present, dtype=np.float64),
                                 np.nan), valid, "double")
     if kinds == {str}:
         strs = np.asarray(present, dtype=object)
-        if _matches(_JSON_TS, strs):
-            full = np.frompyfunc(
-                lambda v: v if len(v) > 10 else v + "T00:00:00", 1, 1)(strs)
-            return TextColumn(widen(_parse_iso(full, "timestamp[s]"), 0),
-                              valid, "timestamp[s]")
+        secs = _timestamps(strs, "timestamp[s]", zones_mix=True)
+        if secs is not None:
+            return TextColumn(widen(secs, 0), valid, "timestamp[s]")
         return TextColumn(np.asarray(vals, dtype=object), valid, "string")
+    for kind, arrow in ((dict, "struct"), (list, "list")):
+        if kinds == {kind}:
+            raise NestedJsonColumn(
+                f"JSON column {name!r} holds {kind.__name__} values "
+                f"(pyarrow's {arrow} type), which greptimedb_tpu_torch "
+                "has no column type for")
     kind_names = sorted(k.__name__ for k in kinds)
     raise DataSourceError(
         f"JSON parse error: column {name!r} mixes {', '.join(kind_names)}")

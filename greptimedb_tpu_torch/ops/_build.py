@@ -6,6 +6,10 @@ interface, `greptimedb_tpu_torch/_build/libsegment_kernels.so`, and bound
 with ctypes. Each source compiles in its own nvcc process, all started
 together, then one link step joins the objects. A library whose recorded
 source hash matches the sources is reused; anything else is rebuilt.
+Processes that start together on one checkout (several frontends) build
+under an exclusive flock on `_build/build.lock`: the objects have one
+shared path each, so the first process compiles and links, and the
+others wait, find its stamp and load what it built.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, and a machine without nvcc never reaches `library()`.
@@ -74,18 +78,36 @@ def _nvcc() -> str:
     return found
 
 
+def _stamped(digest: str) -> bool:
+    stamp = LIB_PATH + ".sha256"
+    if not (os.path.exists(LIB_PATH) and os.path.exists(stamp)):
+        return False
+    with open(stamp, encoding="utf-8") as f:
+        return f.read().strip() == digest
+
+
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH unless an up-to-date library is
     there; returns its path."""
+    import fcntl
+
     global build_seconds
     digest = _digest()
-    stamp = LIB_PATH + ".sha256"
-    if os.path.exists(LIB_PATH) and os.path.exists(stamp):
-        with open(stamp, encoding="utf-8") as f:
-            if f.read().strip() == digest:
-                build_seconds = 0.0
-                return LIB_PATH
+    build_seconds = 0.0
+    if _stamped(digest):
+        return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        # another process may have built while this one waited
+        if not _stamped(digest):
+            _compile_and_link(digest)
+    return LIB_PATH
+
+
+def _compile_and_link(digest: str) -> None:
+    """Caller holds the build lock."""
+    global build_seconds
     nvcc = _nvcc()
     t0 = time.perf_counter()
     cus = [p for p in _sources() if p.endswith(".cu")]
@@ -108,14 +130,13 @@ def build() -> str:
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout.decode())
     os.replace(tmp, LIB_PATH)
-    with open(stamp, "w", encoding="utf-8") as f:
+    with open(LIB_PATH + ".sha256", "w", encoding="utf-8") as f:
         f.write(digest)
     build_seconds = time.perf_counter() - t0
     # the JAX package's xla_compile_* families count this build
     from greptimedb_tpu_torch.utils import device_telemetry
 
     device_telemetry.note_build(build_seconds)
-    return LIB_PATH
 
 
 def library() -> ctypes.CDLL:

@@ -405,12 +405,12 @@ class TelemetryOptions:
 
 @dataclass
 class ShmOptions:
-    """Cross-process serving fabric (greptimedb_tpu/shm): a shared-
-    memory artifact plane every frontend process on the box attaches to
-    — fast-lane templates, plan-cache entries, one XLA compilation
-    cache namespace, zero-copy result handoff, exact worker metrics.
-    Values ride GTPU_SHM_* env twins so spawned children (encode
-    workers, ProcessCluster datanodes) inherit them."""
+    """Cross-process serving fabric (shm/): a shared-memory artifact
+    plane every frontend process on the box attaches to — fast-lane
+    templates, plan-cache entries, zero-copy result handoff, exact
+    worker metrics (the JAX package's shared XLA cache namespace has no
+    counterpart: the port's kernels are built once per checkout). Values
+    ride GTPU_SHM_* env twins so spawned encode workers inherit them."""
 
     fabric: bool = False
     fabric_bytes: int = 64 << 20
@@ -650,6 +650,29 @@ def apply_concurrency(opts: "StandaloneOptions") -> None:
     ))
 
 
+def apply_shm(opts: "StandaloneOptions") -> None:
+    """Feed [shm] into the GTPU_SHM_* env twins the fabric reads
+    (shm.config_from_env) — env-mediated so spawn-mode encode workers
+    attach the same fabric. Operator-set env always wins (the documented
+    layering)."""
+    s, ds = opts.shm, ShmOptions()
+    m = {
+        "GTPU_SHM_FABRIC": ("1" if s.fabric else "", ""),
+        "GTPU_SHM_FABRIC_BYTES":
+            (str(s.fabric_bytes)
+             if s.fabric_bytes != ds.fabric_bytes else "", ""),
+        "GTPU_SHM_FABRIC_DIR": (s.fabric_dir, ds.fabric_dir),
+    }
+    for k, (v, default) in m.items():
+        if v and v != default and (k not in os.environ
+                                   or k in _APPLIED_ENV_KEYS):
+            os.environ[k] = v
+            _APPLIED_ENV_KEYS.add(k)
+        elif v == default and k in _APPLIED_ENV_KEYS:
+            os.environ.pop(k, None)
+            _APPLIED_ENV_KEYS.discard(k)
+
+
 def apply_observability(opts: "StandaloneOptions") -> None:
     """Feed [slow_query] into the process-global slow-query ring,
     install the trace-id logging filter, and apply the [tracing] plane
@@ -751,7 +774,6 @@ def engine_config(opts: "StandaloneOptions", data_dir: str):
 # ---- what the port runs ----------------------------------------------------
 
 _A9_FLIGHT = "Arrow Flight (ROADMAP A9-flight)"
-_A9_SHM = "shared-memory fabric (ROADMAP A9-shm)"
 _A10 = "mesh and cluster (ROADMAP A10)"
 _A11 = "tier routing (ROADMAP A11)"
 _A12_STORE = "durable storage's remainder (ROADMAP A12: object stores " \
@@ -775,7 +797,6 @@ _UNPORTED = {
     "cluster": (_A10, ()),
     "parallel": (_A10, ()),
     "partition": (_A10, ()),
-    "shm": (_A9_SHM, ()),
 }
 
 #: keys with no counterpart in the port: accepted at any value, and

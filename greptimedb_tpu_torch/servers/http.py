@@ -181,18 +181,31 @@ class _Handler(BaseHTTPRequestHandler):
         return params
 
     def _send(self, code: int, payload, content_type="application/json"):
-        data = payload if isinstance(payload, bytes) \
-            else json.dumps(payload).encode()
-        self.send_response(code)
-        self.send_header("Content-Type", content_type)
-        self.send_header("Content-Length", str(len(data)))
-        # W3C egress: echo the request's trace context so the caller can
-        # join its spans to ours (set per traced request in _route)
-        tp = getattr(self, "_traceparent", None)
-        if tp:
-            self.send_header("traceparent", tp)
-        self.end_headers()
-        self.wfile.write(data)
+        # a ShmPayload (the serving fabric's zero-copy handoff) is written
+        # straight from its shared-memory view, then released; duck-typed
+        # so this module never imports shm
+        shm_payload = None
+        if getattr(payload, "is_shm_payload", False):
+            shm_payload = payload
+            data = payload.view
+        elif isinstance(payload, bytes):
+            data = payload
+        else:
+            data = json.dumps(payload).encode()
+        try:
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(data)))
+            # W3C egress: echo the request's trace context so the caller
+            # can join its spans to ours (set per traced request in _route)
+            tp = getattr(self, "_traceparent", None)
+            if tp:
+                self.send_header("traceparent", tp)
+            self.end_headers()
+            self.wfile.write(data)
+        finally:
+            if shm_payload is not None:
+                shm_payload.release()
         route = urllib.parse.urlparse(self.path).path
         HTTP_REQUESTS.inc(path=route, status=str(code))
 
@@ -558,7 +571,7 @@ class _Handler(BaseHTTPRequestHandler):
         pool = self.query_engine.concurrency.encode
         rows = sum(r.num_rows for r in results if r.is_query)
         data = pool.run(encode_sql_payload, results, elapsed,
-                        cost_rows=rows)
+                        cost_rows=rows, shm_result=True)
         self._send(200, data)
 
     # ---- Prometheus API ----------------------------------------------------

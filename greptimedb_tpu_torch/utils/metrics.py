@@ -16,7 +16,10 @@ partial-aggregate and scan-part caches, scan decode and the OTLP
 exporter (utils/otlp_trace.py). Two families keep a name that says XLA
 or Pallas: `xla_compile_*` counts the nvcc builds of the kernel library
 (ops/_build.py) and `pallas_dispatch_total` the K1/K2 launches.
-The shared-memory metrics bridge of the JAX package is not here.
+The shared-memory fabric's series (`shm_fabric_events_total`,
+`shm_fabric_bytes`) are here too, and counters and histograms fold in
+the cumulative snapshots that encode workers publish through the fabric
+(`set_external`, shm/metrics_bridge.py).
 
 Light on imports (threading, time, collections): the encode pool's
 spawn-mode workers import the encoder, which imports this module.
@@ -36,11 +39,28 @@ class Counter:
         self.help = help_
         self._values: dict[tuple, float] = defaultdict(float)
         self._lock = threading.Lock()
+        # cumulative snapshots published by OTHER processes (encode
+        # workers, through the shm fabric), folded into every read
+        self._external: dict[str, dict] = {}
 
     def inc(self, value: float = 1.0, **labels):
         key = tuple(sorted(labels.items()))
         with self._lock:
             self._values[key] += value
+
+    def set_external(self, source: str, snapshot: dict) -> None:
+        """Install a cumulative series snapshot from another process,
+        keyed by a stable source id (the worker's pid); it replaces that
+        source's previous one, so folding never double-counts."""
+        with self._lock:
+            self._external[source] = dict(snapshot)
+
+    def _fold_external_locked(self, out: dict) -> dict:
+        """Caller holds self._lock."""
+        for snap in self._external.values():
+            for k, v in snap.items():
+                out[k] = out.get(k, 0.0) + v
+        return out
 
     def get(self, **labels) -> float:
         return self._snapshot().get(tuple(sorted(labels.items())), 0.0)
@@ -62,7 +82,7 @@ class Counter:
 
     def _snapshot(self) -> dict:
         with self._lock:
-            return dict(self._values)
+            return self._fold_external_locked(dict(self._values))
 
     def render(self, exemplars: bool = False) -> list[str]:
         # OpenMetrics family naming: the metric FAMILY drops the _total
@@ -126,7 +146,8 @@ class ShardedCounter(Counter):
             # shard another thread may be writing
             for k, v in list(cell.items()):
                 out[k] = out.get(k, 0.0) + v
-        return out
+        with self._lock:
+            return self._fold_external_locked(out)
 
 
 class Gauge(Counter):
@@ -161,6 +182,40 @@ class Histogram:
         self._exemplars_on = exemplars
         self._exemplar: dict[tuple, tuple] = {}
         self._lock = threading.Lock()
+        # cumulative (buckets, sum, count) states published by encode
+        # workers through the shm fabric, folded into every read
+        self._external: dict[str, dict] = {}
+
+    def set_external(self, source: str, state: dict) -> None:
+        """Install another process's cumulative series state (the shape
+        `export_state` returns), replacing that source's previous one."""
+        with self._lock:
+            self._external[source] = state
+
+    def export_state(self) -> dict:
+        """This process's cumulative series, keyed for set_external:
+        {label-key: ([bucket counts], sum, count)}."""
+        with self._lock:
+            return {key: (list(b), self._sum[key], self._count[key])
+                    for key, b in self._buckets.items()}
+
+    def _merged_locked(self):
+        """Local series with every external state folded in; caller
+        holds self._lock."""
+        buckets = {key: list(b) for key, b in self._buckets.items()}
+        sums = dict(self._sum)
+        counts = dict(self._count)
+        for state in self._external.values():
+            for key, (b, total, count) in state.items():
+                if len(b) != len(self.BUCKETS) + 1:
+                    continue  # another bucket grid: not comparable
+                if key in buckets:
+                    buckets[key] = [x + y for x, y in zip(buckets[key], b)]
+                else:
+                    buckets[key] = list(b)
+                sums[key] = sums.get(key, 0.0) + total
+                counts[key] = counts.get(key, 0) + count
+        return buckets, sums, counts
 
     def observe(self, value: float, **labels):
         tid = None
@@ -191,31 +246,33 @@ class Histogram:
 
     def sum(self, **labels) -> float:
         with self._lock:
-            return self._sum.get(tuple(sorted(labels.items())), 0.0)
+            _, sums, _ = self._merged_locked()
+        return sums.get(tuple(sorted(labels.items())), 0.0)
 
     def count(self, **labels) -> int:
         with self._lock:
-            return self._count.get(tuple(sorted(labels.items())), 0)
+            _, _, counts = self._merged_locked()
+        return counts.get(tuple(sorted(labels.items())), 0)
 
     def total_count(self, **labels) -> int:
         want = set(labels.items())
         with self._lock:
-            return sum(c for key, c in self._count.items()
-                       if want <= set(key))
+            _, _, counts = self._merged_locked()
+        return sum(c for key, c in counts.items() if want <= set(key))
 
     def total_sum(self, **labels) -> float:
         want = set(labels.items())
         with self._lock:
-            return sum(s for key, s in self._sum.items()
-                       if want <= set(key))
+            _, sums, _ = self._merged_locked()
+        return sum(s for key, s in sums.items() if want <= set(key))
 
     def render(self, exemplars: bool = False) -> list[str]:
         out = [f"# HELP {self.name} {self.help}",
                f"# TYPE {self.name} histogram"]
         with self._lock:
-            snapshot = sorted((key, list(b), self._sum[key],
-                               self._count[key])
-                              for key, b in self._buckets.items())
+            buckets, sums, counts = self._merged_locked()
+            snapshot = sorted((key, b, sums[key], counts[key])
+                              for key, b in buckets.items())
             ex = dict(self._exemplar) if exemplars else {}
         for key, b, total, count in snapshot:
             cum = 0
@@ -333,8 +390,8 @@ class Registry:
         for m in metrics:
             if isinstance(m, Histogram):
                 with m._lock:
-                    items = [(key, m._sum[key], m._count[key])
-                             for key in list(m._count)]
+                    _, sums, counts = m._merged_locked()
+                items = [(key, sums[key], counts[key]) for key in counts]
                 for key, total, count in items:
                     yield m.name + "_sum", total, key
                     yield m.name + "_count", count, key
@@ -410,8 +467,29 @@ ENCODE_SECONDS = REGISTRY.histogram(
     "greptimedb_tpu_encode_seconds",
     "Wall time serializing one query result to its wire format (HTTP "
     "JSON, MySQL resultset packets), by protocol — compare against query_duration_seconds for the "
-    "execute-vs-encode split; protocol=process series time the round "
-    "trip to a spawn-mode encode worker", exemplars=True)
+    "execute-vs-encode split; protocol=process series are measured "
+    "inside the spawn-mode encode workers and folded in through the shm "
+    "fabric's metrics bridge when the fabric is on (exact worker wall "
+    "time), else they time the round trip to the worker",
+    exemplars=True)
+# the cross-process serving fabric (shm/): the shared-memory artifact
+# plane the frontend processes on one box attach to (fast-lane templates,
+# plan-cache entries, zero-copy results, the worker metrics bridge)
+SHM_FABRIC_EVENTS = REGISTRY.sharded_counter(
+    "greptimedb_tpu_shm_fabric_events_total",
+    "Serving-fabric events by kind (hit = an artifact adopted from a "
+    "peer process instead of rebuilt, miss = probed but absent, "
+    "publish = a locally built artifact shared, invalidate = a version "
+    "bump or wipe fanned out to peers, corrupt = a slot failed its "
+    "generation/bounds check, detach = this process fell back to the "
+    "private in-process lane; the kind label names the artifact plane: "
+    "template/plan/result/metrics/fabric)")
+SHM_FABRIC_BYTES = REGISTRY.gauge(
+    "greptimedb_tpu_shm_fabric_bytes",
+    "Bytes of the attached shared-memory fabric by segment "
+    "(fabric = the artifact plane, arena = the zero-copy result "
+    "arena) and dimension (size = mapped capacity, used = heap bytes "
+    "behind the current write cursor)")
 # the shape-keyed plan cache and the parse-free fast lane
 # (concurrency/{plan_cache,fast_lane}.py) with the stage histogram that
 # splits a request into parse / plan / execute (slow lane) and fast_bind /

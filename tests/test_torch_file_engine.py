@@ -168,6 +168,126 @@ def test_mixed_json_kinds_are_refused(tmp_path):
         datasource.read_file(path)
 
 
+# ---- C9 and C10: the readers against pyarrow's types and values ---------------
+
+#: (format, the column's values) for each case of ROADMAP C9 and C10, and
+#: the spellings next to them; None is a NULL (an empty CSV field)
+C9_C10 = {
+    # C9: an int past int64 is a double column
+    "csv_int_past_int64": ("csv", ["9223372036854775808", "1"]),
+    "csv_int_below_int64": ("csv", ["-9223372036854775809", "-1"]),
+    "csv_int64_edges": ("csv", ["9223372036854775807",
+                                "-9223372036854775808"]),
+    "json_int_past_int64": ("json", [2 ** 63, 1]),
+    "json_int_below_int64_with_null": ("json", [-2 ** 63 - 1, None, 5]),
+    # C9: matches the date or time shape, but is no real date or time
+    "csv_no_such_day": ("csv", ["2024-02-30", "2024-01-01"]),
+    "csv_no_such_leap_day": ("csv", ["2023-02-29"]),
+    "csv_leap_second": ("csv", ["2024-12-31T23:59:60",
+                                "2024-12-31T23:59:59"]),
+    "csv_hour_24": ("csv", ["2024-12-31T24:00:00"]),
+    "json_no_such_day": ("json", ["2024-02-30", "2024-01-01"]),
+    "json_leap_second": ("json", ["2024-12-31T23:59:60"]),
+    # C10: timestamps with and without a fraction in one column
+    "csv_fraction_and_whole_seconds": ("csv", ["2024-01-01 00:00:00.5",
+                                               "2024-01-01 00:00:01"]),
+    "csv_fraction_and_date": ("csv", ["2024-01-01T00:00:00.25",
+                                      "2024-01-02"]),
+    "csv_fraction_zoned": ("csv", ["2024-01-01T00:00:00.5+01:00",
+                                   "2024-01-01T00:00:01Z"]),
+    "csv_hour_and_minute_precision": ("csv", ["2024-01-01T05",
+                                              "2024-01-01 06:30"]),
+    "csv_zone_hours_only": ("csv", ["2024-01-01T00:00:00+01",
+                                    "2024-01-01T00:00:00-0130"]),
+    "csv_zoned_and_naive": ("csv", ["2024-01-01T00:00:00Z",
+                                    "2024-01-01T00:00:01"]),
+    "json_fraction_is_string": ("json", ["2024-01-01T00:00:00.5",
+                                         "2024-01-01T00:00:01"]),
+    "json_zoned_and_naive": ("json", ["2024-01-01T00:00:00+01:00",
+                                      "2024-01-01T00:00:01"]),
+    # C10: number spellings
+    "csv_plus_sign": ("csv", ["+5", "6"]),
+    "csv_padded_int": ("csv", [" 5", "6 ", "\t7"]),
+    "csv_hex_int": ("csv", ["0x10", "0XfF", "5"]),
+    "csv_hex_wraps": ("csv", ["0xFFFFFFFFFFFFFFFF", "0x8000000000000000"]),
+    "csv_signed_hex": ("csv", ["-0x10"]),
+    "csv_hex_and_double": ("csv", ["0x10", "1.5"]),
+    "csv_underscores": ("csv", ["1_000", "2"]),
+    "csv_underscore_double": ("csv", ["1_0.5"]),
+    "csv_double_spellings": ("csv", ["1e5", ".5", "5.", "-.5", "+1.5",
+                                     " 2.5 ", "1E+05", "1e400"]),
+    "csv_infinities": ("csv", ["inf", "-Infinity", "+INF", "1"]),
+    "csv_not_numbers": ("csv", ["1.5e", "e5", "1d", "0b101"]),
+    "csv_unicode_digits": ("csv", ["\u0661\u0662", "1"]),
+    "csv_padded_date": ("csv", [" 2024-01-01", "2024-01-02 "]),
+    "csv_int_with_nulls": ("csv", ["0x10", None, "NULL", "3"]),
+}
+
+
+def _pylist(col) -> list:
+    """Python values, timestamps naive (pyarrow's zoned ones are UTC)."""
+    return [v.replace(tzinfo=None) if getattr(v, "tzinfo", None) else v
+            for v in col.to_pylist()]
+
+
+def _write_case(tmp_path, fmt, values, with_ts=False):
+    names = ["c", "ts"] if with_ts else ["c"]
+    rows = [[v, 1000 * (i + 1)] if with_ts else [v]
+            for i, v in enumerate(values)]
+    write = write_csv if fmt == "csv" else write_ndjson
+    return write(str(tmp_path / f"case.{fmt}"), names, rows)
+
+
+@pytest.mark.parametrize("case", sorted(C9_C10))
+def test_c9_c10_readers_match_pyarrow(case, tmp_path):
+    """Each value grammar of ROADMAP C9 and C10 gets pyarrow's column type
+    and values (ns timestamps compared as integers)."""
+    fmt, values = C9_C10[case]
+    path = _write_case(tmp_path, fmt, values)
+    jt, pt = jds.read_file(path), datasource.read_file(path)
+    want_type = str(jt.schema.field("c").type)
+    col = pt.column("c")
+    assert col.type == want_type.replace(", tz=UTC", "").replace(
+        "date32[day]", "date32")
+    if col.type == "timestamp[ns]":
+        want = jt.column("c").cast("int64").to_pylist()
+        assert col.values.tolist() == want
+    else:
+        assert _pylist(col) == _pylist(jt.column("c"))
+
+
+@pytest.mark.parametrize("case", sorted(set(C9_C10) - {"csv_padded_date"}))
+def test_c9_c10_external_tables_match_jax(case, pair, tmp_path):
+    """The same files as inferred external tables answer alike in both
+    engines: a C9 value no longer raises, a mixed-fraction timestamp
+    column is the time index (C10). The date32 column is R8's (the JAX
+    scan raises) and stays out."""
+    fmt, values = C9_C10[case]
+    path = _write_case(tmp_path, fmt, values, with_ts=True)
+    both(pair, f"CREATE EXTERNAL TABLE e WITH (location = '{path}')")
+    desc = both(pair, "DESCRIBE TABLE e")
+    ts_col = next(r[0] for r in desc if r[5] == "TIMESTAMP")
+    if "fraction_and" in case or "zone_hours" in case \
+            or "hour_and_minute" in case or "fraction_zoned" in case:
+        assert ts_col == "c"
+    both(pair, f"SELECT * FROM e ORDER BY {ts_col}")
+    both(pair, "SELECT count(*), count(c) FROM e")
+
+
+@pytest.mark.parametrize("value,arrow", [({"a": 1}, "struct"),
+                                         ([1, 2], "list")])
+def test_nested_json_columns_get_their_own_refusal(tmp_path, value, arrow):
+    """pyarrow reads ndjson objects and arrays as struct and list columns,
+    which the port has no type for: a typed refusal naming the type, not
+    the "mixes" text of a truly mixed column."""
+    path = write_ndjson(str(tmp_path / "n.json"), ["c", "ts"],
+                        [[value, 1000], [None, 2000]])
+    assert str(jds.read_file(path).schema.field("c").type).startswith(arrow)
+    with pytest.raises(datasource.NestedJsonColumn, match=arrow) as e:
+        datasource.read_file(path)
+    assert "mixes" not in str(e.value)
+
+
 @pytest.mark.parametrize("ext", ["parquet", "orc"])
 def test_parquet_and_orc_name_a12_io(tmp_path, ext):
     with pytest.raises(UnsupportedStatement, match="A12-io"):
@@ -384,7 +504,7 @@ def test_container_formats_refused_naming_a12_io(pair, tmp_path, fmt):
     assert not tq.catalog.table_exists("public", "p")
 
 
-@pytest.mark.parametrize("late", [None, "1.5", "", "nan", "x", "7"])
+@pytest.mark.parametrize("late", [None, "1.5", "", "nan", "x", "7", "+5"])
 def test_csv_fast_path_matches_pyarrow(tmp_path, late):
     """Past the sample rows the numeric columns parse in C; a late value
     the sample did not foresee (a float in an int column, a NULL, a NaN

@@ -135,22 +135,57 @@ def test_dump_config_equals_jax_and_loads_back(tmp_path, capsys):
     ("cluster.hedge_enabled", "false", "A10"),
     ("parallel.mesh_min_rows", "1", "A10"),
     ("partition.default_hash_regions", "4", "A10"),
-    # flows, scripts and plugins run on the port now; shm stays outside
-    # under its own item (the case keeps its id)
-    pytest.param("shm.fabric", "true", "A9-shm",
+    # flows, scripts, plugins and the shm fabric run on the port now: the
+    # case keeps its id, boots [shm] and checks the env twins apply_shm
+    # sets (slice_name None: accepted)
+    pytest.param("shm.fabric", "true", None,
                  id="shm.fabric-true-A9: flows, scripts, plugins and shm"),
 ])
 def test_unported_key_refused_naming_its_slice(key, value, slice_name,
-                                               tmp_path):
+                                               tmp_path, monkeypatch):
     section, name = key.rsplit(".", 1)
     p = tmp_path / "cfg.toml"
     p.write_text(f"[{section}]\n{name} = {value}\n")
     opts = options.load_options(str(p), env={})
     jopt.load_options(str(p), env={})  # the JAX package loads it
+    if slice_name is None:
+        _check_shm_boots(tmp_path, monkeypatch)
+        return
     with pytest.raises(options.ConfigError) as e:
         options.check_port_support(opts)
     assert f"option '{key}'" in str(e.value)
     assert slice_name in str(e.value) and "not in this slice" in str(e.value)
+
+
+def _check_shm_boots(tmp_path, monkeypatch):
+    """[shm] boots, and apply_shm sets the GTPU_SHM_FABRIC* twins the
+    JAX apply_shm sets for the same file (and leaves an operator-set one
+    alone)."""
+    keys = ("GTPU_SHM_FABRIC", "GTPU_SHM_FABRIC_BYTES", "GTPU_SHM_FABRIC_DIR")
+    # the keys each options layer wrote stay this test's own
+    monkeypatch.setattr(options, "_APPLIED_ENV_KEYS", set())
+    monkeypatch.setattr(jopt, "_APPLIED_ENV_KEYS", set())
+    p = tmp_path / "shm.toml"
+    p.write_text(f"[shm]\nfabric = true\nfabric_bytes = {8 << 20}\n"
+                 f"fabric_dir = '{tmp_path / 'fab'}'\n")
+    opts = options.load_options(str(p), env={})
+    options.check_port_support(opts)
+    twins = []
+    for apply_shm, o in ((options.apply_shm, opts),
+                         (jopt.apply_shm, jopt.load_options(str(p), env={}))):
+        for k in keys:
+            monkeypatch.delenv(k, raising=False)
+        apply_shm(o)
+        twins.append({k: os.environ.get(k) for k in keys})
+        for k in keys:
+            monkeypatch.delenv(k, raising=False)
+    assert twins[0] == twins[1] == {
+        "GTPU_SHM_FABRIC": "1", "GTPU_SHM_FABRIC_BYTES": str(8 << 20),
+        "GTPU_SHM_FABRIC_DIR": str(tmp_path / "fab")}
+    monkeypatch.setattr(options, "_APPLIED_ENV_KEYS", set())
+    monkeypatch.setenv("GTPU_SHM_FABRIC_DIR", "/operator/set")
+    options.apply_shm(opts)
+    assert os.environ["GTPU_SHM_FABRIC_DIR"] == "/operator/set"
 
 
 @pytest.mark.parametrize("key,value", [
