@@ -307,6 +307,32 @@ greptimedb_tpu_torch/_build/. Phases:
      statement on the fast lane and on the slow lane.
    The stream's ingest deadline pays for (h) by cutting the stream's
    depth (the cut is printed).
+   Phase (j), object storage, the remote WAL and COPY, runs before the
+   stream (whose ingest deadline pays for it): a fake S3 on 127.0.0.1,
+   in a process of its own with a deep accept backlog (SigV4 checked on
+   every request; GET with Range, PUT, HEAD, DELETE, paginated
+   ListObjectsV2; requests and bytes counted by verb)
+   and a standalone engine started from a TOML through options.py with
+   `[storage] type = "s3"` against it, `cache_bytes` of 1 GiB, `[wal]
+   backend = "remote"` and write workers on. bench.py's `cpu` at 4,000
+   hosts x 4 h (5,760,000 rows; the depth cut from 12 h by the run's
+   time limit), the first 3 h flushed to the bucket, the 4th hour in
+   the remote WAL only (one WAL object PUT a group commit). The engine
+   is abandoned without close() or a flush; a second engine on the same
+   configuration replays exactly the 1,440,000 unflushed rows from the
+   bucket. double_groupby_all (K1 must launch) and cpu_max_all_8 cold
+   (every cache dropped, the LRU layer included) and warm (p50 of 5)
+   against the float64 numpy oracle, with the fake's GETs and bytes and
+   the LRU's hits and misses a query; ADMIN flush_table, after which
+   the bucket's WAL prefix must be empty; COPY cpu TO Parquet and
+   COPY cpu_copy FROM it (double_groupby_all over both equal: avg to
+   rtol 1e-5, the keys byte for byte); one hour through ORC (all hosts)
+   and through CSV.gz and ndjson (its first 400 hosts), each read back
+   and held to the same rows; an external table over the Parquet file
+   (count(*) and a per-host aggregate against numpy); COPY DATABASE TO
+   and FROM on a small database; `python3 -m greptimedb_tpu_torch
+   export` and `import` in subprocesses. The phase prints its seconds
+   and each step's, and joins the fake's threads.
 8. A `kernels` JSON line (with each kernel's launches on every path, the
    PromQL queries', the streamed query's, the RANGE queries', the host
    SQL statements', the five served traffics', the wire phase's, the
@@ -1617,6 +1643,765 @@ def main_path_phase(sk, torch, lib=None) -> dict:
             "serving": serving, "index": index, "wire": wire,
             "writes": writes, "obs": obs, "root": root, "grid": grid,
             "decode_ingest": decode_ingest}
+
+
+# ---- (j) object storage, the remote WAL and COPY -----------------------------
+
+#: the depth of the S3-backed `cpu` table: 4 h of bench.py's 4,000 hosts
+#: (5,760,000 rows), cut from the headline's 12 h by the run's time limit;
+#: the first 3 h are flushed, the 4th stays in the remote WAL only
+STORE_HOURS = 4
+STORE_FLUSH_HOURS = 3
+#: points a put: 360,000 rows, one group commit and one WAL object each
+STORE_PUT_POINTS = 90
+#: hosts of the hour written as CSV and ndjson, cut from 4,000 by the
+#: text formats' throughput (ROADMAP.md C14: a float's text takes about
+#: 1 us in Python); ORC takes the whole hour
+STORE_TEXT_HOSTS = 400
+#: points of the small table COPY DATABASE and the export / import CLI
+#: carry (all hosts)
+STORE_SMALL_POINTS = 30
+STORE_SEED = 29
+S3_ACCESS, S3_SECRET, S3_REGION = "AKIDCHIPSMOKE", "chip-smoke-secret", \
+    "us-east-1"
+S3_BUCKET, S3_ROOT = "chip-smoke", "greptimedb"
+
+
+def serve_fake_s3(conn) -> None:
+    """The fake S3's own process (see FakeS3): serves the bucket on
+    127.0.0.1 and answers the parent's commands on `conn` until "close"."""
+    import html
+    import threading
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from greptimedb_tpu_torch.objectstore.s3 import sign_v4
+
+    objects: dict = {}
+    lock = threading.Lock()
+    counts: dict = {}
+    nbytes: dict = {}
+    bad = [0]
+
+    def count(verb, n=0):
+        with lock:
+            counts[verb] = counts.get(verb, 0) + 1
+            nbytes[verb] = nbytes.get(verb, 0) + n
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _signed(self) -> bool:
+            import datetime
+
+            try:
+                now = datetime.datetime.strptime(
+                    self.headers.get("x-amz-date", ""),
+                    "%Y%m%dT%H%M%SZ").replace(tzinfo=datetime.timezone.utc)
+            except ValueError:
+                return False
+            url = f"http://{self.headers['Host']}{self.path}"
+            want = sign_v4(self.command, url, {},
+                           self.headers.get("x-amz-content-sha256", ""),
+                           S3_ACCESS, S3_SECRET, S3_REGION, now=now)
+            return want["Authorization"] == \
+                self.headers.get("Authorization", "")
+
+        def _send(self, code, body=b"", length=None, extra=None):
+            self.send_response(code)
+            for k, v in (extra or {}).items():
+                self.send_header(k, v)
+            self.send_header("Content-Length", str(
+                len(body) if length is None else length))
+            self.end_headers()
+            if body:
+                self.wfile.write(body)
+
+        def _route(self):
+            body = b""
+            if self.command == "PUT":
+                body = self.rfile.read(
+                    int(self.headers.get("Content-Length", 0)))
+            if not self._signed():
+                with lock:
+                    bad[0] += 1
+                return self._send(403, b"<Error>SignatureDoesNotMatch"
+                                       b"</Error>")
+            parsed = urllib.parse.urlsplit(self.path)
+            q = dict(urllib.parse.parse_qsl(parsed.query))
+            parts = parsed.path.lstrip("/").split("/", 1)
+            key = urllib.parse.unquote(parts[1]) if len(parts) > 1 else ""
+            if parts[0] != S3_BUCKET:
+                return self._send(404)
+            if self.command == "PUT":
+                with lock:
+                    objects[key] = body
+                count("PUT_WAL" if "/remote_wal/" in key else "PUT",
+                      len(body))
+                return self._send(200)
+            if self.command == "DELETE":
+                with lock:
+                    objects.pop(key, None)
+                count("DELETE")
+                return self._send(204)
+            if self.command == "GET" and q.get("list-type") == "2":
+                prefix = q.get("prefix", "")
+                start = q.get("continuation-token", "")
+                with lock:
+                    keys = sorted(k for k in objects
+                                  if k.startswith(prefix) and k > start)
+                    sizes = [len(objects[k]) for k in keys[:FakeS3.PAGE]]
+                page = keys[:FakeS3.PAGE]
+                xml = "<ListBucketResult>" + "".join(
+                    f"<Contents><Key>{html.escape(k)}</Key>"
+                    f"<Size>{s}</Size></Contents>"
+                    for k, s in zip(page, sizes))
+                if len(keys) > FakeS3.PAGE:
+                    xml += (f"<NextContinuationToken>{html.escape(page[-1])}"
+                            f"</NextContinuationToken>")
+                xml += "</ListBucketResult>"
+                count("LIST")
+                return self._send(200, xml.encode())
+            with lock:
+                data = objects.get(key)
+            if data is None:
+                count(self.command + "_MISSING")
+                return self._send(404)
+            if self.command == "HEAD":
+                count("HEAD")
+                return self._send(200, length=len(data))
+            rng = self.headers.get("Range")
+            if rng:
+                a, _, b = rng[len("bytes="):].partition("-")
+                part = data[int(a):int(b) + 1]
+                count("GET_RANGE", len(part))
+                return self._send(206, part, extra={
+                    "Content-Range": f"bytes {a}-{b}/{len(data)}"})
+            count("GET", len(data))
+            return self._send(200, data)
+
+        do_GET = do_PUT = do_DELETE = do_HEAD = _route
+
+    class Server(ThreadingHTTPServer):
+        # the scan's decode workers, the write workers and maintenance
+        # connect at once; the default backlog of 5 drops their handshakes
+        request_queue_size = FakeS3.BACKLOG
+        # server_close() joins every request thread
+        daemon_threads = False
+
+    httpd = Server(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=httpd.serve_forever,
+                              name="chip-smoke-fake-s3")
+    thread.start()
+    conn.send(httpd.server_address[1])
+    while True:
+        cmd, arg = conn.recv()
+        if cmd == "close":
+            httpd.shutdown()
+            thread.join()
+            httpd.server_close()
+            conn.send(None)
+            return
+        with lock:
+            if cmd == "snapshot":
+                out = {"requests": dict(counts), "bytes": dict(nbytes),
+                       "bad_signatures": bad[0]}
+            elif cmd == "sizes":
+                out = {k: len(v) for k, v in sorted(objects.items())
+                       if k.startswith(arg)}
+            else:
+                out = sum(len(v) for v in objects.values())
+        conn.send(out)
+
+
+class FakeS3:
+    """An S3 on 127.0.0.1 for phase (j), in a process of its own so that
+    the engine's threads never starve its accept loop and request threads
+    of the GIL: every request's SigV4 signature is recomputed from the
+    shared secret (a mismatch is a 403); GET (with `Range`), PUT, HEAD,
+    DELETE and ListObjectsV2 (1,000 keys a page, continuation tokens).
+    Requests and bytes are counted by verb (GET, GET_RANGE, LIST, PUT,
+    HEAD, DELETE) and, for PUT, by kind (WAL segment or other object).
+    `close()` joins the server's threads and its process."""
+
+    PAGE = 1000
+    BACKLOG = 256
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=serve_fake_s3, args=(child,),
+                                name="chip-smoke-fake-s3", daemon=True)
+        self.proc.start()
+        child.close()
+        check(self._conn.poll(60), "(j) the fake S3 did not start")
+        self.endpoint = f"http://127.0.0.1:{self._conn.recv()}"
+
+    def _ask(self, cmd: str, arg=None):
+        self._conn.send((cmd, arg))
+        return self._conn.recv()
+
+    def snapshot(self) -> dict:
+        s = self._ask("snapshot")
+        return {"requests": s["requests"], "bytes": s["bytes"]}
+
+    @property
+    def bad_signatures(self) -> int:
+        return self._ask("snapshot")["bad_signatures"]
+
+    def sizes(self, prefix: str) -> dict:
+        """Object sizes by key, of the keys under `prefix`."""
+        return self._ask("sizes", prefix)
+
+    def keys(self, prefix: str) -> list:
+        return list(self.sizes(prefix))
+
+    def stored_bytes(self) -> int:
+        return self._ask("stored_bytes")
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            self._ask("close")
+        self.proc.join(60)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        self._conn.close()
+
+
+def request_delta(a: dict, b: dict) -> dict:
+    """Requests and bytes by verb between two FakeS3 snapshots."""
+    return {k: {v: b[k].get(v, 0) - a[k].get(v, 0)
+                for v in b[k] if b[k].get(v, 0) != a[k].get(v, 0)}
+            for k in ("requests", "bytes")}
+
+
+def store_toml(fake: "FakeS3", home: str) -> str:
+    """The standalone configuration phase (j) starts from: SSTs,
+    manifests and index files in the fake's bucket behind a 1 GiB read
+    cache, the remote WAL in the same bucket, write workers on (cpu/2),
+    maintenance on, flushes only when asked."""
+    return f"""
+[storage]
+data_home = "{home}"
+type = "s3"
+cache_bytes = {1 << 30}
+
+[storage.s3]
+bucket = "{S3_BUCKET}"
+root = "{S3_ROOT}"
+endpoint = "{fake.endpoint}"
+region = "{S3_REGION}"
+access_key_id = "{S3_ACCESS}"
+secret_access_key = "{S3_SECRET}"
+
+[wal]
+backend = "remote"
+
+[engine]
+write_workers = -1
+flush_threshold_bytes = {8 << 30}
+"""
+
+
+def put_grid(engine, info, grid, host_names, p0, p1, hosts) -> int:
+    """Points [p0, p1) of the first `hosts` hosts of `grid` as one put."""
+    from greptimedb_tpu_torch.datatypes import DictVector, RecordBatch
+
+    cols = {"hostname": DictVector(np.tile(np.arange(hosts, dtype=np.int32),
+                                           p1 - p0), host_names[:hosts]),
+            "ts": np.repeat(T0_MS + np.arange(p0, p1, dtype=np.int64)
+                            * STEP_S * 1000, hosts)}
+    for f in FIELDS:
+        cols[f] = np.ascontiguousarray(grid[f][p0:p1, :hosts]).reshape(-1)
+    return engine.put(info.region_ids[0], RecordBatch(info.schema, cols))
+
+
+def check_table_rows(t, grid, p0, p1, hosts, what) -> None:
+    """A column table read back from a file holds exactly points [p0, p1)
+    of the first `hosts` hosts of `grid`, in any row order."""
+    from greptimedb_tpu_torch.datasource import _TIME_NS
+
+    check(t.num_rows == (p1 - p0) * hosts,
+          f"{what}: {t.num_rows} rows, expected {(p1 - p0) * hosts}")
+    tcol = t.column("ts")
+    ts_ms = tcol.values.astype(np.int64) * _TIME_NS[tcol.type] // 10**6
+    pts = (ts_ms - T0_MS) // (STEP_S * 1000) - p0
+    hcol = t.column("hostname")
+    if hcol.dictionary is not None and hcol.valid is None \
+            and len(hcol.dictionary):
+        host = host_index(hcol.dictionary)[hcol.values]
+    else:
+        host = host_index(hcol.strings())
+    order = np.lexsort((host, pts))
+    want_h = np.tile(np.arange(hosts), p1 - p0)
+    want_p = np.repeat(np.arange(p1 - p0), hosts)
+    check(np.array_equal(host[order], want_h)
+          and np.array_equal(pts[order], want_p), f"{what}: row keys")
+    for f in FIELDS:
+        got = t.column(f).values.astype(np.float64)[order]
+        check(np.array_equal(got, grid[f][p0:p1, :hosts].reshape(-1)),
+              f"{what}: {f} values")
+
+
+def drop_store_caches(qe, engine, region) -> None:
+    """Every cache between a query and the bucket: the LRU layer, the
+    region's decoded parts and scans, its SST footers and indexes, the
+    device hot set and the partial-aggregate cache."""
+    from greptimedb_tpu_torch.query import partial_cache as pc
+
+    engine.store.clear()
+    clear_region_caches(region)
+    region.sst_reader._footers.clear()
+    region.sst_reader.index_applier._cache.clear()
+    qe.executor.cache.invalidate_region(region.region_id)
+    pc.global_cache().clear()
+
+
+def wait_admin(engine, res) -> None:
+    """Wait for the job of an ADMIN statement (maintenance on)."""
+    if engine.maintenance is None:
+        return
+    job = engine.maintenance.wait(int(res.rows()[0][0]), timeout=900)
+    check(job.state == "done", f"maintenance job {job.job_id}: {job.state}"
+          f" {job.error}")
+
+
+def store_queries(qe, engine, region, sk, torch, fake, grid) -> dict:
+    """double_groupby_all and cpu_max_all_8 over the S3-backed table, cold
+    (every cache dropped) and warm (p50 of 5), each held to the float64
+    oracle; launches, the fake's requests and the LRU outcomes a run."""
+    out = {}
+    lru = engine.store
+    for name in ("double_groupby_all", "cpu_max_all_8"):
+        sql, want_path, _rows = tsbs_queries()[name]
+        drop_store_caches(qe, engine, region)
+        s0, h0, m0 = fake.snapshot(), lru.hits, lru.misses
+        zero_launches(sk)
+        res, cold_ms = timed_query(qe, sql, torch)
+        k1, k2 = launches(sk)
+        path = qe.executor.last_path
+        check(path == want_path, f"(j) {name}: last_path {path}, expected "
+              f"{want_path}")
+        check_result(name, res, grid, hours=STORE_HOURS)
+        cold = {"ms": cold_ms, "rows": res.num_rows, "last_path": path,
+                "k1_launches": k1, "k2_launches": k2,
+                "s3": request_delta(s0, fake.snapshot()),
+                "lru_hits": lru.hits - h0, "lru_misses": lru.misses - m0}
+        zero_launches(sk)
+        s0, h0, m0 = fake.snapshot(), lru.hits, lru.misses
+        warm = [timed_query(qe, sql, torch)[1] for _ in range(5)]
+        k1w, k2w = launches(sk)
+        out[name] = {"cold": cold, "warm_p50_ms": float(np.median(warm)),
+                     "warm_ms": warm, "warm_k1_launches": k1w,
+                     "warm_k2_launches": k2w,
+                     "warm_s3": request_delta(s0, fake.snapshot()),
+                     "warm_lru_hits": lru.hits - h0,
+                     "warm_lru_misses": lru.misses - m0}
+        log(f"(j) query {name} over s3: " + json.dumps(out[name]))
+    # a budget under the flushed SST's size (the layer's default 256 MiB
+    # at full scale): the SST is served by ranged GETs, never downloaded
+    # whole a column chunk
+    sql = tsbs_queries()["double_groupby_all"][0]
+    sst_bytes = max(n for k, n in fake.sizes("").items()
+                    if k.endswith(".sst"))
+    budget = min(256 << 20, sst_bytes // 2)
+    capacity, lru.capacity = lru.capacity, budget
+    try:
+        drop_store_caches(qe, engine, region)
+        s0 = fake.snapshot()
+        zero_launches(sk)
+        res, small_ms = timed_query(qe, sql, torch)
+        k1, k2 = launches(sk)
+        check_result("double_groupby_all", res, grid, hours=STORE_HOURS)
+        small = request_delta(s0, fake.snapshot())
+    finally:
+        lru.capacity = capacity
+        drop_store_caches(qe, engine, region)
+    check(small["bytes"].get("GET", 0) < sst_bytes
+          and 0 < small["bytes"].get("GET_RANGE", 0) <= sst_bytes,
+          f"(j) a cold scan under a {budget}-byte cache: {small}, SST "
+          f"{sst_bytes} bytes")
+    check(k1 > 0, "(j) double_groupby_all under a small cache did not "
+          "launch K1")
+    out["double_groupby_all"]["cold_small_cache"] = {
+        "ms": small_ms, "cache_bytes": budget, "sst_bytes": sst_bytes,
+        "k1_launches": k1, "k2_launches": k2, "s3": small}
+    log("(j) cold double_groupby_all under a cache smaller than the SST: "
+        + json.dumps(out["double_groupby_all"]["cold_small_cache"]))
+    check(out["double_groupby_all"]["cold"]["k1_launches"] > 0,
+          "(j) double_groupby_all over the S3-backed table did not launch K1")
+    check(out["cpu_max_all_8"]["cold"]["k2_launches"] > 0,
+          "(j) cpu_max_all_8 over the S3-backed table did not launch K2")
+    return out
+
+
+def copy_phase(qe, engine, sk, torch, grid, host_names, work) -> dict:
+    """COPY cpu TO Parquet and back into cpu_copy (double_groupby_all over
+    both equal), one hour through ORC (all hosts) and CSV.gz / ndjson
+    (STORE_TEXT_HOSTS hosts) back to the same rows, an external table over
+    the Parquet file, and COPY DATABASE TO / FROM on a small database."""
+    from greptimedb_tpu_torch import datasource
+    from greptimedb_tpu_torch.session import QueryContext
+
+    out, steps = {}, {}
+    n_rows = HOSTS * STORE_HOURS * 3600 // STEP_S
+    pq_path = os.path.join(work, "copy", "cpu.parquet")
+    t = time.perf_counter()
+    r = qe.execute_one(f"COPY cpu TO '{pq_path}'")
+    steps["copy_to_parquet_s"] = time.perf_counter() - t
+    check(r.affected_rows == n_rows, f"(j) COPY cpu TO: {r.affected_rows}")
+    # the whole file, every value exactly
+    t = time.perf_counter()
+    check_table_rows(datasource.read_file(pq_path), grid, 0,
+                     n_rows // HOSTS, HOSTS, "(j) cpu.parquet")
+    steps["read_check_parquet_s"] = time.perf_counter() - t
+    qe.execute_one(cpu_ddl().replace("TABLE cpu (", "TABLE cpu_copy ("))
+    t = time.perf_counter()
+    r = qe.execute_one(f"COPY cpu_copy FROM '{pq_path}'")
+    steps["copy_from_parquet_s"] = time.perf_counter() - t
+    check(r.affected_rows == n_rows, f"(j) COPY cpu_copy FROM: "
+          f"{r.affected_rows}")
+    sql = tsbs_queries()["double_groupby_all"][0]
+    a = qe.execute_one(sql)
+    zero_launches(sk)
+    b, copy_ms = timed_query(qe, tsbs_queries("cpu_copy")[
+        "double_groupby_all"][0], torch)
+    k1, k2 = launches(sk)
+    check(list(a.names) == list(b.names) and a.num_rows == b.num_rows,
+          "(j) double_groupby_all over cpu_copy: shape")
+    worst = 0.0
+    for name, ca, cb in zip(a.names, a.columns, b.columns):
+        ca, cb = np.asarray(ca), np.asarray(cb)
+        if name.startswith("avg("):
+            ca, cb = ca.astype(np.float64), cb.astype(np.float64)
+            check(np.allclose(cb, ca, rtol=1e-5, atol=0),
+                  f"(j) cpu_copy {name}")
+            worst = max(worst, float(np.max(np.abs(cb - ca) / np.abs(ca))))
+        else:
+            check(np.array_equal(ca, cb), f"(j) cpu_copy {name} keys")
+    check(k1 > 0, "(j) double_groupby_all over cpu_copy did not launch K1")
+    out["cpu_copy"] = {"ms": copy_ms, "k1_launches": k1, "k2_launches": k2,
+                       "max_rel_err_avg": worst,
+                       "parquet_bytes": os.path.getsize(pq_path)}
+    log("(j) COPY cpu TO / cpu_copy FROM parquet: " + json.dumps(
+        {**out["cpu_copy"], **steps}))
+
+    # one hour through ORC, and its first hosts through CSV.gz and ndjson
+    per_hour = 3600 // STEP_S
+    info = {}
+    for table, hosts in (("cpu_hour", HOSTS), ("cpu_text", STORE_TEXT_HOSTS)):
+        qe.execute_one(cpu_ddl().replace("TABLE cpu (", f"TABLE {table} ("))
+        info[table] = qe.catalog.table("public", table)
+        put_grid(engine, info[table], grid, host_names, 0, per_hour, hosts)
+    fmts = {}
+    for ext, table, hosts in (("orc", "cpu_hour", HOSTS),
+                              ("csv.gz", "cpu_text", STORE_TEXT_HOSTS),
+                              ("ndjson", "cpu_text", STORE_TEXT_HOSTS)):
+        path = os.path.join(work, "copy", f"hour.{ext}")
+        dst = "back_" + ext.replace(".", "_")
+        t = time.perf_counter()
+        r = qe.execute_one(f"COPY {table} TO '{path}'")
+        w_s = time.perf_counter() - t
+        check(r.affected_rows == per_hour * hosts, f"(j) COPY TO {ext}")
+        t = time.perf_counter()
+        back = datasource.read_file(path)
+        r_s = time.perf_counter() - t
+        check_table_rows(back, grid, 0, per_hour, hosts, f"(j) hour.{ext}")
+        qe.execute_one(cpu_ddl().replace("TABLE cpu (", f"TABLE {dst} ("))
+        t = time.perf_counter()
+        r = qe.execute_one(f"COPY {dst} FROM '{path}'")
+        f_s = time.perf_counter() - t
+        check(r.affected_rows == per_hour * hosts, f"(j) COPY FROM {ext}")
+        n = qe.execute_one(f"SELECT count(*), sum(usage_user) FROM {dst}")
+        want_sum = grid["usage_user"][:per_hour, :hosts].sum()
+        check(n.rows()[0][0] == per_hour * hosts
+              and np.isclose(n.rows()[0][1], want_sum, rtol=1e-5),
+              f"(j) {dst}: {n.rows()}")
+        fmts[ext] = {"rows": per_hour * hosts, "bytes": os.path.getsize(path),
+                     "copy_to_s": w_s, "read_s": r_s, "copy_from_s": f_s,
+                     "rows_per_s_write": per_hour * hosts / w_s,
+                     "rows_per_s_read": per_hour * hosts / r_s}
+    out["formats"] = fmts
+    log("(j) one hour through orc, csv.gz and ndjson: " + json.dumps(fmts))
+
+    # an external table over the Parquet file
+    zero_launches(sk)
+    qe.execute_one(f"CREATE EXTERNAL TABLE cpu_ext WITH "
+                   f"(location = '{pq_path}')")
+    t = time.perf_counter()
+    cnt = qe.execute_one("SELECT count(*) FROM cpu_ext").rows()[0][0]
+    agg = qe.execute_one("SELECT hostname, max(usage_user), avg(usage_idle) "
+                         "FROM cpu_ext GROUP BY hostname ORDER BY hostname")
+    ext_s = time.perf_counter() - t
+    k1, k2 = launches(sk)
+    check(cnt == n_rows, f"(j) count(*) over cpu_ext: {cnt}")
+    order = np.argsort(np.asarray([f"host_{i}" for i in range(HOSTS)]),
+                       kind="stable")
+    cols = [np.asarray(c) for c in agg.columns]
+    check(np.array_equal(host_index(cols[0]), order), "(j) cpu_ext hosts")
+    check(np.array_equal(cols[1].astype(np.float64), f32_exact(
+        grid["usage_user"].max(axis=0)[order])), "(j) cpu_ext max")
+    check(np.allclose(cols[2].astype(np.float64),
+                      grid["usage_idle"].mean(axis=0)[order], rtol=1e-5),
+          "(j) cpu_ext avg")
+    out["external"] = {"seconds": ext_s, "k1_launches": k1,
+                       "k2_launches": k2, "path": qe.executor.last_path}
+    log("(j) external parquet table: " + json.dumps(out["external"]))
+
+    # COPY DATABASE TO / FROM on a small database
+    t = time.perf_counter()
+    for db in ("smalldb", "smalldb2"):
+        qe.execute_one(f"CREATE DATABASE {db}")
+        qe.execute_one(cpu_ddl(), QueryContext(db=db))
+    put_grid(engine, qe.catalog.table("smalldb", "cpu"), grid, host_names,
+             0, STORE_SMALL_POINTS, HOSTS)
+    db_dir = os.path.join(work, "copy", "smalldb")
+    n_small = STORE_SMALL_POINTS * HOSTS
+    r1 = qe.execute_one(f"COPY DATABASE smalldb TO '{db_dir}'")
+    r2 = qe.execute_one(f"COPY DATABASE smalldb2 FROM '{db_dir}'")
+    q = "SELECT count(*), sum(usage_user), max(usage_system) FROM cpu"
+    a = qe.execute_one(q, QueryContext(db="smalldb")).rows()
+    b = qe.execute_one(q, QueryContext(db="smalldb2")).rows()
+    # count and max exactly; the sum is the card's f32 atomics (rtol 1e-5)
+    check(r1.affected_rows == r2.affected_rows == n_small
+          and a[0][0] == b[0][0] == n_small and a[0][2] == b[0][2]
+          and np.isclose(a[0][1], b[0][1], rtol=1e-5),
+          f"(j) COPY DATABASE: {r1.affected_rows}, {r2.affected_rows}, "
+          f"{a}, {b}")
+    # and every value of the copied table exactly
+    back = os.path.join(work, "copy", "smalldb2_cpu.parquet")
+    qe.execute_one(f"COPY cpu TO '{back}'", QueryContext(db="smalldb2"))
+    check_table_rows(datasource.read_file(back), grid, 0,
+                     STORE_SMALL_POINTS, HOSTS, "(j) COPY DATABASE rows")
+    out["copy_database"] = {"rows": n_small,
+                            "seconds": time.perf_counter() - t}
+    out["steps"] = steps
+    return out
+
+
+def export_import_phase(grid, host_names, work) -> dict:
+    """`python3 -m greptimedb_tpu_torch export` then `import` in
+    subprocesses, on a small local database; the imported rows equal the
+    exported ones."""
+    from greptimedb_tpu_torch import cli, datasource
+
+    t = time.perf_counter()
+    homes = [os.path.join(work, n) for n in ("cli_src", "cli_dst")]
+    dump = os.path.join(work, "cli_dump")
+    engine, qe = cli.build_standalone(homes[0], device=DEVICE)
+    qe.execute_one(cpu_ddl())
+    put_grid(engine, qe.catalog.table("public", "cpu"), grid, host_names, 0,
+             STORE_SMALL_POINTS, HOSTS)
+    q = "SELECT hostname, count(*), sum(usage_user) FROM cpu GROUP BY " \
+        "hostname ORDER BY hostname"
+    want = qe.execute_one(q).rows()
+    engine.close()
+    dev = ["--device", DEVICE] if DEVICE else []
+    env = dict(os.environ, PYTHONPATH=HERE)
+    runs = {}
+    for cmd, args in (("export", ["--data-home", homes[0], "--output-dir",
+                                  dump]),
+                      ("import", ["--data-home", homes[1], "--input-dir",
+                                  dump])):
+        t1 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "greptimedb_tpu_torch", cmd]
+                           + args + dev, cwd=HERE, env=env,
+                           capture_output=True, text=True, timeout=300)
+        runs[cmd] = {"rc": p.returncode, "seconds": time.perf_counter() - t1,
+                     "stdout": p.stdout.strip()}
+        check(p.returncode == 0, f"(j) {cmd}: rc {p.returncode}: "
+              f"{p.stderr[-2000:]}")
+    back = os.path.join(work, "cli_back.parquet")
+    engine, qe = cli.build_standalone(homes[1], device=DEVICE)
+    try:
+        got = qe.execute_one(q).rows()
+        qe.execute_one(f"COPY cpu TO '{back}'")
+    finally:
+        engine.close()
+    check_table_rows(datasource.read_file(back), grid, 0,
+                     STORE_SMALL_POINTS, HOSTS, "(j) imported rows")
+    # hosts and counts exactly; the sums are the card's f32 atomics in
+    # two engines (rtol 1e-5)
+    check(len(got) == len(want) and all(
+        g[:2] == w[:2] and np.isclose(g[2], w[2], rtol=1e-5)
+        for g, w in zip(got, want)),
+        "(j) export / import: the imported rows differ")
+    runs["seconds"] = time.perf_counter() - t
+    log("(j) export / import subprocesses: " + json.dumps(runs))
+    return runs
+
+
+def object_store_phase(sk, torch, card: str) -> dict:
+    """Phase (j): a standalone engine started from a TOML with its SSTs,
+    manifests and index files in a fake S3 bucket behind the LRU cache and
+    its WAL in the same bucket (the remote WAL), write workers on; TSBS
+    cpu ingested (3 h flushed, the 4th hour in the WAL only), the engine
+    abandoned without close() or a flush, a failover engine replaying the
+    unflushed hour from the bucket, the two queries through K1 and K2 cold
+    and warm against numpy, a flush whose obsolete empties the WAL prefix,
+    COPY in four formats, an external Parquet table, COPY DATABASE and
+    the export / import CLI."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch import cli, options
+    from greptimedb_tpu_torch.objectstore import LruCacheLayer
+    from greptimedb_tpu_torch.storage.remote_wal import RemoteWal
+    from greptimedb_tpu_torch.utils.metrics import INGEST_GROUP_COMMIT_EVENTS
+
+    t_phase = time.perf_counter()
+    steps = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    fake = FakeS3()
+    engines = []
+    try:
+        home = os.path.join(work, "home")
+        cfg = os.path.join(work, "standalone.toml")
+        with open(cfg, "w") as f:
+            f.write(store_toml(fake, home))
+        opts = options.load_options(cfg, env={})
+        options.check_port_support(opts)
+        engine, qe = cli.build_standalone(home, device=DEVICE, opts=opts)
+        engines.append(engine)
+        check(isinstance(engine.store, LruCacheLayer)
+              and engine.store.inner.name == "s3"
+              and isinstance(engine.wal, RemoteWal)
+              and engine.workers is not None,
+              "(j) the TOML did not give an s3 store, the read cache, the "
+              "remote WAL and write workers")
+        qe.execute_one(cpu_ddl())
+        info = qe.catalog.table("public", "cpu")
+        rid = info.region_ids[0]
+        host_names = np.asarray([f"host_{i}" for i in range(HOSTS)],
+                                dtype=object)
+        rng = np.random.default_rng(STORE_SEED)
+        points = STORE_HOURS * 3600 // STEP_S
+        flush_at = STORE_FLUSH_HOURS * 3600 // STEP_S
+        fields = {f: [] for f in FIELDS}
+
+        t = time.perf_counter()
+        s0 = fake.snapshot()
+        for p0 in range(0, flush_at, STORE_PUT_POINTS):
+            put_points(engine, info, rng, p0,
+                       min(p0 + STORE_PUT_POINTS, flush_at), host_names,
+                       fields)
+        steps["ingest_3h_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        wait_admin(engine, qe.execute_one("ADMIN flush_table('cpu')"))
+        steps["flush_3h_s"] = time.perf_counter() - t
+        region = engine.region(rid)
+        s1 = fake.snapshot()
+        log("(j) ingest of 3 h and its flush to s3: " + json.dumps({
+            "rows": flush_at * HOSTS, "ingest_s": steps["ingest_3h_s"],
+            "flush_s": steps["flush_3h_s"], "sst_files": len(region.files),
+            "sst_bytes": region.sst_bytes,
+            "s3": request_delta(s0, s1)}))
+        # the 4th hour: acknowledged, in the bucket's WAL objects only
+        leads0 = INGEST_GROUP_COMMIT_EVENTS.get(event="lead")
+        t = time.perf_counter()
+        puts = 0
+        for p0 in range(flush_at, points, STORE_PUT_POINTS):
+            put_points(engine, info, rng, p0,
+                       min(p0 + STORE_PUT_POINTS, points), host_names,
+                       fields)
+            puts += 1
+        steps["ingest_4th_hour_s"] = time.perf_counter() - t
+        s2 = fake.snapshot()
+        commits = INGEST_GROUP_COMMIT_EVENTS.get(event="lead") - leads0
+        wal_puts = s2["requests"].get("PUT_WAL", 0) - \
+            s1["requests"].get("PUT_WAL", 0)
+        other_puts = s2["requests"].get("PUT", 0) - \
+            s1["requests"].get("PUT", 0)
+        log("(j) the 4th hour into the remote WAL: " + json.dumps({
+            "rows": (points - flush_at) * HOSTS, "puts": puts,
+            "group_commits": commits, "wal_object_puts": wal_puts,
+            "other_object_puts": other_puts,
+            "seconds": steps["ingest_4th_hour_s"],
+            "wal_bytes": s2["bytes"].get("PUT_WAL", 0)
+            - s1["bytes"].get("PUT_WAL", 0)}))
+        check(wal_puts == commits == puts and other_puts == 0,
+              f"(j) group commit: {puts} puts, {commits} commits, "
+              f"{wal_puts} WAL object PUTs, {other_puts} other PUTs")
+        grid = {f: np.concatenate(fields[f]).reshape(points, HOSTS)
+                for f in FIELDS}
+
+        # the crash: the engine is abandoned (no close(), no flush); a
+        # failover engine on the same configuration replays the bucket
+        crashed = engine
+        t = time.perf_counter()
+        engine, qe = cli.build_standalone(home, device=DEVICE, opts=opts)
+        engines.append(engine)
+        region = engine.open_region(rid)
+        steps["failover_replay_s"] = time.perf_counter() - t
+        s3_ = fake.snapshot()
+        unflushed = (points - flush_at) * HOSTS
+        replay = {"replayed_entries": region.replayed_entries,
+                  "replayed_rows": region.memtable.num_rows,
+                  "expected_rows": unflushed,
+                  "wal_segments_read": engine.wal.replayed_segments,
+                  "seconds": steps["failover_replay_s"],
+                  "s3": request_delta(s2, s3_)}
+        log("(j) failover replay from the bucket: " + json.dumps(replay))
+        check(region.replayed_entries == puts
+              and region.memtable.num_rows == unflushed,
+              f"(j) failover replay: {json.dumps(replay)}")
+        # the abandoned engine's threads end now; its close writes nothing
+        crashed.close()
+        engines.remove(crashed)
+        s4 = fake.snapshot()
+        check(request_delta(s3_, s4)["requests"] == {},
+              f"(j) closing the abandoned engine touched the bucket: "
+              f"{request_delta(s3_, s4)}")
+
+        with partial_cache(False):
+            queries = store_queries(qe, engine, region, sk, torch, fake,
+                                    grid)
+
+        # flush after the replay: obsolete deletes the replayed segments
+        wal_prefix = f"{S3_ROOT}/" + os.path.join(
+            home, "data", "remote_wal", str(rid)).lstrip("/") + "/"
+        before = fake.keys(wal_prefix)
+        t = time.perf_counter()
+        wait_admin(engine, qe.execute_one("ADMIN flush_table('cpu')"))
+        steps["flush_after_replay_s"] = time.perf_counter() - t
+        after = fake.keys(wal_prefix)
+        log("(j) flush after the replay: " + json.dumps({
+            "wal_objects_before": len(before), "wal_objects_after":
+            len(after), "seconds": steps["flush_after_replay_s"],
+            "sst_files": len(region.files)}))
+        check(len(before) == puts and not after,
+              f"(j) obsolete: {len(before)} WAL objects before the flush, "
+              f"{len(after)} after")
+        with partial_cache(False):
+            copies = copy_phase(qe, engine, sk, torch, grid, host_names,
+                                work)
+        engine.close()
+        engines.remove(engine)
+        cli_runs = export_import_phase(grid, host_names, work)
+        check(fake.bad_signatures == 0,
+              f"(j) {fake.bad_signatures} requests failed SigV4")
+        total = time.perf_counter() - t_phase
+        summary = {"seconds": total, "steps": {**steps, **copies["steps"]},
+                   "rows": points * HOSTS, "depth_hours": STORE_HOURS,
+                   "depth_cut": "4 h of the headline's 12 h, by the run's "
+                   "time limit; csv.gz and ndjson carry the first "
+                   f"{STORE_TEXT_HOSTS} hosts of the hour",
+                   "bucket_objects": len(fake.keys("")),
+                   "bucket_bytes": fake.stored_bytes(),
+                   "s3_requests_total": fake.snapshot()["requests"],
+                   "card": card}
+        log("(j) object storage and COPY: " + json.dumps(summary))
+        return {"queries": queries, "copy": copies, "replay": replay,
+                "cli": cli_runs, "summary": summary}
+    finally:
+        for e in engines:
+            e.close()
+        fake.close()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ---- RANGE ... ALIGN on the `cpu` table --------------------------------------
@@ -7567,35 +8352,58 @@ def main() -> int:
         log(f"[{time.perf_counter() - T_START:.1f} s] {what}")
 
     main = {}
+    # the phase under way, named in the last line of a failure's stderr
+    stage = "kernels"
     try:
         kres = kernel_phase(sk, lib, torch)
         elapsed("kernel phase done")
+        stage = "main path"
         main = main_path_phase(sk, torch, lib)
         elapsed("main path done")
+        stage = "serving"
         serving = serving_phase(sk, torch, lib)
+        stage = "high cardinality"
         hc = hc_phase(sk, torch)
+        stage = "dedup"
         with partial_cache(False):
             dedup_phase(torch)
+        stage = "PromQL"
         prom = promql_phase(sk, torch)
         elapsed("serving, hc, dedup and PromQL done")
+        # (j) before the stream: its ingest deadline pays for it
+        stage = "(j) object storage"
+        store = object_store_phase(sk, torch, card)
+        elapsed("object storage, the remote WAL and COPY done")
+        stage = "stream"
         stream = stream_phase(sk, torch, lib)
         elapsed("stream done")
         # after the stream: its ingest deadline is reckoned from the
         # start of the run
+        stage = "metric engine"
         metric = metric_phase(sk, torch, prom)
         elapsed("metric engine done")
+        stage = "file engine"
         files = file_engine_phase(sk, torch)
         elapsed("file engine done")
         # (h) on a copy of the main path's closed data dir, before (f)
         # touches the original
+        stage = "(h) flows"
         flows = flow_phase(main["root"], sk, torch, main["grid"])
         elapsed("flows, parallel decode, scripts and plugins done")
         # (f) last: its ingest and rollup must not push the stream's
         # ingest past its deadline
+        stage = "(f) write plane"
         plane = write_plane_phase(main["root"], sk, torch, main["grid"])
         elapsed("write plane done")
     except CheckFailed as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        print(f"chip_smoke: FAILED in {stage}: {e}", file=sys.stderr)
+        return 1
+    except Exception as e:  # noqa: BLE001 — named, then the exit code
+        import traceback
+
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED in {stage}: {type(e).__name__}: {e}",
+              file=sys.stderr, flush=True)
         return 1
     finally:
         if main.get("root"):
@@ -7671,6 +8479,20 @@ def main() -> int:
         for route in ("substituted", "raw"):
             plane_paths[f"rollup substitution: {name} ({route}, cold)"] = \
                 q[route]
+    sq = store["queries"]
+    for name in ("double_groupby_all", "cpu_max_all_8"):
+        plane_paths[f"object store (j): {name} over s3 (cold)"] = \
+            sq[name]["cold"]
+        plane_paths[f"object store (j): {name} over s3 (5 warm runs)"] = {
+            "k1_launches": sq[name]["warm_k1_launches"],
+            "k2_launches": sq[name]["warm_k2_launches"]}
+    plane_paths["object store (j): double_groupby_all over s3 (cold, a "
+                "cache under the SST's size)"] = \
+        sq["double_groupby_all"]["cold_small_cache"]
+    plane_paths["object store (j): double_groupby_all over cpu_copy "
+                "(COPY FROM parquet)"] = store["copy"]["cpu_copy"]
+    plane_paths["object store (j): external parquet table (count(*), "
+                "per-host max and avg)"] = store["copy"]["external"]
     plane_paths["observability (g): ANALYZE and HTTP (cpu)"] = main["obs"]
     plane_paths["index: hostname IN (3 hosts) on cpu"] = main["index"]
     plane_paths["metric engine: prom_cpu_m PromQL, SQL panel, neighbour"] = \

@@ -5,6 +5,10 @@ mirroring the reference `greptime standalone start` and `cli` REPL).
         --http-addr 127.0.0.1:4000 [-c standalone.toml] [--device cpu]
     python -m greptimedb_tpu_torch repl --data-home /tmp/db [--device cpu]
     python -m greptimedb_tpu_torch dump-config
+    python -m greptimedb_tpu_torch export --data-home /tmp/db \
+        --output-dir /tmp/dump [--db public] [--device cpu]
+    python -m greptimedb_tpu_torch import --data-home /tmp/db2 \
+        --input-dir /tmp/dump [--device cpu]
 
 `--device` is the port's counterpart of JAX_PLATFORMS: the server runs on
 the CUDA card unless asked for another device (`cpu` runs the kernels'
@@ -13,8 +17,10 @@ HTTP, MySQL and Postgres servers, static users and TLS, the concurrency
 plane, the query knobs and the observability plane ([tracing],
 [profiling], [slow_query], [metrics] self-scrape, [telemetry]); an
 option of a subsystem the port does not have yet exits non-zero naming
-the slice that brings it. The cluster roles and export/import belong to
-later slices and do the same. On exit every thread `standalone start`
+the slice that brings it. The cluster roles belong to a later slice and
+do the same. `export` writes each database's SHOW CREATE TABLE DDL and a
+COPY DATABASE ... TO of its tables in Parquet, one directory a database;
+`import` replays the DDL and COPY DATABASE ... FROM. On exit every thread `standalone start`
 started is joined: the servers', the self-scrape and telemetry tasks',
 the flame sampler and the OTLP exporter.
 """
@@ -34,10 +40,6 @@ _LATER = {
     "datanode": "mesh and cluster (ROADMAP A10)",
     "frontend": "mesh and cluster (ROADMAP A10)",
     "flownode": "mesh and cluster (ROADMAP A10)",
-    "export": "durable storage's remainder (ROADMAP A12: COPY, export "
-              "and import)",
-    "import": "durable storage's remainder (ROADMAP A12: COPY, export "
-              "and import)",
 }
 
 
@@ -216,6 +218,77 @@ def cmd_dump_config(args) -> int:
     return 0
 
 
+def _qi(name: str) -> str:
+    """Quote an identifier for SQL (reserved words, dashes, ...)."""
+    return '"' + name.replace('"', '""') + '"'
+
+
+def _qs(text: str) -> str:
+    """Quote a string or path literal."""
+    return "'" + text.replace("'", "''") + "'"
+
+
+def cmd_export(args) -> int:
+    """Backup: schemas (SHOW CREATE TABLE) and data (COPY DATABASE TO
+    Parquet), one subdirectory a database (reference cli export,
+    cmd/src/cli/export.rs:44-119)."""
+    from greptimedb_tpu_torch.session import QueryContext
+
+    engine, qe = build_standalone(args.data_home, device=args.device)
+    try:
+        os.makedirs(args.output_dir, exist_ok=True)
+        dbs = [args.db] if args.db else [
+            r[0] for r in qe.execute_one("SHOW DATABASES").rows()
+            if r[0] != "information_schema"]
+        for db in dbs:
+            ctx = QueryContext(db=db)
+            out = os.path.join(args.output_dir, db)
+            os.makedirs(out, exist_ok=True)
+            tables = qe.catalog.list_tables(db)
+            ddl = []
+            for t in sorted(tables):
+                r = qe.execute_one(f"SHOW CREATE TABLE {_qi(t)}", ctx)
+                ddl.append(r.rows()[0][1] + ";\n")
+            with open(os.path.join(out, "create_tables.sql"), "w") as f:
+                f.write("\n".join(ddl))
+            n = qe.execute_one(
+                f"COPY DATABASE {_qi(db)} TO {_qs(out)} "
+                "WITH (format = 'parquet')", ctx).affected_rows
+            print(f"exported {db}: {len(tables)} tables, {n} rows -> {out}",
+                  flush=True)
+    finally:
+        engine.close()
+    return 0
+
+
+def cmd_import(args) -> int:
+    """Restore an export dump: run each database's DDL file, then COPY
+    DATABASE FROM its Parquet directory."""
+    from greptimedb_tpu_torch.session import QueryContext
+
+    engine, qe = build_standalone(args.data_home, device=args.device)
+    try:
+        for db in sorted(os.listdir(args.input_dir)):
+            src = os.path.join(args.input_dir, db)
+            if not os.path.isdir(src):
+                continue
+            qe.execute_one(f"CREATE DATABASE IF NOT EXISTS {_qi(db)}")
+            ctx = QueryContext(db=db)
+            ddl_path = os.path.join(src, "create_tables.sql")
+            if os.path.exists(ddl_path):
+                with open(ddl_path) as f:
+                    sql = f.read()
+                if sql.strip():
+                    qe.execute_sql(sql, ctx)
+            n = qe.execute_one(
+                f"COPY DATABASE {_qi(db)} FROM {_qs(src)} "
+                "WITH (format = 'parquet')", ctx).affected_rows
+            print(f"imported {db}: {n} rows", flush=True)
+    finally:
+        engine.close()
+    return 0
+
+
 def cmd_repl(args) -> int:
     engine, qe = build_standalone(args.data_home, args.device)
     print("greptimedb_tpu_torch REPL — SQL or TQL, \\q to quit")
@@ -280,6 +353,20 @@ def main(argv=None) -> int:
     p_dump = sub.add_parser("dump-config",
                             help="print the documented example TOML config")
     p_dump.set_defaults(fn=cmd_dump_config)
+
+    p_exp = sub.add_parser("export", help="dump schemas + parquet data")
+    p_exp.add_argument("--data-home", default="./greptimedb_tpu_data")
+    p_exp.add_argument("--output-dir", required=True)
+    p_exp.add_argument("--db", default=None,
+                       help="one database (default: all)")
+    p_exp.add_argument("--device", default=None, help=device_help)
+    p_exp.set_defaults(fn=cmd_export)
+
+    p_imp = sub.add_parser("import", help="restore an export dump")
+    p_imp.add_argument("--data-home", default="./greptimedb_tpu_data")
+    p_imp.add_argument("--input-dir", required=True)
+    p_imp.add_argument("--device", default=None, help=device_help)
+    p_imp.set_defaults(fn=cmd_import)
 
     for name in _LATER:
         sub.add_parser(name, help=f"not in this slice ({_LATER[name]})")

@@ -1,12 +1,20 @@
-"""External file formats, the text half (counterpart of
-greptimedb_tpu/datasource/__init__.py, which reads every format through
-pyarrow; the port has no pyarrow, so CSV and ndjson are parsed here by
-hand with numpy).
+"""External file formats (counterpart of greptimedb_tpu/datasource/__init__.py,
+which reads and writes every format through pyarrow; the port has no
+pyarrow, so each is written here by hand with numpy): CSV and ndjson
+(this module and `text_writer.py`), Parquet (`parquet.py`, over the
+Thrift compact protocol of `thrift.py`) and ORC (`orc.py`). They back
+COPY TO / FROM (`convert.py`: `result_to_table`, `insert_table`) and the
+file engine.
 
-`read_file` returns a `TextTable`: column names, numpy columns, a
-validity mask where a column holds NULLs, and each column's inferred
-type under pyarrow's names, so the file engine infers the schema the
-JAX engine infers for the same file:
+`read_file` returns a `TextTable` (the port's column table, the JAX
+package's `pa.Table`): column names, numpy columns, a validity mask
+where a column holds NULLs, and each column's type under pyarrow's names
+(bool, int8..int64, uint8..uint64, float, double, string, binary,
+timestamp[s|ms|us|ns], date32, null), so the file engine infers the
+schema the JAX engine infers for the same file. A string column may be
+dictionary-encoded (`dictionary` set, `values` int32 codes, -1 NULL):
+the Parquet and ORC readers and `result_to_table` keep tags and strings
+that way, so a COPY of millions of rows stays columnar.
 
 - CSV (pyarrow.csv's defaults): the header names the columns, empty
   lines are skipped; pyarrow's
@@ -32,9 +40,10 @@ JAX engine infers for the same file:
   `NestedJsonColumn`; a key whose values mix kinds is refused, as
   pyarrow refuses it.
 
-`.gz` files are gunzipped first. Parquet and ORC, COPY and `write_file`
-raise UnsupportedStatement naming the slice that brings them (ROADMAP
-A12-io).
+`.gz` text files are gunzipped on reading and gzipped on writing;
+Parquet and ORC are containers with their own codecs. `write_file`
+writes CSV bytes equal to `pyarrow.csv.write_csv`'s and ndjson bytes
+equal to the JAX writer's (`json.dumps` of each row's Python values).
 """
 
 from __future__ import annotations
@@ -54,8 +63,6 @@ import numpy as np
 from greptimedb_tpu_torch.datatypes.types import DataType
 
 FORMATS = ("csv", "json", "parquet", "orc")
-TEXT_FORMATS = ("csv", "json")
-IO_SLICE = "COPY import and export (ROADMAP A12-io)"
 
 # pyarrow.csv.ConvertOptions' default null_values
 _CSV_NULLS = frozenset((
@@ -78,19 +85,38 @@ _TS = re.compile(
     r"(?(time)(?P<zone>Z|[+-](?:[01][0-9]|2[0-3])(?::?[0-5][0-9])?)?)\Z")
 _INT64_MIN, _INT64_MAX = -(1 << 63), (1 << 63) - 1
 
-#: inferred type -> the DataType the JAX engine's DataType.from_arrow gives
+#: column type -> the DataType the JAX engine's DataType.from_arrow gives
 TYPE_OF = {
-    "int64": DataType.INT64,
-    "double": DataType.FLOAT64,
     "bool": DataType.BOOL,
+    "int8": DataType.INT8,
+    "int16": DataType.INT16,
+    "int32": DataType.INT32,
+    "int64": DataType.INT64,
+    "uint8": DataType.UINT8,
+    "uint16": DataType.UINT16,
+    "uint32": DataType.UINT32,
+    "uint64": DataType.UINT64,
+    "float": DataType.FLOAT32,
+    "double": DataType.FLOAT64,
     "string": DataType.STRING,
+    "binary": DataType.BINARY,
     "timestamp[s]": DataType.TIMESTAMP_SECOND,
+    "timestamp[ms]": DataType.TIMESTAMP_MILLISECOND,
+    "timestamp[us]": DataType.TIMESTAMP_MICROSECOND,
     "timestamp[ns]": DataType.TIMESTAMP_NANOSECOND,
     "date32": DataType.TIMESTAMP_MILLISECOND,
 }
+#: DataType -> its column type (the JAX `DataType.to_arrow`)
+ARROW_NAME = {dt: name for name, dt in TYPE_OF.items() if name != "date32"}
 #: nanoseconds a stored unit of each time type
-_TIME_NS = {"timestamp[s]": 10**9, "timestamp[ns]": 1,
+_TIME_NS = {"timestamp[s]": 10**9, "timestamp[ms]": 10**6,
+            "timestamp[us]": 10**3, "timestamp[ns]": 1,
             "date32": 86_400 * 10**9}
+#: numpy dtype of each fixed-width column type
+NUMPY_OF = {"bool": np.bool_, "int8": np.int8, "int16": np.int16,
+            "int32": np.int32, "int64": np.int64, "uint8": np.uint8,
+            "uint16": np.uint16, "uint32": np.uint32, "uint64": np.uint64,
+            "float": np.float32, "double": np.float64}
 
 
 class DataSourceError(Exception):
@@ -100,14 +126,6 @@ class DataSourceError(Exception):
 class NestedJsonColumn(DataSourceError):
     """An ndjson key whose values are objects or arrays (pyarrow's struct
     and list types): the port's tables have no nested column type."""
-
-
-def _unsupported(what: str):
-    from greptimedb_tpu_torch.query.engine import UnsupportedStatement
-
-    return UnsupportedStatement(
-        f"{what} is not in this slice of greptimedb_tpu_torch; the "
-        f"{IO_SLICE} slice brings it")
 
 
 def infer_format(path: str, explicit: Optional[str] = None) -> str:
@@ -131,24 +149,70 @@ def infer_format(path: str, explicit: Optional[str] = None) -> str:
                           "pass WITH (format = '...')")
 
 
-def check_text_format(fmt: str) -> None:
-    """Refuse the container formats, naming the slice that brings them."""
-    if fmt not in TEXT_FORMATS:
-        raise _unsupported(f"{fmt} files")
-
-
 @dataclass
 class TextColumn:
-    """One column: `values` (int64 / float64 / bool / int64 time units /
-    object strings), `valid` (None when no NULL) and the inferred type."""
+    """One column: `values` (a fixed-width numpy array of the type, int64
+    time units, object strings, or int32 codes into `dictionary`),
+    `valid` (None when no NULL) and the type. A dictionary column's NULL
+    is code -1 (and `valid` False there). Type "python" holds Python
+    values as they are (COPY FROM's column defaults)."""
 
     values: np.ndarray
     valid: Optional[np.ndarray]
     type: str
+    dictionary: Optional[np.ndarray] = None
+
+    @staticmethod
+    def of_codes(codes: np.ndarray, dictionary: np.ndarray,
+                 type: str = "string") -> "TextColumn":
+        codes = np.asarray(codes, dtype=np.int32)
+        valid = codes >= 0
+        return TextColumn(codes, None if valid.all() else valid, type,
+                          np.asarray(dictionary, dtype=object))
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def strings(self) -> np.ndarray:
+        """A string column's values as an object array, None for NULL."""
+        if self.dictionary is not None:
+            if not len(self.dictionary):
+                return np.full(len(self.values), None, dtype=object)
+            out = self.dictionary[np.maximum(self.values, 0)]
+        else:
+            out = np.asarray(self.values, dtype=object)
+        if self.valid is not None:
+            out = np.where(self.valid, out, None)
+        return out
+
+    def encoded(self) -> tuple[np.ndarray, np.ndarray]:
+        """(int32 codes with -1 for NULL, dictionary) of a string column,
+        encoding in first-seen order when it is not encoded yet."""
+        if self.dictionary is not None:
+            return self.values, self.dictionary
+        seen: dict = {}
+        vals = self.strings()
+        codes = np.fromiter(
+            (-1 if v is None else seen.setdefault(v, len(seen))
+             for v in vals.tolist()), np.int32, len(vals))
+        return codes, np.asarray(list(seen), dtype=object)
+
+    def encoded_column(self) -> "TextColumn":
+        """This string column dictionary-encoded."""
+        if self.dictionary is not None:
+            return self
+        return TextColumn.of_codes(*self.encoded(), type=self.type)
 
     def to_pylist(self) -> list:
         """Python values as pyarrow's `to_pylist` gives them."""
-        if self.type in ("timestamp[s]", "timestamp[ns]"):
+        if self.type == "python":
+            out = self.values.tolist()
+            return out if self.valid is None else [
+                v if ok else None for v, ok in zip(out, self.valid.tolist())]
+        if self.dictionary is not None or self.type in ("string",
+                                                        "binary"):
+            return self.strings().tolist()
+        if self.type.startswith("timestamp["):
             ns = _TIME_NS[self.type]
             epoch = dt.datetime(1970, 1, 1)
             out = [epoch + dt.timedelta(microseconds=int(v) * ns // 1000)
@@ -179,11 +243,18 @@ class TextTable:
 
 def read_file(path: str, fmt: Optional[str] = None) -> TextTable:
     fmt = infer_format(path, fmt)
-    check_text_format(fmt)
     if not os.path.exists(path):
         raise DataSourceError(f"file {path!r} not found")
     with open(path, "rb") as f:
         raw = f.read()
+    if fmt == "parquet":
+        from greptimedb_tpu_torch.datasource import parquet
+
+        return parquet.read(raw)
+    if fmt == "orc":
+        from greptimedb_tpu_torch.datasource import orc
+
+        return orc.read(raw)
     if path.endswith(".gz"):
         raw = gzip.decompress(raw)
     text = raw.decode("utf-8")
@@ -192,8 +263,29 @@ def read_file(path: str, fmt: Optional[str] = None) -> TextTable:
     return _read_ndjson(text)
 
 
-def write_file(table, path: str, fmt: Optional[str] = None) -> int:
-    raise _unsupported("writing files (COPY TO)")
+def write_file(table: TextTable, path: str, fmt: Optional[str] = None) -> int:
+    """Write a column table (`result_to_table`'s) as `fmt` (or the
+    format the extension names); returns the rows written."""
+    from greptimedb_tpu_torch.datasource import orc, parquet, text_writer
+
+    fmt = infer_format(path, fmt)
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    if fmt == "parquet":
+        data = parquet.write(table)
+    elif fmt == "orc":
+        data = orc.write(table)
+    else:
+        data = text_writer.csv_bytes(table) if fmt == "csv" \
+            else text_writer.ndjson_bytes(table)
+        if path.endswith(".gz"):
+            # zlib's default level; the JAX writer's gzip default is 9,
+            # and both decompress to the same text
+            data = gzip.compress(data, compresslevel=6)
+    with open(path, "wb") as f:
+        f.write(data)
+    return table.num_rows
 
 
 # ---- CSV ---------------------------------------------------------------------

@@ -9,33 +9,51 @@ batcher does.
 
 `FaultRegistry` (`FAULTS`, process-wide): named injection points armed
 with deterministic, seed-driven schedules. A seam calls
-`FAULTS.fire(point, **labels)` at its boundary; an unarmed point costs
-one dict lookup. The port's seams are the write plane's:
+`FAULTS.fire(point, **labels)` at its boundary (control-path faults:
+fail / latency) or `FAULTS.mangle(point, data)` and its templates
+`mangled_write` / `mangled_read` (data-path faults: torn writes, short
+reads, a full device); an unarmed point costs one dict lookup. The
+port's seams:
 
-    ingest.commit    (storage/group_commit.py and Region.group_commit:
-                      op=drain when a leader drains the queue, op=append
-                      before the WAL append and fsync, op=apply between
-                      the durable append and the memtable apply)
-    maintenance.job  (maintenance/: op=flush|compact|rollup|expire,
-                      phase=start at job start and phase=swap at the
-                      manifest or coverage swap)
-    otlp.export      (utils/otlp_trace.py: before each span or log
-                      batch is posted to the collector)
+    objectstore.read   (objectstore/: every backend read, inside the
+                        shared retry)
+    objectstore.write  (objectstore/: every backend write; enospc spills
+                        the partial bytes to the backend's staging and
+                        erases them)
+    wal.append         (storage/wal.py and storage/remote_wal.py: the
+                        durable append; a torn or enospc tail is cut
+                        before the error surfaces)
+    wal.replay         (storage/wal.py: each segment read; storage/
+                        remote_wal.py: once a replay)
+    ingest.commit      (storage/group_commit.py and Region.group_commit:
+                        op=drain when a leader drains the queue, op=append
+                        before the WAL append and fsync, op=apply between
+                        the durable append and the memtable apply)
+    maintenance.job    (maintenance/: op=flush|compact|rollup|expire,
+                        phase=start at job start and phase=swap at the
+                        manifest or coverage swap)
+    otlp.export        (utils/otlp_trace.py: before each span or log
+                        batch is posted to the collector)
+
+`retry_call` (fault/retry.py) runs an operation under the shared
+retry policy: transient errors (`is_transient`: injected transient
+faults, errors that say `transient=True`, connection errors) retry with
+capped exponential backoff and full jitter; the rest surface at once.
 
 Arming is programmatic (`FAULTS.arm("ingest.commit", Fault(...))`) or
 through the environment, read once when this module is imported, so a
 child process inherits its parent's schedule:
 
-    GTPU_CHAOS="ingest.commit=latency,arg:0.5,@op:apply"
+    GTPU_CHAOS="objectstore.read=fail,nth:2;ingest.commit=latency,arg:0.5,@op:apply"
     GTPU_CHAOS_SEED=42
 
-The JAX registry's other points (object store, WAL, Flight, heartbeats,
-the metadata KV, elections), its network partitions,
-edge matchers and node registration belong to seams the port does not
-have yet: arming them raises naming the slice that brings them. Every
-injection counts in `greptimedb_tpu_fault_injections_total{point,kind}`.
-The retry policy and the chaos explorer come with the mesh and cluster
-slice (ROADMAP.md, A10).
+The JAX registry's other points (Flight, heartbeats, the metadata KV,
+elections), its network partitions, edge matchers and node registration
+belong to seams the port does not have yet: arming them raises naming
+the slice that brings them. Every injection counts in
+`greptimedb_tpu_fault_injections_total{point,kind}`. The chaos explorer
+and its scenarios come with the mesh and cluster slice (ROADMAP.md,
+A10).
 """
 
 from __future__ import annotations
@@ -50,17 +68,20 @@ from typing import Optional
 from greptimedb_tpu_torch.utils.metrics import FAULT_INJECTIONS
 
 __all__ = ["Cancelled", "DeadlineExceeded", "FAULTS", "Fault", "FaultError",
-           "FaultRegistry", "POINTS", "Unavailable"]
+           "FaultRegistry", "POINTS", "Unavailable", "is_transient",
+           "retry_call"]
 
 _A10 = "mesh and cluster (ROADMAP A10)"
 
-#: the port's injection points (the write plane's seams and the OTLP
-#: exporter's)
-POINTS = frozenset({"ingest.commit", "maintenance.job", "otlp.export"})
+#: the port's injection points (the object store's, the WALs', the write
+#: plane's and the OTLP exporter's)
+POINTS = frozenset({
+    "objectstore.read", "objectstore.write", "wal.append", "wal.replay",
+    "ingest.commit", "maintenance.job", "otlp.export",
+})
 
 #: the JAX registry's points whose seams the port does not have yet
 _LATER_POINTS = frozenset({
-    "objectstore.read", "objectstore.write", "wal.append", "wal.replay",
     "flight.do_get", "flight.do_put", "heartbeat.send", "datanode.crash",
     "metasrv.kv", "election.lease",
 })
@@ -142,8 +163,9 @@ class Fault:
     for every call).
 
     kind: fail | latency | torn | short_read | enospc (the data kinds
-    degrade to plain failures on the port's control-path seams)
-    arg:  latency seconds
+    degrade to plain failures on the control-path seams)
+    arg:  latency seconds, or the fraction of bytes a data fault keeps
+          (0 = half)
     """
 
     kind: str = "fail"
@@ -289,6 +311,77 @@ class FaultRegistry:
         raise FaultError(point, kind=fault.kind,
                          transient=fault.kind not in ("torn", "enospc"))
 
+    def mangle(self, point: str, data: bytes,
+               **labels) -> tuple[bytes, Optional[str]]:
+        """Data-path hook: returns (possibly truncated bytes, fail_kind).
+        fail_kind "torn" means the caller must surface an error AFTER
+        persisting the mangled bytes (partial bytes down, no
+        acknowledgement); "enospc" means the device is full: partial
+        bytes may reach staging but must never become the durable object
+        (`mangled_write` routes them through the caller's cleanup). A
+        call whose labels do not match neither fires nor consumes the
+        schedule."""
+        fault = self._points.get(point)
+        if fault is None or not fault.matches(labels):
+            return data, None
+        if not fault.should_fire():
+            return data, None
+        FAULT_INJECTIONS.inc(point=point, kind=fault.kind,
+                             **{k: str(v) for k, v in labels.items()})
+        if fault.kind == "latency":
+            _deadline_sleep(fault.arg, point)
+            return data, None
+        if fault.kind == "fail":
+            raise FaultError(point)
+        keep = max(0, min(len(data), int(len(data) * (fault.arg or 0.5))))
+        if fault.kind == "torn":
+            return data[:keep], "torn"
+        if fault.kind == "enospc":
+            return data[:keep], "enospc"
+        return data[:keep], None  # short_read: silent truncation
+
+    def mangled_write(self, point: str, data: bytes, sink,
+                      spill=None, **labels) -> None:
+        """The shared data-path WRITE template: mangle, hand the
+        (possibly truncated) bytes to `sink`, then surface the torn-write
+        error: partial bytes persisted, call unacknowledged,
+        non-retryable. enospc lands its partial bytes in the seam's
+        staging through `spill(partial)` (a file tail, a tmp object),
+        which must erase them before the error surfaces; with no spill
+        hook nothing is persisted (atomic backends)."""
+        mangled, fail_kind = self.mangle(point, data, **labels)
+        if fail_kind == "enospc":
+            if spill is not None:
+                spill(mangled)
+            raise FaultError(point, kind="enospc", transient=False)
+        sink(mangled)
+        if fail_kind or len(mangled) < len(data):
+            # any truncation of a durable write must surface: silently
+            # acknowledging short bytes would lose an acknowledged write
+            raise FaultError(point, kind="torn", transient=False)
+
+    def mangled_read(self, point: str, data: bytes, **labels) -> bytes:
+        """The shared data-path READ template: a torn fault on a read
+        means the bytes came back partial AND the error surfaces; only
+        `short_read` serves truncated bytes silently."""
+        mangled, fail_kind = self.mangle(point, data, **labels)
+        if fail_kind:  # torn or enospc: never serve partial bytes
+            raise FaultError(point, kind=fail_kind, transient=False)
+        return mangled
+
+
+def is_transient(exc: BaseException) -> bool:
+    """Shared retry predicate: injected transient faults, errors that
+    describe themselves as transient (an ObjectStoreError from a 5xx)
+    and network-shaped stdlib errors."""
+    if isinstance(exc, FaultError):
+        return exc.transient
+    if getattr(exc, "transient", False):
+        return True
+    return isinstance(exc, (ConnectionError, TimeoutError))
+
+
+from .retry import retry_call  # noqa: E402 — it looks up the types above
 
 #: the process-wide registry every seam consults
 FAULTS = FaultRegistry()

@@ -731,10 +731,32 @@ def apply_observability(opts: "StandaloneOptions") -> None:
     flame.maybe_install()
 
 
+def store_kwargs(opts: "StandaloneOptions") -> dict:
+    """[storage.s3] / [storage.gcs] / [storage.azblob] -> the backend's
+    constructor arguments (empty for fs and memory)."""
+    kind = opts.storage.type
+    if kind == "s3":
+        s3 = opts.storage.s3
+        return dict(bucket=s3.bucket, prefix=s3.root,
+                    endpoint=s3.endpoint or None, region=s3.region,
+                    access_key=s3.access_key_id or None,
+                    secret_key=s3.secret_access_key or None)
+    if kind == "gcs":
+        g = opts.storage.gcs
+        return dict(bucket=g.bucket, prefix=g.root,
+                    endpoint=g.endpoint or None, token=g.token or None)
+    if kind == "azblob":
+        a = opts.storage.azblob
+        return dict(container=a.container, prefix=a.root,
+                    endpoint=a.endpoint or None,
+                    account_name=a.account_name or None,
+                    account_key=a.account_key or None)
+    return {}
+
+
 def engine_config(opts: "StandaloneOptions", data_dir: str):
-    """[wal], [engine], [scan], [ingest] and [maintenance] -> the storage
-    EngineConfig (the keys check_port_support lets through), as the JAX
-    `to_engine_config` maps them."""
+    """[storage], [wal], [engine], [scan], [ingest] and [maintenance] ->
+    the storage EngineConfig, as the JAX `to_engine_config` maps them."""
     from greptimedb_tpu_torch.storage import EngineConfig
 
     from greptimedb_tpu_torch.maintenance import parse_duration_ms
@@ -750,6 +772,10 @@ def engine_config(opts: "StandaloneOptions", data_dir: str):
         data_dir=data_dir,
         wal_sync=opts.wal.sync,
         wal_segment_bytes=opts.wal.segment_bytes,
+        wal_backend=opts.wal.backend,
+        object_store=opts.storage.type,
+        object_store_cache_bytes=opts.storage.cache_bytes,
+        object_store_kwargs=store_kwargs(opts),
         flush_threshold_bytes=opts.engine.flush_threshold_bytes,
         scan_decode_threads=opts.scan.decode_threads,
         scan_part_cache_bytes=opts.scan.part_cache_bytes,
@@ -776,8 +802,6 @@ def engine_config(opts: "StandaloneOptions", data_dir: str):
 _A9_FLIGHT = "Arrow Flight (ROADMAP A9-flight)"
 _A10 = "mesh and cluster (ROADMAP A10)"
 _A11 = "tier routing (ROADMAP A11)"
-_A12_STORE = "durable storage's remainder (ROADMAP A12: object stores " \
-    "and the remote WAL)"
 
 #: option path (a section, or one key) -> (the slice that brings it,
 #: the values besides the default that ask for what the port already
@@ -785,12 +809,6 @@ _A12_STORE = "durable storage's remainder (ROADMAP A12: object stores " \
 #: the port or listed in _NOTHING_TO_ACT_ON.
 _UNPORTED = {
     "grpc": (_A9_FLIGHT, ()),
-    "wal.backend": (_A12_STORE, ()),
-    "storage.type": (_A12_STORE, ()),
-    "storage.cache_bytes": (_A12_STORE, ()),
-    "storage.s3": (_A12_STORE, ()),
-    "storage.gcs": (_A12_STORE, ()),
-    "storage.azblob": (_A12_STORE, ()),
     "query.mesh": (_A10, ()),
     "query.tier_admission": (_A11, ()),
     "query.tier_adaptive": (_A11, ()),

@@ -45,7 +45,7 @@ Regions open lazily from the catalog on first use, so a persisted
 catalog and a reopened storage engine serve the tables they held.
 CREATE TABLE … ENGINE = metric makes a logical table over the database's
 shared physical region (storage/metric_engine.py) and CREATE EXTERNAL
-TABLE a read-only table over a CSV or ndjson file
+TABLE a read-only table over a CSV, ndjson, Parquet or ORC file
 (storage/file_engine.py); both engines are built eagerly and register
 openers, so their tables reopen after a restart. CREATE FLOW / DROP
 FLOW / SHOW FLOWS and ADMIN flush_flow drive the flow engine
@@ -54,8 +54,8 @@ call a region. The plugin container (plugins.py) runs its SQL
 interceptors once a statement, before parsing (here or in the fast
 lane, which tells this path it already ran them), and its scalar
 functions resolve in expressions while a statement of this engine runs.
-COPY, Parquet and ORC files raise UnsupportedStatement naming the slice
-of the port that brings them.
+COPY TABLE / COPY DATABASE write and read CSV, ndjson, Parquet and
+ORC files (datasource/, each format written by hand).
 """
 
 from __future__ import annotations
@@ -63,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import json
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -123,15 +124,6 @@ from greptimedb_tpu_torch.utils.metrics import (
 )
 
 _CLUSTER = "mesh and cluster (ROADMAP A10)"
-
-# statements of the JAX engine this slice leaves out, by the later slice
-# of the port that brings them (ROADMAP.md, queue A)
-_LATER = {
-    # COPY reads and writes Parquet/CSV files
-    "CopyTable": "COPY import and export",
-    "CopyDatabase": "COPY import and export",
-}
-
 
 class UnsupportedStatement(PlanError):
     """A statement the JAX engine runs that this slice of the port does
@@ -438,6 +430,10 @@ class QueryEngine:
             return self._admin(stmt, ctx)
         if isinstance(stmt, ast.Tql):
             return self._tql(stmt, ctx)
+        if isinstance(stmt, ast.CopyTable):
+            return self._copy_table(stmt, ctx)
+        if isinstance(stmt, ast.CopyDatabase):
+            return self._copy_database(stmt, ctx)
         if isinstance(stmt, ast.CreateFlow):
             self.flow_engine.create_flow(stmt, ctx)
             return QueryResult.of_affected(0)
@@ -454,12 +450,7 @@ class QueryEngine:
                  np.asarray([f.source_table for f in flows], dtype=object),
                  np.asarray([f.sql for f in flows], dtype=object)],
             )
-        name = type(stmt).__name__
-        if name in _LATER:
-            raise UnsupportedStatement(
-                f"{name} is not in this slice of greptimedb_tpu_torch; the "
-                f"{_LATER[name]} slice brings it")
-        raise PlanError(f"unsupported statement {name}")
+        raise PlanError(f"unsupported statement {type(stmt).__name__}")
 
     @property
     def flow_engine(self):
@@ -1594,6 +1585,59 @@ class QueryEngine:
                 cols[c.name] = np.zeros(n, dtype=c.dtype.to_numpy())
         return QueryResult.of_affected(self.region_engine.delete(
             info.region_ids[0], RecordBatch(schema, cols)))
+
+    def _copy_table(self, stmt: ast.CopyTable,
+                    ctx: QueryContext) -> QueryResult:
+        """COPY <table> TO / FROM '<path>' (reference operator/src/
+        statement/copy_table_{to,from}.rs): TO writes SELECT * of the
+        table, FROM inserts the file's columns by name."""
+        from greptimedb_tpu_torch import datasource
+        from greptimedb_tpu_torch.datasource import convert
+
+        if stmt.direction == "to":
+            sel = ast.Select(items=[ast.SelectItem(ast.Star())],
+                             table=stmt.table)
+            result = self._select(sel, ctx)
+            n = datasource.write_file(convert.result_to_table(result),
+                                      stmt.path, stmt.options.get("format"))
+            return QueryResult.of_affected(n)
+        t = datasource.read_file(stmt.path, stmt.options.get("format"))
+        return QueryResult.of_affected(
+            convert.insert_table(self, stmt.table, t, ctx))
+
+    def _copy_database(self, stmt: ast.CopyDatabase,
+                       ctx: QueryContext) -> QueryResult:
+        """COPY DATABASE TO / FROM '<dir>': one file a table, Parquet
+        unless WITH (format = ...) says otherwise (reference operator/src/
+        statement/copy_database.rs). FROM loads each file whose base name
+        is a table of the database."""
+        from greptimedb_tpu_torch import datasource
+
+        db = stmt.database
+        fmt = stmt.options.get("format", "parquet")
+        dctx = ctx.with_db(db)
+        total = 0
+        if stmt.direction == "to":
+            os.makedirs(stmt.path, exist_ok=True)
+            for name in self.catalog.list_tables(db):
+                sub = ast.CopyTable(
+                    name, "to", os.path.join(stmt.path, f"{name}.{fmt}"),
+                    dict(stmt.options))
+                total += self._copy_table(sub, dctx).affected_rows
+            return QueryResult.of_affected(total)
+        for fname in sorted(os.listdir(stmt.path)):
+            base, ext = os.path.splitext(fname)
+            ext = ext.lstrip(".").lower()
+            if ext in ("ndjson", "jsonl"):
+                ext = "json"
+            if ext not in datasource.FORMATS:
+                continue
+            if not self.catalog.table_exists(db, base):
+                continue
+            sub = ast.CopyTable(base, "from", os.path.join(stmt.path, fname),
+                                dict(stmt.options))
+            total += self._copy_table(sub, dctx).affected_rows
+        return QueryResult.of_affected(total)
 
     def _sharded_write(self, info: TableInfo, batch: RecordBatch,
                        delete: bool) -> int:

@@ -601,7 +601,10 @@ class Parser:
         if self.eat_kw("with"):
             self.expect_op("(")
             while not self.at_op(")"):
-                k = self.qualified_name()
+                # a quoted key, as SHOW CREATE TABLE prints the options
+                # (WITH ('append_mode' = 'true')), reads as its name
+                k = self.next().value if self.peek().kind == "string" \
+                    else self.qualified_name()
                 self.expect_op("=")
                 t = self.next()
                 stmt.options[k] = t.value

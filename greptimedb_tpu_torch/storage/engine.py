@@ -1,9 +1,18 @@
 """RegionEngine: the storage engine's contract over durable regions
 (counterpart of greptimedb_tpu/storage/engine.py).
 
-Each region lives under `<data_dir>/region_<id>/` (manifest deltas and
-checkpoints, SSTs); the WAL segments of every region share
-`<data_dir>/wal/`. Compaction's merge and the rollup jobs run on the
+Each region's objects (manifest deltas and checkpoints, SSTs, their
+index files, rollup coverage) live under the keys
+`<data_dir>/region_<id>/...` of the engine's object store
+(`object_store`: fs, memory, s3, gcs or azblob, built by
+`objectstore.build_store`, behind an `LruCacheLayer` when
+`object_store_cache_bytes` > 0). The WAL is local segment files under
+`<data_dir>/wal/` (`wal_backend="local"`) or segment objects under
+`<data_dir>/remote_wal/` of a shared store (`"remote"`: `wal_store`, or
+the engine's store without its read cache), so a failover engine on
+another node replays the unflushed writes. `data_dir` itself holds only
+the format stamp and the maintenance plane's ad-hoc rules on any
+backend. Compaction's merge and the rollup jobs run on the
 engine's device: the CUDA card unless the caller passes device="cpu".
 
 The write plane follows the JAX engine's defaults:
@@ -37,8 +46,6 @@ what it was after a restart. Their regions are not `Region`s, and every
 engine-wide walk (group commit, stalls, close, scan_last, scan_stream,
 ts_extent) accepts a region without those attributes, as the JAX
 engine's `hasattr` guards do.
-
-Left for later slices (ROADMAP.md): remote WALs and object stores.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from typing import Optional, Sequence
 from greptimedb_tpu_torch import config as port_config
 from greptimedb_tpu_torch.datatypes.recordbatch import RecordBatch
 from greptimedb_tpu_torch.datatypes.schema import Schema
-from greptimedb_tpu_torch.objectstore import FsStore
+from greptimedb_tpu_torch.objectstore import LruCacheLayer, build_store
 from greptimedb_tpu_torch.storage.format import check_and_stamp
 from greptimedb_tpu_torch.storage.group_commit import GroupCommitter
 from greptimedb_tpu_torch.storage.scan_pool import DecodePool
@@ -63,6 +70,7 @@ from greptimedb_tpu_torch.storage.region import (
     Region,
     ScanData,
 )
+from greptimedb_tpu_torch.storage.remote_wal import RemoteWal
 from greptimedb_tpu_torch.storage.wal import DEFAULT_SEGMENT_BYTES, Wal
 from greptimedb_tpu_torch.storage.worker import WorkerGroup
 from greptimedb_tpu_torch.utils.metrics import (
@@ -77,6 +85,20 @@ class EngineConfig:
     # fsync at the WAL append boundary: a guarantee, not a speed knob
     wal_sync: bool = True
     wal_segment_bytes: int = DEFAULT_SEGMENT_BYTES
+    # "local" = segmented files on this node's disk (raft-engine analog);
+    # "remote" = objects on shared storage (Kafka-WAL analog) so a
+    # failover engine replays without the failed node's disk
+    wal_backend: str = "local"
+    # explicit shared ObjectStore for the remote WAL; default = the
+    # engine's own store, without its read cache (segments are read
+    # once, at replay)
+    wal_store: Optional[object] = None
+    # object store of SSTs, manifests and index files: fs | memory | s3
+    # | gcs | azblob, with an LRU read cache of this many bytes (0 = none)
+    object_store: str = "fs"
+    object_store_cache_bytes: int = 0
+    # backend-specific constructor arguments (s3: bucket, endpoint, keys)
+    object_store_kwargs: dict = field(default_factory=dict)
     # auto-flush once a memtable holds this many bytes
     flush_threshold_bytes: int = 256 << 20
     # byte budget of each region's decoded SST parts and whole-scan
@@ -128,10 +150,19 @@ class RegionEngine:
         os.makedirs(config.data_dir, exist_ok=True)
         # refuse dirs of the JAX package or of a newer build; stamp ours
         self.format_versions = check_and_stamp(config.data_dir)
-        self.store = FsStore()
-        self.wal = Wal(os.path.join(config.data_dir, "wal"),
-                       sync=config.wal_sync,
-                       segment_bytes=config.wal_segment_bytes)
+        self.store = build_store(config.object_store,
+                                 config.object_store_cache_bytes,
+                                 **config.object_store_kwargs)
+        if config.wal_backend == "remote":
+            store = config.wal_store or (
+                self.store.inner if isinstance(self.store, LruCacheLayer)
+                else self.store)
+            self.wal = RemoteWal(store, prefix=os.path.join(
+                config.data_dir, "remote_wal"))
+        else:
+            self.wal = Wal(os.path.join(config.data_dir, "wal"),
+                           sync=config.wal_sync,
+                           segment_bytes=config.wal_segment_bytes)
         self.regions: dict[int, Region] = {}
         # alternate engines (metric, file) hook region-open by id — the
         # RegionServer multi-engine registration analog (datanode.rs:328)

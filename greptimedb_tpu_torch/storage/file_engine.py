@@ -3,8 +3,8 @@ greptimedb_tpu/storage/file_engine.py; mirrors reference
 `src/file-engine`: `FileRegionEngine` over common/datasource formats,
 src/file-engine/src/engine.rs).
 
-A file region materializes its CSV or ndjson file (datasource/, parsed
-by hand) into the same `ScanData` contract the LSM regions produce (tags
+A file region materializes its CSV, ndjson, Parquet or ORC file
+(datasource/, each read by hand) into the same `ScanData` contract the LSM regions produce (tags
 as dictionary codes, NULL as code -1, zero seq/op_type sideband,
 `needs_dedup=False`), so the device kernels treat external data exactly
 like native region scans. Registered as an opener on the shared
@@ -31,7 +31,6 @@ import numpy as np
 
 from greptimedb_tpu_torch.datatypes.schema import ColumnSchema, Schema
 from greptimedb_tpu_torch.datatypes.types import DataType, SemanticType
-from greptimedb_tpu_torch.datatypes.vector import DictVector
 from greptimedb_tpu_torch.storage.region import ScanData
 
 META_PREFIX = "__file_engine/"
@@ -133,7 +132,7 @@ class FileRegion:
     # -- load + coerce ---------------------------------------------------------
 
     def _load(self, mtime: int):
-        from greptimedb_tpu_torch.datasource import read_file
+        from greptimedb_tpu_torch.datasource import convert, read_file
 
         with self._lock:
             if self._cache is not None and self._cache[0] == mtime:
@@ -152,67 +151,27 @@ class FileRegion:
                 col = t.column(c.name)
                 if c.semantic is SemanticType.TAG or c.dtype.is_string:
                     # NULLs encode as code -1, same as native regions
-                    dv = DictVector.encode(_strings(col))
+                    dv = convert.strings(col)
                     columns[c.name] = dv.codes
                     tag_dicts[c.name] = dv.values
                 elif c.dtype.is_timestamp:
                     columns[c.name] = _timestamps(col, c.dtype)
                 else:
-                    columns[c.name] = _numbers(
-                        col, c.dtype.is_float).astype(c.dtype.to_numpy())
+                    columns[c.name] = convert.numbers(col, c.dtype)
             self.loads += 1
             self._cache = (mtime, columns, tag_dicts, t.num_rows)
             return columns, tag_dicts, t.num_rows
 
 
-def _strings(col) -> np.ndarray:
-    """str() of each value, None for NULL (the JAX engine's str(v))."""
-    if col.type == "string":
-        vals = np.asarray(col.values, dtype=object)
-        if col.valid is not None:
-            vals = np.where(col.valid, vals, None)
-        return vals
-    return np.asarray([None if v is None else str(v)
-                       for v in col.to_pylist()], dtype=object)
-
-
-def _numbers(col, to_float: bool) -> np.ndarray:
-    """float(v) (NULL -> NaN) or int(v) (NULL -> 0) of each value, as the
-    JAX engine converts them."""
-    fill = np.nan if to_float else 0
-    if col.type in ("int64", "double", "bool"):
-        vals = col.values.astype(np.float64) if to_float else col.values
-        if not to_float and vals.dtype.kind == "f":
-            vals = np.trunc(vals)  # int(v) truncates toward zero
-        if col.valid is not None:
-            vals = np.where(col.valid, vals, fill)
-        return vals
-    if col.type == "null":
-        return np.full(len(col.values), fill)
-    conv = float if to_float else int
-    return np.asarray([fill if v is None else conv(v)
-                       for v in col.to_pylist()])
-
-
 def _timestamps(col, dtype: DataType) -> np.ndarray:
     """The JAX engine's coerce_ts_literal of each value, into the
     column's unit."""
-    from greptimedb_tpu_torch.datasource import _TIME_NS
-    from greptimedb_tpu_torch.utils.time import coerce_ts_literal
+    from greptimedb_tpu_torch.datasource import convert
 
     if col.valid is not None and not col.valid.all():
         raise FileEngineError(
             f"NULL in time index column of {col.type} values")
-    unit_ns = dtype.time_unit.nanos_per_unit
-    if col.type in _TIME_NS:
-        ns = col.values.astype(np.int64) * _TIME_NS[col.type]
-        return ns // unit_ns
-    if col.type in ("int64", "bool"):
-        return col.values.astype(np.int64)
-    if col.type == "double":
-        return np.trunc(col.values).astype(np.int64)
-    return np.asarray([coerce_ts_literal(v, dtype)
-                       for v in col.to_pylist()], dtype=np.int64)
+    return convert.timestamps(col, dtype)
 
 
 class FileEngine:
@@ -227,14 +186,9 @@ class FileEngine:
     def create_file_table(self, db: str, name: str, schema: Optional[Schema],
                           location: str,
                           fmt: Optional[str]) -> tuple[int, Schema]:
-        from greptimedb_tpu_torch.datasource import (
-            check_text_format,
-            infer_format,
-            read_file,
-        )
+        from greptimedb_tpu_torch.datasource import infer_format, read_file
 
         fmt = infer_format(location, fmt)
-        check_text_format(fmt)
         parsed = None
         if schema is None:
             try:

@@ -153,7 +153,8 @@ class SstWriter:
         pieces += [footer, _TRAILER.pack(len(footer)), MAGIC]
         file_id = uuid.uuid4().hex
         path = os.path.join(self.sst_dir, file_id + SUFFIX)
-        self.store.write(path, [p for p in pieces if len(p)])
+        pieces = [p for p in pieces if len(p)]
+        self.store.write(path, pieces)
         # the per-file inverted index (tag value -> segment bitmap)
         InvertedIndexWriter(
             self.sst_dir, self.store,
@@ -169,7 +170,8 @@ class SstWriter:
             ts_min=int(ts.min()) if n else 0,
             ts_max=int(ts.max()) if n else 0,
             max_seq=int(arrays[SEQ_COL].max()) if n else 0,
-            level=level, size_bytes=self.store.size(path),
+            # the bytes written (a remote store would answer a HEAD)
+            level=level, size_bytes=sum(len(p) for p in pieces),
             null_tags=null_tags)
 
 

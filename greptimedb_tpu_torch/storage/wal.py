@@ -18,6 +18,12 @@ fsync, so a batch of mutations shares the cost. `append_many` is
 and the fsync): group commit encodes outside every lock and appends in
 ticket order.
 
+Fault seams (as the JAX local WAL has them): `wal.append` around the
+append (`FAULTS.mangled_write`, under `retry_call`; a torn or enospc
+tail is truncated before the error surfaces, so the file only ever
+holds whole acknowledged frames) and `wal.replay` around each segment
+read (an injected short read is a transient error and re-reads).
+
 Segments: `region_<id>.<segno>.wal`, rolled once the active file passes
 `segment_bytes`. `obsolete(up_to_seq)` deletes whole sealed segments
 whose frames are all below the flushed sequence: a header scan, no
@@ -49,6 +55,7 @@ from greptimedb_tpu_torch import native
 from greptimedb_tpu_torch.datatypes.recordbatch import RecordBatch
 from greptimedb_tpu_torch.datatypes.schema import Schema
 from greptimedb_tpu_torch.datatypes.vector import DictVector
+from greptimedb_tpu_torch.fault import FAULTS, FaultError, retry_call
 from greptimedb_tpu_torch.utils import tracing
 
 _HEADER = struct.Struct("<IIQQB")  # payload_len, crc32, region_id, seq, op
@@ -162,19 +169,27 @@ class Wal:
         lock."""
         pieces = [blob] if isinstance(blob, (bytes, bytearray)) else blob
         _segno, f = self._writer(region_id)
-        start = f.tell()
-        # span-covered durability boundary: on the serial write path the
-        # append lands in the request's trace; a group-commit leader
-        # records one span per drained group in its own trace (it
-        # serves many writers' traces at once)
-        with tracing.span("wal_append", region=region_id,
-                          bytes=sum(len(p) for p in pieces)):
+        begin = f.tell()
+
+        def sink(parts) -> None:
+            for p in parts:
+                f.write(p)
+            f.flush()
+            if self.sync:
+                os.fsync(f.fileno())  # the durability boundary
+
+        def attempt() -> None:
+            start = f.tell()
             try:
-                for p in pieces:
-                    f.write(p)
-                f.flush()
-                if self.sync:
-                    os.fsync(f.fileno())  # the durability boundary
+                if FAULTS.armed("wal.append"):
+                    # spill=sink: an injected ENOSPC lands its partial
+                    # bytes in the file tail first (what a full disk
+                    # does to an append); the repair below erases them
+                    FAULTS.mangled_write(
+                        "wal.append", b"".join(pieces),
+                        lambda b: sink([b]), spill=lambda b: sink([b]))
+                else:
+                    sink(pieces)
             except BaseException:
                 try:
                     f.flush()
@@ -183,10 +198,18 @@ class Wal:
                 except OSError:
                     pass
                 raise
+
+        # span-covered durability boundary: on the serial write path the
+        # append lands in the request's trace; a group-commit leader
+        # records one span per drained group in its own trace (it
+        # serves many writers' traces at once)
+        with tracing.span("wal_append", region=region_id,
+                          bytes=sum(len(p) for p in pieces)):
+            retry_call(attempt, point="wal.append")
         with self._count_lock:
             # regions' leaders append concurrently: count under a lock
             self.sync_count += int(self.sync)
-            self.bytes_written += f.tell() - start
+            self.bytes_written += f.tell() - begin
         if f.tell() >= self.segment_bytes:
             self._roll(region_id)
 
@@ -203,8 +226,17 @@ class Wal:
             # never left dangling across a consumption gap
             with tracing.span("wal_replay_read", region=region_id,
                               segment=segno):
-                with open(path, "rb") as f:
-                    data = f.read()
+                def read_segment(path=path):
+                    with open(path, "rb") as f:
+                        raw = f.read()
+                    mangled, _ = FAULTS.mangle("wal.replay", raw)
+                    if len(mangled) < len(raw):
+                        # an injected short read: surfacing the cut
+                        # bytes would truncate durable frames below;
+                        # a transient I/O error re-reads
+                        raise FaultError("wal.replay", kind="short_read")
+                    return raw
+                data = retry_call(read_segment, point="wal.replay")
             view = memoryview(data)
             entries = []
             lib = native.try_load()

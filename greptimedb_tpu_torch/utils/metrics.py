@@ -541,6 +541,13 @@ INGEST_WAL_FSYNC_SECONDS = REGISTRY.histogram(
 FAULT_INJECTIONS = REGISTRY.counter(
     "greptimedb_tpu_fault_injections_total",
     "Injected faults by injection point and kind")
+# the shared retry policy (fault/retry.py), by injection point
+RETRY_ATTEMPTS = REGISTRY.counter(
+    "greptimedb_tpu_retry_attempts_total",
+    "Retries after a transient failure, by injection point")
+RETRY_EXHAUSTED = REGISTRY.counter(
+    "greptimedb_tpu_retry_exhausted_total",
+    "Operations that exhausted their retry budget, by injection point")
 # background maintenance plane (maintenance/ package): job throughput,
 # queue pressure, writer stalls, and the rollup/retention outcomes
 MAINTENANCE_JOBS = REGISTRY.counter(

@@ -7,8 +7,9 @@ same columns, types, DESCRIBE output, rows and errors.
 The twins of tests/test_file_engine.py's CSV, ndjson and .gz cases:
 explicit and inferred schemas, the time filter, reopen (through the
 opener and on a fresh engine), NULL tags, the read-only and TRUNCATE
-errors, DROP. Parquet and ORC stay outside the slice: the port refuses
-them naming A12-io. The files are written here with plain Python.
+errors, DROP. The text files are written here with plain Python; the
+Parquet and ORC files (A12-io) by pyarrow, and the port reads them by
+hand (tests/test_torch_copy.py holds every variant to pyarrow).
 """
 
 import gzip
@@ -290,10 +291,33 @@ def test_nested_json_columns_get_their_own_refusal(tmp_path, value, arrow):
 
 @pytest.mark.parametrize("ext", ["parquet", "orc"])
 def test_parquet_and_orc_name_a12_io(tmp_path, ext):
-    with pytest.raises(UnsupportedStatement, match="A12-io"):
-        datasource.read_file(str(tmp_path / f"t.{ext}"))
-    with pytest.raises(UnsupportedStatement, match="A12-io"):
-        datasource.write_file(None, str(tmp_path / f"t.{ext}"))
+    """Parquet and ORC read and write on the port now (A12-io): the case
+    keeps its id and holds `read_file` / `write_file` to the JAX
+    package's pyarrow on the same file."""
+    import pyarrow as pa
+
+    t = pa.table({"host": pa.array(["a", None, "b"]),
+                  "v": pa.array([1.5, 2.5, None]),
+                  "n": pa.array([1, None, 3], pa.int64()),
+                  "ts": pa.array([1000, 2000, 3000], pa.timestamp("ms"))})
+    path = str(tmp_path / f"t.{ext}")
+    jds.write_file(t, path)
+    got = datasource.read_file(path)
+    want = jds.read_file(path)
+    assert got.names == want.schema.names
+    for name in got.names:
+        want_type = str(want.schema.field(name).type)
+        assert got.column(name).type == want_type, name
+        if want_type.startswith("timestamp"):
+            assert got.column(name).values.tolist() == \
+                want.column(name).cast("int64").to_pylist()
+        else:
+            assert got.column(name).to_pylist() == \
+                want.column(name).to_pylist(), name
+    out = str(tmp_path / f"u.{ext}")
+    assert datasource.write_file(got, out) == 3
+    back, ref = jds.read_file(out), jds.read_file(path)
+    assert back.schema.equals(ref.schema) and back.equals(ref)
 
 
 # ---- the file engine ---------------------------------------------------------
@@ -492,16 +516,28 @@ def test_kv_entries_and_information_schema(pair, tmp_path):
 
 @pytest.mark.parametrize("fmt", ["parquet", "orc"])
 def test_container_formats_refused_naming_a12_io(pair, tmp_path, fmt):
-    tq = pair[1]
-    for sql in (
-            f"CREATE EXTERNAL TABLE p (host STRING, v DOUBLE, "
-            f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) WITH "
-            f"(location = '{tmp_path}/p.{fmt}')",
-            f"CREATE EXTERNAL TABLE p WITH (location = '{tmp_path}/x.bin', "
-            f"format = '{fmt}')"):
-        with pytest.raises(UnsupportedStatement, match="A12-io"):
-            tq.execute_one(sql)
-    assert not tq.catalog.table_exists("public", "p")
+    """External tables over Parquet and ORC run on the port now (A12-io):
+    the case keeps its id; over a file the JAX engine COPYs out, the
+    declared and the inferred schema give the JAX engine's DESCRIBE and
+    rows, and a missing file the JAX engine's error."""
+    jq, tq = pair
+    path = tmp_path / f"cpu.{fmt}"
+    jq.execute_one(f"COPY cpu TO '{path}'")
+    for name, sql in (
+            ("p", f"CREATE EXTERNAL TABLE p (host STRING, usage DOUBLE, "
+                  f"ts TIMESTAMP(3) TIME INDEX, PRIMARY KEY(host)) WITH "
+                  f"(location = '{path}')"),
+            ("q", f"CREATE EXTERNAL TABLE q WITH (location = '{path}', "
+                  f"format = '{fmt}')")):
+        for qe in pair:
+            qe.execute_one(sql)
+        for q in (f"DESCRIBE {name}",
+                  f"SELECT host, usage, ts FROM {name} ORDER BY ts",
+                  f"SELECT host, max(usage), count(*) FROM {name} "
+                  "GROUP BY host ORDER BY host"):
+            assert tq.execute_one(q).rows() == jq.execute_one(q).rows(), q
+    both_err(pair, f"CREATE EXTERNAL TABLE x WITH (location = "
+                   f"'{tmp_path}/missing.{fmt}')")
 
 
 @pytest.mark.parametrize("late", [None, "1.5", "", "nan", "x", "7", "+5"])

@@ -357,14 +357,25 @@ def test_db_keyword_is_a_context_shorthand(pair):
     # SHOW FLOWS runs on the port now (the flow engine): the case keeps
     # its id and holds the statement to the JAX engine's rows
     ("SHOW FLOWS", None),
-    ("COPY cpu TO 'cpu.parquet'", "COPY import and export"),
+    # COPY runs on the port now (A12-io): the case keeps its id, writes
+    # each engine's file and holds the port's to the JAX engine's
+    ("COPY cpu TO '{out}/cpu.parquet'", "copy"),
 ], ids=["flows", "copy"])
-def test_later_slices_raise(pair, sql, slice_name):
+def test_later_slices_raise(pair, sql, slice_name, tmp_path):
     if slice_name is None:
         pair.same(sql)
         return
-    with pytest.raises(UnsupportedStatement, match=slice_name):
-        pair.tqe.execute_one(sql)
+    import pyarrow.parquet as pq
+
+    jout, tout = tmp_path / "jax_out", tmp_path / "port_out"
+    j = pair.jqe.execute_one(sql.format(out=jout), pair.jctx)
+    t = pair.tqe.execute_one(sql.format(out=tout), pair.tctx)
+    assert j.affected_rows == t.affected_rows > 0
+    jt, tt = pq.read_table(jout / "cpu.parquet"), pq.read_table(
+        tout / "cpu.parquet")
+    assert tt.schema.equals(jt.schema, check_metadata=False)
+    assert sorted(map(str, tt.to_pylist())) == sorted(
+        map(str, jt.to_pylist()))
 
 
 @pytest.mark.parametrize("name", [

@@ -119,16 +119,33 @@ def test_dump_config_equals_jax_and_loads_back(tmp_path, capsys):
     options.check_port_support(opts)  # the defaults boot
 
 
+STORE = "object stores and the remote WAL"
+
+
+def _same_store_config(opts, jopts):
+    """The port's EngineConfig carries the JAX package's store and WAL
+    fields for the same options."""
+    cfg = options.engine_config(opts, "/d")
+    jcfg = jopt.engine_config(jopts, "/d")
+    for f in ("object_store", "object_store_cache_bytes",
+              "object_store_kwargs", "wal_backend", "wal_store"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+
+
 @pytest.mark.parametrize("key,value,slice_name", [
     # the Flight refusal names its item A9-flight (the case keeps its id)
     pytest.param("grpc.enable", "true", "A9-flight",
                  id="grpc.enable-true-A9: Flight"),
-    ("storage.type", "'s3'", "A12: object stores"),
-    ("storage.s3.bucket", "'b'", "A12: object stores"),
-    ("wal.backend", "'remote'", "A12: object stores"),
-    # [scan] decode_threads runs on the port now (the engine's decode
-    # pool); the case keeps its id and checks a key that stays outside
-    pytest.param("storage.cache_bytes", "1", "A12: object stores",
+    # object stores, the read cache and the remote WAL run on the port
+    # now (A12-io): the cases keep their ids, boot, and map to the JAX
+    # package's EngineConfig fields (slice_name STORE: accepted)
+    pytest.param("storage.type", "'s3'", STORE,
+                 id="storage.type-'s3'-A12: object stores"),
+    pytest.param("storage.s3.bucket", "'b'", STORE,
+                 id="storage.s3.bucket-'b'-A12: object stores"),
+    pytest.param("wal.backend", "'remote'", STORE,
+                 id="wal.backend-'remote'-A12: object stores"),
+    pytest.param("storage.cache_bytes", "1", STORE,
                  id="scan.decode_threads-4-A12: the parallel decode pool"),
     ("query.mesh", "'2x2'", "A10"),
     ("query.tier_admission", "false", "A11"),
@@ -151,6 +168,10 @@ def test_unported_key_refused_naming_its_slice(key, value, slice_name,
     if slice_name is None:
         _check_shm_boots(tmp_path, monkeypatch)
         return
+    if slice_name is STORE:
+        options.check_port_support(opts)
+        _same_store_config(opts, jopt.load_options(str(p), env={}))
+        return
     with pytest.raises(options.ConfigError) as e:
         options.check_port_support(opts)
     assert f"option '{key}'" in str(e.value)
@@ -162,6 +183,12 @@ def _check_shm_boots(tmp_path, monkeypatch):
     JAX apply_shm sets for the same file (and leaves an operator-set one
     alone)."""
     keys = ("GTPU_SHM_FABRIC", "GTPU_SHM_FABRIC_BYTES", "GTPU_SHM_FABRIC_DIR")
+    # record each key's state first, so the undo restores it: a later
+    # delenv records the value apply_shm wrote, and an enabled fabric
+    # would leak into the next engine this worker builds
+    for k in keys:
+        monkeypatch.setenv(k, "")
+        monkeypatch.delenv(k)
     # the keys each options layer wrote stay this test's own
     monkeypatch.setattr(options, "_APPLIED_ENV_KEYS", set())
     monkeypatch.setattr(jopt, "_APPLIED_ENV_KEYS", set())

@@ -164,7 +164,9 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
 
 
 @pytest.mark.parametrize("sql,slice_name", [
-    ("COPY cpu TO 'cpu.parquet'", "COPY import and export"),
+    # COPY runs on the port now (A12-io): the case keeps its id and holds
+    # the statement to the JAX engine (slice_name None)
+    ("COPY cpu TO '{out}/cpu.parquet'", None),
     # SHOW TABLES, then SHOW FLOWS (the flow engine) run on the port
     # now; the case keeps its id and checks a cluster table, which stays
     # outside
@@ -183,19 +185,16 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
     ("CREATE TABLE p (a STRING, ts TIMESTAMP TIME INDEX, v DOUBLE, "
      "PRIMARY KEY (a)) PARTITION ON COLUMNS (a) (a < 'm', a >= 'm')",
      "mesh and cluster .ROADMAP A10."),
-    # the metric and file engines run on the port now (CSV and ndjson
-    # files); the two cases keep their ids and check external tables
-    # over the container formats, which stay outside the slice
-    ("CREATE EXTERNAL TABLE x (ts TIMESTAMP TIME INDEX, a STRING) WITH "
-     "(location = '/nonexistent/x.orc', format = 'orc')",
-     "COPY import and export .ROADMAP A12-io."),
-    ("CREATE EXTERNAL TABLE x (ts TIMESTAMP TIME INDEX, a STRING) WITH "
-     "(location = '/nonexistent/x.parquet', format = 'parquet')",
-     "COPY import and export .ROADMAP A12-io."),
-    # ADMIN flush_flow ticks a flow now; the case keeps its id and
-    # checks a COPY form that stays outside the slice
-    ("COPY DATABASE public TO '/nonexistent/db_out/' "
-     "WITH (format = 'parquet')", "COPY import and export"),
+    # external tables over the container formats run on the port now
+    # (A12-io): the two cases keep their ids and are held to the JAX
+    # engine over files it wrote
+    ("CREATE EXTERNAL TABLE x (ts TIMESTAMP TIME INDEX, host STRING) WITH "
+     "(location = '{src}/cpu.orc', format = 'orc')", None),
+    ("CREATE EXTERNAL TABLE x (ts TIMESTAMP TIME INDEX, host STRING) WITH "
+     "(location = '{src}/cpu.parquet', format = 'parquet')", None),
+    # COPY DATABASE runs on the port now; the case keeps its id
+    ("COPY DATABASE public TO '{out}/db_out/' "
+     "WITH (format = 'parquet')", None),
 ], ids=["COPY cpu TO 'cpu.parquet'", "SHOW TABLES",
         "TQL EVAL (0, 10, '5s') up",
         "SELECT a.u FROM cpu a JOIN cpu b ON a.ts = b.ts",
@@ -203,11 +202,48 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
         "ADMIN flush_flow"])
 def test_statements_outside_the_slice_raise_typed_errors(sql, slice_name,
                                                          tmp_path):
+    if slice_name is None:
+        return _same_as_jax(sql, tmp_path)
     qe = _engine(tmp_path)
     _cpu_table(qe, points=2)
     with pytest.raises(UnsupportedStatement,
                        match=f"the {slice_name}.* brings"):
         qe.execute_one(sql)
+
+
+def _same_as_jax(sql, tmp_path):
+    """The statement (with `{out}` an output directory of each engine's
+    own and `{src}` files the JAX engine wrote) gives the JAX engine's
+    outcome; files written are read back by pyarrow as the JAX files,
+    and an external table answers as the JAX engine's."""
+    import pyarrow.parquet as pq
+
+    _je, jqe = _jax_engine(tmp_path / "jax")
+    tqe = _engine(tmp_path / "port")
+    src = tmp_path / "src"
+    src.mkdir()
+    for qe in (jqe, tqe):
+        _cpu_table(qe, points=3)
+    jqe.execute_one(f"COPY cpu TO '{src}/cpu.parquet'")
+    jqe.execute_one(f"COPY cpu TO '{src}/cpu.orc'")
+    outs = []
+    for name, qe in (("jax", jqe), ("port", tqe)):
+        out = tmp_path / f"out_{name}"
+        out.mkdir()
+        r = qe.execute_one(sql.format(out=out, src=src))
+        outs.append((r.affected_rows, out))
+    assert outs[0][0] == outs[1][0]
+    for (_n, jout), (_m, tout) in [outs]:
+        for root, _dirs, files in os.walk(jout):
+            for f in files:
+                jt = pq.read_table(os.path.join(root, f))
+                tt = pq.read_table(os.path.join(
+                    str(tout) + root[len(str(jout)):], f))
+                assert tt.schema.equals(jt.schema, check_metadata=False)
+                assert tt.to_pylist() == jt.to_pylist()
+    if "EXTERNAL" in sql:
+        q = "SELECT host, ts FROM x ORDER BY ts, host"
+        assert tqe.execute_one(q).rows() == jqe.execute_one(q).rows()
 
 
 def _jax_engine(data_dir):

@@ -17,26 +17,13 @@ from test_torch_sqlness import CASES_DIR, replay_case
 
 CASES = sorted(set(CASES_DIR.glob("**/*.sql")) - set(REPLAYED))
 
-_OUTSIDE = " is not in this slice of greptimedb_tpu_torch; the "
-_COPY = "CopyTable" + _OUTSIDE + "COPY import and export slice brings it"
-
 # (case, first 60 characters of the statement) -> the UnsupportedStatement
-# text the port raises: statements of a later slice of the port (or, for
-# a statement that reads what a refused one would have written, the
-# port's whole outcome)
-LATER = {
-    ("copy/copy_orc", "COPY src_orc TO '/tmp/sqlness_copy_src.orc'"): _COPY,
-    ("copy/copy_orc",
-     "COPY dst_orc FROM '/tmp/sqlness_copy_src.orc' WITH (format ="): _COPY,
-    ("copy/copy_orc", "SELECT host, v FROM dst_orc ORDER BY host"):
-        ("ok", ["host", "v"], []),
-    ("copy/copy_roundtrip", "COPY src TO '/tmp/sqlness_copy_src.parquet'"):
-        _COPY,
-    ("copy/copy_roundtrip", "COPY dst FROM '/tmp/sqlness_copy_src.parquet'"):
-        _COPY,
-    ("copy/copy_roundtrip", "SELECT host, v FROM dst ORDER BY host"):
-        ("ok", ["host", "v"], []),
-}
+# text the port raises for statements of a later slice. The copy cases'
+# COPY statements (copy/copy_roundtrip in Parquet, copy/copy_orc in ORC)
+# run on the port now (A12-io) and replay against the JAX rows: each
+# COPY ... TO runs on the port first and on the JAX engine second, so
+# the COPY ... FROM of both reads the file the JAX engine wrote.
+LATER: dict = {}
 
 
 @pytest.fixture(scope="module", autouse=True)
