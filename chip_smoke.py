@@ -1654,10 +1654,6 @@ STORE_HOURS = 4
 STORE_FLUSH_HOURS = 3
 #: points a put: 360,000 rows, one group commit and one WAL object each
 STORE_PUT_POINTS = 90
-#: hosts of the hour written as CSV and ndjson, cut from 4,000 by the
-#: text formats' throughput (ROADMAP.md C14: a float's text takes about
-#: 1 us in Python); ORC takes the whole hour
-STORE_TEXT_HOSTS = 400
 #: points of the small table COPY DATABASE and the export / import CLI
 #: carry (all hosts)
 STORE_SMALL_POINTS = 30
@@ -2041,9 +2037,9 @@ def store_queries(qe, engine, region, sk, torch, fake, grid) -> dict:
 
 def copy_phase(qe, engine, sk, torch, grid, host_names, work) -> dict:
     """COPY cpu TO Parquet and back into cpu_copy (double_groupby_all over
-    both equal), one hour through ORC (all hosts) and CSV.gz / ndjson
-    (STORE_TEXT_HOSTS hosts) back to the same rows, an external table over
-    the Parquet file, and COPY DATABASE TO / FROM on a small database."""
+    both equal), one hour (all hosts) through ORC, CSV.gz and ndjson back
+    to the same rows, an external table over the Parquet file, and COPY
+    DATABASE TO / FROM on a small database."""
     from greptimedb_tpu_torch import datasource
     from greptimedb_tpu_torch.session import QueryContext
 
@@ -2090,41 +2086,39 @@ def copy_phase(qe, engine, sk, torch, grid, host_names, work) -> dict:
     log("(j) COPY cpu TO / cpu_copy FROM parquet: " + json.dumps(
         {**out["cpu_copy"], **steps}))
 
-    # one hour through ORC, and its first hosts through CSV.gz and ndjson
+    # one hour through ORC, CSV.gz and ndjson
     per_hour = 3600 // STEP_S
-    info = {}
-    for table, hosts in (("cpu_hour", HOSTS), ("cpu_text", STORE_TEXT_HOSTS)):
-        qe.execute_one(cpu_ddl().replace("TABLE cpu (", f"TABLE {table} ("))
-        info[table] = qe.catalog.table("public", table)
-        put_grid(engine, info[table], grid, host_names, 0, per_hour, hosts)
+    qe.execute_one(cpu_ddl().replace("TABLE cpu (", "TABLE cpu_hour ("))
+    put_grid(engine, qe.catalog.table("public", "cpu_hour"), grid,
+             host_names, 0, per_hour, HOSTS)
     fmts = {}
-    for ext, table, hosts in (("orc", "cpu_hour", HOSTS),
-                              ("csv.gz", "cpu_text", STORE_TEXT_HOSTS),
-                              ("ndjson", "cpu_text", STORE_TEXT_HOSTS)):
+    rows = per_hour * HOSTS
+    for ext in ("orc", "csv.gz", "ndjson"):
         path = os.path.join(work, "copy", f"hour.{ext}")
         dst = "back_" + ext.replace(".", "_")
         t = time.perf_counter()
-        r = qe.execute_one(f"COPY {table} TO '{path}'")
+        r = qe.execute_one(f"COPY cpu_hour TO '{path}'")
         w_s = time.perf_counter() - t
-        check(r.affected_rows == per_hour * hosts, f"(j) COPY TO {ext}")
+        check(r.affected_rows == rows, f"(j) COPY TO {ext}")
         t = time.perf_counter()
         back = datasource.read_file(path)
         r_s = time.perf_counter() - t
-        check_table_rows(back, grid, 0, per_hour, hosts, f"(j) hour.{ext}")
+        check_table_rows(back, grid, 0, per_hour, HOSTS, f"(j) hour.{ext}")
+        del back
         qe.execute_one(cpu_ddl().replace("TABLE cpu (", f"TABLE {dst} ("))
         t = time.perf_counter()
         r = qe.execute_one(f"COPY {dst} FROM '{path}'")
         f_s = time.perf_counter() - t
-        check(r.affected_rows == per_hour * hosts, f"(j) COPY FROM {ext}")
+        check(r.affected_rows == rows, f"(j) COPY FROM {ext}")
         n = qe.execute_one(f"SELECT count(*), sum(usage_user) FROM {dst}")
-        want_sum = grid["usage_user"][:per_hour, :hosts].sum()
-        check(n.rows()[0][0] == per_hour * hosts
+        want_sum = grid["usage_user"][:per_hour].sum()
+        check(n.rows()[0][0] == rows
               and np.isclose(n.rows()[0][1], want_sum, rtol=1e-5),
               f"(j) {dst}: {n.rows()}")
-        fmts[ext] = {"rows": per_hour * hosts, "bytes": os.path.getsize(path),
+        fmts[ext] = {"rows": rows, "bytes": os.path.getsize(path),
                      "copy_to_s": w_s, "read_s": r_s, "copy_from_s": f_s,
-                     "rows_per_s_write": per_hour * hosts / w_s,
-                     "rows_per_s_read": per_hour * hosts / r_s}
+                     "rows_per_s_write": rows / w_s,
+                     "rows_per_s_read": rows / r_s}
     out["formats"] = fmts
     log("(j) one hour through orc, csv.gz and ndjson: " + json.dumps(fmts))
 
@@ -2388,8 +2382,7 @@ def object_store_phase(sk, torch, card: str) -> dict:
         summary = {"seconds": total, "steps": {**steps, **copies["steps"]},
                    "rows": points * HOSTS, "depth_hours": STORE_HOURS,
                    "depth_cut": "4 h of the headline's 12 h, by the run's "
-                   "time limit; csv.gz and ndjson carry the first "
-                   f"{STORE_TEXT_HOSTS} hosts of the hour",
+                   "time limit",
                    "bucket_objects": len(fake.keys("")),
                    "bucket_bytes": fake.stored_bytes(),
                    "s3_requests_total": fake.snapshot()["requests"],
@@ -2402,6 +2395,244 @@ def object_store_phase(sk, torch, card: str) -> dict:
             e.close()
         fake.close()
         shutil.rmtree(work, ignore_errors=True)
+
+
+# ---- (k) the lint plane on the card's machine --------------------------------
+
+#: the lockdep server's `cpu` table: hosts and the points loaded before the
+#: traffic (10 minutes at 10 s); double_groupby_all's 12 h window then has
+#: 12 x 400 = 4,800 groups, past K2's 4,096-segment route envelope, so it
+#: takes K1 (dense_prepared), and cpu_max_all_8 takes K2
+LOCKDEP_HOSTS = 400
+LOCKDEP_LOAD_POINTS = 60
+#: seconds of concurrent traffic, and its clients (one a role)
+LOCKDEP_SECONDS = 30.0
+LOCKDEP_ROLES = ("double_groupby_all", "double_groupby_all", "cpu_max_all_8",
+                 "cpu_max_all_8", "lp", "lp", "admin", "flow")
+
+
+def lockdep_lp_body(p0: int, p1: int, rng) -> bytes:
+    """Line protocol of `cpu` for points [p0, p1) of every lockdep host
+    (ms timestamps), time-major."""
+    hosts = np.tile(np.arange(LOCKDEP_HOSTS), p1 - p0)
+    ts = np.repeat(T0_MS + np.arange(p0, p1, dtype=np.int64) * STEP_S
+                   * 1000, LOCKDEP_HOSTS)
+    vals = np.round(rng.uniform(0, 100, (len(FIELDS), len(hosts))), 3)
+    fmt = "cpu,hostname=host_{} " + ",".join(f"{f}={{}}" for f in FIELDS) \
+        + " {}"
+    return "\n".join(map(fmt.format, hosts.tolist(),
+                         *(v.tolist() for v in vals),
+                         ts.tolist())).encode()
+
+
+def lint_start() -> subprocess.Popen:
+    """`python -m greptimedb_tpu_torch.lint --all --json --verbose` in a
+    process of its own (it runs beside the lockdep server's traffic)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "greptimedb_tpu_torch.lint", "--all",
+         "--json", "--verbose"], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def lint_result(proc: subprocess.Popen, t_start: float) -> dict:
+    """The lint's exit 0 and no unallowed finding; the allowed ones
+    counted by checker."""
+    stdout, stderr = proc.communicate(timeout=300)
+    seconds = time.perf_counter() - t_start
+    check(proc.returncode == 0,
+          f"(k) the lint exited {proc.returncode}: {stdout[-3000:]} "
+          f"{stderr[-2000:]}")
+    found = json.loads(stdout[stdout.index("["):])
+    by: dict = {}
+    for f in found:
+        by[f["checker"]] = by.get(f["checker"], 0) + 1
+    out = {"seconds": seconds,
+           "unallowed": sum(1 for f in found if not f["allowed"]),
+           "allowed": sum(1 for f in found if f["allowed"]),
+           "allowed_by_checker": dict(sorted(by.items()))}
+    check(out["unallowed"] == 0, f"(k) lint: {json.dumps(out)}")
+    return out
+
+
+def lockdep_server_run(work: str) -> dict:
+    """`standalone start` under the port's runtime lockdep, driven by
+    a client a LOCKDEP_ROLES role for LOCKDEP_SECONDS (SQL through K1 and K2,
+    line-protocol writes, ADMIN flush / compact, a flow's ticks), then
+    SIGTERM: the server leaves its lock graph in the dump directory and
+    this process merges it (assert_acyclic_merged)."""
+    import http.client
+    import signal
+    import threading
+    import urllib.parse
+
+    from greptimedb_tpu_torch.lint import lockdep
+
+    home = os.path.join(work, "home")
+    dump = os.path.join(work, "lockdep")
+    cmd = [sys.executable, "-m", "greptimedb_tpu_torch", "standalone",
+           "start", "--data-home", home, "--http-addr", "127.0.0.1:0"]
+    if DEVICE is not None:
+        cmd += ["--device", DEVICE]
+    env = dict(os.environ, PYTHONPATH=HERE, GTPU_TORCH_LOCKDEP="1",
+               GTPU_TORCH_LOCKDEP_DIR=dump)
+    stderr_path = os.path.join(work, "server.stderr")
+    t_start = time.perf_counter()
+    with open(stderr_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env,
+                                stdout=subprocess.PIPE, stderr=err)
+
+    def server_err() -> str:
+        with open(stderr_path, errors="replace") as f:
+            return f.read()[-3000:]
+
+    rng = np.random.default_rng(SEED)
+    queries = tsbs_queries()
+    calls: dict = {}
+    errors: list = []
+    try:
+        line = read_ready(proc, 1)[0]
+        check("listening on http://127.0.0.1:" in line,
+              f"(k) the lockdep server did not start: {line!r} "
+              f"{server_err()}")
+        port = int(line.rsplit(":", 1)[1])
+        start_s = time.perf_counter() - t_start
+
+        def request(conn, method, path, body=None, what=""):
+            headers = {"Content-Type": "application/x-www-form-urlencoded"}
+            conn.request(method, path, body=body, headers=headers)
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status >= 300:
+                raise CheckFailed(f"(k) {what or path}: {resp.status} "
+                                  f"{data[:300]!r}")
+            calls[what] = calls.get(what, 0) + 1
+            return data
+
+        def sql(conn, text, what):
+            return request(conn, "POST", "/v1/sql", urllib.parse.urlencode(
+                {"sql": text}).encode(), what)
+
+        setup = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            sql(setup, cpu_ddl(), "ddl")
+            request(setup, "POST", "/v1/influxdb/write?precision=ms",
+                    lockdep_lp_body(0, LOCKDEP_LOAD_POINTS, rng), "load")
+            sql(setup, FLOW_SQL, "create flow")
+        finally:
+            setup.close()
+
+        points = [LOCKDEP_LOAD_POINTS]
+        lock = threading.Lock()
+        stop_at = time.monotonic() + LOCKDEP_SECONDS
+
+        def client(i: int, role: str):
+            crng = np.random.default_rng([SEED, i])
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=300)
+            try:
+                k = 0
+                while time.monotonic() < stop_at:
+                    if role in queries:
+                        sql(conn, queries[role][0], role)
+                    elif role == "lp":
+                        with lock:
+                            p0 = points[0]
+                            points[0] += 6
+                        request(conn, "POST",
+                                "/v1/influxdb/write?precision=ms",
+                                lockdep_lp_body(p0, p0 + 6, crng),
+                                "lp write")
+                    elif role == "admin":
+                        op = "flush_table" if k % 2 == 0 else \
+                            "compact_table"
+                        sql(conn, f"ADMIN {op}('cpu')", f"ADMIN {op}")
+                        time.sleep(1.0)
+                    else:
+                        sql(conn, "ADMIN flush_flow('cpu_hourly')",
+                            "flow tick")
+                        time.sleep(0.5)
+                    k += 1
+            except Exception as e:  # noqa: BLE001 — reported, then fails
+                errors.append(f"{role}: {type(e).__name__}: {e}")
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=client, args=(i, r),
+                                    name=f"lockdep-{r}-{i}")
+                   for i, r in enumerate(LOCKDEP_ROLES)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(LOCKDEP_SECONDS + 300)
+        drive_s = time.perf_counter() - t
+        check(not any(th.is_alive() for th in threads),
+              "(k) a lockdep client did not finish")
+        check(not errors, f"(k) lockdep traffic failed: {errors[:3]} "
+              f"{server_err()}")
+        launches = kernel_launches(scrape(port))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"(k) the lockdep server exited {rc}: "
+              f"{server_err()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    try:
+        rep = lockdep.assert_acyclic_merged(dump)
+    except lockdep.LockOrderViolation as e:
+        raise CheckFailed(f"(k) lock order: {e}") from None
+    sites = {s for e in rep["edges"] for s in e}
+    port_edges = [e for e in rep["edges"]
+                  if all(s.startswith("greptimedb_tpu_torch") for s in e)]
+    check(rep["processes"] >= 2 and port_edges,
+          f"(k) the server left no lock graph: {rep['processes']} "
+          f"processes, {len(rep['edges'])} edges")
+    if DEVICE is None:
+        check(launches["segment_sum"] > 0
+              and launches["fused_segment_agg"] > 0,
+              f"(k) the lockdep server's launches: {launches}")
+    return {"start_s": start_s, "drive_s": drive_s, "clients": len(threads),
+            "requests": calls, "rows_written": points[0] * LOCKDEP_HOSTS,
+            "locks": len(sites), "edges": len(rep["edges"]),
+            "port_edges": len(port_edges),
+            "violations": len(rep["violations"]),
+            "cycle": rep["cycle"], "processes": rep["processes"],
+            "k1_launches": launches["segment_sum"],
+            "k2_launches": launches["fused_segment_agg"],
+            "wall_s": time.perf_counter() - t_start}
+
+
+def lint_phase(card: str) -> dict:
+    """Phase (k): the port's lint plane on the card's machine (no jax, no
+    pyarrow): the static checkers report no unallowed finding (run beside
+    the server), and a standalone server under the runtime lockdep
+    serves mixed concurrent traffic with an acyclic lock order."""
+    import shutil
+    import tempfile
+
+    t = time.perf_counter()
+    lint_proc = lint_start()
+    work = tempfile.mkdtemp(prefix="chip_smoke_lockdep_")
+    try:
+        server = lockdep_server_run(work)
+    except BaseException:
+        lint_proc.kill()
+        lint_proc.communicate()
+        raise
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lint = lint_result(lint_proc, t)
+    log("(k) lint (beside the server's traffic): " + json.dumps(lint))
+    log("(k) lockdep server: " + json.dumps(server))
+    out = {"lint": lint, "server": server,
+           "seconds": time.perf_counter() - t, "card": card}
+    log("(k) the lint plane: " + json.dumps(
+        {"seconds": out["seconds"], "unallowed": lint["unallowed"],
+         "violations": server["violations"], "card": card}))
+    return out
 
 
 # ---- RANGE ... ALIGN on the `cpu` table --------------------------------------
@@ -3893,30 +4124,42 @@ def metric_phase(sk, torch, prom) -> dict:
 
 def write_text_tables(root, grid, host_names) -> dict:
     """`cpu_1h` (grid [points, hosts] per field) as CSV (ts in ms, every
-    field printed with repr) and as gzip'd ndjson (the same values),
-    written with plain Python and numpy: format -> (path, seconds)."""
+    field as Python's repr) and as gzip'd ndjson (the same values): the
+    bytes plain Python and numpy give, laid out by the port's native
+    number text and row assembly (native.number_text / text_rows): format
+    -> (path, seconds)."""
     import gzip
 
+    from greptimedb_tpu_torch import native
+
+    lib = native.try_load()
+    check(lib is not None, "the native library did not build")
     points, hosts = grid[FIELDS[0]].shape
-    host_col = np.tile(np.asarray(host_names, dtype=str), points)
-    ts_col = np.repeat(T0_MS + np.arange(points, dtype=np.int64)
-                       * STEP_S * 1000, hosts).astype(str)
-    field_cols = [grid[f].reshape(-1).astype(str) for f in FIELDS]
+    enc = [str(h).encode() for h in host_names]
+    host_offs = np.zeros(len(enc) + 1, dtype=np.int64)
+    host_offs[1:] = np.cumsum([len(h) for h in enc])
+    cols = [(np.frombuffer(b"".join(enc), dtype=np.uint8), host_offs,
+             np.tile(np.arange(hosts, dtype=np.int32), points)),
+            (*lib.number_text(np.repeat(T0_MS + np.arange(
+                points, dtype=np.int64) * STEP_S * 1000, hosts), "int"),
+             None)]
+    cols += [(*lib.number_text(grid[f].reshape(-1).astype(np.float64),
+                               "repr"), None) for f in FIELDS]
+    n = points * hosts
     out = {}
     t = time.perf_counter()
-    lines = [",".join(r) for r in zip(host_col, ts_col, *field_cols)]
     path = os.path.join(root, "cpu_1h.csv")
-    with open(path, "w") as f:
-        f.write(",".join(["hostname", "ts", *FIELDS]) + "\n")
-        f.write("\n".join(lines) + "\n")
+    with open(path, "wb") as f:
+        f.write((",".join(["hostname", "ts", *FIELDS]) + "\n").encode())
+        f.write(lib.text_rows(cols, [""] + [","] * (len(cols) - 1)
+                              + ["\n"], n))
     out["csv"] = (path, time.perf_counter() - t)
     t = time.perf_counter()
-    tmpl = '{"hostname":"%s","ts":%s,' + ",".join(
-        f'"{f}":%s' for f in FIELDS) + "}"
-    lines = [tmpl % r for r in zip(host_col, ts_col, *field_cols)]
+    pieces = ['{"hostname":"', '","ts":'] + [f',"{f}":' for f in FIELDS] \
+        + ["}\n"]
     path = os.path.join(root, "cpu_1h.ndjson.gz")
     with open(path, "wb") as f:
-        f.write(gzip.compress(("\n".join(lines) + "\n").encode(),
+        f.write(gzip.compress(lib.text_rows(cols, pieces, n),
                               compresslevel=1))
     out["ndjson.gz"] = (path, time.perf_counter() - t)
     return out
@@ -8377,6 +8620,11 @@ def main() -> int:
         stage = "stream"
         stream = stream_phase(sk, torch, lib)
         elapsed("stream done")
+        # (k) after the stream: its 30 s of traffic stays out of the
+        # stream's ingest deadline
+        stage = "(k) the lint plane"
+        lint = lint_phase(card)
+        elapsed("the lint plane done")
         # after the stream: its ingest deadline is reckoned from the
         # start of the run
         stage = "metric engine"
@@ -8450,6 +8698,8 @@ def main() -> int:
     served["wire mysql + postgres (cpu)"] = main["wire"]
     served["fabric: frontends A and B (cpu_1h, their own processes)"] = \
         serving["fabric"]
+    served["lint plane (k): the lockdep server's mixed traffic (its "
+           "/metrics)"] = lint["server"]
     for key, r in served.items():
         by_path[key] = {"segment_sum": r["k1_launches"],
                         "fused_segment_agg": r["k2_launches"]}

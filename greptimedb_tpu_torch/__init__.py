@@ -24,10 +24,22 @@ Layer map (the JAX package's module paths):
   utils/      deadlines and cancellation, the metrics registry, time,
               the observability plane (spans, the resource ledger and
               roofline, slow queries, the flame sampler, OTLP export)
+  lint/       gtpu-lint over the port (`python -m
+              greptimedb_tpu_torch.lint`) and the runtime lockdep
   interop.py  loads table state (plain numpy columns) into the port
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu"; a missing card raises instead of running on the host.
 """
+
+import os as _os
+
+# Runtime lock-order validation (lint/lockdep.py): GTPU_TORCH_LOCKDEP=1
+# wraps threading.Lock/RLock *before* any port module constructs one, so
+# every lock the serving, write and storage planes create is tracked.
+if _os.environ.get("GTPU_TORCH_LOCKDEP") == "1":
+    from greptimedb_tpu_torch.lint import lockdep as _lockdep
+
+    _lockdep.install()
 
 __version__ = "0.1.0"

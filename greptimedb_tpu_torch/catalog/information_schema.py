@@ -29,8 +29,6 @@ from greptimedb_tpu_torch.sql import ast
 
 INFORMATION_SCHEMA = "information_schema"
 
-_START_TIME = time.time()
-
 #: virtual table name -> builder(qe, ctx) -> dict[col -> list]
 _TABLES = {}
 

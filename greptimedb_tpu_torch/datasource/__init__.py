@@ -40,10 +40,18 @@ that way, so a COPY of millions of rows stays columnar.
   `NestedJsonColumn`; a key whose values mix kinds is refused, as
   pyarrow refuses it.
 
-`.gz` text files are gunzipped on reading and gzipped on writing;
-Parquet and ORC are containers with their own codecs. `write_file`
-writes CSV bytes equal to `pyarrow.csv.write_csv`'s and ndjson bytes
-equal to the JAX writer's (`json.dumps` of each row's Python values).
+Each reader has a fast path that gives exactly its general path's
+table: a CSV past a 4,096-row sample parses its numeric columns with
+`numpy.loadtxt` (quoted files too, while no field holds a `"` inside
+its quotes), and a regular ndjson body (every line the first line's
+keys in its order, no escapes) is one native scan
+(`native.ndjson_columns`).
+
+`.gz` text files are gunzipped on reading and gzipped on writing (as
+parallel gzip members past 16 MiB); Parquet and ORC are containers with
+their own codecs. `write_file` writes CSV bytes equal to
+`pyarrow.csv.write_csv`'s and ndjson bytes equal to the JAX writer's
+(`json.dumps` of each row's Python values).
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from __future__ import annotations
 import csv
 import datetime as dt
 import gzip
+import io
 import json
 import os
 import re
@@ -280,12 +289,35 @@ def write_file(table: TextTable, path: str, fmt: Optional[str] = None) -> int:
         data = text_writer.csv_bytes(table) if fmt == "csv" \
             else text_writer.ndjson_bytes(table)
         if path.endswith(".gz"):
-            # zlib's default level; the JAX writer's gzip default is 9,
-            # and both decompress to the same text
-            data = gzip.compress(data, compresslevel=6)
+            data = _gzip(data)
     with open(path, "wb") as f:
         f.write(data)
     return table.num_rows
+
+
+#: bytes of text a gzip member holds when the writer compresses in parallel
+_GZIP_MEMBER_BYTES = 16 << 20
+
+
+def _gzip(data: bytes) -> bytes:
+    """gzip of `data` at zlib's default level (the JAX writer's default is
+    9; both decompress to the same text). Text past one member's size is
+    compressed a slice a thread (zlib releases the GIL) into members laid
+    end to end: a multi-member file decompresses to the concatenation
+    (RFC 1952 2.2), as gzip, zcat, Python's gzip and pyarrow read it."""
+    if len(data) <= _GZIP_MEMBER_BYTES:
+        return gzip.compress(data, compresslevel=6)
+    from concurrent.futures import ThreadPoolExecutor
+
+    view = memoryview(data)
+    parts = [view[i:i + _GZIP_MEMBER_BYTES]
+             for i in range(0, len(data), _GZIP_MEMBER_BYTES)]
+    with ThreadPoolExecutor(max_workers=min(len(parts),
+                                            os.cpu_count() or 1),
+                            thread_name_prefix="gtpu-gzip") as pool:
+        members = list(pool.map(
+            lambda part: gzip.compress(part, compresslevel=6), parts))
+    return b"".join(members)
 
 
 # ---- CSV ---------------------------------------------------------------------
@@ -308,12 +340,18 @@ def _read_csv(text: str) -> TextTable:
     if "" in body:
         # pyarrow skips empty lines (ignore_empty_lines)
         body = [ln for ln in body if ln]
-    if not quoted and len(body) > _CSV_SAMPLE_ROWS:
-        fast = _read_csv_fast(names, body, "+" in text)
+    if len(body) > _CSV_SAMPLE_ROWS:
+        fast = _read_csv_fast(names, body, "+" in text, quoted)
         if fast is not None:
             return fast
-    rows = list(csv.reader(body)) if quoted else \
-        [ln.split(",") for ln in body]
+    if quoted:
+        # csv.reader over the text itself, so a quoted field keeps its
+        # line breaks (over the split lines it would lose them); empty
+        # lines are skipped as above
+        rows = [r for r in csv.reader(io.StringIO(text, newline="")) if r]
+        names, rows = rows[0], rows[1:]
+    else:
+        rows = [ln.split(",") for ln in body]
     width = len(names)
     for i, r in enumerate(rows):
         if len(r) != width:
@@ -323,11 +361,11 @@ def _read_csv(text: str) -> TextTable:
     fields = list(zip(*rows)) if rows else [()] * width
     cols = {name: _csv_column(np.asarray(vals, dtype=object))
             for name, vals in zip(names, fields)}
-    return TextTable(list(names), cols, len(body))
+    return TextTable(list(names), cols, len(rows))
 
 
-def _read_csv_fast(names: list, body: list,
-                   has_plus: bool) -> Optional[TextTable]:
+def _read_csv_fast(names: list, body: list, has_plus: bool,
+                   quoted: bool = False) -> Optional[TextTable]:
     """Columns a sample infers as int64 or double, with no NULL in it,
     parse in C (numpy.loadtxt) in one pass; the others as strings, then
     through `_csv_column`. None when the full parse disagrees with the
@@ -335,14 +373,28 @@ def _read_csv_fast(names: list, body: list,
     caller takes the general path: the result is always the general
     path's. loadtxt reads "+5" as an int where pyarrow reads a double,
     so a file with a "+" anywhere (`has_plus`) and an int64 column takes
-    the general path too."""
+    the general path too.
+
+    A `quoted` file takes this path while every field is either bare (no
+    `"` in it) or one quoted run with no `"` inside (so no `""`, and a
+    `,` or line break inside the quotes shows as a field that fails the
+    test): the fields split on commas exactly as csv.reader splits them,
+    and dropping the quotes gives csv.reader's values. The port's own
+    writer quotes only strings, so its files stay here unless a string
+    holds a `"`, `,` or line break."""
     import warnings
 
     sample = [ln.split(",") for ln in body[:_CSV_SAMPLE_ROWS]]
     if any(len(r) != len(names) for r in sample):
         return None
-    kinds = [_csv_column(np.asarray(c, dtype=object))
-             for c in zip(*sample)]
+    kinds = []
+    for c in zip(*sample):
+        vals = np.asarray(c, dtype=object)
+        if quoted:
+            vals = _unquote(np.asarray(c, dtype=str))
+            if vals is None:
+                return None
+        kinds.append(_csv_column(vals.astype(object)))
     numeric = [k for k, c in enumerate(kinds)
                if c.type in ("int64", "double") and c.valid is None]
     if has_plus and any(kinds[k].type == "int64" for k in numeric):
@@ -359,10 +411,16 @@ def _read_csv_fast(names: list, body: list,
                                           == "int64" else "f8")
                                          for k in numeric], ndmin=1,
                                   comments=None)
-            for k in others:
-                strs = np.loadtxt(body, delimiter=",", usecols=[k],
-                                  dtype=str, ndmin=1, comments=None)
-                cols[names[k]] = _csv_column(strs.astype(object))
+            if others:
+                strs = np.loadtxt(body, delimiter=",", usecols=others,
+                                  dtype=str, ndmin=2, comments=None)
+            for j, k in enumerate(others):
+                vals = strs[:, j]
+                if quoted:
+                    vals = _unquote(vals)
+                    if vals is None:
+                        return None
+                cols[names[k]] = _csv_column(vals.astype(object))
     except (ValueError, DeprecationWarning):
         return None
     for k in numeric:
@@ -371,6 +429,21 @@ def _read_csv_fast(names: list, body: list,
             return None  # a NULL spelling parsed as NaN
         cols[names[k]] = TextColumn(arr, None, kinds[k].type)
     return TextTable(list(names), {n: cols[n] for n in names}, len(body))
+
+
+def _unquote(fields: np.ndarray) -> Optional[np.ndarray]:
+    """csv.reader's values of comma-split fields (a numpy str array) that
+    are each bare (no `"`) or `"..."` with no `"` inside; None when one is
+    neither (the general path then reads the file)."""
+    quotes = np.char.count(fields, '"')
+    if not quotes.any():
+        return fields
+    opened = np.char.startswith(fields, '"')
+    simple = np.where(opened, (quotes == 2) & np.char.endswith(fields, '"')
+                      & (np.char.str_len(fields) >= 2), quotes == 0)
+    if not simple.all():
+        return None
+    return np.char.strip(fields, '"')
 
 
 def _matches(rx, vals: np.ndarray) -> bool:
@@ -407,8 +480,9 @@ def _csv_column(raw: np.ndarray) -> TextColumn:
             np.char.strip(vals.astype(str), _BLANK), "D")
         if days is not None:
             return TextColumn(widen(days, 0), mask, "date32")
+    matches = _ts_matches(vals)
     for kind in ("timestamp[s]", "timestamp[ns]"):
-        units = _timestamps(vals, kind, zones_mix=False)
+        units = _timestamps(vals, kind, zones_mix=False, ms=matches)
         if units is not None:
             return TextColumn(widen(units, 0), mask, kind)
     if _matches(_DOUBLE, vals):
@@ -445,15 +519,25 @@ def _to_datetime64(strs: np.ndarray, unit: str) -> Optional[np.ndarray]:
         return None
 
 
-def _timestamps(vals: np.ndarray, kind: str,
-                zones_mix: bool) -> Optional[np.ndarray]:
+def _ts_matches(vals: np.ndarray) -> Optional[list]:
+    """`_TS`'s match of every value, or None when one does not match (the
+    first is tried alone first: most columns fail there)."""
+    if not _TS.match(vals[0]):
+        return None
+    ms = list(map(_TS.match, vals))
+    return None if None in ms else ms
+
+
+def _timestamps(vals: np.ndarray, kind: str, zones_mix: bool,
+                ms: Optional[list] = None) -> Optional[np.ndarray]:
     """int64 seconds (timestamp[s]) or nanoseconds of values that all
     match `_TS` (no fraction for timestamp[s]), naive ones as UTC and
     zoned ones converted to UTC; None when one does not match, is no
-    real date, or (unless `zones_mix`) zoned and naive values meet."""
-    if not _matches(_TS, vals):
+    real date, or (unless `zones_mix`) zoned and naive values meet.
+    `ms` is `_ts_matches(vals)` when the caller has it."""
+    ms = _ts_matches(vals) if ms is None else ms
+    if ms is None:
         return None
-    ms = list(map(_TS.match, vals))
     if kind == "timestamp[s]" and any(m["frac"] for m in ms):
         return None
     zones = [m["zone"] for m in ms]
@@ -487,6 +571,10 @@ def _zone_seconds(zone: Optional[str]) -> int:
 
 def _read_ndjson(text: str) -> TextTable:
     body = text.strip()
+    if body and "\r" not in body and "\n\n" not in body:
+        fast = _read_ndjson_fast(body)
+        if fast is not None:
+            return fast
     if "\n\n" in body or "\r" in body:
         body = ",".join(ln for ln in body.split("\n") if ln.strip())
     else:
@@ -510,6 +598,71 @@ def _read_ndjson(text: str) -> TextTable:
         cols = {name: _json_column(name, [r.get(name) for r in rows])
                 for name in names}
     return TextTable(list(names), cols, len(rows))
+
+
+def _read_ndjson_fast(body: str) -> Optional[TextTable]:
+    """A regular ndjson body (every line one object with the first line's
+    keys in its order; numbers, strings without escapes, true, false,
+    null, NaN, Infinity) through one native scan (native.ndjson_columns),
+    each column as `_json_column` would type it: None when the native
+    library is missing or the body leaves that shape, and the caller
+    parses it with json. The result is always the general path's."""
+    from greptimedb_tpu_torch import native
+
+    lib = native.try_load()
+    if lib is None:
+        return None
+    try:
+        first = json.loads(body.partition("\n")[0])
+    except json.JSONDecodeError:
+        return None
+    if not isinstance(first, dict) or not first \
+            or not all(isinstance(k, str) for k in first):
+        return None
+    names = list(first)
+    raw = body.encode()
+    nrows = body.count("\n") + 1
+    cells = lib.ndjson_columns(raw, names, nrows)
+    if cells is None:
+        return None
+    cols = {}
+    for name, kind, slot, length in zip(names, *cells):
+        col = _json_cells_column(name, raw, kind, slot, length)
+        if col is None:
+            return None
+        cols[name] = col
+    return TextTable(names, cols, nrows)
+
+
+def _json_cells_column(name: str, raw: bytes, kind: np.ndarray,
+                       slot: np.ndarray, length: np.ndarray
+                       ) -> Optional[TextColumn]:
+    """`_json_column` of one column's native cells: numbers and bools
+    typed here with numpy, strings handed to `_json_column` as the
+    Python values; None for a mix `_json_column` refuses."""
+    from greptimedb_tpu_torch import native
+
+    seen = {k for k, c in enumerate(np.bincount(kind, minlength=5)) if c}
+    nulls = kind == native.NDJSON_NULL
+    valid = ~nulls if native.NDJSON_NULL in seen else None
+    present = seen - {native.NDJSON_NULL}
+    n = len(kind)
+    if not present:
+        return TextColumn(np.zeros(n, dtype=np.int64), valid, "null")
+    if present == {native.NDJSON_BOOL}:
+        return TextColumn(slot.astype(bool), valid, "bool")
+    if present == {native.NDJSON_INT}:
+        return TextColumn(np.where(nulls, 0, slot), valid, "int64")
+    if present <= {native.NDJSON_INT, native.NDJSON_FLOAT}:
+        vals = np.where(kind == native.NDJSON_FLOAT, slot.view(np.float64),
+                        slot.astype(np.float64))
+        return TextColumn(np.where(nulls, np.nan, vals), valid, "double")
+    if present == {native.NDJSON_STR}:
+        vals = [None if k == native.NDJSON_NULL else raw[o:o + m].decode()
+                for k, o, m in zip(kind.tolist(), slot.tolist(),
+                                   length.tolist())]
+        return _json_column(name, vals)
+    return None
 
 
 def _json_column(name: str, vals: list) -> TextColumn:

@@ -9,7 +9,7 @@ column blocks (ops/blocks.py).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Union
 
 import numpy as np
 

@@ -3,11 +3,14 @@ greptimedb_tpu/native/__init__.py).
 
 The sources are host code, not device kernels: src/gtpu_native.cpp (a
 copy of the JAX package's: CRC32, the snappy block codec and the WAL
-frame scan) and src/lp_columns.cpp (the line-protocol vector lane, which
-the JAX package runs through pyarrow). They are compiled together with
-`g++ -O3 -shared -fPIC` at first use (the first `try_load()`), into
-greptimedb_tpu_torch/_build/ under a name keyed by the sources' hash, so
-an edited source rebuilds. Nothing compiles at import.
+frame scan), src/lp_columns.cpp (the line-protocol vector lane, which
+the JAX package runs through pyarrow) and src/text_format.cpp (the CSV
+and ndjson writers' number text and row assembly and the ndjson reader's
+cell scan, which the JAX package leaves to pyarrow and json). They are
+compiled together with `g++ -std=c++17 -O3 -shared -fPIC` at first use
+(the first `try_load()`), into greptimedb_tpu_torch/_build/ under a name
+keyed by the sources' hash, so an edited source rebuilds. Nothing
+compiles at import.
 
 Everything here is optional, as in the JAX package: callers ask
 `try_load()` and keep their pure-Python paths when the build fails;
@@ -19,6 +22,9 @@ Exposes:
 - snappy_decompress(data)       — block-format decoder
 - wal_scan(data)                — one pass over WAL frames
 - lp_columns(body, ...)         — the line-protocol column scan
+- number_text(values, style)    — a numeric array's texts as one buffer
+- text_rows(columns, pieces, n) — rows laid out from column texts
+- ndjson_columns(body, keys, n) — the cells of a regular ndjson body
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_HERE, "src", f)
-         for f in ("gtpu_native.cpp", "lp_columns.cpp")]
+         for f in ("gtpu_native.cpp", "lp_columns.cpp", "text_format.cpp")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 
 AVAILABLE = False
@@ -60,7 +66,7 @@ def _build() -> str | None:
         os.close(fd)
     except OSError:
         return None
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, *_SRCS]
+    cmd = ["g++", "-std=c++17", "-O3", "-shared", "-fPIC", "-o", tmp, *_SRCS]
     try:
         r = subprocess.run(cmd, capture_output=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired):
@@ -110,6 +116,16 @@ def _load() -> None:
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_size_t,
         ctypes.c_char_p, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_size_t, _P, _P, _P, _P]
+    lib.gtpu_number_text.restype = ctypes.c_longlong
+    lib.gtpu_number_text.argtypes = [_P, ctypes.c_size_t, ctypes.c_int, _P,
+                                     ctypes.c_size_t, _P]
+    lib.gtpu_text_rows.restype = ctypes.c_longlong
+    lib.gtpu_text_rows.argtypes = [ctypes.c_size_t, ctypes.c_int, _P, _P, _P,
+                                   _P, _P, _P, ctypes.c_size_t]
+    lib.gtpu_ndjson_columns.restype = ctypes.c_longlong
+    lib.gtpu_ndjson_columns.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_char_p, _P,
+        ctypes.c_size_t, _P, _P, _P]
     _lib = lib
     AVAILABLE = True
 
@@ -204,3 +220,107 @@ def lp_columns(body: bytes, measurement: str, tag_keys: list,
     if n != max_rows:
         return None
     return tag_off, tag_len, fields, ts
+
+
+#: gtpu_number_text's kinds: (style, numpy dtype) -> kind
+_NUMBER_KINDS = {("arrow", "float32"): 0, ("arrow", "float64"): 1,
+                 ("repr", "float32"): 2, ("repr", "float64"): 3,
+                 ("int", "int64"): 4, ("int", "uint64"): 5}
+#: bytes one value's text can take (text_format.cpp's kMaxText)
+_MAX_TEXT = 32
+
+
+def number_text(values, style: str):
+    """Texts of a float32 / float64 array (`style` "arrow": pyarrow's CSV
+    text; "repr": Python's repr of the widened double, as the ndjson
+    writer spells it) or an int64 / uint64 array (`style` "int") in one
+    native pass. Returns (buf uint8, offs int64 [n + 1]): value i is
+    buf[offs[i]:offs[i + 1]]."""
+    import numpy as np
+
+    values = np.ascontiguousarray(values)
+    kind = _NUMBER_KINDS[(style, values.dtype.name)]
+    n = len(values)
+    cap = _MAX_TEXT * n
+    buf = np.empty(cap, dtype=np.uint8)
+    offs = np.empty(n + 1, dtype=np.int64)
+    got = _lib.gtpu_number_text(values.ctypes.data, n, kind, buf.ctypes.data,
+                                cap, offs.ctypes.data)
+    if got < 0:
+        raise ValueError(f"number_text: {style} text of {values.dtype} "
+                         "overflowed its buffer")
+    return buf[:got], offs
+
+
+def text_rows(columns, pieces, nrows: int) -> bytes:
+    """Rows of `nrows` laid out natively: row r is pieces[0], column 0's
+    text of r, pieces[1], ..., the last column's, pieces[-1]. Each column
+    is (buf uint8, offs int64, index int32 or None): its text of row r is
+    entry index[r] (or r), buf[offs[e]:offs[e + 1]]."""
+    import numpy as np
+
+    cols = [(np.ascontiguousarray(b, dtype=np.uint8),
+             np.ascontiguousarray(o, dtype=np.int64),
+             None if i is None else np.ascontiguousarray(i, dtype=np.int32))
+            for b, o, i in columns]
+    if len(pieces) != len(cols) + 1:
+        raise ValueError(f"text_rows: {len(pieces)} pieces for "
+                         f"{len(cols)} columns")
+    enc = [p.encode() for p in pieces]
+    piece_offs = np.zeros(len(enc) + 1, dtype=np.int64)
+    piece_offs[1:] = np.cumsum([len(p) for p in enc])
+    total = int(piece_offs[-1]) * nrows
+    for buf, offs, index in cols:
+        lens = np.diff(offs)
+        if index is None:
+            if len(lens) < nrows:
+                raise ValueError("text_rows: a column has fewer texts "
+                                 "than rows")
+            total += int(lens[:nrows].sum())
+        else:
+            if len(index) < nrows or (nrows and (
+                    int(index[:nrows].min()) < 0
+                    or int(index[:nrows].max()) >= len(lens))):
+                raise ValueError("text_rows: a column index is out of "
+                                 "its entries")
+            total += int(lens[index[:nrows]].sum())
+    out = np.empty(max(total, 1), dtype=np.uint8)
+    k = len(cols)
+    ptrs = (ctypes.c_void_p * max(k, 1))(*[b.ctypes.data for b, _, _ in cols])
+    offp = (ctypes.c_void_p * max(k, 1))(*[o.ctypes.data for _, o, _ in cols])
+    idxp = (ctypes.c_void_p * max(k, 1))(
+        *[None if i is None else i.ctypes.data for _, _, i in cols])
+    pieces_buf = b"".join(enc)
+    got = _lib.gtpu_text_rows(nrows, k, ptrs, offp, idxp, pieces_buf,
+                              piece_offs.ctypes.data, out.ctypes.data,
+                              total)
+    if got != total:
+        raise ValueError(f"text_rows: wrote {got} of {total} bytes")
+    return out[:total].tobytes()
+
+
+#: gtpu_ndjson_columns' cell kinds
+NDJSON_NULL, NDJSON_INT, NDJSON_FLOAT, NDJSON_BOOL, NDJSON_STR = range(5)
+
+
+def ndjson_columns(body: bytes, keys: list, nrows: int):
+    """Scan an ndjson body whose `nrows` lines are each one object with
+    `keys` in that order (text_format.cpp says which values it takes) in
+    one native pass, the GIL released. Returns (kinds uint8, slots int64,
+    lens uint32), each [len(keys), nrows]: a cell's kind (NDJSON_*), and
+    its int, its double's bits, 0 / 1, or its string's byte offset in
+    `body` (`lens` its length); None when the body leaves that shape."""
+    import numpy as np
+
+    enc = [k.encode() for k in keys]
+    key_lens = np.asarray([len(k) for k in enc], dtype=np.uint32)
+    shape = (len(keys), nrows)
+    kinds = np.empty(shape, dtype=np.uint8)
+    slots = np.empty(shape, dtype=np.int64)
+    lens = np.empty(shape, dtype=np.uint32)
+    got = _lib.gtpu_ndjson_columns(
+        body, len(body), len(keys), b"".join(enc), key_lens.ctypes.data,
+        nrows, kinds.ctypes.data, slots.ctypes.data, lens.ctypes.data)
+    if got != nrows:
+        return None
+    return kinds, slots, lens

@@ -392,7 +392,8 @@ class LruCacheLayer(ObjectStore):
 
     @property
     def cached_bytes(self) -> int:
-        return self._bytes
+        with self._lock:
+            return self._bytes
 
 
 def default_store(store: Optional[ObjectStore]) -> ObjectStore:

@@ -71,7 +71,8 @@ class DeviceCache:
 
     @property
     def resident_bytes(self) -> int:
-        return self._bytes
+        with self._lock:
+            return self._bytes
 
     def get(self, key: tuple,
             build: Callable[[], torch.Tensor]) -> torch.Tensor:

@@ -11,7 +11,9 @@ OpenTSDB's telnet behavior.
 Counterpart of greptimedb_tpu/servers/opentsdb.py. Its server joins the
 serve thread and every session thread in `shutdown()`
 (servers/tcp.py::JoinedThreads), where the JAX server leaves daemon
-threads behind.
+threads behind, and each `put` runs in a `request_span("opentsdb:put")`
+(a trace of its own, as every other front door's request), where the
+JAX session writes untraced.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Optional
 from greptimedb_tpu_torch.fault import Unavailable
 from greptimedb_tpu_torch.query.engine import QueryEngine
 from greptimedb_tpu_torch.servers.tcp import ThreadingServer
+from greptimedb_tpu_torch.utils import tracing
 from greptimedb_tpu_torch.utils.metrics import INGEST_ROWS
 
 GREPTIME_VALUE = "greptime_value"
@@ -69,11 +72,14 @@ class _Session(socketserver.StreamRequestHandler):
                 self.wfile.write(b"greptimedb_tpu opentsdb endpoint\n")
                 continue
             try:
-                metric, ts_ms, value, tags = parse_put_line(line)
-                point = Point(measurement=metric, tags=tags,
-                              fields=[(GREPTIME_VALUE, value)], ts=ts_ms)
-                n = write_points(server.query_engine, server.db, [point],
-                                 precision="ms")
+                with tracing.request_span("opentsdb:put") as attrs:
+                    metric, ts_ms, value, tags = parse_put_line(line)
+                    point = Point(measurement=metric, tags=tags,
+                                  fields=[(GREPTIME_VALUE, value)],
+                                  ts=ts_ms)
+                    n = write_points(server.query_engine, server.db,
+                                     [point], precision="ms")
+                    attrs["rows"] = n
                 INGEST_ROWS.inc(n, protocol="opentsdb")
             except Unavailable as e:
                 # typed backpressure: the telnet protocol has no status

@@ -123,7 +123,8 @@ class FileRegion:
         pass
 
     def drop(self):
-        self._cache = None
+        with self._lock:
+            self._cache = None
 
     @property
     def memtable_bytes(self) -> int:

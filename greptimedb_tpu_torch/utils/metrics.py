@@ -664,3 +664,11 @@ QUERY_ACHIEVED_GBPS = REGISTRY.histogram(
     "roofline fraction; buckets carry trace_id exemplars",
     buckets=(0.1, 0.5, 1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 200.0, 400.0,
              800.0, 1600.0, 3200.0), exemplars=True)
+
+# ---- static analysis (python -m greptimedb_tpu_torch.lint) ------------------
+
+LINT_FINDINGS = REGISTRY.gauge(
+    "greptimedb_tpu_lint_findings_total",
+    "gtpu-lint findings per checker from the latest lint run of the port "
+    "(allowlisted included): the machine-checked invariant surface; "
+    "anything unallowed fails the run")

@@ -96,6 +96,31 @@ def test_telnet_puts_match_jax(tmp_path):
     assert not tsrv._thread.is_alive()
 
 
+def test_telnet_put_roots_a_request_span(tmp_path):
+    """Each telnet put runs in its own request span (the span_coverage
+    lint checker's wire-entry rule): a put line leaves an `opentsdb:put`
+    root span with the rows it wrote; a line that fails to parse leaves
+    its span too, the error recorded."""
+    from greptimedb_tpu_torch.utils import tracing
+
+    pair = Pair(tmp_path)
+    srv = OpentsdbServer(pair.tqe, port=0)
+    srv.start()
+    try:
+        seen = {s.span_id for s in tracing.recent_spans(10_000)}
+        _telnet(srv.port, ["put span.m 1356998400 1.5 host=a",
+                           "put span.m 1"])
+        spans = [s for s in tracing.recent_spans(10_000)
+                 if s.name == "opentsdb:put" and s.span_id not in seen]
+        assert len(spans) == 2
+        assert sorted(s.attrs.get("rows", 0) for s in spans) == [0, 1]
+        assert all(s.parent_id is None for s in spans)
+        assert len({s.trace_id for s in spans}) == 2
+    finally:
+        srv.shutdown()
+        pair.close()
+
+
 def test_shutdown_joins_open_sessions(tmp_path):
     """A client still connected when the server stops: its session
     thread is joined by shutdown(), not left behind."""
