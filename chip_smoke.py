@@ -191,11 +191,23 @@ greptimedb_tpu_torch/_build/. Phases:
    JAX defaults: learned templates are fast-lane hits, one serial
    execution each, and no longer vmapped groups, as in the JAX package.
    After it (d), the same dir served by `standalone start -c <toml>`
-   with MySQL, Postgres and one static user: /v1/sql answers 401 without
-   credentials and the in-process body with them, MySQL logs in with the
-   right password and is refused with a wrong one, Postgres answers a
-   query, the `dump-config` text loads back to the defaults, and SIGTERM
-   ends it with exit code 0. TLS is left out (a line says so).
+   with Arrow Flight (`[grpc] enable = true`), MySQL, Postgres and one
+   static user: /v1/sql answers 401 without credentials and the
+   in-process body with them, MySQL logs in with the right password and
+   is refused with a wrong one, Postgres answers a query, the
+   `dump-config` text loads back to the defaults, and SIGTERM ends it
+   with exit code 0. TLS is left out (a line says so). Its Flight legs,
+   with the port's own clients (the port's gRPC, HTTP/2 and Arrow IPC):
+   the handshake, a wrong password refused; do_get of double_groupby_all
+   at 10-minute bins (24,000 groups: K1), cpu_max_all_8 and
+   single_groupby_1_1_1 (K2), each equal to the server's /v1/sql rows
+   (avg to rtol 1e-5, every other cell exactly); a region_scan of the
+   whole region (1,440,000 rows) equal to the generator's rows, its MB/s;
+   a do_put of one more hour (1,440,000 rows) into a fresh table,
+   count(*) equal to the rows acknowledged and double_groupby_all over it
+   against numpy, its rows/s; the server's K1 and K2 launches from its
+   /metrics before and after, both above 0. The legs print their own
+   seconds (`(d) flight on the standalone`).
    After (d), (i) the serving fabric: two `standalone start -c <toml>`
    frontends, A and B, each over its own copy of that dir with `[shm]
    fabric = true` and one private fabric_dir, beside a fabric-off
@@ -326,16 +338,30 @@ greptimedb_tpu_torch/_build/. Phases:
    the LRU's hits and misses a query; ADMIN flush_table, after which
    the bucket's WAL prefix must be empty; COPY cpu TO Parquet and
    COPY cpu_copy FROM it (double_groupby_all over both equal: avg to
-   rtol 1e-5, the keys byte for byte); one hour through ORC (all hosts)
-   and through CSV.gz and ndjson (its first 400 hosts), each read back
-   and held to the same rows; an external table over the Parquet file
+   rtol 1e-5, the keys byte for byte); one hour through ORC (all hosts,
+   1,440,000 rows) and through CSV.gz and ndjson (the first TEXT_HOSTS,
+   1,000 hosts, 360,000 rows), each file read once, by COPY FROM, and
+   the table it fills held to the same rows (its region's scan, every
+   value exactly). Both cuts pay for phase (d)'s Flight legs: the
+   separate read of each file before its COPY FROM is gone, and the
+   text legs carry a quarter of the hour's hosts; an external table
+   over the Parquet file
    (count(*) and a per-host aggregate against numpy); COPY DATABASE TO
    and FROM on a small database; `python3 -m greptimedb_tpu_torch
    export` and `import` in subprocesses. The phase prints its seconds
    and each step's, and joins the fake's threads.
+   Phase (k), the lint plane, runs after the stream: the lint in a
+   subprocess beside a `standalone start` (Flight enabled through its
+   environment) under the runtime lockdep, driven for LOCKDEP_SECONDS by
+   eight clients (double_groupby_all and cpu_max_all_8 over HTTP, one
+   Flight client alternating do_get of double_groupby_all and do_put of
+   six points, line-protocol writes, ADMIN flush / compact, a flow's
+   ticks); its lock graph must have no cycle and its /metrics K1 and K2
+   launches.
 8. A `kernels` JSON line (with each kernel's launches on every path, the
    PromQL queries', the streamed query's, the RANGE queries', the host
-   SQL statements', the five served traffics', the wire phase's, the
+   SQL statements', the five served traffics', the Flight legs', the
+   wire phase's, the
    write protocols' and the write plane's included (the two ingest_qps
    runs, the rollup job, the substituted and raw queries), the index
    query's, the metric engine's and the file engine's, the flows',
@@ -1657,6 +1683,10 @@ STORE_PUT_POINTS = 90
 #: points of the small table COPY DATABASE and the export / import CLI
 #: carry (all hosts)
 STORE_SMALL_POINTS = 30
+#: hosts of the hour carried through CSV.gz and ndjson (ORC carries all
+#: 4,000): the first 1,000, 360,000 rows, cut from the whole hour to pay
+#: for phase (d)'s Flight legs
+TEXT_HOSTS = 1000
 STORE_SEED = 29
 S3_ACCESS, S3_SECRET, S3_REGION = "AKIDCHIPSMOKE", "chip-smoke-secret", \
     "us-east-1"
@@ -1921,26 +1951,16 @@ def check_table_rows(t, grid, p0, p1, hosts, what) -> None:
     of the first `hosts` hosts of `grid`, in any row order."""
     from greptimedb_tpu_torch.datasource import _TIME_NS
 
-    check(t.num_rows == (p1 - p0) * hosts,
-          f"{what}: {t.num_rows} rows, expected {(p1 - p0) * hosts}")
     tcol = t.column("ts")
     ts_ms = tcol.values.astype(np.int64) * _TIME_NS[tcol.type] // 10**6
-    pts = (ts_ms - T0_MS) // (STEP_S * 1000) - p0
     hcol = t.column("hostname")
     if hcol.dictionary is not None and hcol.valid is None \
             and len(hcol.dictionary):
         host = host_index(hcol.dictionary)[hcol.values]
     else:
         host = host_index(hcol.strings())
-    order = np.lexsort((host, pts))
-    want_h = np.tile(np.arange(hosts), p1 - p0)
-    want_p = np.repeat(np.arange(p1 - p0), hosts)
-    check(np.array_equal(host[order], want_h)
-          and np.array_equal(pts[order], want_p), f"{what}: row keys")
-    for f in FIELDS:
-        got = t.column(f).values.astype(np.float64)[order]
-        check(np.array_equal(got, grid[f][p0:p1, :hosts].reshape(-1)),
-              f"{what}: {f} values")
+    check_grid_rows(ts_ms, host, {f: t.column(f).values for f in FIELDS},
+                    grid, p0, p1, hosts, what)
 
 
 def drop_store_caches(qe, engine, region) -> None:
@@ -2037,9 +2057,10 @@ def store_queries(qe, engine, region, sk, torch, fake, grid) -> dict:
 
 def copy_phase(qe, engine, sk, torch, grid, host_names, work) -> dict:
     """COPY cpu TO Parquet and back into cpu_copy (double_groupby_all over
-    both equal), one hour (all hosts) through ORC, CSV.gz and ndjson back
-    to the same rows, an external table over the Parquet file, and COPY
-    DATABASE TO / FROM on a small database."""
+    both equal), one hour through ORC (all hosts) and through CSV.gz and
+    ndjson (the first TEXT_HOSTS) back to the same rows, an external
+    table over the Parquet file, and COPY DATABASE TO / FROM on a small
+    database."""
     from greptimedb_tpu_torch import datasource
     from greptimedb_tpu_torch.session import QueryContext
 
@@ -2086,41 +2107,46 @@ def copy_phase(qe, engine, sk, torch, grid, host_names, work) -> dict:
     log("(j) COPY cpu TO / cpu_copy FROM parquet: " + json.dumps(
         {**out["cpu_copy"], **steps}))
 
-    # one hour through ORC, CSV.gz and ndjson
+    # one hour through ORC (all hosts), CSV.gz and ndjson (TEXT_HOSTS)
     per_hour = 3600 // STEP_S
-    qe.execute_one(cpu_ddl().replace("TABLE cpu (", "TABLE cpu_hour ("))
-    put_grid(engine, qe.catalog.table("public", "cpu_hour"), grid,
-             host_names, 0, per_hour, HOSTS)
+    text_hosts = min(HOSTS, TEXT_HOSTS)
+    for table, hosts in (("cpu_hour", HOSTS), ("cpu_hour_text", text_hosts)):
+        qe.execute_one(cpu_ddl().replace("TABLE cpu (", f"TABLE {table} ("))
+        put_grid(engine, qe.catalog.table("public", table), grid,
+                 host_names, 0, per_hour, hosts)
     fmts = {}
-    rows = per_hour * HOSTS
     for ext in ("orc", "csv.gz", "ndjson"):
+        src, hosts = ("cpu_hour", HOSTS) if ext == "orc" \
+            else ("cpu_hour_text", text_hosts)
+        rows = per_hour * hosts
         path = os.path.join(work, "copy", f"hour.{ext}")
         dst = "back_" + ext.replace(".", "_")
         t = time.perf_counter()
-        r = qe.execute_one(f"COPY cpu_hour TO '{path}'")
+        r = qe.execute_one(f"COPY {src} TO '{path}'")
         w_s = time.perf_counter() - t
         check(r.affected_rows == rows, f"(j) COPY TO {ext}")
-        t = time.perf_counter()
-        back = datasource.read_file(path)
-        r_s = time.perf_counter() - t
-        check_table_rows(back, grid, 0, per_hour, HOSTS, f"(j) hour.{ext}")
-        del back
+        # each file is read once, by COPY FROM; the table it fills then
+        # holds every value exactly (its region's scan against the grid)
         qe.execute_one(cpu_ddl().replace("TABLE cpu (", f"TABLE {dst} ("))
         t = time.perf_counter()
         r = qe.execute_one(f"COPY {dst} FROM '{path}'")
         f_s = time.perf_counter() - t
         check(r.affected_rows == rows, f"(j) COPY FROM {ext}")
+        check_scan_rows(engine.scan(qe.catalog.table(
+            "public", dst).region_ids[0]), grid, 0, per_hour, hosts,
+            f"(j) hour.{ext} through COPY {dst} FROM")
         n = qe.execute_one(f"SELECT count(*), sum(usage_user) FROM {dst}")
-        want_sum = grid["usage_user"][:per_hour].sum()
+        want_sum = grid["usage_user"][:per_hour, :hosts].sum()
         check(n.rows()[0][0] == rows
               and np.isclose(n.rows()[0][1], want_sum, rtol=1e-5),
               f"(j) {dst}: {n.rows()}")
         fmts[ext] = {"rows": rows, "bytes": os.path.getsize(path),
-                     "copy_to_s": w_s, "read_s": r_s, "copy_from_s": f_s,
+                     "copy_to_s": w_s, "copy_from_s": f_s,
                      "rows_per_s_write": rows / w_s,
-                     "rows_per_s_read": rows / r_s}
+                     "rows_per_s_read": rows / f_s}
     out["formats"] = fmts
-    log("(j) one hour through orc, csv.gz and ndjson: " + json.dumps(fmts))
+    log(f"(j) one hour through orc ({HOSTS} hosts), csv.gz and ndjson (the "
+        f"first {text_hosts}): " + json.dumps(fmts))
 
     # an external table over the Parquet file
     zero_launches(sk)
@@ -2405,10 +2431,31 @@ def object_store_phase(sk, torch, card: str) -> dict:
 #: takes K1 (dense_prepared), and cpu_max_all_8 takes K2
 LOCKDEP_HOSTS = 400
 LOCKDEP_LOAD_POINTS = 60
-#: seconds of concurrent traffic, and its clients (one a role)
+#: seconds of concurrent traffic, and its clients (one a role): "flight"
+#: runs double_groupby_all over Flight (do_get) and writes its own points
+#: through do_put, so Flight's threads and locks run under the lockdep
 LOCKDEP_SECONDS = 30.0
-LOCKDEP_ROLES = ("double_groupby_all", "double_groupby_all", "cpu_max_all_8",
+LOCKDEP_ROLES = ("double_groupby_all", "flight", "cpu_max_all_8",
                  "cpu_max_all_8", "lp", "lp", "admin", "flow")
+
+
+def lockdep_flight_table(p0: int, p1: int, rng):
+    """Points [p0, p1) of every lockdep host as a Flight column table."""
+    from greptimedb_tpu_torch.datasource import TextColumn, TextTable
+
+    n = (p1 - p0) * LOCKDEP_HOSTS
+    cols = {"hostname": TextColumn.of_codes(
+                np.tile(np.arange(LOCKDEP_HOSTS, dtype=np.int32), p1 - p0),
+                np.asarray([f"host_{i}" for i in range(LOCKDEP_HOSTS)],
+                           dtype=object)),
+            "ts": TextColumn(np.repeat(T0_MS + np.arange(p0, p1,
+                                                         dtype=np.int64)
+                                       * STEP_S * 1000, LOCKDEP_HOSTS),
+                             None, "timestamp[ms]")}
+    for f in FIELDS:
+        cols[f] = TextColumn(np.round(rng.uniform(0, 100, n), 3), None,
+                             "double")
+    return TextTable(["hostname", "ts", *FIELDS], cols, n)
 
 
 def lockdep_lp_body(p0: int, p1: int, rng) -> bytes:
@@ -2475,7 +2522,9 @@ def lockdep_server_run(work: str) -> dict:
     if DEVICE is not None:
         cmd += ["--device", DEVICE]
     env = dict(os.environ, PYTHONPATH=HERE, GTPU_TORCH_LOCKDEP="1",
-               GTPU_TORCH_LOCKDEP_DIR=dump)
+               GTPU_TORCH_LOCKDEP_DIR=dump,
+               GREPTIMEDB_TPU__GRPC__ENABLE="true",
+               GREPTIMEDB_TPU__GRPC__ADDR="127.0.0.1:0")
     stderr_path = os.path.join(work, "server.stderr")
     t_start = time.perf_counter()
     with open(stderr_path, "w") as err:
@@ -2491,11 +2540,13 @@ def lockdep_server_run(work: str) -> dict:
     calls: dict = {}
     errors: list = []
     try:
-        line = read_ready(proc, 1)[0]
-        check("listening on http://127.0.0.1:" in line,
-              f"(k) the lockdep server did not start: {line!r} "
+        line, fline = read_ready(proc, 2)
+        check("listening on http://127.0.0.1:" in line
+              and fline.startswith("flight on grpc://127.0.0.1:"),
+              f"(k) the lockdep server did not start: {line!r} {fline!r} "
               f"{server_err()}")
         port = int(line.rsplit(":", 1)[1])
+        flight_addr = "127.0.0.1:" + fline.rsplit(":", 1)[1].strip()
         start_s = time.perf_counter() - t_start
 
         def request(conn, method, path, body=None, what=""):
@@ -2526,8 +2577,40 @@ def lockdep_server_run(work: str) -> dict:
         lock = threading.Lock()
         stop_at = time.monotonic() + LOCKDEP_SECONDS
 
+        def flight_client(crng):
+            from greptimedb_tpu_torch.servers import flight
+
+            fc = flight.FlightQueryClient(flight_addr)
+            try:
+                k = 0
+                while time.monotonic() < stop_at:
+                    if k % 2 == 0:
+                        res = fc.sql(queries["double_groupby_all"][0])
+                        check(res.num_rows > 0, "(k) flight do_get: empty")
+                        what = "flight do_get"
+                    else:
+                        with lock:
+                            p0 = points[0]
+                            points[0] += 6
+                        n = fc.insert("cpu", lockdep_flight_table(
+                            p0, p0 + 6, crng))
+                        check(n == 6 * LOCKDEP_HOSTS,
+                              f"(k) flight do_put acked {n}")
+                        what = "flight do_put"
+                    with lock:
+                        calls[what] = calls.get(what, 0) + 1
+                    k += 1
+            finally:
+                fc.close()
+
         def client(i: int, role: str):
             crng = np.random.default_rng([SEED, i])
+            if role == "flight":
+                try:
+                    flight_client(crng)
+                except Exception as e:  # noqa: BLE001 — reported, fails
+                    errors.append(f"{role}: {type(e).__name__}: {e}")
+                return
             conn = http.client.HTTPConnection("127.0.0.1", port,
                                               timeout=300)
             try:
@@ -2569,6 +2652,9 @@ def lockdep_server_run(work: str) -> dict:
         drive_s = time.perf_counter() - t
         check(not any(th.is_alive() for th in threads),
               "(k) a lockdep client did not finish")
+        check(calls.get("flight do_get", 0) > 0
+              and calls.get("flight do_put", 0) > 0,
+              f"(k) the Flight client's calls: {calls}")
         check(not errors, f"(k) lockdep traffic failed: {errors[:3]} "
               f"{server_err()}")
         launches = kernel_launches(scrape(port))
@@ -5227,7 +5313,8 @@ def serving_phase(sk, torch, lib=None) -> dict:
             ("/v1/prometheus/api/v1/query_range?" + prom, None)])
         engine.close()
         cli = standalone_phase(root, answers)
-        cli_options = standalone_options_phase(root, answers)
+        cli_options = standalone_options_phase(root, answers, grid,
+                                               info.region_ids[0])
         fabric = fabric_phase(root, grid)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -6985,14 +7072,15 @@ def first_query_breakdown(base, token, tid) -> dict:
     return out
 
 
-def standalone_options_phase(root, answers) -> dict:
+def standalone_options_phase(root, answers, grid, rid) -> dict:
     """(d) `standalone start -c <toml>` over the closed cpu_1h dir, with
-    MySQL, Postgres and one static user enabled and the JAX defaults of
-    the concurrency plane: /v1/sql answers 401 without credentials and
-    the in-process body with them; MySQL logs in with the right password
-    and is refused with a wrong one; Postgres answers a query; the
-    `dump-config` text loads back to the defaults; SIGTERM ends it with
-    exit code 0. TLS is left out here (the CPU tests drive it)."""
+    Arrow Flight, MySQL, Postgres and one static user enabled and the JAX
+    defaults of the concurrency plane: /v1/sql answers 401 without
+    credentials and the in-process body with them; MySQL logs in with the
+    right password and is refused with a wrong one; Postgres answers a
+    query; the Flight legs (`flight_legs`) run; the `dump-config` text
+    loads back to the defaults; SIGTERM ends it with exit code 0. TLS is
+    left out here (the CPU tests drive it)."""
     import base64
     import shutil
     import tempfile
@@ -7019,7 +7107,8 @@ def standalone_options_phase(root, answers) -> dict:
     options.check_port_support(loaded)
     t = time.perf_counter()
     front = Frontend("standalone", root, cfg_dir, env,
-                     extra=f"[auth]\nstatic_users = '{user}={password}'\n")
+                     extra=f"[auth]\nstatic_users = '{user}={password}'\n",
+                     flight=True)
     try:
         front.wait_ready()
         start_s = front.start_s
@@ -7074,6 +7163,8 @@ def standalone_options_phase(root, answers) -> dict:
               "standalone -c: Postgres count(*)")
         pg.close()
         steps["mysql_postgres_s"] = time.perf_counter() - t_step
+        flight = flight_legs(front, token, grid, rid)
+        steps["flight_s"] = flight["seconds"]
         requests_s = time.perf_counter() - t - start_s
         t_stop = time.perf_counter()
         rc = front.stop()
@@ -7084,8 +7175,203 @@ def standalone_options_phase(root, answers) -> dict:
     out = {"start_s": start_s, "requests_s": requests_s, "stop_s": stop_s,
            "steps": steps, "first_query": first, "http_requests": 2,
            "mysql_logins": 2, "postgres_queries": 1, "exit_code": rc,
-           "wall_s": time.perf_counter() - t}
-    log("serving standalone -c subprocess: " + json.dumps(out))
+           "wall_s": time.perf_counter() - t, "flight": flight}
+    log("serving standalone -c subprocess: " + json.dumps(
+        {k: v for k, v in out.items() if k != "flight"}))
+    return out
+
+
+# ---- (d) Arrow Flight on the standalone's cpu_1h --------------------------------
+
+#: the hour the Flight do_put writes into a fresh table, and its seed
+FLIGHT_PUT_POINTS = 3600 // STEP_S
+FLIGHT_PUT_SEED = 37
+
+
+def flight_dga_sql(table: str) -> str:
+    """double_groupby_all at 10-minute bins over the first hour: 4,000
+    hosts x 6 bins = 24,000 groups (G+1 = 24,001), past K2's envelope,
+    so K1."""
+    avg_list = ", ".join(f"avg({f})" for f in FIELDS)
+    return (f"SELECT date_bin(INTERVAL '10 minutes', ts) AS bin, hostname, "
+            f"{avg_list} FROM {table} WHERE ts >= {T0_MS} "
+            f"AND ts < {T0_MS + 3600 * 1000} "
+            "GROUP BY bin, hostname ORDER BY bin, hostname")
+
+
+def http_rows(port, token, sql) -> tuple:
+    """(column names, rows) of one authenticated POST /v1/sql."""
+    import urllib.parse
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/sql",
+        data=urllib.parse.urlencode({"sql": sql}).encode())
+    req.add_header("Authorization", "Basic " + token)
+    with urllib.request.urlopen(req, timeout=300) as r:
+        doc = json.loads(r.read())
+    rec = doc["output"][0]["records"]
+    return [c["name"] for c in rec["schema"]["column_schemas"]], rec["rows"]
+
+
+def check_flight_rows(name, res, names, rows) -> float:
+    """A Flight result equals the HTTP rows of the same statement: avg
+    columns to rtol 1e-5 (K1's float atomics), every other cell exactly.
+    Returns the largest relative difference of an avg cell."""
+    got = res.rows()
+    check(list(res.names) == list(names) and len(got) == len(rows),
+          f"(d) flight {name}: {list(res.names)} x {len(got)} against "
+          f"{names} x {len(rows)}")
+    worst = 0.0
+    for j, col in enumerate(names):
+        g = [r[j] for r in got]
+        w = [r[j] for r in rows]
+        if col.startswith("avg("):
+            g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+            check(np.allclose(g, w, rtol=1e-5, atol=0),
+                  f"(d) flight {name}: {col}")
+            worst = max(worst, float(np.max(np.abs(g - w) / np.abs(w))))
+        else:
+            check(g == w, f"(d) flight {name}: {col} differs")
+    return worst
+
+
+def check_grid_rows(ts_ms, host, values, grid, p0, p1, hosts, what) -> None:
+    """Rows (ms timestamps, host indexes, {field: values}) hold exactly
+    points [p0, p1) of the first `hosts` hosts of `grid`, in any order."""
+    check(len(ts_ms) == (p1 - p0) * hosts,
+          f"{what}: {len(ts_ms)} rows, expected {(p1 - p0) * hosts}")
+    pts = (ts_ms - T0_MS) // (STEP_S * 1000) - p0
+    order = np.lexsort((host, pts))
+    check(np.array_equal(host[order], np.tile(np.arange(hosts), p1 - p0))
+          and np.array_equal(pts[order],
+                             np.repeat(np.arange(p1 - p0), hosts)),
+          f"{what}: row keys")
+    for f in FIELDS:
+        got = np.asarray(values[f]).astype(np.float64)[order]
+        check(np.array_equal(got, grid[f][p0:p1, :hosts].reshape(-1)),
+              f"{what}: {f} values")
+
+
+def check_scan_rows(scan, grid, p0, p1, hosts, what) -> None:
+    """A region scan (ScanData) holds exactly those rows."""
+    host = host_index(scan.tag_dicts["hostname"])[scan.columns["hostname"]]
+    check_grid_rows(np.asarray(scan.columns["ts"], np.int64), host,
+                    scan.columns, grid, p0, p1, hosts, what)
+
+
+def flight_put_table(host_names, rng) -> tuple:
+    """One hour of `cpu` for every host as a column table (hostname a
+    dictionary column, ts timestamp[ms], the ten double fields) and its
+    [points, hosts] grid."""
+    from greptimedb_tpu_torch.datasource import TextColumn, TextTable
+
+    n = FLIGHT_PUT_POINTS * HOSTS
+    cols = {"hostname": TextColumn.of_codes(
+                np.tile(np.arange(HOSTS, dtype=np.int32), FLIGHT_PUT_POINTS),
+                host_names),
+            "ts": TextColumn(np.repeat(T0_MS + np.arange(
+                FLIGHT_PUT_POINTS, dtype=np.int64) * STEP_S * 1000, HOSTS),
+                None, "timestamp[ms]")}
+    grid = {}
+    for f in FIELDS:
+        vals = rng.uniform(0.0, 100.0, n)
+        cols[f] = TextColumn(vals, None, "double")
+        grid[f] = vals.reshape(FLIGHT_PUT_POINTS, HOSTS)
+    return TextTable(["hostname", "ts", *FIELDS], cols, n), grid
+
+
+def flight_legs(front, token, grid, rid) -> dict:
+    """Arrow Flight against phase (d)'s standalone, with the port's own
+    clients: the handshake (a wrong password refused); do_get of
+    double_groupby_all at 10-minute bins (K1), cpu_max_all_8 and
+    single_groupby_1_1_1 (K2), each equal to the same server's /v1/sql;
+    a region_scan of the whole cpu_1h region against the generator's
+    rows (MB/s); a do_put of one more hour (1,440,000 rows) into a fresh
+    table, its count(*) equal to the acknowledged rows and
+    double_groupby_all over it against numpy (rows/s); the server's K1
+    and K2 launches from its /metrics before and after."""
+    from greptimedb_tpu_torch.servers import flight
+
+    user, password = STATIC_USER
+    addr = f"127.0.0.1:{front.flight_port}"
+    t = time.perf_counter()
+    before = kernel_launches(scrape(front.port))
+    client = flight.FlightQueryClient(addr, user, password)
+    try:
+        flight.FlightQueryClient(addr, user, "wrong")
+        refused = None
+    except flight.FlightUnauthenticatedError as e:
+        refused = str(e)
+    check(refused is not None, "(d) flight: a wrong password was accepted")
+    out: dict = {"handshake_refused": refused}
+    queries = {"double_groupby_all (10 min)": flight_dga_sql("cpu")}
+    tq = tsbs_queries()
+    for name in ("cpu_max_all_8", "single_groupby_1_1_1"):
+        queries[name] = tq[name][0]
+    for name, sql in queries.items():
+        t_q = time.perf_counter()
+        res = client.sql(sql)
+        ms = (time.perf_counter() - t_q) * 1000
+        names, rows = http_rows(front.port, token, sql)
+        out[name] = {"rows": res.num_rows, "ms": ms,
+                     "max_rel_err_avg": check_flight_rows(name, res, names,
+                                                          rows)}
+    check(out["double_groupby_all (10 min)"]["rows"] == HOSTS * 6,
+          "(d) flight double_groupby_all: rows")
+    remote = flight.RemoteRegionEngine(addr, user, password)
+    try:
+        t_s = time.perf_counter()
+        scan = remote.scan(rid)
+        scan_s = time.perf_counter() - t_s
+    finally:
+        remote.close()
+    points = SERVE_HOURS * 3600 // STEP_S
+    check_scan_rows(scan, grid, 0, points, HOSTS, "(d) flight region_scan")
+    nbytes = sum(np.asarray(c).nbytes for c in scan.columns.values())         + scan.seq.nbytes + scan.op_type.nbytes
+    out["region_scan"] = {"rows": scan.num_rows, "bytes": nbytes,
+                          "seconds": scan_s, "mb_per_s": nbytes / scan_s / 1e6}
+    del scan
+    host_names = np.asarray([f"host_{i}" for i in range(HOSTS)],
+                            dtype=object)
+    table, put_vals = flight_put_table(
+        host_names, np.random.default_rng(FLIGHT_PUT_SEED))
+    client.sql(cpu_ddl().replace("TABLE cpu (", "TABLE cpu_flight ("))
+    t_p = time.perf_counter()
+    acked = client.insert("cpu_flight", table)
+    put_s = time.perf_counter() - t_p
+    del table
+    check(acked == FLIGHT_PUT_POINTS * HOSTS, f"(d) flight do_put: {acked}")
+    count = client.sql("SELECT count(*) FROM cpu_flight").rows()[0][0]
+    check(count == acked, f"(d) flight do_put: count(*) {count}, acked "
+          f"{acked}")
+    res = client.sql(flight_dga_sql("cpu_flight"))
+    order = np.argsort(host_names.astype(str), kind="stable")
+    cols = [np.asarray(c) for c in res.columns]
+    check(res.num_rows == HOSTS * 6 and np.array_equal(
+        host_index(cols[1][:HOSTS]), order), "(d) flight do_put: groups")
+    worst = 0.0
+    for j, f in enumerate(FIELDS):
+        want = put_vals[f].reshape(6, FLIGHT_PUT_POINTS // 6, HOSTS).mean(
+            axis=1)[:, order].reshape(-1)
+        got = cols[2 + j].astype(np.float64)
+        check(np.allclose(got, want, rtol=1e-5, atol=0),
+              f"(d) flight do_put: avg({f}) against numpy")
+        worst = max(worst, float(np.max(np.abs(got - want) / want)))
+    out["do_put"] = {"rows": acked, "seconds": put_s,
+                     "rows_per_s": acked / put_s,
+                     "max_rel_err_avg": worst}
+    client.close()
+    after = kernel_launches(scrape(front.port))
+    out["k1_launches"] = after["segment_sum"] - before["segment_sum"]
+    out["k2_launches"] = after["fused_segment_agg"] \
+        - before["fused_segment_agg"]
+    if DEVICE is None:
+        check(out["k1_launches"] > 0 and out["k2_launches"] > 0,
+              f"(d) flight: the server's launches {out['k1_launches']}, "
+              f"{out['k2_launches']}")
+    out["seconds"] = time.perf_counter() - t
+    log("(d) flight on the standalone: " + json.dumps(out))
     return out
 
 
@@ -7206,14 +7492,17 @@ class Frontend:
 
     def __init__(self, name, root, cfg_dir, env, process_mode=None,
                  fabric_dir=None, segment_bytes=FABRIC_SEGMENT_BYTES,
-                 extra=""):
+                 extra="", flight=False):
         self.name = name
+        self.flight = flight
         cfg = os.path.join(cfg_dir, f"{name}.toml")
         text = (f"[storage]\ndata_home = '{root}'\n"
                 "[http]\naddr = '127.0.0.1:0'\n"
                 "[mysql]\nenable = true\naddr = '127.0.0.1:0'\n"
                 "[postgres]\nenable = true\naddr = '127.0.0.1:0'\n"
                 + extra)
+        if flight:
+            text += "[grpc]\nenable = true\naddr = '127.0.0.1:0'\n"
         if process_mode is not None:
             text += ("[concurrency]\nbatching = false\n"
                      f"encode_process_mode = '{process_mode}'\n")
@@ -7234,8 +7523,15 @@ class Frontend:
                                      stderr=self.err, bufsize=0)
 
     def wait_ready(self) -> None:
-        """The three listening lines: HTTP, MySQL and Postgres ports."""
-        lines = read_ready(self.proc, 3)
+        """The listening lines: HTTP, Flight (when enabled), MySQL and
+        Postgres ports."""
+        lines = read_ready(self.proc, 4 if self.flight else 3)
+        if self.flight:
+            flight_line = lines.pop(1)
+            check(flight_line.startswith("flight on grpc://127.0.0.1:"),
+                  f"frontend {self.name}: no Flight line: {flight_line!r} "
+                  f"{self.stderr_tail()}")
+            self.flight_port = int(flight_line.rsplit(":", 1)[1])
         check("listening on http://127.0.0.1:" in lines[0]
               and lines[1].startswith("mysql on 127.0.0.1:")
               and lines[2].startswith("postgres on 127.0.0.1:"),
@@ -8700,6 +8996,8 @@ def main() -> int:
         serving["fabric"]
     served["lint plane (k): the lockdep server's mixed traffic (its "
            "/metrics)"] = lint["server"]
+    served["flight (d): do_get and do_put on the standalone (its "
+           "/metrics)"] = serving["standalone_options"]["flight"]
     for key, r in served.items():
         by_path[key] = {"segment_sum": r["k1_launches"],
                         "fused_segment_agg": r["k2_launches"]}

@@ -119,8 +119,8 @@ def _tls(tls_opts):
 
 def cmd_standalone(args) -> int:
     """Boot the servers the layered options enable over a standalone
-    stack (always HTTP unless `http.enable = false`; MySQL and Postgres
-    on request), serve until SIGTERM or SIGINT, then stop every server,
+    stack (always HTTP unless `http.enable = false`; Arrow Flight, MySQL
+    and Postgres on request), serve until SIGTERM or SIGINT, then stop every server,
     shut the concurrency plane down and close the engine."""
     from greptimedb_tpu_torch.options import check_port_support, load_options
 
@@ -147,6 +147,13 @@ def cmd_standalone(args) -> int:
             servers.append(http_server)
             print(f"greptimedb_tpu_torch standalone listening on "
                   f"http://{host}:{actual}", flush=True)
+        if opts.grpc.enable:
+            from greptimedb_tpu_torch.servers.flight import FlightServer
+
+            ghost, gport = _split_addr(opts.grpc.addr)
+            fs = FlightServer(qe, ghost, gport, user_provider=user_provider)
+            servers.append(fs)
+            print(f"flight on grpc://{ghost}:{fs.port}", flush=True)
         if opts.mysql.enable:
             from greptimedb_tpu_torch.servers.mysql import MysqlServer
 

@@ -128,6 +128,18 @@ NUMPY_OF = {"bool": np.bool_, "int8": np.int8, "int16": np.int16,
             "float": np.float32, "double": np.float64}
 
 
+_TZ_SUFFIX = re.compile(r", tz=[^\]]*\]\Z")
+
+
+def base_type(t: str) -> str:
+    """A column type without what the port's DataTypes do not keep: a
+    timestamp's time zone (its values are UTC already) and the 64-bit
+    offsets of large_string / large_binary."""
+    if t in ("large_string", "large_binary"):
+        return t[len("large_"):]
+    return _TZ_SUFFIX.sub("]", t)
+
+
 class DataSourceError(Exception):
     pass
 
@@ -245,6 +257,9 @@ class TextTable:
     names: list[str]
     columns: dict[str, TextColumn]
     num_rows: int
+    #: the schema's key-value metadata (bytes to bytes), as an Arrow
+    #: stream carries it (`datasource/arrow_ipc.py`)
+    metadata: Optional[dict] = None
 
     def column(self, name: str) -> TextColumn:
         return self.columns[name]

@@ -3,14 +3,23 @@
 greptimedb_tpu/datasource/__init__.py, which convert through Arrow one
 Python value at a time; the port stays columnar in numpy).
 
-- `result_to_table(result)`: a QueryResult as a `TextTable` (COPY TO):
-  strings dictionary-encoded (first-seen order), timestamps int64 in
-  their unit, floats as they are (NaN stays NaN, as `pa.array` keeps
-  it), integers and bools as their numpy type.
+- `result_to_arrow(result)`: a QueryResult as a `TextTable` with the
+  types the JAX `result_to_table` gives (`pa.array(col.tolist(),
+  type)`, what the Flight services send): strings plain utf8 with NULL
+  for None, timestamps int64 in their unit, floats as they are (NaN
+  stays NaN), integers and bools as their numpy type (NULL for None).
+- `result_to_table(result)`: the same for COPY TO, with strings
+  dictionary-encoded (first-seen order), so a COPY of millions of rows
+  stays columnar.
 - `table_to_result(table)`: the inverse (strings as object arrays with
   None, timestamps int64, an integer column with NULLs as float64 with
-  NaN, as Arrow's `to_numpy` gives it).
-- `insert_table(qe, name, table, ctx)`: COPY FROM. Each schema column
+  NaN, as Arrow's `to_numpy` gives it; a time zone and large offsets
+  are dropped, `datasource.base_type`).
+- `plain_column(array)` / `plain_values(column)`: a numpy array as
+  `pa.array(array)` types it, and a column as `to_numpy(zero_copy_only=
+  False)` gives it back (the Flight region service's converters).
+- `insert_table(qe, name, table, ctx)`: COPY FROM and Flight's DoPut
+  (the JAX `insert_arrow_table`). Each schema column
   takes the file's column of its name (a missing one its default):
   tags and strings as dictionary codes (str() of non-string values),
   timestamps coerced to the column's unit (a NULL refused, as the JAX
@@ -25,6 +34,9 @@ The same column conversions serve the file engine (`strings`,
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import numpy as np
 
 from greptimedb_tpu_torch.datasource import (
@@ -34,6 +46,7 @@ from greptimedb_tpu_torch.datasource import (
     DataSourceError,
     TextColumn,
     TextTable,
+    base_type,
 )
 from greptimedb_tpu_torch.datatypes.types import DataType, SemanticType
 from greptimedb_tpu_torch.datatypes.vector import DictVector
@@ -42,7 +55,7 @@ from greptimedb_tpu_torch.datatypes.vector import DictVector
 # ---- QueryResult <-> column table ------------------------------------------
 
 
-def result_to_table(r) -> TextTable:
+def result_to_arrow(r) -> TextTable:
     cols: dict = {}
     names = []
     for name, dt, col in zip(r.names, r.dtypes, r.columns):
@@ -54,10 +67,25 @@ def result_to_table(r) -> TextTable:
     return TextTable(names, cols, r.num_rows)
 
 
+def result_to_table(r) -> TextTable:
+    t = result_to_arrow(r)
+    for name in t.names:
+        col = t.columns[name]
+        if col.type == "string":
+            t.columns[name] = col.encoded_column()
+    return t
+
+
+def _not_none(col: np.ndarray) -> Optional[np.ndarray]:
+    valid = np.frompyfunc(lambda v: v is not None, 1, 1)(col).astype(bool)
+    return None if valid.all() else valid
+
+
 def _result_column(col: np.ndarray, dt: DataType) -> TextColumn:
     t = ARROW_NAME[dt]
     if dt.is_string:
-        return TextColumn(col.astype(object), None, t).encoded_column()
+        col = col.astype(object)
+        return TextColumn(col, _not_none(col), t)
     valid = None
     if col.dtype == object:
         valid = np.frompyfunc(lambda v: v is not None, 1, 1)(col) \
@@ -73,13 +101,18 @@ def _result_column(col: np.ndarray, dt: DataType) -> TextColumn:
     return TextColumn(col.astype(NUMPY_OF[t]), valid, t)
 
 
+def _base(col: TextColumn) -> TextColumn:
+    t = base_type(col.type)
+    return col if t == col.type else dataclasses.replace(col, type=t)
+
+
 def table_to_result(t: TextTable):
     from greptimedb_tpu_torch.datasource import TYPE_OF
     from greptimedb_tpu_torch.query.result import QueryResult
 
     names, dtypes, cols = [], [], []
     for name in t.names:
-        col = t.column(name)
+        col = _base(t.column(name))
         kind = "int64" if col.type == "null" else col.type
         dt = TYPE_OF[kind]
         names.append(name)
@@ -99,6 +132,52 @@ def table_to_result(t: TextTable):
         else:
             cols.append(col.values.astype(dt.to_numpy()))
     return QueryResult(names, dtypes, cols)
+
+
+#: numpy dtype name -> the column type `pa.array` gives it
+_PLAIN_TYPE = {np.dtype(v).name: k for k, v in NUMPY_OF.items()}
+
+
+def plain_column(col: np.ndarray) -> TextColumn:
+    """A numpy array as `pa.array(col)` types it: fixed-width types as
+    they are, datetime64 as a timestamp of its unit, an object array as
+    the type of its first non-None value (str: string, bytes: binary,
+    bool, int: int64, float: double) with None as NULL."""
+    if col.dtype.kind == "M":
+        unit = np.datetime_data(col.dtype)[0]
+        return TextColumn(col.astype(np.int64), None, f"timestamp[{unit}]")
+    if col.dtype.kind in ("U", "S"):
+        col = col.astype(object)
+    if col.dtype != object:
+        return TextColumn(col, None, _PLAIN_TYPE[col.dtype.name])
+    valid = _not_none(col)
+    first = next((v for v in col.tolist() if v is not None), None)
+    if first is None or isinstance(first, (str, bytes)):
+        t = "binary" if isinstance(first, bytes) else "string"
+        if first is None and valid is not None:
+            return TextColumn(np.zeros(len(col), np.int64), valid, "null")
+        return TextColumn(col, valid, t)
+    t = "bool" if isinstance(first, (bool, np.bool_)) else \
+        "double" if isinstance(first, (float, np.floating)) else "int64"
+    fill = False if t == "bool" else 0
+    vals = np.asarray([fill if v is None else v for v in col.tolist()],
+                      dtype=NUMPY_OF[t])
+    return TextColumn(vals, valid, t)
+
+
+def plain_values(col: TextColumn) -> np.ndarray:
+    """A column as pyarrow's `to_numpy(zero_copy_only=False)` gives it:
+    strings as objects with None, an integer column with NULLs as
+    float64 with NaN, a bool column with NULLs as objects."""
+    if col.dictionary is not None or col.values.dtype == object:
+        return col.strings()
+    if col.valid is None:
+        return col.values
+    if col.values.dtype.kind == "f":
+        return np.where(col.valid, col.values, np.nan)
+    if col.values.dtype.kind == "b":
+        return np.where(col.valid, col.values, None)
+    return np.where(col.valid, col.values.astype(np.float64), np.nan)
 
 
 # ---- column coercions (COPY FROM and the file engine) ----------------------
@@ -186,7 +265,8 @@ def insert_table(qe, table_name: str, t: TextTable, ctx) -> int:
     have = set(t.names)
     cols: dict = {}
     for c in schema.columns:
-        col = t.column(c.name) if c.name in have else _default_column(c, n)
+        col = _base(t.column(c.name)) if c.name in have \
+            else _default_column(c, n)
         if c.semantic is SemanticType.TAG or c.dtype.is_string:
             cols[c.name] = strings(col)
         elif c.dtype.is_timestamp:

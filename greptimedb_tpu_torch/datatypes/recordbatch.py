@@ -63,6 +63,55 @@ class RecordBatch:
             },
         )
 
+    def to_table(self):
+        """The batch as a column table (`datasource.TextTable`), with the
+        types the JAX `RecordBatch.to_arrow` gives: tags and strings
+        dictionary-encoded, timestamps in their unit, the rest as the
+        schema's types."""
+        from greptimedb_tpu_torch.datasource import (
+            ARROW_NAME,
+            NUMPY_OF,
+            TextColumn,
+            TextTable,
+        )
+        from greptimedb_tpu_torch.datasource.convert import plain_column
+
+        cols = {}
+        for c in self.schema.columns:
+            col = self.columns[c.name]
+            t = ARROW_NAME[c.dtype]
+            if isinstance(col, DictVector):
+                cols[c.name] = TextColumn.of_codes(col.codes, col.values)
+            elif col.dtype == object:
+                cols[c.name] = plain_column(col)
+            else:
+                cols[c.name] = TextColumn(
+                    col.astype(NUMPY_OF.get(t, np.int64)), None, t)
+        return TextTable(list(self.schema.names), cols, len(self))
+
+    @staticmethod
+    def from_table(t, schema: Schema) -> "RecordBatch":
+        """The inverse of `to_table` for `schema` (the JAX
+        `RecordBatch.from_arrow`): strings and dictionary columns as
+        DictVectors, timestamps as int64, the rest as
+        `to_numpy(zero_copy_only=False)` gives them."""
+        from greptimedb_tpu_torch.datasource.convert import plain_values
+
+        cols: dict[str, Column] = {}
+        for c in schema.columns:
+            col = t.column(c.name)
+            if col.dictionary is not None:
+                cols[c.name] = DictVector(
+                    np.asarray(col.values, dtype=np.int32),
+                    np.asarray(col.dictionary, dtype=object))
+            elif c.dtype.is_string:
+                cols[c.name] = DictVector.encode(col.strings())
+            elif c.dtype.is_timestamp:
+                cols[c.name] = col.values.astype(np.int64)
+            else:
+                cols[c.name] = plain_values(col)
+        return RecordBatch(schema, cols)
+
     @staticmethod
     def concat(batches: list["RecordBatch"]) -> "RecordBatch":
         assert batches, "cannot concat zero batches"

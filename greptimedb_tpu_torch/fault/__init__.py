@@ -34,6 +34,17 @@ port's seams:
                         manifest or coverage swap)
     otlp.export        (utils/otlp_trace.py: before each span or log
                         batch is posted to the collector)
+    flight.do_get      (servers/flight.py: every read RPC of
+                        RemoteRegionEngine, side=client, inside the retry;
+                        and inside the server's region_scan span,
+                        side=server)
+    flight.do_put      (servers/flight.py: every write or admin RPC,
+                        side=client; inside the server's region_write
+                        span, side=server)
+
+A schedule without an explicit `@side` fires at the client seams only
+(`side=server` call sites match only a schedule that names the side), as
+in the JAX registry.
 
 `retry_call` (fault/retry.py) runs an operation under the shared
 retry policy: transient errors (`is_transient`: injected transient
@@ -47,7 +58,7 @@ child process inherits its parent's schedule:
     GTPU_CHAOS="objectstore.read=fail,nth:2;ingest.commit=latency,arg:0.5,@op:apply"
     GTPU_CHAOS_SEED=42
 
-The JAX registry's other points (Flight, heartbeats, the metadata KV,
+The JAX registry's other points (heartbeats, the metadata KV,
 elections), its network partitions, edge matchers and node registration
 belong to seams the port does not have yet: arming them raises naming
 the slice that brings them. Every injection counts in
@@ -69,21 +80,21 @@ from greptimedb_tpu_torch.utils.metrics import FAULT_INJECTIONS
 
 __all__ = ["Cancelled", "DeadlineExceeded", "FAULTS", "Fault", "FaultError",
            "FaultRegistry", "POINTS", "Unavailable", "is_transient",
-           "retry_call"]
+           "local_node", "retry_call"]
 
 _A10 = "mesh and cluster (ROADMAP A10)"
 
 #: the port's injection points (the object store's, the WALs', the write
-#: plane's and the OTLP exporter's)
+#: plane's, the OTLP exporter's and the Flight services')
 POINTS = frozenset({
     "objectstore.read", "objectstore.write", "wal.append", "wal.replay",
-    "ingest.commit", "maintenance.job", "otlp.export",
+    "ingest.commit", "maintenance.job", "otlp.export", "flight.do_get",
+    "flight.do_put",
 })
 
 #: the JAX registry's points whose seams the port does not have yet
 _LATER_POINTS = frozenset({
-    "flight.do_get", "flight.do_put", "heartbeat.send", "datanode.crash",
-    "metasrv.kv", "election.lease",
+    "heartbeat.send", "datanode.crash", "metasrv.kv", "election.lease",
 })
 
 KINDS = frozenset({"fail", "latency", "torn", "short_read", "enospc"})
@@ -126,6 +137,12 @@ class FaultError(Exception):
         self.point = point
         self.kind = kind
         self.transient = transient
+
+
+def local_node() -> str:
+    """This process's node identity for the Flight seams' labels:
+    GTPU_NODE_ID when the process was given one, else "frontend"."""
+    return os.environ.get("GTPU_NODE_ID") or "frontend"
 
 
 def chaos_seed() -> int:
@@ -191,6 +208,12 @@ class Fault:
         self._lock = threading.Lock()
 
     def matches(self, labels: dict) -> bool:
+        if labels.get("side") == "server" and \
+                (not self.match or "side" not in self.match):
+            # a flight.* call has two seams, the client RPC and the one
+            # inside the server's span: a schedule without @side keeps to
+            # the client seam, @side:server opts into the server's
+            return False
         return not self.match or all(
             labels.get(k) == v for k, v in self.match.items())
 

@@ -14,9 +14,16 @@ matching point would never fire on that path. (b) is a finding.
 
 Left out, having no FAULTS point in either package: `shm/` (the
 fabric's shared segment), `datasource/` (COPY's and the external
-tables' user-named files), `servers/`, `flow/`, `script/` and
-`ingest.py` (no raw I/O: they reach storage through the engine). The
-cluster's points (flight, heartbeat, metasrv.kv) come with A10.
+tables' user-named files), `servers/` apart from Flight, `flow/`,
+`script/` and `ingest.py` (no raw I/O: they reach storage through the
+engine). The cluster's points (heartbeat, metasrv.kv) come with A10.
+
+Flight's seams are held by name (`REQUIRED_SEAMS`): its RPCs cross the
+gRPC transport (`servers/grpc.py`, `servers/h2.py`), whose sockets
+carry no seam of their own, so the functions that must fire
+`flight.do_get` / `flight.do_put` (the client's `_rpc`, the server's
+`_region_scan` and `_region_write`) are named, and one that stops
+firing is a finding.
 """
 
 from __future__ import annotations
@@ -43,6 +50,40 @@ IO_CALLS = frozenset({
     "socket.socket", "socket.create_connection",
     "shutil.copy", "shutil.copyfile", "shutil.move", "shutil.rmtree",
 })
+
+
+#: (repo path) -> {function: the point it must fire (None: any point,
+#: the caller passes it in)}
+REQUIRED_SEAMS = {
+    "greptimedb_tpu_torch/servers/flight.py": {
+        "_rpc": None, "_region_scan": "flight.do_get",
+        "_region_write": "flight.do_put"},
+}
+
+
+def _fires(fn: ast.AST, point) -> bool:
+    for call in iter_calls(fn):
+        if call_name(call) != "FAULTS.fire" or not call.args:
+            continue
+        arg = call.args[0]
+        if point is None or (isinstance(arg, ast.Constant)
+                             and arg.value == point):
+            return True
+    return False
+
+
+def _required_seams(f) -> list:
+    out = []
+    for fn_name, point in REQUIRED_SEAMS.get(f.path, {}).items():
+        for fn in ast.walk(f.tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and fn.name == fn_name and not _fires(fn, point):
+                out.append(Finding(
+                    "fault-seam", f.path, fn.lineno,
+                    f"{fn_name}() no longer fires "
+                    f"{point or 'its FAULTS point'} — chaos schedules "
+                    "armed there would never fire"))
+    return out
 
 
 def _uses_faults(tree: ast.AST) -> bool:
@@ -75,6 +116,7 @@ def check(repo: Repo) -> list:
     seam_bases = _seam_base_names(repo)
     findings = []
     for f in repo.files:
+        findings += _required_seams(f)
         if not f.path.startswith(SCOPE_PREFIXES):
             continue
         if _uses_faults(f.tree):

@@ -4,7 +4,9 @@ The port runs on a machine that has torch, numpy and the CUDA toolkit
 but neither jax nor pyarrow nor grpc, and it keeps its own copies of
 the JAX package's host modules: `import greptimedb_tpu` would turn on
 x64 and pull jax in. So no file of the port, and not chip_smoke.py,
-imports `jax`, `jaxlib`, `greptimedb_tpu`, `pyarrow` or `grpc`, whether
+imports `jax`, `jaxlib`, `greptimedb_tpu`, `pyarrow`, `grpc`, `h2`,
+`hpack`, `hyperframe`, `flatbuffers` or `google` (the root of
+`google.protobuf`; the rule compares an import's first name), whether
 at module level or lazily inside a function (a lazy import fails on the
 card's machine only, where nothing else would catch it). A constant
 module name handed to `importlib.import_module` / `__import__` counts
@@ -24,7 +26,9 @@ from greptimedb_tpu_torch.lint import Finding, Repo, checker
 from greptimedb_tpu_torch.lint.astutil import call_name, enclosing_function
 
 #: top-level packages no port file may import
-FORBIDDEN = frozenset({"jax", "jaxlib", "greptimedb_tpu", "pyarrow", "grpc"})
+FORBIDDEN = frozenset({"jax", "jaxlib", "greptimedb_tpu", "pyarrow", "grpc",
+                       "h2", "hpack", "hyperframe", "flatbuffers",
+                       "google"})
 
 #: calls that import the module their first (constant) argument names
 IMPORT_CALLS = frozenset({"importlib.import_module", "import_module",

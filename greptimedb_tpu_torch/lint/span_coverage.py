@@ -15,9 +15,15 @@ fault-seam checker, same allowlist escape hatch):
   telnet session) opens a request/span context somewhere in its body: a
   protocol whose requests never root a span produces untraceable
   traffic. The port's fault seams are `objectstore.read` / `.write`,
-  `wal.append` / `.replay`, `ingest.commit` and `maintenance.job` (and
-  the OTLP exporter's `otlp.export`); Flight's entries come with
-  A9-flight.
+  `wal.append` / `.replay`, `ingest.commit`, `maintenance.job`, the
+  OTLP exporter's `otlp.export` and Flight's `flight.do_get` /
+  `flight.do_put`; Flight's entries are the SQL / TQL ticket handler
+  and the region service's scan and write, and
+- the Flight module keeps the spans a distributed trace is read from
+  (`REQUIRED_SPANS`: `flight:sql`, `flight:tql`, the server's
+  `region_scan` / `region_write`, the client's `flight_rpc`,
+  `remote_region_scan`, `remote_region_write`): a refactor that drops
+  one leaves a hole in every cross-process tree.
 
 Legitimate exceptions — background control-plane ticks (heartbeat,
 election), commit-pipeline leaders that serve many writers' traces at
@@ -56,7 +62,26 @@ WIRE_ENTRIES = {
     "greptimedb_tpu_torch/servers/mysql.py": ("_dispatch",),
     "greptimedb_tpu_torch/servers/postgres.py": ("_run_simple",),
     "greptimedb_tpu_torch/servers/opentsdb.py": ("handle",),
+    "greptimedb_tpu_torch/servers/flight.py": ("_query", "_region_scan",
+                                               "_region_write"),
 }
+
+#: (repo path) -> span names the file must open with a literal name
+REQUIRED_SPANS = {
+    "greptimedb_tpu_torch/servers/flight.py": (
+        "flight:sql", "flight:tql", "region_scan", "region_write",
+        "flight_rpc", "remote_region_scan", "remote_region_write"),
+}
+
+
+def _span_names(tree: ast.AST) -> set:
+    out = set()
+    for call in iter_calls(tree):
+        name = call_name(call) or ""
+        if name.split(".")[-1] in SPAN_OPENERS and call.args and \
+                isinstance(call.args[0], ast.Constant):
+            out.add(call.args[0].value)
+    return out
 
 
 def _span_ranges(tree: ast.AST) -> list:
@@ -108,6 +133,13 @@ def check(repo: Repo) -> list:
                 "runs outside any tracing.span — this I/O seam is "
                 "invisible to span trees; wrap it in a span or "
                 "allowlist with a reason"))
+        opened = _span_names(f.tree) if f.path in REQUIRED_SPANS else set()
+        for want in REQUIRED_SPANS.get(f.path, ()):
+            if want not in opened:
+                findings.append(Finding(
+                    "span_coverage", f.path, 1,
+                    f"span {want!r} is no longer opened here — the "
+                    "cross-process trace tree loses that stage"))
         for fn_name in WIRE_ENTRIES.get(f.path, ()):
             fns = [n for n in ast.walk(f.tree)
                    if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))

@@ -799,7 +799,6 @@ def engine_config(opts: "StandaloneOptions", data_dir: str):
 
 # ---- what the port runs ----------------------------------------------------
 
-_A9_FLIGHT = "Arrow Flight (ROADMAP A9-flight)"
 _A10 = "mesh and cluster (ROADMAP A10)"
 _A11 = "tier routing (ROADMAP A11)"
 
@@ -808,7 +807,6 @@ _A11 = "tier routing (ROADMAP A11)"
 #: does). The longest matching path wins; a key with no entry is run by
 #: the port or listed in _NOTHING_TO_ACT_ON.
 _UNPORTED = {
-    "grpc": (_A9_FLIGHT, ()),
     "query.mesh": (_A10, ()),
     "query.tier_admission": (_A11, ()),
     "query.tier_adaptive": (_A11, ()),

@@ -5,15 +5,17 @@ protocols, /metrics, /health, /v1/queries — the MySQL
 (`servers.postgres.PostgresServer`) wire servers, with TLS
 (`servers.tls`), and the OpenTSDB telnet server
 (`servers.opentsdb.OpentsdbServer`). The write protocols' parsers are
-`servers.influx`, `servers.prom_store` and `servers.otlp`. Flight comes
-later (ROADMAP.md A9-flight).
+`servers.influx`, `servers.prom_store` and `servers.otlp`. Arrow Flight
+(`servers.flight.FlightServer` and its clients) runs over the port's own
+gRPC (`servers.grpc`), HTTP/2 (`servers.h2`), HPACK (`servers.hpack`)
+and Flight messages (`servers.flight_proto`).
 
-`HttpServer` is exported lazily (PEP 562): the HTTP server imports the
-query engine (torch), but the encode pool's spawn-mode workers import
-only the sibling `servers.encode`.
+`HttpServer` and `FlightServer` are exported lazily (PEP 562): both
+import the query engine (torch), but the encode pool's spawn-mode
+workers import only the sibling `servers.encode`.
 """
 
-__all__ = ["HttpServer"]
+__all__ = ["FlightServer", "HttpServer"]
 
 
 def __getattr__(name: str):
@@ -21,4 +23,8 @@ def __getattr__(name: str):
         from greptimedb_tpu_torch.servers.http import HttpServer
 
         return HttpServer
+    if name == "FlightServer":
+        from greptimedb_tpu_torch.servers.flight import FlightServer
+
+        return FlightServer
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

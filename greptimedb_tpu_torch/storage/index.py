@@ -127,6 +127,66 @@ def predicates_cache_key(preds: Optional[PredicateMap]):
     ))
 
 
+# ---- the Flight wire form ---------------------------------------------------
+
+
+def serialize_predicates(preds: Optional[PredicateMap]) -> Optional[dict]:
+    """JSON-able form for the Flight region-scan wire (reference ships
+    these inside the QueryRequest alongside the substrait plan)."""
+    if not preds:
+        return None
+    out: dict[str, list] = {}
+    for k, pv in normalize_predicates(preds).items():
+        ser = []
+        for p in pv:
+            if isinstance(p, InSet):
+                ser.append({"in": list(p.values)})
+            elif isinstance(p, Range):
+                ser.append({"range": [p.lo, p.hi, p.lo_inc, p.hi_inc]})
+            else:
+                ser.append({"regex": p.pattern})
+        out[k] = ser
+    return out
+
+
+def serialize_predicates_legacy(preds: Optional[PredicateMap]) \
+        -> Optional[dict]:
+    """Bare value-list wire form — the only shape pre-Range/Regex peers
+    parse. Tags whose predicates aren't a single InSet are DROPPED (losing
+    pruning, never correctness: pruning is advisory, the scan-side filter
+    still runs). Ship alongside serialize_predicates under a separate key
+    so either end of a mixed-version pair finds a form it understands."""
+    if not preds:
+        return None
+    out = {}
+    for k, pv in normalize_predicates(preds).items():
+        if len(pv) == 1 and isinstance(pv[0], InSet):
+            out[k] = list(pv[0].values)
+    return out or None
+
+
+def deserialize_predicates(obj) -> Optional[dict]:
+    if not obj:
+        return None
+    out: dict[str, tuple[Predicate, ...]] = {}
+    for k, v in obj.items():
+        preds: list[Predicate] = []
+        if isinstance(v, list) and v and not isinstance(v[0], dict):
+            # legacy wire form: bare list of values = one IN set
+            preds.append(InSet.of(v))
+        else:
+            for p in v:
+                if "in" in p:
+                    preds.append(InSet.of(p["in"]))
+                elif "range" in p:
+                    lo, hi, li, hi_inc = p["range"]
+                    preds.append(Range(lo, hi, li, hi_inc))
+                else:
+                    preds.append(Regex(p["regex"]))
+        out[k] = tuple(preds)
+    return out
+
+
 # ---- build side ------------------------------------------------------------
 
 

@@ -16,8 +16,9 @@ Expiry raises the typed `DeadlineExceeded`, cancellation the typed
 the HTTP server maps them to 408/499 instead of a 503 or a stack trace.
 
 The frontend `RUNNING` registry (one entry per in-flight statement)
-backs `/v1/queries` and `KILL QUERY <id>`. The JAX package's budget
-tickets for remote fragments come with the cluster slice (A10).
+backs `/v1/queries` and `KILL QUERY <id>`. `budget_ms()` stamps the
+remaining budget on an outgoing Flight region-scan ticket, and
+`token_for_budget()` turns it back into a token on the serving side.
 """
 
 from __future__ import annotations
@@ -163,6 +164,25 @@ def check(where: str = "") -> None:
     token = _current.get()
     if token is not None:
         token.check(where)
+
+
+def budget_ms() -> Optional[int]:
+    """The remaining budget to stamp on an outgoing scan ticket (whole
+    milliseconds; None = unbounded)."""
+    token = _current.get()
+    r = None if token is None else token.remaining_ms()
+    return None if r is None else max(0, int(r))
+
+
+def token_for_budget(budget: Optional[float]) -> Optional[CancelToken]:
+    """Region-service ingress: a local token enforcing the budget a
+    ticket carried (server-side deadline enforcement — the caller's
+    token cannot cross the process boundary). A spent budget (0) is a
+    token already past its deadline; the JAX copy's CancelToken(0) has
+    none (ROADMAP C, "Reference defects")."""
+    if budget is None:
+        return None
+    return CancelToken(timeout_ms=max(float(budget), 1e-3))
 
 
 def default_timeout_ms() -> float:

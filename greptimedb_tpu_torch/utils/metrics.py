@@ -548,6 +548,20 @@ RETRY_ATTEMPTS = REGISTRY.counter(
 RETRY_EXHAUSTED = REGISTRY.counter(
     "greptimedb_tpu_retry_exhausted_total",
     "Operations that exhausted their retry budget, by injection point")
+# the Arrow Flight services (servers/flight.py)
+REQUEST_BUDGET_REMAINING = REGISTRY.histogram(
+    "greptimedb_tpu_region_request_budget_remaining_ms",
+    "Remaining deadline budget (ms) observed at datanode ingress on "
+    "scan/fragment tickets that carried one — low buckets mean "
+    "frontends are shipping nearly-dead work to datanodes",
+    buckets=(5, 25, 100, 250, 500, 1000, 2500, 5000, 10000, 30000))
+FLIGHT_CALLS = REGISTRY.counter(
+    "greptimedb_tpu_flight_calls_total",
+    "Arrow Flight calls served, by method and gRPC status code")
+FLIGHT_BYTES = REGISTRY.counter(
+    "greptimedb_tpu_flight_bytes_total",
+    "Arrow Flight message bytes by direction (sent / received), "
+    "counted by the server")
 # background maintenance plane (maintenance/ package): job throughput,
 # queue pressure, writer stalls, and the rollup/retention outcomes
 MAINTENANCE_JOBS = REGISTRY.counter(

@@ -6,10 +6,9 @@ predicates that give the same rows through both engines in the
 memtable, flushed, compacted and streamed states. The index dies with
 its SST.
 
-Twins of tests/test_index_puffin.py (its serialize round trip is left
-with Flight, ROADMAP A9-flight: its twin checks the predicate
-normalization both packages share) and of tests/test_compaction_index.py's
-index cases.
+Twins of tests/test_index_puffin.py (its serialize round trip included:
+the Flight region scan's wire form of the predicates, equal to the JAX
+package's) and of tests/test_compaction_index.py's index cases.
 """
 
 import io
@@ -46,9 +45,12 @@ from greptimedb_tpu_torch.storage.index import (
     InvertedIndexWriter,
     Range,
     Regex,
+    deserialize_predicates,
     extract_tag_predicates,
     normalize_predicates,
     predicates_cache_key,
+    serialize_predicates,
+    serialize_predicates_legacy,
 )
 from greptimedb_tpu_torch.storage.puffin import (
     PuffinError,
@@ -225,6 +227,28 @@ def test_pruning_never_drops_matching_rows_randomized(seed, seg_rows,
 
 
 # ---- predicate plumbing ----------------------------------------------------
+
+
+def test_serialize_roundtrip():
+    """The Flight wire form of tag predicates: the port writes what the
+    JAX package writes, and reads back what it wrote."""
+    preds = {"host": {"a", "b"}, "dc": (Range("x", None, lo_inc=False),
+                                        Regex("e.*"))}
+    jpreds = {"host": {"a", "b"}, "dc": (jindex.Range("x", None,
+                                                      lo_inc=False),
+                                         jindex.Regex("e.*"))}
+    wire = serialize_predicates(preds)
+    assert wire == jindex.serialize_predicates(jpreds)
+    assert serialize_predicates_legacy(preds) == \
+        jindex.serialize_predicates_legacy(jpreds) == {"host": ["a", "b"]}
+    back = deserialize_predicates(wire)
+    assert normalize_predicates(back) == normalize_predicates(preds)
+    assert predicates_cache_key(back) == predicates_cache_key(preds)
+    # legacy wire form (bare value lists)
+    legacy = deserialize_predicates({"host": ["b", "a"]})
+    assert normalize_predicates(legacy) == {"host": (InSet.of(["a", "b"]),)}
+    assert serialize_predicates(None) is None and \
+        deserialize_predicates(None) is None
 
 
 def test_predicate_normalization_matches_jax():

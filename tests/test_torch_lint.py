@@ -119,6 +119,39 @@ def test_fault_seam_quiet_in_seam_subclass():
     assert fault_seam_check(fixture_repo(base, backend)) == []
 
 
+def test_fault_seam_holds_the_flight_seams_by_name():
+    path = f"{PKG}/servers/flight.py"
+    bad = fixture_repo((path, """
+        def _rpc(self, point, fn):
+            return retry_call(fn, point=point)
+
+        def _region_scan(self, req):
+            FAULTS.fire("flight.do_put", side="server")
+
+        def _region_write(self, path, t, user):
+            return self.engine.put(1, t)
+        """))
+    msgs = sorted(f.message for f in fault_seam_check(bad))
+    assert len(msgs) == 3
+    assert "_region_scan() no longer fires flight.do_get" in msgs[0]
+    assert "_region_write() no longer fires flight.do_put" in msgs[1]
+    assert "_rpc() no longer fires its FAULTS point" in msgs[2]
+    ok = fixture_repo((path, """
+        def _rpc(self, point, fn):
+            def op():
+                FAULTS.fire(point, side="client")
+                return fn()
+            return retry_call(op, point=point)
+
+        def _region_scan(self, req):
+            FAULTS.fire("flight.do_get", side="server")
+
+        def _region_write(self, path, t, user):
+            FAULTS.fire("flight.do_put", side="server")
+        """))
+    assert fault_seam_check(ok) == []
+
+
 # ---- jax-import: the port's import rule -------------------------------------
 
 
@@ -131,6 +164,11 @@ def test_fault_seam_quiet_in_seam_subclass():
     ("def f():\n    from jaxlib import xla_client\n", "jaxlib"),
     ("import importlib\n\ndef f():\n"
      "    return importlib.import_module('grpc')\n", "grpc"),
+    ("import flatbuffers\n", "flatbuffers"),
+    ("from google.protobuf import message\n", "google.protobuf"),
+    ("import h2.connection\n", "h2.connection"),
+    ("def f():\n    import hpack\n    return hpack\n", "hpack"),
+    ("import hyperframe.frame\n", "hyperframe.frame"),
 ])
 def test_import_rule_fires_top_level_and_lazy(src, name):
     found = import_check(fixture_repo((f"{PKG}/storage/kern.py", src)))
@@ -788,6 +826,25 @@ def test_span_coverage_wire_entries(path, fn):
                 return engine.execute_one(sql, ctx)
         """))
     assert span_check(ok) == []
+
+
+def test_span_coverage_flight_entries_and_spans():
+    path = f"{PKG}/servers/flight.py"
+    names = ("flight:sql", "flight:tql", "region_scan", "region_write",
+             "flight_rpc", "remote_region_scan", "remote_region_write")
+    spans = "\n".join(f"    with tracing.span({n!r}):\n        pass"
+                      for n in names)
+    entries = "\n\n".join(
+        f"def {fn}(self, req):\n    with tracing.adopt_remote(None):\n"
+        "        pass" for fn in ("_query", "_region_scan", "_region_write"))
+    ok = fixture_repo((path, f"def spans():\n{spans}\n\n{entries}\n"))
+    assert span_check(ok) == []
+    bad = fixture_repo((path, "def _query(self, req):\n"
+                              "    return self.qe.execute_one(req)\n"))
+    msgs = [f.message for f in span_check(bad)]
+    assert len(msgs) == 8
+    assert sum("is no longer opened here" in m for m in msgs) == 7
+    assert any("wire entry point _query()" in m for m in msgs)
 
 
 # ---- deadcode ---------------------------------------------------------------

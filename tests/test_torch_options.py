@@ -133,8 +133,9 @@ def _same_store_config(opts, jopts):
 
 
 @pytest.mark.parametrize("key,value,slice_name", [
-    # the Flight refusal names its item A9-flight (the case keeps its id)
-    pytest.param("grpc.enable", "true", "A9-flight",
+    # Arrow Flight runs on the port now (A9-flight): the case keeps its
+    # id and boots (slice_name FLIGHT: accepted)
+    pytest.param("grpc.enable", "true", "Arrow Flight",
                  id="grpc.enable-true-A9: Flight"),
     # object stores, the read cache and the remote WAL run on the port
     # now (A12-io): the cases keep their ids, boot, and map to the JAX
@@ -171,6 +172,10 @@ def test_unported_key_refused_naming_its_slice(key, value, slice_name,
     if slice_name is STORE:
         options.check_port_support(opts)
         _same_store_config(opts, jopt.load_options(str(p), env={}))
+        return
+    if slice_name == "Arrow Flight":
+        options.check_port_support(opts)
+        assert opts.grpc.enable is True
         return
     with pytest.raises(options.ConfigError) as e:
         options.check_port_support(opts)
@@ -369,24 +374,28 @@ def _spawn(args, **kw):
 
 
 def test_standalone_with_config_serves_three_protocols(tmp_path):
+    """HTTP, MySQL and Postgres, and Arrow Flight beside them."""
     cfg = tmp_path / "standalone.toml"
     cfg.write_text(
         f"default_timezone = '+08:00'\n"
         f"[storage]\ndata_home = '{tmp_path}/home'\n"
         "[http]\naddr = '127.0.0.1:0'\n"
+        "[grpc]\nenable = true\naddr = '127.0.0.1:0'\n"
         "[mysql]\nenable = true\naddr = '127.0.0.1:0'\n"
         "[postgres]\nenable = true\naddr = '127.0.0.1:0'\n"
         "[auth]\nstatic_users = 'alice=s3cret'\n")
     proc = _spawn(["standalone", "start", "--device", "cpu", "-c", str(cfg)])
     try:
-        lines = [proc.stdout.readline() for _ in range(3)]
+        lines = [proc.stdout.readline() for _ in range(4)]
         assert "listening on http://127.0.0.1:" in lines[0], \
             (lines, proc.stderr.read() if proc.poll() is not None else "")
         http_port = int(lines[0].rsplit(":", 1)[1])
-        assert lines[1].startswith("mysql on 127.0.0.1:")
-        assert lines[2].startswith("postgres on 127.0.0.1:")
-        my_port = int(lines[1].rsplit(":", 1)[1])
-        pg_port = int(lines[2].rsplit(":", 1)[1])
+        assert lines[1].startswith("flight on grpc://127.0.0.1:")
+        assert lines[2].startswith("mysql on 127.0.0.1:")
+        assert lines[3].startswith("postgres on 127.0.0.1:")
+        flight_port = int(lines[1].rsplit(":", 1)[1])
+        my_port = int(lines[2].rsplit(":", 1)[1])
+        pg_port = int(lines[3].rsplit(":", 1)[1])
 
         url = f"http://127.0.0.1:{http_port}/v1/sql"
 
@@ -424,6 +433,16 @@ def test_standalone_with_config_serves_three_protocols(tmp_path):
                                                      "s3cret")
         assert not jauth_tests.TestPostgresAuth()._login(pg_port, "alice",
                                                          "nope")
+        from greptimedb_tpu_torch.servers import flight
+
+        fc = flight.FlightQueryClient(f"127.0.0.1:{flight_port}", "alice",
+                                      "s3cret")
+        assert fc.sql("SELECT host, v FROM cpu ORDER BY host").rows() == [
+            ["a", 1.5], ["b", 2.5]]
+        fc.close()
+        with pytest.raises(flight.FlightUnauthenticatedError):
+            flight.FlightQueryClient(f"127.0.0.1:{flight_port}", "alice",
+                                     "wrong")
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0
     finally:
@@ -434,13 +453,13 @@ def test_standalone_with_config_serves_three_protocols(tmp_path):
 
 def test_standalone_refuses_an_unported_option(tmp_path):
     cfg = tmp_path / "standalone.toml"
-    cfg.write_text("[grpc]\nenable = true\n")
+    cfg.write_text("[query]\nmesh = '2x2'\n")
     proc = _spawn(["standalone", "start", "--device", "cpu", "-c", str(cfg),
                    "--data-home", str(tmp_path / "home")])
     out, err = proc.communicate(timeout=60)
     assert proc.returncode == 2 and out == ""
-    assert "option 'grpc.enable' = True is not in this slice" in err
-    assert "A9-flight" in err
+    assert "option 'query.mesh' = '2x2' is not in this slice" in err
+    assert "A10" in err
 
 
 def test_repl_answers_statements_on_stdin(tmp_path):

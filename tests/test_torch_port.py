@@ -66,9 +66,12 @@ def test_importing_the_port_loads_no_jax():
             "greptimedb_tpu_torch.servers.prom_store, "
             "greptimedb_tpu_torch.servers.otlp, "
             "greptimedb_tpu_torch.servers.opentsdb, "
-            "greptimedb_tpu_torch.servers.http; "
+            "greptimedb_tpu_torch.servers.http, "
+            "greptimedb_tpu_torch.servers.flight; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'greptimedb_tpu', 'pyarrow')]; print(bad); "
+            "('jax', 'greptimedb_tpu', 'pyarrow', 'grpc', 'h2', 'hpack', "
+            "'hyperframe', 'flatbuffers') or m.startswith("
+            "'google.protobuf')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

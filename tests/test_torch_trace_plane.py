@@ -605,17 +605,23 @@ class TestExemplars:
 
     def test_grafana_dashboard_reads_the_port(self):
         """Every family the port registers keeps a JAX name that the
-        repo's dashboard charts (tools/check_metrics.py's rule)."""
+        repo's dashboard charts (tools/check_metrics.py's rule), apart
+        from the port's own Flight series, listed with their reason in
+        the lint's PORT_ONLY (pyarrow counts them in the JAX package)."""
         sys.path.insert(0, REPO)
         from tools.check_metrics import DASHBOARD, check
 
         import greptimedb_tpu_torch.servers.otlp  # noqa: F401
         import greptimedb_tpu_torch.servers.prom_store  # noqa: F401
+        from greptimedb_tpu_torch.lint.metrics_options import PORT_ONLY
         from greptimedb_tpu_torch.utils.metrics import REGISTRY
 
         with open(DASHBOARD, encoding="utf-8") as f:
             text = f.read()
-        assert check(list(REGISTRY._metrics), text) == []
+        assert set(PORT_ONLY) == {"greptimedb_tpu_flight_calls_total",
+                                  "greptimedb_tpu_flight_bytes_total"}
+        assert check([m for m in REGISTRY._metrics
+                      if m.name not in PORT_ONLY], text) == []
 
 
 # ---- tools/trace_dump -------------------------------------------------------
