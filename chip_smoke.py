@@ -350,6 +350,31 @@ greptimedb_tpu_torch/_build/. Phases:
    and FROM on a small database; `python3 -m greptimedb_tpu_torch
    export` and `import` in subprocesses. The phase prints its seconds
    and each step's, and joins the fake's threads.
+   Phase (l), the in-process cluster, runs after (j), before the
+   stream: a `Cluster` of three datanodes on the card, bench.py's `cpu`
+   created through its frontend PARTITION ON hostname into three regions
+   (1,112 / 1,111 / 1,777 hosts on three datanodes), cpu_1h (HOSTS x 1 h,
+   seed SERVE_SEED, 1,440,000 rows) through the scatter write (each
+   region's count against the rule's, count(*)), a flush, then
+   double_groupby_all at 1 h and 10 min bins, cpu_max_all_8,
+   single_groupby_1_1_1 and groupby_orderby_limit (the partial-aggregate
+   fragment: one K2 launch a fragment that returns partial planes, no
+   K1), lastpoint
+   (`last()`, the fragment with the pruning hint) and high_cpu_all (the
+   rows fragment), each cold and warm (p50 of 5) against float64 numpy,
+   with the bytes its fragments return and the region rows they scanned;
+   K2 at the largest region's fragment shape against its plain version;
+   a failover (the datanode of region 2 killed, beats and metasrv ticks
+   on a synthetic clock until a survivor reopens it from the shared WAL;
+   double_groupby_all as before the kill); a second cluster with
+   `wire_transport=True` taking the same hour through do_put and three
+   statements through region_frag, equal to the in-process answers,
+   with its K2 launches (read after close joins the datanodes' call
+   threads) at least its plane fragments and at most those plus the
+   hedges that fired (a hedged read's datanode may finish the loser); a
+   standalone partitioned table answering double_groupby_all (K1) and
+   cpu_max_all_8 (K2) through MergeScan. The phase prints its seconds
+   and the cut that pays for it (phase (k)'s LOCKDEP_SECONDS, 30 -> 10).
    Phase (k), the lint plane, runs after the stream: the lint in a
    subprocess beside a `standalone start` (Flight enabled through its
    environment) under the runtime lockdep, driven for LOCKDEP_SECONDS by
@@ -362,13 +387,15 @@ greptimedb_tpu_torch/_build/. Phases:
    PromQL queries', the streamed query's, the RANGE queries', the host
    SQL statements', the five served traffics', the Flight legs', the
    wire phase's, the
-   write protocols' and the write plane's included (the two ingest_qps
+   write protocols', the cluster's (l) and the write plane's included
+   (the two ingest_qps
    runs, the rollup job, the substituted and raw queries), the index
    query's, the metric engine's and the file engine's, the flows',
    the script's, the plugin query's and the interceptor runs',
    lastpoint's by state, K1's time at the stream's shape and K2's at the
    sparse route's, PromQL's, RANGE's, lastpoint's, the vmapped
-   batch's and the rollup job's shapes), the card line, and the result
+   batch's, the rollup job's and the cluster fragment's shapes), the
+   card line, and the result
    line.
 
 Exits non-zero, and prints no result line, when CUDA is unavailable, the
@@ -2434,7 +2461,8 @@ LOCKDEP_LOAD_POINTS = 60
 #: seconds of concurrent traffic, and its clients (one a role): "flight"
 #: runs double_groupby_all over Flight (do_get) and writes its own points
 #: through do_put, so Flight's threads and locks run under the lockdep
-LOCKDEP_SECONDS = 30.0
+#: 30 s before phase (l); the 20 s cut pays for phase (l)
+LOCKDEP_SECONDS = 10.0
 LOCKDEP_ROLES = ("double_groupby_all", "flight", "cpu_max_all_8",
                  "cpu_max_all_8", "lp", "lp", "admin", "flow")
 
@@ -2718,6 +2746,478 @@ def lint_phase(card: str) -> dict:
     log("(k) the lint plane: " + json.dumps(
         {"seconds": out["seconds"], "unallowed": lint["unallowed"],
          "violations": server["violations"], "card": card}))
+    return out
+
+
+# ---- (l) the in-process cluster: cpu over three datanodes --------------------
+
+#: phase (l)'s range rule over hostname: its sort order puts host_0,
+#: host_1 and host_10..host_1999 first, so the three regions hold 1,112 /
+#: 1,111 / 1,777 hosts
+CLUSTER_PARTITION = (
+    "PARTITION ON COLUMNS (hostname) (hostname < 'host_2', "
+    "hostname >= 'host_2' AND hostname < 'host_3', hostname >= 'host_3')")
+#: warm runs a statement (their p50 is printed)
+CLUSTER_WARM_RUNS = 5
+#: the statements of phase (l): name -> (SQL, the cluster frontend's
+#: last_path); lastpoint is all-`last`, so its fragment carries the
+#: newest-first pruning hint
+CLUSTER_QUERIES = (
+    "double_groupby_all (1 h)", "double_groupby_all (10 min)",
+    "cpu_max_all_8", "single_groupby_1_1_1", "groupby_orderby_limit",
+    "lastpoint", "high_cpu_all")
+
+
+def cluster_ddl() -> str:
+    """bench.py's `cpu` table, partitioned by CLUSTER_PARTITION."""
+    return cpu_ddl().replace(") WITH (append_mode",
+                             f") {CLUSTER_PARTITION} WITH (append_mode")
+
+
+def cluster_dga_sql(bin_: str) -> str:
+    avg_list = ", ".join(f"avg({f})" for f in FIELDS)
+    return (f"SELECT date_bin(INTERVAL '{bin_}', ts) AS hour, hostname, "
+            f"{avg_list} FROM cpu WHERE ts >= {T0_MS} "
+            f"AND ts < {T0_MS + HOURS * 3600 * 1000} "
+            "GROUP BY hour, hostname ORDER BY hour, hostname")
+
+
+def cluster_queries() -> dict:
+    q = tsbs_queries()
+    last_list = ", ".join(f"last({f})" for f in FIELDS)
+    return {
+        "double_groupby_all (1 h)": (cluster_dga_sql("1 hour"), "pushdown"),
+        "double_groupby_all (10 min)": (cluster_dga_sql("10 minutes"),
+                                        "pushdown"),
+        "cpu_max_all_8": (q["cpu_max_all_8"][0], "pushdown"),
+        "single_groupby_1_1_1": (q["single_groupby_1_1_1"][0], "pushdown"),
+        "groupby_orderby_limit": (q["groupby_orderby_limit"][0],
+                                  "pushdown"),
+        "lastpoint": (f"SELECT hostname, {last_list} FROM cpu "
+                      "GROUP BY hostname", "lastfrag+pushdown"),
+        "high_cpu_all": (q["high_cpu_all"][0], "rows_pushdown"),
+    }
+
+
+def cluster_batch(info, host_names):
+    """bench.py's generator at HOSTS x 1 h (seed SERVE_SEED, the draws
+    put_points makes) as one RecordBatch, and its [points, hosts] grid."""
+    from greptimedb_tpu_torch.datatypes import DictVector, RecordBatch
+
+    points = 3600 // STEP_S
+    n = points * HOSTS
+    rng = np.random.default_rng(SERVE_SEED)
+    cols = {"hostname": DictVector(np.tile(np.arange(HOSTS, dtype=np.int32),
+                                           points), host_names),
+            "ts": np.repeat(T0_MS + np.arange(points, dtype=np.int64)
+                            * STEP_S * 1000, HOSTS)}
+    for f in FIELDS:
+        cols[f] = rng.uniform(0.0, 100.0, n)
+    grid = {f: cols[f].reshape(points, HOSTS) for f in FIELDS}
+    return RecordBatch(info.schema, cols), grid
+
+
+def check_cluster(name, res, grid, exact) -> None:
+    """One phase (l) statement against float64 numpy over the hour's
+    `grid`: avg to rtol 1e-5, max, last, keys and rows exactly (`exact`
+    maps the float64 oracle to what the route's dtype gives: itself on
+    the cluster's float64 fragments, f32_exact on an f32 standalone)."""
+    per_hour = 3600 // STEP_S
+    cols = {n: np.asarray(c) for n, c in zip(res.names, res.columns)}
+    order = np.argsort(np.asarray([f"host_{i}" for i in range(HOSTS)]),
+                       kind="stable")
+    if name.startswith("double_groupby_all"):
+        per = per_hour if "1 h" in name else 60
+        bins = per_hour // per
+        check(np.array_equal(cols["hour"], T0_MS + np.repeat(
+            np.arange(bins), HOSTS) * per * STEP_S * 1000), name + " keys")
+        check(np.array_equal(host_index(cols["hostname"]),
+                             np.tile(order, bins)), name + " hostnames")
+        for f in FIELDS:
+            want = grid[f].reshape(bins, per, HOSTS).mean(axis=1)[
+                :, order].reshape(-1)
+            got = cols[f"avg({f})"].astype(np.float64)
+            check(np.allclose(got, want, rtol=1e-5, atol=0),
+                  f"{name} avg({f})")
+    elif name == "cpu_max_all_8":
+        check(np.array_equal(cols["hour"], [T0_MS]), name + " keys")
+        for f in FIELDS:
+            check(np.array_equal(cols[f"max({f})"].astype(np.float64),
+                                 exact(grid[f][:, :8].max(keepdims=True)
+                                       .reshape(1))), f"{name} max({f})")
+    elif name == "single_groupby_1_1_1":
+        want = grid["usage_user"][:, 0].reshape(60, 6).max(axis=1)
+        check(np.array_equal(cols["minute"], T0_MS + np.arange(60) * 60_000)
+              and np.array_equal(cols["max(usage_user)"].astype(np.float64),
+                                 exact(want)), name)
+    elif name == "groupby_orderby_limit":
+        minutes = np.arange(59, 54, -1)
+        want = np.asarray([grid["usage_user"][m * 6:(m + 1) * 6].max()
+                           for m in minutes])
+        check(np.array_equal(cols["minute"], T0_MS + minutes * 60_000)
+              and np.array_equal(cols["max(usage_user)"].astype(np.float64),
+                                 exact(want)), name)
+    elif name == "lastpoint":
+        hosts = host_index(cols["hostname"])
+        check(np.array_equal(np.sort(hosts), np.arange(HOSTS)),
+              name + " hostnames")
+        for f, col in zip(FIELDS, res.names[1:]):
+            check(np.array_equal(cols[col].astype(np.float64),
+                                 exact(grid[f][-1, hosts])), f"{name} {f}")
+    else:  # high_cpu_all
+        hit = grid["usage_user"] > 90.0
+        want = np.flatnonzero(hit.reshape(-1))
+        pts = (cols["ts"].astype(np.int64) - T0_MS) // (STEP_S * 1000)
+        got = pts * HOSTS + host_index(cols["hostname"])
+        srt = np.argsort(got, kind="stable")
+        check(np.array_equal(got[srt], want), f"{name}: {len(got)} rows")
+        p, h = np.divmod(want, HOSTS)
+        for f in FIELDS:
+            check(np.array_equal(cols[f].astype(np.float64)[srt],
+                                 grid[f][p, h]), f"{name} {f}")
+
+
+def leader_of(cluster, rid: int) -> str:
+    """The datanode the metasrv's route table names for region `rid`."""
+    return cluster.metasrv.routes.get(str(rid >> 32)).region(rid) \
+        .leader_node
+
+
+def _nbytes(arr) -> int:
+    arr = np.asarray(arr)
+    if arr.dtype == object:
+        return sum(len(str(x)) for x in arr.tolist())
+    return int(arr.nbytes)
+
+
+def part_bytes(part) -> int:
+    """Bytes of one fragment's output: partial planes and keys, or the
+    candidate / filtered columns."""
+    if part is None:
+        return 0
+    if "planes" in part:
+        return sum(_nbytes(k) for k in part["keys"]) + sum(
+            int(v.nbytes) for v in part["planes"].values())
+    return sum(_nbytes(v) for v in part["cols"].values())
+
+
+class FragmentMeter:
+    """Counts, on a cluster, the bytes its fragments return to the
+    frontend, the fragments that return partial planes (each one K2
+    launch on its region's datanode) and the rows its datanodes' region
+    scans read."""
+
+    def __init__(self, cluster):
+        self.bytes = self.rows = self.fragments = self.planes = 0
+        router = cluster.router
+        inner = router.execute_fragment
+
+        def execute_fragment(rid, frag):
+            out = inner(rid, frag)
+            self.bytes += part_bytes(out)
+            self.fragments += 1
+            self.planes += out is not None and "planes" in out
+            return out
+
+        router.execute_fragment = execute_fragment
+        for dn in cluster.datanodes.values():
+            for attr in ("scan", "scan_last"):
+                self._wrap(dn.engine, attr)
+
+    def _wrap(self, engine, attr):
+        inner = getattr(engine, attr)
+
+        def counted(*a, **k):
+            out = inner(*a, **k)
+            self.rows += 0 if out is None else int(out.num_rows)
+            return out
+
+        setattr(engine, attr, counted)
+
+    def reset(self):
+        self.bytes = self.rows = self.fragments = self.planes = 0
+
+
+def cluster_statement(c, meter, sk, torch, name, sql, want_path, grid,
+                      exact, runs=CLUSTER_WARM_RUNS) -> tuple:
+    """One statement through Cluster.sql: cold (its K1 / K2 launches,
+    fragment bytes and region rows scanned), then warm p50 of `runs`;
+    the answer against numpy. Returns (report, the cold result)."""
+    meter.reset()
+    zero_launches(sk)
+    res, cold_ms = timed_query(c.frontend, sql, torch)
+    k1, k2 = launches(sk)
+    path = c.frontend.executor.last_path
+    check(path == want_path, f"cluster {name}: last_path {path}")
+    check(k1 == 0, f"cluster {name}: K1 launched {k1} times")
+    if grid is not None:
+        check_cluster(name, res, grid, exact)
+    check(k2 == meter.planes,
+          f"cluster {name}: {k2} K2 launches for {meter.planes} fragments "
+          "that returned partial planes")
+    rep = {"last_path": path, "rows": res.num_rows, "cold_ms": cold_ms,
+           "k1_launches": k1, "k2_launches": k2,
+           "fragments": meter.fragments, "planes": meter.planes,
+           "fragment_bytes": meter.bytes,
+           "region_rows_scanned": meter.rows}
+    warm = []
+    for _ in range(runs):
+        warm.append(timed_query(c.frontend, sql, torch)[1])
+    rep["warm_p50_ms"] = float(np.median(warm)) if warm else None
+    return rep, res
+
+
+def capture_k2(sk, fn):
+    """Run `fn` with K2's wrapper spied: the largest call's inputs (by
+    rows) and flags come back beside `fn`'s result; every launch still
+    counts on the wrapper."""
+    real = sk.fused_segment_agg
+    seen: dict = {}
+
+    def spy(vals, ids, num_segments, want_min=False, want_max=False,
+            want_sumsq=False):
+        if vals.shape[0] > seen.get("n", -1):
+            seen.update(n=vals.shape[0], vals=vals, ids=ids,
+                        g=num_segments,
+                        want=(bool(want_min), bool(want_max),
+                              bool(want_sumsq)))
+        return real(vals, ids, num_segments, want_min, want_max,
+                    want_sumsq)
+
+    spy.launches = real.launches
+    sk.fused_segment_agg = spy
+    try:
+        out = fn()
+    finally:
+        sk.fused_segment_agg = real
+        real.launches = spy.launches
+    return out, seen
+
+
+def same_rows(a, b, what) -> None:
+    """Two answers of the same statement: names and keys exactly, floats
+    to rtol 1e-12 (float64 sums may reassociate between runs)."""
+    check(list(a.names) == list(b.names) and a.num_rows == b.num_rows,
+          f"{what}: shapes differ")
+    for x, y in zip(a.columns, b.columns):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype.kind == "f":
+            check(np.allclose(x, y, rtol=1e-12, atol=0, equal_nan=True),
+                  f"{what}: values differ")
+        else:
+            check(np.array_equal(x.astype(str), y.astype(str)),
+                  f"{what}: keys differ")
+
+
+def cluster_phase(sk, torch, lib=None) -> dict:
+    """Phase (l): the in-process Cluster on the card, three datanodes,
+    the hour of cpu_1h through the scatter write; every statement against
+    numpy with its fragment's K2 launches; a failover; the wire leg; a
+    standalone partitioned table's MergeScan through K1 and K2."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.cluster import Cluster
+    from greptimedb_tpu_torch.query.engine import _cached_rule
+    from greptimedb_tpu_torch.utils.metrics import HEDGE_EVENTS
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    host_names = np.asarray([f"host_{i}" for i in range(HOSTS)],
+                            dtype=object)
+    out: dict = {"cut": "phase (k)'s lockdep traffic runs LOCKDEP_SECONDS "
+                 f"= {LOCKDEP_SECONDS} s (30 s before phase (l))"}
+    queries = cluster_queries()
+    c = Cluster(os.path.join(root, "inproc"), num_datanodes=3,
+                device=DEVICE)
+    w = None
+    try:
+        # ---- the hour through the scatter write, in process ----
+        c.sql(cluster_ddl())
+        info = c.catalog.table("public", "cpu")
+        batch, grid = cluster_batch(info, host_names)
+        t = time.perf_counter()
+        n = c.frontend._sharded_write(info, batch, delete=False)
+        put_s = time.perf_counter() - t
+        rule = _cached_rule(info)
+        want = np.bincount(rule.find_regions([host_names]),
+                           minlength=3) * (3600 // STEP_S)
+        got = [c.router.scan(rid, projection=["ts"]).num_rows
+               for rid in info.region_ids]
+        nodes = [leader_of(c, rid) for rid in info.region_ids]
+        count = c.sql("SELECT count(*) FROM cpu").rows()[0][0]
+        check(n == HOSTS * 360 and got == list(want) and count == n
+              and len(set(nodes)) == 3,
+              f"cluster scatter: {n} rows, regions {got} (rule {want}), "
+              f"count(*) {count}, nodes {nodes}")
+        c.sql("ADMIN flush_table('cpu')")
+        out["scatter"] = {"rows": n, "seconds": put_s,
+                          "rows_per_s": n / put_s, "region_rows": got,
+                          "region_hosts": [int(x) for x in want // 360],
+                          "nodes": nodes}
+        log("cluster (l) scatter: " + json.dumps(out["scatter"]))
+        meter = FragmentMeter(c)
+        answers, reports = {}, {}
+        frag_case = None
+        for name in CLUSTER_QUERIES:
+            sql, path = queries[name]
+            if name == "double_groupby_all (1 h)":
+                (rep, res), seen = capture_k2(sk, lambda: cluster_statement(
+                    c, meter, sk, torch, name, sql, path, grid,
+                    lambda x: x))
+                frag_case = seen
+            else:
+                rep, res = cluster_statement(c, meter, sk, torch, name, sql,
+                                             path, grid, lambda x: x)
+            if path != "rows_pushdown":
+                regions = sum(1 for r in got if r)
+                check(1 <= rep["k2_launches"] <= regions,
+                      f"cluster {name}: {rep['k2_launches']} K2 launches")
+            else:
+                check(rep["k2_launches"] == 0,
+                      f"cluster {name}: rows fragments launched K2")
+            answers[name], reports[name] = res, rep
+            log(f"cluster (l) {name}: " + json.dumps(rep))
+        check(reports["double_groupby_all (1 h)"]["k2_launches"] == 3,
+              "double_groupby_all: one K2 launch a region")
+        out["statements"] = reports
+        out["launches"] = {
+            "k1_launches": sum(r["k1_launches"] for r in reports.values()),
+            "k2_launches": sum(r["k2_launches"] for r in reports.values())}
+        # the fragment's K2 at the largest region's shape, against its
+        # plain version
+        if lib is not None and frag_case:
+            out["fragment_case"] = k2_case(
+                sk, lib, torch, frag_case["vals"], frag_case["ids"],
+                frag_case["g"], frag_case["want"], "fragment",
+                "double_groupby_all (1 h), the largest region")
+        else:
+            out["fragment_case"] = {"shape": list(frag_case["vals"].shape)
+                                    if frag_case else None}
+        # ---- failover: region 2's datanode dies ----
+        sql_f = queries["double_groupby_all (10 min)"][0]
+        tick_ms = 0.0
+        for _ in range(5):
+            c.beat_all(tick_ms)
+            tick_ms += 3000.0
+        extra, _g = cluster_batch(info, host_names)
+        extra = extra.take(np.arange(HOSTS))  # one more point, WAL only
+        extra.columns["ts"] = extra.columns["ts"] + 3600 * 1000
+        c.frontend._sharded_write(info, extra, delete=False)
+        before = c.sql(sql_f)
+        rid2 = info.region_ids[2]
+        victim = leader_of(c, rid2)
+        c.datanodes[victim].kill()
+        ticks = 0
+        zero_launches(sk)
+        t = time.perf_counter()
+        while True:
+            for dn in c.datanodes.values():
+                dn.beat(tick_ms)
+            ticks += 1
+            if c.tick(tick_ms):
+                break
+            check(ticks < 200, "cluster failover: no failover started")
+            tick_ms += 3000.0
+        c.beat_all(tick_ms)
+        new = leader_of(c, rid2)
+        replayed = c.datanodes[new].engine.region(rid2).replayed_entries
+        after = c.sql(sql_f)
+        fo_s = time.perf_counter() - t
+        k1, k2 = launches(sk)
+        same_rows(after, before, "cluster failover: double_groupby_all")
+        check(new != victim and replayed > 0,
+              f"cluster failover: {victim} -> {new}, {replayed} replayed")
+        out["failover"] = {"victim": victim, "new_leader": new,
+                           "ticks": ticks, "wal_entries_replayed": replayed,
+                           "seconds": fo_s, "k1_launches": k1,
+                           "k2_launches": k2}
+        log("cluster (l) failover: " + json.dumps(out["failover"]))
+        c.close()
+        c = None
+        # ---- the wire leg: the same hour over Flight ----
+        w = Cluster(os.path.join(root, "wire"), num_datanodes=3,
+                    wire_transport=True, device=DEVICE)
+        w.sql(cluster_ddl())
+        winfo = w.catalog.table("public", "cpu")
+        wbatch, _g = cluster_batch(winfo, host_names)
+        t = time.perf_counter()
+        wn = w.frontend._sharded_write(winfo, wbatch, delete=False)
+        wput_s = time.perf_counter() - t
+        check(wn == n, f"cluster wire: put {wn} rows")
+        wire = {"put_rows": wn, "put_seconds": wput_s,
+                "put_rows_per_s": wn / wput_s}
+        wmeter = FragmentMeter(w)
+        hedges0 = {ev: HEDGE_EVENTS.get(event=ev)
+                   for ev in ("fired", "won", "lost", "budget_denied")}
+        zero_launches(sk)
+        for name in ("double_groupby_all (10 min)", "cpu_max_all_8",
+                     "lastpoint"):
+            sql, path = queries[name]
+            wmeter.reset()
+            k_before = launches(sk)[1]
+            res, ms = timed_query(w.frontend, sql, torch)
+            check(w.frontend.executor.last_path == path,
+                  f"cluster wire {name}: {w.frontend.executor.last_path}")
+            same_rows(res, answers[name], f"cluster wire {name}")
+            wire[name] = {"ms": ms,
+                          "in_process_cold_ms": reports[name]["cold_ms"],
+                          "planes": wmeter.planes,
+                          "k2_launches_at_return":
+                              launches(sk)[1] - k_before}
+            wire["planes"] = wire.get("planes", 0) + wmeter.planes
+        # a hedged read's loser is reset on the frontend, but its
+        # datanode may finish the fragment, K2 launch included: close
+        # joins the servers' call threads, then the launches are read
+        w.close()
+        w = None
+        wire["k1_launches"], wire["k2_launches"] = launches(sk)
+        wire["hedges"] = {ev: int(HEDGE_EVENTS.get(event=ev) - n)
+                          for ev, n in hedges0.items()}
+        fired = wire["hedges"]["fired"]
+        check(wire["k1_launches"] == 0
+              and wire["planes"] <= wire["k2_launches"]
+              <= wire["planes"] + fired,
+              f"cluster wire: {wire['k2_launches']} K2 launches for "
+              f"{wire['planes']} plane fragments and {fired} hedges")
+        out["wire"] = wire
+        log("cluster (l) wire: " + json.dumps(wire))
+        # ---- a standalone partitioned table: MergeScan through K1, K2 ----
+        engine, qe = open_engine(os.path.join(root, "standalone"))
+        try:
+            qe.execute_one(cluster_ddl())
+            sinfo = qe.catalog.table("public", "cpu")
+            sbatch, _g = cluster_batch(sinfo, host_names)
+            qe._sharded_write(sinfo, sbatch, delete=False)
+            qe.execute_one("ADMIN flush_table('cpu')")
+            from greptimedb_tpu_torch import config as port_config
+
+            f32 = f32_exact if port_config.compute_dtype(qe.device) \
+                == torch.float32 else (lambda x: x)
+            stand = {}
+            for name, want_k in (("double_groupby_all (10 min)", 0),
+                                 ("cpu_max_all_8", 1)):
+                zero_launches(sk)
+                res, ms = timed_query(qe, queries[name][0], torch)
+                k = launches(sk)
+                check_cluster(name, res, grid, f32)
+                check(k[want_k] > 0, f"standalone {name}: launches {k} "
+                      f"on {qe.executor.last_path}")
+                stand[name] = {"last_path": qe.executor.last_path,
+                               "ms": ms, "k1_launches": k[0],
+                               "k2_launches": k[1]}
+            out["standalone"] = stand
+            log("cluster (l) standalone MergeScan: " + json.dumps(stand))
+        finally:
+            engine.close()
+    finally:
+        if c is not None:
+            c.close()
+        if w is not None:
+            w.close()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"cluster (l): {out['seconds']:.1f} s; {out['cut']}")
     return out
 
 
@@ -8913,10 +9413,15 @@ def main() -> int:
         stage = "(j) object storage"
         store = object_store_phase(sk, torch, card)
         elapsed("object storage, the remote WAL and COPY done")
+        # (l) after (d) and (j), before the stream: the in-process
+        # cluster over three datanodes
+        stage = "(l) the cluster"
+        cluster = cluster_phase(sk, torch, lib)
+        elapsed("the in-process cluster done")
         stage = "stream"
         stream = stream_phase(sk, torch, lib)
         elapsed("stream done")
-        # (k) after the stream: its 30 s of traffic stays out of the
+        # (k) after the stream: its 10 s of traffic stays out of the
         # stream's ingest deadline
         stage = "(k) the lint plane"
         lint = lint_phase(card)
@@ -9041,6 +9546,14 @@ def main() -> int:
                 "(COPY FROM parquet)"] = store["copy"]["cpu_copy"]
     plane_paths["object store (j): external parquet table (count(*), "
                 "per-host max and avg)"] = store["copy"]["external"]
+    plane_paths["cluster (l): 7 statements through Cluster.sql (cold)"] = \
+        cluster["launches"]
+    plane_paths["cluster (l): double_groupby_all after the failover"] = \
+        cluster["failover"]
+    plane_paths["cluster (l): wire, 3 statements over Flight"] = \
+        cluster["wire"]
+    for name, r in cluster["standalone"].items():
+        plane_paths[f"cluster (l): standalone MergeScan {name}"] = r
     plane_paths["observability (g): ANALYZE and HTTP (cpu)"] = main["obs"]
     plane_paths["index: hostname IN (3 hosts) on cpu"] = main["index"]
     plane_paths["metric engine: prom_cpu_m PromQL, SQL panel, neighbour"] = \
@@ -9109,6 +9622,13 @@ def main() -> int:
                     k: sp[k] for k in ("shape", "G", "dtype", "max_abs_err",
                                        "ms", "plain_ms", "bound_ms",
                                        "bound_by")}
+            fc = cluster["fragment_case"]
+            kernels[-1]["fragment_shape"] = {
+                k: fc.get(k) for k in ("shape", "G", "dtype", "max_abs_err",
+                                       "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}
+            kernels[-1]["fragment_shape"]["launches"] = \
+                cluster["launches"]["k2_launches"]
             vc = serving["vmapped_case"]
             kernels[-1]["vmapped_shape"] = {
                 k: vc[k] for k in ("shape", "G", "dtype", "members",

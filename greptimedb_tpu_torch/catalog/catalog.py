@@ -141,6 +141,16 @@ class Catalog:
     def update_table(self, info: TableInfo) -> None:
         self.kv.put(f"__table_info/{info.table_id}", info.to_json())
 
+    def table_id(self, db: str, name: str) -> Optional[int]:
+        """The id the name maps to now, or None: journaled DDL tells "our
+        table is gone" from "another table took the name" by it."""
+        tid = self.kv.get(f"__table_name/{db}/{name}")
+        return int(tid) if tid is not None else None
+
+    def all_tables(self) -> list[TableInfo]:
+        return [TableInfo.from_json(v)
+                for _, v in self.kv.range("__table_info/")]
+
     def table_exists(self, db: str, name: str) -> bool:
         return self.kv.get(f"__table_name/{db}/{name}") is not None
 

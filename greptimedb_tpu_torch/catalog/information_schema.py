@@ -11,9 +11,9 @@ flows (the flow engine's flows in every database) materialize at query
 time as host-side column dicts; a small host evaluator applies WHERE /
 projection / ORDER BY / LIMIT (these tables are tiny — no device
 round-trip). build_info reports this package's version. The cluster
-tables (partitions, region_peers, cluster_info) are listed, as the JAX
-package lists them, but reading one raises UnsupportedStatement naming
-the later slice of the port that brings its plane.
+tables (partitions, region_peers, cluster_info) read the catalog's
+partition rules and region ids, and a `cluster` hook on the engine when
+one is attached, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ from greptimedb_tpu_torch.query.result import QueryResult
 from greptimedb_tpu_torch.sql import ast
 
 INFORMATION_SCHEMA = "information_schema"
+#: this process's start, as cluster_info reports it
+_START_TIME = time.time()
 
 #: virtual table name -> builder(qe, ctx) -> dict[col -> list]
 _TABLES = {}
@@ -51,14 +53,6 @@ def is_information_schema_query(table: str, db: str) -> bool:
 
 def table_names() -> list[str]:
     return sorted(_TABLES)
-
-
-def _runtime_plane(name: str, slice_name: str):
-    from greptimedb_tpu_torch.query.engine import UnsupportedStatement
-
-    return UnsupportedStatement(
-        f"information_schema.{name} is not in this slice of "
-        f"greptimedb_tpu_torch; the {slice_name} slice brings it")
 
 
 # ---- builders ---------------------------------------------------------------
@@ -121,17 +115,80 @@ def _columns(qe, ctx):
 
 @_virtual("partitions")
 def _partitions(qe, ctx):
-    raise _runtime_plane("partitions", "mesh and cluster (ROADMAP A10)")
+    """One row a region: its partition's upper bound as the JAX package
+    prints it (the rule's `bounds` entry; the last region unbounded)."""
+    cols = {k: [] for k in ("table_catalog", "table_schema", "table_name",
+                            "partition_name", "partition_expression",
+                            "greptime_partition_id")}
+    for db in qe.catalog.list_databases():
+        for name in qe.catalog.list_tables(db):
+            info = qe.catalog.table(db, name)
+            exprs = [None] * len(info.region_ids)
+            if info.partition_rules:
+                rules = info.partition_rules
+                if isinstance(rules, dict):
+                    bounds = rules.get("bounds") or []
+                    exprs = [str(b) for b in bounds] + [None]
+                    exprs = exprs[:len(info.region_ids)] or [None]
+            for i, rid in enumerate(info.region_ids):
+                cols["table_catalog"].append("greptime")
+                cols["table_schema"].append(db)
+                cols["table_name"].append(name)
+                cols["partition_name"].append(f"p{i}")
+                cols["partition_expression"].append(
+                    exprs[i] if i < len(exprs) else None)
+                cols["greptime_partition_id"].append(rid)
+    return cols
 
 
 @_virtual("region_peers")
 def _region_peers(qe, ctx):
-    raise _runtime_plane("region_peers", "mesh and cluster (ROADMAP A10)")
+    """One row a region and its peer: the engine's `cluster` hook
+    (`region_routes()`, region id -> peer id) when one is attached, as
+    in the JAX package; peer 0 otherwise."""
+    cols = {k: [] for k in ("region_id", "peer_id", "peer_addr",
+                            "is_leader", "status")}
+    cluster = getattr(qe, "cluster", None)
+    route = {}
+    if cluster is not None and hasattr(cluster, "region_routes"):
+        route = cluster.region_routes()
+    for db in qe.catalog.list_databases():
+        for name in qe.catalog.list_tables(db):
+            info = qe.catalog.table(db, name)
+            for rid in info.region_ids:
+                peer = route.get(rid, 0)
+                cols["region_id"].append(rid)
+                cols["peer_id"].append(peer)
+                cols["peer_addr"].append(f"datanode-{peer}")
+                cols["is_leader"].append("Yes")
+                cols["status"].append("ALIVE")
+    return cols
 
 
 @_virtual("cluster_info")
 def _cluster_info(qe, ctx):
-    raise _runtime_plane("cluster_info", "mesh and cluster (ROADMAP A10)")
+    """The peers of the engine's `cluster` hook (`datanode_ids()`) and
+    this process: STANDALONE alone, FRONTEND beside a metasrv and
+    datanodes."""
+    from greptimedb_tpu_torch import __version__
+
+    cols = {k: [] for k in ("peer_id", "peer_type", "peer_addr", "version",
+                            "start_time", "uptime")}
+    cluster = getattr(qe, "cluster", None)
+    peers = []
+    if cluster is not None and hasattr(cluster, "datanode_ids"):
+        peers = [(pid, "DATANODE") for pid in cluster.datanode_ids()]
+        peers += [(0, "METASRV")]
+    peers.append((0, "STANDALONE") if not peers else (0, "FRONTEND"))
+    uptime = time.time() - _START_TIME
+    for pid, ptype in peers:
+        cols["peer_id"].append(pid)
+        cols["peer_type"].append(ptype)
+        cols["peer_addr"].append("127.0.0.1")
+        cols["version"].append(__version__)
+        cols["start_time"].append(int(_START_TIME * 1000))
+        cols["uptime"].append(f"{uptime:.0f}s")
+    return cols
 
 
 @_virtual("runtime_metrics")
@@ -245,7 +302,7 @@ def _cluster_profile(qe, ctx):
 def _cluster_faults(qe, ctx):
     """Armed chaos state and fire counts (fault/): one row per (armed
     point x observed counter series). Empty when chaos is off. The port
-    has no network partitions or edges yet (ROADMAP A10): those columns
+    has no network partitions or edges yet (ROADMAP A10-proc): those columns
     stay empty."""
     from greptimedb_tpu_torch.fault import FAULTS, chaos_seed
     from greptimedb_tpu_torch.utils.metrics import FAULT_INJECTIONS

@@ -36,10 +36,10 @@ import time
 #: subcommands of the JAX CLI this slice leaves out, by the slice of the
 #: port that brings them (ROADMAP.md)
 _LATER = {
-    "metasrv": "mesh and cluster (ROADMAP A10)",
-    "datanode": "mesh and cluster (ROADMAP A10)",
-    "frontend": "mesh and cluster (ROADMAP A10)",
-    "flownode": "mesh and cluster (ROADMAP A10)",
+    "metasrv": "multi-process cluster (ROADMAP A10-proc)",
+    "datanode": "multi-process cluster (ROADMAP A10-proc)",
+    "frontend": "multi-process cluster (ROADMAP A10-proc)",
+    "flownode": "multi-process cluster (ROADMAP A10-proc)",
 }
 
 

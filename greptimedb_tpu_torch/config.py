@@ -91,3 +91,17 @@ def stream_block_rows() -> int:
     """Rows of one streamed device block (the padded block shape)."""
     return int(os.environ.get("GREPTIMEDB_TPU_STREAM_BLOCK_ROWS",
                               str(2 << 20)))
+
+
+def default_hash_partitions() -> int:
+    """Hash-partition count for cluster CREATE TABLE without an explicit
+    PARTITION clause ([partition] default_hash_regions); 0 or 1 = one
+    region (the standalone default)."""
+    return int(os.environ.get("GREPTIMEDB_TPU_DEFAULT_HASH_REGIONS", "0"))
+
+
+def hash_partition_columns() -> list:
+    """Columns for default hash partitioning ([partition] hash_columns,
+    comma-separated); empty = the table's leading tag column."""
+    env = os.environ.get("GREPTIMEDB_TPU_HASH_PARTITION_COLUMNS", "")
+    return [s.strip() for s in env.split(",") if s.strip()]

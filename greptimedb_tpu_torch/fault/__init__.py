@@ -58,13 +58,15 @@ child process inherits its parent's schedule:
     GTPU_CHAOS="objectstore.read=fail,nth:2;ingest.commit=latency,arg:0.5,@op:apply"
     GTPU_CHAOS_SEED=42
 
-The JAX registry's other points (heartbeats, the metadata KV,
-elections), its network partitions, edge matchers and node registration
-belong to seams the port does not have yet: arming them raises naming
-the slice that brings them. Every injection counts in
+The in-process cluster's points are the datanode heartbeat
+(`heartbeat.send`, a dropped beat), a datanode's death on a beat
+(`datanode.crash`) and the metasrv election's lease (`election.lease`).
+The JAX registry's metadata-KV point (`metasrv.kv`), its network
+partitions and edge matchers belong to the multi-process cluster, whose
+seams the port does not have yet: arming them raises naming the slice
+that brings them. Every injection counts in
 `greptimedb_tpu_fault_injections_total{point,kind}`. The chaos explorer
-and its scenarios come with the mesh and cluster slice (ROADMAP.md,
-A10).
+and its scenarios come with that slice too (ROADMAP.md, A10-proc).
 """
 
 from __future__ import annotations
@@ -82,20 +84,19 @@ __all__ = ["Cancelled", "DeadlineExceeded", "FAULTS", "Fault", "FaultError",
            "FaultRegistry", "POINTS", "Unavailable", "is_transient",
            "local_node", "retry_call"]
 
-_A10 = "mesh and cluster (ROADMAP A10)"
+_A10_PROC = "multi-process cluster (ROADMAP A10-proc)"
 
 #: the port's injection points (the object store's, the WALs', the write
-#: plane's, the OTLP exporter's and the Flight services')
+#: plane's, the OTLP exporter's, the Flight services' and the in-process
+#: cluster's)
 POINTS = frozenset({
     "objectstore.read", "objectstore.write", "wal.append", "wal.replay",
     "ingest.commit", "maintenance.job", "otlp.export", "flight.do_get",
-    "flight.do_put",
+    "flight.do_put", "heartbeat.send", "datanode.crash", "election.lease",
 })
 
 #: the JAX registry's points whose seams the port does not have yet
-_LATER_POINTS = frozenset({
-    "heartbeat.send", "datanode.crash", "metasrv.kv", "election.lease",
-})
+_LATER_POINTS = frozenset({"metasrv.kv"})
 
 KINDS = frozenset({"fail", "latency", "torn", "short_read", "enospc"})
 
@@ -166,7 +167,7 @@ def _refuse_point(point: str) -> None:
     if point in _LATER_POINTS:
         raise ValueError(
             f"injection point {point!r} is not in this slice of "
-            f"greptimedb_tpu_torch (have: {sorted(POINTS)}); the {_A10} "
+            f"greptimedb_tpu_torch (have: {sorted(POINTS)}); the {_A10_PROC} "
             "slice brings its seam")
     if point not in POINTS:
         raise ValueError(
@@ -287,7 +288,7 @@ class FaultRegistry:
         (e.g. `ingest.commit=fail,@op:append`). A malformed spec raises:
         silently ignoring a chaos schedule would make a green run
         meaningless. `partition=` entries and `@edge` matchers are the
-        mesh and cluster slice's."""
+        multi-process cluster slice's."""
         spec = spec if spec is not None else os.environ.get("GTPU_CHAOS", "")
         for entry in filter(None, (s.strip() for s in spec.split(";"))):
             point, _, rhs = entry.partition("=")
@@ -297,7 +298,7 @@ class FaultRegistry:
             if point == "partition":
                 raise ValueError(
                     "network partitions are not in this slice of "
-                    f"greptimedb_tpu_torch; the {_A10} slice brings them")
+                    f"greptimedb_tpu_torch; the {_A10_PROC} slice brings them")
             tokens = [t.strip() for t in rhs.split(",") if t.strip()]
             kw: dict = {"kind": tokens[0]}
             for tok in tokens[1:]:
@@ -305,7 +306,7 @@ class FaultRegistry:
                 if k == "@edge":
                     raise ValueError(
                         "@edge matchers are not in this slice of "
-                        f"greptimedb_tpu_torch; the {_A10} slice brings "
+                        f"greptimedb_tpu_torch; the {_A10_PROC} slice brings "
                         "them")
                 if k.startswith("@"):
                     kw.setdefault("match", {})[k[1:]] = v

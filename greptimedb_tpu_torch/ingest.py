@@ -12,9 +12,8 @@ RecordBatch per table per request. The batch then takes a single
 partition-rule scatter (``QueryEngine._sharded_write``) and lands on
 the same bulk path the headline ingest number uses, with schema
 auto-create/alter batched once per request (one region flush per
-request instead of one per new column). The port writes one region a
-table: a table of several regions is refused by `_sharded_write`
-(ROADMAP A10).
+request instead of one per new column). A partitioned table's batch
+splits by its rule there, one slice a region.
 """
 
 from __future__ import annotations

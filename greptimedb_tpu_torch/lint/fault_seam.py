@@ -16,14 +16,18 @@ Left out, having no FAULTS point in either package: `shm/` (the
 fabric's shared segment), `datasource/` (COPY's and the external
 tables' user-named files), `servers/` apart from Flight, `flow/`,
 `script/` and `ingest.py` (no raw I/O: they reach storage through the
-engine). The cluster's points (heartbeat, metasrv.kv) come with A10.
+engine). The metadata KV's point (metasrv.kv) comes with the
+multi-process cluster (A10-proc).
 
 Flight's seams are held by name (`REQUIRED_SEAMS`): its RPCs cross the
 gRPC transport (`servers/grpc.py`, `servers/h2.py`), whose sockets
 carry no seam of their own, so the functions that must fire
 `flight.do_get` / `flight.do_put` (the client's `_rpc`, the server's
-`_region_scan` and `_region_write`) are named, and one that stops
-firing is a finding.
+`_region_scan`, `_region_frag` and `_region_write`) are named, and one
+that stops firing is a finding. So are the in-process cluster's three
+points, whose seams are control-plane calls with no raw I/O: a
+datanode's beat (`datanode.crash`), the heartbeat it sends
+(`heartbeat.send`) and the election's lease (`election.lease`).
 """
 
 from __future__ import annotations
@@ -57,7 +61,11 @@ IO_CALLS = frozenset({
 REQUIRED_SEAMS = {
     "greptimedb_tpu_torch/servers/flight.py": {
         "_rpc": None, "_region_scan": "flight.do_get",
-        "_region_write": "flight.do_put"},
+        "_region_frag": "flight.do_get", "_region_write": "flight.do_put"},
+    "greptimedb_tpu_torch/cluster/cluster.py": {"beat": "datanode.crash"},
+    "greptimedb_tpu_torch/meta/heartbeat.py": {"beat": "heartbeat.send"},
+    "greptimedb_tpu_torch/meta/election.py": {
+        "_lease_chaos": "election.lease"},
 }
 
 

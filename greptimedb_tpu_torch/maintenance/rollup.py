@@ -34,9 +34,10 @@ data keeps serving queries) and the next run overwrites the partial
 rows.
 
 The distributed substitution (a frontend probing datanodes for their
-companions' coverage) is the mesh and cluster slice's (ROADMAP A10):
-`probe_region_rollups`, the datanode half, is here; the frontend half
-refuses, naming that slice.
+companions' coverage) is the multi-process cluster slice's (ROADMAP
+A10-proc): `probe_region_rollups`, the datanode half, is here; the
+frontend half refuses, naming that slice. The in-process cluster's
+router offers no `rollup_probe`, so its aggregates never reach it.
 """
 
 from __future__ import annotations
@@ -935,10 +936,10 @@ def try_substitute(qe, sel, info, ctx, shape_note=None):
 def _try_substitute_distributed(qe, sel, info, ctx, shape_note=None):
     """Cluster-mode rollup substitution (a frontend probing each raw
     region's owner and re-planning over the companion regions) is the
-    mesh and cluster slice's."""
+    multi-process cluster slice's."""
     from greptimedb_tpu_torch.query.engine import UnsupportedStatement
 
     raise UnsupportedStatement(
         "distributed rollup substitution is not in this slice of "
-        "greptimedb_tpu_torch; the mesh and cluster (ROADMAP A10) slice "
-        "brings it")
+        "greptimedb_tpu_torch; the multi-process cluster (ROADMAP "
+        "A10-proc) slice brings it")

@@ -251,7 +251,7 @@ class QueryOptions:
     same knobs config.py reads from env)."""
 
     compute_dtype: str = ""  # "" = auto (f32 on the card, f64 on CPU)
-    mesh: str = "auto"       # off | auto | NxM (the mesh slice, A10)
+    mesh: str = "auto"       # off | auto | NxM (the mesh slice, A10-mesh)
     dense_groups_max: int = 1 << 20
     sparse_groups_max: int = 1 << 22
     # key products at/above this also take the sparse sort-compact
@@ -289,7 +289,8 @@ class ClusterOptions:
     (cluster/cluster.py): hedged region requests fire a backup fragment
     against a replica/retry route after an adaptive straggler delay,
     first result wins and the loser is cancelled. Env twins (children
-    inherit): GTPU_HEDGE, GTPU_HEDGE_DELAY_MS, GTPU_HEDGE_BUDGET_PCT."""
+    inherit): GTPU_HEDGE, GTPU_HEDGE_DELAY_MS; the port refuses the
+    section until A10-proc, and its hedge budget is a constant."""
 
     # master switch for hedged fragment reads (A/B knob: GTPU_HEDGE)
     hedge_enabled: bool = True
@@ -574,7 +575,12 @@ def apply_query_env(opts: "StandaloneOptions") -> None:
     otherwise dataclass defaults would invert the documented layering."""
     q = opts.query
     dq = QueryOptions()
+    pt, dpt = opts.partition, PartitionOptions()
     m = {
+        "GREPTIMEDB_TPU_DEFAULT_HASH_REGIONS":
+            (str(pt.default_hash_regions), str(dpt.default_hash_regions)),
+        "GREPTIMEDB_TPU_HASH_PARTITION_COLUMNS":
+            (pt.hash_columns, dpt.hash_columns),
         "GREPTIMEDB_TPU_COMPUTE_DTYPE":
             (q.compute_dtype, dq.compute_dtype),
         "GREPTIMEDB_TPU_DENSE_GROUPS_MAX":
@@ -799,7 +805,8 @@ def engine_config(opts: "StandaloneOptions", data_dir: str):
 
 # ---- what the port runs ----------------------------------------------------
 
-_A10 = "mesh and cluster (ROADMAP A10)"
+_A10_PROC = "multi-process cluster (ROADMAP A10-proc)"
+_A10_MESH = "mesh (ROADMAP A10-mesh)"
 _A11 = "tier routing (ROADMAP A11)"
 
 #: option path (a section, or one key) -> (the slice that brings it,
@@ -807,12 +814,11 @@ _A11 = "tier routing (ROADMAP A11)"
 #: does). The longest matching path wins; a key with no entry is run by
 #: the port or listed in _NOTHING_TO_ACT_ON.
 _UNPORTED = {
-    "query.mesh": (_A10, ()),
+    "query.mesh": (_A10_MESH, ()),
     "query.tier_admission": (_A11, ()),
     "query.tier_adaptive": (_A11, ()),
-    "cluster": (_A10, ()),
-    "parallel": (_A10, ()),
-    "partition": (_A10, ()),
+    "cluster": (_A10_PROC, ()),
+    "parallel": (_A10_MESH, ()),
 }
 
 #: keys with no counterpart in the port: accepted at any value, and

@@ -15,8 +15,15 @@ under different tag dictionaries (other regions, or one region's parts
 flushed at different times) combine by value: additive planes add,
 min/max fold, first/last resolve by their companion timestamps. The
 incremental fold (query/partial_cache.py) combines its per-part
-partials here. The fragment and top-k functions of the JAX module wait
-for the cluster slice of the port.
+partials here.
+
+The fragment crosses the wire as JSON (query/plan_ser.py's PlanFragment)
+in the Flight `region_frag` ticket; `execute_region_fragment` is the
+region-side interpreter: the partial aggregate (with the lastpoint
+pruning hint), the top-k candidates, or the filtered rows, by terminal
+stage. `merge_topk` gathers the candidates for the frontend's Final
+sort. The vmapped and window fragments are the multi-process cluster
+slice's (ROADMAP A10-proc).
 
 Where the JAX prologue decodes every tag column of the scan and
 factorizes the group keys by their decoded strings, the port decodes
@@ -45,8 +52,113 @@ from greptimedb_tpu_torch.query.expr import (
     reset_session_tz,
     set_session_tz,
 )
+from greptimedb_tpu_torch.query.plan_ser import PlanFragment
 from greptimedb_tpu_torch.sql import ast
 from greptimedb_tpu_torch.storage.index import extract_tag_predicates
+
+_A10_PROC = "multi-process cluster (ROADMAP A10-proc)"
+
+#: marker for a cached empty region contribution (None itself means a
+#: cache miss to the cache API)
+_FRAG_NONE = {"__frag_none__": True}
+
+
+class FragmentRefused(Exception):
+    """A fragment stage this slice does not execute (the vmapped and
+    window fragments of the multi-process cluster slice)."""
+
+
+def execute_region_fragment(executor, region_id: int, frag: PlanFragment,
+                            schema=None) -> Optional[dict]:
+    """Interpret a PlanFragment over one region's rows. Returns
+    {"keys": ..., "planes": ...} for a partial_agg terminal, or
+    {"cols": {...}} of candidate or filtered rows otherwise; None when
+    the region contributes nothing.
+
+    A partial_agg terminal memoizes its planes in the partial-aggregate
+    cache, keyed by the region's (incarnation, data_version) and the
+    fragment's JSON: a repeated dashboard fragment over an unchanged
+    region answers from the cached planes without a scan or a kernel
+    launch. A write bumps data_version; TRUNCATE makes a new incarnation;
+    a compaction bumps the version and drops the region's entries."""
+    from greptimedb_tpu_torch.query import partial_cache as pc
+
+    if frag.stage("partial_agg") is not None \
+            and frag.stage("vmapped_agg") is None and pc.enabled():
+        reg = executor.engine.region(region_id)
+        version = getattr(reg, "data_version", None)
+        if version is not None:
+            cache = pc.global_cache()
+            key = ("frag", region_id, getattr(reg, "incarnation", 0),
+                   version, frag.to_json())
+            hit = cache.get(key)
+            if hit is not None:
+                return None if hit.get("__frag_none__") else hit
+            epoch = cache.epoch(region_id)
+            out = _execute_region_fragment_uncached(
+                executor, region_id, frag, schema)
+            cache.put(key, _FRAG_NONE if out is None else out,
+                      epoch=epoch)
+            return out
+    return _execute_region_fragment_uncached(executor, region_id, frag,
+                                             schema)
+
+
+def _execute_region_fragment_uncached(executor, region_id: int,
+                                      frag: PlanFragment,
+                                      schema=None) -> Optional[dict]:
+    filt = frag.stage("filter")
+    where = filt["expr"] if filt else None
+    agg = frag.stage("partial_agg")
+    common = dict(where=where, ts_range=frag.ts_range,
+                  append_mode=frag.append_mode, tz=frag.tz)
+    for op in ("vmapped_agg", "window"):
+        if frag.stage(op) is not None:
+            raise FragmentRefused(
+                f"the {op} fragment is not in this slice of "
+                f"greptimedb_tpu_torch; the {_A10_PROC} slice brings it")
+    if agg is not None:
+        shim = SimpleNamespace(keys=agg["keys"], args=agg["args"],
+                               ops=agg["ops"], **common)
+        lastp = frag.stage("lastpoint")
+        prescan = None
+        if lastp is not None and where is None and frag.ts_range is None:
+            prescan = _lastpoint_prescan(executor, region_id,
+                                         lastp["tag"], shim, schema)
+        return partial_region_agg(executor, region_id, shim, schema,
+                                  prescan=prescan)
+    sort = frag.stage("sort")
+    limit = frag.stage("limit")
+    prune = frag.stage("prune")
+    columns = list(prune["columns"]) if prune else None
+    if sort is not None and limit is not None:
+        shim = SimpleNamespace(sort_keys=sort["keys"], k=limit["k"],
+                               columns=columns, **common)
+        return partial_region_topk(executor, region_id, shim, schema)
+    return partial_region_rows(executor, region_id, columns,
+                               limit["k"] if limit else None,
+                               schema=schema, **common)
+
+
+def _lastpoint_prescan(executor, region_id: int, tag: str, shim,
+                       schema=None):
+    """Newest-first pruned scan for a lastpoint-class partial_agg
+    fragment (Region.scan_last): the partial planes then reduce the
+    candidate rows instead of the whole region. None (a full-scan
+    partial) when the engine cannot serve it exactly (tombstones, no
+    data): scan_last itself answers None there, and the fragment still
+    returns partial planes either way."""
+    eng = executor.engine
+    if not hasattr(eng, "scan_last"):
+        return None
+    schema = schema or eng.region(region_id).schema
+    needed: set[str] = {schema.time_index.name}
+    for _, kexpr in shim.keys:
+        collect_columns(kexpr, needed)
+    for a in shim.args:
+        collect_columns(a, needed)
+    proj = [c for c in schema.names if c in needed]
+    return eng.scan_last(region_id, tag, proj)
 
 
 def _factorize_with_null(vals: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -106,7 +218,7 @@ def _region_host_columns(executor, region_id: int, where, ts_range,
                          needed: set, append_mode: bool,
                          schema=None, tz=None, seq_min=None,
                          stats_out=None, coded=frozenset(),
-                         tag_dicts_out=None) -> Optional[dict]:
+                         tag_dicts_out=None, prescan=None) -> Optional[dict]:
     """Shared Partial-step prologue: scan (projected + index-pruned),
     LWW-dedup/filter, decode tags, apply the exact ts bounds. Returns the
     filtered host columns of `needed`, or None for an empty result. `tz`
@@ -117,13 +229,14 @@ def _region_host_columns(executor, region_id: int, where, ts_range,
     RAW scan, pre-filter, so the caller's boundary advances past rows
     WHERE rejects and never rescans them, and the scan's "scan_stats".
     Tags in `coded` stay int32 codes, their dictionaries in
-    `tag_dicts_out`."""
+    `tag_dicts_out`. `prescan` (a lastpoint-pruned scan) stands in for
+    the region scan."""
     tz_token = set_session_tz(tz)
     try:
         return _region_host_columns_inner(
             executor, region_id, where, ts_range, needed, append_mode,
             schema, seq_min=seq_min, stats_out=stats_out, coded=coded,
-            tag_dicts_out=tag_dicts_out)
+            tag_dicts_out=tag_dicts_out, prescan=prescan)
     finally:
         reset_session_tz(tz_token)
 
@@ -131,7 +244,7 @@ def _region_host_columns(executor, region_id: int, where, ts_range,
 def _region_host_columns_inner(executor, region_id, where, ts_range, needed,
                                append_mode, schema, seq_min=None,
                                stats_out=None, coded=frozenset(),
-                               tag_dicts_out=None):
+                               tag_dicts_out=None, prescan=None):
     # the schema first, so projection and index pruning match what the
     # frontend's gather path gets
     probe = executor.engine.region(region_id)
@@ -139,7 +252,12 @@ def _region_host_columns_inner(executor, region_id, where, ts_range, needed,
     ts_name = schema.time_index.name
     proj = [c for c in schema.names if c in needed]
     tag_preds = extract_tag_predicates(where, schema) or None
-    if seq_min is not None:
+    if prescan is not None:
+        # the lastpoint-pruned candidate rows stand in for the region
+        # scan (same dedup and filter below: scan_last keeps every
+        # last-write-wins winner)
+        scan = prescan
+    elif seq_min is not None:
         scan = executor.engine.scan(region_id, ts_range, proj, tag_preds,
                                     seq_min=seq_min)
     else:
@@ -198,7 +316,7 @@ def _region_host_columns_inner(executor, region_id, where, ts_range, needed,
 
 def partial_region_agg(executor, region_id: int, frag,
                        schema=None, seq_min=None,
-                       stats_out=None) -> Optional[dict]:
+                       stats_out=None, prescan=None) -> Optional[dict]:
     """One region's partial aggregate: {"keys": [np.ndarray per key],
     "planes": {op: [G, F] np.ndarray}} with G the groups observed in the
     region, or None for an empty scan. The reduction is one K2 call
@@ -234,7 +352,7 @@ def partial_region_agg(executor, region_id: int, frag,
                                 needed, frag.append_mode, schema,
                                 tz=frag.tz, seq_min=seq_min,
                                 stats_out=stats_out, coded=coded,
-                                tag_dicts_out=tag_dicts)
+                                tag_dicts_out=tag_dicts, prescan=prescan)
     t1 = time.perf_counter()
     if stats_out is not None:
         stats_out["scan_s"] = t1 - t0
@@ -426,3 +544,90 @@ def combine_partials(partials: list, n_keys: int, ops: tuple) -> Optional[dict]:
 
 
 # ---- sort/limit (top-k) pushdown -------------------------------------------
+
+
+# ---- rows and sort/limit (top-k) pushdown -----------------------------------
+
+
+def partial_region_rows(executor, region_id: int, columns, k,
+                        *, where, ts_range, append_mode, tz,
+                        schema=None) -> Optional[dict]:
+    """Filter/prune(/limit) pushdown for plain scans: only the rows that
+    survive WHERE, projected to the referenced columns, cross the wire
+    (filter and projection are Commutative in the reference's
+    classification, commutativity.rs:27-52)."""
+    schema = schema or executor.engine.region(region_id).schema
+    ts_name = schema.time_index.name
+    ts_range = tuple(ts_range) if ts_range else None
+    needed: set[str] = {ts_name}
+    collect_columns(where, needed)
+    if columns is None:
+        needed.update(schema.names)
+    else:
+        needed.update(columns)
+    host = _region_host_columns(executor, region_id, where, ts_range,
+                                needed, append_mode, schema, tz=tz)
+    if host is None:
+        return None
+    if columns is not None:
+        # the filter ran here: filter-only columns would be dead weight
+        host = {name: arr for name, arr in host.items()
+                if name in columns}
+    if k is not None and host:
+        n = len(next(iter(host.values())))
+        if n > k:
+            host = {name: arr[:k] for name, arr in host.items()}
+    return {"cols": host}
+
+
+def sort_order_for(sort_keys: list, host: dict, schema, n: int) -> np.ndarray:
+    """Row order for [(expr, asc)] sort keys over host columns, through
+    order-preserving factorized codes (every dtype sorts asc or desc)."""
+    code_arrays = []
+    for kexpr, asc in sort_keys:
+        vals = np.asarray(eval_host(kexpr, host, schema))
+        if vals.ndim == 0:
+            vals = np.broadcast_to(vals, (n,))
+        _, codes = _factorize_with_null(vals)
+        code_arrays.append(codes if asc else -codes)
+    # lexsort: the primary key last
+    return np.lexsort(tuple(reversed(code_arrays)))
+
+
+def partial_region_topk(executor, region_id: int, frag,
+                        schema=None) -> Optional[dict]:
+    """One region's top-k candidates for a sort+limit scan: filter, sort
+    locally, keep k rows (Limit is PartialCommutative over MergeScan)."""
+    schema = schema or executor.engine.region(region_id).schema
+    ts_name = schema.time_index.name
+    ts_range = tuple(frag.ts_range) if frag.ts_range else None
+    # the whole primary key rides with the candidates, as the JAX
+    # region's scan gives it
+    needed: set[str] = {ts_name} | {c.name for c in schema.tag_columns}
+    collect_columns(frag.where, needed)
+    for kexpr, _ in frag.sort_keys:
+        collect_columns(kexpr, needed)
+    if frag.columns is None:
+        needed.update(schema.names)
+    else:
+        needed.update(frag.columns)
+    host = _region_host_columns(executor, region_id, frag.where, ts_range,
+                                needed, frag.append_mode, schema,
+                                tz=frag.tz)
+    if host is None:
+        return None
+    n = len(host[ts_name])
+    order = sort_order_for(frag.sort_keys, host, schema, n)[:frag.k]
+    return {"cols": {name: arr[order] for name, arr in host.items()}}
+
+
+def merge_topk(partials: list) -> Optional[dict]:
+    """Concatenate the regions' candidate rows (the final sort and limit
+    run in the frontend's post-processing)."""
+    partials = [p for p in partials if p is not None]
+    if not partials:
+        return None
+    names = list(partials[0]["cols"])
+    return {"cols": {name: _concat_union([p["cols"][name]
+                                          for p in partials])
+                     for name in names}}

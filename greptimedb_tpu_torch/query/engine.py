@@ -123,7 +123,6 @@ from greptimedb_tpu_torch.utils.metrics import (
     STMT_DURATION,
 )
 
-_CLUSTER = "mesh and cluster (ROADMAP A10)"
 
 class UnsupportedStatement(PlanError):
     """A statement the JAX engine runs that this slice of the port does
@@ -162,10 +161,15 @@ class QueryEngine:
         self._stmt_cache_lock = threading.Lock()
         # the write protocols' auto-create of a new table (ingest.py)
         self._auto_create_lock = threading.Lock()
+        # regions this frontend opened through a router (the cluster's
+        # RegionRouter has no local region map to consult)
+        self._open_regions: set[int] = set()
         # eager: both engines register openers, so their tables reopen
-        # after a restart
-        self.metric_engine = MetricEngine(region_engine, catalog.kv)
-        self.file_engine = FileEngine(region_engine, catalog.kv)
+        # after a restart; a cluster frontend's router has none
+        self.metric_engine = self.file_engine = None
+        if hasattr(region_engine, "register_opener"):
+            self.metric_engine = MetricEngine(region_engine, catalog.kv)
+            self.file_engine = FileEngine(region_engine, catalog.kv)
 
     # ---- entry points ------------------------------------------------------
 
@@ -622,10 +626,16 @@ class QueryEngine:
 
     def _ensure_open(self, info: TableInfo) -> None:
         """Open the table's regions from disk on first use (a catalog
-        that outlived the storage engine's process)."""
+        that outlived the storage engine's process), each region once:
+        the engine, or through a cluster's router the region's datanode,
+        keeps it open."""
         for rid in info.region_ids:
-            if rid not in self.region_engine.regions:
-                self.region_engine.open_region(rid)
+            if rid not in self._open_regions:
+                try:
+                    self.region_engine.region(rid)
+                except KeyError:
+                    self.region_engine.open_region(rid)
+                self._open_regions.add(rid)
 
     # ---- views -------------------------------------------------------------
 
@@ -1261,8 +1271,21 @@ class QueryEngine:
         gtpu_plan_cache_events_total)."""
         self.concurrency.invalidate_table(db, name)
 
-    def _create_table(self, stmt: ast.CreateTable,
-                      ctx: QueryContext) -> QueryResult:
+    def _create_table_partitioned(self, stmt: ast.CreateTable,
+                                  ctx: QueryContext, rule) -> QueryResult:
+        """CREATE TABLE split into one region per partition of `rule`
+        (reference PARTITION ON COLUMNS, partition/src/multi_dim.rs)."""
+        return self._create_table(stmt, ctx, rule=rule)
+
+    def _create_table(self, stmt: ast.CreateTable, ctx: QueryContext,
+                      rule=None) -> QueryResult:
+        if rule is None and stmt.partitions:
+            from greptimedb_tpu_torch.partition.rule import (
+                rule_from_partition_ast,
+            )
+
+            rule = rule_from_partition_ast(stmt.partitions[0],
+                                           stmt.partitions[1])
         db, name = ctx.db, stmt.name
         if "." in name:
             db, name = name.rsplit(".", 1)
@@ -1299,23 +1322,63 @@ class QueryEngine:
             raise PlanError("CREATE TABLE requires a column list")
         if stmt.engine == "metric":
             return self._create_metric_table(db, name, schema, stmt)
-        if stmt.partitions:
-            raise UnsupportedStatement(
-                "partitioned tables (PARTITION ON) are not in this slice of "
-                f"greptimedb_tpu_torch; the {_CLUSTER} slice brings them")
+        if rule is None and not stmt.partitions:
+            rule = self._default_hash_rule(schema)
+        num_regions = rule.num_regions() if rule is not None else 1
+        rules_json = json.loads(rule.to_json()) if rule is not None \
+            else None
+        ddl = getattr(self.region_engine, "ddl_manager", None)
+        if ddl is not None:
+            # cluster mode: DDL is a journaled procedure across datanodes
+            # (DdlManager, common/meta/src/ddl_manager.rs)
+            from greptimedb_tpu_torch.meta.ddl import DdlError
+
+            try:
+                info = ddl.create_table(
+                    db, name, schema, options=dict(stmt.options),
+                    if_not_exists=stmt.if_not_exists,
+                    num_regions=num_regions, partition_rules=rules_json,
+                    column_order=[c.name for c in stmt.columns])
+            except DdlError as e:
+                raise PlanError(str(e)) from None
+            self._open_regions.update(info.region_ids)
+            return QueryResult.of_affected(0)
         existed = self.catalog.table_exists(db, name)
         info = self.catalog.create_table(
             db, name, schema, options=dict(stmt.options),
-            if_not_exists=stmt.if_not_exists,
+            if_not_exists=stmt.if_not_exists, num_regions=num_regions,
+            partition_rules=rules_json,
             column_order=[c.name for c in stmt.columns])
         if not existed:
             for rid in info.region_ids:
                 self.region_engine.create_region(rid, schema)
+                self._open_regions.add(rid)
         return QueryResult.of_affected(0)
+
+    def _default_hash_rule(self, schema):
+        """[partition] default_hash_regions: cluster DDL without an
+        explicit PARTITION clause spreads the new table over N hash
+        partitions on the leading tag (or [partition] hash_columns), so
+        ingest scatters and scans fan out without per-table ceremony.
+        A standalone engine (no placement selector) keeps one region."""
+        n = config.default_hash_partitions()
+        if n <= 1 or not hasattr(self.region_engine, "select_node"):
+            return None
+        tag_names = [c.name for c in schema.tag_columns]
+        cols = config.hash_partition_columns()
+        cols = [c for c in cols if c in tag_names] if cols \
+            else tag_names[:1]
+        if not cols:
+            return None
+        from greptimedb_tpu_torch.partition.rule import HashPartitionRule
+
+        return HashPartitionRule(cols, n)
 
     def _create_file_table(self, db, name, schema, stmt) -> QueryResult:
         """CREATE EXTERNAL TABLE: an external file as a read-only table
         (reference file-engine, src/file-engine/src/engine.rs)."""
+        if self.file_engine is None:
+            raise PlanError("file engine not configured")
         location = stmt.options.get("location")
         if not location:
             raise PlanError(
@@ -1332,12 +1395,15 @@ class QueryEngine:
             if_not_exists=True,
             column_order=[c.name for c in stmt.columns] or None,
             region_ids=[rid])
+        self._open_regions.add(rid)
         return QueryResult.of_affected(0)
 
     def _create_metric_table(self, db, name, schema: Schema,
                              stmt) -> QueryResult:
         """CREATE TABLE ... ENGINE=metric: a logical table multiplexed onto
         the shared physical region (reference metric-engine, SURVEY §2.3)."""
+        if self.metric_engine is None:
+            raise PlanError("metric engine not configured")
         fields = schema.field_columns
         if len(fields) != 1:
             raise PlanError(
@@ -1357,6 +1423,7 @@ class QueryEngine:
             column_order=[c.name for c in stmt.columns] or None,
             region_ids=[meta.logical_region],
         )
+        self._open_regions.add(meta.logical_region)
         return QueryResult.of_affected(0)
 
     def _drop_table(self, stmt: ast.DropTable,
@@ -1365,12 +1432,28 @@ class QueryEngine:
         if "." in name:
             db, name = name.rsplit(".", 1)
         self._invalidate_plans(db, name)
+        ddl = getattr(self.region_engine, "ddl_manager", None)
+        if ddl is not None:
+            # cluster mode: a journaled procedure drops the catalog entry,
+            # then every region and its route
+            from greptimedb_tpu_torch.meta.ddl import DdlError
+
+            dropped = []
+            if self.catalog.table_exists(db, name):
+                dropped = list(self.catalog.table(db, name).region_ids)
+            try:
+                ddl.drop_table(db, name, if_exists=stmt.if_exists)
+            except DdlError as e:
+                raise PlanError(str(e)) from None
+            self._open_regions.difference_update(dropped)
+            return QueryResult.of_affected(0)
         if self.catalog.table_exists(db, name):
             # open first: the drop deletes the region's files on disk
             self._ensure_open(self.catalog.table(db, name))
         info = self.catalog.drop_table(db, name, stmt.if_exists)
         if info is None:
             return QueryResult.of_affected(0)
+        self._open_regions.difference_update(info.region_ids)
         if info.options.get("engine") == "metric":
             # the rows stay in the shared physical region, as in JAX
             self.metric_engine.drop_logical_table(db, name)
@@ -1447,7 +1530,20 @@ class QueryEngine:
     def _apply_alter(self, info: TableInfo,
                      new_schema: Schema) -> QueryResult:
         """Swap the table's schema in its regions and the catalog (the
-        ALTER statements and the write protocols' auto-alter)."""
+        ALTER statements and the write protocols' auto-alter); in cluster
+        mode a journaled AlterTableProcedure does it."""
+        ddl = getattr(self.region_engine, "ddl_manager", None)
+        if ddl is not None:
+            from greptimedb_tpu_torch.meta.ddl import DdlError
+
+            try:
+                ddl.alter_table(info.db, info.name, new_schema,
+                                info.region_ids,
+                                column_order=info.column_order,
+                                old_schema=info.schema)
+            except DdlError as e:
+                raise PlanError(str(e)) from None
+            return QueryResult.of_affected(0)
         for rid in info.region_ids:
             self.region_engine.alter_region_schema(rid, new_schema)
         info.schema = new_schema
@@ -1583,8 +1679,8 @@ class QueryEngine:
                 cols[c.name] = DictVector.encode([None] * n)
             else:
                 cols[c.name] = np.zeros(n, dtype=c.dtype.to_numpy())
-        return QueryResult.of_affected(self.region_engine.delete(
-            info.region_ids[0], RecordBatch(schema, cols)))
+        return QueryResult.of_affected(self._sharded_write(
+            info, RecordBatch(schema, cols), delete=True))
 
     def _copy_table(self, stmt: ast.CopyTable,
                     ctx: QueryContext) -> QueryResult:
@@ -1641,17 +1737,35 @@ class QueryEngine:
 
     def _sharded_write(self, info: TableInfo, batch: RecordBatch,
                        delete: bool) -> int:
-        """The write protocols' bulk write (the JAX engine's partition-rule
-        scatter): one region is written; a table of several regions is
-        the mesh and cluster slice's."""
-        if len(info.region_ids) != 1:
-            raise UnsupportedStatement(
-                f"writes to a table of {len(info.region_ids)} regions are "
-                f"not in this slice of greptimedb_tpu_torch; the "
-                f"{_CLUSTER} slice brings them")
+        """Row-to-region scatter through the table's partition rule
+        (reference operator/src/insert.rs:114-118 and
+        partition/src/splitter.rs): every write of SQL, the write
+        protocols, COPY FROM and the flow sinks lands here."""
         write = self.region_engine.delete if delete \
             else self.region_engine.put
-        return write(info.region_ids[0], batch)
+        if len(info.region_ids) == 1 or not info.partition_rules:
+            return write(info.region_ids[0], batch)
+        rule = _cached_rule(info)
+        cols = []
+        for cname in rule.columns:
+            col = batch.columns[cname]
+            cols.append(col.decode() if hasattr(col, "decode")
+                        else np.asarray(col))
+        n = 0
+        for region_idx, rows in rule.split(cols,
+                                           n_rows=batch.num_rows).items():
+            part = batch.take(rows)
+            # each slice's tag dictionaries shrink to the values its rows
+            # use: take() keeps the whole batch's dictionary, and every
+            # region's tag registry would otherwise learn every other
+            # region's series (lastpoint's newest-first stop then waits
+            # for series that never come)
+            part = RecordBatch(part.schema, {
+                name: (col.compact() if isinstance(col, DictVector)
+                       else col)
+                for name, col in part.columns.items()})
+            n += write(info.region_ids[region_idx], part)
+        return n
 
     # ---- INSERT ------------------------------------------------------------
 
@@ -1684,7 +1798,7 @@ class QueryEngine:
                     by_col[n].append(None if _is_nan_scalar(v) else v)
         batch = values_batch(schema, by_col, nrows)
         return QueryResult.of_affected(
-            self.region_engine.put(info.region_ids[0], batch))
+            self._sharded_write(info, batch, delete=False))
 
     def _insert_select(self, stmt: ast.Insert, info: TableInfo,
                        ctx: QueryContext) -> QueryResult:
@@ -1740,8 +1854,8 @@ class QueryEngine:
                 cols[c.name] = np.asarray(
                     [0 if v is None else int(v) for v in vals],
                     dtype=c.dtype.to_numpy())
-        return QueryResult.of_affected(self.region_engine.put(
-            info.region_ids[0], RecordBatch(schema, cols)))
+        return QueryResult.of_affected(self._sharded_write(
+            info, RecordBatch(schema, cols), delete=False))
 
 
 def _arrow_values(dt: DataType, col: np.ndarray) -> list:
@@ -1936,3 +2050,20 @@ def _has_subquery(sel: ast.Select) -> bool:
         return True
     return any(j.on is not None and _expr_has_subquery(j.on)
                for j in sel.joins)
+
+
+def _cached_rule(info: TableInfo):
+    """The table's partition rule, parsed once and memoized on the
+    TableInfo (the catalog stores its JSON form)."""
+    from greptimedb_tpu_torch.partition.rule import (
+        PartitionRule,
+        rule_from_json,
+    )
+
+    rule = info.__dict__.get("_rule_cache")
+    if rule is None:
+        rule = info.partition_rules \
+            if isinstance(info.partition_rules, PartitionRule) \
+            else rule_from_json(info.partition_rules)
+        info.__dict__["_rule_cache"] = rule
+    return rule

@@ -157,8 +157,10 @@ class PartialAggCache:
             return  # an entry that can never fit must not wipe the cache
         evictions = 0
         with self._lock:
-            region = key[1]  # ("part", region_id, file_id, ...)
-            if (region, key[2]) in self._dead_files:
+            # ("part", region_id, file_id, ...) or ("frag", region_id,
+            # incarnation, data_version, fragment JSON)
+            region = key[1]
+            if key[0] == "part" and (region, key[2]) in self._dead_files:
                 # the file died while this partial was computing: the
                 # caller's scan pinned it (its result is fine), but the
                 # dead key must never become resident
@@ -194,7 +196,9 @@ class PartialAggCache:
 
     def invalidate_files(self, region_id: int, file_ids) -> None:
         """Drop the part entries of dead SSTs (compaction swap) and
-        refuse later puts for them."""
+        refuse later puts for them, and every fragment plane of the
+        region (its data version already keys them out: this keeps
+        ghosts from holding the budget)."""
         gone = set(file_ids)
         with self._lock:
             for fid in gone:
@@ -203,7 +207,8 @@ class PartialAggCache:
             while len(self._dead_files) > self._DEAD_FILES_CAP:
                 self._dead_files.popitem(last=False)
             n = self._drop_locked(
-                lambda k: k[1] == region_id and k[2] in gone)
+                lambda k: k[1] == region_id
+                and (k[0] == "frag" or k[2] in gone))
             self.events["invalidate"] += n
 
     def invalidate_region(self, region_id: int) -> None:
@@ -218,8 +223,8 @@ class PartialAggCache:
     def part_keys(self, region_id: Optional[int] = None) -> list:
         """Resident part-anchored keys (diagnostics + tests)."""
         with self._lock:
-            return [k for k in self._lru
-                    if region_id is None or k[1] == region_id]
+            return [k for k in self._lru if k[0] == "part"
+                    and (region_id is None or k[1] == region_id)]
 
     def clear(self) -> None:
         with self._lock:

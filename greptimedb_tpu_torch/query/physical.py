@@ -41,18 +41,29 @@ Tensors stay on the executor's device; only the result planes come back.
 A kernel that fails raises: no route catches it and serves another.
 
 Parameter-sibling batches from the serving batcher take `dense_vmapped`
-/ `sparse_vmapped` (query/vmapped.py), one K2 launch a batch. Left out
-(the JAX package's paths, each listed in ROADMAP.md): mesh and cluster
-fan-out, fragment pushdown, and tier routing and its first-touch compile
-hedges.
+/ `sparse_vmapped` (query/vmapped.py), one K2 launch a batch.
+
+A partitioned table (several regions) takes the fragment pushdown when
+its engine ships fragments (the cluster's router): `classify_prefix`
+(query/dist_plan.py) picks the plan prefix that commutes, one
+PlanFragment a region fans out, and the Final step combines partial
+planes ("pushdown", "lastfrag+pushdown" with the lastpoint hint),
+re-sorts top-k candidates ("topk_pushdown") or takes the filtered rows
+as its relation ("rows_pushdown", "rows_agg+..."). Otherwise, and on a
+standalone engine, the regions' scans gather into one (MergeScan,
+storage/merge_scan.py) and take the single-region routes. Left out (the
+JAX package's paths, each listed in ROADMAP.md): the mesh fan-out
+(A10-mesh), and tier routing and its first-touch compile hedges (A11).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
@@ -80,7 +91,11 @@ from greptimedb_tpu_torch.ops.segment import (
 from greptimedb_tpu_torch.query import logical as lp
 from greptimedb_tpu_torch.query import partial_cache as pc
 from greptimedb_tpu_torch.query.device_cache import DeviceCache
-from greptimedb_tpu_torch.query.dist_agg import combine_partials
+from greptimedb_tpu_torch.query.dist_agg import (
+    combine_partials,
+    merge_topk,
+)
+from greptimedb_tpu_torch.query.dist_plan import classify_prefix
 from greptimedb_tpu_torch.query.expr import (
     BindContext,
     PlanError,
@@ -92,6 +107,7 @@ from greptimedb_tpu_torch.query.expr import (
 from greptimedb_tpu_torch.query.host_agg import HOST_AGGS
 from greptimedb_tpu_torch.query.result import QueryResult
 from greptimedb_tpu_torch.sql import ast
+from greptimedb_tpu_torch.storage.merge_scan import merge_scans
 from greptimedb_tpu_torch.storage.region import OP_PUT, ScanData
 from greptimedb_tpu_torch.utils import deadline as dl
 from greptimedb_tpu_torch.utils import device_telemetry, tracing
@@ -982,9 +998,6 @@ class PhysicalExecutor:
         scan_node = node
 
         table = scan_node.table
-        if len(table.region_ids) != 1:
-            raise PlanError("multi-region tables are not in this slice of "
-                            "the port (the cluster slice brings them)")
         ts_range = _closed_range(scan_node.ts_range)
         # conjunctive tag =/IN predicates become the region's exact
         # in-set row filter
@@ -998,7 +1011,8 @@ class PhysicalExecutor:
             # walks SSTs newest-first and stops early. None (tombstones,
             # no data) takes the normal routes, as in the JAX package
             lp_tag = self._lastpoint_tag(table, where, agg, ts_range)
-            if lp_tag is not None:
+            if (lp_tag is not None and len(table.region_ids) == 1
+                    and hasattr(self.engine, "scan_last")):
                 with tracing.span("scan", table=table.name, regions=1,
                                   lastpoint=True):
                     pruned = self.engine.scan_last(table.region_ids[0],
@@ -1010,7 +1024,19 @@ class PhysicalExecutor:
                                                 limit, offset, scan_node)
                     self.last_path = "lastscan+" + (self.last_path or "")
                     return res
-            if agg is not None and table.append_mode:
+            # distributed plan-fragment pushdown: classify the plan prefix
+            # (dist_plan.classify_prefix) and ship it as one PlanFragment a
+            # region; partial planes, top-k candidates or filtered rows
+            # come back, never raw scans
+            if (len(table.region_ids) > 1
+                    and hasattr(self.engine, "execute_fragment")):
+                res = self._try_fragment_pushdown(
+                    table, where, agg, having, project, sort, limit, offset,
+                    ts_range, scan_node)
+                if res is not None:
+                    return res
+            if (agg is not None and table.append_mode
+                    and len(table.region_ids) == 1):
                 res = self._try_stream_agg(table, ts_range, where, agg,
                                            having, project, sort, limit,
                                            offset, scan_node, tag_preds)
@@ -1018,8 +1044,16 @@ class PhysicalExecutor:
                     return res
             with tracing.span("scan", table=table.name,
                               regions=len(table.region_ids)) as scan_attrs:
-                scan = self.engine.scan(table.region_ids[0], ts_range,
-                                        scan_node.columns, tag_preds)
+                if len(table.region_ids) == 1:
+                    scan = self.engine.scan(table.region_ids[0], ts_range,
+                                            scan_node.columns, tag_preds)
+                else:
+                    # a partitioned table whose prefix does not push:
+                    # gather every region's scan (MergeScan)
+                    scan = merge_scans([
+                        self.engine.scan(rid, ts_range, scan_node.columns,
+                                         tag_preds)
+                        for rid in table.region_ids])
                 # rows land on the span (and, through it, the resource
                 # ledger's rows_scanned)
                 scan_attrs["rows"] = 0 if scan is None else scan.num_rows
@@ -1355,6 +1389,8 @@ class PhysicalExecutor:
             return None
         unit = ts_col.dtype.time_unit.nanos_per_unit
         step = max(kexpr.args[0].nanos // unit, 1)
+        if not hasattr(self.engine, "ts_extent"):
+            return None  # an engine without metadata extents (the router)
         k = int(limit) + int(offset or 0)
         exts = [self.engine.ts_extent(rid) for rid in table.region_ids]
         exts = [e for e in exts if e is not None]
@@ -1387,6 +1423,103 @@ class PhysicalExecutor:
         if ranges[-1] != full:
             ranges.append(full)
         return ranges if len(ranges) > 1 else None
+
+    def _try_fragment_pushdown(self, table, where, agg, having, project,
+                               sort, limit, offset, ts_range,
+                               scan_node) -> Optional[QueryResult]:
+        """Classify the plan prefix, fan one PlanFragment out to each
+        region's owner, and run the Final step over what returns:
+        combine partial planes ("agg"), merge and re-sort candidates
+        ("topk"), or treat the filtered-row union as the relation
+        ("rows", "rows_agg"). None when nothing pushes
+        (`classify_prefix` says so): the caller takes the MergeScan
+        gather."""
+        from greptimedb_tpu_torch.utils.metrics import FRAGMENT_PUSHDOWNS
+
+        out = classify_prefix(table, where, agg, project, sort, limit,
+                              offset, ts_range, scan_node,
+                              _needs_host_agg, _infer_dtype, _PRIMITIVES)
+        if out is None:
+            return None
+        frag, mode = out
+        lp_tag = None
+        if mode == "agg":
+            # lastpoint pruning hint: an all-`last` single-tag aggregate
+            # lets each region owner serve its partial from the newest-
+            # first pruned scan (Region.scan_last) instead of decoding
+            # the whole region
+            lp_tag = self._lastpoint_tag(table, where, agg, ts_range)
+            if lp_tag is not None:
+                frag.stages.insert(0, {"op": "lastpoint", "tag": lp_tag})
+        FRAGMENT_PUSHDOWNS.inc(mode="lastpoint" if lp_tag else mode)
+        rids = list(table.region_ids)
+        with tracing.span("fragment_pushdown", mode=mode,
+                          regions=len(rids)):
+            # independent region calls fan out, so the wall clock is the
+            # slowest region's; the statement's token and trace ride into
+            # every worker, and the pool is joined before the Final step
+            one = dl.propagate(tracing.propagate(
+                lambda rid: self.engine.execute_fragment(rid, frag)))
+            with ThreadPoolExecutor(max_workers=min(8, len(rids)),
+                                    thread_name_prefix="gtpu-frag") as pool:
+                partials = list(pool.map(one, rids))
+
+        if mode == "agg":
+            agg_stage = frag.stage("partial_agg")
+            spec_slot: list[Optional[int]] = [
+                None if spec.arg is None
+                else agg_stage["args"].index(spec.arg)
+                for spec in agg.aggs]
+            combined = combine_partials(partials, len(agg.keys),
+                                        tuple(agg_stage["ops"]))
+            self.last_path = "lastfrag+pushdown" if lp_tag else "pushdown"
+            return self._finalize_combined_agg(
+                combined, table, agg, having, project, sort, limit,
+                offset, spec_slot)
+
+        merged = merge_topk(partials)
+        if mode == "rows_agg":
+            # a non-decomposable aggregate over the filtered-row union:
+            # the regions shipped exactly the needed columns, deduped and
+            # filtered; the normal aggregation runs over the union
+            if merged is None:
+                self.last_path = "rows_agg_pushdown"
+                return self._empty_agg_result(table, agg, having, project,
+                                              sort, limit, offset)
+            scan = _cols_to_scan(table, merged["cols"])
+            with tracing.span("aggregate", rows=scan.num_rows):
+                res = self._execute_agg(scan, table, None, agg, having,
+                                        project, sort, limit, offset,
+                                        scan_node)
+            self.last_path = "rows_agg+" + (self.last_path or "")
+            return res
+        self.last_path = "topk_pushdown" if mode == "topk" \
+            else "rows_pushdown"
+        if merged is None:
+            return _project_empty(project, table.schema)
+        host_cols = merged["cols"]
+        nrows = len(next(iter(host_cols.values()))) if host_cols else 0
+        return self._post_process({}, None, None, project, sort, limit,
+                                  offset, table, nrows, host_cols=host_cols)
+
+    def _finalize_combined_agg(self, combined, table, agg, having, project,
+                               sort, limit, offset,
+                               spec_slot) -> QueryResult:
+        """Final step over combined [G, F] partial planes."""
+        if combined is None:
+            return self._empty_agg_result(table, agg, having, project,
+                                          sort, limit, offset)
+        planes = combined["planes"]
+        g = len(combined["keys"][0]) if agg.keys else 1
+        present = np.arange(g)
+        env: dict = {}
+        for i, (name, kexpr) in enumerate(agg.keys):
+            env[kexpr] = combined["keys"][i]
+        for spec, slot in zip(agg.aggs, spec_slot):
+            env[spec.call] = _finalize_agg(spec.func, planes, slot,
+                                           present)
+        return self._post_process(env, agg, having, project, sort,
+                                  limit, offset, table, g)
 
     def _execute_agg(self, scan, table, where, agg, having, project, sort,
                      limit, offset, scan_node) -> QueryResult:
@@ -2609,6 +2742,38 @@ def _sortable(arr: np.ndarray, asc: bool,
     # SQL default: NULLS LAST for ASC, NULLS FIRST for DESC
     nf = nulls_first if nulls_first is not None else (not asc)
     return np.where(isnan, -np.inf if nf else np.inf, key)
+
+
+#: data versions of the rows-mode fragment unions: each is a relation of
+#: its own, never in a device-cache lineage
+_ROWS_AGG_SEQ = itertools.count(1)
+
+
+def _cols_to_scan(table, cols: dict) -> ScanData:
+    """Re-encode a rows-mode fragment union (decoded host columns) as a
+    ScanData, so `_execute_agg` runs the normal aggregation over it (the
+    Final step of a non-decomposable aggregate). The rows arrived
+    deduplicated and filtered on their regions."""
+    from greptimedb_tpu_torch.datatypes.vector import DictVector
+
+    schema = table.schema
+    n = len(next(iter(cols.values()))) if cols else 0
+    columns: dict[str, np.ndarray] = {}
+    tag_dicts: dict[str, np.ndarray] = {}
+    for name, arr in cols.items():
+        arr = np.asarray(arr)
+        if arr.dtype == object:
+            dv = DictVector.encode(arr)
+            columns[name] = dv.codes
+            tag_dicts[name] = dv.values
+        else:
+            columns[name] = arr
+    return ScanData(
+        schema=schema, columns=columns,
+        seq=np.zeros(n, dtype=np.int64),
+        op_type=np.full(n, OP_PUT, dtype=np.int8),
+        tag_dicts=tag_dicts, num_rows=n, needs_dedup=False,
+        region_id=-1, data_version=next(_ROWS_AGG_SEQ))
 
 
 def _project_empty(project, schema) -> QueryResult:

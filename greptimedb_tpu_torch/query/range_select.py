@@ -47,6 +47,7 @@ from greptimedb_tpu_torch.query.physical import (
 from greptimedb_tpu_torch.query.planner import _default_name
 from greptimedb_tpu_torch.sql import ast
 from greptimedb_tpu_torch.storage.index import extract_tag_predicates
+from greptimedb_tpu_torch.storage.merge_scan import merge_scans
 from greptimedb_tpu_torch.utils import tracing
 
 
@@ -253,9 +254,6 @@ def _factorize(b, scan, idx, host, schema, n):
 def execute_range_select(executor, rp: RangePlan):
     """Run a RangePlan through the executor's storage and device."""
     table = rp.table
-    if len(table.region_ids) != 1:
-        raise PlanError("multi-region tables are not in this slice of the "
-                        "port (the cluster slice brings them)")
     schema = table.schema
     ts_name = schema.time_index.name
     ts_range = _closed_range(
@@ -273,8 +271,14 @@ def execute_range_select(executor, rp: RangePlan):
 
     with tracing.span("scan", table=table.name,
                       regions=len(table.region_ids)):
-        scan = executor.engine.scan(table.region_ids[0], ts_range,
-                                    proj_cols, tag_preds)
+        if len(table.region_ids) == 1:
+            scan = executor.engine.scan(table.region_ids[0], ts_range,
+                                        proj_cols, tag_preds)
+        else:
+            # a partitioned table: gather every region's scan (MergeScan)
+            scan = merge_scans([
+                executor.engine.scan(rid, ts_range, proj_cols, tag_preds)
+                for rid in table.region_ids])
     project = lp.Project(None, rp.items)
     sort = lp.Sort(None, rp.order_keys) if rp.order_keys else None
 

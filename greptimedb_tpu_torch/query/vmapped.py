@@ -42,7 +42,8 @@ execution) when
 
 - the plan is not Project <- Aggregate <- Filter <- Scan, an aggregate
   runs on the host, or the table has several regions (the region-partial
-  and fragment variants come with the cluster slice, ROADMAP.md A10);
+  and fragment variants come with the multi-process cluster slice,
+  ROADMAP.md A10-proc);
 - the serial path would stream the scan;
 - a scan part spans several device blocks (the fold-association gate);
 - a parameter does not bind through `bind_expr` to `column op int`;

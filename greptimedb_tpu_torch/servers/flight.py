@@ -19,8 +19,10 @@ port's own gRPC (`servers/grpc.py`, `servers/h2.py`), Flight messages
   each dictionary sent once before the first; `do_put` with the path
   `["__region__", rid, put|delete]` writes a batch and acknowledges only
   after the engine's write returns; `do_action` carries `region_admin`
-  and `rollup_probe`. A `region_frag` ticket (plan-fragment pushdown)
-  needs the distributed planner and is refused naming A10.
+  and `rollup_probe` (`close` among the admin ops: region migration).
+  A `region_frag` ticket carries a PlanFragment (query/plan_ser.py);
+  only the terminal stage's output returns: partial planes, or
+  candidate / filtered rows flagged `kind=rows`.
 - **Auth**: with a user provider, the Flight handshake takes
   `user:password` and answers a token that every later call sends in
   the `auth-token-bin` header; a call without a valid token is refused
@@ -40,6 +42,7 @@ inside the server's `region_scan` / `region_write` spans (side=server).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import secrets
@@ -67,7 +70,6 @@ from greptimedb_tpu_torch.utils.metrics import FLIGHT_BYTES, FLIGHT_CALLS
 
 SEQ_COL = "__seq"
 OP_COL = "__op_type"
-_A10 = "mesh and cluster (ROADMAP A10)"
 
 
 # ---- errors --------------------------------------------------------------------
@@ -140,9 +142,20 @@ _PY_STATUS = ((KeyError, 2, grpc.NOT_FOUND), (ValueError, 4,
               (MemoryError, 1, grpc.UNKNOWN), (OSError, 5, grpc.UNKNOWN))
 
 
+#: bounds of an error's message and Python traceback on the wire: both
+#: ride the trailers twice (grpc-message and the x-arrow-status pair), and
+#: a gRPC client refuses a header block past its 8 KiB soft metadata
+#: limit at random (pyarrow's then raises ArrowException, not the Flight
+#: class); the traceback keeps its innermost end
+_MESSAGE_MAX = 1024
+_TRACEBACK_MAX = 1536
+
+
 def _status_of(exc: BaseException) -> grpc.RpcError:
     """The status pyarrow's Flight server answers for `exc`."""
     msg = str(exc)
+    if len(msg) > _MESSAGE_MAX:
+        msg = msg[:_MESSAGE_MAX] + "..."
     if isinstance(exc, FlightError):
         code, arrow, detail = exc.grpc_code, _ARROW_IO, exc.detail
     else:
@@ -151,8 +164,12 @@ def _status_of(exc: BaseException) -> grpc.RpcError:
             if isinstance(exc, cls):
                 arrow, code = a, c
                 break
-        detail = "Python exception: " + "".join(
-            traceback.format_exception(type(exc), exc, exc.__traceback__))
+        tb = "".join(traceback.format_exception(type(exc), exc,
+                                                exc.__traceback__))
+        if len(tb) > _TRACEBACK_MAX:
+            tb = "Traceback (most recent call last, its end):\n..." + \
+                tb[-_TRACEBACK_MAX:]
+        detail = "Python exception: " + tb
     return grpc.RpcError(code, f"{msg}. Detail: {detail}", {
         "x-arrow-status": str(arrow),
         "x-arrow-status-message-bin": msg.encode(),
@@ -187,6 +204,23 @@ def _call_options() -> Optional[float]:
     if remaining is None:
         return None
     return max(0.05, remaining)
+
+
+@contextlib.contextmanager
+def _reset_on_cancel(call):
+    """While the body runs, cancelling the active query token resets
+    `call` (RST_STREAM CANCEL): a read blocked on a slow peer, a hedged
+    read's loser say, returns at once as CANCELLED instead of waiting
+    for the peer or the deadline."""
+    from greptimedb_tpu_torch.utils import deadline as dl
+
+    token = dl.current()
+    undo = token.on_cancel(call.cancel) if token is not None else None
+    try:
+        yield
+    finally:
+        if undo is not None:
+            undo()
 
 
 # ---- ScanData <-> Arrow (the region service's wire format) --------------------
@@ -382,6 +416,8 @@ class FlightServer:
             else (query_engine.region_engine if query_engine else None)
         self._auth = _BasicServerAuth(user_provider) if user_provider \
             else None
+        self._agg_executor = None
+        self._executor_lock = threading.Lock()
         methods = {
             fp.HANDSHAKE: ("bidi", self._handshake),
             fp.DO_GET: ("server_stream", self._do_get),
@@ -468,11 +504,9 @@ class FlightServer:
                 raise FlightUnauthorizedError(
                     f"user {user.username!r} lacks read permission")
             if "region_frag" in req:
-                raise FlightServerError(
-                    "region_frag (plan-fragment pushdown) is not in this "
-                    f"slice of greptimedb_tpu_torch; the {_A10} slice "
-                    "brings it")
-            table = self._region_scan(req["region_scan"])
+                table = self._region_frag(req["region_frag"])
+            else:
+                table = self._region_scan(req["region_scan"])
         else:
             table = self._query(req, user)
         yield from table_messages(table)
@@ -569,6 +603,61 @@ class FlightServer:
                 attrs["bytes"] = sum(c.values.nbytes
                                      for c in table.columns.values())
         return self._piggyback(table, sink)
+
+    def _region_frag(self, req: dict) -> TextTable:
+        """Plan-fragment pushdown: the PlanFragment runs against the local
+        region and only its terminal stage's output crosses the wire
+        (reference dist_plan Partial step, analyzer.rs:35)."""
+        from greptimedb_tpu_torch.query.dist_agg import (
+            execute_region_fragment,
+        )
+        from greptimedb_tpu_torch.query.plan_ser import PlanFragment
+        from greptimedb_tpu_torch.utils import deadline as dl
+        from greptimedb_tpu_torch.utils import tracing
+        from greptimedb_tpu_torch.utils.metrics import (
+            REQUEST_BUDGET_REMAINING,
+        )
+
+        region_id = req["region_id"]
+        frag = PlanFragment.from_json(req["fragment"])
+        budget = req.get("budget_ms")
+        if budget is not None:
+            REQUEST_BUDGET_REMAINING.observe(float(budget))
+        with dl.activate(dl.token_for_budget(budget)), \
+                tracing.adopt_remote(req.get("trace_id"),
+                                     req.get("parent_span")), \
+                tracing.collect_spans() as sink:
+            with tracing.span("region_frag", region=region_id,
+                              stages=len(frag.stages)):
+                FAULTS.fire("flight.do_get", side="server",
+                            node=local_node(), op="region_frag")
+                part = execute_region_fragment(self._fragment_executor(),
+                                               region_id, frag)
+            if part is None:
+                table = _empty_table(empty="1")
+            elif "planes" in part:
+                table = partial_to_table(part)
+            else:
+                cols = part["cols"]
+                table = TextTable(
+                    list(cols), {name: plain_column(np.asarray(col))
+                                 for name, col in cols.items()},
+                    len(next(iter(cols.values()))) if cols else 0,
+                    {b"kind": b"rows"})
+        return self._piggyback(table, sink)
+
+    def _fragment_executor(self):
+        """The region engine's executor for fragments, built once (it
+        holds the device hot set of the regions it reads)."""
+        with self._executor_lock:
+            if self._agg_executor is None:
+                from greptimedb_tpu_torch.query.physical import (
+                    PhysicalExecutor,
+                )
+
+                self._agg_executor = PhysicalExecutor(
+                    self.engine, getattr(self.engine, "device", None))
+            return self._agg_executor
 
     # -- ingest ----------------------------------------------------------------
 
@@ -707,9 +796,7 @@ class FlightServer:
             self.engine.drop_region(rid)
             self.engine.create_region(rid, schema)
         elif op == "close":
-            raise FlightServerError(
-                "region close (region migration) is not in this slice of "
-                f"greptimedb_tpu_torch; the {_A10} slice brings it")
+            self.engine.close_region(rid)
         else:
             raise FlightServerError(f"unknown region op {op!r}")
         return [b'{"ok": true}']
@@ -771,9 +858,11 @@ class _Client:
     def do_get(self, ticket: bytes, timeout: Optional[float] = None) \
             -> TextTable:
         def once():
-            msgs = self.channel.unary_stream(
-                fp.DO_GET, fp.Ticket(ticket).encode(), self._md, timeout)
-            return read_table(msgs)[0]
+            call = self.channel.call(fp.DO_GET, self._md, timeout)
+            with _reset_on_cancel(call):
+                call.write(fp.Ticket(ticket).encode())
+                call.done_writing()
+                return read_table(call.responses())[0]
         return self._wire(once)
 
     def do_put(self, descriptor: fp.FlightDescriptor, table: TextTable,
@@ -955,6 +1044,14 @@ class RemoteRegionEngine:
     def alter_region_schema(self, region_id: int, schema) -> None:
         self._admin("alter", region_id, schema=schema.to_dict())
 
+    def drop_region(self, region_id: int) -> None:
+        self._admin("drop", region_id)
+
+    def close_region(self, region_id: int) -> None:
+        """Close the region on its server (its files stay: region
+        migration opens it elsewhere)."""
+        self._admin("close", region_id)
+
     def flush(self, region_id: int) -> None:
         self._admin("flush", region_id)
 
@@ -1025,10 +1122,36 @@ class RemoteRegionEngine:
             return None
         return table_to_scan(t)
 
-    def execute_fragment(self, region_id: int, frag):
-        raise FlightServerError(
-            "region_frag (plan-fragment pushdown) is not in this slice of "
-            f"greptimedb_tpu_torch; the {_A10} slice brings it")
+    def execute_fragment(self, region_id: int, frag) -> Optional[dict]:
+        """Ship a PlanFragment; receive the terminal stage's output:
+        partial planes, or candidate / filtered rows (the response's
+        `kind` metadata tells them apart; reference
+        region_server.rs:623-660, a plan in and a stream out)."""
+        from greptimedb_tpu_torch.utils import deadline as dl
+        from greptimedb_tpu_torch.utils import tracing
+
+        spec = {"region_id": region_id, "fragment": frag.to_json()}
+        budget = dl.budget_ms()
+        if budget is not None:
+            spec["budget_ms"] = budget
+        tid = tracing.current_trace_id()
+        if tid:
+            spec["trace_id"] = tid
+        with tracing.span("remote_region_frag", region=region_id,
+                          addr=self.addr):
+            if tid:
+                spec["parent_span"] = tracing.current_span_id()
+            ticket = json.dumps({"region_frag": spec}).encode()
+            t = self._rpc("flight.do_get", lambda: self.client.do_get(
+                ticket, _call_options()))
+        self._merge_remote_spans(t.metadata)
+        meta = t.metadata or {}
+        if meta.get(b"empty") == b"1":
+            return None
+        if meta.get(b"kind") == b"rows":
+            return {"cols": {name: plain_values(t.column(name))
+                             for name in t.names}}
+        return table_to_partial(t)
 
     def rollup_probe(self, region_id: int, lo: int, hi: int) -> list:
         """Rollup-coverage probe on the region's owner."""

@@ -61,7 +61,7 @@ from greptimedb_tpu_torch.utils.metrics import (
 #: routes of the JAX server the port does not serve yet: path (exact, or
 #: a prefix when it ends in "/") -> the slice of the port that brings it
 _LATER_ROUTES = (
-    (("/v1/faults",), "mesh and cluster (ROADMAP A10)"),
+    (("/v1/faults",), "multi-process cluster (ROADMAP A10-proc)"),
 )
 
 

@@ -256,6 +256,16 @@ class RegionEngine:
                     **self._region_kw()))
             return r
 
+    def close_region(self, region_id: int) -> None:
+        """Close an open region (no-op when it is not open): its files
+        stay, so another engine over the same storage can open it (region
+        migration and failover)."""
+        with self._lock:
+            r = self.regions.pop(region_id, None)
+        if r is not None and hasattr(r, "close"):
+            r.close()
+        self.wal.close_region(region_id)
+
     def drop_region(self, region_id: int) -> None:
         with self._lock:
             r = self.regions.pop(region_id, None)

@@ -29,7 +29,7 @@ import itertools
 import os
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 from greptimedb_tpu_torch.fault import (  # noqa: F401 — re-exported
     Cancelled,
@@ -50,7 +50,7 @@ class CancelToken:
     remaining layers without inflating the counter."""
 
     __slots__ = ("query_id", "deadline", "reason", "kind", "_event",
-                 "_counted", "_lock")
+                 "_counted", "_lock", "_on_cancel")
 
     def __init__(self, timeout_ms: Optional[float] = None,
                  query_id: Optional[int] = None):
@@ -62,6 +62,7 @@ class CancelToken:
         self._event = threading.Event()
         self._counted = False
         self._lock = threading.Lock()
+        self._on_cancel: list = []
 
     # -- state ----------------------------------------------------------------
 
@@ -78,7 +79,27 @@ class CancelToken:
                 self.reason = reason
             if not count:
                 self._counted = True
-        self._event.set()
+            hooks, self._on_cancel = self._on_cancel, []
+            self._event.set()
+        for fn in hooks:
+            fn()
+
+    def on_cancel(self, fn) -> Callable[[], None]:
+        """Call `fn()` once when this token is cancelled (at once if it
+        already is): how a cancel reaches a call blocked outside the
+        cooperative checkpoints, such as a wire read. Returns the undo,
+        which the caller runs once the call is over."""
+        with self._lock:
+            if not self._event.is_set():
+                self._on_cancel.append(fn)
+                return lambda: self._forget(fn)
+        fn()
+        return lambda: None
+
+    def _forget(self, fn) -> None:
+        with self._lock:
+            if fn in self._on_cancel:
+                self._on_cancel.remove(fn)
 
     @property
     def cancelled(self) -> bool:
@@ -234,6 +255,22 @@ def sleep(delay_s: float, point: str = "") -> None:
     if bounded > 0 and token._event.wait(bounded):
         pass  # cancelled mid-sleep: fall through to the typed raise
     token.check(point)
+
+
+def propagate(fn):
+    """Wrap `fn` so the caller's active token rides into whichever worker
+    thread runs it (contextvars do not cross threads on their own): the
+    deadline twin of tracing.propagate, for fan-out sites that hand
+    per-region work to a pool."""
+    token = _current.get()
+    if token is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with activate(token):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def wait_future(fut, where: str = ""):

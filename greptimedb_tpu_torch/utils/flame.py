@@ -28,9 +28,9 @@ piggyback and the metasrv heartbeat; the frontend merges them here
 (`note_node_summary` / `cluster_view`) into one deterministic view
 served at /v1/profile/cluster and information_schema.cluster_profile.
 
-Copy of greptimedb_tpu/utils/flame.py. Until the port has a cluster
-(ROADMAP A10) nothing calls `note_node_summary`, so the view holds the
-local node only. `shutdown()` joins the sampler thread (HttpServer.stop()
+Copy of greptimedb_tpu/utils/flame.py. A Flight response's piggybacked
+digest reaches `note_node_summary` (a wire-mode cluster frontend's view
+holds its datanodes' digests); the metasrv keeps the heartbeats' own. `shutdown()` joins the sampler thread (HttpServer.stop()
 and `standalone start`'s exit call it).
 """
 

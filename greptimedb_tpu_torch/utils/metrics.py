@@ -548,6 +548,23 @@ RETRY_ATTEMPTS = REGISTRY.counter(
 RETRY_EXHAUSTED = REGISTRY.counter(
     "greptimedb_tpu_retry_exhausted_total",
     "Operations that exhausted their retry budget, by injection point")
+# the in-process cluster (cluster/cluster.py, query/physical.py): route
+# re-resolution, hedged fragment reads and shipped plan fragments
+DEGRADED = REGISTRY.counter(
+    "greptimedb_tpu_degraded_total",
+    "Graceful degradations (route re-resolution after retry exhaustion)")
+HEDGE_EVENTS = REGISTRY.counter(
+    "greptimedb_tpu_hedge_events_total",
+    "Hedged region-request events by event (fired = a backup fragment "
+    "was issued after the adaptive straggler delay, won = the hedge "
+    "finished first, lost = the primary finished first and the hedge "
+    "was cancelled, budget_denied = the <=5% token-bucket hedge budget "
+    "suppressed a hedge)")
+FRAGMENT_PUSHDOWNS = REGISTRY.counter(
+    "greptimedb_tpu_fragment_pushdown_total",
+    "Distributed plan fragments shipped to region owners, by mode "
+    "(agg/topk/rows/rows_agg/window/lastpoint/rollup/vmapped — partial "
+    "planes or pruned candidates return, never raw region scans)")
 # the Arrow Flight services (servers/flight.py)
 REQUEST_BUDGET_REMAINING = REGISTRY.histogram(
     "greptimedb_tpu_region_request_budget_remaining_ms",

@@ -15,8 +15,9 @@ pyarrow.flight) on the CPU, in both directions:
   engine.scan column for column, with ts_range, projection, tag
   predicates and seq_min, over a region with SSTs and a memtable;
 - a budget_ms ticket unwinds typed, `flight.do_get=fail,nth:1` is
-  retried once, region_frag is refused naming A10, and no thread of the
-  port outlives a server's shutdown.
+  retried once, region_frag answers a partial aggregate (its vmapped and
+  window stages refused naming A10-proc), and no thread of the port
+  outlives a server's shutdown.
 """
 
 import json
@@ -355,9 +356,16 @@ def test_pyarrow_client_gets_equal_tables(server, jserver):
         c.close()
 
 
+def _flush_and_wait(q) -> None:
+    """ADMIN flush_table returns a job id: the flush runs on the
+    maintenance plane, so a write right after it races the job (C16)."""
+    job = int(q.execute_one("ADMIN flush_table('cpu')").rows()[0][0])
+    q.region_engine.maintenance.wait(job, timeout=30)
+
+
 def test_pyarrow_region_scan_and_put_match(qe, jqe, server, jserver):
     for q in (qe, jqe):
-        q.execute_one("ADMIN flush_table('cpu')")
+        _flush_and_wait(q)
         q.execute_one("INSERT INTO cpu (host, usage, ts) VALUES "
                       "('c', 2.5, 7000), ('a', 9.0, 1000)")
     rid = qe.catalog.table("public", "cpu").region_ids[0]
@@ -393,6 +401,35 @@ def test_pyarrow_region_scan_and_put_match(qe, jqe, server, jserver):
         c.close()
 
 
+def test_c16_sst_and_memtable_rows_keep_the_jax_scan_order(qe, jqe, server,
+                                                          jserver):
+    """One needs-dedup scan over SST rows and memtable rows of the same
+    keys: the port's region scan gives the JAX server's row order (the
+    SST's rows sorted by key, ts and seq, then the memtable's in write
+    order), on the engines and over the wire."""
+    for q in (qe, jqe):
+        _flush_and_wait(q)
+        q.execute_one("INSERT INTO cpu (host, usage, ts) VALUES "
+                      "('c', 2.5, 7000), ('a', 9.0, 1000), ('b', 4.0, 2000)")
+    rid = qe.catalog.table("public", "cpu").region_ids[0]
+    got = qe.region_engine.scan(rid)
+    want = jqe.region_engine.scan(rid)
+    assert got.needs_dedup and want.needs_dedup
+    assert list(got.seq) == list(want.seq) == [0, 1, 2, 3, 4, 5]
+    for name in ("ts", "usage"):
+        np.testing.assert_array_equal(got.columns[name], want.columns[name])
+    assert list(got.tag_dicts["host"][got.columns["host"]]) == \
+        list(want.tag_dicts["host"][want.columns["host"]])
+    clients = [fl.FlightClient(f"grpc://{_addr(s)}")
+               for s in (server, jserver)]
+    ticket = fl.Ticket(json.dumps({"region_scan": {"region_id": rid}})
+                       .encode())
+    g, w = (c.do_get(ticket).read_all() for c in clients)
+    _same_table(g, w)
+    for c in clients:
+        c.close()
+
+
 def _pyarrow_error(srv, call) -> type:
     c = fl.FlightClient(f"grpc://{_addr(srv)}")
     try:
@@ -420,6 +457,37 @@ def test_pyarrow_sees_the_same_error_classes(server, jserver):
                    for s in (server, jserver)}
         assert len(classes) == 1 and classes != {type(None)}, (action,
                                                                 classes)
+
+
+def test_c17_a_deep_error_stays_under_the_metadata_limit(qe, server,
+                                                        monkeypatch):
+    """An error with a long message and a deep Python traceback reaches
+    pyarrow as FlightServerError every time: the trailers stay under a
+    gRPC client's 8 KiB soft metadata limit, past which it refuses the
+    header block at random (ROADMAP C17)."""
+    from greptimedb_tpu_torch.servers import grpc as tgrpc
+
+    def deep(n):
+        if n == 0:
+            raise RuntimeError("x" * 5000)
+        return deep(n - 1)
+
+    monkeypatch.setattr(server, "_query", lambda req, user: deep(150))
+    try:
+        deep(150)
+    except RuntimeError as e:
+        err = flight._status_of(e)
+    pairs = [("grpc-status", str(err.code)),
+             ("grpc-message", tgrpc.percent_encode(err.details))] \
+        + tgrpc.encode_metadata(err.trailers)
+    assert sum(len(k) + len(v) + 32 for k, v in pairs) < 8192 - 256
+    c = fl.FlightClient(f"grpc://{_addr(server)}")
+    try:
+        for _ in range(20):
+            with pytest.raises(fl.FlightServerError, match="xxxx"):
+                c.do_get(fl.Ticket(b'{"sql": "SELECT 1"}')).read_all()
+    finally:
+        c.close()
 
 
 def test_pyarrow_auth_errors_match(qe, jqe):
@@ -612,14 +680,28 @@ def test_chaos_do_get_is_retried_once(qe, server):
 
 
 def test_region_frag_refused_naming_a10(qe, server):
-    client = flight._Client(_addr(server))
-    with pytest.raises(flight.FlightServerError, match="A10"):
-        client.do_get(json.dumps({"region_frag": {
-            "region_id": 1, "fragment": {}}}).encode())
-    client.close()
+    """region_frag runs on the port now (ROADMAP A10-cluster): a partial
+    aggregate comes back over the wire; the vmapped and window stages
+    of the multi-process cluster slice are refused naming it."""
+    from greptimedb_tpu_torch.query.plan_ser import PlanFragment
+    from greptimedb_tpu_torch.sql import ast
+
+    rid = qe.catalog.table("public", "cpu").region_ids[0]
     remote = RemoteRegionEngine(_addr(server))
-    with pytest.raises(flight.FlightServerError, match="A10"):
-        remote.execute_fragment(1, None)
+    part = remote.execute_fragment(rid, PlanFragment(stages=[{
+        "op": "partial_agg", "keys": [("host", ast.Column("host"))],
+        "args": [ast.Column("usage")], "ops": ["count", "rows", "sum"]}]))
+    order = np.argsort(part["keys"][0].astype(str))
+    assert list(part["keys"][0][order]) == ["a", "b"]
+    assert part["planes"]["sum"][order, 0].tolist() == [4.0, 10.0]
+    client = flight._Client(_addr(server))
+    window = PlanFragment(stages=[{"op": "window", "calls": []}])
+    with pytest.raises(flight.FlightServerError, match="A10-proc"):
+        client.do_get(json.dumps({"region_frag": {
+            "region_id": rid, "fragment": window.to_json()}}).encode())
+    client.close()
+    with pytest.raises(flight.FlightServerError, match="A10-proc"):
+        remote.execute_fragment(rid, window)
     remote.close()
 
 

@@ -324,27 +324,45 @@ def test_remote_write_series_bulk_extend(tmp_path):
 
 
 def test_multi_region_table_write_names_its_slice(tmp_path):
-    """The port writes one region a table: a line-protocol write to a
-    table of several regions is refused naming the mesh and cluster
-    slice."""
-    from greptimedb_tpu_torch.query import UnsupportedStatement
-
-    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path)), device="cpu")
+    """Partitioned tables run on the port now (ROADMAP A10-cluster): a
+    line-protocol write to a table of several regions scatters through
+    its partition rule as in the JAX engine, and a table of several
+    regions with no rule takes the write on its first region, as the
+    JAX engine's does."""
+    teng = RegionEngine(EngineConfig(data_dir=str(tmp_path / "t")),
+                        device="cpu")
     tqe = QueryEngine(Catalog(MemoryKv()), teng, device="cpu")
+    jeng = JRegionEngine(JConfig(data_dir=str(tmp_path / "j")))
+    jqe = JQueryEngine(JCatalog(JMemoryKv()), jeng)
+    body = "\n".join(f"m,h={h} v={i}.5 {1000 * (i + 1)}"
+                     for i, h in enumerate("abcmnoyz"))
     try:
+        for q, lp in ((tqe, influx), (jqe, jinflux)):
+            q.execute_one("CREATE TABLE m (h STRING, v DOUBLE, ts "
+                          "TIMESTAMP(3) TIME INDEX, PRIMARY KEY (h)) "
+                          "PARTITION ON COLUMNS (h) (h < 'm', h >= 'm')")
+            lp.write_lines(q, "public", body, "ms")
+        sizes = [[e.scan(rid).num_rows for rid in
+                  q.catalog.table("public", "m").region_ids]
+                 for q, e in ((tqe, teng), (jqe, jeng))]
+        assert sizes[0] == sizes[1] == [3, 5]
+        assert tqe.execute_one("SELECT h, v FROM m ORDER BY h").rows() == \
+            jqe.execute_one("SELECT h, v FROM m ORDER BY h").rows()
         schema = Schema([
             ColumnSchema("h", DataType.STRING, SemanticType.TAG),
             ColumnSchema("ts", DataType.TIMESTAMP_MILLISECOND,
                          SemanticType.TIMESTAMP, nullable=False),
             ColumnSchema("v", DataType.FLOAT64, SemanticType.FIELD)])
-        info = tqe.catalog.create_table("public", "m", schema,
+        info = tqe.catalog.create_table("public", "m2", schema,
                                         num_regions=2)
         for rid in info.region_ids:
             teng.create_region(rid, schema)
-        with pytest.raises(UnsupportedStatement, match="ROADMAP A10"):
-            influx.write_lines(tqe, "public", "m,h=a v=2.0 2000", "ms")
+        influx.write_lines(tqe, "public", "m2,h=a v=2.0 2000", "ms")
+        assert teng.scan(info.region_ids[0]).num_rows == 1
+        assert teng.scan(info.region_ids[1]) is None
     finally:
         teng.close()
+        jeng.close()
 
 
 # ---- seeded fuzz: both packages' Python lanes and the port's vector lane ----

@@ -152,6 +152,30 @@ def test_fault_seam_holds_the_flight_seams_by_name():
     assert fault_seam_check(ok) == []
 
 
+@pytest.mark.parametrize("path,fn,point", [
+    ("cluster/cluster.py", "beat", "datanode.crash"),
+    ("meta/heartbeat.py", "beat", "heartbeat.send"),
+    ("meta/election.py", "_lease_chaos", "election.lease"),
+    ("servers/flight.py", "_region_frag", "flight.do_get"),
+])
+def test_fault_seam_holds_the_cluster_points_by_name(path, fn, point):
+    """The in-process cluster's three points (and the region_frag
+    ticket's seam) are held by name: a function that stops firing its
+    point is a finding."""
+    bad = fixture_repo((f"{PKG}/{path}", f"""
+        def {fn}(self):
+            return None
+        """))
+    msgs = [f.message for f in fault_seam_check(bad)]
+    assert msgs == [f"{fn}() no longer fires {point} — chaos schedules "
+                    "armed there would never fire"]
+    ok = fixture_repo((f"{PKG}/{path}", f"""
+        def {fn}(self):
+            FAULTS.fire("{point}", node="dn-0")
+        """))
+    assert fault_seam_check(ok) == []
+
+
 # ---- jax-import: the port's import rule -------------------------------------
 
 
@@ -173,6 +197,22 @@ def test_fault_seam_holds_the_flight_seams_by_name():
 def test_import_rule_fires_top_level_and_lazy(src, name):
     found = import_check(fixture_repo((f"{PKG}/storage/kern.py", src)))
     assert len(found) == 1 and f"imports {name} " in found[0].message
+
+
+@pytest.mark.parametrize("sub", ["partition", "meta", "procedure",
+                                 "cluster"])
+def test_import_rule_covers_the_cluster_packages(sub):
+    """The import rule holds the in-process cluster's packages as the
+    rest of the port: the repo the lint loads has their files, and an
+    import of jax or of the JAX package there is a finding."""
+    from greptimedb_tpu_torch.lint import load_repo
+
+    assert any(f.path.startswith(f"{PKG}/{sub}/")
+               for f in load_repo().files)
+    found = import_check(fixture_repo((
+        f"{PKG}/{sub}/x.py",
+        "def f():\n    from greptimedb_tpu.meta import route\n")))
+    assert len(found) == 1 and "greptimedb_tpu.meta" in found[0].message
 
 
 def test_import_rule_fires_in_chip_smoke_and_names_where():

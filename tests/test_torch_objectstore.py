@@ -363,7 +363,7 @@ def test_seams_arm_and_metrics_render_under_the_jax_names():
         FAULTS.arm(point, Fault(kind="latency", arg=0.0))
     FAULTS.reset()
     with pytest.raises(ValueError, match="A10"):
-        FAULTS.arm("heartbeat.send", Fault())
+        FAULTS.arm("metasrv.kv", Fault())
     store = tos.MemoryStore()
     store.write("m", b"abc")
     cached = tos.LruCacheLayer(store)

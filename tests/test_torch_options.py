@@ -152,7 +152,10 @@ def _same_store_config(opts, jopts):
     ("query.tier_admission", "false", "A11"),
     ("cluster.hedge_enabled", "false", "A10"),
     ("parallel.mesh_min_rows", "1", "A10"),
-    ("partition.default_hash_regions", "4", "A10"),
+    # partitioned tables run on the port now (A10-cluster): the case keeps
+    # its id, boots, and apply_query_env writes the JAX env twin
+    pytest.param("partition.default_hash_regions", "4", "partition",
+                 id="partition.default_hash_regions-4-A10"),
     # flows, scripts, plugins and the shm fabric run on the port now: the
     # case keeps its id, boots [shm] and checks the env twins apply_shm
     # sets (slice_name None: accepted)
@@ -172,6 +175,16 @@ def test_unported_key_refused_naming_its_slice(key, value, slice_name,
     if slice_name is STORE:
         options.check_port_support(opts)
         _same_store_config(opts, jopt.load_options(str(p), env={}))
+        return
+    if slice_name == "partition":
+        options.check_port_support(opts)
+        # recorded, so the teardown removes what apply_query_env writes
+        monkeypatch.setenv("GREPTIMEDB_TPU_DEFAULT_HASH_REGIONS", "")
+        monkeypatch.delenv("GREPTIMEDB_TPU_DEFAULT_HASH_REGIONS")
+        options.apply_query_env(opts)
+        from greptimedb_tpu_torch import config as port_config
+
+        assert port_config.default_hash_partitions() == 4
         return
     if slice_name == "Arrow Flight":
         options.check_port_support(opts)

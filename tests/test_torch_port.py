@@ -171,23 +171,16 @@ def test_drop_table_frees_region_and_blocks(tmp_path):
     # the statement to the JAX engine (slice_name None)
     ("COPY cpu TO '{out}/cpu.parquet'", None),
     # SHOW TABLES, then SHOW FLOWS (the flow engine) run on the port
-    # now; the case keeps its id and checks a cluster table, which stays
-    # outside
-    ("SELECT * FROM information_schema.region_peers",
-     "mesh and cluster .ROADMAP A10."),
-    # TQL EVAL, EXPLAIN and ANALYZE, then DROP FLOW run on the port now;
-    # the case keeps its id and checks a statement that stays outside
-    ("SELECT * FROM information_schema.cluster_info",
-     "mesh and cluster .ROADMAP A10."),
-    # joins and the runtime information_schema tables run on the port
-    # now; the case keeps its id and checks a cluster table, which
-    # stays outside
-    ("SELECT * FROM information_schema.partitions",
-     "mesh and cluster .ROADMAP A10."),
-    # ROADMAP C3: each refusal names its slice, after the JAX validation
+    # now, and the cluster tables and PARTITION ON since A10-cluster: the
+    # cases keep their ids and hold the statements to the JAX engine
+    ("SELECT region_id, peer_id, peer_addr, is_leader, status FROM "
+     "information_schema.region_peers", None),
+    ("SELECT peer_id, peer_type, peer_addr FROM "
+     "information_schema.cluster_info", None),
+    ("SELECT * FROM information_schema.partitions", None),
     ("CREATE TABLE p (a STRING, ts TIMESTAMP TIME INDEX, v DOUBLE, "
      "PRIMARY KEY (a)) PARTITION ON COLUMNS (a) (a < 'm', a >= 'm')",
-     "mesh and cluster .ROADMAP A10."),
+     None),
     # external tables over the container formats run on the port now
     # (A12-io): the two cases keep their ids and are held to the JAX
     # engine over files it wrote
@@ -234,8 +227,15 @@ def _same_as_jax(sql, tmp_path):
         out = tmp_path / f"out_{name}"
         out.mkdir()
         r = qe.execute_one(sql.format(out=out, src=src))
-        outs.append((r.affected_rows, out))
+        outs.append((r.affected_rows, out,
+                     [list(row) for row in r.rows()] if r.is_query
+                     else None))
     assert outs[0][0] == outs[1][0]
+    assert outs[0][2] == outs[1][2]
+    outs = [o[:2] for o in outs]
+    if "PARTITION" in sql:
+        q = "SELECT * FROM information_schema.partitions"
+        assert tqe.execute_one(q).rows() == jqe.execute_one(q).rows()
     for (_n, jout), (_m, tout) in [outs]:
         for root, _dirs, files in os.walk(jout):
             for f in files:
