@@ -350,31 +350,48 @@ greptimedb_tpu_torch/_build/. Phases:
    and FROM on a small database; `python3 -m greptimedb_tpu_torch
    export` and `import` in subprocesses. The phase prints its seconds
    and each step's, and joins the fake's threads.
-   Phase (l), the in-process cluster, runs after (j), before the
-   stream: a `Cluster` of three datanodes on the card, bench.py's `cpu`
-   created through its frontend PARTITION ON hostname into three regions
-   (1,112 / 1,111 / 1,777 hosts on three datanodes), cpu_1h (HOSTS x 1 h,
-   seed SERVE_SEED, 1,440,000 rows) through the scatter write (each
-   region's count against the rule's, count(*)), a flush, then
-   double_groupby_all at 1 h and 10 min bins, cpu_max_all_8,
+   Phase (l), the cluster, runs after (j), before the stream. Its
+   in-process leg: a `Cluster` of three datanodes on the card, bench.py's
+   `cpu` created through its frontend PARTITION ON hostname into three
+   regions (1,112 / 1,111 / 1,777 hosts on three datanodes), cpu_1h
+   (HOSTS x 1 h, seed SERVE_SEED, 1,440,000 rows) through the scatter
+   write (each region's count against the rule's, count(*)), a flush,
+   then double_groupby_all at 1 h and 10 min bins, cpu_max_all_8,
    single_groupby_1_1_1 and groupby_orderby_limit (the partial-aggregate
    fragment: one K2 launch a fragment that returns partial planes, no
-   K1), lastpoint
-   (`last()`, the fragment with the pruning hint) and high_cpu_all (the
-   rows fragment), each cold and warm (p50 of 5) against float64 numpy,
-   with the bytes its fragments return and the region rows they scanned;
-   K2 at the largest region's fragment shape against its plain version;
-   a failover (the datanode of region 2 killed, beats and metasrv ticks
-   on a synthetic clock until a survivor reopens it from the shared WAL;
-   double_groupby_all as before the kill); a second cluster with
-   `wire_transport=True` taking the same hour through do_put and three
-   statements through region_frag, equal to the in-process answers,
-   with its K2 launches (read after close joins the datanodes' call
-   threads) at least its plane fragments and at most those plus the
-   hedges that fired (a hedged read's datanode may finish the loser); a
-   standalone partitioned table answering double_groupby_all (K1) and
-   cpu_max_all_8 (K2) through MergeScan. The phase prints its seconds
-   and the cut that pays for it (phase (k)'s LOCKDEP_SECONDS, 30 -> 10).
+   K1), lastpoint (`last()`, the fragment with the pruning hint),
+   high_cpu_all (the rows fragment), each cold and warm (p50 of 5)
+   against float64 numpy, with the bytes its fragments return and the
+   region rows they scanned; the window statement (usage_user less its
+   lag over each host's first WINDOW_MINUTES, `window_pushdown`) and a
+   batch of eight single_groupby_1_1_1 dash members (DASH_HOSTS, one
+   `vmapped_agg` fragment and one K2 launch a region); K2 at the largest
+   region's fragment shape against its plain version; a failover (the
+   datanode of region 2 killed, beats and metasrv ticks on a synthetic
+   clock until a survivor reopens it from the shared WAL). Its process
+   leg: a `ProcessCluster` of three datanode processes on the card (each
+   one's seconds to ready and card memory from nvidia-smi's compute
+   apps), the same hour through the scatter write (each region's slice
+   over do_put into its process), a flush, double_groupby_all (1 h, 10
+   min), cpu_max_all_8, lastpoint, the window statement and the dash
+   batch, each under a trace of its own, equal to the in-process answer
+   (rtol 1e-12) and to numpy, with the K1 / K2 launches the datanodes
+   report on their piggybacked spans held to the fragments that returned
+   planes (a hedge may add or hide one), K2 at the datanodes' shapes
+   against the plain version, then one more 10 s slice acknowledged and
+   unflushed, SIGKILL of the largest region's process, beats and ticks
+   until a survivor replays the remote WAL: count(*) 1,444,000 and
+   double_groupby_all over every acknowledged row against numpy; close
+   reaps every child. Its deploy leg: `python -m greptimedb_tpu_torch
+   metasrv start`, three `datanode start` on the card and a `frontend
+   start` (heartbeats every DEPLOY_HEARTBEAT_S), the hour through the
+   frontend's line-protocol route, double_groupby_all (1 h) and
+   cpu_max_all_8 over /v1/sql equal to the process leg's answers, kill
+   -9 of the largest region's datanode, the metasrv's own ticker failing
+   it over within 60 s, the same rows again, every process stopped and
+   checked gone. Last, a standalone partitioned table answering
+   double_groupby_all (K1) and cpu_max_all_8 (K2) through MergeScan.
+   The phase prints each leg's seconds.
    Phase (k), the lint plane, runs after the stream: the lint in a
    subprocess beside a `standalone start` (Flight enabled through its
    environment) under the runtime lockdep, driven for LOCKDEP_SECONDS by
@@ -2891,10 +2908,13 @@ def _nbytes(arr) -> int:
 
 
 def part_bytes(part) -> int:
-    """Bytes of one fragment's output: partial planes and keys, or the
-    candidate / filtered columns."""
+    """Bytes of one fragment's output: partial planes and keys, a vmapped
+    batch's JSON, or the candidate / filtered columns."""
     if part is None:
         return 0
+    if "members" in part or "vmap_ineligible" in part:
+        return len(json.dumps(part, default=lambda x: x.tolist()
+                              if hasattr(x, "tolist") else str(x)))
     if "planes" in part:
         return sum(_nbytes(k) for k in part["keys"]) + sum(
             int(v.nbytes) for v in part["planes"].values())
@@ -2916,13 +2936,19 @@ class FragmentMeter:
             out = inner(rid, frag)
             self.bytes += part_bytes(out)
             self.fragments += 1
-            self.planes += out is not None and "planes" in out
+            # partial planes, or a vmapped batch with a member here: one
+            # K2 launch on the region's datanode (cold)
+            self.planes += out is not None and (
+                "planes" in out or any(out.get("members") or ()))
             return out
 
         router.execute_fragment = execute_fragment
         for dn in cluster.datanodes.values():
-            for attr in ("scan", "scan_last"):
-                self._wrap(dn.engine, attr)
+            # a datanode process's scans are its own: counted only in
+            # process
+            if hasattr(dn, "engine"):
+                for attr in ("scan", "scan_last"):
+                    self._wrap(dn.engine, attr)
 
     def _wrap(self, engine, attr):
         inner = getattr(engine, attr)
@@ -2999,27 +3025,659 @@ def same_rows(a, b, what) -> None:
     to rtol 1e-12 (float64 sums may reassociate between runs)."""
     check(list(a.names) == list(b.names) and a.num_rows == b.num_rows,
           f"{what}: shapes differ")
+    def floats(v):
+        return np.asarray([np.nan if e is None else e for e in v],
+                          dtype=np.float64) if v.dtype == object else \
+            v.astype(np.float64)
+
     for x, y in zip(a.columns, b.columns):
         x, y = np.asarray(x), np.asarray(y)
-        if x.dtype.kind == "f":
-            check(np.allclose(x, y, rtol=1e-12, atol=0, equal_nan=True),
-                  f"{what}: values differ")
+        if "f" in (x.dtype.kind, y.dtype.kind):
+            # a NULL is None in an object column, NaN in a float one
+            check(np.allclose(floats(x), floats(y), rtol=1e-12, atol=0,
+                              equal_nan=True), f"{what}: values differ")
         else:
             check(np.array_equal(x.astype(str), y.astype(str)),
                   f"{what}: keys differ")
 
 
+#: the window statement's span: usage_user's step between successive
+#: points of every host over the hour's first WINDOW_MINUTES
+WINDOW_MINUTES = 10
+#: the vmapped batch's members: single_groupby_1_1_1's dash, one host
+#: each, spread over the three regions
+DASH_HOSTS = (0, 1, 10, 2, 20, 2500, 3, 3999)
+#: the deploy leg's heartbeat interval, seconds (the CLI roles')
+DEPLOY_HEARTBEAT_S = 0.25
+#: the deploy leg's flownode: its tick interval, and the flow it ticks
+DEPLOY_FLOW_TICK_S = 0.5
+DEPLOY_FLOW_SQL = (
+    "CREATE FLOW lp_hourly_flow SINK TO lp_hourly AS SELECT hostname, "
+    "date_bin(INTERVAL '1 hour', ts) AS hour, avg(usage_user) AS a, "
+    "count(*) AS c FROM cpu_lp GROUP BY hostname, hour")
+#: the deploy leg's depth: the hour's first DEPLOY_HOSTS hosts (a cut
+#: from HOSTS: the leg's line-protocol write and its seven process
+#: spawns cost the script's time limit what phase (l) may add)
+DEPLOY_HOSTS = 1000
+
+
+def window_sql() -> str:
+    return ("SELECT hostname, ts, usage_user - lag(usage_user) OVER "
+            "(PARTITION BY hostname ORDER BY ts) AS d FROM cpu WHERE ts >= "
+            f"{T0_MS} AND ts < {T0_MS + WINDOW_MINUTES * 60_000} "
+            "ORDER BY hostname, ts")
+
+
+def dash_sql(h: int) -> str:
+    """single_groupby_1_1_1 of one host, in the batcher's dash form (the
+    selector tag out of the keys, no ORDER BY)."""
+    return ("SELECT date_bin(INTERVAL '1 minute', ts) AS minute, "
+            "max(usage_user) FROM cpu WHERE hostname = "
+            f"'host_{h}' AND ts >= {T0_MS} AND ts < {T0_MS + 3600 * 1000} "
+            "GROUP BY minute")
+
+
+def check_window(res, grid, what) -> None:
+    """The window statement against numpy: every host's rows in hostname
+    order, d the step from the point before (NULL on each host's
+    first)."""
+    pts = WINDOW_MINUTES * 60 // STEP_S
+    check(res.num_rows == HOSTS * pts, f"{what}: {res.num_rows} rows")
+    cols = {n: np.asarray(c) for n, c in zip(res.names, res.columns)}
+    order = np.argsort(np.asarray([f"host_{i}" for i in range(HOSTS)]),
+                       kind="stable")
+    check(np.array_equal(host_index(cols["hostname"]),
+                         np.repeat(order, pts)), f"{what}: hostnames")
+    check(np.array_equal(cols["ts"].astype(np.int64), np.tile(
+        T0_MS + np.arange(pts) * STEP_S * 1000, HOSTS)), f"{what}: ts")
+    u = grid["usage_user"][:pts, order]
+    want = np.vstack([np.full((1, HOSTS), np.nan),
+                      u[1:] - u[:-1]]).T.reshape(-1)
+    got = np.asarray([np.nan if v is None else v for v in cols["d"]],
+                     dtype=np.float64)
+    check(np.array_equal(got, want, equal_nan=True)
+          and int(np.isnan(got).sum()) == HOSTS, f"{what}: d")
+
+
+def check_dash(results: dict, grid, what) -> None:
+    """Each dash member against numpy: its host's minute maxima."""
+    for h, res in results.items():
+        cols = {n: np.asarray(c) for n, c in zip(res.names, res.columns)}
+        order = np.argsort(cols["minute"].astype(np.int64))
+        want = grid["usage_user"][:, h].reshape(60, 6).max(axis=1)
+        check(np.array_equal(cols["minute"].astype(np.int64)[order],
+                             T0_MS + np.arange(60) * 60_000)
+              and np.array_equal(cols["max(usage_user)"].astype(
+                  np.float64)[order], want), f"{what}: host_{h}")
+
+
+def dash_batch(qe, torch):
+    """The DASH_HOSTS members as ONE batch group through run_vmapped (as
+    tests/test_cluster_pushdown.py::TestVmappedFragments drives it):
+    {host: result}, the call's ms, the route."""
+    from greptimedb_tpu_torch.concurrency import batcher
+    from greptimedb_tpu_torch.query.vmapped import run_vmapped
+    from greptimedb_tpu_torch.session import QueryContext
+    from greptimedb_tpu_torch.sql import parse_sql
+
+    info = qe._table("cpu", QueryContext())
+    sels = [parse_sql(dash_sql(h))[0] for h in DASH_HOSTS]
+    shapes = [batcher.analyze(sel, info) for sel in sels]
+    check(all(sh is not None for sh in shapes)
+          and len({sh.masked for sh in shapes}) == 1,
+          "dash batch: the members are not one batch group")
+    order: list = []
+    for sh in shapes:
+        if sh.values not in order:
+            order.append(sh.values)
+    sync(torch)
+    t = time.perf_counter()
+    out = run_vmapped(qe.executor, sels[0], info, shapes[0].params, order)
+    ms = (time.perf_counter() - t) * 1e3
+    return ({h: out[order.index(sh.values)]
+             for h, sh in zip(DASH_HOSTS, shapes)}, ms,
+            qe.executor.last_path)
+
+
+def datanode_reports(tid: str) -> dict:
+    """What the datanode processes reported on the spans piggybacked on
+    the statement's Flight responses: per node, the K1 / K2 launches of
+    its region_frag spans and its K2 calls (rows, fields, segments,
+    device ms as the datanode timed them)."""
+    from greptimedb_tpu_torch.utils import tracing
+
+    out: dict = {}
+    for sp in tracing.spans_for(tid):
+        if sp.node is None:
+            continue
+        node = out.setdefault(sp.node, {"k1_launches": 0, "k2_launches": 0,
+                                        "k2_calls": []})
+        if sp.name == "region_frag":
+            node["k1_launches"] += int(sp.attrs.get("k1_launches", 0))
+            node["k2_launches"] += int(sp.attrs.get("k2_launches", 0))
+        elif sp.name == "k2":
+            node["k2_calls"].append({k: sp.attrs.get(k) for k in (
+                "rows", "fields", "segments", "launches", "device_ms")})
+    return out
+
+
+def gpu_apps() -> dict:
+    """pid -> the card memory it holds, as nvidia-smi lists compute
+    apps."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    apps = {}
+    for line in smi.stdout.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = mem.strip()
+    return apps
+
+
+def gpu_used_mib() -> int:
+    """The card's used memory, MiB (nvidia-smi)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    return int(smi.stdout.strip().splitlines()[0])
+
+
+#: the least card memory a datanode process's CUDA context holds, MiB
+CHILD_CONTEXT_MIB = 200
+
+
+def children_on_card(pids: dict, used_before: int, what: str) -> dict:
+    """Each child's card memory as nvidia-smi lists its compute apps, and
+    the card's used memory before and after the children came up. In a
+    container whose process ids nvidia-smi does not see (it lists another
+    pid namespace's), the growth of the card's memory by at least one
+    CUDA context a child stands for the per-process list."""
+    apps = gpu_apps()
+    used = gpu_used_mib()
+    rep = {"compute_apps": apps, "used_mib_before": used_before,
+           "used_mib_after": used,
+           "child_memory": {n: apps.get(p) for n, p in pids.items()}}
+    on_card = all(p in apps for p in pids.values()) or \
+        used - used_before >= CHILD_CONTEXT_MIB * len(pids)
+    check(on_card, f"{what}: the children are not on the card ({rep})")
+    return rep
+
+
+def proc_statement(pc, meter, sk, torch, name, run, answer, check_fn,
+                   want_path) -> tuple:
+    """One statement on the process cluster under a trace of its own:
+    cold and warm ms, the route, the answer against the in-process one
+    (rtol 1e-12) and numpy, and the K1 / K2 launches the datanodes
+    report, held to the fragments that returned planes (a hedge's
+    duplicate may add or hide one a hedge fired)."""
+    from greptimedb_tpu_torch.utils import tracing
+    from greptimedb_tpu_torch.utils.metrics import HEDGE_EVENTS
+
+    meter.reset()
+    zero_launches(sk)
+    fired0 = HEDGE_EVENTS.get(event="fired")
+    tid = tracing.new_trace_id()
+    res, cold_ms, path = run(tid)
+    fired = int(HEDGE_EVENTS.get(event="fired") - fired0)
+    reports = datanode_reports(tid)
+    k1 = sum(r["k1_launches"] for r in reports.values())
+    k2 = sum(r["k2_launches"] for r in reports.values())
+    pk1, pk2 = launches(sk)
+    check(path == want_path, f"process {name}: last_path {path}")
+    check(k1 == 0 and pk1 == 0 and pk2 == 0,
+          f"process {name}: K1 {k1} on the datanodes, K1 / K2 {pk1} / "
+          f"{pk2} in the frontend")
+    # off the card the children run the plain versions: no launch
+    check(DEVICE is not None or abs(k2 - meter.planes) <= fired,
+          f"process {name}: the datanodes report {k2} K2 launches for "
+          f"{meter.planes} plane fragments and {fired} hedges")
+    if answer is not None:
+        if isinstance(res, dict):
+            for h, r in res.items():
+                same_rows(r, answer[h], f"process {name} host_{h}")
+        else:
+            same_rows(res, answer, f"process {name}")
+    check_fn(res)
+    rep = {"last_path": path, "cold_ms": cold_ms, "planes": meter.planes,
+           "fragments": meter.fragments, "fragment_bytes": meter.bytes,
+           "hedges_fired": fired, "k1_launches": k1, "k2_launches": k2,
+           "k2_by_datanode": {n: r["k2_launches"]
+                              for n, r in sorted(reports.items())},
+           "k2_calls": {n: r["k2_calls"]
+                        for n, r in sorted(reports.items())}}
+    if not isinstance(res, dict):
+        rep["rows"] = res.num_rows
+    # warm: the datanodes answer plane fragments from their fragment
+    # caches
+    rep["warm_ms"] = float(np.median([run(None)[1] for _ in range(2)]))
+    return rep, res
+
+
+def process_leg(sk, torch, lib, root, host_names, queries,
+                answers) -> dict:
+    """The cluster across processes: three datanode processes on the
+    card (`ProcessCluster`), the hour through the scatter write (each
+    region's slice over do_put into its process), a flush, the
+    statements against the in-process answers and numpy with the K2
+    launches the datanodes report, then a kill -9 failover with no
+    acknowledged write lost."""
+    from greptimedb_tpu_torch.cluster.process_cluster import ProcessCluster
+    from greptimedb_tpu_torch.session import QueryContext
+    from greptimedb_tpu_torch.utils import tracing
+    from greptimedb_tpu_torch.utils.metrics import HEDGE_EVENTS
+
+    t_leg = time.perf_counter()
+    out: dict = {}
+    hedges0 = {ev: HEDGE_EVENTS.get(event=ev)
+               for ev in ("fired", "won", "lost", "budget_denied")}
+    used0 = gpu_used_mib() if DEVICE is None else 0
+    t = time.perf_counter()
+    pc = ProcessCluster(os.path.join(root, "proc"), num_datanodes=3,
+                        device=DEVICE)
+    try:
+        out["spawn"] = {
+            "seconds": time.perf_counter() - t,
+            "ready_s": {n: dn.ready_s for n, dn in pc.datanodes.items()},
+            "pids": {n: dn.pid for n, dn in pc.datanodes.items()},
+            "startup": {n: dn.stderr_tail().strip().splitlines()[-1:]
+                        for n, dn in pc.datanodes.items()}}
+        if DEVICE is None:
+            out["spawn"]["gpu"] = children_on_card(
+                out["spawn"]["pids"], used0, "process")
+        log("cluster (l) process spawn: " + json.dumps(out["spawn"]))
+        tick_ms = 0.0
+        for _ in range(5):  # the failure detector's interval history
+            pc.beat_all(tick_ms)
+            tick_ms += 3000.0
+        pc.sql(cluster_ddl())
+        info = pc.catalog.table("public", "cpu")
+        batch, grid = cluster_batch(info, host_names)
+        t = time.perf_counter()
+        n = pc.frontend._sharded_write(info, batch, delete=False)
+        put_s = time.perf_counter() - t
+        count = pc.sql("SELECT count(*) FROM cpu").rows()[0][0]
+        nodes = [leader_of(pc, rid) for rid in info.region_ids]
+        check(n == HOSTS * 360 and count == n and len(set(nodes)) == 3,
+              f"process scatter: {n} rows, count(*) {count}, nodes {nodes}")
+        pc.sql("ADMIN flush_table('cpu')")
+        out["put"] = {"rows": n, "seconds": put_s, "rows_per_s": n / put_s,
+                      "nodes": nodes}
+        log("cluster (l) process put: " + json.dumps(out["put"]))
+        meter = FragmentMeter(pc)
+        fe = pc.frontend
+
+        def sql_run(sql):
+            def run(tid):
+                # the statement's own trace: the datanodes' spans land
+                # under it
+                sync(torch)
+                t = time.perf_counter()
+                res = fe.execute_one(sql, QueryContext(trace_id=tid))
+                sync(torch)
+                return (res, (time.perf_counter() - t) * 1e3,
+                        fe.executor.last_path)
+            return run
+
+        def dash_run(tid):
+            tracing.set_trace(tid)
+            try:
+                return dash_batch(fe, torch)
+            finally:
+                tracing.restore_trace(None)
+
+        stmts = {}
+        for name in ("double_groupby_all (1 h)",
+                     "double_groupby_all (10 min)", "cpu_max_all_8",
+                     "lastpoint"):
+            sql, path = queries[name]
+            stmts[name] = (sql_run(sql), answers[name],
+                           lambda r, nm=name: check_cluster(
+                               nm, r, grid, lambda x: x), path)
+        stmts["window (lag, 10 min)"] = (
+            sql_run(window_sql()), answers["window (lag, 10 min)"],
+            lambda r: check_window(r, grid, "process window"),
+            "window_pushdown")
+        stmts["dash batch (8 members)"] = (
+            dash_run, answers["dash batch (8 members)"],
+            lambda r: check_dash(r, grid, "process dash batch"),
+            "vmapped_fragments")
+        reports = {}
+        out["answers"] = {}
+        for name, (run, answer, check_fn, path) in stmts.items():
+            rep, res = proc_statement(pc, meter, sk, torch, name, run,
+                                      answer, check_fn, path)
+            reports[name] = rep
+            out["answers"][name] = res
+            log(f"cluster (l) process {name}: " + json.dumps(rep))
+        out["statements"] = reports
+        out["k2_launches"] = sum(r["k2_launches"] for r in reports.values())
+        out["k1_launches"] = sum(r["k1_launches"] for r in reports.values())
+        # the datanodes' K2 at their own shapes: the largest region's
+        # 10 min fragment and the dash batch's largest member gather,
+        # each against its plain version on the same shape (synthetic
+        # inputs in this process; the datanode's own device ms beside)
+        out["k2_shapes"] = {}
+        for key, name, want in (
+                ("fragment", "double_groupby_all (10 min)",
+                 (False, False, False)),
+                ("vmapped", "dash batch (8 members)", (False, True, False))):
+            calls = [c for cs in reports[name]["k2_calls"].values()
+                     for c in cs]
+            big = max(calls, key=lambda c: c["rows"])
+            case = {"datanode_device_ms": big["device_ms"],
+                    "datanode_calls": len(calls), "shape": [big["rows"],
+                                                            big["fields"]],
+                    "G": big["segments"] + 1}
+            if lib is not None:
+                gen = torch.Generator(device="cuda").manual_seed(SEED)
+                vals = torch.rand((big["rows"], big["fields"]),
+                                  dtype=torch.float64, device="cuda",
+                                  generator=gen) * 100.0
+                ids = torch.randint(0, big["segments"], (big["rows"],),
+                                    dtype=torch.int32, device="cuda",
+                                    generator=gen)
+                case.update(k2_case(sk, lib, torch, vals, ids,
+                                    big["segments"] + 1, want, key,
+                                    f"the datanode's {name}"))
+            out["k2_shapes"][key] = case
+            log(f"cluster (l) process K2 {key} shape: " + json.dumps(
+                {k: case.get(k) for k in ("shape", "G",
+                                          "datanode_device_ms", "ms",
+                                          "plain_ms", "bound_ms")}))
+        # ---- kill -9 the largest region's process, no acked row lost --
+        extra, _g = cluster_batch(info, host_names)
+        extra = extra.take(np.arange(HOSTS))  # one more 10 s slice
+        extra.columns["ts"] = extra.columns["ts"] + 3600 * 1000
+        last = {f: np.asarray(extra.columns[f], dtype=np.float64)
+                for f in FIELDS}
+        acked = pc.frontend._sharded_write(info, extra, delete=False)
+        check(acked == HOSTS, f"process: {acked} extra rows acknowledged")
+        rid2 = info.region_ids[2]
+        victim = leader_of(pc, rid2)
+        victim_pid = pc.datanodes[victim].pid
+        t = time.perf_counter()
+        pc.kill_datanode(victim)
+        ticks = 0
+        while True:
+            pc.beat_all(tick_ms)
+            ticks += 1
+            if pc.tick(tick_ms):
+                break
+            check(ticks < 200, "process failover: no failover started")
+            tick_ms += 3000.0
+        pc.beat_all(tick_ms)  # delivers OpenRegion to the survivor
+        new = leader_of(pc, rid2)
+        replayed = pc.datanodes[new].remote.info(rid2)["replayed_entries"]
+        count = pc.sql("SELECT count(*) FROM cpu").rows()[0][0]
+        res = pc.sql(queries["double_groupby_all (1 h)"][0])
+        fo_s = time.perf_counter() - t
+        check(new != victim and replayed > 0 and count == HOSTS * 361,
+              f"process failover: {victim} -> {new}, {replayed} replayed, "
+              f"count(*) {count}")
+        check(not alive(victim_pid), "process failover: the victim lives")
+        cols = {c: np.asarray(v) for c, v in zip(res.names, res.columns)}
+        order = np.argsort(np.asarray([f"host_{i}" for i in range(HOSTS)]),
+                           kind="stable")
+        check(res.num_rows == 2 * HOSTS and np.array_equal(
+            cols["hour"].astype(np.int64),
+            T0_MS + np.repeat([0, 3600 * 1000], HOSTS)),
+            "process failover: double_groupby_all keys")
+        for f in FIELDS:
+            want = np.concatenate([grid[f].mean(axis=0)[order],
+                                   last[f][order]])
+            check(np.allclose(cols[f"avg({f})"].astype(np.float64), want,
+                              rtol=1e-12, atol=0),
+                  f"process failover: avg({f}) over every acked row")
+        out["failover"] = {"victim": victim, "new_leader": new,
+                           "ticks": ticks, "wal_entries_replayed": replayed,
+                           "count": count, "seconds": fo_s}
+        log("cluster (l) process failover: " + json.dumps(out["failover"]))
+    finally:
+        pids = [dn.pid for dn in pc.datanodes.values()]
+        pc.close()
+    check(not any(alive(p) for p in pids), "process: a child outlived close")
+    out["hedges"] = {ev: int(HEDGE_EVENTS.get(event=ev) - v)
+                     for ev, v in hedges0.items()}
+    out["seconds"] = time.perf_counter() - t_leg
+    log(f"cluster (l) process leg: {out['seconds']:.1f} s; hedges "
+        + json.dumps(out["hedges"]))
+    return out
+
+
+def http_sql(port, sql, timeout=120) -> dict:
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    body = urllib.parse.urlencode({"sql": sql}).encode()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/sql",
+                                    data=body, timeout=timeout) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return {"code": e.code, "error": e.read().decode(errors="replace")}
+
+
+def http_rows_match(doc, res, what, hosts: int = 0) -> None:
+    """An HTTP /v1/sql answer against a QueryResult: names, keys exactly,
+    floats to rtol 1e-12; with `hosts`, against the result's rows of the
+    first `hosts` hosts."""
+    check(doc.get("code") == 0, f"{what}: {str(doc)[:300]}")
+    rec = doc["output"][0]["records"]
+    names = [c["name"] for c in rec["schema"]["column_schemas"]]
+    keep = np.ones(res.num_rows, dtype=bool)
+    if hosts and "hostname" in res.names:
+        keep = host_index(np.asarray(
+            res.columns[list(res.names).index("hostname")])) < hosts
+    check(names == list(res.names) and len(rec["rows"]) == int(keep.sum()),
+          f"{what}: shape {names} x {len(rec['rows'])}")
+    for j, col in enumerate(res.columns):
+        got = np.asarray([r[j] for r in rec["rows"]], dtype=object)
+        want = np.asarray(col)[keep]
+        if want.dtype.kind == "f":
+            check(np.allclose(got.astype(np.float64), want, rtol=1e-12,
+                              atol=0, equal_nan=True), f"{what}: {names[j]}")
+        else:
+            check(np.array_equal(got.astype(str), want.astype(str)),
+                  f"{what}: {names[j]}")
+
+
+def deploy_leg(root, host_names, grid, queries, answers) -> dict:
+    """The CLI roles as tests/test_deploy.py runs them: `metasrv start`,
+    three `datanode start` on the card and a `frontend start`, separate
+    processes beating every DEPLOY_HEARTBEAT_S; the hour through the
+    frontend's line-protocol route; double_groupby_all (1 h) and
+    cpu_max_all_8 over /v1/sql against the process leg's answers; kill -9
+    of a datanode, the metasrv's own ticker failing its region over
+    (bounded at 60 s), the same rows again; every process stopped."""
+    import signal
+
+    t_leg = time.perf_counter()
+    work = os.path.join(root, "deploy")
+    os.makedirs(work, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)}
+    procs: dict = {}
+    fast = ["--heartbeat-interval", str(DEPLOY_HEARTBEAT_S)]
+    # the roles run on the card unless this run is a CPU rehearsal
+    dev = ["--device", DEVICE] if DEVICE else []
+
+    def spawn(name, *args):
+        log_f = open(os.path.join(work, f"{name}.log"), "wb")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "greptimedb_tpu_torch", *args],
+            stdout=log_f, stderr=subprocess.STDOUT, env=env, cwd=HERE),
+            log_f)
+
+    def tail(name):
+        with open(os.path.join(work, f"{name}.log"), "rb") as f:
+            return f.read()[-2000:].decode(errors="replace")
+
+    def wait_port(name, timeout_s=120.0):
+        path = os.path.join(work, f"{name}.port")
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            proc = procs[name][0]
+            check(proc.poll() is None,
+                  f"deploy: {name} died at startup:\n{tail(name)}")
+            if os.path.exists(path):
+                return int(open(path).read().strip())
+            time.sleep(0.05)
+        check(False, f"deploy: {name} not up in {timeout_s} s")
+
+    out: dict = {"hosts": DEPLOY_HOSTS,
+                 "cut": f"the hour's first {DEPLOY_HOSTS} of {HOSTS} hosts"}
+    try:
+        used0 = gpu_used_mib() if not dev else 0
+        t = time.perf_counter()
+        spawn("metasrv", "metasrv", "start", "--data-home",
+              os.path.join(work, "meta"), "--bind-addr", "127.0.0.1:0",
+              "--port-file", os.path.join(work, "metasrv.port"), *fast)
+        ms = f"127.0.0.1:{wait_port('metasrv')}"
+        for i in range(3):
+            spawn(f"dn-{i}", "datanode", "start", "--node-id", f"dn-{i}",
+                  "--metasrv", ms, "--data-home",
+                  os.path.join(work, "shared"), "--port-file",
+                  os.path.join(work, f"dn-{i}.port"), *fast, *dev)
+        spawn("frontend", "frontend", "start", "--metasrv", ms,
+              "--http-addr", "127.0.0.1:0", "--port-file",
+              os.path.join(work, "frontend.port"), *dev)
+        spawn("flownode", "flownode", "start", "--metasrv", ms,
+              "--tick-interval", str(DEPLOY_FLOW_TICK_S), "--port-file",
+              os.path.join(work, "flownode.port"), *dev)
+        ready = {}
+        for name in ("dn-0", "dn-1", "dn-2", "frontend", "flownode"):
+            wait_port(name)
+            ready[name] = time.perf_counter() - t
+        fe = wait_port("frontend")
+        out["ready_s"] = ready
+        if not dev:
+            out["gpu"] = children_on_card(
+                {n: procs[n][0].pid for n in ("dn-0", "dn-1", "dn-2")},
+                used0, "deploy")
+        log("cluster (l) deploy up: " + json.dumps(out))
+        doc = http_sql(fe, cluster_ddl().replace("CREATE TABLE cpu ",
+                                                 "CREATE TABLE cpu_lp "))
+        check(doc.get("code") == 0, f"deploy: CREATE TABLE {doc}")
+        doc = http_sql(fe, DEPLOY_FLOW_SQL)
+        check(doc.get("code") == 0, f"deploy: CREATE FLOW {doc}")
+        t = time.perf_counter()
+        bodies = cpu_lp_bodies(grid, host_names, DEPLOY_HOSTS)
+        build_s = time.perf_counter() - t
+        sent = post_all(fe, "/v1/influxdb/write?precision=ms", bodies,
+                        LP_CLIENTS, {"Content-Type": "text/plain"})
+        check(sent["status"] == [204] * len(bodies),
+              f"deploy: not every body got 204 ({sent['first_error']})")
+        rows = 3600 // STEP_S * DEPLOY_HOSTS
+        out["write"] = {"rows": rows, "bodies": len(bodies),
+                        "build_s": build_s, "wall_s": sent["wall_s"],
+                        "rows_per_s": rows / sent["wall_s"],
+                        "ack_p99_ms": sent["p99_ms"]}
+        doc = http_sql(fe, "SELECT count(*) FROM cpu_lp")
+        check(doc.get("code") == 0 and doc["output"][0]["records"]["rows"]
+              == [[rows]], f"deploy: count(*) {str(doc)[:200]}")
+        # the flownode's ticks fold the hour into its sink: each host's
+        # hourly avg(usage_user) against numpy, within 30 s
+        order = np.argsort(np.asarray(
+            [f"host_{i}" for i in range(DEPLOY_HOSTS)]), kind="stable")
+        want = grid["usage_user"][:, :DEPLOY_HOSTS].mean(axis=0)[order]
+        t = time.perf_counter()
+        while True:
+            doc = http_sql(fe, "SELECT hostname, a, c FROM lp_hourly "
+                           "ORDER BY hostname")
+            got = doc["output"][0]["records"]["rows"] \
+                if doc.get("code") == 0 else []
+            if len(got) == DEPLOY_HOSTS and all(r[2] == 3600 // STEP_S
+                                                for r in got):
+                break
+            check(time.perf_counter() - t < 30.0,
+                  f"deploy: the flow's sink holds {len(got)} complete "
+                  f"hosts after 30 s ({str(doc)[:200]})")
+            time.sleep(0.25)
+        check(np.allclose(np.asarray([r[1] for r in got], dtype=np.float64),
+                          want, rtol=1e-9, atol=0),
+              "deploy: the flow's hourly avg against numpy")
+        out["flow"] = {"sink_rows": len(got),
+                       "seconds_after_write": time.perf_counter() - t}
+        stmts = {name: queries[name][0].replace(" FROM cpu ",
+                                                " FROM cpu_lp ")
+                 for name in ("double_groupby_all (1 h)", "cpu_max_all_8")}
+        out["queries"] = {}
+        for name, sql in stmts.items():
+            t = time.perf_counter()
+            doc = http_sql(fe, sql)
+            q_ms = (time.perf_counter() - t) * 1e3
+            http_rows_match(doc, answers[name], f"deploy {name}",
+                            DEPLOY_HOSTS)
+            out["queries"][name] = {"ms": q_ms}
+        # kill -9 the datanode of the largest region; the metasrv's own
+        # ticker fails it over
+        from greptimedb_tpu_torch.meta.kv_service import HttpKv
+        from greptimedb_tpu_torch.meta.route import ROUTE_PREFIX
+
+        routes = [json.loads(v) for _, v in HttpKv(ms).range(ROUTE_PREFIX)]
+        rr = max((r for route in routes for r in route["regions"]),
+                 key=lambda r: r["region_id"] & 0xFFFF)
+        victim = rr["leader_node"]
+        procs[victim][0].kill()
+        procs[victim][0].wait()
+        t = time.perf_counter()
+        name = "double_groupby_all (1 h)"
+        while True:
+            doc = http_sql(fe, stmts[name])
+            if doc.get("code") == 0:
+                break
+            check(time.perf_counter() - t < 60.0,
+                  f"deploy: no failover of {victim} in 60 s: "
+                  f"{str(doc)[:300]}")
+            time.sleep(0.25)
+        out["failover"] = {"victim": victim,
+                           "seconds": time.perf_counter() - t}
+        http_rows_match(doc, answers[name], "deploy after failover",
+                        DEPLOY_HOSTS)
+        doc = http_sql(fe, stmts["cpu_max_all_8"])
+        http_rows_match(doc, answers["cpu_max_all_8"],
+                        "deploy cpu_max_all_8 after failover", DEPLOY_HOSTS)
+        log("cluster (l) deploy failover: " + json.dumps(out["failover"]))
+    finally:
+        t_stop = time.perf_counter()
+        for proc, _log in procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        deadline = time.monotonic() + 20
+        for proc, log_f in procs.values():
+            try:
+                proc.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+    check(not any(alive(p.pid) for p, _ in procs.values()),
+          "deploy: a role process outlived its stop")
+    out["exit_codes"] = {n: p.returncode for n, (p, _) in procs.items()}
+    out["stop_s"] = time.perf_counter() - t_stop
+    out["seconds"] = time.perf_counter() - t_leg
+    log(f"cluster (l) deploy leg: {out['seconds']:.1f} s: "
+        + json.dumps({k: out.get(k) for k in ("cut", "write", "flow",
+                                              "queries", "exit_codes",
+                                              "stop_s")}))
+    return out
+
+
 def cluster_phase(sk, torch, lib=None) -> dict:
     """Phase (l): the in-process Cluster on the card, three datanodes,
     the hour of cpu_1h through the scatter write; every statement against
-    numpy with its fragment's K2 launches; a failover; the wire leg; a
+    numpy with its fragment's K2 launches; a failover; the process leg
+    (three datanode processes on the card, the answers held to the
+    in-process ones, the datanodes' K2 launches from their reports, a
+    kill -9 failover); the deploy leg (the CLI roles as processes); a
     standalone partitioned table's MergeScan through K1 and K2."""
     import shutil
     import tempfile
 
     from greptimedb_tpu_torch.cluster import Cluster
     from greptimedb_tpu_torch.query.engine import _cached_rule
-    from greptimedb_tpu_torch.utils.metrics import HEDGE_EVENTS
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
@@ -3030,9 +3688,9 @@ def cluster_phase(sk, torch, lib=None) -> dict:
     queries = cluster_queries()
     c = Cluster(os.path.join(root, "inproc"), num_datanodes=3,
                 device=DEVICE)
-    w = None
     try:
         # ---- the hour through the scatter write, in process ----
+        t_leg = time.perf_counter()
         c.sql(cluster_ddl())
         info = c.catalog.table("public", "cpu")
         batch, grid = cluster_batch(info, host_names)
@@ -3080,6 +3738,33 @@ def cluster_phase(sk, torch, lib=None) -> dict:
             log(f"cluster (l) {name}: " + json.dumps(rep))
         check(reports["double_groupby_all (1 h)"]["k2_launches"] == 3,
               "double_groupby_all: one K2 launch a region")
+        # the window pushdown and the vmapped batch, in process: the
+        # process leg's answers are held to these
+        zero_launches(sk)
+        res, ms = timed_query(c.frontend, window_sql(), torch)
+        check(c.frontend.executor.last_path == "window_pushdown",
+              f"cluster window: {c.frontend.executor.last_path}")
+        check_window(res, grid, "cluster window")
+        answers["window (lag, 10 min)"] = res
+        reports["window (lag, 10 min)"] = {
+            "last_path": "window_pushdown", "rows": res.num_rows,
+            "cold_ms": ms, "k1_launches": launches(sk)[0],
+            "k2_launches": launches(sk)[1]}
+        meter.reset()
+        zero_launches(sk)
+        dres, ms, path = dash_batch(c.frontend, torch)
+        check(path == "vmapped_fragments", f"cluster dash batch: {path}")
+        check_dash(dres, grid, "cluster dash batch")
+        k1, k2 = launches(sk)
+        check(k1 == 0 and k2 == meter.planes == 3,
+              f"cluster dash batch: K1 {k1}, K2 {k2} for {meter.planes} "
+              "plane fragments (one a region)")
+        answers["dash batch (8 members)"] = dres
+        reports["dash batch (8 members)"] = {
+            "last_path": path, "members": len(dres), "cold_ms": ms,
+            "k1_launches": k1, "k2_launches": k2}
+        for name in ("window (lag, 10 min)", "dash batch (8 members)"):
+            log(f"cluster (l) {name}: " + json.dumps(reports[name]))
         out["statements"] = reports
         out["launches"] = {
             "k1_launches": sum(r["k1_launches"] for r in reports.values()),
@@ -3135,54 +3820,15 @@ def cluster_phase(sk, torch, lib=None) -> dict:
         log("cluster (l) failover: " + json.dumps(out["failover"]))
         c.close()
         c = None
-        # ---- the wire leg: the same hour over Flight ----
-        w = Cluster(os.path.join(root, "wire"), num_datanodes=3,
-                    wire_transport=True, device=DEVICE)
-        w.sql(cluster_ddl())
-        winfo = w.catalog.table("public", "cpu")
-        wbatch, _g = cluster_batch(winfo, host_names)
-        t = time.perf_counter()
-        wn = w.frontend._sharded_write(winfo, wbatch, delete=False)
-        wput_s = time.perf_counter() - t
-        check(wn == n, f"cluster wire: put {wn} rows")
-        wire = {"put_rows": wn, "put_seconds": wput_s,
-                "put_rows_per_s": wn / wput_s}
-        wmeter = FragmentMeter(w)
-        hedges0 = {ev: HEDGE_EVENTS.get(event=ev)
-                   for ev in ("fired", "won", "lost", "budget_denied")}
-        zero_launches(sk)
-        for name in ("double_groupby_all (10 min)", "cpu_max_all_8",
-                     "lastpoint"):
-            sql, path = queries[name]
-            wmeter.reset()
-            k_before = launches(sk)[1]
-            res, ms = timed_query(w.frontend, sql, torch)
-            check(w.frontend.executor.last_path == path,
-                  f"cluster wire {name}: {w.frontend.executor.last_path}")
-            same_rows(res, answers[name], f"cluster wire {name}")
-            wire[name] = {"ms": ms,
-                          "in_process_cold_ms": reports[name]["cold_ms"],
-                          "planes": wmeter.planes,
-                          "k2_launches_at_return":
-                              launches(sk)[1] - k_before}
-            wire["planes"] = wire.get("planes", 0) + wmeter.planes
-        # a hedged read's loser is reset on the frontend, but its
-        # datanode may finish the fragment, K2 launch included: close
-        # joins the servers' call threads, then the launches are read
-        w.close()
-        w = None
-        wire["k1_launches"], wire["k2_launches"] = launches(sk)
-        wire["hedges"] = {ev: int(HEDGE_EVENTS.get(event=ev) - n)
-                          for ev, n in hedges0.items()}
-        fired = wire["hedges"]["fired"]
-        check(wire["k1_launches"] == 0
-              and wire["planes"] <= wire["k2_launches"]
-              <= wire["planes"] + fired,
-              f"cluster wire: {wire['k2_launches']} K2 launches for "
-              f"{wire['planes']} plane fragments and {fired} hedges")
-        out["wire"] = wire
-        log("cluster (l) wire: " + json.dumps(wire))
+        out["in_process_seconds"] = time.perf_counter() - t_leg
+        # ---- the process leg: three datanode processes on the card ----
+        out["process"] = process_leg(sk, torch, lib, root, host_names,
+                                     queries, answers)
+        # ---- the deploy leg: the CLI roles ----
+        out["deploy"] = deploy_leg(root, host_names, grid, queries,
+                                   out["process"].pop("answers"))
         # ---- a standalone partitioned table: MergeScan through K1, K2 ----
+        t_leg = time.perf_counter()
         engine, qe = open_engine(os.path.join(root, "standalone"))
         try:
             qe.execute_one(cluster_ddl())
@@ -3210,14 +3856,17 @@ def cluster_phase(sk, torch, lib=None) -> dict:
             log("cluster (l) standalone MergeScan: " + json.dumps(stand))
         finally:
             engine.close()
+        out["standalone_seconds"] = time.perf_counter() - t_leg
     finally:
         if c is not None:
             c.close()
-        if w is not None:
-            w.close()
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"cluster (l): {out['seconds']:.1f} s; {out['cut']}")
+    log(f"cluster (l): {out['seconds']:.1f} s (in process "
+        f"{out['in_process_seconds']:.1f}, processes "
+        f"{out['process']['seconds']:.1f}, deploy "
+        f"{out['deploy']['seconds']:.1f}, standalone "
+        f"{out['standalone_seconds']:.1f}); {out['cut']}")
     return out
 
 
@@ -6497,21 +7146,22 @@ def post_all(port, path, bodies, clients, headers) -> dict:
             "first_error": first_error[:1]}
 
 
-def cpu_lp_bodies(grid, host_names) -> list:
+def cpu_lp_bodies(grid, host_names, hosts: int = 0) -> list:
     """The first LP_HOURS of `cpu` as line protocol (measurement cpu_lp,
     ms timestamps, each value printed with repr so that it parses back
     to the same float64), in bodies of LP_BODY_LINES lines, time-major
-    like TSBS's generator."""
+    like TSBS's generator; the first `hosts` hosts (0: all HOSTS)."""
+    nh = hosts or HOSTS
     points = LP_HOURS * 3600 // STEP_S
     fmt = "cpu_lp,hostname={} " + ",".join(f"{f}={{}}" for f in FIELDS) \
         + " {}"
-    cols = [grid[f][:points].reshape(-1) for f in FIELDS]
-    hosts = np.tile(np.asarray(host_names, dtype=object), points)
+    cols = [grid[f][:points, :nh].reshape(-1) for f in FIELDS]
+    hosts = np.tile(np.asarray(host_names[:nh], dtype=object), points)
     ts = np.repeat(T0_MS + np.arange(points, dtype=np.int64)
-                   * STEP_S * 1000, HOSTS)
+                   * STEP_S * 1000, nh)
     bodies = []
-    for lo in range(0, points * HOSTS, LP_BODY_LINES):
-        hi = min(lo + LP_BODY_LINES, points * HOSTS)
+    for lo in range(0, points * nh, LP_BODY_LINES):
+        hi = min(lo + LP_BODY_LINES, points * nh)
         bodies.append("\n".join(map(
             fmt.format, hosts[lo:hi].tolist(),
             *(map(repr, c[lo:hi].tolist()) for c in cols),
@@ -9550,8 +10200,8 @@ def main() -> int:
         cluster["launches"]
     plane_paths["cluster (l): double_groupby_all after the failover"] = \
         cluster["failover"]
-    plane_paths["cluster (l): wire, 3 statements over Flight"] = \
-        cluster["wire"]
+    plane_paths["cluster (l): process leg, 6 statements (the datanodes' "
+                "reports)"] = cluster["process"]
     for name, r in cluster["standalone"].items():
         plane_paths[f"cluster (l): standalone MergeScan {name}"] = r
     plane_paths["observability (g): ANALYZE and HTTP (cpu)"] = main["obs"]
@@ -9629,6 +10279,14 @@ def main() -> int:
                                        "bound_by", "library_ms")}
             kernels[-1]["fragment_shape"]["launches"] = \
                 cluster["launches"]["k2_launches"]
+            for key, case in cluster["process"]["k2_shapes"].items():
+                kernels[-1][f"datanode_{key}_shape"] = {
+                    k: case.get(k) for k in (
+                        "shape", "G", "dtype", "max_abs_err", "ms",
+                        "datanode_device_ms", "datanode_calls", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms")}
+            kernels[-1]["datanode_launches"] = \
+                cluster["process"]["k2_launches"]
             vc = serving["vmapped_case"]
             kernels[-1]["vmapped_shape"] = {
                 k: vc[k] for k in ("shape", "G", "dtype", "members",

@@ -301,9 +301,8 @@ def _cluster_profile(qe, ctx):
 @_virtual("cluster_faults")
 def _cluster_faults(qe, ctx):
     """Armed chaos state and fire counts (fault/): one row per (armed
-    point x observed counter series). Empty when chaos is off. The port
-    has no network partitions or edges yet (ROADMAP A10-proc): those columns
-    stay empty."""
+    point x observed counter series), and one per installed network
+    partition. Empty when chaos is off."""
     from greptimedb_tpu_torch.fault import FAULTS, chaos_seed
     from greptimedb_tpu_torch.utils.metrics import FAULT_INJECTIONS
 
@@ -323,13 +322,20 @@ def _cluster_faults(qe, ctx):
 
     for f in FAULTS.describe():
         matchers = ",".join(f"{k}:{v}" for k, v in sorted(f["match"].items()))
+        edges = f["edges"] or [""]
         fired = FAULT_INJECTIONS.series(point=f["point"], kind=f["kind"])
         if not fired:
-            add(f["point"], f["kind"], f["schedule"], matchers, "", "", 0.0)
+            for edge in edges:
+                add(f["point"], f["kind"], f["schedule"], matchers, edge,
+                    "", 0.0)
             continue
         for labels, count in fired:
             add(f["point"], f["kind"], f["schedule"], matchers,
-                labels.get("edge", ""), labels.get("node", ""), count)
+                labels.get("edge", edges[0]), labels.get("node", ""),
+                count)
+    for edge in FAULTS.partitions():
+        add("partition", "partition", "installed", "", edge, "",
+            FAULT_INJECTIONS.total(kind="partition", edge=edge))
     return cols
 
 

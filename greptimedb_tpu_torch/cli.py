@@ -9,6 +9,14 @@ mirroring the reference `greptime standalone start` and `cli` REPL).
         --output-dir /tmp/dump [--db public] [--device cpu]
     python -m greptimedb_tpu_torch import --data-home /tmp/db2 \
         --input-dir /tmp/dump [--device cpu]
+    python -m greptimedb_tpu_torch metasrv start --data-home /tmp/meta \
+        --bind-addr 127.0.0.1:4002
+    python -m greptimedb_tpu_torch datanode start --node-id dn-0 \
+        --metasrv 127.0.0.1:4002 --data-home /shared [--device cpu]
+    python -m greptimedb_tpu_torch frontend start --metasrv 127.0.0.1:4002 \
+        --http-addr 127.0.0.1:4000 [-c frontend.toml] [--device cpu]
+    python -m greptimedb_tpu_torch flownode start --metasrv 127.0.0.1:4002 \
+        [--device cpu]
 
 `--device` is the port's counterpart of JAX_PLATFORMS: the server runs on
 the CUDA card unless asked for another device (`cpu` runs the kernels'
@@ -17,8 +25,14 @@ HTTP, MySQL and Postgres servers, static users and TLS, the concurrency
 plane, the query knobs and the observability plane ([tracing],
 [profiling], [slow_query], [metrics] self-scrape, [telemetry]); an
 option of a subsystem the port does not have yet exits non-zero naming
-the slice that brings it. The cluster roles belong to a later slice and
-do the same. `export` writes each database's SHOW CREATE TABLE DDL and a
+the slice that brings it. The cluster roles run as processes of their
+own: the metasrv (its KV, heartbeats and admin calls over HTTP, and a
+wall-clock ticker that fails dead datanodes over), datanodes (a region
+server on shared storage with its own heartbeat task and alive keeper),
+frontends (SQL over HTTP on remote metadata and remote regions; `-c`
+reads the [cluster] hedge options) and flownodes (every flow ticked on
+an interval); each takes `--device` and writes its bound port to
+`--port-file`. `export` writes each database's SHOW CREATE TABLE DDL and a
 COPY DATABASE ... TO of its tables in Parquet, one directory a database;
 `import` replays the DDL and COPY DATABASE ... FROM. On exit every thread `standalone start`
 started is joined: the servers', the self-scrape and telemetry tasks',
@@ -33,16 +47,6 @@ import signal
 import sys
 import time
 
-#: subcommands of the JAX CLI this slice leaves out, by the slice of the
-#: port that brings them (ROADMAP.md)
-_LATER = {
-    "metasrv": "multi-process cluster (ROADMAP A10-proc)",
-    "datanode": "multi-process cluster (ROADMAP A10-proc)",
-    "frontend": "multi-process cluster (ROADMAP A10-proc)",
-    "flownode": "multi-process cluster (ROADMAP A10-proc)",
-}
-
-
 def build_standalone(data_home: str, device=None, opts=None):
     """Assemble the standalone stack (kv backend -> catalog -> region
     engine -> query engine) on `device` (None: the CUDA card), with the
@@ -56,6 +60,7 @@ def build_standalone(data_home: str, device=None, opts=None):
     tz = "UTC"
     if opts is not None:
         optmod.apply_query_env(opts)
+        optmod.apply_cluster(opts)
         optmod.apply_observability(opts)
         optmod.apply_concurrency(opts)
         optmod.apply_shm(opts)
@@ -74,10 +79,14 @@ def _split_addr(addr: str) -> tuple[str, int]:
     return host or "127.0.0.1", int(port)
 
 
-def _refuse(what: str, slice_name: str) -> int:
-    print(f"greptimedb_tpu_torch: {what} is not in this slice of the port; "
-          f"the {slice_name} slice brings it", file=sys.stderr, flush=True)
-    return 2
+def _write_port_file(path: str, value) -> None:
+    """Atomic port-file publish: readers never see a partial file."""
+    if not path:
+        return
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(str(value))
+    os.replace(tmp, path)
 
 
 def _user_provider(opts):
@@ -222,6 +231,142 @@ def cmd_dump_config(args) -> int:
     from greptimedb_tpu_torch.options import example_toml
 
     sys.stdout.write(example_toml())
+    return 0
+
+
+def cmd_metasrv(args) -> int:
+    """The metadata-plane service process (reference cmd/src/metasrv.rs):
+    a FileKv-durable Metasrv, its KV / heartbeat HTTP service and a
+    wall-clock ticker driving failure detection and failover. It runs
+    no kernel: `--device` is accepted for a uniform command line."""
+    from greptimedb_tpu_torch.catalog.kv import FileKv
+    from greptimedb_tpu_torch.meta.kv_service import (
+        MetaHttpService,
+        MetasrvTicker,
+        NotifyingKv,
+    )
+    from greptimedb_tpu_torch.meta.metasrv import Metasrv, MetasrvOptions
+
+    os.makedirs(args.data_home, exist_ok=True)
+    kv = NotifyingKv(FileKv(os.path.join(args.data_home, "meta_kv.json")))
+    opts = MetasrvOptions(
+        region_lease_s=args.region_lease,
+        heartbeat_interval_s=args.heartbeat_interval,
+        failure_threshold=args.failure_threshold)
+    metasrv = Metasrv(kv, opts)
+    host, port = _split_addr(args.bind_addr)
+    service = MetaHttpService(metasrv, host, port)
+    service.start()
+    ticker = MetasrvTicker(metasrv, interval_s=min(
+        1.0, opts.heartbeat_interval_s))
+    ticker.start()
+    print(f"greptimedb_tpu_torch metasrv listening on http://{service.addr}",
+          flush=True)
+    _write_port_file(args.port_file, service.port)
+    try:
+        _wait_stop()
+    finally:
+        ticker.stop()
+        service.stop()
+    return 0
+
+
+def cmd_datanode(args) -> int:
+    """The region-server process with its OWN heartbeat task and region
+    alive keeper (reference cmd/src/datanode.rs, datanode/src/
+    heartbeat.rs:47-183, alive_keeper.rs:49-112), on `--device` (the
+    card unless `cpu`): its fragments' kernels run here."""
+    from greptimedb_tpu_torch.cluster.datanode_service import DatanodeService
+    from greptimedb_tpu_torch.storage import EngineConfig, RegionEngine
+
+    engine = RegionEngine(EngineConfig(
+        data_dir=args.data_home, wal_backend="remote", write_workers=2),
+        device=args.device)
+    host, port = _split_addr(args.rpc_addr)
+    svc = DatanodeService(args.node_id, engine, args.metasrv,
+                          rpc_host=host, rpc_port=port,
+                          heartbeat_interval_s=args.heartbeat_interval)
+    svc.start()
+    print(f"greptimedb_tpu_torch datanode {args.node_id} serving regions on "
+          f"grpc://{svc.addr} (metasrv {args.metasrv})", flush=True)
+    _write_port_file(args.port_file, svc.server.port)
+    try:
+        _wait_stop()
+    finally:
+        svc.stop()
+    return 0
+
+
+def cmd_flownode(args) -> int:
+    """The continuous-aggregation process (reference cmd/src/flownode.rs,
+    flow/src/adapter.rs:507-527 run_available): a frontend-style engine
+    over the remote metadata plane that ticks every flow on an
+    interval. Flows created through any frontend are seen here through
+    the shared KV. Its tick thread is joined on exit."""
+    import threading
+
+    from greptimedb_tpu_torch.cluster.frontend import build_frontend
+
+    qe, nodes = build_frontend(args.metasrv, device=args.device)
+    flow = qe.flow_engine
+    stop = threading.Event()
+
+    def loop():
+        while not stop.wait(args.tick_interval):
+            try:
+                for db_row in qe.execute_one("SHOW DATABASES").rows():
+                    out = flow.run_available(db=db_row[0])
+                    if out:
+                        print(f"flownode: ticked {out}", flush=True)
+            except Exception:  # noqa: BLE001 — the loop must not die
+                import traceback
+
+                traceback.print_exc()
+
+    t = threading.Thread(target=loop, name="gtpu-flownode-tick",
+                         daemon=True)
+    t.start()
+    print(f"greptimedb_tpu_torch flownode ticking every "
+          f"{args.tick_interval}s (metasrv {args.metasrv})", flush=True)
+    _write_port_file(args.port_file, "0")
+    try:
+        _wait_stop()
+    finally:
+        stop.set()
+        t.join()
+        qe.concurrency.shutdown()
+        nodes.close()
+    return 0
+
+
+def cmd_frontend(args) -> int:
+    """The stateless query-serving process over remote metadata and
+    remote regions (reference cmd/src/frontend.rs), on `--device`. `-c`
+    loads the layered options; the [cluster] hedge knobs reach the
+    router."""
+    from greptimedb_tpu_torch import options as optmod
+    from greptimedb_tpu_torch.cluster.frontend import build_frontend
+    from greptimedb_tpu_torch.servers import HttpServer
+
+    opts = optmod.load_options(args.config_file)
+    optmod.check_port_support(opts)
+    optmod.apply_query_env(opts)
+    optmod.apply_cluster(opts)
+    qe, nodes = build_frontend(
+        args.metasrv, opts.default_timezone, device=args.device,
+        hedge_budget_pct=opts.cluster.hedge_budget_pct)
+    host, port = _split_addr(args.http_addr)
+    http_server = HttpServer(qe, host, port)
+    try:
+        actual = http_server.start()
+        print(f"greptimedb_tpu_torch frontend listening on "
+              f"http://{host}:{actual} (metasrv {args.metasrv})", flush=True)
+        _write_port_file(args.port_file, actual)
+        _wait_stop()
+    finally:
+        http_server.stop()
+        qe.concurrency.shutdown()
+        nodes.close()
     return 0
 
 
@@ -375,13 +520,55 @@ def main(argv=None) -> int:
     p_imp.add_argument("--device", default=None, help=device_help)
     p_imp.set_defaults(fn=cmd_import)
 
-    for name in _LATER:
-        sub.add_parser(name, help=f"not in this slice ({_LATER[name]})")
+    p_ms = sub.add_parser("metasrv", help="run the metadata-plane service")
+    ms_sub = p_ms.add_subparsers(dest="subcmd", required=True)
+    p_ms_start = ms_sub.add_parser("start")
+    p_ms_start.add_argument("--data-home", required=True)
+    p_ms_start.add_argument("--bind-addr", default="127.0.0.1:4002")
+    p_ms_start.add_argument("--region-lease", type=float, default=9.0)
+    p_ms_start.add_argument("--heartbeat-interval", type=float, default=3.0)
+    p_ms_start.add_argument("--failure-threshold", type=float, default=8.0)
+    p_ms_start.add_argument("--port-file", default="")
+    p_ms_start.add_argument("--device", default=None, help=device_help)
+    p_ms_start.set_defaults(fn=cmd_metasrv)
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _LATER:
-        # refused before parsing, whatever options the JAX CLI takes
-        return _refuse(f"the `{argv[0]}` command", _LATER[argv[0]])
+    p_dn = sub.add_parser("datanode", help="run a region-server datanode")
+    dn_sub = p_dn.add_subparsers(dest="subcmd", required=True)
+    p_dn_start = dn_sub.add_parser("start")
+    p_dn_start.add_argument("--node-id", required=True)
+    p_dn_start.add_argument("--metasrv", required=True,
+                            help="metasrv HTTP addr, host:port")
+    p_dn_start.add_argument("--data-home", required=True,
+                            help="SHARED storage path (object-store "
+                                 "deployment shape; the WAL is remote)")
+    p_dn_start.add_argument("--rpc-addr", default="127.0.0.1:0")
+    p_dn_start.add_argument("--heartbeat-interval", type=float, default=3.0)
+    p_dn_start.add_argument("--port-file", default="",
+                            help="write the bound Flight port here")
+    p_dn_start.add_argument("--device", default=None, help=device_help)
+    p_dn_start.set_defaults(fn=cmd_datanode)
+
+    p_fe = sub.add_parser("frontend", help="run a query-serving frontend")
+    fe_sub = p_fe.add_subparsers(dest="subcmd", required=True)
+    p_fe_start = fe_sub.add_parser("start")
+    p_fe_start.add_argument("--metasrv", required=True)
+    p_fe_start.add_argument("--http-addr", default="127.0.0.1:4000")
+    p_fe_start.add_argument("--port-file", default="")
+    p_fe_start.add_argument("-c", "--config-file", default=None,
+                            help="layered TOML config ([query], [cluster])")
+    p_fe_start.add_argument("--device", default=None, help=device_help)
+    p_fe_start.set_defaults(fn=cmd_frontend)
+
+    p_fn = sub.add_parser("flownode",
+                          help="run a continuous-aggregation flownode")
+    fn_sub = p_fn.add_subparsers(dest="subcmd", required=True)
+    p_fn_start = fn_sub.add_parser("start")
+    p_fn_start.add_argument("--metasrv", required=True)
+    p_fn_start.add_argument("--tick-interval", type=float, default=1.0)
+    p_fn_start.add_argument("--port-file", default="")
+    p_fn_start.add_argument("--device", default=None, help=device_help)
+    p_fn_start.set_defaults(fn=cmd_flownode)
+
     args = parser.parse_args(argv)
     from greptimedb_tpu_torch.options import ConfigError
 

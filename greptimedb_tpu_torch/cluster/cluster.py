@@ -182,17 +182,18 @@ class _HedgePlane:
     """Adaptive request hedging for remote fragment reads: when a peer's
     response is slower than its own recent p99 (floored at
     GTPU_HEDGE_DELAY_MS), a second attempt races it and the first
-    response wins. A token bucket caps hedges at _BUDGET_PCT of eligible
-    requests, so a slow cluster degrades to plain waiting instead of
-    doubling its own load. GTPU_HEDGE=off turns it off."""
+    response wins. A token bucket caps hedges at the [cluster]
+    hedge_budget_pct of eligible requests, so a slow cluster degrades to
+    plain waiting instead of doubling its own load. GTPU_HEDGE=off turns
+    it off."""
 
     #: burst cap: at most this many banked hedges
     _CAP = 10.0
-    #: the share of eligible requests that may hedge, in percent (the
-    #: [cluster] section that sets it comes with A10-proc)
-    _BUDGET_PCT = 5.0
 
-    def __init__(self):
+    def __init__(self, budget_pct: float = 5.0):
+        #: the share of eligible requests that may hedge, in percent
+        #: ([cluster] hedge_budget_pct)
+        self.budget_pct = float(budget_pct)
         self._lock = threading.Lock()
         self._lat: dict[str, deque] = {}
         self._credit = 1.0  # one immediate hedge; then pct a request
@@ -229,7 +230,7 @@ class _HedgePlane:
         """One eligible request earns pct/100 of a hedge."""
         with self._lock:
             self._credit = min(self._CAP,
-                               self._credit + self._BUDGET_PCT / 100.0)
+                               self._credit + self.budget_pct / 100.0)
 
     def try_fire(self) -> bool:
         with self._lock:
@@ -247,7 +248,7 @@ class RegionRouter:
     maintenance = None
 
     def __init__(self, metasrv: Metasrv, datanodes: dict[str, Datanode],
-                 device=None):
+                 device=None, hedge_budget_pct: float = 5.0):
         import weakref
 
         self.metasrv = metasrv
@@ -258,7 +259,10 @@ class RegionRouter:
         self.caches: "weakref.WeakSet" = weakref.WeakSet()
         self._region_node: dict[int, str] = {}
         self._agg_executors: dict[int, object] = {}  # one an engine
-        self._hedge = _HedgePlane()
+        # rollup_probe's negative answers, by (region, lo, hi): a
+        # dashboard re-asking a window inside the TTL skips the fan-out
+        self._rollup_probe_cache: dict[tuple, tuple] = {}
+        self._hedge = _HedgePlane(hedge_budget_pct)
         self._lock = threading.Lock()
         self.ddl_manager = None
         metasrv.subscribe_invalidation(self._on_invalidate)
@@ -269,6 +273,7 @@ class RegionRouter:
             # pushdown executors pin their engines and device caches:
             # they go with the routes, so failed-over engines can free
             self._agg_executors.clear()
+            self._rollup_probe_cache.clear()
 
     def _refresh(self) -> None:
         with self._lock:
@@ -521,6 +526,42 @@ class RegionRouter:
         if not ok:
             raise val
         return val
+
+    #: rollup_probe answers stay valid about as long as the datanode's
+    #: own coverage-state cache (maintenance/rollup.py)
+    _ROLLUP_PROBE_TTL_S = 2.0
+
+    def rollup_probe(self, region_id: int, lo: int, hi: int) -> list:
+        """Which rollup rules fully cover [lo, hi) on the region's owner
+        (maintenance/rollup.py::probe_region_rollups; the eligibility
+        half of the distributed substitution). Only NEGATIVE answers are
+        cached: a positive one stays live, because the owner's late-data
+        check keeps substituted aggregates exact after an out-of-order
+        write."""
+        key = (region_id, int(lo), int(hi))
+        now = time.monotonic()
+        with self._lock:
+            hit = self._rollup_probe_cache.get(key)
+            if hit is not None and hit[0] > now:
+                return hit[1]
+            if len(self._rollup_probe_cache) > 4096:
+                self._rollup_probe_cache.clear()
+
+        def op(eng):
+            if hasattr(eng, "rollup_probe"):  # RemoteRegionEngine: wire
+                return eng.rollup_probe(region_id, lo, hi)
+            from greptimedb_tpu_torch.maintenance.rollup import (
+                probe_region_rollups,
+            )
+
+            return probe_region_rollups(eng, region_id, int(lo), int(hi))
+
+        out = self._with_failover(region_id, op)
+        if not out:
+            with self._lock:
+                self._rollup_probe_cache[key] = (
+                    now + self._ROLLUP_PROBE_TTL_S, out)
+        return out
 
     def alter_region_schema(self, region_id: int, schema) -> None:
         self._engine_for(region_id).alter_region_schema(region_id, schema)

@@ -58,15 +58,30 @@ child process inherits its parent's schedule:
     GTPU_CHAOS="objectstore.read=fail,nth:2;ingest.commit=latency,arg:0.5,@op:apply"
     GTPU_CHAOS_SEED=42
 
-The in-process cluster's points are the datanode heartbeat
-(`heartbeat.send`, a dropped beat), a datanode's death on a beat
-(`datanode.crash`) and the metasrv election's lease (`election.lease`).
-The JAX registry's metadata-KV point (`metasrv.kv`), its network
-partitions and edge matchers belong to the multi-process cluster, whose
-seams the port does not have yet: arming them raises naming the slice
-that brings them. Every injection counts in
-`greptimedb_tpu_fault_injections_total{point,kind}`. The chaos explorer
-and its scenarios come with that slice too (ROADMAP.md, A10-proc).
+The cluster's points are the datanode heartbeat (`heartbeat.send`, a
+dropped beat), a datanode's death on a beat (`datanode.crash`), the
+metasrv election's lease (`election.lease`) and the metadata KV over
+HTTP (`metasrv.kv`, meta/kv_service.py: every dispatched op, labelled
+`op=get|put|cas|range|delete|watch`, `src` the caller's node id and
+`dst` the metasrv's).
+
+Network partitions: a schedule can be scoped to a (src, dst) EDGE on the
+points that cross a process boundary (`EDGE_POINTS`: the Flight seams,
+`heartbeat.send`, `metasrv.kv`), and the registry holds partition state
+installed without a schedule:
+
+    FAULTS.install_partition("frontend", "dn-1")      # symmetric
+    FAULTS.heal_partition("frontend", "dn-1")
+    GTPU_CHAOS="partition=frontend<->dn-1"            # the same
+    GTPU_CHAOS="heartbeat.send=fail,@edge:dn-1->metasrv-0"  # one way
+    GTPU_CHAOS="partition=a<->b,nth:3,times:5"        # a call window
+
+A partitioned call raises a transient FaultError(kind="partition") and
+counts under `fault_injections_total{kind="partition",edge="a->b"}`.
+Every injection counts in `greptimedb_tpu_fault_injections_total
+{point,kind}` (src and dst fold into one `edge` label). The chaos
+explorer and its scenarios come with the second part of the multi-
+process cluster slice (ROADMAP.md, A10-proc).
 """
 
 from __future__ import annotations
@@ -80,23 +95,25 @@ from typing import Optional
 
 from greptimedb_tpu_torch.utils.metrics import FAULT_INJECTIONS
 
-__all__ = ["Cancelled", "DeadlineExceeded", "FAULTS", "Fault", "FaultError",
-           "FaultRegistry", "POINTS", "Unavailable", "is_transient",
-           "local_node", "retry_call"]
-
-_A10_PROC = "multi-process cluster (ROADMAP A10-proc)"
+__all__ = ["Cancelled", "DeadlineExceeded", "EDGE_POINTS", "FAULTS", "Fault",
+           "FaultError", "FaultRegistry", "POINTS", "Unavailable",
+           "is_transient", "local_node", "retry_call"]
 
 #: the port's injection points (the object store's, the WALs', the write
-#: plane's, the OTLP exporter's, the Flight services' and the in-process
-#: cluster's)
+#: plane's, the OTLP exporter's, the Flight services', the cluster's and
+#: the metadata KV's)
 POINTS = frozenset({
     "objectstore.read", "objectstore.write", "wal.append", "wal.replay",
     "ingest.commit", "maintenance.job", "otlp.export", "flight.do_get",
     "flight.do_put", "heartbeat.send", "datanode.crash", "election.lease",
+    "metasrv.kv",
 })
 
-#: the JAX registry's points whose seams the port does not have yet
-_LATER_POINTS = frozenset({"metasrv.kv"})
+#: points that cross a process boundary and so have a peer: the only
+#: points an @edge matcher or a partition applies to
+EDGE_POINTS = frozenset({
+    "flight.do_get", "flight.do_put", "heartbeat.send", "metasrv.kv",
+})
 
 KINDS = frozenset({"fail", "latency", "torn", "short_read", "enospc"})
 
@@ -163,15 +180,26 @@ def _deadline_sleep(delay_s: float, point: str) -> None:
     deadline.sleep(delay_s, f"injected latency at {point}")
 
 
-def _refuse_point(point: str) -> None:
-    if point in _LATER_POINTS:
+def _parse_edge(spec: str) -> list[tuple[str, str]]:
+    """'a->b' (one direction) or 'a<->b' (both) as directed edges."""
+    if "<->" in spec:
+        a, _, b = spec.partition("<->")
+        sym = True
+    elif "->" in spec:
+        a, _, b = spec.partition("->")
+        sym = False
+    else:
+        raise ValueError(f"bad edge spec {spec!r} (want 'a->b' or 'a<->b')")
+    a, b = a.strip(), b.strip()
+    if not a or not b:
+        raise ValueError(f"bad edge spec {spec!r}: empty endpoint")
+    if any("," in e or "->" in e for e in (a, b)):
+        # "a<->b,c" would install an inert cut whose endpoint holds the
+        # junk: a malformed spec raises, never a meaningless green run
         raise ValueError(
-            f"injection point {point!r} is not in this slice of "
-            f"greptimedb_tpu_torch (have: {sorted(POINTS)}); the {_A10_PROC} "
-            "slice brings its seam")
-    if point not in POINTS:
-        raise ValueError(
-            f"unknown injection point {point!r} (have: {sorted(POINTS)})")
+            f"bad edge spec {spec!r}: one edge per entry "
+            "(separate entries with ';')")
+    return [(a, b), (b, a)] if sym else [(a, b)]
 
 
 @dataclass
@@ -195,6 +223,9 @@ class Fault:
     #: only fire when the call site's labels match; non-matching calls
     #: do not consume the schedule
     match: Optional[dict] = None
+    #: only fire on these directed (src, dst) edges (EDGE_POINTS only,
+    #: checked when armed)
+    edges: Optional[list] = None
 
     calls: int = field(default=0, init=False)
 
@@ -209,6 +240,9 @@ class Fault:
         self._lock = threading.Lock()
 
     def matches(self, labels: dict) -> bool:
+        if self.edges is not None and \
+                (labels.get("src"), labels.get("dst")) not in self.edges:
+            return False
         if labels.get("side") == "server" and \
                 (not self.match or "side" not in self.match):
             # a flight.* call has two seams, the client RPC and the one
@@ -235,10 +269,91 @@ class FaultRegistry:
 
     def __init__(self):
         self._points: dict[str, Fault] = {}
+        #: installed network partitions: directed (src, dst) edge ->
+        #: None (permanent) or a call-count window {"nth", "times",
+        #: "calls"}; every EDGE_POINTS call is checked against them
+        self._partitions: dict = {}
+        #: the run's node ids, registered by the cluster harnesses: when
+        #: not empty, an edge or node matcher naming another node fails
+        #: when armed (the typo guard of the point check)
+        self._known_nodes: set = set()
         self._lock = threading.Lock()
 
+    # ---- topology -----------------------------------------------------------
+
+    def register_nodes(self, node_ids) -> None:
+        """Declare the run's node ids (datanodes, 'frontend', the
+        metasrv's id) so edge specs are checked against them."""
+        with self._lock:
+            self._known_nodes.update(str(n) for n in node_ids)
+
+    def _check_node(self, node: str, what: str) -> None:
+        if self._known_nodes and node not in self._known_nodes:
+            raise ValueError(
+                f"unknown node {node!r} in {what} "
+                f"(known: {sorted(self._known_nodes)})")
+
+    # ---- partitions ---------------------------------------------------------
+
+    def install_partition(self, a: str, b: str, symmetric: bool = True,
+                          nth: Optional[int] = None,
+                          times: int = 1) -> None:
+        """Cut the network between two nodes: every EDGE_POINTS call whose
+        (src, dst) crosses the cut raises a transient
+        FaultError(kind="partition"); `symmetric=False` cuts a -> b only.
+        With `nth` only calls nth .. nth + times - 1 on the edge drop
+        (each direction counts its own), then the cut heals itself."""
+        for n in (a, b):
+            self._check_node(n, "install_partition")
+        window = None
+        if nth is not None:
+            if nth < 1 or times < 1:
+                raise ValueError(
+                    f"bad partition window nth:{nth},times:{times} "
+                    "(nth and times are 1-based counts)")
+            window = {"nth": nth, "times": times}
+        with self._lock:
+            self._partitions[(a, b)] = \
+                dict(window, calls=0) if window else None
+            if symmetric:
+                self._partitions[(b, a)] = \
+                    dict(window, calls=0) if window else None
+
+    def heal_partition(self, a: str, b: str,
+                       symmetric: bool = True) -> None:
+        with self._lock:
+            self._partitions.pop((a, b), None)
+            if symmetric:
+                self._partitions.pop((b, a), None)
+
+    def heal_partitions(self) -> None:
+        with self._lock:
+            self._partitions.clear()
+
+    def partitions(self) -> list[str]:
+        """Installed cuts as 'src->dst' strings."""
+        with self._lock:
+            return sorted(f"{a}->{b}" for a, b in self._partitions)
+
+    # ---- arming -------------------------------------------------------------
+
     def arm(self, point: str, fault: Fault) -> None:
-        _refuse_point(point)
+        if point not in POINTS:
+            raise ValueError(
+                f"unknown injection point {point!r} (have: {sorted(POINTS)})")
+        if fault.edges is not None:
+            if point not in EDGE_POINTS:
+                raise ValueError(
+                    f"point {point!r} has no peer concept: @edge matchers "
+                    f"apply only to {sorted(EDGE_POINTS)}")
+            for a, b in fault.edges:
+                self._check_node(a, f"@edge on {point}")
+                self._check_node(b, f"@edge on {point}")
+        if fault.match:
+            # a typo'd node matcher would never fire and green the run
+            for key in ("node", "src", "dst"):
+                if key in fault.match:
+                    self._check_node(fault.match[key], f"@{key} on {point}")
         if fault.seed is None:
             # default seeding decorrelates points (crc32, stable across
             # processes) while staying replayable from GTPU_CHAOS_SEED
@@ -254,13 +369,15 @@ class FaultRegistry:
     def reset(self) -> None:
         with self._lock:
             self._points.clear()
+            self._partitions.clear()
+            self._known_nodes.clear()
 
     def armed(self, point: str) -> bool:
         return point in self._points
 
     def describe(self) -> list[dict]:
         """Armed schedules as dicts (the debug surface behind
-        information_schema.cluster_faults)."""
+        information_schema.cluster_faults and /v1/faults)."""
         with self._lock:
             out = []
             for point, f in sorted(self._points.items()):
@@ -274,21 +391,43 @@ class FaultRegistry:
                     "point": point, "kind": f.kind, "schedule": sched,
                     "arg": f.arg,
                     "match": dict(f.match) if f.match else {},
-                    "edges": [],
+                    "edges": sorted(f"{a}->{b}" for a, b in f.edges)
+                    if f.edges else [],
                     "calls": f.calls,
                 })
             return out
+
+    def fingerprint(self) -> dict:
+        """The armed state (schedules and partitions, call counters
+        left out): `arm_from_env` of a run's GTPU_CHAOS on a fresh
+        registry gives the same fingerprint."""
+        with self._lock:
+            points = {}
+            for point, f in sorted(self._points.items()):
+                points[point] = {
+                    "kind": f.kind, "arg": f.arg, "nth": f.nth,
+                    "times": f.times, "prob": f.prob, "seed": f.seed,
+                    "match": dict(f.match) if f.match else {},
+                    "edges": sorted(f"{a}->{b}" for a, b in f.edges)
+                    if f.edges else [],
+                }
+            parts = {}
+            for (a, b), window in sorted(self._partitions.items()):
+                parts[f"{a}->{b}"] = None if window is None else {
+                    "nth": window["nth"], "times": window["times"]}
+            return {"points": points, "partitions": parts}
 
     def arm_from_env(self, spec: Optional[str] = None) -> None:
         """Parse GTPU_CHAOS and arm each entry. Grammar (`;`-separated):
 
             point=kind[,nth:N][,times:T][,prob:P][,arg:F][,seed:S][,@label:value]
+            partition=a<->b | a->b  [,nth:N][,times:T]
 
         `@label:value` tokens restrict the fault to matching call sites
-        (e.g. `ingest.commit=fail,@op:append`). A malformed spec raises:
-        silently ignoring a chaos schedule would make a green run
-        meaningless. `partition=` entries and `@edge` matchers are the
-        multi-process cluster slice's."""
+        (e.g. `ingest.commit=fail,@op:append`); `@edge:a->b` (or `a<->b`)
+        to a node pair on EDGE_POINTS. A `partition=` entry installs a
+        cut, no schedule needed. A malformed spec raises: silently
+        ignoring a chaos schedule would make a green run meaningless."""
         spec = spec if spec is not None else os.environ.get("GTPU_CHAOS", "")
         for entry in filter(None, (s.strip() for s in spec.split(";"))):
             point, _, rhs = entry.partition("=")
@@ -296,19 +435,25 @@ class FaultRegistry:
                 raise ValueError(f"bad GTPU_CHAOS entry {entry!r}")
             point = point.strip()
             if point == "partition":
-                raise ValueError(
-                    "network partitions are not in this slice of "
-                    f"greptimedb_tpu_torch; the {_A10_PROC} slice brings them")
+                ptoks = [t.strip() for t in rhs.split(",") if t.strip()]
+                pkw: dict = {}
+                for tok in ptoks[1:]:
+                    k, _, v = tok.partition(":")
+                    if k in ("nth", "times"):
+                        pkw[k] = int(v)
+                    else:
+                        raise ValueError(
+                            f"bad partition token {tok!r} in {entry!r}")
+                for a, b in _parse_edge(ptoks[0]):
+                    self.install_partition(a, b, symmetric=False, **pkw)
+                continue
             tokens = [t.strip() for t in rhs.split(",") if t.strip()]
             kw: dict = {"kind": tokens[0]}
             for tok in tokens[1:]:
                 k, _, v = tok.partition(":")
                 if k == "@edge":
-                    raise ValueError(
-                        "@edge matchers are not in this slice of "
-                        f"greptimedb_tpu_torch; the {_A10_PROC} slice brings "
-                        "them")
-                if k.startswith("@"):
+                    kw["edges"] = _parse_edge(v)
+                elif k.startswith("@"):
                     kw.setdefault("match", {})[k[1:]] = v
                 elif k in ("nth", "times", "seed"):
                     kw[k] = int(v)
@@ -319,16 +464,47 @@ class FaultRegistry:
                         f"bad GTPU_CHAOS token {tok!r} in {entry!r}")
             self.arm(point, Fault(**kw))
 
+    # ---- firing -------------------------------------------------------------
+
+    @staticmethod
+    def _counter_labels(labels: Optional[dict]) -> dict:
+        """src and dst fold into the `edge` label (the counter's
+        cardinality stays the number of edges)."""
+        out = {k: str(v) for k, v in (labels or {}).items()
+               if k not in ("src", "dst")}
+        if labels and "src" in labels and "dst" in labels:
+            out["edge"] = f"{labels['src']}->{labels['dst']}"
+        return out
+
+    def _check_partition(self, point: str, labels: dict) -> None:
+        if not self._partitions or point not in EDGE_POINTS:
+            return
+        edge = (labels.get("src"), labels.get("dst"))
+        with self._lock:
+            if edge not in self._partitions:
+                return
+            window = self._partitions[edge]
+            if window is not None:
+                # a windowed cut drops only calls nth .. nth + times - 1
+                window["calls"] += 1
+                lo = window["nth"]
+                if not lo <= window["calls"] < lo + window["times"]:
+                    return
+        FAULT_INJECTIONS.inc(point=point, kind="partition",
+                             edge=f"{edge[0]}->{edge[1]}")
+        raise FaultError(point, kind="partition")
+
     def fire(self, point: str, **labels) -> None:
         """Control-path hook: may raise FaultError or sleep. Call-site
         labels ride into the fault_injections counter."""
+        self._check_partition(point, labels)
         fault = self._points.get(point)  # the one production dict lookup
         if fault is None or not fault.matches(labels):
             return
         if not fault.should_fire():
             return
         FAULT_INJECTIONS.inc(point=point, kind=fault.kind,
-                             **{k: str(v) for k, v in labels.items()})
+                             **self._counter_labels(labels))
         if fault.kind == "latency":
             _deadline_sleep(fault.arg, point)
             return
@@ -351,7 +527,7 @@ class FaultRegistry:
         if not fault.should_fire():
             return data, None
         FAULT_INJECTIONS.inc(point=point, kind=fault.kind,
-                             **{k: str(v) for k, v in labels.items()})
+                             **self._counter_labels(labels))
         if fault.kind == "latency":
             _deadline_sleep(fault.arg, point)
             return data, None

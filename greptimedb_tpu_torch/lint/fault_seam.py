@@ -16,18 +16,19 @@ Left out, having no FAULTS point in either package: `shm/` (the
 fabric's shared segment), `datasource/` (COPY's and the external
 tables' user-named files), `servers/` apart from Flight, `flow/`,
 `script/` and `ingest.py` (no raw I/O: they reach storage through the
-engine). The metadata KV's point (metasrv.kv) comes with the
-multi-process cluster (A10-proc).
+engine).
 
 Flight's seams are held by name (`REQUIRED_SEAMS`): its RPCs cross the
 gRPC transport (`servers/grpc.py`, `servers/h2.py`), whose sockets
 carry no seam of their own, so the functions that must fire
 `flight.do_get` / `flight.do_put` (the client's `_rpc`, the server's
 `_region_scan`, `_region_frag` and `_region_write`) are named, and one
-that stops firing is a finding. So are the in-process cluster's three
-points, whose seams are control-plane calls with no raw I/O: a
-datanode's beat (`datanode.crash`), the heartbeat it sends
-(`heartbeat.send`) and the election's lease (`election.lease`).
+that stops firing is a finding. So are the cluster's control-plane
+points, whose seams have no raw I/O: a datanode's beat
+(`datanode.crash`, the in-process Datanode's and the process cluster's
+parent beating for its children), the heartbeat it sends
+(`heartbeat.send`), the election's lease (`election.lease`) and the
+metadata KV's dispatch over HTTP (`metasrv.kv`).
 """
 
 from __future__ import annotations
@@ -63,6 +64,9 @@ REQUIRED_SEAMS = {
         "_rpc": None, "_region_scan": "flight.do_get",
         "_region_frag": "flight.do_get", "_region_write": "flight.do_put"},
     "greptimedb_tpu_torch/cluster/cluster.py": {"beat": "datanode.crash"},
+    "greptimedb_tpu_torch/cluster/process_cluster.py": {
+        "beat_all": "datanode.crash"},
+    "greptimedb_tpu_torch/meta/kv_service.py": {"_dispatch": "metasrv.kv"},
     "greptimedb_tpu_torch/meta/heartbeat.py": {"beat": "heartbeat.send"},
     "greptimedb_tpu_torch/meta/election.py": {
         "_lease_chaos": "election.lease"},

@@ -12,12 +12,14 @@ card's machine only, where nothing else would catch it). A constant
 module name handed to `importlib.import_module` / `__import__` counts
 as an import.
 
-The rule covers every file of the port: the in-process cluster's
-`partition/`, `meta/`, `procedure/` and `cluster/` as the rest. The JAX
-checker's two rules (a storage-only datanode never importing jax, the
-storage plane keeping the device layers lazy) have nothing to hold in
-the port: it has no storage-only process (the multi-process cluster is
-A10-proc) and every import of jax is refused outright.
+The rule covers every file of the port: the cluster's `partition/`,
+`meta/`, `procedure/` and `cluster/` (the datanode child's entry point,
+`cluster/datanode_main.py`, included) as the rest. The JAX checker's
+two rules (a storage-only datanode never importing jax, the storage
+plane keeping the device layers lazy) have nothing to hold in the port:
+its datanode processes run their fragments' kernels on the card, so
+they import torch by design, and every import of jax is refused
+outright.
 """
 
 from __future__ import annotations

@@ -33,11 +33,14 @@ SST is durable; a crash mid-job leaves coverage un-advanced (the raw
 data keeps serving queries) and the next run overwrites the partial
 rows.
 
-The distributed substitution (a frontend probing datanodes for their
-companions' coverage) is the multi-process cluster slice's (ROADMAP
-A10-proc): `probe_region_rollups`, the datanode half, is here; the
-frontend half refuses, naming that slice. The in-process cluster's
-router offers no `rollup_probe`, so its aggregates never reach it.
+The distributed substitution: a cluster frontend (whose router offers
+`rollup_probe`) classifies the statement, asks each raw region's owner
+which rules cover the window (`probe_region_rollups`, the datanode half,
+over Flight's `rollup_probe` action on a wire router), and, when every
+region's companion covers it at a common resolution, re-plans over the
+companion region ids: the fragments the router ships are ordinary
+partial-agg fragments over the plane regions (`last_path`
+`pushdown+rollup`).
 """
 
 from __future__ import annotations
@@ -934,12 +937,89 @@ def try_substitute(qe, sel, info, ctx, shape_note=None):
 
 
 def _try_substitute_distributed(qe, sel, info, ctx, shape_note=None):
-    """Cluster-mode rollup substitution (a frontend probing each raw
-    region's owner and re-planning over the companion regions) is the
-    multi-process cluster slice's."""
-    from greptimedb_tpu_torch.query.engine import UnsupportedStatement
+    """Cluster-mode rollup substitution: the frontend classifies the
+    shape, fans a `rollup_probe` to each raw region's owner and, when
+    every region's companion covers the window at a common resolution,
+    re-plans over the COMPANION region ids. The router then ships
+    ordinary partial-agg fragments to the plane regions: [G, F] partial
+    planes over pre-aggregated rows cross the wire, never raw scans.
+    A failed probe RPC answers None (the raw route is always right); a
+    failure of the substituted query itself raises."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    raise UnsupportedStatement(
-        "distributed rollup substitution is not in this slice of "
-        "greptimedb_tpu_torch; the multi-process cluster (ROADMAP "
-        "A10-proc) slice brings it")
+    from greptimedb_tpu_torch.catalog.catalog import TableInfo
+    from greptimedb_tpu_torch.fault import FaultError, Unavailable
+    from greptimedb_tpu_torch.query.expr import PlanError, extract_ts_bounds
+    from greptimedb_tpu_torch.query.planner import plan_select
+    from greptimedb_tpu_torch.servers.flight import FlightError
+    from greptimedb_tpu_torch.utils import deadline as dl
+    from greptimedb_tpu_torch.utils import tracing
+    from greptimedb_tpu_torch.utils.metrics import FRAGMENT_PUSHDOWNS
+
+    # the structural gates first (as the local path's): a shape failing
+    # THESE may be memoized as ineligible
+    if sel.distinct or sel.joins or sel.ctes or sel.from_subquery is not None:
+        return None
+    schema = info.schema
+    dtype = schema.time_index.dtype
+    if not _where_ok(sel.where, schema):
+        return None
+    bounds = extract_ts_bounds(sel.where, schema.time_index.name, dtype)
+    if bounds is None or bounds[0] is None or bounds[1] is None:
+        return None
+    lo, hi = int(bounds[0]), int(bounds[1])
+    # from here every outcome depends on the regions' coverage state:
+    # the plan cache must keep probing
+    if shape_note is not None:
+        shape_note["memoizable"] = False
+    engine = qe.region_engine
+    rids = list(info.region_ids)
+    one = dl.propagate(tracing.propagate(
+        lambda rid: engine.rollup_probe(rid, lo, hi)))
+    try:
+        with ThreadPoolExecutor(max_workers=min(8, len(rids)),
+                                thread_name_prefix="gtpu-frag") as pool:
+            per_region = list(pool.map(one, rids))
+    except (FlightError, FaultError, Unavailable, KeyError, OSError):
+        return None  # a probe RPC failed: the raw route is right
+    # a resolution serves only when EVERY region's companion covers the
+    # window, with the same fields (a disagreement is a rollout drift)
+    common: Optional[dict] = None
+    for lst in per_region:
+        here = {e["resolution_ms"]: e for e in lst or ()}
+        if common is None:
+            common = {k: [v] for k, v in here.items()}
+        else:
+            common = {k: v + [here[k]] for k, v in common.items()
+                      if k in here
+                      and here[k].get("fields") == v[0].get("fields")}
+    if not common:
+        return None
+    for res_ms in sorted(common, reverse=True):  # the coarsest first
+        r_units = max(1, ms_to_units(res_ms, dtype))
+        if lo % r_units or hi % r_units:
+            continue
+        if _group_keys_ok(sel, info, r_units) is None:
+            continue
+        rule = RollupRule(resolution_ms=int(res_ms),
+                          fields=tuple(common[res_ms][0].get("fields", ())))
+        new_sel = _rewrite_aggs(sel, info, rule)
+        if new_sel is None:
+            continue
+        rollup_info = TableInfo(
+            table_id=info.table_id, name=info.name, db=info.db,
+            schema=rollup_schema(schema, rule), options={},
+            region_ids=[e["rollup_rid"] for e in common[res_ms]])
+        try:
+            plan = plan_select(new_sel, rollup_info)
+        except PlanError:  # an odd rewrite: the raw path is always right
+            continue
+        ex = qe.executor
+        ex.last_path = None
+        res = ex.execute(plan)
+        ROLLUP_SUBSTITUTIONS.inc(table=info.name, resolution_ms=res_ms)
+        FRAGMENT_PUSHDOWNS.inc(mode="rollup")
+        ex.last_path = (ex.last_path or "") + "+rollup"
+        ex.statement_paths.append(ex.last_path)
+        return res
+    return None

@@ -29,6 +29,12 @@ class RegionAliveKeeper:
         for rid in region_ids:
             self._deadlines_ms[rid] = deadline_ms
 
+    def register(self, region_ids: list[int], deadline_ms: float) -> None:
+        """Start the countdown of the regions not counted yet (a region
+        opened between beats; alive_keeper.rs register_region)."""
+        for rid in region_ids:
+            self._deadlines_ms.setdefault(rid, deadline_ms)
+
     def forget(self, region_id: int) -> None:
         self._deadlines_ms.pop(region_id, None)
 

@@ -316,8 +316,17 @@ class Metasrv:
                     # node journal must not fail this node over a second
                     # time (it would orphan the region's current holder)
                     self._persist_node_info(node, now_ms, failed_over=True)
-            regions = list(self._node_regions.get(node, {}).values())
-            for stat in regions:
+            regions = dict(self._node_regions.get(node, {}))
+            # a region the routes give this node that no beat reported
+            # yet (created between its last beat and its death) fails
+            # over too: the route table is the placement's record
+            for route in self.routes.all():
+                for rr in route.regions:
+                    if rr.leader_node == node and \
+                            rr.region_id not in regions:
+                        regions[rr.region_id] = RegionStat(
+                            region_id=rr.region_id, table=route.table)
+            for stat in regions.values():
                 if stat.role != "leader":
                     continue
                 proc = RegionFailoverProcedure(

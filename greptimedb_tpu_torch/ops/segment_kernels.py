@@ -24,7 +24,9 @@ caller slices it away.
 Each wrapper runs the plain PyTorch version only for tensors on the CPU.
 On a CUDA tensor it launches its kernel or raises. `launches` on each
 wrapper counts kernel launches and nothing else, under a lock, so
-concurrent request threads lose no count.
+concurrent request threads lose no count; `thread_launches()` gives the
+calling thread's own launches, counted at the same place (a datanode's
+fragment span reports its K2 launches from them).
 """
 
 from __future__ import annotations
@@ -78,6 +80,15 @@ def _stream(device: torch.device) -> int:
 #: the launch counts are read-modify-writes from every request thread of
 #: a server: without the lock two concurrent launches can count once
 _count_lock = threading.Lock()
+#: the calling thread's own launches (K1, K2): a span reads the delta
+#: over its body, exact while other threads launch too
+_thread_counts = threading.local()
+
+
+def thread_launches() -> tuple[int, int]:
+    """(K1, K2) launches made by the calling thread so far."""
+    return (getattr(_thread_counts, "k1", 0),
+            getattr(_thread_counts, "k2", 0))
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -122,6 +133,7 @@ def segment_sum(plane: torch.Tensor, ids: torch.Tensor,
         _raise_on(rc, "segment_sum")
         with _count_lock:
             segment_sum.launches += 1
+        _thread_counts.k1 = getattr(_thread_counts, "k1", 0) + 1
         PALLAS_DISPATCHES.inc(kernel="segment_sum")
     return out
 
@@ -254,6 +266,7 @@ def fused_segment_agg(vals: torch.Tensor, ids: torch.Tensor,
     _raise_on(rc, "fused_segment_agg")
     with _count_lock:
         fused_segment_agg.launches += 1
+    _thread_counts.k2 = getattr(_thread_counts, "k2", 0) + 1
     PALLAS_DISPATCHES.inc(kernel="fused_agg")
     return _fused_views(buf, views)  # after the launch: host work only
 

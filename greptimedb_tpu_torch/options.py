@@ -288,9 +288,10 @@ class ClusterOptions:
     """Frontend tail-tolerance knobs for cluster fragment reads
     (cluster/cluster.py): hedged region requests fire a backup fragment
     against a replica/retry route after an adaptive straggler delay,
-    first result wins and the loser is cancelled. Env twins (children
-    inherit): GTPU_HEDGE, GTPU_HEDGE_DELAY_MS; the port refuses the
-    section until A10-proc, and its hedge budget is a constant."""
+    first result wins and the loser is cancelled. `apply_cluster` writes
+    the env twins GTPU_HEDGE and GTPU_HEDGE_DELAY_MS (tests and child
+    processes read them); `frontend start` hands hedge_budget_pct to its
+    router."""
 
     # master switch for hedged fragment reads (A/B knob: GTPU_HEDGE)
     hedge_enabled: bool = True
@@ -623,6 +624,29 @@ def apply_query_env(opts: "StandaloneOptions") -> None:
 _APPLIED_ENV_KEYS: set = set()
 
 
+def apply_cluster(opts: "StandaloneOptions") -> None:
+    """Feed [cluster]'s on/off switch and delay floor to the router's
+    hedging through their env twins (GTPU_HEDGE, GTPU_HEDGE_DELAY_MS), as
+    apply_query_env writes its knobs: an env var the operator set wins.
+    The budget goes to the router itself (cluster/frontend.py::
+    build_frontend's `hedge_budget_pct`)."""
+    cl, dcl = opts.cluster, ClusterOptions()
+    m = {
+        "GTPU_HEDGE": ("" if cl.hedge_enabled else "off", ""),
+        "GTPU_HEDGE_DELAY_MS":
+            (str(cl.hedge_delay_ms)
+             if cl.hedge_delay_ms != dcl.hedge_delay_ms else "", ""),
+    }
+    for k, (v, default) in m.items():
+        if v and v != default and (k not in os.environ
+                                   or k in _APPLIED_ENV_KEYS):
+            os.environ[k] = v
+            _APPLIED_ENV_KEYS.add(k)
+        elif v == default and k in _APPLIED_ENV_KEYS:
+            os.environ.pop(k, None)
+            _APPLIED_ENV_KEYS.discard(k)
+
+
 def apply_concurrency(opts: "StandaloneOptions") -> None:
     """Feed [concurrency] into the process-wide plane config consumed
     by QueryEngine construction (env vars GTPU_* still win at read
@@ -805,7 +829,6 @@ def engine_config(opts: "StandaloneOptions", data_dir: str):
 
 # ---- what the port runs ----------------------------------------------------
 
-_A10_PROC = "multi-process cluster (ROADMAP A10-proc)"
 _A10_MESH = "mesh (ROADMAP A10-mesh)"
 _A11 = "tier routing (ROADMAP A11)"
 
@@ -817,7 +840,6 @@ _UNPORTED = {
     "query.mesh": (_A10_MESH, ()),
     "query.tier_admission": (_A11, ()),
     "query.tier_adaptive": (_A11, ()),
-    "cluster": (_A10_PROC, ()),
     "parallel": (_A10_MESH, ()),
 }
 

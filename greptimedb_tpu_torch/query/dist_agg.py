@@ -22,8 +22,10 @@ in the Flight `region_frag` ticket; `execute_region_fragment` is the
 region-side interpreter: the partial aggregate (with the lastpoint
 pruning hint), the top-k candidates, or the filtered rows, by terminal
 stage. `merge_topk` gathers the candidates for the frontend's Final
-sort. The vmapped and window fragments are the multi-process cluster
-slice's (ROADMAP A10-proc).
+sort. A `window` stage computes window functions whose PARTITION BY
+covers the partition rule on the region (`partial_region_window`); a
+`vmapped_agg` stage runs a batch of parameter-sibling members in one K2
+call (query/vmapped.py::run_vmapped_region_partial).
 
 Where the JAX prologue decodes every tag column of the scan and
 factorizes the group keys by their decoded strings, the port decodes
@@ -56,16 +58,9 @@ from greptimedb_tpu_torch.query.plan_ser import PlanFragment
 from greptimedb_tpu_torch.sql import ast
 from greptimedb_tpu_torch.storage.index import extract_tag_predicates
 
-_A10_PROC = "multi-process cluster (ROADMAP A10-proc)"
-
 #: marker for a cached empty region contribution (None itself means a
 #: cache miss to the cache API)
 _FRAG_NONE = {"__frag_none__": True}
-
-
-class FragmentRefused(Exception):
-    """A fragment stage this slice does not execute (the vmapped and
-    window fragments of the multi-process cluster slice)."""
 
 
 def execute_region_fragment(executor, region_id: int, frag: PlanFragment,
@@ -112,11 +107,14 @@ def _execute_region_fragment_uncached(executor, region_id: int,
     agg = frag.stage("partial_agg")
     common = dict(where=where, ts_range=frag.ts_range,
                   append_mode=frag.append_mode, tz=frag.tz)
-    for op in ("vmapped_agg", "window"):
-        if frag.stage(op) is not None:
-            raise FragmentRefused(
-                f"the {op} fragment is not in this slice of "
-                f"greptimedb_tpu_torch; the {_A10_PROC} slice brings it")
+    vm = frag.stage("vmapped_agg")
+    if vm is not None:
+        from greptimedb_tpu_torch.query.vmapped import (
+            run_vmapped_region_partial,
+        )
+
+        return run_vmapped_region_partial(executor, region_id, vm,
+                                          schema=schema, **common)
     if agg is not None:
         shim = SimpleNamespace(keys=agg["keys"], args=agg["args"],
                                ops=agg["ops"], **common)
@@ -130,7 +128,12 @@ def _execute_region_fragment_uncached(executor, region_id: int,
     sort = frag.stage("sort")
     limit = frag.stage("limit")
     prune = frag.stage("prune")
+    window = frag.stage("window")
     columns = list(prune["columns"]) if prune else None
+    if window is not None:
+        return partial_region_window(executor, region_id, columns,
+                                     window["calls"], schema=schema,
+                                     **common)
     if sort is not None and limit is not None:
         shim = SimpleNamespace(sort_keys=sort["keys"], k=limit["k"],
                                columns=columns, **common)
@@ -360,11 +363,66 @@ def partial_region_agg(executor, region_id: int, frag,
         return None
     n = len(host[ts_name])
 
-    # group keys: evaluate, factorize by VALUE (null-safe: NULL is its
-    # own group, matching the single-node path's semantics)
+    key_uniqs, gcode, gids_uniq, num_groups = _group_codes(
+        frag.keys, host, schema, coded, tag_dicts, n)
+    vals = _value_planes(frag.args, host, schema, n)
+
+    ops = set(frag.ops)
+    need_ts = bool({"first", "last"} & ops)
+    planes_np = k2_planes(executor.device, vals, gcode, num_groups,
+                          tuple(sorted(ops)),
+                          host[ts_name] if need_ts else None)
+    if stats_out is not None:
+        stats_out["agg_s"] = time.perf_counter() - t1
+
+    return {"keys": _decode_keys(key_uniqs, gids_uniq),
+            "planes": planes_np}
+
+
+def k2_planes(dev, vals: np.ndarray, ids: np.ndarray, num_segments: int,
+              ops: tuple, ts: Optional[np.ndarray] = None) -> dict:
+    """One K2 call (segment_agg_fused) over host rows on `dev`, its
+    planes back on the host. It runs in a `k2` span whose attributes are
+    the call's shape, the K2 launches this thread made in it and, on the
+    card, the call's device milliseconds (CUDA events): a datanode's
+    fragment span piggybacks them to the frontend, which reads a
+    datanode's launches from them."""
+    from greptimedb_tpu_torch.ops import segment_kernels
+    from greptimedb_tpu_torch.query.physical import _upload_counted
+    from greptimedb_tpu_torch.utils import tracing
+
+    n = int(vals.shape[0])
+    with tracing.span("k2", rows=n, fields=int(vals.shape[1]),
+                      segments=int(num_segments)) as attrs:
+        v = _upload_counted(vals, dev)
+        i = _upload_counted(ids.reshape(-1).astype(np.int32), dev)
+        t = _upload_counted(ts.astype(np.int64), dev) \
+            if ts is not None else None
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+        k2_before = segment_kernels.thread_launches()[1]
+        events = None
+        if dev.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        out = segment_agg_fused(v, i, live, num_segments, ops=ops, ts=t)
+        if events is not None:
+            events[1].record()
+        planes = {k: p.cpu().numpy() for k, p in out.items()}
+        attrs["launches"] = segment_kernels.thread_launches()[1] - k2_before
+        if events is not None:
+            attrs["device_ms"] = float(events[0].elapsed_time(events[1]))
+    return planes
+
+
+def _group_codes(keys, host: dict, schema, coded, tag_dicts: dict, n: int):
+    """Factorize the group keys over the host rows by VALUE (null-safe:
+    NULL is its own group, as on the single-node routes). Returns (the
+    uniques of each key, each row's compacted group id, the composite id
+    of each compacted group, the number of groups)."""
     key_uniqs: list[np.ndarray] = []
     gcode = np.zeros(n, dtype=np.int64)
-    for _, kexpr in frag.keys:
+    for _, kexpr in keys:
         if isinstance(kexpr, ast.Column) and kexpr.name in coded:
             uniq, codes = _factorize_codes(host[kexpr.name],
                                            tag_dicts[kexpr.name])
@@ -375,53 +433,38 @@ def partial_region_agg(executor, region_id: int, frag,
             uniq, codes = _factorize_with_null(vals)
         key_uniqs.append(uniq)
         gcode = gcode * len(uniq) + codes
-    if frag.keys:
+    if keys:
         gids_uniq, gcode = np.unique(gcode, return_inverse=True)
-        num_groups = len(gids_uniq)
-    else:
-        gids_uniq = np.zeros(1, dtype=np.int64)
-        num_groups = 1
+        return key_uniqs, gcode.reshape(-1), gids_uniq, len(gids_uniq)
+    return key_uniqs, gcode, np.zeros(1, dtype=np.int64), 1
 
-    if frag.args:
-        planes = []
-        for a in frag.args:
-            p = np.asarray(eval_host(a, host, schema))
-            if p.dtype == object or p.dtype.kind in ("U", "S"):
-                # string argument: only count() rides pushdown, which
-                # needs just validity — 1.0 per non-null
-                p = np.where(
-                    np.asarray([v is None for v in p.ravel()]).reshape(p.shape)
-                    if p.dtype == object else np.zeros(p.shape, bool),
-                    np.nan, 1.0)
-            planes.append(np.asarray(p, dtype=np.float64))
-        vals = np.stack([np.broadcast_to(p, (n,)) for p in planes], axis=1)
-    else:
-        vals = np.zeros((n, 1), dtype=np.float64)
 
-    from greptimedb_tpu_torch.query.physical import _upload_counted
+def _value_planes(args, host: dict, schema, n: int) -> np.ndarray:
+    """The [n, F] float64 argument planes (a string argument, which only
+    count() pushes, is 1.0 per non-NULL)."""
+    if not args:
+        return np.zeros((n, 1), dtype=np.float64)
+    planes = []
+    for a in args:
+        p = np.asarray(eval_host(a, host, schema))
+        if p.dtype == object or p.dtype.kind in ("U", "S"):
+            p = np.where(
+                np.asarray([v is None for v in p.ravel()]).reshape(p.shape)
+                if p.dtype == object else np.zeros(p.shape, bool),
+                np.nan, 1.0)
+        planes.append(np.asarray(p, dtype=np.float64))
+    return np.stack([np.broadcast_to(p, (n,)) for p in planes], axis=1)
 
-    dev = executor.device
-    ops = set(frag.ops)
-    need_ts = bool({"first", "last"} & ops)
-    out = segment_agg_fused(
-        _upload_counted(vals, dev),
-        _upload_counted(gcode.reshape(-1).astype(np.int32), dev),
-        torch.ones(n, dtype=torch.bool, device=dev), num_groups,
-        ops=tuple(sorted(ops)),
-        ts=_upload_counted(host[ts_name].astype(np.int64), dev)
-        if need_ts else None)
-    planes_np = {k: v.cpu().numpy() for k, v in out.items()}
-    if stats_out is not None:
-        stats_out["agg_s"] = time.perf_counter() - t1
 
-    # decode each group's key values from the compacted ids
+def _decode_keys(key_uniqs: list, gids: np.ndarray) -> list:
+    """Each group's key values from its composite id."""
     key_cols: list[np.ndarray] = []
-    rem = gids_uniq
+    rem = gids
     for uniq in reversed(key_uniqs):
         key_cols.append(uniq[rem % len(uniq)])
         rem = rem // len(uniq)
     key_cols.reverse()
-    return {"keys": key_cols, "planes": planes_np}
+    return key_cols
 
 
 _ADDITIVE = frozenset({"sum", "count", "rows", "sumsq"})
@@ -577,6 +620,47 @@ def partial_region_rows(executor, region_id: int, columns, k,
         n = len(next(iter(host.values())))
         if n > k:
             host = {name: arr[:k] for name, arr in host.items()}
+    return {"cols": host}
+
+
+def partial_region_window(executor, region_id: int, columns, calls,
+                          *, where, ts_range, append_mode, tz,
+                          schema=None) -> Optional[dict]:
+    """Window-partition pushdown: when every OVER clause's PARTITION BY
+    covers the partition-rule columns, each region holds its window
+    partitions whole, so the window computation commutes with MergeScan
+    (the reference's ConditionalCommutative class, commutativity.rs):
+    the wire carries the filtered rows and the computed window columns."""
+    from greptimedb_tpu_torch.query.window import _eval_window
+
+    probe = executor.engine.region(region_id)
+    schema = schema or probe.schema
+    ts_name = schema.time_index.name
+    ts_range = tuple(ts_range) if ts_range else None
+    needed: set[str] = {ts_name}
+    collect_columns(where, needed)
+    for _, call in calls:
+        collect_columns(call, needed)
+    if columns is None:
+        needed.update(schema.names)
+    else:
+        needed.update(columns)
+    host = _region_host_columns(executor, region_id, where, ts_range,
+                                needed, append_mode, schema, tz=tz)
+    if host is None:
+        return None
+    n = len(host[ts_name])
+
+    def dtype_of(e):
+        if isinstance(e, ast.Column) and e.name in schema.names:
+            return schema.column(e.name).dtype
+        return None
+
+    for name, call in calls:
+        host[name] = _eval_window(call, host, n, lambda e: e, dtype_of)
+    if columns is not None:
+        keep = set(columns) | {name for name, _ in calls}
+        host = {k: v for k, v in host.items() if k in keep}
     return {"cols": host}
 
 

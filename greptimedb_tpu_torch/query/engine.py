@@ -93,7 +93,9 @@ from greptimedb_tpu_torch.query.expr import (
     PlanError,
     _like_to_regex,
     coerce_ts_literal,
+    current_session_tz,
     eval_host,
+    extract_ts_bounds,
     has_aggregate,
     reset_session_tz,
     set_session_tz,
@@ -912,6 +914,13 @@ class QueryEngine:
                 return execute_select_over(
                     self, outer, dict(zip(base.names, base.columns)),
                     dict(zip(base.names, base.dtypes)))
+            # window-partition pushdown: a PARTITION BY covering the
+            # table's partition-rule columns keeps each window partition
+            # inside one region, so the regions compute the windows and
+            # ship filtered rows plus window columns
+            res = self._try_window_pushdown(sel, info, ctx)
+            if res is not None:
+                return res
             # the device scan + WHERE mask materializes the base
             # relation, windows evaluate on the host over the filtered
             # rows. Project only referenced columns (a Star or an
@@ -1260,6 +1269,95 @@ class QueryEngine:
                                [np.asarray(lines, dtype=object)])
         return engine.eval_range(stmt.query, stmt.start, stmt.end,
                                  stmt.step, ctx.db)
+
+    def _try_window_pushdown(self, sel: ast.Select, info, ctx):
+        """Ship [filter, prune, window] PlanFragments when every window
+        call's PARTITION BY covers the partition-rule columns (rows of one
+        window partition never span regions: the reference's
+        ConditionalCommutative class, commutativity.rs). The union of the
+        regions' rows and window columns feeds the outer select. None
+        when the shape does not commute: the caller gathers."""
+        eng = self.region_engine
+        if (len(info.region_ids) <= 1 or not info.partition_rules
+                or not hasattr(eng, "execute_fragment")
+                or sel.having is not None):
+            return None
+        from concurrent.futures import ThreadPoolExecutor
+
+        from greptimedb_tpu_torch.query.dist_agg import merge_topk
+        from greptimedb_tpu_torch.query.plan_ser import PlanFragment
+        from greptimedb_tpu_torch.query.window import (
+            SUPPORTED,
+            collect_window_calls,
+            substitute_window_calls,
+        )
+        from greptimedb_tpu_torch.utils import deadline as dl
+        from greptimedb_tpu_torch.utils import tracing
+        from greptimedb_tpu_torch.utils.metrics import FRAGMENT_PUSHDOWNS
+
+        rule_cols = set(_cached_rule(info).columns)
+        calls = collect_window_calls(sel)
+        if not calls:
+            return None
+        schema = info.schema
+        for fc in calls:
+            if fc.name not in SUPPORTED:
+                return None
+            part_cols = {p.name for p in fc.over.partition_by
+                         if isinstance(p, ast.Column)}
+            if not rule_cols <= part_cols:
+                return None
+        refs: set = set()
+        for it in sel.items:
+            if isinstance(it.expr, ast.Star):
+                return None  # the projection must be known statically
+            _columns_in(it.expr, refs)
+        for ob in sel.order_by:
+            _columns_in(ob.expr, refs)
+        _columns_in(sel.where, refs)
+        alias = sel.table_alias or sel.table
+        if not all(t in (None, alias, sel.table) for t, _ in refs):
+            return None
+        cols = {c for _, c in refs}
+        if not cols <= set(schema.names):
+            return None
+        ts_col = schema.time_index
+        ts_range = extract_ts_bounds(sel.where, ts_col.name, ts_col.dtype)
+        mapping = [(fc, ast.Column(f"__win_{i}"))
+                   for i, fc in enumerate(calls)]
+        stages: list = []
+        if sel.where is not None:
+            stages.append({"op": "filter", "expr": sel.where})
+        stages.append({"op": "prune", "columns": sorted(cols)})
+        stages.append({"op": "window",
+                       "calls": [(col.name, fc) for fc, col in mapping]})
+        frag = PlanFragment(stages=stages, ts_range=ts_range,
+                            append_mode=info.append_mode,
+                            tz=current_session_tz())
+        FRAGMENT_PUSHDOWNS.inc(mode="window")
+        rids = list(info.region_ids)
+        with tracing.span("window_pushdown", regions=len(rids)):
+            # the pool is joined before the outer select runs
+            one = dl.propagate(tracing.propagate(
+                lambda rid: eng.execute_fragment(rid, frag)))
+            with ThreadPoolExecutor(max_workers=min(8, len(rids)),
+                                    thread_name_prefix="gtpu-frag") as pool:
+                partials = list(pool.map(one, rids))
+        merged = merge_topk(partials)  # the union of the regions' rows
+        outer = substitute_window_calls(
+            dataclasses.replace(sel, where=None, table=None,
+                                table_alias=None), mapping)
+        self.executor.last_path = "window_pushdown"
+        base_cols = merged["cols"] if merged else \
+            {name: np.empty(0, dtype=object)
+             for name in sorted(cols) + [c.name for _, c in mapping]}
+        return execute_select_over(
+            self, outer, base_cols,
+            {c.name: c.dtype for c in schema.columns
+             if c.name in base_cols},
+            # qualified references passed the gate: the relation exposes
+            # them as the gather path's does
+            alias=alias)
 
     # ---- DDL ---------------------------------------------------------------
 

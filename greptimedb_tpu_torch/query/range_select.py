@@ -29,6 +29,7 @@ from greptimedb_tpu_torch.catalog.catalog import TableInfo
 from greptimedb_tpu_torch.datatypes.vector import DictVector
 from greptimedb_tpu_torch.ops.segment import segment_agg_fused
 from greptimedb_tpu_torch.query import logical as lp
+from greptimedb_tpu_torch.query.dist_agg import _factorize_with_null
 from greptimedb_tpu_torch.query.expr import (
     BindContext,
     PlanError,
@@ -229,7 +230,9 @@ def _plain_tag(b: ast.Expr, scan) -> bool:
 
 def _factorize(b, scan, idx, host, schema, n):
     """(sorted unique values, int64 codes [n]) of one BY expression over
-    the surviving rows: np.unique's answer. A plain tag column without
+    the surviving rows: np.unique's answer, with NULL as a group of its
+    own after every value (as GROUP BY groups it; the JAX np.unique
+    raises on a NULL tag, ROADMAP C R16). A plain tag column without
     NULLs factorizes its dictionary codes and decodes only the uniques;
     anything else evaluates on the decoded host columns."""
     if _plain_tag(b, scan):
@@ -248,6 +251,8 @@ def _factorize(b, scan, idx, host, schema, n):
         vals = np.asarray(eval_host(b, host, schema))
         if vals.ndim == 0:
             vals = np.broadcast_to(vals, (n,))
+    if vals.dtype == object:
+        return _factorize_with_null(vals)
     return np.unique(vals, return_inverse=True)
 
 

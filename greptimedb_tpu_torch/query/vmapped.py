@@ -40,14 +40,22 @@ its texts, so both packages take the same route: `run_vmapped` raises
 `VmapIneligible` (the batcher turns to the IN-list rewrite or serial
 execution) when
 
-- the plan is not Project <- Aggregate <- Filter <- Scan, an aggregate
-  runs on the host, or the table has several regions (the region-partial
-  and fragment variants come with the multi-process cluster slice,
-  ROADMAP.md A10-proc);
+- the plan is not Project <- Aggregate <- Filter <- Scan, or an
+  aggregate runs on the host;
 - the serial path would stream the scan;
 - a scan part spans several device blocks (the fold-association gate);
 - a parameter does not bind through `bind_expr` to `column op int`;
 - the stacked accumulator exceeds the group budget (padded width x G).
+
+A table of several regions behind a cluster router (one that executes
+fragments) runs the batch as ONE `vmapped_agg` fragment a region
+(`_run_vmapped_fragments`): each region's owner scans the union of the
+member windows once, masks each member's rows and reduces every
+(member, group) cell with one K2 call over M * G segments
+(`run_vmapped_region_partial`), and the frontend combines each member's
+per-region partials with the serial pushdown's Final step
+(dist_agg.combine_partials). Without such a router a multi-region batch
+is ineligible (the MergeScan gather runs it serially).
 
 Window-union batching falls out: members with different time windows
 share one scan of the union range and differ only in their ts
@@ -60,6 +68,7 @@ M * U + 1 segments.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -236,6 +245,13 @@ def run_vmapped(executor, sel: ast.Select, info, pspecs,
     if any(ph._needs_host_agg(spec, schema) for spec in agg.aggs):
         raise VmapIneligible("host-side aggregate in batch shape")
     if len(table.region_ids) != 1:
+        # a cluster frontend: the members run as ONE vmapped_agg fragment
+        # a region; per-member partial planes come back and combine as
+        # the serial pushdown's do
+        if hasattr(executor.engine, "execute_fragment"):
+            return _run_vmapped_fragments(
+                executor, table, pspecs, member_values, project, agg,
+                template_where)
         raise VmapIneligible("multi-region scans gather via fragments")
 
     # split the predicate: parameter conjuncts out, shared rest stays.
@@ -544,6 +560,248 @@ def _union_member_range(template_where, pspecs, member_values, ts_name,
         return None
     union_range = (None if lo_open else lo, None if hi_open else hi)
     return None if union_range == (None, None) else union_range
+
+
+# ---- several regions: vmapped partials over plan fragments ------------------
+
+
+def run_vmapped_region_partial(executor, region_id: int, vm: dict,
+                               schema=None, *, where=None, ts_range=None,
+                               append_mode=False, tz=None) -> dict:
+    """Execute a `vmapped_agg` fragment stage on ONE local region: every
+    member's partial aggregate from one scan and one K2 call. Returns
+    {"members": [per member {"keys", "planes"} or None]}, the per-member
+    twin of `dist_agg.partial_region_agg`'s output, or {"vmap_ineligible":
+    reason} when this region cannot serve the batch with the serial
+    route's semantics (the frontend then runs the members serially;
+    typed, never an error)."""
+    from greptimedb_tpu_torch.query.expr import (
+        reset_session_tz,
+        set_session_tz,
+    )
+
+    token = set_session_tz(tz)
+    try:
+        return _region_partial_inner(executor, region_id, vm, schema,
+                                     append_mode, ts_range)
+    except VmapIneligible as e:
+        return {"vmap_ineligible": str(e)}
+    finally:
+        reset_session_tz(token)
+
+
+def _region_partial_inner(executor, region_id, vm, schema, append_mode,
+                          ts_range):
+    """The region's rows in the union of the member windows (the shared
+    WHERE applied, last-write-wins deduped), each member's parameter
+    conjuncts bound through the engine's literal coercion against this
+    region's dictionaries, the (member, row) pairs gathered, and one K2
+    call over M * G segments, G the groups of the union rows (keys
+    factorized by value, as the serial partial does)."""
+    from greptimedb_tpu_torch.query import dist_agg
+    from greptimedb_tpu_torch.query.expr import collect_columns
+
+    probe = executor.engine.region(region_id)
+    schema = schema or probe.schema
+    ts_name = schema.time_index.name
+    keys_spec = [tuple(k) for k in vm["keys"]]
+    args = list(vm["args"])
+    ops = tuple(sorted(vm["ops"]))
+    pspecs = [tuple(p) for p in vm["params"]]
+    values = vm["values"]
+    m = len(values)
+    need_ts = bool({"first", "last"} & set(ops))
+    shared_where = vm.get("shared_where")
+
+    tags = {c.name for c in schema.tag_columns}
+    needed: set = {ts_name}
+    collect_columns(shared_where, needed)
+    for _, kexpr in keys_spec:
+        collect_columns(kexpr, needed)
+    arg_cols: set = set()
+    for a in args:
+        collect_columns(a, arg_cols)
+    needed |= arg_cols
+    key_cols: set = set()
+    for _, kexpr in keys_spec:
+        collect_columns(kexpr, key_cols)
+    for col, _op in pspecs:
+        needed.add(col)
+    # parameter tags bind to dictionary codes: they stay coded, and so do
+    # bare tag keys no argument reads (factorized by code)
+    coded = frozenset(
+        {col for col, _op in pspecs if col in tags
+         and col not in arg_cols and col not in key_cols}
+        | {k.name for _, k in keys_spec
+           if isinstance(k, ast.Column) and k.name in tags
+           and k.name not in arg_cols})
+    tag_dicts: dict = {}
+    rng = tuple(ts_range) if ts_range else None
+    host = dist_agg._region_host_columns(
+        executor, region_id, shared_where, rng, needed, append_mode,
+        schema, coded=coded, tag_dicts_out=tag_dicts)
+    if host is None:
+        return {"members": [None] * m}
+    n = len(host[ts_name])
+
+    # the [M, n] member mask: every parameter conjunct, bound as the
+    # member's serial WHERE binds it on this region
+    bctx = BindContext(schema, tag_dicts)
+    mask = np.ones((m, n), dtype=bool)
+    for j, (col, op) in enumerate(pspecs):
+        if col in tags and col not in coded:
+            raise VmapIneligible(f"parameter tag {col} is also read as a "
+                                 "value")
+        colv = host[col].astype(np.int64)
+        spec = SimpleNamespace(col=col, op=op)
+        bound = np.asarray([_bind_param(spec, vals[j], bctx)[2]
+                            for vals in values], dtype=np.int64)
+        c, p = colv[None, :], bound[:, None]
+        if op == "=":
+            mask &= c == p
+        elif op == "<":
+            mask &= c < p
+        elif op == "<=":
+            mask &= c <= p
+        elif op == ">":
+            mask &= c > p
+        elif op == ">=":
+            mask &= c >= p
+        else:
+            raise VmapIneligible(f"unbindable parameter {col} {op}")
+
+    key_uniqs, gcode, gids_uniq, g = dist_agg._group_codes(
+        keys_spec, host, schema, coded, tag_dicts, n)
+    vals = dist_agg._value_planes(args, host, schema, n)
+    m_idx, r_idx = np.nonzero(mask)
+    if m_idx.size == 0:
+        return {"members": [None] * m}  # no member reads this region
+    planes = dist_agg.k2_planes(
+        executor.device, vals[r_idx], m_idx * g + gcode[r_idx], m * g, ops,
+        host[ts_name][r_idx] if need_ts else None)
+    members = []
+    for i in range(m):
+        rows = planes["rows"][i * g:(i + 1) * g].reshape(-1)
+        present = np.flatnonzero(rows > 0)
+        if present.size == 0:
+            members.append(None)
+            continue
+        members.append({
+            "keys": dist_agg._decode_keys(key_uniqs, gids_uniq[present])
+            if keys_spec else [],
+            "planes": {op: p[i * g:(i + 1) * g][present]
+                       for op, p in planes.items()}})
+    return {"members": members}
+
+
+_JSON_LITERALS = (str, int, float, bool, type(None))
+
+
+def _coerce_partial(part: dict) -> dict:
+    """A per-member partial from either transport (numpy in process,
+    JSON lists over Flight) in `combine_partials`' shape."""
+    keys = []
+    for k in part["keys"]:
+        if isinstance(k, np.ndarray):
+            keys.append(k)
+            continue
+        arr = np.asarray(k, dtype=object)
+        vals = arr.tolist()
+        if len(vals) and all(
+                isinstance(x, (int, np.integer)) and not isinstance(x, bool)
+                for x in vals):
+            arr = arr.astype(np.int64)  # bucket keys stay int64
+        keys.append(arr)
+    planes = {op: v if isinstance(v, np.ndarray) else np.asarray(v)
+              for op, v in part["planes"].items()}
+    return {"keys": keys, "planes": planes}
+
+
+def _run_vmapped_fragments(executor, table, pspecs, member_values,
+                           project, agg, template_where) -> list:
+    """The cluster member batch: ONE `vmapped_agg` fragment a region,
+    each member's per-region partial planes combined with the serial
+    pushdown's Final step (`combine_partials`), then finalized member by
+    member. Partial planes a member cross the wire, never raw rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from greptimedb_tpu_torch.query.dist_agg import combine_partials
+    from greptimedb_tpu_torch.query.expr import current_session_tz
+    from greptimedb_tpu_torch.query.plan_ser import PlanFragment
+    from greptimedb_tpu_torch.utils import deadline as dl
+    from greptimedb_tpu_torch.utils import tracing
+    from greptimedb_tpu_torch.utils.metrics import FRAGMENT_PUSHDOWNS
+
+    for vals in member_values:
+        for v in vals:
+            if not isinstance(v, _JSON_LITERALS):
+                raise VmapIneligible("non-literal member parameter")
+    param_ids = {id(p.conjunct) for p in pspecs}
+    shared = [c for c in split_conjuncts(template_where)
+              if id(c) not in param_ids]
+    if len(shared) + len(pspecs) != len(split_conjuncts(template_where)):
+        raise VmapIneligible("parameter conjuncts lost in planning")
+
+    arg_exprs: list = []
+    spec_slot: list = []
+    for spec in agg.aggs:
+        if spec.arg is None:
+            spec_slot.append(None)
+            continue
+        if spec.arg not in arg_exprs:
+            arg_exprs.append(spec.arg)
+        spec_slot.append(arg_exprs.index(spec.arg))
+    ops: set = {"rows"}
+    for spec in agg.aggs:
+        ops.update(ph._PRIMITIVES[spec.func])
+
+    schema = table.schema
+    union_range = _union_member_range(
+        template_where, pspecs, member_values,
+        schema.time_index.name, schema.time_index.dtype)
+    stage = {"op": "vmapped_agg",
+             "keys": list(agg.keys),
+             "args": arg_exprs,
+             "ops": sorted(ops),
+             "shared_where": _rebuild_conjunction(shared),
+             "params": [(p.col, p.op) for p in pspecs],
+             "values": [list(vals) for vals in member_values]}
+    frag = PlanFragment(stages=[stage], ts_range=union_range,
+                        append_mode=table.append_mode,
+                        tz=current_session_tz())
+    FRAGMENT_PUSHDOWNS.inc(mode="vmapped")
+    rids = list(table.region_ids)
+    m = len(member_values)
+    with tracing.span("vmapped_fragments", regions=len(rids), members=m):
+        # the pool is joined before the Final step
+        one = dl.propagate(tracing.propagate(
+            lambda rid: executor.engine.execute_fragment(rid, frag)))
+        with ThreadPoolExecutor(max_workers=min(8, len(rids)),
+                                thread_name_prefix="gtpu-frag") as pool:
+            resps = list(pool.map(one, rids))
+
+    per_member: list = [[] for _ in range(m)]
+    for resp in resps:
+        if resp is None:
+            continue  # an empty region contributes nothing
+        if "vmap_ineligible" in resp:
+            raise VmapIneligible(str(resp["vmap_ineligible"]))
+        members = resp.get("members")
+        if members is None or len(members) != m:
+            raise VmapIneligible("member count drift across regions")
+        for i, part in enumerate(members):
+            if part is not None:
+                per_member[i].append(_coerce_partial(part))
+    results = []
+    sorted_ops = tuple(sorted(ops))
+    for i in range(m):
+        combined = combine_partials(per_member[i], len(agg.keys),
+                                    sorted_ops)
+        results.append(executor._finalize_combined_agg(
+            combined, table, agg, None, project, None, None, None,
+            spec_slot))
+    executor.last_path = "vmapped_fragments"
+    return results
 
 
 def _replace_by_id(e, repl: dict):

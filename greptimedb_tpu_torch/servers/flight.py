@@ -21,8 +21,9 @@ port's own gRPC (`servers/grpc.py`, `servers/h2.py`), Flight messages
   after the engine's write returns; `do_action` carries `region_admin`
   and `rollup_probe` (`close` among the admin ops: region migration).
   A `region_frag` ticket carries a PlanFragment (query/plan_ser.py);
-  only the terminal stage's output returns: partial planes, or
-  candidate / filtered rows flagged `kind=rows`.
+  only the terminal stage's output returns: partial planes, candidate
+  / filtered rows (with any window columns) flagged `kind=rows`, or a
+  vmapped batch's per-member partials as JSON flagged `kind=vmapped`.
 - **Auth**: with a user provider, the Flight handshake takes
   `user:password` and answers a token that every later call sends in
   the `auth-token-bin` header; a call without a valid token is refused
@@ -318,6 +319,30 @@ def table_to_partial(t: TextTable) -> dict:
     return {"keys": keys, "planes": planes}
 
 
+def vmapped_part_to_wire(part: dict) -> dict:
+    """JSON form of a vmapped_agg fragment's result ({"members": [...]}
+    or {"vmap_ineligible": reason}): float64 round-trips exactly through
+    json (shortest repr), int64 stays int, NULL keys stay null; the
+    frontend rebuilds the numpy arrays (query/vmapped.py::
+    _coerce_partial)."""
+    if "members" not in part:
+        return {"vmap_ineligible": str(part.get("vmap_ineligible", ""))}
+    out = []
+    for p in part["members"]:
+        if p is None:
+            out.append(None)
+            continue
+        keys = []
+        for k in p["keys"]:
+            vals = np.asarray(k, dtype=object).tolist()
+            keys.append([None if (isinstance(x, float) and x != x) else x
+                         for x in vals])
+        planes = {op: np.asarray(v).tolist()
+                  for op, v in p["planes"].items()}
+        out.append({"keys": keys, "planes": planes})
+    return {"members": out}
+
+
 def _empty_table(**meta) -> TextTable:
     return TextTable([], {}, 0, {k.encode(): v.encode()
                                  for k, v in meta.items()})
@@ -608,6 +633,7 @@ class FlightServer:
         """Plan-fragment pushdown: the PlanFragment runs against the local
         region and only its terminal stage's output crosses the wire
         (reference dist_plan Partial step, analyzer.rs:35)."""
+        from greptimedb_tpu_torch.ops import segment_kernels
         from greptimedb_tpu_torch.query.dist_agg import (
             execute_region_fragment,
         )
@@ -628,13 +654,24 @@ class FlightServer:
                                      req.get("parent_span")), \
                 tracing.collect_spans() as sink:
             with tracing.span("region_frag", region=region_id,
-                              stages=len(frag.stages)):
+                              stages=len(frag.stages)) as attrs:
                 FAULTS.fire("flight.do_get", side="server",
                             node=local_node(), op="region_frag")
+                k0 = segment_kernels.thread_launches()
                 part = execute_region_fragment(self._fragment_executor(),
                                                region_id, frag)
+                # the kernels this fragment launched in this process,
+                # reported to the frontend on the span piggyback
+                k1 = segment_kernels.thread_launches()
+                attrs["k1_launches"] = k1[0] - k0[0]
+                attrs["k2_launches"] = k1[1] - k0[1]
             if part is None:
                 table = _empty_table(empty="1")
+            elif "members" in part or "vmap_ineligible" in part:
+                # a vmapped_agg terminal: the per-member partials (or the
+                # typed ineligibility) ride the schema metadata as JSON
+                table = _empty_table(kind="vmapped", payload=json.dumps(
+                    vmapped_part_to_wire(part)))
             elif "planes" in part:
                 table = partial_to_table(part)
             else:
@@ -759,8 +796,11 @@ class FlightServer:
 
     def _region_admin(self, req: dict, user) -> list:
         """The region service's control plane: create / open / exists /
-        info / alter / flush / compact / drop / truncate, and the chaos
-        harness's `chaos_reset`."""
+        info / alter / flush / compact / drop / truncate / close, `rollup`
+        (one rollup job of the region at `resolution_ms`, the rule added
+        to the engine's maintenance plane first: how a harness rolls a
+        datanode process's regions) and the chaos harness's
+        `chaos_reset`."""
         rid = req["region_id"]
         op = req["op"]
         needed = "read" if op in ("exists", "info") else "write"
@@ -770,8 +810,11 @@ class FlightServer:
         if op == "chaos_reset":
             FAULTS.reset()
         elif op == "info":
-            return [json.dumps({"data_version": self.engine.region(rid)
-                                .data_version}).encode()]
+            region = self.engine.region(rid)
+            return [json.dumps({
+                "data_version": region.data_version,
+                "replayed_entries": getattr(region, "replayed_entries",
+                                            0)}).encode()]
         elif op == "alter":
             self.engine.alter_region_schema(rid,
                                             Schema.from_dict(req["schema"]))
@@ -797,6 +840,21 @@ class FlightServer:
             self.engine.create_region(rid, schema)
         elif op == "close":
             self.engine.close_region(rid)
+        elif op == "rollup":
+            from greptimedb_tpu_torch.maintenance.rollup import (
+                RollupRule,
+                rule_slot,
+                run_rollup_job,
+            )
+
+            res = int(req["resolution_ms"])
+            maint = self.engine.maintenance
+            rule = next((r for r in maint.rollup_rules
+                         if r.resolution_ms == res), None)
+            if rule is None:
+                rule = RollupRule(resolution_ms=res)
+                maint.rollup_rules = [*maint.rollup_rules, rule]
+            run_rollup_job(self.engine, rid, rule_slot(res), rule)
         else:
             raise FlightServerError(f"unknown region op {op!r}")
         return [b'{"ok": true}']
@@ -1047,6 +1105,15 @@ class RemoteRegionEngine:
     def drop_region(self, region_id: int) -> None:
         self._admin("drop", region_id)
 
+    def info(self, region_id: int) -> dict:
+        """The region's data version and the WAL entries its open
+        replayed, on its owner."""
+        return self._admin("info", region_id)
+
+    def rollup(self, region_id: int, resolution_ms: int) -> None:
+        """Run one rollup job of the region on its owner."""
+        self._admin("rollup", region_id, resolution_ms=int(resolution_ms))
+
     def close_region(self, region_id: int) -> None:
         """Close the region on its server (its files stay: region
         migration opens it elsewhere)."""
@@ -1148,6 +1215,8 @@ class RemoteRegionEngine:
         meta = t.metadata or {}
         if meta.get(b"empty") == b"1":
             return None
+        if meta.get(b"kind") == b"vmapped":
+            return json.loads(meta[b"payload"].decode())
         if meta.get(b"kind") == b"rows":
             return {"cols": {name: plain_values(t.column(name))
                              for name in t.names}}

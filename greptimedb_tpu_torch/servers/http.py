@@ -7,15 +7,14 @@ maintenance plane's queue, rules, stall seconds and jobs) and the
 observability plane's routes: /v1/slow_queries, /v1/traces/<id>,
 /v1/profile/flame and /v1/profile/cluster, /debug/pprof/cpu and
 /debug/pprof/mem, /dashboard, /metrics with OpenMetrics exemplars
-when the scraper asks for them, and the scripts routes (/v1/scripts to
-save, list and read coprocessors, /v1/run-script to run one; script/).
+when the scraper asks for them, the scripts routes (/v1/scripts to
+save, list and read coprocessors, /v1/run-script to run one; script/)
+and /v1/faults (the chaos state: armed schedules, partitions, fire
+counts and the seed).
 
 stdlib ThreadingHTTPServer with keep-alive: the host serves protocol
 traffic while queries run as kernels on the engine's device. Status
-codes and error bodies are the JAX server's. The JAX server's other
-route (/v1/faults) answers with its error shape — HTTP 400, code 3000 —
-and a message naming the slice of the port that brings it
-(ROADMAP.md). Every data route runs in a `request_span("http:<path>")`
+codes and error bodies are the JAX server's. Every data route runs in a `request_span("http:<path>")`
 that adopts an incoming W3C `traceparent` and echoes the request's
 context back. With a user provider (auth/) every data route asks for
 Basic auth, as the JAX server does: a missing or wrong credential gets
@@ -57,21 +56,6 @@ from greptimedb_tpu_torch.utils.metrics import (
     REGISTRY,
     WRITE_STALL_SECONDS,
 )
-
-#: routes of the JAX server the port does not serve yet: path (exact, or
-#: a prefix when it ends in "/") -> the slice of the port that brings it
-_LATER_ROUTES = (
-    (("/v1/faults",), "multi-process cluster (ROADMAP A10-proc)"),
-)
-
-
-def _later_route(path: str) -> Optional[str]:
-    for paths, slice_name in _LATER_ROUTES:
-        for p in paths:
-            if path == p or (p.endswith("/") and path.startswith(p)):
-                return slice_name
-    return None
-
 
 class HttpServer:
     def __init__(self, query_engine: QueryEngine, host: str = "127.0.0.1",
@@ -318,8 +302,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(503, {"code": 5003, "error": str(e),
                              "execution_time_ms": 0})
         except Exception as e:  # noqa: BLE001 — wire boundary
-            if not isinstance(e, _Unported):
-                traceback.print_exc()
+            traceback.print_exc()
             self._send(400, {"code": 3000, "error": str(e),
                              "execution_time_ms": 0})
 
@@ -329,7 +312,8 @@ class _Handler(BaseHTTPRequestHandler):
         if path == "/v1/profile/flame":
             return self._handle_flame()
         if path == "/v1/profile/cluster":
-            # the local node's digest (the port has no cluster yet)
+            # the local node's digest and those its datanodes piggyback
+            # on their Flight responses (a cluster frontend's rollup)
             from greptimedb_tpu_torch.utils import flame
 
             return self._send(200, flame.cluster_view())
@@ -341,6 +325,18 @@ class _Handler(BaseHTTPRequestHandler):
             return self._handle_queries(path)
         if path == "/v1/maintenance":
             return self._handle_maintenance()
+        if path == "/v1/faults":
+            # the chaos state: armed points, partitions and each series'
+            # fire count, what a red scenario run pulls first
+            from greptimedb_tpu_torch.fault import FAULTS, chaos_seed
+            from greptimedb_tpu_torch.utils.metrics import FAULT_INJECTIONS
+
+            return self._send(200, {
+                "chaos_seed": chaos_seed(),
+                "faults": FAULTS.describe(),
+                "partitions": FAULTS.partitions(),
+                "fired": [{"labels": labels, "count": count}
+                          for labels, count in FAULT_INJECTIONS.series()]})
         if path == "/v1/sql":
             return self._handle_sql()
         if path == "/v1/promql":
@@ -379,11 +375,6 @@ class _Handler(BaseHTTPRequestHandler):
             return self._handle_scripts()
         if path == "/v1/run-script":
             return self._handle_run_script()
-        later = _later_route(path)
-        if later is not None:
-            raise _Unported(
-                f"{path} is not in this slice of greptimedb_tpu_torch; the "
-                f"{later} slice brings it")
         return self._send(404, {"error": f"no route {path}"})
 
     # ---- scripts (reference http.rs scripts router + src/script) -----------
@@ -817,11 +808,6 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", "0")
         self.end_headers()
         HTTP_REQUESTS.inc(path=route, status=str(code))
-
-
-class _Unported(Exception):
-    """A JAX server route this slice of the port does not serve; the
-    message names the slice that brings it."""
 
 
 # ---- formatting ------------------------------------------------------------

@@ -4,7 +4,8 @@ port 0, prints the JAX CLI's `listening on http://H:P` line, answers
 /health and /v1/sql, and exits 0 on SIGTERM with its data durable for
 the next start; `-c`, `repl` and `dump-config` are served (the options
 slice), `export` and `import` (A12-io) are held to the JAX CLI's dump,
-and the cluster roles exit non-zero naming the slice that brings them.
+and the cluster roles' parsers are held to the JAX CLI's (the roles
+themselves run in tests/test_torch_deploy.py).
 """
 
 import json
@@ -178,6 +179,8 @@ def _served(case, argv, tmp_path, monkeypatch, capsys):
     run (`_served_io`)."""
     if case in ("export", "import"):
         return _served_io(case, tmp_path, capsys)
+    if case in ("metasrv", "datanode", "frontend", "flownode"):
+        return _served_role(argv, capsys)
     if case == "config_file":
         assert cli.main(argv + [str(tmp_path / "x.toml")]) == 2
         assert "config file not found" in capsys.readouterr().err
@@ -198,14 +201,32 @@ def _served(case, argv, tmp_path, monkeypatch, capsys):
         assert capsys.readouterr().out == example_toml()
 
 
+def _served_role(argv, capsys):
+    """The cluster roles run on the port now (A10-proc; the deploy twins,
+    tests/test_torch_deploy.py, start them): the port's parser asks for
+    the JAX CLI's required options, by the same names."""
+    from greptimedb_tpu import cli as jcli
+
+    def required(main):
+        with pytest.raises(SystemExit) as ei:
+            main(argv)
+        assert ei.value.code == 2
+        err = capsys.readouterr().err
+        return err[err.index("required"):].strip()
+
+    assert required(cli.main) == required(jcli.main)
+
+
 @pytest.mark.parametrize("argv,slice_name", [
     (["standalone", "start", "-c"], None),
     (["repl", "--device", "cpu"], None),
     (["dump-config"], None),
-    (["metasrv", "start"], "A10"),
-    (["datanode", "start"], "A10"),
-    (["frontend", "start"], "A10"),
-    (["flownode", "start"], "A10"),
+    # the cluster roles run on the port now (A10-proc): the cases keep
+    # their ids and are held to the JAX CLI's parser (`_served_role`)
+    (["metasrv", "start"], None),
+    (["datanode", "start"], None),
+    (["frontend", "start"], None),
+    (["flownode", "start"], None),
     # export and import run on the port now (A12-io): the cases keep
     # their ids and are held to the JAX CLI (`_served_io`)
     (["export", "--output-dir", "x"], None),
@@ -215,8 +236,8 @@ def _served(case, argv, tmp_path, monkeypatch, capsys):
 def test_later_subcommands_exit_nonzero(argv, slice_name, capsys, request,
                                         tmp_path, monkeypatch):
     """The JAX CLI's subcommands of later slices exit non-zero naming
-    their slice; `-c`, `repl`, `dump-config`, `export` and `import` are
-    served (`_served`)."""
+    their slice; `-c`, `repl`, `dump-config`, `export`, `import` and the
+    cluster roles are served (`_served`)."""
     if slice_name is None:
         return _served(request.node.callspec.id, argv, tmp_path,
                        monkeypatch, capsys)

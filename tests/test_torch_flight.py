@@ -15,8 +15,8 @@ pyarrow.flight) on the CPU, in both directions:
   engine.scan column for column, with ts_range, projection, tag
   predicates and seq_min, over a region with SSTs and a memtable;
 - a budget_ms ticket unwinds typed, `flight.do_get=fail,nth:1` is
-  retried once, region_frag answers a partial aggregate (its vmapped and
-  window stages refused naming A10-proc), and no thread of the port
+  retried once, region_frag answers a partial aggregate, window rows and
+  a vmapped batch's per-member partials, and no thread of the port
   outlives a server's shutdown.
 """
 
@@ -680,11 +680,15 @@ def test_chaos_do_get_is_retried_once(qe, server):
 
 
 def test_region_frag_refused_naming_a10(qe, server):
-    """region_frag runs on the port now (ROADMAP A10-cluster): a partial
-    aggregate comes back over the wire; the vmapped and window stages
-    of the multi-process cluster slice are refused naming it."""
+    """region_frag runs on the port (ROADMAP A10-cluster): a partial
+    aggregate comes back over the wire; since A10-proc its window stage
+    (the rows and the computed window column, NULL on each partition's
+    first row) and its vmapped stage (per-member partials as JSON) do
+    too, equal to the fragment run in process."""
+    from greptimedb_tpu_torch.query.dist_agg import execute_region_fragment
+    from greptimedb_tpu_torch.query.physical import PhysicalExecutor
     from greptimedb_tpu_torch.query.plan_ser import PlanFragment
-    from greptimedb_tpu_torch.sql import ast
+    from greptimedb_tpu_torch.sql import ast, parse_sql
 
     rid = qe.catalog.table("public", "cpu").region_ids[0]
     remote = RemoteRegionEngine(_addr(server))
@@ -694,14 +698,37 @@ def test_region_frag_refused_naming_a10(qe, server):
     order = np.argsort(part["keys"][0].astype(str))
     assert list(part["keys"][0][order]) == ["a", "b"]
     assert part["planes"]["sum"][order, 0].tolist() == [4.0, 10.0]
+    lag = parse_sql("SELECT lag(usage) OVER (PARTITION BY host ORDER BY ts) "
+                    "FROM cpu")[0].items[0].expr
+    window = PlanFragment(stages=[
+        {"op": "prune", "columns": ["host", "ts", "usage"]},
+        {"op": "window", "calls": [("__win_0", lag)]}])
+    local = execute_region_fragment(PhysicalExecutor(qe.region_engine,
+                                                     qe.device), rid, window)
+    got = remote.execute_fragment(rid, window)
+    by = {(h, int(t)): w for h, t, w in zip(got["cols"]["host"],
+                                           got["cols"]["ts"],
+                                           got["cols"]["__win_0"])}
+    want = {(h, int(t)): w for h, t, w in zip(local["cols"]["host"],
+                                             local["cols"]["ts"],
+                                             local["cols"]["__win_0"])}
+    assert by.keys() == want.keys() == {("a", 1000), ("a", 61000),
+                                        ("b", 2000)}
+    assert by[("a", 61000)] == want[("a", 61000)] == 1.0
+    assert all(v is None or v != v for k, v in by.items()
+               if k != ("a", 61000))
+    vm = PlanFragment(stages=[{
+        "op": "vmapped_agg", "keys": [], "args": [ast.Column("usage")],
+        "ops": ["count", "rows", "sum"], "shared_where": None,
+        "params": [("host", "=")], "values": [["a"], ["b"], ["z"]]}])
+    out = remote.execute_fragment(rid, vm)
+    assert [m and m["planes"]["sum"] for m in out["members"]] == \
+        [[[4.0]], [[10.0]], None]
     client = flight._Client(_addr(server))
-    window = PlanFragment(stages=[{"op": "window", "calls": []}])
-    with pytest.raises(flight.FlightServerError, match="A10-proc"):
-        client.do_get(json.dumps({"region_frag": {
-            "region_id": rid, "fragment": window.to_json()}}).encode())
+    t = client.do_get(json.dumps({"region_frag": {
+        "region_id": rid, "fragment": vm.to_json()}}).encode())
+    assert t.metadata[b"kind"] == b"vmapped"
     client.close()
-    with pytest.raises(flight.FlightServerError, match="A10-proc"):
-        remote.execute_fragment(rid, window)
     remote.close()
 
 

@@ -217,15 +217,24 @@ def test_statuses_and_error_bodies_match_jax(servers, name):
 
 
 @pytest.mark.parametrize("path,slice_name", [
-    # /v1/scripts runs on the port now (script/): the case keeps its id
-    # and holds the route's answer to the JAX server's
+    # /v1/scripts runs on the port now (script/), and /v1/faults
+    # (A10-proc): the cases keep their ids and hold the route's answer
+    # to the JAX server's
     ("/v1/scripts", None),
-    ("/v1/faults", "A10"),
+    ("/v1/faults", None),
 ], ids=["/v1/scripts-flows, scripts, shm", "/v1/faults-A10"])
 def test_unported_routes_name_their_slice(servers, path, slice_name):
     if slice_name is None:
         (js, jb), (ts, tb) = (call(p, path, b"", "POST") for p in servers)
-        assert (ts, json.loads(tb)) == (js, json.loads(jb))
+        jdoc, tdoc = json.loads(jb), json.loads(tb)
+        if path == "/v1/faults":
+            # `fired` lists each package's process-wide injection
+            # counters, which earlier tests in the process have moved:
+            # only its shape is compared
+            jdoc.pop("fired")
+            assert all(sorted(f) == ["count", "labels"]
+                       for f in tdoc.pop("fired"))
+        assert (ts, tdoc) == (js, jdoc)
         return
     status, body = call(servers[1], path, b"", "POST")
     doc = json.loads(body)

@@ -157,11 +157,13 @@ def test_fault_seam_holds_the_flight_seams_by_name():
     ("meta/heartbeat.py", "beat", "heartbeat.send"),
     ("meta/election.py", "_lease_chaos", "election.lease"),
     ("servers/flight.py", "_region_frag", "flight.do_get"),
+    ("cluster/process_cluster.py", "beat_all", "datanode.crash"),
+    ("meta/kv_service.py", "_dispatch", "metasrv.kv"),
 ])
 def test_fault_seam_holds_the_cluster_points_by_name(path, fn, point):
-    """The in-process cluster's three points (and the region_frag
-    ticket's seam) are held by name: a function that stops firing its
-    point is a finding."""
+    """The cluster's control-plane points (and the region_frag ticket's
+    seam) are held by name: a function that stops firing its point is a
+    finding."""
     bad = fixture_repo((f"{PKG}/{path}", f"""
         def {fn}(self):
             return None

@@ -353,7 +353,7 @@ def test_enospc_write_leaves_no_partial_object_or_tmp(tmp_path, backend):
 
 
 def test_seams_arm_and_metrics_render_under_the_jax_names():
-    """The four data seams arm; a point of a later slice still raises;
+    """The four data seams arm; an unknown point raises;
     /metrics carries the object-store and retry counters under the JAX
     names, by backend and outcome."""
     from greptimedb_tpu.utils import metrics as jmetrics
@@ -362,8 +362,12 @@ def test_seams_arm_and_metrics_render_under_the_jax_names():
                   "wal.replay"):
         FAULTS.arm(point, Fault(kind="latency", arg=0.0))
     FAULTS.reset()
-    with pytest.raises(ValueError, match="A10"):
-        FAULTS.arm("metasrv.kv", Fault())
+    # the metadata KV's seam came with A10-proc: it arms now, and an
+    # unknown point still raises
+    FAULTS.arm("metasrv.kv", Fault(kind="latency", arg=0.0))
+    FAULTS.reset()
+    with pytest.raises(ValueError, match="unknown injection point"):
+        FAULTS.arm("metasrv.nope", Fault())
     store = tos.MemoryStore()
     store.write("m", b"abc")
     cached = tos.LruCacheLayer(store)

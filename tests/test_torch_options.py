@@ -150,7 +150,11 @@ def _same_store_config(opts, jopts):
                  id="scan.decode_threads-4-A12: the parallel decode pool"),
     ("query.mesh", "'2x2'", "A10"),
     ("query.tier_admission", "false", "A11"),
-    ("cluster.hedge_enabled", "false", "A10"),
+    # [cluster] runs on the port now (A10-proc): the case keeps its id,
+    # boots, and apply_cluster switches the router's hedging as the JAX
+    # options layer does
+    pytest.param("cluster.hedge_enabled", "false", "cluster",
+                 id="cluster.hedge_enabled-false-A10"),
     ("parallel.mesh_min_rows", "1", "A10"),
     # partitioned tables run on the port now (A10-cluster): the case keeps
     # its id, boots, and apply_query_env writes the JAX env twin
@@ -186,6 +190,8 @@ def test_unported_key_refused_naming_its_slice(key, value, slice_name,
 
         assert port_config.default_hash_partitions() == 4
         return
+    if slice_name == "cluster":
+        return _check_cluster_applies(opts, tmp_path, monkeypatch)
     if slice_name == "Arrow Flight":
         options.check_port_support(opts)
         assert opts.grpc.enable is True
@@ -194,6 +200,35 @@ def test_unported_key_refused_naming_its_slice(key, value, slice_name,
         options.check_port_support(opts)
     assert f"option '{key}'" in str(e.value)
     assert slice_name in str(e.value) and "not in this slice" in str(e.value)
+
+
+def _check_cluster_applies(opts, tmp_path, monkeypatch):
+    """[cluster] boots; apply_cluster writes the JAX env twins of
+    hedge_enabled and hedge_delay_ms (GTPU_HEDGE=off, what the JAX layer
+    writes for the same file); a router built with hedge_budget_pct
+    earns its hedges at that rate."""
+    from greptimedb_tpu_torch.cluster import cluster as port_cluster
+
+    options.check_port_support(opts)
+    for k in ("GTPU_HEDGE", "GTPU_HEDGE_DELAY_MS"):
+        monkeypatch.setenv(k, "")
+        monkeypatch.delenv(k)
+    monkeypatch.setattr(options, "_APPLIED_ENV_KEYS", set())
+    options.apply_cluster(opts)
+    assert os.environ.get("GTPU_HEDGE") == "off"
+    assert not port_cluster._HedgePlane.enabled()
+    p = tmp_path / "budget.toml"
+    p.write_text("[cluster]\nhedge_budget_pct = 50.0\n"
+                 "hedge_delay_ms = 7\n")
+    budget = options.load_options(str(p), env={})
+    options.apply_cluster(budget)
+    assert os.environ.get("GTPU_HEDGE") is None
+    assert os.environ.get("GTPU_HEDGE_DELAY_MS") == "7"
+    plane = port_cluster._HedgePlane(budget.cluster.hedge_budget_pct)
+    plane._credit = 0.0
+    plane.accrue()
+    plane.accrue()
+    assert plane.try_fire()  # two requests earn one hedge at 50 %
 
 
 def _check_shm_boots(tmp_path, monkeypatch):

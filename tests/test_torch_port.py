@@ -365,15 +365,22 @@ def test_admin_functions_return_job_ids_on_the_plane(fn, tmp_path):
 
 def test_distributed_rollup_substitution_names_a10(tmp_path):
     """A frontend whose regions live on datanodes (an engine with a
-    rollup_probe and no local plane) would probe them for companion
-    coverage: that is the mesh and cluster slice's."""
+    rollup_probe and no local plane) probes them for companion coverage
+    (A10-proc): every region is asked about the statement's window, and
+    with no covering rollup the raw route answers."""
     qe = _engine(tmp_path, maintenance_workers=0)
     _cpu_table(qe, points=2)
-    qe.region_engine.rollup_probe = lambda rid, lo, hi: []
-    with pytest.raises(UnsupportedStatement,
-                       match="distributed rollup substitution.*A10"):
-        qe.execute_one("SELECT host, max(u) FROM cpu WHERE ts >= 0 AND "
-                       "ts < 60000 GROUP BY host")
+    asked = []
+    qe.region_engine.rollup_probe = \
+        lambda rid, lo, hi: asked.append((rid, lo, hi)) or []
+    sql = ("SELECT host, max(u) FROM cpu WHERE ts >= 0 AND ts < 60000 "
+           "GROUP BY host ORDER BY host")
+    res = qe.execute_one(sql)
+    assert asked == [(rid, 0, 60000) for rid in
+                     qe.catalog.table("public", "cpu").region_ids]
+    assert "rollup" not in (qe.executor.last_path or "")
+    del qe.region_engine.rollup_probe
+    assert res.rows() == qe.execute_one(sql).rows()
     qe.region_engine.close()
 
 

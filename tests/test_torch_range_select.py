@@ -372,3 +372,47 @@ def test_window_function_matches_jax(ops, ranges):
             else:
                 np.testing.assert_array_equal(g, w)
         assert int(got[r]["rows"].sum()) > 0
+
+
+@pytest.mark.parametrize("by", [False, True], ids=["no_by", "by_hostname"])
+@pytest.mark.parametrize("state", ["memtable", "flushed", "partitioned"])
+def test_null_tag_is_its_own_range_group(tmp_path, by, state):
+    """R16 (ROADMAP C): a NULL tag value is a RANGE group of its own, as
+    GROUP BY groups it, held to numpy (the JAX engine's np.unique raises
+    on the None there). Each row's 5 min window holds only itself, so
+    min(v) per (window, hostname) is the row's value; NULL sorts after
+    every value."""
+    rng = np.random.default_rng(16)
+    hosts = ["host_0", "host_3", None, "host_1", None, "host_3"]
+    vals = np.round(rng.uniform(0, 100, len(hosts)), 3)
+    ts = np.arange(len(hosts)) * 60_000 * 7
+    part = (" PARTITION ON COLUMNS (hostname) (hostname < 'host_2', "
+            "hostname >= 'host_2')") if state == "partitioned" else ""
+    engine = RegionEngine(EngineConfig(data_dir=str(tmp_path / "d")),
+                          device="cpu")
+    qe = QueryEngine(Catalog(MemoryKv()), engine, device="cpu")
+    try:
+        qe.execute_one(
+            "CREATE TABLE u (hostname STRING, v DOUBLE, ts TIMESTAMP(3) "
+            "NOT NULL, TIME INDEX (ts), PRIMARY KEY (hostname))" + part)
+        qe.execute_one("INSERT INTO u VALUES " + ", ".join(
+            f"({'NULL' if h is None else repr(h)}, {float(v)!r}, {t})"
+            for h, v, t in zip(hosts, vals, ts)))
+        if state != "memtable":
+            qe.execute_one("ADMIN flush_table('u')")
+        sql = ("SELECT ts, hostname, min(v) RANGE '5m' FROM u ALIGN '5m' "
+               "BY (hostname) ORDER BY ts" if by else
+               "SELECT ts, hostname, min(v) RANGE '5m' FROM u ALIGN '5m' "
+               "ORDER BY ts")
+        got = qe.execute_one(sql).rows()
+        # numpy: each row lands in the 5 min slot holding its ts
+        slot = ts // 300_000 * 300_000
+        want = sorted(zip(slot.tolist(), hosts, vals.tolist()),
+                      key=lambda r: (r[0], r[1] is None, r[1] or ""))
+        assert [[int(r[0]), r[1], float(r[2])] for r in got] == \
+            [list(w) for w in want]
+        grouped = qe.execute_one("SELECT hostname, count(*) FROM u "
+                                 "GROUP BY hostname ORDER BY hostname")
+        assert [r[1] for r in grouped.rows() if r[0] is None] == [2]
+    finally:
+        engine.close()
