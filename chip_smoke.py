@@ -400,6 +400,25 @@ greptimedb_tpu_torch/_build/. Phases:
    six points, line-protocol writes, ADMIN flush / compact, a flow's
    ticks); its lock graph must have no cycle and its /metrics K1 and K2
    launches.
+   Phase (m), chaos, runs last, after (f), every datanode child on the
+   card: the chaos explorer's budget (`explore(runs=3, seed=0,
+   num_datanodes=1, steps=24)`: each run's schedule, deadline, ops,
+   acknowledged writes, typed failures, WAL objects checked, spawn
+   seconds and first count(*); all must pass); seed 0's election run
+   over three `metasrv_main` processes (one leader, serialized epochs,
+   the follower's 409 hint; the card's memory unchanged by them); the
+   hour under chaos (TestProcessClusterChaos at TSBS size: three
+   datanode processes under GTPU_CHAOS object-store read failures, a
+   tenth of the heartbeats dropped, cpu_1h through the scatter write and
+   a flush, cold double_groupby_all and cpu_max_all_8 under a deadline,
+   equal to numpy or failed typed within the deadline plus epsilon, with
+   the datanodes' K2 launches, a partition that
+   degrades typed and starts no failover, a SIGKILL mid-way through 12
+   INSERT batches, failover within 30 rounds, count(*) and
+   double_groupby_all over every acknowledged row, the injections by
+   point, the card's memory back after close); the scenario matrix cut
+   to the three CHAOS_MATRIX_KEEP (the cut printed; the other two are
+   held by their CPU twins). It prints each leg's seconds.
 8. A `kernels` JSON line (with each kernel's launches on every path, the
    PromQL queries', the streamed query's, the RANGE queries', the host
    SQL statements', the five served traffics', the Flight legs', the
@@ -2359,11 +2378,17 @@ def object_store_phase(sk, torch, card: str) -> dict:
         steps["flush_3h_s"] = time.perf_counter() - t
         region = engine.region(rid)
         s1 = fake.snapshot()
+        wal_prefix = f"{S3_ROOT}/" + os.path.join(
+            home, "data", "remote_wal", str(rid)).lstrip("/") + "/"
+        left = fake.keys(wal_prefix)
         log("(j) ingest of 3 h and its flush to s3: " + json.dumps({
             "rows": flush_at * HOSTS, "ingest_s": steps["ingest_3h_s"],
             "flush_s": steps["flush_3h_s"], "sst_files": len(region.files),
-            "sst_bytes": region.sst_bytes,
+            "sst_bytes": region.sst_bytes, "wal_objects_after": len(left),
             "s3": request_delta(s0, s1)}))
+        # the flush's obsolete empties the WAL prefix: a segment left here
+        # would sit in the bucket beside the 4th hour's until the next flush
+        check(not left, f"(j) obsolete after the 3 h flush left {left}")
         # the 4th hour: acknowledged, in the bucket's WAL objects only
         leads0 = INGEST_GROUP_COMMIT_EVENTS.get(event="lead")
         t = time.perf_counter()
@@ -2426,8 +2451,6 @@ def object_store_phase(sk, torch, card: str) -> dict:
                                     grid)
 
         # flush after the replay: obsolete deletes the replayed segments
-        wal_prefix = f"{S3_ROOT}/" + os.path.join(
-            home, "data", "remote_wal", str(rid)).lstrip("/") + "/"
         before = fake.keys(wal_prefix)
         t = time.perf_counter()
         wait_admin(engine, qe.execute_one("ADMIN flush_table('cpu')"))
@@ -2438,8 +2461,8 @@ def object_store_phase(sk, torch, card: str) -> dict:
             len(after), "seconds": steps["flush_after_replay_s"],
             "sst_files": len(region.files)}))
         check(len(before) == puts and not after,
-              f"(j) obsolete: {len(before)} WAL objects before the flush, "
-              f"{len(after)} after")
+              f"(j) obsolete: {len(before)} WAL objects before the flush "
+              f"for {puts} puts ({before}), {len(after)} after")
         with partial_cache(False):
             copies = copy_phase(qe, engine, sk, torch, grid, host_names,
                                 work)
@@ -9997,6 +10020,518 @@ def observability_phase(qe, sk, torch, grid, rows) -> dict:
 # ---- entry point -------------------------------------------------------------
 
 
+# ---- phase (m): chaos on the card --------------------------------------------
+
+#: the explorer's budget on the card: tests/test_explorer.py::
+#: TestLiveExplorerBudget's own call
+CHAOS_EXPLORE = {"runs": 3, "seed": 0, "shrink": False, "num_datanodes": 1,
+                 "steps": 24}
+#: the hour under chaos: tests/test_chaos.py::TestProcessClusterChaos's
+#: seed and schedule (object-store reads fail in every child with
+#: probability 0.02, the parent drops a tenth of the heartbeats)
+CHAOS_SEED = 1234
+CHAOS_READ_PROB = 0.02
+CHAOS_BEAT_PROB = 0.1
+#: the extra 10 s slice goes in as this many INSERT batches, the largest
+#: region's datanode SIGKILLed after CHAOS_KILL_AFTER of them
+CHAOS_BATCHES = 12
+CHAOS_KILL_AFTER = 6
+#: the scenario matrix's cut, to keep the script inside its time limit:
+#: these three run (their datanodes do the work on the card); the other
+#: two, partition_heal and lease_loss_reelection, are held by their CPU
+#: twins (tests/test_torch_scenarios.py) and not run here
+CHAOS_MATRIX_KEEP = ("smoke_partition_heal", "partition_crash_failover",
+                     "wal_enospc")
+#: the hour's reads under chaos run under this deadline: each answers
+#: within it or fails typed within it plus the explorer's epsilon (one
+#: injected stall, none in this schedule, plus 2 s: explorer._run_live)
+CHAOS_READ_DEADLINE_MS = 10000
+
+
+def card_used_mib(torch) -> int:
+    """The card's used memory (nvidia-smi) with this process's cached
+    blocks handed back first: what the children hold beside this
+    process's context."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return gpu_used_mib()
+
+
+def chaos_explorer_leg(torch) -> dict:
+    """The explorer's tier-1 budget with its children on the card: every
+    run must pass; each run's schedule, deadline, ops, acknowledged
+    writes, typed failures, WAL objects checked, spawn seconds, its first
+    count(*) and its seconds, and the K2 calls its datanodes reported."""
+    from greptimedb_tpu_torch.fault import explorer as ex
+    from greptimedb_tpu_torch.utils import tracing
+
+    used0 = card_used_mib(torch) if DEVICE is None else 0
+    t = time.perf_counter()
+    with tracing.collect_spans() as spans:
+        rep = ex.explore(**CHAOS_EXPLORE, device=DEVICE)
+    out: dict = {"seconds": time.perf_counter() - t, "runs": []}
+    for r in rep["runs"]:
+        rr = r.get("report") or {}
+        line = {"seed": r["seed"], "outcome": r["outcome"],
+                "chaos_env": r["chaos_env"], "seconds": r["duration_s"],
+                **{k: rr.get(k) for k in (
+                    "deadline_ms", "ops", "acked", "typed_failures",
+                    "wal_objects_checked", "spawn_s", "first_read_s",
+                    "settle_rounds")}}
+        for k in ("violation", "error"):
+            if k in r:
+                line[k] = r[k]
+        out["runs"].append(line)
+        log("chaos (m) explorer run: " + json.dumps(line))
+    check(rep["passed"] == CHAOS_EXPLORE["runs"],
+          f"chaos (m) explorer: {rep['failed']} failed, {rep['errors']} "
+          "errors")
+    out["k2_launches"] = sum(int(sp.attrs.get("k2_launches", 0))
+                             for sp in spans if sp.node is not None
+                             and sp.name == "region_frag")
+    out["k1_launches"] = sum(int(sp.attrs.get("k1_launches", 0))
+                             for sp in spans if sp.node is not None
+                             and sp.name == "region_frag")
+    out["k2_calls"] = [{k: sp.attrs.get(k) for k in (
+        "rows", "fields", "segments", "launches", "device_ms")}
+        for sp in spans if sp.node is not None and sp.name == "k2"]
+    if DEVICE is None:
+        out["card_used_mib"] = {"before": used0,
+                                "after": card_used_mib(torch)}
+        check(out["card_used_mib"]["after"] - used0 < CHILD_CONTEXT_MIB,
+              f"chaos (m) explorer: card memory {out['card_used_mib']}")
+    log(f"chaos (m) explorer: {out['seconds']:.1f} s; " + json.dumps(
+        {k: out.get(k) for k in ("k1_launches", "k2_launches", "k2_calls",
+                                 "card_used_mib")}))
+    return out
+
+
+def chaos_election_leg(torch) -> dict:
+    """Seed 0's election schedule and skews over three metasrv_main
+    processes: one leader re-emerges, epochs are serialized, the
+    follower's 409 redirect carries the leader hint, and the children
+    leave the card's memory where it was (they open no CUDA context)."""
+    import random
+
+    from greptimedb_tpu_torch.fault import explorer as ex
+
+    seen: dict = {}
+    used0 = card_used_mib(torch) if DEVICE is None else None
+
+    def on_spawn(_cluster):
+        # the children are up: what they hold on the card
+        if DEVICE is None:
+            seen["used_up"] = card_used_mib(torch)
+
+    entries = [e.to_env() for e in ex.sample_election_schedule(
+        random.Random("schedule:0"), ex.Topology.election(3))]
+    t = time.perf_counter()
+    rep = ex.run_election_schedule(entries, 0, device=DEVICE,
+                                   on_spawn=on_spawn)
+    out = {"seconds": time.perf_counter() - t,
+           "chaos_env": ex.compile_env(entries),
+           **{k: rep.get(k) for k in ("leader", "epochs", "lease_epochs",
+                                      "redirect_leader_hint", "skews",
+                                      "spawn_s", "ready_s", "pids")}}
+    check(rep.get("leader") is not None and rep.get("epochs", 0) >= 1
+          and rep.get("redirect_leader_hint") == rep["leader"],
+          f"chaos (m) election: {rep}")
+    check(not any(alive(p) for p in rep["pids"].values()),
+          "chaos (m) election: a metasrv child outlived close")
+    if DEVICE is None:
+        out["card_used_mib"] = {"before": used0, "children_up":
+                                seen["used_up"],
+                                "after": card_used_mib(torch)}
+        check(seen["used_up"] - used0 < CHILD_CONTEXT_MIB,
+              f"chaos (m) election: the metasrv children hold card memory "
+              f"{out['card_used_mib']}")
+    log("chaos (m) election: " + json.dumps(out))
+    return out
+
+
+def chaos_matrix_leg() -> dict:
+    """The scenario matrix with its datanodes on the card, cut to the
+    three CHAOS_MATRIX_KEEP (the cut is printed)."""
+    from greptimedb_tpu_torch.fault.scenarios import SCENARIOS, run_scenario
+
+    out: dict = {"reports": {},
+                 "cut": [n for n in SCENARIOS if n not in CHAOS_MATRIX_KEEP]}
+    log(f"chaos (m) scenarios: {list(CHAOS_MATRIX_KEEP)} run; cut "
+        f"{out['cut']}, held by their CPU twins")
+    t_leg = time.perf_counter()
+    for name in CHAOS_MATRIX_KEEP:
+        t = time.perf_counter()
+        rep = run_scenario(name, device=DEVICE)
+        rep["seconds"] = time.perf_counter() - t
+        out["reports"][name] = rep
+        log(f"chaos (m) scenario {name}: " + json.dumps(rep))
+    out["seconds"] = time.perf_counter() - t_leg
+    return out
+
+
+def chaos_insert_sql(hosts, ts_ms: int, grid_row: dict) -> str:
+    """One INSERT of the `cpu` row of each host in `hosts` at `ts_ms`,
+    its fields from `grid_row` (field -> [HOSTS]); repr keeps every
+    float64 exactly."""
+    cols = ", ".join(["hostname", "ts"] + FIELDS)
+    rows = ", ".join(
+        f"('host_{h}', {ts_ms}, "
+        + ", ".join(repr(float(grid_row[f][h])) for f in FIELDS) + ")"
+        for h in hosts)
+    return f"INSERT INTO cpu ({cols}) VALUES {rows}"
+
+
+def chaos_read(c, meter, sk, torch, name, sql, grid, chaos_env) -> dict:
+    """One statement through the cluster under chaos, under
+    CHAOS_READ_DEADLINE_MS: it answers equal to float64 numpy, with the
+    K1 / K2 launches its datanodes report held to the plane fragments (a
+    hedge may add one), or fails typed; either within the deadline plus
+    the explorer's epsilon (explorer._run_live's rule)."""
+    from greptimedb_tpu_torch.fault.explorer import _max_latency_s
+    from greptimedb_tpu_torch.fault.scenarios import _typed_failure
+    from greptimedb_tpu_torch.session import QueryContext
+    from greptimedb_tpu_torch.utils import tracing
+    from greptimedb_tpu_torch.utils.metrics import HEDGE_EVENTS
+
+    bound_ms = CHAOS_READ_DEADLINE_MS + (_max_latency_s(chaos_env)
+                                         + 2.0) * 1e3
+    meter.reset()
+    zero_launches(sk)
+    fired0 = HEDGE_EVENTS.get(event="fired")
+    tid = tracing.new_trace_id()
+    sync(torch)
+    t = time.perf_counter()
+    try:
+        res = c.frontend.execute_one(sql, QueryContext(
+            trace_id=tid, timeout_ms=CHAOS_READ_DEADLINE_MS))
+    except Exception as e:  # noqa: BLE001 — classified below
+        ms = (time.perf_counter() - t) * 1e3
+        check(_typed_failure(e), f"chaos (m) {name}: UNTYPED "
+              f"{type(e).__name__}: {e}")
+        check(ms <= bound_ms, f"chaos (m) {name}: failed typed after "
+              f"{ms:.1f} ms, past the deadline plus epsilon ({bound_ms} ms)")
+        return {"outcome": "failed typed", "error":
+                f"{type(e).__name__}: {str(e)[:200]}", "ms": ms,
+                "bound_ms": bound_ms}
+    sync(torch)
+    ms = (time.perf_counter() - t) * 1e3
+    check(ms <= bound_ms, f"chaos (m) {name}: answered after {ms:.1f} ms, "
+          f"past the deadline plus epsilon ({bound_ms} ms)")
+    check_cluster(name, res, grid, lambda x: x)
+    fired = int(HEDGE_EVENTS.get(event="fired") - fired0)
+    reports = datanode_reports(tid)
+    k1 = sum(r["k1_launches"] for r in reports.values())
+    k2 = sum(r["k2_launches"] for r in reports.values())
+    pk1, pk2 = launches(sk)
+    check(k1 == 0 and pk1 == 0 and pk2 == 0,
+          f"chaos (m) {name}: K1 {k1} on the datanodes, K1 / K2 {pk1} / "
+          f"{pk2} in the frontend")
+    # off the card the children run the plain versions: no launch
+    check(DEVICE is not None or abs(k2 - meter.planes) <= fired,
+          f"chaos (m) {name}: the datanodes report {k2} K2 launches for "
+          f"{meter.planes} plane fragments and {fired} hedges")
+    return {"outcome": "answered, equal to numpy", "ms": ms,
+            "bound_ms": bound_ms,
+            "last_path": c.frontend.executor.last_path, "rows": res.num_rows,
+            "planes": meter.planes, "hedges_fired": fired,
+            "k1_launches": k1, "k2_launches": k2,
+            "k2_calls": {n: r["k2_calls"] for n, r in sorted(
+                reports.items())}}
+
+
+def child_injections(paths) -> dict:
+    """point -> injections a child logged (GTPU_CHAOS_LOG_THROTTLE_S=0:
+    one WARNING line an injection), summed over the children's stderr
+    files."""
+    out: dict = {}
+    for path in paths:
+        with open(path, "rb") as f:
+            text = f.read().decode(errors="replace")
+        for m in re.finditer(r"fault injected point=(\S+) kind=(\S+)", text):
+            key = f"{m.group(1)}={m.group(2)}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def chaos_hour_leg(sk, torch, lib, root, host_names) -> dict:
+    """tests/test_chaos.py::TestProcessClusterChaos at TSBS size through
+    the scenario harness: three datanode processes on the card spawned
+    under GTPU_CHAOS (object-store reads fail with probability 0.02 in
+    each), a tenth of the parent's heartbeats dropped, phase (l)'s three
+    regions, cpu_1h through the scatter write and a flush; cold
+    double_groupby_all and cpu_max_all_8 (every region closed and
+    reopened, the partial cache off) equal to numpy or failed typed, K2
+    from the datanodes' reports; a frontend <-> owner partition (the read
+    degrades to Unavailable, five beat rounds start no failover, the
+    exact answer after the heal); one more 10 s slice as 12 INSERT
+    batches with the owner SIGKILLed after the 6th, failover by
+    drive_failover within 30 rounds, and after the heal count(*) and
+    double_groupby_all over every acknowledged row. No cut applies."""
+    from greptimedb_tpu_torch.fault import FAULTS, Fault
+    from greptimedb_tpu_torch.fault.scenarios import (
+        BEAT_MS,
+        ScenarioRun,
+        _typed_failure,
+        _warm_up,
+        drive_failover,
+        read_degrades_typed,
+        scenario_cluster,
+    )
+    from greptimedb_tpu_torch.query.engine import _cached_rule
+    from greptimedb_tpu_torch.utils.metrics import FAULT_INJECTIONS
+
+    t_leg = time.perf_counter()
+    chaos_env = (f"objectstore.read=fail,prob:{CHAOS_READ_PROB},"
+                 f"seed:{CHAOS_SEED}")
+    run = ScenarioRun("chip_smoke (m): the hour under chaos", CHAOS_SEED,
+                      chaos_env=chaos_env, cmd="python3 chip_smoke.py")
+    queries = cluster_queries()
+    dga = "double_groupby_all (1 h)"
+    out: dict = {"chaos_env": chaos_env,
+                 "heartbeat_drop_prob": CHAOS_BEAT_PROB}
+    points = ("heartbeat.send", "flight.do_get", "flight.do_put")
+    inj0 = {p: FAULT_INJECTIONS.total(point=p) for p in points}
+    used0 = card_used_mib(torch) if DEVICE is None else 0
+    work = os.path.join(root, "hour")
+    pids: dict = {}
+    stderr_paths: list = []
+    t = time.perf_counter()
+    # every injection a line in the children's stderr; cold statements
+    # recompute their fragments
+    with env_value("GTPU_CHAOS_LOG_THROTTLE_S", "0"), \
+            partial_cache(False), \
+            scenario_cluster(CHAOS_SEED, work, num_datanodes=3,
+                             chaos_env=chaos_env, device=DEVICE) as c:
+        pids = {n: dn.pid for n, dn in c.datanodes.items()}
+        stderr_paths = [dn.stderr_path for dn in c.datanodes.values()]
+        out["spawn"] = {"seconds": time.perf_counter() - t,
+                        "ready_s": {n: dn.ready_s
+                                    for n, dn in c.datanodes.items()}}
+        if DEVICE is None:
+            out["spawn"]["gpu"] = children_on_card(pids, used0, "chaos (m)")
+        log("chaos (m) hour spawn: " + json.dumps(out["spawn"]))
+        FAULTS.arm("heartbeat.send", Fault(kind="fail", prob=CHAOS_BEAT_PROB,
+                                           seed=CHAOS_SEED))
+        tick = _warm_up(c, 0.0)
+        c.sql(cluster_ddl())
+        tick = _warm_up(c, tick, rounds=2)  # the regions reported
+        info = c.catalog.table("public", "cpu")
+        batch, grid = cluster_batch(info, host_names)
+        t = time.perf_counter()
+        n = c.frontend._sharded_write(info, batch, delete=False)
+        put_s = time.perf_counter() - t
+        c.sql("ADMIN flush_table('cpu')")
+        nodes = [leader_of(c, rid) for rid in info.region_ids]
+        check(n == HOSTS * 360 and len(set(nodes)) == 3,
+              f"chaos (m) scatter: {n} rows on {nodes}")
+        out["put"] = {"rows": n, "seconds": put_s, "rows_per_s": n / put_s,
+                      "nodes": nodes}
+        # ---- cold reads through the armed objectstore.read ----
+        for rid in info.region_ids:
+            dn = c.datanodes[leader_of(c, rid)]
+            dn.remote.close_region(rid)
+            dn.remote.open_region(rid)
+        meter = FragmentMeter(c)
+        out["reads"] = {}
+        for name in (dga, "cpu_max_all_8"):
+            out["reads"][name] = chaos_read(c, meter, sk, torch, name,
+                                            queries[name][0], grid,
+                                            chaos_env)
+            log(f"chaos (m) hour {name} (cold): "
+                + json.dumps(out["reads"][name]))
+        # ---- a frontend <-> owner partition ----
+        rid2 = info.region_ids[2]  # the largest region, 1,777 hosts
+        owner = leader_of(c, rid2)
+        FAULTS.install_partition("frontend", owner)
+        t = time.perf_counter()
+        run.check(read_degrades_typed(run, c, queries[dga][0]),
+                  "double_groupby_all served through a severed "
+                  "frontend <-> datanode edge")
+        degraded_ms = (time.perf_counter() - t) * 1e3
+        dropped = []
+        for _ in range(5):
+            before = {m: FAULT_INJECTIONS.total(point="heartbeat.send",
+                                                node=m) for m in c.datanodes}
+            c.beat_all(tick)
+            tick += BEAT_MS
+            dropped.append(sorted(
+                m for m in c.datanodes
+                if FAULT_INJECTIONS.total(point="heartbeat.send", node=m)
+                > before[m]))
+        started = c.tick(tick)
+        # a node whose last two beats the heartbeat nemesis dropped may
+        # legally be suspected; the data-plane cut alone must not
+        run.check(not started or set(dropped[-1]) & set(dropped[-2]),
+                  f"the data-plane partition started failover {started} "
+                  f"(heartbeats dropped a round: {dropped})")
+        FAULTS.heal_partition("frontend", owner)
+        healed = chaos_read(c, meter, sk, torch, dga, queries[dga][0], grid,
+                            chaos_env)
+        check(healed["outcome"].startswith("answered"),
+              f"chaos (m) after the heal: {healed}")
+        out["partition"] = {"owner": owner, "degraded_ms": degraded_ms,
+                            "beats_dropped": dropped,
+                            "failovers_started": started,
+                            "after_heal": healed}
+        log("chaos (m) hour partition: " + json.dumps(out["partition"]))
+        # ---- kill -9 mid-write ----
+        owner = leader_of(c, rid2)
+        rule = _cached_rule(info)
+        region_of = rule.find_regions([host_names])
+        chunks = [np.array_split(np.flatnonzero(region_of == r),
+                                 CHAOS_BATCHES // 3) for r in range(3)]
+        # round-robin over the regions: the owner's region has acked,
+        # unflushed batches before the kill and failing ones after it
+        batches = [(r, chunks[r][k]) for k in range(CHAOS_BATCHES // 3)
+                   for r in range(3)]
+        ts1 = T0_MS + 3600 * 1000
+        row1 = {f: grid[f][0] for f in FIELDS}
+        acked_hosts: list = []
+        failed: list = []
+        victim_pid = c.datanodes[owner].pid
+        t = time.perf_counter()
+        for i, (r, hosts) in enumerate(batches):
+            if i == CHAOS_KILL_AFTER:
+                c.kill_datanode(owner)
+            try:
+                c.sql(chaos_insert_sql(hosts, ts1, row1))
+                acked_hosts.extend(int(h) for h in hosts)
+            except Exception as e:  # noqa: BLE001 — classified
+                run.check(_typed_failure(e),
+                          f"INSERT batch {i} failed with UNTYPED "
+                          f"{type(e).__name__}: {e}")
+                failed.append({"batch": i, "region": r,
+                               "error": type(e).__name__})
+        write_s = time.perf_counter() - t
+        dead_regions = {k for k, rid in enumerate(info.region_ids)
+                        if leader_of(c, rid) == owner}
+        check(sorted(f["batch"] for f in failed) == [
+            i for i, (r, _h) in enumerate(batches)
+            if i >= CHAOS_KILL_AFTER and r in dead_regions],
+            f"chaos (m) kill: failed batches {failed}")
+        t = time.perf_counter()
+        tick, rounds = drive_failover(run, c, tick, owner, rid2,
+                                      deadline_rounds=30)
+        new = leader_of(c, rid2)
+        replayed = c.datanodes[new].remote.info(rid2)["replayed_entries"]
+        fo_s = time.perf_counter() - t
+        check(not alive(victim_pid), "chaos (m): the victim lives")
+        # ---- heal, then every acknowledged row ----
+        FAULTS.reset()
+        for dn in c.datanodes.values():
+            if dn.alive:
+                dn.remote.chaos_reset()
+        count = c.sql("SELECT count(*) FROM cpu").rows()[0][0]
+        check(count == HOSTS * 360 + len(acked_hosts),
+              f"chaos (m): count(*) {count} for {HOSTS * 360} + "
+              f"{len(acked_hosts)} acknowledged rows")
+        res = c.sql(queries[dga][0])
+        order = np.argsort(np.asarray([f"host_{i}" for i in range(HOSTS)]),
+                           kind="stable")
+        acked_sorted = sorted(acked_hosts, key=lambda h: f"host_{h}")
+        cols = {k: np.asarray(v) for k, v in zip(res.names, res.columns)}
+        check(res.num_rows == HOSTS + len(acked_hosts) and np.array_equal(
+            cols["hour"].astype(np.int64), T0_MS + np.repeat(
+                [0, 3600 * 1000], [HOSTS, len(acked_hosts)])),
+            "chaos (m) after the failover: double_groupby_all keys")
+        check(np.array_equal(host_index(cols["hostname"]), np.concatenate(
+            [order, np.asarray(acked_sorted, dtype=np.int64)])),
+            "chaos (m) after the failover: hostnames")
+        for f in FIELDS:
+            want = np.concatenate([grid[f].mean(axis=0)[order],
+                                   row1[f][acked_sorted]])
+            check(np.allclose(cols[f"avg({f})"].astype(np.float64), want,
+                              rtol=1e-12, atol=0),
+                  f"chaos (m) after the failover: avg({f}) over every "
+                  "acknowledged row")
+        out["kill"] = {"victim": owner, "new_leader": new,
+                       "batches": CHAOS_BATCHES, "kill_after": CHAOS_KILL_AFTER,
+                       "acked_rows": len(acked_hosts), "failed": failed,
+                       "write_s": write_s, "ticks": rounds,
+                       "wal_entries_replayed": replayed,
+                       "failover_s": fo_s, "count": count}
+        log("chaos (m) hour kill -9: " + json.dumps(out["kill"]))
+    check(not any(alive(p) for p in pids.values()),
+          "chaos (m): a child outlived close")
+    out["injections"] = {
+        "parent": {p: int(FAULT_INJECTIONS.total(point=p) - inj0[p])
+                   for p in points},
+        "children": child_injections(stderr_paths)}
+    check(out["injections"]["parent"]["heartbeat.send"] > 0,
+          "chaos (m): no heartbeat was dropped")
+    if DEVICE is None:
+        out["card_used_mib"] = {"before": used0,
+                                "after": card_used_mib(torch)}
+        check(out["card_used_mib"]["after"] - used0 < CHILD_CONTEXT_MIB,
+              f"chaos (m): the card's memory did not come back "
+              f"{out['card_used_mib']}")
+    reads = [*out["reads"].values(), out["partition"]["after_heal"]]
+    out["k1_launches"] = sum(r.get("k1_launches", 0) for r in reads)
+    out["k2_launches"] = sum(r.get("k2_launches", 0) for r in reads)
+    # the datanodes' K2 at the cold double_groupby_all's largest call,
+    # against its plain version (synthetic inputs at that shape), after
+    # the card's memory was read
+    calls = [k for ks in out["reads"][dga].get("k2_calls", {}).values()
+             for k in ks]
+    if calls:
+        big = max(calls, key=lambda k: k["rows"])
+        case = {"datanode_device_ms": big["device_ms"],
+                "datanode_calls": len(calls),
+                "shape": [big["rows"], big["fields"]],
+                "G": big["segments"] + 1}
+        if lib is not None:
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            vals = torch.rand((big["rows"], big["fields"]),
+                              dtype=torch.float64, device="cuda",
+                              generator=gen) * 100.0
+            ids = torch.randint(0, big["segments"], (big["rows"],),
+                                dtype=torch.int32, device="cuda",
+                                generator=gen)
+            case.update(k2_case(sk, lib, torch, vals, ids,
+                                big["segments"] + 1,
+                                (False, False, False), "fragment",
+                                "chaos (m): the datanode's "
+                                "double_groupby_all under chaos"))
+        out["k2_shape"] = case
+    out["seconds"] = time.perf_counter() - t_leg
+    log(f"chaos (m) hour: {out['seconds']:.1f} s; " + json.dumps(
+        {k: out.get(k) for k in ("injections", "card_used_mib", "k1_launches",
+                                 "k2_launches")}))
+    return out
+
+
+def chaos_phase(sk, torch, lib=None) -> dict:
+    """Phase (m), last: the explorer's budget, one election run, the hour
+    under chaos at full width and the scenario matrix, every datanode
+    child on the card. Prints each leg's seconds."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    host_names = np.asarray([f"host_{i}" for i in range(HOSTS)],
+                            dtype=object)
+    out: dict = {}
+    if DEVICE is None:
+        # this process's own context first: the card-memory checks
+        # measure the children beside it
+        torch.zeros(1, device="cuda")
+    try:
+        out["explorer"] = chaos_explorer_leg(torch)
+        out["election"] = chaos_election_leg(torch)
+        out["hour"] = chaos_hour_leg(sk, torch, lib, root, host_names)
+        out["matrix"] = chaos_matrix_leg()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"chaos (m): {out['seconds']:.1f} s (explorer "
+        f"{out['explorer']['seconds']:.1f}, election "
+        f"{out['election']['seconds']:.1f}, the hour "
+        f"{out['hour']['seconds']:.1f}, matrix "
+        f"{out['matrix']['seconds']:.1f}; cut {out['matrix']['cut']})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -10094,6 +10629,11 @@ def main() -> int:
         stage = "(f) write plane"
         plane = write_plane_phase(main["root"], sk, torch, main["grid"])
         elapsed("write plane done")
+        # (m) last of all: chaos on the card (the explorer, an election,
+        # the hour under chaos, the scenario matrix)
+        stage = "(m) chaos"
+        chaos = chaos_phase(sk, torch, lib)
+        elapsed("chaos done")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED in {stage}: {e}", file=sys.stderr)
         return 1
@@ -10204,6 +10744,10 @@ def main() -> int:
                 "reports)"] = cluster["process"]
     for name, r in cluster["standalone"].items():
         plane_paths[f"cluster (l): standalone MergeScan {name}"] = r
+    plane_paths["chaos (m): the hour under chaos, 3 statements (the "
+                "datanodes' reports)"] = chaos["hour"]
+    plane_paths["chaos (m): the explorer's 3 runs (the datanodes' "
+                "reports)"] = chaos["explorer"]
     plane_paths["observability (g): ANALYZE and HTTP (cpu)"] = main["obs"]
     plane_paths["index: hostname IN (3 hosts) on cpu"] = main["index"]
     plane_paths["metric engine: prom_cpu_m PromQL, SQL panel, neighbour"] = \
@@ -10287,6 +10831,14 @@ def main() -> int:
                         "bound_ms", "bound_by", "library_ms")}
             kernels[-1]["datanode_launches"] = \
                 cluster["process"]["k2_launches"]
+            hc = chaos["hour"].get("k2_shape", {})
+            kernels[-1]["datanode_chaos_shape"] = {
+                k: hc.get(k) for k in (
+                    "shape", "G", "dtype", "max_abs_err", "ms",
+                    "datanode_device_ms", "datanode_calls", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}
+            kernels[-1]["datanode_chaos_shape"]["launches"] = \
+                chaos["hour"]["k2_launches"]
             vc = serving["vmapped_case"]
             kernels[-1]["vmapped_shape"] = {
                 k: vc[k] for k in ("shape", "G", "dtype", "members",

@@ -79,16 +79,28 @@ installed without a schedule:
 A partitioned call raises a transient FaultError(kind="partition") and
 counts under `fault_injections_total{kind="partition",edge="a->b"}`.
 Every injection counts in `greptimedb_tpu_fault_injections_total
-{point,kind}` (src and dst fold into one `edge` label). The chaos
-explorer and its scenarios come with the second part of the multi-
-process cluster slice (ROADMAP.md, A10-proc).
+{point,kind}` (src and dst fold into one `edge` label) and writes a
+WARNING line on the `greptimedb_tpu_torch.fault` logger, at most one a
+(point, kind) each GTPU_CHAOS_LOG_THROTTLE_S seconds (default 1), with
+the active trace id (`trace_id=`) so a red chaos run links to its span
+tree.
+
+The chaos explorer (`fault/explorer.py`: seeded schedules and workloads,
+the invariant oracle, ddmin repros) and the compound scenarios
+(`fault/scenarios.py`) drive these points against live datanode and
+metasrv processes:
+
+    python -m greptimedb_tpu_torch.fault.explorer --runs 3 --seed 0
+    python -m greptimedb_tpu_torch.fault.scenarios wal_enospc
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import random
 import threading
+import time
 import zlib
 from dataclasses import dataclass, field
 from typing import Optional
@@ -116,6 +128,18 @@ EDGE_POINTS = frozenset({
 })
 
 KINDS = frozenset({"fail", "latency", "torn", "short_read", "enospc"})
+
+_LOG = logging.getLogger("greptimedb_tpu_torch.fault")
+
+
+def _log_throttle_s() -> float:
+    """The least spacing of injection log lines of one (point, kind):
+    a schedule can fire thousands of times a second and the log must
+    stay readable (GTPU_CHAOS_LOG_THROTTLE_S overrides)."""
+    try:
+        return float(os.environ.get("GTPU_CHAOS_LOG_THROTTLE_S", "1.0"))
+    except ValueError:
+        return 1.0
 
 
 class Unavailable(Exception):
@@ -278,6 +302,8 @@ class FaultRegistry:
         #: when armed (the typo guard of the point check)
         self._known_nodes: set = set()
         self._lock = threading.Lock()
+        #: (point, kind) -> monotonic time of its last injection log line
+        self._log_last: dict = {}
 
     # ---- topology -----------------------------------------------------------
 
@@ -492,7 +518,32 @@ class FaultRegistry:
                     return
         FAULT_INJECTIONS.inc(point=point, kind="partition",
                              edge=f"{edge[0]}->{edge[1]}")
+        self._log_injection(point, "partition", labels)
         raise FaultError(point, kind="partition")
+
+    def _log_injection(self, point: str, kind: str,
+                       labels: Optional[dict]) -> None:
+        """A throttled WARNING line for an injection, with the active
+        span's trace id. Never raises: logging must not mask the fault."""
+        try:
+            now = time.monotonic()
+            key = (point, kind)
+            with self._lock:
+                last = self._log_last.get(key)
+                if last is not None and now - last < _log_throttle_s():
+                    return
+                self._log_last[key] = now
+            from greptimedb_tpu_torch.utils.tracing import current_trace_id
+
+            trace_id = current_trace_id()
+            extra = " ".join(
+                f"{k}={v}" for k, v in sorted((labels or {}).items()))
+            _LOG.warning(
+                "fault injected point=%s kind=%s%s%s", point, kind,
+                f" {extra}" if extra else "",
+                f" trace_id={trace_id}" if trace_id else "")
+        except Exception:  # noqa: BLE001 — logging never masks the fault
+            pass
 
     def fire(self, point: str, **labels) -> None:
         """Control-path hook: may raise FaultError or sleep. Call-site
@@ -505,6 +556,7 @@ class FaultRegistry:
             return
         FAULT_INJECTIONS.inc(point=point, kind=fault.kind,
                              **self._counter_labels(labels))
+        self._log_injection(point, fault.kind, labels)
         if fault.kind == "latency":
             _deadline_sleep(fault.arg, point)
             return
@@ -528,6 +580,7 @@ class FaultRegistry:
             return data, None
         FAULT_INJECTIONS.inc(point=point, kind=fault.kind,
                              **self._counter_labels(labels))
+        self._log_injection(point, fault.kind, labels)
         if fault.kind == "latency":
             _deadline_sleep(fault.arg, point)
             return data, None

@@ -27,7 +27,7 @@ from greptimedb_tpu_torch.objectstore import (
     _range_answer,
     _joined,
 )
-from greptimedb_tpu_torch.objectstore.s3 import http_error
+from greptimedb_tpu_torch.objectstore.s3 import delete_call, http_error
 
 API_VERSION = "2021-08-06"
 
@@ -150,11 +150,7 @@ class AzblobStore(ObjectStore):
                                          "application/octet-stream"})
 
     def delete(self, key: str) -> None:
-        try:
-            self._request("DELETE", self._url(key))
-        except ObjectStoreError as e:
-            if getattr(e, "http_code", None) != 404:
-                raise
+        delete_call(lambda: self._request("DELETE", self._url(key)))
 
     def exists(self, key: str) -> bool:
         try:

@@ -21,7 +21,7 @@ from greptimedb_tpu_torch.objectstore import (
     _range_answer,
     _joined,
 )
-from greptimedb_tpu_torch.objectstore.s3 import http_error
+from greptimedb_tpu_torch.objectstore.s3 import delete_call, http_error
 
 
 class GcsStore(ObjectStore):
@@ -95,11 +95,8 @@ class GcsStore(ObjectStore):
                       headers={"Content-Type": "application/octet-stream"})
 
     def delete(self, key: str) -> None:
-        try:
-            self._request("DELETE", self._object_url(key, media=False))
-        except ObjectStoreError as e:
-            if getattr(e, "http_code", None) != 404:
-                raise
+        delete_call(lambda: self._request(
+            "DELETE", self._object_url(key, media=False)))
 
     def exists(self, key: str) -> bool:
         try:

@@ -7,8 +7,9 @@ the credentials select the vendor (`from_url`). Standard library only
 
 Beyond the JAX store: `_do_read_into` is one ranged GET (`Range:
 bytes=a-b`, sent unsigned: SigV4 needs only host and the x-amz-*
-headers signed), and `name` is "s3" (the JAX class keeps the base
-name).
+headers signed), a DELETE runs under the shared retry with a 404 as
+success (`delete_call`, which the GCS and Azure stores share), and
+`name` is "s3" (the JAX class keeps the base name).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from greptimedb_tpu_torch.objectstore import (
     _range_answer,
     _joined,
 )
+from greptimedb_tpu_torch.fault import retry_call
 
 
 def _sha256(data: bytes) -> str:
@@ -115,6 +117,21 @@ def http_error(vendor: str, method: str, url: str,
     return err
 
 
+def delete_call(request) -> None:
+    """Run a backend's DELETE request (`request()`) under the shared
+    retry, as reads and writes run. Deleting is idempotent, so a 404
+    (the key is gone, as after a retry whose first answer was lost) is
+    success, and a transient failure (5xx, 429, a network error) retries
+    instead of leaving the object behind."""
+    def attempt():
+        try:
+            request()
+        except ObjectStoreError as e:
+            if getattr(e, "http_code", None) != 404:
+                raise
+    retry_call(attempt, point="objectstore.write")
+
+
 class S3Store(ObjectStore):
     """Bucket + key-prefix store over the S3 REST API."""
 
@@ -180,11 +197,7 @@ class S3Store(ObjectStore):
         self._request("PUT", self._url(key), _joined(data))
 
     def delete(self, key: str) -> None:
-        try:
-            self._request("DELETE", self._url(key))
-        except ObjectStoreError as e:
-            if getattr(e, "http_code", None) != 404:
-                raise
+        delete_call(lambda: self._request("DELETE", self._url(key)))
 
     def exists(self, key: str) -> bool:
         try:

@@ -398,14 +398,18 @@ class ClientCall:
             while self.read() is not None:
                 pass
             raise RpcError(UNAVAILABLE, str(e)) from e
+        except OSError as e:
+            # the socket failed under the send (the peer's process died):
+            # UNAVAILABLE, as gRPC reports a lost connection
+            raise RpcError(UNAVAILABLE, f"connection lost: {e}") from e
 
     def done_writing(self) -> None:
         if not self._half_closed:
             self._half_closed = True
             try:
                 self.stream.send_data(b"", end_stream=True)
-            except h2.StreamReset:
-                pass
+            except (h2.StreamReset, OSError):
+                pass  # the read that follows reports the status
 
     def read(self) -> Optional[bytes]:
         """The next response message; None once the call ended OK.
@@ -418,7 +422,11 @@ class ClientCall:
                     self._msgs.trailers = self._msgs.headers
             msg = self._msgs.next()
         except h2.StreamReset as e:
-            raise RpcError(UNAVAILABLE if e.code != h2.CANCEL else CANCELLED,
+            # a CANCEL reset of the call itself (this side's cancel, the
+            # peer's RST_STREAM) is CANCELLED; a lost connection is
+            # UNAVAILABLE whatever code its streams were reset with
+            cancelled = e.code == h2.CANCEL and not e.lost
+            raise RpcError(CANCELLED if cancelled else UNAVAILABLE,
                            str(e)) from e
         if msg is not None:
             return msg

@@ -62,11 +62,13 @@ class H2Error(Exception):
 
 class StreamReset(Exception):
     """The stream ended abnormally: the peer reset it, or the connection
-    went away."""
+    went away (`lost`: the socket closed or failed under the stream, as
+    when the peer's process dies, not an RST_STREAM of either side)."""
 
-    def __init__(self, code: int, what: str = ""):
+    def __init__(self, code: int, what: str = "", lost: bool = False):
         super().__init__(what or f"stream reset (code {code})")
         self.code = code
+        self.lost = lost
 
 
 class Stream:
@@ -84,6 +86,7 @@ class Stream:
         self.local_closed = False   # this side sent END_STREAM
         self.reset_code: Optional[int] = None
         self.reset_what = ""
+        self.reset_lost = False     # reset because the connection went
         self._unacked = 0           # bytes read, credit not yet returned
 
     # -- receiving -----------------------------------------------------------
@@ -95,11 +98,12 @@ class Stream:
                 self.remote_closed = True
             self.cv.notify_all()
 
-    def _reset(self, code: int, what: str = "") -> None:
+    def _reset(self, code: int, what: str = "", lost: bool = False) -> None:
         with self.cv:
             if self.reset_code is None:
                 self.reset_code = code
                 self.reset_what = what
+                self.reset_lost = lost
             self.cv.notify_all()
 
     def next_event(self, timeout: Optional[float] = None):
@@ -113,7 +117,8 @@ class Stream:
             if self.events:
                 ev = self.events.popleft()
             else:
-                raise StreamReset(self.reset_code, self.reset_what)
+                raise StreamReset(self.reset_code, self.reset_what,
+                                  self.reset_lost)
         if ev[0] == "data" and ev[1]:
             self._credit(len(ev[1]))
         return ev
@@ -235,7 +240,7 @@ class Connection:
             struct.pack(">BBI", ftype, flags, sid)
         with self._wlock:
             if self.closed:
-                raise StreamReset(CANCEL, "connection closed")
+                raise StreamReset(CANCEL, "connection closed", lost=True)
             self.sock.sendall(header)
             if payload:
                 self.sock.sendall(payload)
@@ -278,9 +283,9 @@ class Connection:
 
     def _headers_locked(self, st: Stream, headers, end_stream: bool) -> None:
         if self.closed:
-            raise StreamReset(CANCEL, "connection closed")
+            raise StreamReset(CANCEL, "connection closed", lost=True)
         if st.reset_code is not None:
-            raise StreamReset(st.reset_code, "stream reset")
+            raise StreamReset(st.reset_code, "stream reset", st.reset_lost)
         block = self.encoder.encode(headers)
         step = self.peer_max_frame
         chunks = [block[i:i + step] for i in range(0, len(block), step)] \
@@ -303,9 +308,11 @@ class Connection:
             with self._cv:
                 while True:
                     if st.reset_code is not None:
-                        raise StreamReset(st.reset_code, "stream reset")
+                        raise StreamReset(st.reset_code, "stream reset",
+                                          st.reset_lost)
                     if self.closed:
-                        raise StreamReset(CANCEL, "connection closed")
+                        raise StreamReset(CANCEL, "connection closed",
+                                          lost=True)
                     if pos == n or (self.conn_send_window > 0
                                     and st.send_window > 0):
                         break
@@ -368,7 +375,7 @@ class Connection:
                 self._cv.notify_all()
             for st in streams:
                 st._reset(code if code != NO_ERROR else CANCEL,
-                          f"connection lost: {self.error}")
+                          f"connection lost: {self.error}", lost=True)
             self._rfile.close()
 
     def _read_frame(self) -> None:

@@ -32,12 +32,22 @@ class FormatError(RuntimeError):
     """Data dir written by another package or by a newer build."""
 
 
+def _stamp_tmp(name: str) -> bool:
+    """A stamp still being written (`FORMAT.json.<pid>.tmp`)."""
+    return name.startswith(_STAMP + ".") and name.endswith(".tmp")
+
+
 def check_and_stamp(data_dir: str) -> dict:
     """Validate `data_dir`'s stamp against this build and (re)write it.
-    Returns the versions the dir was written with."""
+    Returns the versions the dir was written with.
+
+    One listing decides: datanode processes stamp a shared dir at once,
+    so another's stamp may land, or its tmp file show, between two looks
+    at the dir."""
     path = os.path.join(data_dir, _STAMP)
     found = dict(FORMAT_VERSIONS)
-    if os.path.exists(path):
+    names = [n for n in os.listdir(data_dir) if not _stamp_tmp(n)]
+    if _STAMP in names:
         try:
             with open(path, encoding="utf-8") as f:
                 stamp = json.load(f)
@@ -50,7 +60,7 @@ def check_and_stamp(data_dir: str) -> dict:
                 f"{FORMAT_NAME!r}; the packages do not read each other's "
                 "files")
         found.update(stamp.get("versions", {}))
-    elif any(n != _STAMP for n in os.listdir(data_dir)):
+    elif names:
         raise FormatError(
             f"data dir {data_dir} holds files but no {_STAMP} stamp; it "
             f"was not written by {FORMAT_NAME}")

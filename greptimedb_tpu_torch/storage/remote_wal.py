@@ -241,8 +241,11 @@ class RemoteWal:
                     try:
                         self.store.delete(key)
                         deleted.add(key)
-                    except ObjectStoreError:
-                        pass
+                    except ObjectStoreError as e:
+                        # kept in the index: the next obsolete retries it
+                        logger.warning(
+                            "remote WAL: segment %s not deleted (%s); the "
+                            "next flush retries it", key, e)
         with self._lock:
             # merge against the CURRENT list: segments appended
             # concurrently survive, and a region removed by

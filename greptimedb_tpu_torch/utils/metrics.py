@@ -548,6 +548,13 @@ RETRY_ATTEMPTS = REGISTRY.counter(
 RETRY_EXHAUSTED = REGISTRY.counter(
     "greptimedb_tpu_retry_exhausted_total",
     "Operations that exhausted their retry budget, by injection point")
+# the chaos explorer (fault/explorer.py)
+CHAOS_RUNS = REGISTRY.counter(
+    "greptimedb_tpu_chaos_runs_total",
+    "Chaos-explorer runs by outcome (pass|fail|error)")
+CHAOS_SHRINK_STEPS = REGISTRY.counter(
+    "greptimedb_tpu_chaos_shrink_steps_total",
+    "Delta-debugging probe runs spent shrinking failing chaos schedules")
 # the in-process cluster (cluster/cluster.py, query/physical.py): route
 # re-resolution, hedged fragment reads and shipped plan fragments
 DEGRADED = REGISTRY.counter(

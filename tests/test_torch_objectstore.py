@@ -321,6 +321,45 @@ def test_transient_read_fault_is_retried_and_counted():
     assert RETRY_EXHAUSTED.get(point="objectstore.read") == ex0 + 1
 
 
+@pytest.mark.parametrize("kind", ["s3", "gcs", "azblob"])
+def test_transient_delete_failure_is_retried(kind):
+    """A DELETE that fails transiently (a network error, a 503) retries
+    under the shared policy rather than leaving the object behind; a
+    non-transient failure surfaces unretried."""
+    fake = fakes.serve(kind)
+    try:
+        store = _STORES[kind][1](**fakes.store_kwargs(kind, fake, "root"))
+        store.write("seg/1", b"frames")
+        real = store._request
+        fails = []
+
+        def flaky(method, *a, **kw):
+            if method == "DELETE" and fails:
+                raise fails.pop()
+            return real(method, *a, **kw)
+
+        store._request = flaky
+        before = RETRY_ATTEMPTS.get(point="objectstore.write")
+        for transient in (True, False):
+            err = tos.ObjectStoreError("DELETE: connection refused")
+            err.transient = transient
+            fails.append(err)
+            if transient:
+                store.delete("seg/1")
+                assert not store.exists("seg/1")
+            else:
+                store.write("seg/1", b"frames")
+                with pytest.raises(tos.ObjectStoreError):
+                    store.delete("seg/1")
+                assert store.exists("seg/1")
+        assert RETRY_ATTEMPTS.get(point="objectstore.write") == before + 1
+        store.delete("seg/1")
+        store.delete("seg/1")  # a 404 is success
+        assert not store.exists("seg/1")
+    finally:
+        fake.close()
+
+
 @pytest.mark.parametrize("backend", ["fs", "memory", "s3"])
 def test_enospc_write_leaves_no_partial_object_or_tmp(tmp_path, backend):
     fake = fakes.serve("s3") if backend == "s3" else None

@@ -39,10 +39,6 @@ globals().update(twin("test_chaos.py", [
 globals().update(twin("test_scenarios.py", [
     "TestEdgeMatchers", "TestChaosDebugSurfaces",
     "TestChildScanLatencyEndToEnd"], subs=(
-    # the scenario harness is the second part of the slice: its names
-    # stay out of the module these classes run in
-    (r"(?s)from greptimedb_tpu_torch\.fault\.scenarios import \(.*?\)\n",
-     ""),
     # the debug surfaces' standalone engines, on the CPU
     (r"write_workers=0\)\)\)",
      'write_workers=0), device="cpu"), device="cpu")'),)))
@@ -98,9 +94,12 @@ def test_child_without_a_card_exits_with_the_reason(tmp_path):
 
 
 def test_child_imports_neither_jax_nor_the_jax_package(tmp_path):
-    """A datanode child imports only the port: neither jax nor
-    greptimedb_tpu nor pyarrow reaches its modules."""
+    """A datanode child and a metasrv child (the explorer's election
+    peers) import only the port: neither jax nor greptimedb_tpu nor
+    pyarrow reaches their modules, and the metasrv child imports no
+    torch either (it opens no CUDA context)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    _metasrv_child_imports_only_the_port(tmp_path, root)
     code = (
         "import sys, runpy\n"
         "sys.argv = ['datanode_main', sys.argv[1], sys.argv[2],"
@@ -120,6 +119,37 @@ def test_child_imports_neither_jax_nor_the_jax_package(tmp_path):
         [sys.executable, "-c", code, str(tmp_path / "shared"),
          str(tmp_path / "dn.port")],
         capture_output=True, text=True, timeout=120, cwd=root)
+    assert "BAD []" in proc.stdout, (proc.stdout, proc.stderr[-2000:])
+
+
+def _metasrv_child_imports_only_the_port(tmp_path, root):
+    from greptimedb_tpu_torch.catalog.kv import MemoryKv
+    from greptimedb_tpu_torch.meta.kv_service import MetaHttpService
+    from greptimedb_tpu_torch.meta.metasrv import Metasrv
+
+    host = MetaHttpService(Metasrv(MemoryKv(), MetasrvOptions(),
+                                   node_id="kv-host"))
+    host.start()
+    code = (
+        "import sys, runpy, threading, os, time\n"
+        "port_file = sys.argv[2]\n"
+        "sys.argv = ['metasrv_main'] + sys.argv[1:] + ['--device', 'cpu']\n"
+        "def watch():\n"
+        "    while not os.path.exists(port_file): time.sleep(0.05)\n"
+        "    bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'greptimedb_tpu', 'pyarrow', 'torch')]\n"
+        "    print('BAD', bad, flush=True)\n"
+        "    os._exit(0)\n"
+        "threading.Thread(target=watch, daemon=True).start()\n"
+        "runpy.run_module('greptimedb_tpu_torch.cluster.metasrv_main',"
+        " run_name='__main__')\n")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", code, host.addr,
+             str(tmp_path / "meta-0.port"), "meta-0"],
+            capture_output=True, text=True, timeout=120, cwd=root)
+    finally:
+        host.stop()
     assert "BAD []" in proc.stdout, (proc.stdout, proc.stderr[-2000:])
 
 

@@ -201,6 +201,33 @@ def test_obsolete_read_error_keeps_segment():
     assert t == j and [e[0] for e in t] == list(range(11, 21))
 
 
+def test_obsolete_keeps_a_segment_whose_delete_failed(caplog):
+    """A segment whose delete failed stays in the index, is logged, and
+    the next obsolete deletes it; replay never reads its entries."""
+    keys = [f"wal/7/{s:020d}" for s in (0, 1, 2)]
+
+    class Refusing(MemoryStore):
+        refuse = {keys[1]}
+
+        def delete(self, key):
+            if key in self.refuse:
+                self.refuse.discard(key)
+                raise ObjectStoreError(f"{key}: HTTP 403")
+            super().delete(key)
+
+    wal = RemoteWal(Refusing(), prefix="wal")
+    for seq in (0, 1, 2):
+        wal.append(7, seq, 0, _batch("port", ["a"], [seq], [1.0]))
+    with caplog.at_level("WARNING",
+                         logger="greptimedb_tpu_torch.storage.remote_wal"):
+        wal.obsolete(7, 2)
+    assert sorted(wal.store.list("wal/7/")) == [keys[1], keys[2]]
+    assert f"segment {keys[1]} not deleted" in caplog.text
+    assert [e.seq for e in wal.replay(7, from_seq=2)] == [2]
+    wal.obsolete(7, 2)
+    assert wal.store.list("wal/7/") == [keys[2]]
+
+
 def test_replay_skips_fully_obsolete_segments_by_key():
     def run(pkg):
         wal = _wal(pkg)

@@ -379,6 +379,24 @@ class TestFormat:
         with pytest.raises(FormatError, match="newer build"):
             check_and_stamp(str(d2))
 
+    def test_a_shared_dir_stamped_concurrently_is_accepted(self, tmp_path,
+                                                           monkeypatch):
+        """Datanode processes stamp one shared dir at startup: another's
+        stamp in the making, or its stamp landing between two looks at
+        the dir, is not an unstamped dir holding data."""
+        d = tmp_path / "shared"
+        d.mkdir()
+        (d / "FORMAT.json.4242.tmp").write_text("{")
+        assert check_and_stamp(str(d)) == FORMAT_VERSIONS
+        (d / "wal").mkdir()
+        real = os.path.exists
+        stamp = str(d / "FORMAT.json")
+        # the stamp was not there at the first look, then landed with the
+        # other process's files before the listing
+        monkeypatch.setattr(os.path, "exists",
+                            lambda p: False if p == stamp else real(p))
+        assert check_and_stamp(str(d)) == FORMAT_VERSIONS
+
 
 @pytest.mark.parametrize("store", [FsStore, MemoryStore])
 def test_sst_round_trip_and_row_group_pruning(tmp_path, store):
